@@ -13,10 +13,12 @@ Phases, in order; any failure exits non-zero and prints no result:
 3. each kernel against its plain PyTorch version on the card, exact
    int32 equality, at the main path's shape and at a ragged shape, with
    CUDA-event timings of the kernel, the plain version and one PyTorch
-   library call computing the same function;
+   library call computing the same function (one event pair around
+   many calls that cycle through input sets larger than the L2);
 4. the main path at full width: UDP PHOLD, 10,240 hosts, load 8, the
-   one-vertex 50 ms topology, 5 simulated seconds, with the launch
-   counters reset just before and read just after;
+   one-vertex 50 ms topology, capacities 48 and in_ring 16 as bench.py
+   settles them, 5 simulated seconds, with the launch counters reset
+   just before and read just after;
 5. the same small PHOLD run on CUDA and on the CPU inside the port:
    equal EngineStats and every state leaf equal (tolerance zero — the
    state is integer apart from bit-exact f32 draws).
@@ -48,6 +50,16 @@ ONE_VERTEX = """<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
 
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound.
 HBM_BYTES_PER_S = 3.35e12
+# Bytes the cold timings cycle through, twice the H100's 50 MB L2.
+COLD_BYTES = 100e6
+
+# The main path: bench.py's default workload on an accelerator, with
+# the capacities bench settles on at this size.
+HOSTS = 10_240
+LOAD = 8
+SIM_S = 5.0
+CAPACITY = 48
+IN_RING = 16
 
 
 T0 = time.perf_counter()
@@ -57,7 +69,7 @@ def log(*a):
     print(f"[{time.perf_counter() - T0:7.1f}s]", *a, flush=True)
 
 
-def build_phold(H, load, sim_s, seed, device, cap=None, in_ring=16):
+def build_phold(H, load, sim_s, seed, device, cap=None):
     from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.core import simtime
     from shadow_tpu_torch.net.build import HostSpec, build
@@ -66,7 +78,7 @@ def build_phold(H, load, sim_s, seed, device, cap=None, in_ring=16):
     kw = {}
     if cap is not None:
         kw = dict(event_capacity=cap, outbox_capacity=cap, router_ring=cap)
-    cfg = NetConfig(num_hosts=H, tcp=False, seed=seed, in_ring=in_ring,
+    cfg = NetConfig(num_hosts=H, tcp=False, seed=seed, in_ring=IN_RING,
                     end_time=int(sim_s * simtime.ONE_SECOND),
                     sparse_lanes=0, **kw)
     hosts = [HostSpec(name=f"peer{i}", proc_start_time=0) for i in range(H)]
@@ -75,23 +87,41 @@ def build_phold(H, load, sim_s, seed, device, cap=None, in_ring=16):
     return b
 
 
-def cuda_time_ms(fn, iters=50, warmup=5):
-    """Median of per-call CUDA-event times (ms), after warm-up."""
+def device_ms(fns, reps=200):
+    """Device time (ms) of one call, from one CUDA-event pair around
+    `reps` calls back to back, cycling through `fns` (one per input
+    set). A sleep kernel holds the device while the host enqueues the
+    calls, so the host's launch cost stays out of the reading. Returns
+    (ms, blocking): `blocking` is True when the calls block the host
+    (a call that synchronises), so the host cannot get ahead; the calls
+    are then timed as they run, the gaps their syncs leave included."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    for f in fns:
+        f()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    cycles = int(1e8)
+    for _ in range(2):
+        s0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s0.record()
+        torch.cuda._sleep(cycles)
         a.record()
-        fn()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fns[i % len(fns)]()
+        host_ms = (time.perf_counter() - t0) * 1e3
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        if host_ms < s0.elapsed_time(a):
+            return a.elapsed_time(b) / reps, False
+        cycles *= 8
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps, True
 
 
 def mailbox_inputs(H, n, Wn, P, seed, device, empty_tail=0):
@@ -117,10 +147,11 @@ def mailbox_inputs(H, n, Wn, P, seed, device, empty_tail=0):
             torch.as_tensor(start.astype(np.int32), device=device))
 
 
-def mailbox_bound_ms(stream, start, Wn):
+def mailbox_bound(stream, start, Wn):
     """Least time for the gather on this card: the distinct stream rows
     the windows cover read once, the start table read once, the output
-    written once, over the memory rate (no arithmetic to speak of)."""
+    written once, over the memory rate (no arithmetic to speak of).
+    Returns (ms, bytes)."""
     import numpy as np
 
     rows, P = stream.shape
@@ -134,7 +165,11 @@ def mailbox_bound_ms(stream, start, Wn):
 
 
 def check_mailbox_gather(device):
-    """Phase 3: kernel == plain version on the card, plus timings."""
+    """Phase 3: kernel == plain on the card, plus timings. `ms`,
+    `plain_ms` and `library_ms` are cold: the calls cycle through input
+    sets that together hold twice the L2, so every call reads its
+    inputs from device memory, like the bound. The warm time (one input
+    set, resident in L2) is printed beside them."""
     import torch
 
     from shadow_tpu_torch.core.events import INSERT_SWEEP
@@ -142,45 +177,58 @@ def check_mailbox_gather(device):
         mailbox_gather, mailbox_gather_ref)
 
     Wn, P = INSERT_SWEEP, 11
-    shapes = {"main": (10_240, 10_240 * 24, 0), "ragged": (1_001, 5_000, 77)}
-    row = None
+    shapes = {"main": (HOSTS, HOSTS * 24, 0), "ragged": (1_001, 5_000, 77)}
+    err = 0
     for label, (H, n, tail) in shapes.items():
         stream, start = mailbox_inputs(H, n, Wn, P, seed=H, device=device,
                                        empty_tail=tail)
         got = mailbox_gather(stream, start, Wn)
         want = mailbox_gather_ref(stream, start, Wn)
         torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
+        err = max(err, int((got.long() - want.long()).abs().max()))
         if not torch.equal(got, want):
             raise AssertionError(
                 f"mailbox_gather differs from its plain version at the "
                 f"{label} shape (max abs err {err})")
         log(f"  mailbox_gather == plain at {label} shape H={H} n={n} "
             f"Wn={Wn} P={P}: exact")
-        if label != "main":
-            continue
-        idx = (start.long()[:, None]
-               + torch.arange(Wn, device=device)).clamp(max=n + Wn - 1)
-        flat = (idx[:, :, None] * P
-                + torch.arange(P, device=device)).reshape(-1)
-        sflat = stream.reshape(-1)
-        ms = cuda_time_ms(lambda: mailbox_gather(stream, start, Wn))
-        plain_ms = cuda_time_ms(lambda: mailbox_gather_ref(stream, start, Wn))
-        lib_ms = cuda_time_ms(lambda: torch.index_select(sflat, 0, flat))
-        bound_ms, nbytes = mailbox_bound_ms(stream, start, Wn)
-        log(f"  mailbox_gather main shape: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({nbytes} B)")
-        row = {"name": "mailbox_gather", "route": "cuda",
-               "source": "shadow_tpu_torch/csrc/mailbox_gather.cu",
-               "replaces": "shadow_tpu/core/insert_pallas.py:98",
-               "launches": None, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": "bytes", "library_ms": lib_ms}
-    return row
+
+    H, n = shapes["main"][:2]
+    n_sets = int(COLD_BYTES // ((n + Wn) * P * 4)) + 1
+    sets = [mailbox_inputs(H, n, Wn, P, seed=100 + k, device=device)
+            for k in range(n_sets)]
+    rowidx = [(st.long()[:, None] + torch.arange(Wn, device=device))
+              .clamp(max=n + Wn - 1).reshape(-1) for _, st in sets]
+
+    def calls(fn):
+        return [lambda k=k: fn(k) for k in range(n_sets)]
+
+    kern = calls(lambda k: mailbox_gather(sets[k][0], sets[k][1], Wn))
+    plain = calls(lambda k: mailbox_gather_ref(sets[k][0], sets[k][1], Wn))
+    lib = calls(lambda k: torch.index_select(sets[k][0], 0, rowidx[k]))
+    times = {label: device_ms(fns) for label, fns in (
+        ("kernel", kern), ("plain", plain), ("index_select", lib),
+        ("kernel warm", kern[:1]))}
+    blocking = [label for label, (_, blk) in times.items() if blk]
+    if blocking:
+        log(f"  {blocking} block the host: timed with their sync gaps")
+    ms, plain_ms, lib_ms, warm_ms = (t for t, _ in times.values())
+    bounds = [mailbox_bound(sm, st, Wn) for sm, st in sets]
+    bound_ms = statistics.mean(b for b, _ in bounds)
+    nbytes = statistics.mean(nb for _, nb in bounds)
+    log(f"  mailbox_gather main shape, {n_sets} input sets cycled (cold): "
+        f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, index_select "
+        f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes:.0f} B); "
+        f"kernel warm in L2 {warm_ms:.5f} ms")
+    return {"name": "mailbox_gather", "route": "cuda",
+            "source": "shadow_tpu_torch/csrc/mailbox_gather.cu",
+            "replaces": "shadow_tpu/core/insert_pallas.py:98",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": lib_ms}, warm_ms
 
 
-def run_main_path(device, hosts, load, sim_s):
+def run_main_path(device):
     """Phase 4: full-width PHOLD through the port's entry points."""
     import torch
 
@@ -189,11 +237,10 @@ def run_main_path(device, hosts, load, sim_s):
     from shadow_tpu_torch.net.build import make_runner
 
     t0 = time.perf_counter()
-    b = build_phold(hosts, load, sim_s, seed=1, device=device, cap=6 * load,
-                    in_ring=max(16, 2 * load))
+    b = build_phold(HOSTS, LOAD, SIM_S, seed=1, device=device, cap=CAPACITY)
     runner = make_runner(b, app_handlers=(phold.handler,), device=device)
     torch.cuda.synchronize()
-    log(f"  built {hosts} hosts in {time.perf_counter() - t0:.2f} s")
+    log(f"  built {HOSTS} hosts in {time.perf_counter() - t0:.2f} s")
     mailbox_gather.launches = 0
     t0 = time.perf_counter()
     sim, stats = runner(b.sim)
@@ -220,9 +267,9 @@ def run_main_path(device, hosts, load, sim_s):
     for k, v in checks.items():
         if v != 0:
             raise AssertionError(f"main path: {k} = {v}, expected 0")
-    if sent != hosts * load + rcvd:
+    if sent != HOSTS * LOAD + rcvd:
         raise AssertionError(f"main path: sent {sent} != H*load + rcvd "
-                             f"{hosts * load + rcvd}")
+                             f"{HOSTS * LOAD + rcvd}")
     if rcvd <= 0:
         raise AssertionError("main path: no message was received")
     if launches["mailbox_gather"] <= 0:
@@ -230,39 +277,68 @@ def run_main_path(device, hosts, load, sim_s):
     return launches
 
 
-def profile_windows(device, hosts, load):
-    """Optional: torch.profiler over a short full-width run (3 windows);
-    prints device-busy share and the top device ops."""
+def profile_windows(device, gather_ms):
+    """Optional: the main path's first 3 windows, once timed without the
+    profiler and once under torch.profiler. Prints the device-busy share
+    (union of the device intervals of the profiled run over the
+    unprofiled run's wall time), the largest kernels by device time, the
+    host's launch count, and mailbox_gather's time in the main path
+    beside its standalone cold and warm times (`gather_ms`)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.net.build import make_runner
 
-    b = build_phold(hosts, load, 0.12, seed=2, device=device, cap=6 * load,
-                    in_ring=max(16, 2 * load))
-    runner = make_runner(b, app_handlers=(phold.handler,), device=device)
+    def fresh():
+        b = build_phold(HOSTS, LOAD, 0.12, seed=2, device=device,
+                        cap=CAPACITY)
+        runner = make_runner(b, app_handlers=(phold.handler,), device=device)
+        torch.cuda.synchronize()
+        return runner, b.sim
+
+    runner, sim = fresh()
+    t0 = time.perf_counter()
+    _, stats = runner(sim)
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runner, sim = fresh()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, stats = runner(b.sim)
+        _, pstats = runner(sim)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    dev_us = sum(getattr(e, "self_device_time_total", 0) or
-                 getattr(e, "self_cuda_time_total", 0) for e in ka)
-    log(f"  profile: wall {wall:.3f} s (profiler on), device busy "
-        f"{dev_us / 1e6:.3f} s = {dev_us / 1e6 / wall * 100:.1f}% "
-        f"of wall, {stats.as_dict()}")
-    top = sorted(ka, key=lambda e: -(getattr(e, "self_device_time_total", 0)
-                                      or 0))[:12]
-    for e in top:
-        log(f"    {e.key[:60]:60s} calls {e.count:7d} device "
-            f"{(getattr(e, 'self_device_time_total', 0) or 0) / 1e3:9.2f} ms")
-    launches = sum(e.count for e in ka if e.key.startswith("cuda")
-                   and "Launch" in e.key)
-    log(f"  profile: {launches} kernel launches from the host")
+    if pstats.as_dict() != stats.as_dict():
+        raise AssertionError("profiled run differs from the unprofiled one")
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in dev):
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    log(f"  profile: {stats.as_dict()}; wall {wall:.3f} s without the "
+        f"profiler; device busy {busy_us / 1e6:.4f} s = "
+        f"{busy_us / 1e6 / wall * 100:.2f}% of it")
+    by_name: dict[str, list[float]] = {}
+    for e in dev:
+        by_name.setdefault(e.name, []).append(
+            e.time_range.end - e.time_range.start)
+    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
+        log(f"    {name[:60]:60s} calls {len(ts):7d} device "
+            f"{sum(ts) / 1e3:9.2f} ms")
+    launches = sum(1 for e in events if e.device_type == DeviceType.CPU
+                   and e.name.startswith("cuda") and "Launch" in e.name)
+    log(f"  profile: {launches} kernel launches from the host, "
+        f"{launches / max(stats.as_dict()['micro_steps'], 1):.0f} per "
+        f"micro-step")
+    g = [t for name, ts in by_name.items() if "mailbox_gather" in name
+         for t in ts]
+    if g:
+        log(f"  profile: mailbox_gather in the main path {len(g)} launches, "
+            f"mean {statistics.mean(g) / 1e3:.5f} ms (standalone cold "
+            f"{gather_ms[0]:.5f} ms, warm {gather_ms[1]:.5f} ms)")
 
 
 def compare_cuda_cpu(hosts, load, sim_s):
@@ -296,10 +372,8 @@ def compare_cuda_cpu(hosts, load, sim_s):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--hosts", type=int, default=10_240)
-    ap.add_argument("--load", type=int, default=8)
-    ap.add_argument("--sim-s", type=float, default=5.0)
-    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile the main path's first windows")
     args = ap.parse_args(argv)
 
     import torch
@@ -321,24 +395,22 @@ def main(argv=None) -> int:
 
     log("[2] build kernels")
     t0 = time.perf_counter()
-    paths = insert_kernels.build_all()
-    log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.2f} s")
-    for name, text in insert_kernels.BUILD_LOG.items():
-        for line in text.strip().splitlines():
-            log(f"  [{name}] {line}")
+    path, text = insert_kernels.build_library()
+    log(f"  built {path.name} in {time.perf_counter() - t0:.2f} s")
+    for line in text.strip().splitlines():
+        log(f"  [nvcc] {line}")
 
     log("[3] kernels against their plain versions")
     device = torch.device("cuda", 0)
-    row = check_mailbox_gather(device)
+    row, warm_ms = check_mailbox_gather(device)
 
-    log(f"[4] main path: PHOLD {args.hosts} hosts load {args.load} "
-        f"{args.sim_s} sim-s")
-    launches = run_main_path(device, args.hosts, args.load, args.sim_s)
+    log(f"[4] main path: PHOLD {HOSTS} hosts load {LOAD} {SIM_S} sim-s")
+    launches = run_main_path(device)
     row["launches"] = launches["mailbox_gather"]
 
     if args.profile:
         log("[4b] profile")
-        profile_windows(device, args.hosts, args.load)
+        profile_windows(device, (row["ms"], warm_ms))
 
     log("[5] CUDA against CPU inside the port")
     compare_cuda_cpu(64, 4, 1.0)

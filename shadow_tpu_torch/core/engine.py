@@ -82,11 +82,6 @@ class EngineStats(_Replace):
         }
 
 
-def _default_route(sim):
-    q, out = route_outbox(sim.events, sim.outbox)
-    return sim.replace(events=q, outbox=out)
-
-
 def _popped_summary(popped) -> tuple[int, int]:
     """(number of valid pops, bitmask of their kinds) in one host read."""
     kbits = kind_mask(popped.kind, popped.valid)
@@ -123,22 +118,21 @@ def window_fixpoint(sim, stats: EngineStats, step_fn: StepFn, wend: int,
 
 
 def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
-                emit_capacity: int = 4, lane_id=None,
-                route_fn=_default_route):
+                emit_capacity: int = 4, lane_id=None):
     """One full round: drain the window, then route cross-host events
     staged in the outbox into destination queues. Returns (sim, stats,
     next window start as a host int: the global minimum pending time,
     INVALID when the queues are empty)."""
     sim, stats = window_fixpoint(sim, stats, step_fn, wend, emit_capacity,
                                  lane_id)
-    sim = route_fn(sim)
+    q, out = route_outbox(sim.events, sim.outbox)
+    sim = sim.replace(events=q, outbox=out)
     stats = stats.replace(windows=stats.windows + 1)
     return sim, stats, int(sim.events.min_time().amin())
 
 
 def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
-        start_time: int = 0, emit_capacity: int = 4, lane_id=None,
-        route_fn=_default_route):
+        emit_capacity: int = 4, lane_id=None):
     """Run the whole simulation. Window advance rule is the
     reference's: newStart = minNextEventTime, newEnd = newStart +
     minJump, clamped to end_time + 1 (ref: master.c:450-480)."""
@@ -147,9 +141,9 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
     end_time = int(end_time)
     jump = max(int(min_jump), 1)
     stats = EngineStats.create(device=sim.events.time.device)
-    wstart = max(int(sim.events.min_time().amin()), int(start_time))
+    wstart = int(sim.events.min_time().amin())
     while wstart <= end_time:
         wend = min(wstart + jump, end_time + 1)
         sim, stats, wstart = step_window(sim, stats, step_fn, wend,
-                                         emit_capacity, lane_id, route_fn)
+                                         emit_capacity, lane_id)
     return sim, stats

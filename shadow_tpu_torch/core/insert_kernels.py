@@ -28,17 +28,12 @@ import torch
 
 I32 = torch.int32
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "mailbox_gather.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Every CUDA source of the port, by library name (csrc/<name>.cu).
-KERNEL_SOURCES = ("mailbox_gather",)
-# Compiler output (ptxas register/shared-memory statistics) of each
-# library built by this process, for reports.
-BUILD_LOG: dict[str, str] = {}
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIB: ctypes.CDLL | None = None
 
 
 def _nvcc() -> str:
@@ -52,50 +47,40 @@ def _nvcc() -> str:
                        "to build the port's CUDA kernels")
 
 
-def build_library(name: str) -> Path:
-    """Compile csrc/<name>.cu into _build/lib<name>-<hash>.so (once per
-    source and flag set) and return its path. Raises with the
-    compiler's output when the build fails."""
-    src = CSRC / f"{name}.cu"
-    flags = NVCC_FLAGS
+def build_library() -> tuple[Path, str]:
+    """Compile csrc/mailbox_gather.cu into
+    _build/libmailbox_gather-<hash>.so (once per source and flag set).
+    Returns the library's path and the compiler's output (ptxas
+    register and shared-memory statistics; empty when the library was
+    already built). Raises with the compiler's output when the build
+    fails."""
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libmailbox_gather-{digest}.so"
     if out.exists():
-        return out
+        return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".lib{name}-{digest}.{os.getpid()}.so"
-    cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
+    tmp = BUILD_DIR / f".libmailbox_gather-{digest}.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
     r = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG[name] = r.stdout + r.stderr
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {src} (exit "
+        raise RuntimeError(f"nvcc failed to build {SOURCE} (exit "
                            f"{r.returncode}):\n{r.stdout}{r.stderr}")
     os.replace(tmp, out)
-    return out
+    return out, r.stdout + r.stderr
 
 
-def build_all() -> dict[str, Path]:
-    """Build every kernel library, one nvcc per source, all started
-    together."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as ex:
-        paths = list(ex.map(build_library, KERNEL_SOURCES))
-    return dict(zip(KERNEL_SOURCES, paths))
-
-
-def _library(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_library(name)))
+def _launcher():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build_library()[0]))
         fn = lib.mailbox_gather_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+        _LIB = lib
+    return _LIB.mailbox_gather_launch
 
 
 def mailbox_gather_ref(stream: torch.Tensor, start: torch.Tensor,
@@ -139,8 +124,7 @@ def mailbox_gather(stream: torch.Tensor, start: torch.Tensor,
     out = torch.empty((H, Wn, P), dtype=I32, device=stream.device)
     if H == 0:
         return out
-    lib = _library("mailbox_gather")
-    rc = lib.mailbox_gather_launch(
+    rc = _launcher()(
         stream.data_ptr(), start.data_ptr(), out.data_ptr(), H, rows, Wn, P,
         torch.cuda.current_stream(stream.device).cuda_stream)
     if rc != 0:

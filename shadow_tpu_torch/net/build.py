@@ -21,7 +21,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from shadow_tpu_torch.core.engine import _default_route, resolve_sparse_lanes
+from shadow_tpu_torch.core.engine import resolve_sparse_lanes
 from shadow_tpu_torch.core.engine import run as engine_run
 from shadow_tpu_torch.core.events import EventKind, emit_words, push_rows
 from shadow_tpu_torch.device import resolve_device, same_device
@@ -204,7 +204,7 @@ def make_runner(bundle: SimBundle, app_handlers=(),
         return engine_run(
             sim, step, end_time=end, min_jump=bundle.min_jump,
             emit_capacity=bundle.cfg.emit_capacity,
-            lane_id=sim.net.lane_id, route_fn=_default_route)
+            lane_id=sim.net.lane_id)
 
     return go
 
