@@ -15,13 +15,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    CUDA-event timings of the kernel, the plain version and one PyTorch
    library call computing the same function (one event pair around
    many calls that cycle through input sets larger than the L2);
-4. the main path at full width: UDP PHOLD, 10,240 hosts, load 8, the
-   one-vertex 50 ms topology, capacities 48 and in_ring 16 as bench.py
-   settles them, 5 simulated seconds, with the launch counters reset
-   just before and read just after;
-5. the same small PHOLD run on CUDA and on the CPU inside the port:
-   equal EngineStats and every state leaf equal (tolerance zero — the
-   state is integer apart from bit-exact f32 draws).
+4. the main path at full width: bench.py's default PHOLD program —
+   10,240 hosts, load 8, the one-vertex 50 ms topology, capacities 48
+   and in_ring 16 as bench.py settles them, 5 simulated seconds, the
+   bulk window pass (phold.BULK), the default sparse-lane budget (256)
+   and the telemetry ring — with the launch counters reset just before
+   and read just after; checks zero overflow, sent == H*load + rcvd,
+   hit + miss == windows and the ring against EngineStats;
+   4a. the serial path (no bulk pass, sparse_lanes=0, no ring) at full
+   width for 1 simulated second;
+   4b. the bulk program in both EventOrder forms ("cube", the card's
+   default, and "sort") at full width for 1 simulated second: equal
+   EngineStats and every leaf equal, with the bulk pass's time per
+   window (CUDA-event pair and host clock) and launches per call;
+   4c. bench.py's sparse shape (10,240 hosts, 64 active, no bulk pass)
+   for 1 simulated second with sparse_lanes=256 and 0: the fast path
+   hits, every leaf equal, EngineStats equal apart from hit/miss;
+5. small PHOLD runs on CUDA and on the CPU inside the port — 64 hosts
+   serial, 64 hosts with the bulk pass and ring, 64 hosts with 4
+   active and sparse_lanes=16 — each with equal EngineStats and every
+   state leaf equal (tolerance zero — the state is integer apart from
+   bit-exact f32 draws).
 
 The last lines are the nvidia-smi line, one JSON object listing every
 kernel, and {"ok": true, "device": {...}}. The script imports nothing
@@ -69,7 +83,12 @@ def log(*a):
     print(f"[{time.perf_counter() - T0:7.1f}s]", *a, flush=True)
 
 
-def build_phold(H, load, sim_s, seed, device, cap=None):
+def build_phold(H, load, sim_s, seed, device, cap=None, sparse_lanes=0,
+                active_hosts=None, ring=False):
+    """A PHOLD bundle through the port's entry points: build,
+    phold.setup, and telemetry.attach when `ring`. `sparse_lanes=None`
+    takes the engine default, as bench.py does."""
+    from shadow_tpu_torch import telemetry
     from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.core import simtime
     from shadow_tpu_torch.net.build import HostSpec, build
@@ -80,11 +99,44 @@ def build_phold(H, load, sim_s, seed, device, cap=None):
         kw = dict(event_capacity=cap, outbox_capacity=cap, router_ring=cap)
     cfg = NetConfig(num_hosts=H, tcp=False, seed=seed, in_ring=IN_RING,
                     end_time=int(sim_s * simtime.ONE_SECOND),
-                    sparse_lanes=0, **kw)
+                    sparse_lanes=sparse_lanes, **kw)
     hosts = [HostSpec(name=f"peer{i}", proc_start_time=0) for i in range(H)]
     b = build(cfg, ONE_VERTEX, hosts, device=device)
-    b.sim = phold.setup(b.sim, load=load)
+    b.sim = phold.setup(b.sim, load=load, active_hosts=active_hosts)
+    if ring:
+        b.sim = telemetry.attach(b.sim)
     return b
+
+
+def main_runner(b, device, bulk=True):
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.net.build import make_runner
+
+    return make_runner(b, app_handlers=(phold.handler,),
+                       app_bulk=phold.BULK if bulk else None, device=device)
+
+
+def assert_same_run(label, a, b, skip_stats=()):
+    """EngineStats (apart from `skip_stats`) and every state leaf of two
+    (stats, sim) results equal, tolerance zero."""
+    import numpy as np
+
+    from shadow_tpu_torch import convert
+
+    (sa, sim_a), (sb, sim_b) = a, b
+    da = {k: v for k, v in sa.as_dict().items() if k not in skip_stats}
+    db = {k: v for k, v in sb.as_dict().items() if k not in skip_stats}
+    if da != db:
+        raise AssertionError(f"{label}: EngineStats differ: {da} vs {db}")
+    la, lb = convert.sim_to_numpy(sim_a), convert.sim_to_numpy(sim_b)
+    if la.keys() != lb.keys():
+        raise AssertionError(f"{label}: leaf sets differ")
+    bad = [k for k in la if la[k].dtype != lb[k].dtype
+           or not np.array_equal(la[k], lb[k])]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} leaves differ, first "
+                             f"{bad[:5]}")
+    return len(la)
 
 
 def device_ms(fns, reps=200):
@@ -228,19 +280,14 @@ def check_mailbox_gather(device):
             "bound_by": "bytes", "library_ms": lib_ms}, warm_ms
 
 
-def run_main_path(device):
-    """Phase 4: full-width PHOLD through the port's entry points."""
+def drive(label, b, runner, device):
+    """One timed run with the launch counters set to 0 just before and
+    read just after. Returns (sim, stats, wall s, launches)."""
     import torch
 
-    from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.core.insert_kernels import mailbox_gather
-    from shadow_tpu_torch.net.build import make_runner
 
-    t0 = time.perf_counter()
-    b = build_phold(HOSTS, LOAD, SIM_S, seed=1, device=device, cap=CAPACITY)
-    runner = make_runner(b, app_handlers=(phold.handler,), device=device)
     torch.cuda.synchronize()
-    log(f"  built {HOSTS} hosts in {time.perf_counter() - t0:.2f} s")
     mailbox_gather.launches = 0
     t0 = time.perf_counter()
     sim, stats = runner(b.sim)
@@ -248,6 +295,19 @@ def run_main_path(device):
     wall = time.perf_counter() - t0
     launches = {"mailbox_gather": mailbox_gather.launches}
     st = stats.as_dict()
+    w = max(st["windows"], 1)
+    log(f"  {label}: EngineStats {st}")
+    log(f"  {label}: wall {wall:.3f} s, {st['events_processed'] / wall:.1f} "
+        f"events/s, {wall / w * 1e3:.2f} ms/window, "
+        f"{st['micro_steps'] / w:.3f} micro-steps/window, "
+        f"{wall / max(st['micro_steps'], 1) * 1e3:.3f} ms/micro-step, "
+        f"launches {launches}")
+    return sim, stats, wall, launches
+
+
+def check_phold(label, sim, hosts, load, launches):
+    """The checks every PHOLD run of the smoke holds: no overflow, every
+    message accounted for, and mailbox_gather launched."""
     app = sim.app
     sent, rcvd = int(app.sent.sum()), int(app.rcvd.sum())
     checks = {
@@ -256,34 +316,192 @@ def run_main_path(device):
         "rq_overflow": int(sim.net.rq_overflow),
         "remaining": int(app.remaining.sum()),
     }
-    log(f"  EngineStats {st}")
-    log(f"  wall {wall:.3f} s, {st['events_processed'] / wall:.1f} events/s, "
-        f"{wall / max(st['windows'], 1) * 1e3:.2f} ms/window, "
-        f"{wall / max(st['micro_steps'], 1) * 1e3:.3f} ms/micro-step")
-    log(f"  sent {sent} rcvd {rcvd} checks {checks} launches {launches} "
-        f"narrow_hit {int(sim.outbox.narrow_hit)} narrow_miss "
+    log(f"  {label}: sent {sent} rcvd {rcvd} checks {checks} narrow_hit "
+        f"{int(sim.outbox.narrow_hit)} narrow_miss "
         f"{int(sim.outbox.narrow_miss)} max_occupied "
         f"{int(sim.outbox.max_occupied)}")
     for k, v in checks.items():
         if v != 0:
-            raise AssertionError(f"main path: {k} = {v}, expected 0")
-    if sent != HOSTS * LOAD + rcvd:
-        raise AssertionError(f"main path: sent {sent} != H*load + rcvd "
-                             f"{HOSTS * LOAD + rcvd}")
+            raise AssertionError(f"{label}: {k} = {v}, expected 0")
+    if sent != hosts * load + rcvd:
+        raise AssertionError(f"{label}: sent {sent} != H*load + rcvd "
+                             f"{hosts * load + rcvd}")
     if rcvd <= 0:
-        raise AssertionError("main path: no message was received")
+        raise AssertionError(f"{label}: no message was received")
     if launches["mailbox_gather"] <= 0:
-        raise AssertionError("main path never launched mailbox_gather")
+        raise AssertionError(f"{label}: mailbox_gather was never launched")
+
+
+def run_main_path(device):
+    """Phase 4: bench.py's default PHOLD program at full width through
+    the port's entry points."""
+    import torch
+
+    from shadow_tpu_torch import telemetry
+
+    t0 = time.perf_counter()
+    b = build_phold(HOSTS, LOAD, SIM_S, seed=1, device=device, cap=CAPACITY,
+                    sparse_lanes=None, ring=True)
+    runner = main_runner(b, device)
+    torch.cuda.synchronize()
+    log(f"  built {HOSTS} hosts in {time.perf_counter() - t0:.2f} s")
+    sim, stats, wall, launches = drive("main path", b, runner, device)
+    check_phold("main path", sim, HOSTS, LOAD, launches)
+    st = stats.as_dict()
+    h = telemetry.Harvester()
+    h.drain(sim)
+    ring = sim.telem
+    ring_checks = {
+        "fastpath_hit + fastpath_miss == windows":
+            (st["fastpath_hit"] + st["fastpath_miss"], st["windows"]),
+        "ring count == windows": (int(ring.count), st["windows"]),
+        "sum(ring.events) == events_processed":
+            (int(ring.events.sum()), st["events_processed"]),
+        "sum(ring.fastpath) == fastpath_hit":
+            (int(ring.fastpath.sum()), st["fastpath_hit"]),
+    }
+    for k, (got, want) in ring_checks.items():
+        if got != want:
+            raise AssertionError(f"main path: {k}: {got} != {want}")
+    log(f"  main path: ring identities hold ({', '.join(ring_checks)})")
+    log(f"  main path: Harvester.summary() {json.dumps(h.summary())}")
     return launches
 
 
+def run_serial_path(device):
+    """Phase 4a: the serial path (no bulk pass, no sparse fast path,
+    no ring) at full width, depth cut to 1 simulated second."""
+    b = build_phold(HOSTS, LOAD, 1.0, seed=1, device=device, cap=CAPACITY)
+    sim, _, _, launches = drive("serial path", b,
+                                main_runner(b, device, bulk=False), device)
+    check_phold("serial path", sim, HOSTS, LOAD, launches)
+
+
+def compare_order_forms(device):
+    """Phase 4b: the bulk program with the cube and the sort EventOrder
+    forms at full width for 1 simulated second (the same config, seed,
+    sparse budget and ring): equal EngineStats and every leaf equal.
+    Each bulk call is timed with a CUDA-event pair and the host clock;
+    one call (window 2) runs under torch.profiler to count its
+    launches and is left out of the means."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.core.engine import resolve_sparse_lanes, run
+    from shadow_tpu_torch.net.bulk import make_bulk_fn
+    from shadow_tpu_torch.net.step import make_step_fn
+    from shadow_tpu_torch.telemetry import make_telem_fn
+
+    results = {}
+    for form in ("cube", "sort"):
+        b = build_phold(HOSTS, LOAD, 1.0, seed=3, device=device,
+                        cap=CAPACITY, sparse_lanes=None, ring=True)
+        fn = make_bulk_fn(b.cfg, phold.BULK, order_impl=form)
+        calls = []
+        prof_call = []
+
+        def timed(sim, wend, fn=fn, calls=calls, prof_call=prof_call):
+            if len(calls) == 2 and not prof_call:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = fn(sim, wend)
+                    torch.cuda.synchronize()
+                events = prof.events()
+                prof_call.append((host_launches(events),
+                                  device_busy_us(events) / 1e3))
+                calls.append(None)
+                return out
+            a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            a.record()
+            out = fn(sim, wend)
+            z.record()
+            calls.append((a, z, time.perf_counter() - t0))
+            return out
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim, stats = run(b.sim, make_step_fn(b.cfg, (phold.handler,)),
+                         end_time=b.cfg.end_time, min_jump=b.min_jump,
+                         emit_capacity=b.cfg.emit_capacity,
+                         lane_id=b.sim.net.lane_id, bulk_fn=timed,
+                         telem_fn=make_telem_fn(),
+                         sparse_lanes=resolve_sparse_lanes(b.cfg))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timed_calls = [c for c in calls if c is not None]
+        dev_ms = statistics.mean(a.elapsed_time(z) for a, z, _ in timed_calls)
+        host_ms = statistics.mean(h * 1e3 for _, _, h in timed_calls)
+        setter = "host" if dev_ms < 1.25 * host_ms else "device"
+        n_launch, busy_ms = prof_call[0]
+        log(f"  order form {form}: {stats.as_dict()} in {wall:.3f} s; bulk "
+            f"pass {dev_ms:.3f} ms/window on the device clock (event pair), "
+            f"{host_ms:.3f} ms/window to enqueue on the host clock, "
+            f"{len(timed_calls)} calls timed: set by the {setter}; the "
+            f"profiled call (window 2): {n_launch} launches, device busy "
+            f"{busy_ms:.3f} ms")
+        results[form] = (stats, sim)
+    n = assert_same_run("cube vs sort", results["cube"], results["sort"])
+    log(f"  cube == sort: EngineStats and all {n} leaves equal")
+
+
+def compare_sparse_shape(device):
+    """Phase 4c: bench.py's sparse shape (BENCH_ACTIVE=64: 10,240 hosts,
+    64 active, no bulk pass) for 1 simulated second, with the fast path
+    armed (sparse_lanes=256) and off (0)."""
+    out = {}
+    for sparse in (256, 0):
+        b = build_phold(HOSTS, LOAD, 1.0, seed=4, device=device,
+                        cap=CAPACITY, sparse_lanes=sparse, active_hosts=64)
+        sim, stats, _, launches = drive(
+            f"sparse shape, sparse_lanes={sparse}", b,
+            main_runner(b, device, bulk=False), device)
+        check_phold(f"sparse shape, sparse_lanes={sparse}", sim, 64, LOAD,
+                    launches)
+        out[sparse] = (stats, sim)
+    if int(out[256][0].fastpath_hit) <= 0:
+        raise AssertionError("sparse shape: the fast path never hit")
+    n = assert_same_run("sparse 256 vs 0", out[256], out[0],
+                        skip_stats=("fastpath_hit", "fastpath_miss"))
+    log(f"  sparse 256 == sparse 0: EngineStats (bar hit/miss) and all {n} "
+        f"leaves equal")
+
+
+def device_busy_us(events):
+    """Union of the device intervals of profiler events, in µs."""
+    from torch.autograd import DeviceType
+
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in events if e.device_type == DeviceType.CUDA):
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return busy_us
+
+
+def host_launches(events):
+    """Kernel launches the host issued, from profiler events."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in events if e.device_type == DeviceType.CPU
+               and e.name.startswith("cuda") and "Launch" in e.name)
+
+
 def profile_windows(device, gather_ms):
-    """Optional: the main path's first 3 windows, once timed without the
-    profiler and once under torch.profiler. Prints the device-busy share
-    (union of the device intervals of the profiled run over the
-    unprofiled run's wall time), the largest kernels by device time, the
-    host's launch count, and mailbox_gather's time in the main path
-    beside its standalone cold and warm times (`gather_ms`)."""
+    """Optional: the main path's first 3 windows (bulk pass, sparse
+    default, ring), timed without the profiler and once under
+    torch.profiler. Prints the device-busy share (union of the device
+    intervals of the profiled run over the unprofiled run's wall time),
+    the largest kernels by device time, the host's launch count, and
+    mailbox_gather's time in the main path beside its standalone cold
+    and warm times (`gather_ms`). Then windows 1-2 alone, which the
+    bulk pass drains whole: the runner started from the state window 0
+    (the injection window, where the micro-steps are) left behind.
+    Each wall is the least of 3 unprofiled runs (the host's noise only
+    ever adds time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -291,48 +509,64 @@ def profile_windows(device, gather_ms):
     from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.net.build import make_runner
 
-    def fresh():
+    def first_windows(skip_window0=False):
         b = build_phold(HOSTS, LOAD, 0.12, seed=2, device=device,
-                        cap=CAPACITY)
-        runner = make_runner(b, app_handlers=(phold.handler,), device=device)
+                        cap=CAPACITY, sparse_lanes=None, ring=True)
+        sim = b.sim
+        if skip_window0:
+            sim, _ = make_runner(b, app_handlers=(phold.handler,),
+                                 end_time=20_000_000, app_bulk=phold.BULK,
+                                 device=device)(sim)
         torch.cuda.synchronize()
-        return runner, b.sim
+        return main_runner(b, device), sim
 
-    runner, sim = fresh()
-    t0 = time.perf_counter()
-    _, stats = runner(sim)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    runner, sim = fresh()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, pstats = runner(sim)
-        torch.cuda.synchronize()
-    if pstats.as_dict() != stats.as_dict():
-        raise AssertionError("profiled run differs from the unprofiled one")
-    events = prof.events()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_us, end = 0.0, float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in dev):
-        if hi > end:
-            busy_us += hi - max(lo, end)
-            end = hi
-    log(f"  profile: {stats.as_dict()}; wall {wall:.3f} s without the "
-        f"profiler; device busy {busy_us / 1e6:.4f} s = "
-        f"{busy_us / 1e6 / wall * 100:.2f}% of it")
+    def later_windows():
+        return first_windows(skip_window0=True)
+
+    def measure(fresh, reps=3):
+        walls = []
+        for _ in range(reps):
+            runner, sim = fresh()
+            t0 = time.perf_counter()
+            _, stats = runner(sim)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        runner, sim = fresh()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, pstats = runner(sim)
+            torch.cuda.synchronize()
+        if pstats.as_dict() != stats.as_dict():
+            raise AssertionError("profiled run differs from the unprofiled "
+                                 "one")
+        return stats.as_dict(), min(walls), prof.events()
+
+    st, wall, events = measure(first_windows)
+    busy_us = device_busy_us(events)
+    launches = host_launches(events)
+    log(f"  profile: {st}; wall {wall:.4f} s without the profiler; device "
+        f"busy {busy_us / 1e6:.4f} s = {busy_us / 1e6 / wall * 100:.2f}% "
+        f"of it")
     by_name: dict[str, list[float]] = {}
-    for e in dev:
-        by_name.setdefault(e.name, []).append(
-            e.time_range.end - e.time_range.start)
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(
+                e.time_range.end - e.time_range.start)
     for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
-        log(f"    {name[:60]:60s} calls {len(ts):7d} device "
-            f"{sum(ts) / 1e3:9.2f} ms")
-    launches = sum(1 for e in events if e.device_type == DeviceType.CPU
-                   and e.name.startswith("cuda") and "Launch" in e.name)
+        short = (name.replace("void ", "").replace("at::native::", "")
+                 .replace("(anonymous namespace)::", ""))
+        log(f"    calls {len(ts):6d} device {sum(ts) / 1e3:8.2f} ms  "
+            f"{short[:150]}")
     log(f"  profile: {launches} kernel launches from the host, "
-        f"{launches / max(stats.as_dict()['micro_steps'], 1):.0f} per "
-        f"micro-step")
+        f"{launches / max(st['windows'], 1):.0f} per window "
+        f"({st['micro_steps']} micro-steps in {st['windows']} windows)")
+    st2, wall2, events2 = measure(later_windows)
+    w2 = max(st2["windows"], 1)
+    busy2 = device_busy_us(events2) / 1e3
+    log(f"  profile: windows 1-2 alone {st2}: wall {wall2 * 1e3 / w2:.3f} "
+        f"ms, {host_launches(events2) / w2:.0f} launches and "
+        f"{busy2 / w2:.3f} ms device busy per window = "
+        f"{busy2 / (wall2 * 1e3) * 100:.2f}% of wall")
     g = [t for name, ts in by_name.items() if "mailbox_gather" in name
          for t in ts]
     if g:
@@ -341,33 +575,22 @@ def profile_windows(device, gather_ms):
             f"{gather_ms[0]:.5f} ms, warm {gather_ms[1]:.5f} ms)")
 
 
-def compare_cuda_cpu(hosts, load, sim_s):
+def compare_cuda_cpu(label, hosts, load, sim_s, bulk=False, ring=False,
+                     sparse_lanes=0, active_hosts=None):
     """Phase 5: the port on CUDA equals the port on the CPU, leaf by
     leaf (tolerance zero)."""
-    import numpy as np
-
-    from shadow_tpu_torch import convert
-    from shadow_tpu_torch.apps import phold
-    from shadow_tpu_torch.net.build import make_runner
-
     out = {}
     for dev in ("cuda", "cpu"):
-        b = build_phold(hosts, load, sim_s, seed=5, device=dev)
+        b = build_phold(hosts, load, sim_s, seed=5, device=dev,
+                        sparse_lanes=sparse_lanes, active_hosts=active_hosts,
+                        ring=ring)
         t0 = time.perf_counter()
-        sim, stats = make_runner(b, app_handlers=(phold.handler,),
-                                 device=dev)(b.sim)
-        out[dev] = (stats.as_dict(), convert.sim_to_numpy(sim))
-        log(f"  {dev}: {out[dev][0]} in {time.perf_counter() - t0:.2f} s")
-    (sa, la), (sb, lb) = out["cuda"], out["cpu"]
-    if sa != sb:
-        raise AssertionError(f"EngineStats differ: cuda {sa} cpu {sb}")
-    if la.keys() != lb.keys():
-        raise AssertionError("leaf sets differ")
-    bad = [k for k in la if la[k].dtype != lb[k].dtype
-           or not np.array_equal(la[k], lb[k])]
-    if bad:
-        raise AssertionError(f"{len(bad)} leaves differ, first {bad[:5]}")
-    log(f"  cuda == cpu: EngineStats and all {len(la)} leaves equal")
+        sim, stats = main_runner(b, dev, bulk=bulk)(b.sim)
+        out[dev] = (stats, sim)
+        log(f"  {label} {dev}: {stats.as_dict()} in "
+            f"{time.perf_counter() - t0:.2f} s")
+    n = assert_same_run(label, out["cuda"], out["cpu"])
+    log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves equal")
 
 
 def main(argv=None) -> int:
@@ -404,16 +627,29 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     row, warm_ms = check_mailbox_gather(device)
 
-    log(f"[4] main path: PHOLD {HOSTS} hosts load {LOAD} {SIM_S} sim-s")
+    log(f"[4] main path: bench.py's default PHOLD, {HOSTS} hosts load "
+        f"{LOAD} {SIM_S} sim-s, bulk pass, sparse default, ring")
     launches = run_main_path(device)
     row["launches"] = launches["mailbox_gather"]
 
     if args.profile:
-        log("[4b] profile")
+        log("[4p] profile")
         profile_windows(device, (row["ms"], warm_ms))
 
+    log("[4a] the serial path: no bulk, sparse_lanes=0, no ring, "
+        "1 sim-s")
+    run_serial_path(device)
+
+    log("[4b] bulk pass: cube and sort order forms, 1 sim-s")
+    compare_order_forms(device)
+
+    log("[4c] sparse shape: 64 of 10,240 hosts active, 1 sim-s")
+    compare_sparse_shape(device)
+
     log("[5] CUDA against CPU inside the port")
-    compare_cuda_cpu(64, 4, 1.0)
+    compare_cuda_cpu("serial", 64, 4, 1.0)
+    compare_cuda_cpu("bulk + ring", 64, 4, 1.0, bulk=True, ring=True)
+    compare_cuda_cpu("sparse", 64, 2, 1.0, sparse_lanes=16, active_hosts=4)
 
     log("  done")
     print(smi)

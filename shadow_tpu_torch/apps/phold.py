@@ -5,7 +5,8 @@ Every host seeds `load` UDP messages; each received message triggers
 one send to a peer drawn uniformly over the other hosts of its replica
 from the host's threefry counter stream, so `H * load` messages
 circulate forever and the event rate measures raw scheduler
-throughput. The bulk window pass (PholdBulk) is not ported yet.
+throughput. PholdBulk (BULK) opts the app into the bulk window pass
+(net/bulk.py).
 """
 
 from __future__ import annotations
@@ -103,6 +104,58 @@ def _send_one(cfg, sim, buf, mask, now):
     app = app.replace(sent=app.sent + ok.to(I64))
     sim = sim.replace(net=net, app=app)
     return nic.notify_wants_send(sim, buf, ok, now)
+
+
+class PholdBulk:
+    """Bulk window pass hooks (net.bulk.AppBulk contract): consume
+    every delivered message, reply to one uniformly random peer per
+    message, reproducing the serial handler's draw stream exactly —
+    per consumed event j (in time order): draw 2j is the peer choice
+    (_send_one), draw 2j+1 the NIC reliability Bernoulli
+    (handle_nic_send, same micro-step). Counters wrap mod 2**32 as the
+    reference's uint32 adds do."""
+
+    max_send_len = MSG_SIZE
+    resolves_dst = True   # peers are picked by index; dst_host always set
+
+    def precheck(self, cfg, sim):
+        # injection still running is excluded by the engine's kind
+        # eligibility; this guards the app-state side of it
+        return sim.app.remaining == 0
+
+    def run(self, cfg, sim, d):
+        from shadow_tpu_torch.net import bulk as bulkmod
+
+        app = sim.app
+        net = sim.net
+        H, K = d.mask.shape
+
+        rc = bulkmod.rank_in_order(d.order, d.mask)    # consumed rank
+        app_ctr = (net.rng_ctr[:, None] + 2 * rc.to(I64)) & rng.M32
+        u = rng.uniform_at(net.rng_keys, app_ctr)
+        peer = _replica_peer(app, net, u)
+        dst_ip = ip_of_hosts(cfg, net, peer)
+
+        m = d.mask.sum(dim=1, dtype=I64)
+        sim = sim.replace(
+            net=net.replace(rng_ctr=(net.rng_ctr + 2 * m) & rng.M32),
+            app=app.replace(rcvd=app.rcvd + m, sent=app.sent + m),
+        )
+        sends = bulkmod.BulkSends(
+            mask=d.mask,
+            slot=app.sock[:, None].expand(H, K),
+            dst_ip=dst_ip,
+            dst_host=peer,
+            dst_port=app.port[:, None].expand(H, K),
+            length=torch.full((H, K), MSG_SIZE, dtype=I32,
+                              device=d.mask.device),
+            payref=torch.full((H, K), -1, dtype=I32, device=d.mask.device),
+            nic_draw_ctr=(app_ctr + 1) & rng.M32,
+        )
+        return sim, sends
+
+
+BULK = PholdBulk()
 
 
 _INJECT_KINDS = census_mask((EventKind.PROC_START, KIND_INJECT))

@@ -18,10 +18,11 @@ import torch
 from shadow_tpu_torch.apps.phold import PholdApp
 from shadow_tpu_torch.core.events import EventQueue, Outbox
 from shadow_tpu_torch.net.state import U32_FIELDS, NetState, Sim
+from shadow_tpu_torch.telemetry.ring import TelemetryRing
 
 # The container class of each Sim field the port knows how to build.
 _SIM_FIELDS = {"events": EventQueue, "outbox": Outbox, "net": NetState,
-               "app": PholdApp}
+               "app": PholdApp, "telem": TelemetryRing}
 
 
 def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:

@@ -11,8 +11,10 @@ cross-host latency.
 The reference's lax.while_loop / lax.cond become Python loops and ifs.
 Host syncs: one per micro-step (the popped-valid count and kind
 bitmask, read together: they decide whether the fixpoint continues and
-which handler families run), and per window the route's two reads
-(core/events.py) plus the next window start.
+which handler families run), and per window the sparse fast path's
+active-row count (when armed), the route's two reads (core/events.py)
+and the next window start. The bulk pass and the telemetry record
+read nothing back.
 """
 
 from __future__ import annotations
@@ -22,6 +24,11 @@ from typing import Callable
 
 import torch
 
+from shadow_tpu_torch.core.compact import (
+    active_indices,
+    gather_lanes,
+    scatter_lanes,
+)
 from shadow_tpu_torch.core.events import (
     EmitBuffer,
     _Replace,
@@ -34,8 +41,10 @@ from shadow_tpu_torch.core.events import (
 I32 = torch.int32
 I64 = torch.int64
 
-# The reference's default active-lane budget for its sparse-window fast
-# path (core/compact.py, not ported yet).
+# Default active-lane budget S of the sparse-window fast path (the
+# reference's): when the rows holding any event < wend fit, the window
+# fixpoint runs over a compacted [S]-lane view of the Sim
+# (core/compact.py). NetConfig.sparse_lanes overrides; 0 disables.
 DEFAULT_SPARSE_LANES = 256
 
 
@@ -60,8 +69,9 @@ class EngineStats(_Replace):
     events_processed: torch.Tensor  # [] i64
     micro_steps: torch.Tensor       # [] i64
     windows: torch.Tensor           # [] i64
-    # sparse-window fast-path accounting of the reference; stays 0
-    # here (the fast path is not ported yet)
+    # sparse-window fast path: windows drained at compact [S] width vs
+    # windows that ran full width (census above S, or no live lane);
+    # hit + miss == windows when the fast path is armed, both 0 when off
     fastpath_hit: torch.Tensor      # [] i64
     fastpath_miss: torch.Tensor     # [] i64
 
@@ -118,13 +128,67 @@ def window_fixpoint(sim, stats: EngineStats, step_fn: StepFn, wend: int,
 
 
 def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
-                emit_capacity: int = 4, lane_id=None):
+                emit_capacity: int = 4, lane_id=None, bulk_fn=None,
+                telem_fn=None, wstart: int | None = None,
+                sparse_lanes: int = 0):
     """One full round: drain the window, then route cross-host events
     staged in the outbox into destination queues. Returns (sim, stats,
     next window start as a host int: the global minimum pending time,
-    INVALID when the queues are empty)."""
-    sim, stats = window_fixpoint(sim, stats, step_fn, wend, emit_capacity,
-                                 lane_id)
+    INVALID when the queues are empty).
+
+    `bulk_fn` (net.bulk.make_bulk_fn) consumes eligible hosts' whole
+    windows in one vectorized pass first; its count is added to
+    events_processed without a host read.
+
+    `sparse_lanes` S > 0 arms the sparse-window fast path: one host
+    read of the count n of rows holding any event < wend decides it.
+    hit = 0 < n <= S; on a hit (and S < H) the fixpoint runs over a
+    compacted [S]-lane Sim (core/compact.py) and scatters back —
+    bit-identical by construction; otherwise it runs full width. A
+    window with n == 0 has nothing to drain, so its fixpoint (the
+    identity) is skipped.
+
+    `telem_fn` (telemetry.ring.make_telem_fn) records the window after
+    the drain and BEFORE the route; its event and micro-step deltas
+    count from before the bulk pass. `wstart` is only read by it (None
+    records a zero-length window)."""
+    ev0, ms0 = stats.events_processed, stats.micro_steps
+    if bulk_fn is not None:
+        sim, n_bulk = bulk_fn(sim, wend)
+        stats = stats.replace(
+            events_processed=stats.events_processed + n_bulk)
+
+    S = int(sparse_lanes or 0)
+    recording = telem_fn is not None and getattr(sim, "telem", None) \
+        is not None
+    n_active = None
+    if S > 0 or recording:
+        active = sim.events.min_time() < wend
+        n_active = active.sum(dtype=I32)
+    fastpath = False
+    if S > 0:
+        n = int(n_active)
+        fastpath = 0 < n <= S
+        if fastpath and S < sim.events.num_hosts:
+            idx = active_indices(active, S)
+            lane_c = idx if lane_id is None else lane_id[idx.long()]
+            csim, stats = window_fixpoint(
+                gather_lanes(sim, idx), stats, step_fn, wend,
+                emit_capacity, lane_c)
+            sim = scatter_lanes(sim, csim, idx)
+        elif n > 0:
+            sim, stats = window_fixpoint(sim, stats, step_fn, wend,
+                                         emit_capacity, lane_id)
+        stats = stats.replace(
+            fastpath_hit=stats.fastpath_hit + int(fastpath),
+            fastpath_miss=stats.fastpath_miss + int(not fastpath))
+    else:
+        sim, stats = window_fixpoint(sim, stats, step_fn, wend,
+                                     emit_capacity, lane_id)
+    if recording:
+        sim = telem_fn(sim, wend if wstart is None else wstart, wend,
+                       stats.events_processed - ev0,
+                       stats.micro_steps - ms0, n_active, fastpath)
     q, out = route_outbox(sim.events, sim.outbox)
     sim = sim.replace(events=q, outbox=out)
     stats = stats.replace(windows=stats.windows + 1)
@@ -132,7 +196,8 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
 
 
 def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
-        emit_capacity: int = 4, lane_id=None):
+        emit_capacity: int = 4, lane_id=None, bulk_fn=None, telem_fn=None,
+        sparse_lanes: int = 0):
     """Run the whole simulation. Window advance rule is the
     reference's: newStart = minNextEventTime, newEnd = newStart +
     minJump, clamped to end_time + 1 (ref: master.c:450-480)."""
@@ -144,6 +209,8 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
     wstart = int(sim.events.min_time().amin())
     while wstart <= end_time:
         wend = min(wstart + jump, end_time + 1)
-        sim, stats, wstart = step_window(sim, stats, step_fn, wend,
-                                         emit_capacity, lane_id)
+        sim, stats, wstart = step_window(
+            sim, stats, step_fn, wend, emit_capacity, lane_id,
+            bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,
+            sparse_lanes=sparse_lanes)
     return sim, stats

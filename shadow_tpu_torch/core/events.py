@@ -127,6 +127,16 @@ class EventQueue(_Replace):
     def valid(self) -> torch.Tensor:
         return self.time != simtime.INVALID
 
+    def fill_count(self) -> torch.Tensor:
+        """[H] number of occupied slots per host row."""
+        return self.valid().sum(dim=1, dtype=I32)
+
+    def occupancy(self) -> tuple:
+        """(min, max, sum) of per-host occupied slots — the telemetry
+        ring's queue-occupancy probe."""
+        fill = self.fill_count()
+        return fill.amin(), fill.amax(), fill.sum(dtype=I64)
+
     def min_time(self) -> torch.Tensor:
         """[H] earliest pending event time per host (INVALID if none)."""
         return self.time.amin(dim=1)
@@ -235,6 +245,10 @@ class Outbox(_Replace):
     @property
     def capacity(self) -> int:
         return self.dst.shape[1]
+
+    def occupied(self) -> torch.Tensor:
+        """[H, M] bool: slots holding a staged entry (dst >= 0)."""
+        return self.dst >= 0
 
     @staticmethod
     def create(num_hosts: int, capacity: int, nwords: int = NWORDS,

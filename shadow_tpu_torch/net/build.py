@@ -25,6 +25,7 @@ from shadow_tpu_torch.core.engine import resolve_sparse_lanes
 from shadow_tpu_torch.core.engine import run as engine_run
 from shadow_tpu_torch.core.events import EventKind, emit_words, push_rows
 from shadow_tpu_torch.device import resolve_device, same_device
+from shadow_tpu_torch.net.bulk import make_bulk_fn
 from shadow_tpu_torch.net.state import (
     NetConfig,
     QDisc,
@@ -37,6 +38,7 @@ from shadow_tpu_torch.net.step import make_step_fn
 from shadow_tpu_torch.routing.dns import DNS
 from shadow_tpu_torch.routing.graphml import parse_graphml
 from shadow_tpu_torch.routing.topology import Topology
+from shadow_tpu_torch.telemetry.ring import make_telem_fn
 
 
 @dataclass
@@ -95,9 +97,6 @@ def check_supported(cfg: NetConfig) -> None:
         off.append("track_paths=True")
     if cfg.cpu_threshold_ns >= 0:
         off.append(f"cpu_threshold_ns={cfg.cpu_threshold_ns} (virtual CPU)")
-    if resolve_sparse_lanes(cfg) > 0:
-        off.append(f"sparse_lanes resolving to {resolve_sparse_lanes(cfg)} "
-                   "(set sparse_lanes=0)")
     if cfg.inject_lanes:
         off.append(f"inject_lanes={cfg.inject_lanes} (injection)")
     if cfg.qdisc != QDisc.FIFO:
@@ -184,11 +183,26 @@ def build(cfg: NetConfig, graphml_text: str, hosts: Sequence[HostSpec],
     )
 
 
+def _resolve_bulk_fn(bundle: SimBundle, app_bulk):
+    """The reference's bulk-pass selection rule, UDP branch: the app's
+    bulk hooks when make_bulk_fn's static preconditions hold, else no
+    bulk pass."""
+    if app_bulk is None:
+        return None
+    return make_bulk_fn(bundle.cfg, app_bulk)
+
+
 def make_runner(bundle: SimBundle, app_handlers=(),
-                end_time: int | None = None, device=None):
+                end_time: int | None = None, app_bulk=None, device=None):
     """A sim -> (sim, stats) callable for the whole run on `device`
     (None -> "cuda"; raises when CUDA is missing or the bundle was
-    built on another device)."""
+    built on another device).
+
+    `app_bulk` (a net.bulk.AppBulk, e.g. apps.phold.BULK) turns on the
+    bulk window pass. The sparse fast path runs at the config's
+    resolved budget (core/engine.resolve_sparse_lanes), and a
+    telemetry ring attached to the input sim (telemetry.attach) records
+    every window."""
     dev = resolve_device(device)
     if bundle.device is not None and not same_device(bundle.device, dev):
         raise ValueError(f"bundle was built on {bundle.device}, runner "
@@ -196,6 +210,9 @@ def make_runner(bundle: SimBundle, app_handlers=(),
     check_supported(bundle.cfg)
     step = make_step_fn(bundle.cfg, app_handlers)
     end = end_time if end_time is not None else bundle.cfg.end_time
+    bulk_fn = _resolve_bulk_fn(bundle, app_bulk)
+    telem_fn = make_telem_fn()
+    sparse = resolve_sparse_lanes(bundle.cfg)
 
     def go(sim):
         if not same_device(sim.events.time.device, dev):
@@ -204,13 +221,14 @@ def make_runner(bundle: SimBundle, app_handlers=(),
         return engine_run(
             sim, step, end_time=end, min_jump=bundle.min_jump,
             emit_capacity=bundle.cfg.emit_capacity,
-            lane_id=sim.net.lane_id)
+            lane_id=sim.net.lane_id, bulk_fn=bulk_fn, telem_fn=telem_fn,
+            sparse_lanes=sparse)
 
     return go
 
 
 def run(bundle: SimBundle, app_handlers=(), end_time: int | None = None,
-        device=None):
+        app_bulk=None, device=None):
     """Run the whole simulation; returns (sim, stats)."""
-    return make_runner(bundle, app_handlers, end_time,
+    return make_runner(bundle, app_handlers, end_time, app_bulk=app_bulk,
                        device=device)(bundle.sim)

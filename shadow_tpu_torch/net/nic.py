@@ -69,6 +69,20 @@ def refill_tokens(net: NetState, mask, now):
     )
 
 
+def projected_tokens(net: NetState, at_time):
+    """Bucket levels (send, recv) projected to `at_time` [H] — what
+    refill_tokens would produce on an access at that instant, without
+    mutating state (the bulk pass's token gate reads it). Keep in
+    lockstep with refill_tokens above."""
+    dq = (torch.div(at_time, TB_REFILL_INTERVAL, rounding_mode="floor")
+          - net.tb_quantum).clamp(min=0)
+    send_cap = net.tb_send_refill + pf.MTU
+    recv_cap = net.tb_recv_refill + pf.MTU
+    send = torch.minimum(send_cap, net.tb_send_tokens + dq * net.tb_send_refill)
+    recv = torch.minimum(recv_cap, net.tb_recv_tokens + dq * net.tb_recv_refill)
+    return send, recv
+
+
 def next_refill_time(now):
     return (torch.div(now, TB_REFILL_INTERVAL, rounding_mode="floor") + 1) \
         * TB_REFILL_INTERVAL

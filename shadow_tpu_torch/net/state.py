@@ -27,6 +27,15 @@ I64 = torch.int64
 # reference (converted back at the parity boundary, convert.py).
 U32_FIELDS = frozenset({"rng_keys", "rng_ctr"})
 
+# NetState fields that are global lookup tables rather than per-host
+# rows: sparse-lane compaction (core/compact.py) passes them through
+# whole, as the reference's sharding does.
+REPLICATED_FIELDS = frozenset({
+    "host_ip", "ip_sorted", "host_of_ip_sorted", "vertex_of_host",
+    "latency_ns", "reliability", "bw_up_kibps", "bw_down_kibps",
+    "ctr_path_packets",
+})
+
 
 class SocketType:
     NONE = 0
@@ -135,8 +144,8 @@ class NetConfig:
     track_paths: bool = False
     # Active-lane budget S for the reference's sparse-window fast path.
     # None = engine default (DEFAULT_SPARSE_LANES); 0 disables; values
-    # >= num_hosts are treated as disabled. The port runs only with the
-    # resolved budget 0 (core/engine.resolve_sparse_lanes).
+    # >= num_hosts are treated as disabled (core/engine.py
+    # resolve_sparse_lanes).
     sparse_lanes: int | None = None
     bootstrap_end: int = 0       # "unlimited bandwidth" period end
                                  # (ref: master.c:261-268)
@@ -380,10 +389,11 @@ class Sim(_Replace):
     outbox: Outbox
     net: NetState
     app: Any = None
-    # Opt-in layers of the reference (TCP state, telemetry, injection,
-    # lanes, flows, admission, causality, guard, sentinel). The port
-    # does not implement them yet (ROADMAP.md): they stay None and, as
-    # in the reference, None contributes no leaf.
+    # Opt-in layers of the reference. None contributes no leaf, as in
+    # the reference. The window telemetry ring (telemetry/ring.py
+    # attach) is ported; the others (TCP state, injection, lanes,
+    # flows, admission, causality, guard, sentinel) are not yet
+    # (ROADMAP.md) and stay None.
     tcp: Any = None
     telem: Any = None
     inject: Any = None
@@ -393,6 +403,13 @@ class Sim(_Replace):
     causality: Any = None
     guard: Any = None
     sentinel: Any = None
+
+
+def drop_total(net: NetState) -> torch.Tensor:
+    """[H] i64 total packets dropped per host, all drop classes (the
+    telemetry ring's per-window delta reads it)."""
+    return (net.ctr_drop_reliability + net.ctr_drop_codel
+            + net.ctr_drop_nosocket + net.ctr_drop_bufferfull)
 
 
 def ip_of_hosts(cfg: NetConfig, net: "NetState", idx) -> torch.Tensor:

@@ -1,0 +1,196 @@
+"""Device-resident per-window telemetry ring (PyTorch port of
+shadow_tpu/telemetry/ring.py, single shard).
+
+A fixed-capacity ring of per-window records — one record per window
+barrier, written on the device as masked one-hot stores — that the
+host drains between calls (telemetry/harvest.py). Writing a record
+reads nothing back to the host.
+
+Record fields (one [W] plane each, PLANES order):
+
+- wstart / wend      window bounds in sim-ns
+- events             events executed inside the window (bulk pass +
+                     fixpoint)
+- micro_steps        fixpoint iterations
+- routed_local       outbox entries whose destination is on this
+                     shard (all of them on one shard)
+- routed_cross       outbox entries bound for another shard (0 here)
+- drops              packets dropped this window (net.state.drop_total
+                     delta)
+- retx               TCP segments retransmitted (0: no TCP in the port)
+- qocc_min/max/sum   event-queue occupancy across hosts at the end of
+                     the window drain (pre-route)
+- active_lanes       host rows holding any event < wend when the
+                     window fixpoint started (the sparse census input)
+- fastpath           1 when the window drained on the compact [S]-lane
+                     fast path
+- injected / inj_dropped / inj_deferred   open-system injection (not
+                     ported; always 0)
+
+Overflow: `count` is monotonic and slot = count % capacity; the
+harvester detects count advancing more than `capacity` since its last
+drain and reports the lost records. The reference's per-lane fan-out
+planes (lane isolation) are not ported: attach refuses a Sim with
+lanes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from shadow_tpu_torch.core.events import _Replace
+
+I32 = torch.int32
+I64 = torch.int64
+
+# plane name -> dtype, in record order (harvest.py iterates this)
+PLANES = (
+    ("wstart", I64),
+    ("wend", I64),
+    ("events", I64),
+    ("micro_steps", I64),
+    ("routed_local", I64),
+    ("routed_cross", I64),
+    ("drops", I64),
+    ("retx", I64),
+    ("qocc_min", I32),
+    ("qocc_max", I32),
+    ("qocc_sum", I64),
+    ("active_lanes", I64),
+    ("fastpath", I32),
+    ("injected", I64),
+    ("inj_dropped", I64),
+    ("inj_deferred", I64),
+)
+
+DEFAULT_CAPACITY = 4096
+
+
+@dataclass
+class TelemetryRing(_Replace):
+    """Fixed-capacity ring of per-window records ([W] planes) plus the
+    running scalars the per-window deltas are computed against."""
+
+    wstart: torch.Tensor        # [W] i64
+    wend: torch.Tensor          # [W] i64
+    events: torch.Tensor        # [W] i64
+    micro_steps: torch.Tensor   # [W] i64
+    routed_local: torch.Tensor  # [W] i64
+    routed_cross: torch.Tensor  # [W] i64
+    drops: torch.Tensor         # [W] i64
+    retx: torch.Tensor          # [W] i64
+    qocc_min: torch.Tensor      # [W] i32
+    qocc_max: torch.Tensor      # [W] i32
+    qocc_sum: torch.Tensor      # [W] i64
+    active_lanes: torch.Tensor  # [W] i64
+    fastpath: torch.Tensor      # [W] i32
+    injected: torch.Tensor      # [W] i64
+    inj_dropped: torch.Tensor   # [W] i64
+    inj_deferred: torch.Tensor  # [W] i64
+    # monotonic windows-recorded counter; slot = count % W
+    count: torch.Tensor         # [] i64
+    # cumulative counters at the previous record
+    prev_drops: torch.Tensor    # [] i64
+    prev_retx: torch.Tensor     # [] i64
+
+    @property
+    def capacity(self) -> int:
+        return self.wstart.shape[0]
+
+    @staticmethod
+    def create(capacity: int = DEFAULT_CAPACITY,
+               device=None) -> "TelemetryRing":
+        if capacity < 1:
+            raise ValueError(f"telemetry capacity must be >= 1, got "
+                             f"{capacity}")
+        planes = {name: torch.zeros((capacity,), dtype=dt, device=device)
+                  for name, dt in PLANES}
+
+        def z():
+            return torch.zeros((), dtype=I64, device=device)
+        return TelemetryRing(count=z(), prev_drops=z(), prev_retx=z(),
+                             **planes)
+
+
+def attach(sim, capacity: int = DEFAULT_CAPACITY):
+    """Return `sim` with a telemetry ring on its device attached (no-op
+    if one already is). Raises for a lane-isolated Sim: the per-lane
+    fan-out planes are not ported."""
+    if getattr(sim, "telem", None) is not None:
+        return sim
+    if getattr(sim, "lanes", None) is not None:
+        raise NotImplementedError(
+            "shadow_tpu_torch: the telemetry ring's lane fan-out planes "
+            "are not ported yet")
+    return sim.replace(telem=TelemetryRing.create(
+        capacity, device=sim.events.time.device))
+
+
+def _record(ring: TelemetryRing, vals: dict) -> TelemetryRing:
+    """Masked one-hot store of one record at slot count % W."""
+    W = ring.capacity
+    sel = torch.arange(W, device=ring.count.device) == ring.count % W
+    new = {}
+    for k, v in vals.items():
+        old = getattr(ring, k)
+        # host values stay Python scalars: no host-to-device copy
+        v = v.to(old.dtype) if isinstance(v, torch.Tensor) else int(v)
+        new[k] = torch.where(sel, v, old)
+    return ring.replace(count=ring.count + 1, **new)
+
+
+def make_telem_fn():
+    """Build the engine's telem hook ``telem_fn(sim, wstart, wend,
+    ev_delta, ms_delta, active_lanes=None, fastpath=None) -> sim``. It
+    runs inside step_window after the window drain and BEFORE the
+    route, so the outbox still holds the window's staged sends. When
+    sim.telem is None it returns `sim` untouched.
+
+    `active_lanes` is the window's live-lane count and `fastpath` the
+    census-branch indicator (tensors, bools or None = 0)."""
+
+    def telem_fn(sim, wstart, wend, ev_delta, ms_delta,
+                 active_lanes=None, fastpath=None):
+        ring = getattr(sim, "telem", None)
+        if ring is None:
+            return sim
+
+        from shadow_tpu_torch.net.state import drop_total
+
+        out = sim.outbox
+        occupied = out.occupied()
+        lane = sim.net.lane_id
+        Hl = lane.shape[0]
+        base = lane[0]
+        # local = destined to a host this shard owns; on one shard
+        # every valid destination is local
+        local = occupied & (out.dst >= base) & (out.dst < base + Hl)
+        n_local = local.sum(dtype=I64)
+        n_cross = occupied.sum(dtype=I64) - n_local
+        drops_cum = drop_total(sim.net).sum(dtype=I64)
+        qmin, qmax, qsum = sim.events.occupancy()
+        zero = 0
+        # retx stays 0 and prev_retx with it: the port has no TCP
+        ring = _record(ring, dict(
+            wstart=wstart,
+            wend=wend,
+            events=ev_delta,
+            micro_steps=ms_delta,
+            routed_local=n_local,
+            routed_cross=n_cross,
+            drops=drops_cum - ring.prev_drops,
+            retx=zero,
+            qocc_sum=qsum,
+            qocc_min=qmin,
+            qocc_max=qmax,
+            active_lanes=zero if active_lanes is None else active_lanes,
+            fastpath=zero if fastpath is None else fastpath,
+            injected=zero,
+            inj_dropped=zero,
+            inj_deferred=zero,
+        ))
+        return sim.replace(telem=ring.replace(prev_drops=drops_cum))
+
+    return telem_fn

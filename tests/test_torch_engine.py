@@ -153,7 +153,7 @@ UNSUPPORTED = {
     "pcap": dict(pcap=True),
     "track_paths": dict(track_paths=True),
     "cpu_model": dict(cpu_threshold_ns=0),
-    "sparse_lanes": dict(num_hosts=H, sparse_lanes=4),
+    "router_single": dict(router_qdisc=RouterQ.SINGLE),
     "inject": dict(inject_lanes=8),
     "rr_qdisc": dict(qdisc=QDisc.RR),
     "router_static": dict(router_qdisc=RouterQ.STATIC),
@@ -168,11 +168,16 @@ def test_settings_off_the_path_raise(name):
 
 
 def test_default_sparse_budget_at_scale_must_be_disabled():
+    """The default budget resolves to 256 at scale and is accepted; a
+    budget that cannot narrow anything (>= num_hosts, or 0) resolves
+    to 0, the disabled fast path."""
     cfg = TConfig(num_hosts=300, tcp=False)
     assert tengine.resolve_sparse_lanes(cfg) == 256
-    with pytest.raises(NotImplementedError):
-        tbuild.check_supported(cfg)
-    tbuild.check_supported(dataclasses.replace(cfg, sparse_lanes=0))
+    tbuild.check_supported(cfg)
+    for off in (0, 300, 512):
+        assert tengine.resolve_sparse_lanes(
+            dataclasses.replace(cfg, sparse_lanes=off)) == 0
+    assert tengine.resolve_sparse_lanes(TConfig(num_hosts=64)) == 0
 
 
 def test_runner_rejects_a_bundle_from_another_device():

@@ -34,7 +34,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert out["bad"] == []
     for mod in ("shadow_tpu_torch.core.events", "shadow_tpu_torch.net.nic",
                 "shadow_tpu_torch.core.insert_kernels",
-                "shadow_tpu_torch.convert"):
+                "shadow_tpu_torch.convert", "shadow_tpu_torch.net.bulk",
+                "shadow_tpu_torch.core.compact",
+                "shadow_tpu_torch.telemetry.ring",
+                "shadow_tpu_torch.telemetry.harvest"):
         assert mod in out["modules"]
 
 
