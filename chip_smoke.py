@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. the device (nvidia-smi name and power limit, torch's device name);
 2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a);
 3. each kernel against its plain PyTorch version on the card, exact
-   int32 equality, at the main path's shape and at a ragged shape, with
+   int32 equality, at the main path's shape and at a ragged shape (and
+   mailbox_gather again at the TCP relay's width, P = 22), with
    CUDA-event timings of the kernel, the plain version and one PyTorch
    library call computing the same function (one event pair around
    many calls that cycle through input sets larger than the L2);
@@ -31,11 +32,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    4c. bench.py's sparse shape (10,240 hosts, 64 active, no bulk pass)
    for 1 simulated second with sparse_lanes=256 and 0: the fast path
    hits, every leaf equal, EngineStats equal apart from hit/miss;
-5. small PHOLD runs on CUDA and on the CPU inside the port — 64 hosts
-   serial, 64 hosts with the bulk pass and ring, 64 hosts with 4
-   active and sparse_lanes=16 — each with equal EngineStats and every
-   state leaf equal (tolerance zero — the state is integer apart from
-   bit-exact f32 draws).
+5. small runs on CUDA and on the CPU inside the port — PHOLD at 64
+   hosts serial, with the bulk pass and ring, and with 4 active and
+   sparse_lanes=16; the TCP relay at 10 hosts (2 circuits x 5 hops,
+   30,000 bytes, ring on) and at 4 hosts (2 circuits x 2 hops, 1% loss)
+   — each with equal EngineStats and every state leaf equal (tolerance
+   zero — the state is integer apart from bit-exact f32 draws);
+6. the TCP relay at full width: BASELINE config #3 as
+   tools/scale_run.py builds it (--workload relay --hosts 10240) —
+   2,048 disjoint 5-hop circuits, 100,000 bytes each, the one-vertex
+   50 ms topology, 4 sockets per host, capacities 64, PROC_START at
+   1 s, the default sparse budget and the ring, 4 simulated seconds,
+   serial TCP path (no TCP bulk pass) — checking every transfer
+   complete, zero overflow, hit + miss == windows, the ring's events
+   and retx planes against EngineStats and tcp.retx_segs, and
+   mailbox_gather launched;
+   6a. the same shape lossy: 5,120 two-hop circuits, 50,000 bytes each,
+   1% loss on the self-edge, every transfer complete and segments
+   retransmitted.
+
+`--profile` also profiles windows 0-2 of phase 4 and windows 10-12 of
+phase 6 (busy windows mid-transfer: 11, 22 and 22 micro-steps).
 
 The last lines are the nvidia-smi line, one JSON object listing every
 kernel, and {"ok": true, "device": {...}}. The script imports nothing
@@ -76,6 +93,20 @@ CAPACITY = 48
 IN_RING = 16
 
 
+# The relay cell: BASELINE config #3 as tools/scale_run.py builds it
+# (--workload relay: --hop 5, --bytes 100000, capacities 64, 4 sockets
+# per host, PROC_START at 1 s).
+RELAY_HOP = 5
+RELAY_BYTES = 100_000
+RELAY_CAP = 64
+RELAY_SIM_S = 4.0
+# The lossy relay (phase 6a): two-hop circuits over a 1% loss self-edge.
+LOSSY_HOP = 2
+LOSSY_BYTES = 50_000
+LOSSY_LOSS = 0.01
+LOSSY_SIM_S = 10.0
+
+
 T0 = time.perf_counter()
 
 
@@ -106,6 +137,50 @@ def build_phold(H, load, sim_s, seed, device, cap=None, sparse_lanes=0,
     if ring:
         b.sim = telemetry.attach(b.sim)
     return b
+
+
+def one_vertex(loss=0.0):
+    """ONE_VERTEX, with `loss` as the self-edge's packetloss."""
+    if not loss:
+        return ONE_VERTEX
+    return ONE_VERTEX.replace(
+        '<key attr.name="bandwidthup"',
+        '<key attr.name="packetloss" attr.type="double" for="edge" '
+        'id="pl" />\n  <key attr.name="bandwidthup"').replace(
+        '<data key="lat">50.0</data>',
+        f'<data key="lat">50.0</data><data key="pl">{loss}</data>')
+
+
+def build_relay(H, hop, total, sim_s, seed, device, loss=0.0, ring=True):
+    """A relay bundle through the port's entry points, as
+    tools/scale_run.py builds --workload relay: disjoint `hop`-host
+    circuits [c*hop + k], build, relay.setup, and telemetry.attach when
+    `ring`. The sparse budget is the default."""
+    from shadow_tpu_torch import telemetry
+    from shadow_tpu_torch.apps import relay
+    from shadow_tpu_torch.core import simtime
+    from shadow_tpu_torch.net.build import HostSpec, build
+    from shadow_tpu_torch.net.state import NetConfig
+
+    cfg = NetConfig(num_hosts=H, seed=seed,
+                    end_time=int(sim_s * simtime.ONE_SECOND),
+                    sockets_per_host=4, event_capacity=RELAY_CAP,
+                    outbox_capacity=RELAY_CAP, router_ring=RELAY_CAP)
+    hosts = [HostSpec(name=f"n{i}", proc_start_time=simtime.ONE_SECOND)
+             for i in range(H)]
+    b = build(cfg, one_vertex(loss), hosts, device=device)
+    circuits = [[c * hop + k for k in range(hop)] for c in range(H // hop)]
+    b.sim = relay.setup(b.sim, circuits=circuits, total_bytes=total)
+    if ring:
+        b.sim = telemetry.attach(b.sim)
+    return b, circuits
+
+
+def relay_runner(b, device):
+    from shadow_tpu_torch.apps import relay
+    from shadow_tpu_torch.net.build import make_runner
+
+    return make_runner(b, app_handlers=(relay.handler,), device=device)
 
 
 def main_runner(b, device, bulk=True):
@@ -216,20 +291,24 @@ def mailbox_bound(stream, start, Wn):
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
-def check_mailbox_gather(device):
-    """Phase 3: kernel == plain on the card, plus timings. `ms`,
-    `plain_ms` and `library_ms` are cold: the calls cycle through input
-    sets that together hold twice the L2, so every call reads its
-    inputs from device memory, like the bound. The warm time (one input
-    set, resident in L2) is printed beside them."""
+def check_mailbox_gather(device, P, main_n):
+    """Phase 3: kernel == plain on the card, plus timings, at row width
+    P (5 + the packet words: 11 for UDP's 6, 22 for TCP's 17) and
+    `main_n` stream rows at the main shape (10,240 hosts times the
+    outbox columns the route inserts: 24 on PHOLD's narrow tier, 64 for
+    the relay's capacity). `ms`, `plain_ms` and `library_ms` are cold:
+    the calls cycle through input sets that together hold twice the L2,
+    so every call reads its inputs from device memory, like the bound.
+    The warm time (one input set, resident in L2) is printed beside
+    them."""
     import torch
 
     from shadow_tpu_torch.core.events import INSERT_SWEEP
     from shadow_tpu_torch.core.insert_kernels import (
         mailbox_gather, mailbox_gather_ref)
 
-    Wn, P = INSERT_SWEEP, 11
-    shapes = {"main": (HOSTS, HOSTS * 24, 0), "ragged": (1_001, 5_000, 77)}
+    Wn = INSERT_SWEEP
+    shapes = {"main": (HOSTS, main_n, 0), "ragged": (1_001, 5_000, 77)}
     err = 0
     for label, (H, n, tail) in shapes.items():
         stream, start = mailbox_inputs(H, n, Wn, P, seed=H, device=device,
@@ -268,7 +347,8 @@ def check_mailbox_gather(device):
     bounds = [mailbox_bound(sm, st, Wn) for sm, st in sets]
     bound_ms = statistics.mean(b for b, _ in bounds)
     nbytes = statistics.mean(nb for _, nb in bounds)
-    log(f"  mailbox_gather main shape, {n_sets} input sets cycled (cold): "
+    log(f"  mailbox_gather main shape P={P} n={n}, {n_sets} input sets "
+        f"cycled (cold): "
         f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, index_select "
         f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes:.0f} B); "
         f"kernel warm in L2 {warm_ms:.5f} ms")
@@ -469,6 +549,104 @@ def compare_sparse_shape(device):
         f"leaves equal")
 
 
+def check_relay(label, cfg, sim, stats, circuits, total, launches):
+    """The checks every relay run of the smoke holds: every transfer
+    complete, zero overflow (events.overflow also counts the emit
+    buffer's), the sparse census and the ring against EngineStats, and
+    mailbox_gather launched. Returns the retransmit and fast-recovery
+    totals."""
+    import torch
+
+    from shadow_tpu_torch.core.engine import resolve_sparse_lanes
+
+    app, tcp, st = sim.app, sim.tcp, stats.as_dict()
+    armed = resolve_sparse_lanes(cfg) > 0
+    servers = torch.as_tensor([c[-1] for c in circuits],
+                              device=app.rcvd.device)
+    retx, fr = int(tcp.retx_segs.sum()), int(tcp.fr_entries.sum())
+    checks = {
+        "servers with rcvd == bytes": (
+            int((app.rcvd[servers] == total).sum()), len(circuits)),
+        "servers at EOF": (int(app.up_eof[servers].sum()), len(circuits)),
+        "sum(to_send) + sum(fwd_pending)": (
+            int(app.to_send.sum()) + int(app.fwd_pending.sum()), 0),
+        "events.overflow": (int(sim.events.overflow), 0),
+        "outbox.overflow": (int(sim.outbox.overflow), 0),
+        "rq_overflow": (int(sim.net.rq_overflow), 0),
+        "fastpath_hit + fastpath_miss == windows when armed": (
+            st["fastpath_hit"] + st["fastpath_miss"],
+            st["windows"] if armed else 0),
+        "ring count == windows": (int(sim.telem.count), st["windows"]),
+        "sum(ring.events) == events_processed": (
+            int(sim.telem.events.sum()), st["events_processed"]),
+        "sum(ring.retx) == sum(retx_segs)": (int(sim.telem.retx.sum()),
+                                             retx),
+    }
+    for k, (got, want) in checks.items():
+        if got != want:
+            raise AssertionError(f"{label}: {k}: {got} != {want}")
+    if launches["mailbox_gather"] <= 0:
+        raise AssertionError(f"{label}: mailbox_gather was never launched")
+    log(f"  {label}: checks hold ({', '.join(checks)}); retx_segs {retx}, "
+        f"fr_entries {fr}, last server EOF at "
+        f"{int(app.done_at[servers].max()) / 1e9:.3f} sim-s")
+    return retx, fr
+
+
+def run_relay(device):
+    """Phase 6: BASELINE config #3 at full width through the port's
+    entry points (build -> relay.setup -> telemetry.attach ->
+    make_runner(app_handlers=(relay.handler,)))."""
+    import torch
+
+    t0 = time.perf_counter()
+    b, circuits = build_relay(HOSTS, RELAY_HOP, RELAY_BYTES, RELAY_SIM_S,
+                              seed=1, device=device)
+    runner = relay_runner(b, device)
+    torch.cuda.synchronize()
+    log(f"  built {HOSTS} hosts, {len(circuits)} circuits in "
+        f"{time.perf_counter() - t0:.2f} s")
+    sim, stats, wall, launches = drive("relay", b, runner, device)
+    check_relay("relay", b.cfg, sim, stats, circuits, RELAY_BYTES, launches)
+    return launches
+
+
+def run_relay_lossy(device):
+    """Phase 6a: the relay shape with two-hop circuits over a lossy
+    self-edge: fast retransmit, SACK clipping and RTO on the card."""
+    b, circuits = build_relay(HOSTS, LOSSY_HOP, LOSSY_BYTES, LOSSY_SIM_S,
+                              seed=1, device=device, loss=LOSSY_LOSS)
+    sim, stats, _, launches = drive("lossy relay", b, relay_runner(b, device),
+                                    device)
+    retx, _ = check_relay("lossy relay", b.cfg, sim, stats, circuits,
+                          LOSSY_BYTES, launches)
+    if retx <= 0:
+        raise AssertionError("lossy relay: no segment was retransmitted")
+
+
+def compare_relay_cuda_cpu(label, hosts, hop, total, sim_s, loss=0.0,
+                           ring=True):
+    """Phase 5, TCP: the relay on CUDA equals the relay on the CPU, leaf
+    by leaf (tolerance zero), and completes."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b, circuits = build_relay(hosts, hop, total, sim_s, seed=6,
+                                  device=dev, loss=loss, ring=ring)
+        t0 = time.perf_counter()
+        sim, stats = relay_runner(b, dev)(b.sim)
+        out[dev] = (stats, sim)
+        log(f"  {label} {dev}: {stats.as_dict()} in "
+            f"{time.perf_counter() - t0:.2f} s")
+    n = assert_same_run(label, out["cuda"], out["cpu"])
+    sim = out["cpu"][1]
+    done = int((sim.app.rcvd[[c[-1] for c in circuits]] == total).sum())
+    if done != len(circuits):
+        raise AssertionError(f"{label}: {done} of {len(circuits)} transfers "
+                             f"complete")
+    log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves equal; "
+        f"retx_segs {int(sim.tcp.retx_segs.sum())}")
+
+
 def device_busy_us(events):
     """Union of the device intervals of profiler events, in µs."""
     from torch.autograd import DeviceType
@@ -575,6 +753,88 @@ def profile_windows(device, gather_ms):
             f"{gather_ms[0]:.5f} ms, warm {gather_ms[1]:.5f} ms)")
 
 
+def profile_relay(device, first=10, n=3):
+    """Optional: windows `first`..`first+n-1` of phase 6 (busy relay
+    windows, mid-transfer). The run is driven window by window with
+    core.engine.step_window, as engine.run does, to window `first`; the
+    next `n` windows then run twice from copies of that state, once
+    unprofiled (wall) and once under torch.profiler: the device-busy
+    share (union of the device intervals over the unprofiled wall),
+    launches and host syncs (cudaStreamSynchronize calls) per window and
+    per micro-step, and the top device ops."""
+    import copy
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shadow_tpu_torch.apps import relay
+    from shadow_tpu_torch.core.engine import (
+        EngineStats, resolve_sparse_lanes, step_window)
+    from shadow_tpu_torch.net.step import make_step_fn
+    from shadow_tpu_torch.telemetry import make_telem_fn
+
+    b, _ = build_relay(HOSTS, RELAY_HOP, RELAY_BYTES, RELAY_SIM_S, seed=1,
+                       device=device)
+    step = make_step_fn(b.cfg, (relay.handler,))
+    telem_fn = make_telem_fn()
+    sparse = resolve_sparse_lanes(b.cfg)
+
+    def windows(sim, wstart, count):
+        stats = EngineStats.create(device=device)
+        for _ in range(count):
+            wend = min(wstart + b.min_jump, b.cfg.end_time + 1)
+            sim, stats, wstart = step_window(
+                sim, stats, step, wend, b.cfg.emit_capacity, sim.net.lane_id,
+                telem_fn=telem_fn, wstart=wstart, sparse_lanes=sparse)
+        return sim, stats, wstart
+
+    sim, _, wstart = windows(b.sim, int(b.sim.events.min_time().amin()),
+                             first)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(2):
+        s0 = copy.deepcopy(sim)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st, _ = windows(s0, wstart, n)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    s0 = copy.deepcopy(sim)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, pst, _ = windows(s0, wstart, n)
+        torch.cuda.synchronize()
+    st, pst = st.as_dict(), pst.as_dict()
+    if st != pst:
+        raise AssertionError("relay profile: profiled windows differ")
+    events = prof.events()
+    wall = min(walls)
+    busy_us = device_busy_us(events)
+    launches = host_launches(events)
+    syncs = sum(1 for e in events if e.device_type == DeviceType.CPU
+                and e.name == "cudaStreamSynchronize")
+    ms = max(st["micro_steps"], 1)
+    log(f"  relay profile, windows {first}-{first + n - 1}: {st}; wall "
+        f"{wall:.4f} s unprofiled (least of {len(walls)}), "
+        f"{wall / ms * 1e3:.3f} ms per micro-step; device busy "
+        f"{busy_us / 1e6:.4f} s = {busy_us / 1e6 / wall * 100:.2f}% of it")
+    log(f"  relay profile: {launches} launches = {launches / n:.0f} per "
+        f"window, {launches / ms:.0f} per micro-step; {syncs} "
+        f"cudaStreamSynchronize = {syncs / ms:.1f} per micro-step")
+    by_name: dict[str, list[float]] = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(
+                e.time_range.end - e.time_range.start)
+    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
+        short = (name.replace("void ", "").replace("at::native::", "")
+                 .replace("(anonymous namespace)::", ""))
+        log(f"    calls {len(ts):6d} device {sum(ts) / 1e3:8.2f} ms  "
+            f"{short[:150]}")
+
+
 def compare_cuda_cpu(label, hosts, load, sim_s, bulk=False, ring=False,
                      sparse_lanes=0, active_hosts=None):
     """Phase 5: the port on CUDA equals the port on the CPU, leaf by
@@ -625,7 +885,12 @@ def main(argv=None) -> int:
 
     log("[3] kernels against their plain versions")
     device = torch.device("cuda", 0)
-    row, warm_ms = check_mailbox_gather(device)
+    row, warm_ms = check_mailbox_gather(device, P=11, main_n=HOSTS * 24)
+    tcp_row, _ = check_mailbox_gather(device, P=22,
+                                      main_n=HOSTS * RELAY_CAP)
+    row["max_abs_err"] = max(row["max_abs_err"], tcp_row["max_abs_err"])
+    row["p22"] = {k: tcp_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "library_ms")}
 
     log(f"[4] main path: bench.py's default PHOLD, {HOSTS} hosts load "
         f"{LOAD} {SIM_S} sim-s, bulk pass, sparse default, ring")
@@ -650,6 +915,25 @@ def main(argv=None) -> int:
     compare_cuda_cpu("serial", 64, 4, 1.0)
     compare_cuda_cpu("bulk + ring", 64, 4, 1.0, bulk=True, ring=True)
     compare_cuda_cpu("sparse", 64, 2, 1.0, sparse_lanes=16, active_hosts=4)
+    t0 = time.perf_counter()
+    compare_relay_cuda_cpu("relay 2x5 hops + ring", 10, 5, 30_000, 3.0)
+    compare_relay_cuda_cpu("relay 2x2 hops 1% loss", 4, 2, 50_000, 4.0,
+                           loss=0.01, ring=False)
+    log(f"  the two relay configs took {time.perf_counter() - t0:.1f} s")
+
+    log(f"[6] TCP relay: {HOSTS} hosts, {HOSTS // RELAY_HOP} circuits x "
+        f"{RELAY_HOP} hops, {RELAY_BYTES} bytes, {RELAY_SIM_S} sim-s, "
+        f"sparse default, ring")
+    relay_launches = run_relay(device)
+    row["launches_relay"] = relay_launches["mailbox_gather"]
+    if args.profile:
+        log("[6p] relay profile")
+        profile_relay(device)
+
+    log(f"[6a] lossy relay: {HOSTS // LOSSY_HOP} circuits x {LOSSY_HOP} "
+        f"hops, {LOSSY_BYTES} bytes, {LOSSY_LOSS:.0%} loss, "
+        f"{LOSSY_SIM_S} sim-s")
+    run_relay_lossy(device)
 
     log("  done")
     print(smi)

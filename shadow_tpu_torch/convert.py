@@ -16,13 +16,17 @@ import numpy as np
 import torch
 
 from shadow_tpu_torch.apps.phold import PholdApp
+from shadow_tpu_torch.apps.relay import RelayApp
 from shadow_tpu_torch.core.events import EventQueue, Outbox
 from shadow_tpu_torch.net.state import U32_FIELDS, NetState, Sim
+from shadow_tpu_torch.net.tcp import TcpState
 from shadow_tpu_torch.telemetry.ring import TelemetryRing
 
-# The container class of each Sim field the port knows how to build.
-_SIM_FIELDS = {"events": EventQueue, "outbox": Outbox, "net": NetState,
-               "app": PholdApp, "telem": TelemetryRing}
+# The container classes each Sim field the port knows how to build may
+# hold; the one whose field names match the leaves is taken.
+_SIM_FIELDS = {"events": (EventQueue,), "outbox": (Outbox,),
+               "net": (NetState,), "app": (PholdApp, RelayApp),
+               "tcp": (TcpState,), "telem": (TelemetryRing,)}
 
 
 def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
@@ -69,9 +73,21 @@ def sim_from_numpy(leaves: dict, device=None) -> Sim:
         groups.setdefault(parts[0], {})[parts[1]] = a
     kw = {}
     for name, fl in groups.items():
-        cls = _SIM_FIELDS.get(name)
-        if cls is None:
-            raise NotImplementedError(
-                f"shadow_tpu_torch: Sim field {name!r} is not ported yet")
+        cls = _container(name, fl.keys())
         kw[name] = cls(**{k: _leaf(k, v, device) for k, v in fl.items()})
     return Sim(**kw)
+
+
+def _container(name: str, keys) -> type:
+    """The port's class for Sim field `name` with leaves `keys` (its
+    required fields present, every key one of its fields)."""
+    keys = set(keys)
+    for cls in _SIM_FIELDS.get(name, ()):
+        fields = dataclasses.fields(cls)
+        required = {f.name for f in fields
+                    if f.default is dataclasses.MISSING}
+        if required <= keys <= {f.name for f in fields}:
+            return cls
+    raise NotImplementedError(
+        f"shadow_tpu_torch: Sim field {name!r} with leaves {sorted(keys)} "
+        f"is not ported yet")

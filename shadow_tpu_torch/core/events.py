@@ -58,8 +58,13 @@ def fit_words(words: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def as_tensor(value, dtype, device) -> torch.Tensor:
+    """`value` as a tensor of `dtype` on `device`. A Python scalar is
+    filled on the device (one kernel), not copied from the host: a
+    host-to-device copy of a scalar waits for the stream."""
     if isinstance(value, torch.Tensor):
         return value.to(dtype)
+    if isinstance(value, (bool, int, float)):
+        return torch.full((), value, dtype=dtype, device=device)
     return torch.as_tensor(value, dtype=dtype, device=device)
 
 

@@ -89,8 +89,6 @@ class SimBundle:
 def check_supported(cfg: NetConfig) -> None:
     """Raise NotImplementedError for settings off the port's path."""
     off = []
-    if cfg.tcp:
-        off.append("tcp=True")
     if cfg.pcap:
         off.append("pcap=True")
     if cfg.track_paths:
@@ -184,9 +182,10 @@ def build(cfg: NetConfig, graphml_text: str, hosts: Sequence[HostSpec],
 
 
 def _resolve_bulk_fn(bundle: SimBundle, app_bulk):
-    """The reference's bulk-pass selection rule, UDP branch: the app's
-    bulk hooks when make_bulk_fn's static preconditions hold, else no
-    bulk pass."""
+    """The reference's bulk-pass selection rule without its TCP bulk
+    pass (not ported): the app's bulk hooks when make_bulk_fn's static
+    preconditions hold, else no bulk pass — always none for a TCP
+    config, as in the reference."""
     if app_bulk is None:
         return None
     return make_bulk_fn(bundle.cfg, app_bulk)

@@ -1,6 +1,7 @@
 """NIC token buckets, FIFO qdisc, upstream-router CoDel, and the packet
-send/receive event handlers — the UDP path of shadow_tpu/net/nic.py
-(ref: network_interface.c, router.c, router_queue_codel.c).
+send/receive event handlers — the PyTorch port of shadow_tpu/net/nic.py
+with its FIFO qdisc and CoDel router queue (ref: network_interface.c,
+router.c, router_queue_codel.c).
 
 - Token buckets both directions, refilled analytically per whole 1 ms
   quantum elapsed, capacity = refill + MTU.
@@ -12,9 +13,10 @@ send/receive event handlers — the UDP path of shadow_tpu/net/nic.py
 - Arrivals enqueue into the per-host router ring under CoDel (target
   10 ms, interval 100 ms, the RFC-8289 control law as in the
   reference) and are drained by the receive-side token bucket.
-
-The TCP branches of the reference are gated on cfg.tcp, which the port
-rejects at build, so they are not carried here.
+- TCP: a delivered segment enters the connection state machine
+  (tcp.tcp_packet_in); a segment that matches no socket is answered
+  with a RST when cfg.tcp; a departing TCP packet has its volatile
+  header fields stamped at wire time (tcp.stamp_at_wire).
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from __future__ import annotations
 import torch
 
 from shadow_tpu_torch.core import rng, simtime
-from shadow_tpu_torch.core.events import NWORDS, EventKind, emit
+from shadow_tpu_torch.core.events import NWORDS, EventKind, emit, u32_to_i32
 from shadow_tpu_torch.net import packetfmt as pf
+from shadow_tpu_torch.net import tcp as tcp_mod
 from shadow_tpu_torch.net.rings import set_hs, set_row
 from shadow_tpu_torch.net.sockets import lookup_socket, set_writable
 from shadow_tpu_torch.net.state import (
@@ -95,7 +98,8 @@ def _empty_words(H, device):
 def deliver_packet(cfg: NetConfig, sim, mask, src_host, words, now, buf):
     """Hand one arrived packet per masked lane to the bound socket
     (ref: _networkinterface_receivePacket, network_interface.c:375-419).
-    UDP goes to the datagram ring. Returns (sim, buf)."""
+    UDP goes to the datagram ring; TCP enters the connection state
+    machine. Returns (sim, buf)."""
     net = sim.net
     GH = net.host_ip.shape[0]
     proto = pf.proto_of(words)
@@ -120,6 +124,9 @@ def deliver_packet(cfg: NetConfig, sim, mask, src_host, words, now, buf):
     net = net.replace(last_drop_status=torch.where(
         nosock, words[:, pf.W_STATUS] | pf.PDS_RCV_SOCKET_DROPPED,
         net.last_drop_status))
+    if cfg.tcp:
+        buf = _answer_rst(net, buf, nosock, proto, src_host, src_ip,
+                          src_port, dst_port, words, now)
     net = net.replace(
         ctr_drop_nosocket=net.ctr_drop_nosocket + nosock.to(I64),
         ctr_rx_packets=net.ctr_rx_packets + found.to(I64),
@@ -128,7 +135,45 @@ def deliver_packet(cfg: NetConfig, sim, mask, src_host, words, now, buf):
         ctr_rx_data_bytes=net.ctr_rx_data_bytes
         + torch.where(found, words[:, pf.W_LEN], 0).to(I64),
     )
-    return sim.replace(net=net), buf
+    sim = sim.replace(net=net)
+    if sim.tcp is not None:
+        is_tcp = found & (proto == pf.PROTO_TCP)
+        sim, buf = tcp_mod.tcp_packet_in(
+            cfg, sim, is_tcp, slot, words, src_ip, src_port, now, buf)
+    return sim, buf
+
+
+def _answer_rst(net: NetState, buf, nosock, proto, src_host, src_ip,
+                src_port, dst_port, words, now):
+    """A TCP segment that matches no socket is answered with RST|ACK so
+    an active open to a dead port fails promptly; a RST is never
+    answered. The RST belongs to no socket, so it bypasses the NIC
+    rings and rides the event fabric directly: PACKET_LOCAL at now + 1
+    for a self-addressed segment, else PACKET after the topology
+    latency."""
+    GH = net.host_ip.shape[0]
+    flags = pf.tcp_flags_of(words)
+    need_rst = nosock & (proto == pf.PROTO_TCP) \
+        & ((flags & pf.TCPF_RST) == 0)
+    f_ack = (flags & pf.TCPF_ACK) != 0
+    f_syn = (flags & pf.TCPF_SYN) != 0
+    rst = torch.zeros_like(words)
+    rst[:, pf.W_PROTO] = pf.PROTO_TCP | ((pf.TCPF_RST | pf.TCPF_ACK) << 8)
+    rst[:, pf.W_PORTS] = pf.pack_ports(dst_port, src_port)
+    rst[:, pf.W_SEQ] = torch.where(f_ack, words[:, pf.W_ACK], 0)
+    rst[:, pf.W_ACK] = words[:, pf.W_SEQ] + words[:, pf.W_LEN] \
+        + f_syn.to(I32)
+    rst[:, pf.W_PAYREF] = pf.PAYREF_NONE
+    rst[:, pf.W_DSTIP] = u32_to_i32(src_ip & 0xFFFFFFFF)
+    srch = src_host.clamp(0, GH - 1).to(I64)
+    rst_local = need_rst & (src_host == net.lane_id)
+    vme = net.vertex_of_host[net.lane_id.to(I64)].to(I64)
+    vsrc = net.vertex_of_host[srch].to(I64)
+    lat = net.latency_ns[vme, vsrc]
+    buf = emit(buf, rst_local, net.lane_id, now + 1, EventKind.PACKET_LOCAL,
+               rst)
+    return emit(buf, need_rst & ~rst_local & (src_host >= 0), src_host,
+                now + lat, EventKind.PACKET, rst)
 
 
 # ---------------------------------------------------------------------
@@ -406,6 +451,16 @@ def _drain_one(cfg: NetConfig, sim, buf, mask, now, bootstrap,
     # sockets (ref: descriptor_adjustStatus -> epoll EPOLLOUT)
     is_dgram = active & (net.sk_type[lane, selc] == SocketType.UDP)
     net = set_writable(net, is_dgram, sel, True)
+
+    # volatile TCP header fields are stamped at wire time
+    # (ref: tcp_networkInterfaceIsAboutToSendPacket, tcp.c:1090-1120)
+    if sim.tcp is not None:
+        tmask = active & (proto == pf.PROTO_TCP)
+        words = tcp_mod.stamp_at_wire(net, sim.tcp, tmask, sel, words, now)
+        # a departing ACK cancels the pending delayed ACK
+        acked = tmask & ((pf.tcp_flags_of(words) & pf.TCPF_ACK) != 0)
+        sim = sim.replace(
+            tcp=tcp_mod.wire_ack_departed(sim.tcp, acked, sel))
 
     wl = pf.wire_length(proto, length).to(I64)
     GH = net.host_ip.shape[0]

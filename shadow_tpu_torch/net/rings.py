@@ -15,9 +15,8 @@ I32 = torch.int32
 def gather_hs(arr, slot):
     """arr[H,S] -> [H] value at (lane, slot); slot clipped for safety
     (callers mask invalid lanes)."""
-    H = arr.shape[0]
-    lane = torch.arange(H, device=arr.device)
-    return arr[lane, slot.clamp(0, arr.shape[1] - 1).to(torch.int64)]
+    idx = slot.clamp(0, arr.shape[1] - 1).to(torch.int64)
+    return arr.gather(1, idx[:, None])[:, 0]
 
 
 def set_hs(arr, mask, slot, value):

@@ -115,6 +115,17 @@ def sk_bind(net: NetState, mask, slot, ip, port):
     return net, port
 
 
+def sk_connect_peer(net: NetState, mask, slot, peer_ip, peer_port):
+    """Set the peer association (TCP connect initiation); auto-binds an
+    ephemeral port if unbound (ref: host.c:1193-1230)."""
+    bport = gather_hs(net.sk_bound_port, slot)
+    net, _ = sk_bind(net, mask & (bport == 0), slot, 0, 0)
+    return net.replace(
+        sk_peer_ip=set_hs(net.sk_peer_ip, mask, slot, peer_ip),
+        sk_peer_port=set_hs(net.sk_peer_port, mask, slot, peer_port),
+    )
+
+
 def lookup_socket(net: NetState, mask, proto, dst_ip, dst_port, src_ip,
                   src_port):
     """Find the receiving socket slot per lane ([H] -> slot or -1); the

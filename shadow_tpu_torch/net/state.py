@@ -390,10 +390,11 @@ class Sim(_Replace):
     net: NetState
     app: Any = None
     # Opt-in layers of the reference. None contributes no leaf, as in
-    # the reference. The window telemetry ring (telemetry/ring.py
-    # attach) is ported; the others (TCP state, injection, lanes,
-    # flows, admission, causality, guard, sentinel) are not yet
-    # (ROADMAP.md) and stay None.
+    # the reference. The TCP sockets' state (net/tcp.py TcpState, set
+    # when cfg.tcp) and the window telemetry ring (telemetry/ring.py
+    # attach) are ported; the others (injection, lanes, flows,
+    # admission, causality, guard, sentinel) are not yet (ROADMAP.md)
+    # and stay None.
     tcp: Any = None
     telem: Any = None
     inject: Any = None
@@ -566,11 +567,18 @@ def make_net_state(
 
 
 def make_sim(cfg: NetConfig, net: NetState, app: Any = None) -> Sim:
-    """The boot Sim: empty queues/outbox on the NetState's device."""
-    if cfg.tcp:
-        raise NotImplementedError(
-            "shadow_tpu_torch: tcp=True is not ported yet (ROADMAP.md)")
+    """The boot Sim: empty queues/outbox on the NetState's device, and
+    the TCP sockets' state when cfg.tcp."""
     dev = net.host_ip.device
+    tcp = None
+    if cfg.tcp:
+        from shadow_tpu_torch.net.tcp import (
+            TcpState, initial_cwnd, initial_ssthresh)
+
+        tcp = TcpState.create(
+            cfg.num_hosts, cfg.sockets_per_host,
+            init_cwnd=initial_cwnd(cfg),
+            init_ssthresh=initial_ssthresh(cfg), device=dev)
     return Sim(
         events=EventQueue.create(cfg.num_hosts, cfg.event_capacity,
                                  cfg.words_width, device=dev),
@@ -578,6 +586,7 @@ def make_sim(cfg: NetConfig, net: NetState, app: Any = None) -> Sim:
                              cfg.words_width, device=dev),
         net=net,
         app=app,
+        tcp=tcp,
     )
 
 

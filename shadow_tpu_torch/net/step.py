@@ -1,5 +1,5 @@
 """Composes the per-micro-step handler pipeline for the engine
-(PyTorch port of shadow_tpu/net/step.py, UDP path).
+(PyTorch port of shadow_tpu/net/step.py).
 
 Every handler sees all H popped events and acts only on lanes whose
 kind matches; each is a masked batch update, so an all-false mask is
@@ -10,10 +10,13 @@ a same-time event round-trip.
 Gates: the reference wraps each handler family in lax.cond. Here the
 engine reads the popped kinds once per micro-step (one host sync that
 also decides whether the micro-step runs at all) and passes them as
-the ``kinds`` bitmask; the receive and timer families are skipped with
-a plain ``if`` when their kinds are absent. The app handlers and the
-send drain run whenever the micro-step runs — value-identical, because
-a handler whose mask is all false changes nothing.
+the ``kinds`` bitmask; the receive, timer and TCP timer families are
+skipped with a plain ``if`` when their kinds are absent. The receive
+family holds the TCP receive machine (nic.deliver_packet ->
+tcp.tcp_packet_in), the largest handler, so timer-only micro-steps do
+not pay for it. The app handlers and the send drain run whenever the
+micro-step runs — value-identical, because a handler whose mask is all
+false changes nothing.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Callable, Sequence
 import torch
 
 from shadow_tpu_torch.core.events import EventKind, census_mask
-from shadow_tpu_torch.net import nic, timers
+from shadow_tpu_torch.net import nic, tcp, timers
 from shadow_tpu_torch.net.state import NetConfig
 
 AppHandler = Callable  # (cfg, sim, popped, buf) -> (sim, buf)
@@ -33,7 +36,13 @@ _PRE_APP = (
     (nic.handle_nic_recv, (EventKind.PACKET, EventKind.NIC_RECV,
                            EventKind.PACKET_LOCAL)),
     (timers.handle_timer, (EventKind.TIMER,)),
+    (tcp.handle_tcp_rtx, (EventKind.TCP_RTX_TIMER,)),
+    (tcp.handle_tcp_dack, (EventKind.TCP_DACK_TIMER,)),
+    (tcp.handle_tcp_flush, (EventKind.TCP_FLUSH,)),
+    (tcp.handle_tcp_close, (EventKind.TCP_CLOSE_TIMER,)),
 )
+_TCP_HANDLERS = (tcp.handle_tcp_rtx, tcp.handle_tcp_dack,
+                 tcp.handle_tcp_flush, tcp.handle_tcp_close)
 
 
 def _handle_proc_stop(cfg: NetConfig, sim, popped, buf):
@@ -47,17 +56,15 @@ def _handle_proc_stop(cfg: NetConfig, sim, popped, buf):
 
 def make_step_fn(cfg: NetConfig, app_handlers: Sequence[AppHandler] = ()):
     """Build the engine step_fn: netstack receive/timer handlers, then
-    app handlers, then the send drain. ``step(sim, popped, buf,
-    kinds=None)``: ``kinds`` is the host-side bitmask of the kinds
-    popped this micro-step (events.census_mask layout); None runs every
-    family."""
-    if cfg.tcp:
-        raise NotImplementedError(
-            "shadow_tpu_torch: the TCP handlers are not ported yet")
+    app handlers, then the send drain. The TCP timer handlers are
+    included only when cfg.tcp. ``step(sim, popped, buf, kinds=None)``:
+    ``kinds`` is the host-side bitmask of the kinds popped this
+    micro-step (events.census_mask layout); None runs every family."""
     if cfg.cpu_threshold_ns >= 0:
         raise NotImplementedError(
             "shadow_tpu_torch: the virtual-CPU gate is not ported yet")
-    pre = tuple((h, census_mask(k)) for h, k in _PRE_APP)
+    pre = tuple((h, census_mask(k)) for h, k in _PRE_APP
+                if cfg.tcp or h not in _TCP_HANDLERS)
     # app handlers that take the kinds bitmask use it to skip their
     # own families (same identity argument)
     takes_kinds = tuple(

@@ -17,7 +17,8 @@ Record fields (one [W] plane each, PLANES order):
 - routed_cross       outbox entries bound for another shard (0 here)
 - drops              packets dropped this window (net.state.drop_total
                      delta)
-- retx               TCP segments retransmitted (0: no TCP in the port)
+- retx               TCP segments retransmitted (sum of tcp.retx_segs
+                     delta; 0 without TCP state)
 - qocc_min/max/sum   event-queue occupancy across hosts at the end of
                      the window drain (pre-route)
 - active_lanes       host rows holding any event < wend when the
@@ -170,9 +171,11 @@ def make_telem_fn():
         n_local = local.sum(dtype=I64)
         n_cross = occupied.sum(dtype=I64) - n_local
         drops_cum = drop_total(sim.net).sum(dtype=I64)
+        tcp = getattr(sim, "tcp", None)
+        retx_cum = (ring.prev_retx if tcp is None
+                    else tcp.retx_segs.sum(dtype=I64))
         qmin, qmax, qsum = sim.events.occupancy()
         zero = 0
-        # retx stays 0 and prev_retx with it: the port has no TCP
         ring = _record(ring, dict(
             wstart=wstart,
             wend=wend,
@@ -181,7 +184,7 @@ def make_telem_fn():
             routed_local=n_local,
             routed_cross=n_cross,
             drops=drops_cum - ring.prev_drops,
-            retx=zero,
+            retx=retx_cum - ring.prev_retx,
             qocc_sum=qsum,
             qocc_min=qmin,
             qocc_max=qmax,
@@ -191,6 +194,7 @@ def make_telem_fn():
             inj_dropped=zero,
             inj_deferred=zero,
         ))
-        return sim.replace(telem=ring.replace(prev_drops=drops_cum))
+        return sim.replace(telem=ring.replace(prev_drops=drops_cum,
+                                              prev_retx=retx_cum))
 
     return telem_fn

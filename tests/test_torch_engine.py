@@ -149,7 +149,6 @@ def test_window_by_window_equals_whole_run(runs):
 
 
 UNSUPPORTED = {
-    "tcp": dict(tcp=True),
     "pcap": dict(pcap=True),
     "track_paths": dict(track_paths=True),
     "cpu_model": dict(cpu_threshold_ns=0),
@@ -165,6 +164,20 @@ def test_settings_off_the_path_raise(name):
     cfg = TConfig(**{**KW, **UNSUPPORTED[name]})
     with pytest.raises(NotImplementedError):
         tbuild.build(cfg, ONE_VERTEX, _hosts(tbuild), device="cpu")
+
+
+def test_tcp_config_builds_the_reference_boot_state():
+    """tcp=True is accepted: the boot state (17-word queues and rings,
+    the TCP sockets' state) equals the reference's leaf by leaf."""
+    kw = {**KW, "tcp": True}
+    jb = jbuild.build(JConfig(**kw), ONE_VERTEX, _hosts(jbuild))
+    tb = tbuild.build(TConfig(**kw), ONE_VERTEX, _hosts(tbuild), device="cpu")
+    want, got = _jax_leaves(jb.sim), convert.sim_to_numpy(tb.sim)
+    assert sorted(got) == sorted(want)
+    assert any(k.startswith(".tcp.") for k in got)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_default_sparse_budget_at_scale_must_be_disabled():

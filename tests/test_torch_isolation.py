@@ -37,7 +37,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.convert", "shadow_tpu_torch.net.bulk",
                 "shadow_tpu_torch.core.compact",
                 "shadow_tpu_torch.telemetry.ring",
-                "shadow_tpu_torch.telemetry.harvest"):
+                "shadow_tpu_torch.telemetry.harvest",
+                "shadow_tpu_torch.net.tcp", "shadow_tpu_torch.net.tcp_cong",
+                "shadow_tpu_torch.apps.relay"):
         assert mod in out["modules"]
 
 
