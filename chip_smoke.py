@@ -34,25 +34,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    hits, every leaf equal, EngineStats equal apart from hit/miss;
 5. small runs on CUDA and on the CPU inside the port — PHOLD at 64
    hosts serial, with the bulk pass and ring, and with 4 active and
-   sparse_lanes=16; the TCP relay at 10 hosts (2 circuits x 5 hops,
-   30,000 bytes, ring on) and at 4 hosts (2 circuits x 2 hops, 1% loss)
-   — each with equal EngineStats and every state leaf equal (tolerance
-   zero — the state is integer apart from bit-exact f32 draws);
-6. the TCP relay at full width: BASELINE config #3 as
-   tools/scale_run.py builds it (--workload relay --hosts 10240) —
-   2,048 disjoint 5-hop circuits, 100,000 bytes each, the one-vertex
-   50 ms topology, 4 sockets per host, capacities 64, PROC_START at
-   1 s, the default sparse budget and the ring, 4 simulated seconds,
-   serial TCP path (no TCP bulk pass) — checking every transfer
-   complete, zero overflow, hit + miss == windows, the ring's events
-   and retx planes against EngineStats and tcp.retx_segs, and
-   mailbox_gather launched;
-   6a. the same shape lossy: 5,120 two-hop circuits, 50,000 bytes each,
-   1% loss on the self-edge, every transfer complete and segments
-   retransmitted.
+   sparse_lanes=16; the TCP relay serial at 10 hosts (2 circuits x 5
+   hops, 15,000 bytes, ring on) and at 4 hosts (2 circuits x 2 hops,
+   25,000 bytes, 1% loss), and through the TCP bulk pass at 10 hosts
+   with 30,000 bytes and at the 4-host shape with
+   tcp_bulk_lossless=True — each with equal EngineStats and
+   every state leaf equal (tolerance zero — the state is integer apart
+   from bit-exact f32 draws);
+6. the TCP relay at full width as tools/scale_run.py runs it by default
+   (--workload relay --hosts 10240): BASELINE config #3 — 2,048
+   disjoint 5-hop circuits, 100,000 bytes each, the one-vertex 50 ms
+   topology, 4 sockets per host, capacities 64, PROC_START at 1 s, the
+   default sparse budget and the ring, 4 simulated seconds, the TCP
+   bulk pass (relay.TCP_BULK) — checking every transfer complete, zero
+   overflow, hit + miss == windows, the ring's events and retx planes
+   against EngineStats and tcp.retx_segs, and mailbox_gather launched;
+   it prints the pass's iterations per window, its ms per iteration on
+   the device clock (a CUDA-event pair per call) and the host clock,
+   and replays one mid-transfer window's call: with debug=True (the
+   share of hosts that commit, the abort bits of those that stopped)
+   and under torch.profiler (launches and cudaStreamSynchronize per
+   iteration, device-busy share);
+   6s. the same cell serial (scale_run's --no-bulk), held against phase
+   6 under the reference's bulk-vs-serial contract
+   (tests/test_tcp_bulk.py) with fewer micro-steps in phase 6;
+   6a. the same shape lossy with the TCP bulk pass: 5,120 two-hop
+   circuits, 50,000 bytes each, 1% loss on the self-edge, every
+   transfer complete, and the serial path's counters (351,064 events,
+   62 windows, 2,310 retransmitted segments, 1,421 fast-recovery
+   entries); 6as its serial twin, held against it under the contract.
 
 `--profile` also profiles windows 0-2 of phase 4 and windows 10-12 of
-phase 6 (busy windows mid-transfer: 11, 22 and 22 micro-steps).
+phase 6 with the TCP bulk pass.
 
 The last lines are the nvidia-smi line, one JSON object listing every
 kernel, and {"ok": true, "device": {...}}. The script imports nothing
@@ -105,9 +118,21 @@ LOSSY_HOP = 2
 LOSSY_BYTES = 50_000
 LOSSY_LOSS = 0.01
 LOSSY_SIM_S = 10.0
+# The lossy cell's counters on the serial path (the reference's CPU
+# run of the same config gives the same).
+LOSSY_EXPECT = {"events_processed": 351_064, "windows": 62,
+                "retx_segs": 2_310, "fr_entries": 1_421}
+# The mid-transfer window whose TCP bulk call is replayed with
+# debug=True (and, in phase 6, under the profiler): phase 6's window 9
+# (11 iterations: profiling the busiest, 42, costs ~45 s), phase 6a's
+# window 12.
+RELAY_KEEP_WINDOW = 9
+LOSSY_KEEP_WINDOW = 12
 
 
 T0 = time.perf_counter()
+# simtime.INVALID: an empty event slot
+INVALID_TIME = 2**63 - 1
 
 
 def log(*a):
@@ -176,11 +201,15 @@ def build_relay(H, hop, total, sim_s, seed, device, loss=0.0, ring=True):
     return b, circuits
 
 
-def relay_runner(b, device):
+def relay_runner(b, device, tcp_bulk=True, lossless=False):
+    """The relay's runner as tools/scale_run.py makes it: the TCP bulk
+    pass on unless `tcp_bulk` is False (scale_run's --no-bulk)."""
     from shadow_tpu_torch.apps import relay
     from shadow_tpu_torch.net.build import make_runner
 
-    return make_runner(b, app_handlers=(relay.handler,), device=device)
+    return make_runner(b, app_handlers=(relay.handler,),
+                       app_tcp_bulk=relay.TCP_BULK if tcp_bulk else None,
+                       tcp_bulk_lossless=lossless, device=device)
 
 
 def main_runner(b, device, bulk=True):
@@ -593,39 +622,223 @@ def check_relay(label, cfg, sim, stats, circuits, total, launches):
     return retx, fr
 
 
-def run_relay(device):
-    """Phase 6: BASELINE config #3 at full width through the port's
-    entry points (build -> relay.setup -> telemetry.attach ->
-    make_runner(app_handlers=(relay.handler,)))."""
+class TimedBulk:
+    """Wraps a runner's TCP bulk pass: a CUDA-event pair and the host
+    clock around every call, the pass's iterations per call, and the
+    input of call `keep` (a mid-transfer window) kept for a replay."""
+
+    def __init__(self, fn, keep):
+        self.fn, self.keep = fn, keep
+        self.calls = []
+        self.kept = None
+
+    def __call__(self, sim, wend):
+        import torch
+
+        if len(self.calls) == self.keep:
+            self.kept = (sim, wend)
+        it0 = self.fn.counters["iterations"]
+        a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        out = self.fn(sim, wend)
+        z.record()
+        self.calls.append((a, z, time.perf_counter() - t0,
+                           self.fn.counters["iterations"] - it0))
+        return out
+
+    def per_iteration(self):
+        """(iterations, device ms and host ms per iteration)."""
+        iters = sum(c[3] for c in self.calls)
+        dev_ms = sum(a.elapsed_time(z) for a, z, _, _ in self.calls)
+        host_ms = sum(h for _, _, h, _ in self.calls) * 1e3
+        return iters, dev_ms / max(iters, 1), host_ms / max(iters, 1)
+
+
+def why_bits(why, mask):
+    """{bit: hosts with that abort bit} over the hosts in `mask`."""
     import torch
 
-    t0 = time.perf_counter()
-    b, circuits = build_relay(HOSTS, RELAY_HOP, RELAY_BYTES, RELAY_SIM_S,
-                              seed=1, device=device)
-    runner = relay_runner(b, device)
+    w = why[mask]
+    bits = torch.arange(63, device=w.device)
+    counts = ((w[:, None] >> bits) & 1).sum(dim=0).tolist()
+    return {b: c for b, c in enumerate(counts) if c}
+
+
+def replay_bulk_call(label, b, fn, kept, profile_call=True):
+    """One debug=True call of the TCP bulk pass on a kept mid-transfer
+    window: the share of hosts that commit and the abort-bit histogram
+    of the eligible hosts that stopped. Then, with `profile_call`, the
+    same call plain, once timed and once under torch.profiler: launches
+    and cudaStreamSynchronize per iteration and the device-busy share
+    of the call's wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shadow_tpu_torch.apps import relay
+    from shadow_tpu_torch.net.tcp_bulk import make_tcp_bulk_fn
+
+    sim, wend = kept
+    dbg = make_tcp_bulk_fn(b.cfg, relay.TCP_BULK, debug=True)
+    _, _, d = dbg(sim, wend)
+    H = int(d["elig"].numel())
+    elig, commit = int(d["elig"].sum()), int(d["commit"].sum())
+    stopped = d["elig"] & d["bad"]
+    log(f"  {label}: debug call at wend {wend / 1e9:.3f} sim-s: "
+        f"{d['iters']} iterations, eligible {elig} of {H}, commit "
+        f"{commit} = {commit / H * 100:.2f}% of hosts "
+        f"({commit / max(elig, 1) * 100:.2f}% of eligible); abort bits "
+        f"of the {int(stopped.sum())} stopped hosts "
+        f"{why_bits(d['why'], stopped)}; bits of the ineligible "
+        f"{why_bits(d['why'], ~d['elig'])}")
+    if not profile_call:
+        return
+    it0, r0 = fn.counters["iterations"], fn.counters["reads"]
     torch.cuda.synchronize()
-    log(f"  built {HOSTS} hosts, {len(circuits)} circuits in "
+    t0 = time.perf_counter()
+    fn(sim, wend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters = fn.counters["iterations"] - it0
+    reads = fn.counters["reads"] - r0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(sim, wend)
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = host_launches(events)
+    syncs = sum(1 for e in events if e.device_type == DeviceType.CPU
+                and e.name == "cudaStreamSynchronize")
+    busy_ms = device_busy_us(events) / 1e3
+    log(f"  {label}: that call plain: {iters} iterations in "
+        f"{wall * 1e3:.1f} ms unprofiled ({wall * 1e3 / max(iters, 1):.3f} "
+        f"ms per iteration); profiled: {launches} launches = "
+        f"{launches / max(iters, 1):.0f} per iteration, {syncs} "
+        f"cudaStreamSynchronize = {syncs / max(iters, 1):.2f} per "
+        f"iteration ({reads / max(iters, 1):.2f} host reads by the pass's "
+        f"count); device busy {busy_ms:.2f} ms = "
+        f"{busy_ms / (wall * 1e3) * 100:.2f}% of the unprofiled wall")
+    return {"commit_share": commit / H, "launches_per_iter":
+            launches / max(iters, 1), "syncs_per_iter": syncs / max(iters, 1)}
+
+
+def relay_cell(label, device, hop, total, sim_s, loss=0.0, tcp_bulk=True,
+               keep=None, profile_call=True):
+    """One relay run at full width through the port's entry points
+    (build -> relay.setup -> telemetry.attach -> make_runner), checked
+    by check_relay. With the TCP bulk pass, its per-call timings and
+    the replay of window `keep` are reported (the profiled replay only
+    with `profile_call`). Returns (leaves, stats dict, launches, retx,
+    fr)."""
+    import torch
+
+    from shadow_tpu_torch import convert
+
+    t0 = time.perf_counter()
+    b, circuits = build_relay(HOSTS, hop, total, sim_s, seed=1,
+                              device=device, loss=loss)
+    runner = relay_runner(b, device, tcp_bulk=tcp_bulk)
+    timed = None
+    if tcp_bulk:
+        timed = TimedBulk(runner.bulk_fn, keep)
+        runner.bulk_fn = timed
+    torch.cuda.synchronize()
+    log(f"  {label}: built {HOSTS} hosts, {len(circuits)} circuits in "
         f"{time.perf_counter() - t0:.2f} s")
-    sim, stats, wall, launches = drive("relay", b, runner, device)
-    check_relay("relay", b.cfg, sim, stats, circuits, RELAY_BYTES, launches)
-    return launches
+    sim, stats, wall, launches = drive(label, b, runner, device)
+    retx, fr = check_relay(label, b.cfg, sim, stats, circuits, total,
+                           launches)
+    st = stats.as_dict()
+    if timed is not None:
+        fn = timed.fn
+        iters, dev_ms, host_ms = timed.per_iteration()
+        log(f"  {label}: TCP bulk pass {fn.counters}: "
+            f"{iters / st['windows']:.3f} iterations per window, "
+            f"{st['micro_steps'] / st['windows']:.3f} micro-steps per "
+            f"window left; {dev_ms:.3f} ms per iteration on the device "
+            f"clock (event pair per call), {host_ms:.3f} ms on the host "
+            f"clock; {fn.counters['reads'] / max(iters, 1):.2f} host reads "
+            f"per iteration")
+        if timed.kept is not None:
+            replay_bulk_call(label, b, fn, timed.kept, profile_call)
+    return convert.sim_to_numpy(sim), st, launches, retx, fr
 
 
-def run_relay_lossy(device):
-    """Phase 6a: the relay shape with two-hop circuits over a lossy
-    self-edge: fast retransmit, SACK clipping and RTO on the card."""
-    b, circuits = build_relay(HOSTS, LOSSY_HOP, LOSSY_BYTES, LOSSY_SIM_S,
-                              seed=1, device=device, loss=LOSSY_LOSS)
-    sim, stats, _, launches = drive("lossy relay", b, relay_runner(b, device),
-                                    device)
-    retx, _ = check_relay("lossy relay", b.cfg, sim, stats, circuits,
-                          LOSSY_BYTES, launches)
-    if retx <= 0:
-        raise AssertionError("lossy relay: no segment was retransmitted")
+# dead storage under the reference's bulk-vs-serial contract
+# (tests/test_tcp_bulk.py)
+DEAD = {
+    "in_src_ip", "in_src_port", "in_len", "in_payref", "in_status",
+    "out_words", "out_priority",
+    "rq_src", "rq_enq_ts", "rq_words",
+}
+
+
+def assert_contract(label, a, b):
+    """The reference's contract between a TCP bulk run and a serial run
+    (tests/test_tcp_bulk.py): net leaves outside the dead set, the live
+    output-ring regions, every tcp and app leaf, the live event-queue
+    slots and the outbox's dst/time/count/overflow equal. `a`, `b`:
+    (leaves, stats dict)."""
+    import numpy as np
+
+    (la, sa), (lb, sb) = a, b
+
+    def group(leaves, name):
+        p = f".{name}."
+        return {k[len(p):]: v for k, v in leaves.items() if k.startswith(p)}
+
+    diffs = []
+
+    def check(name, x, y):
+        if x.shape != y.shape or not np.array_equal(x, y):
+            diffs.append(name)
+
+    na, nb = group(la, "net"), group(lb, "net")
+    for f in na:
+        if f not in DEAD:
+            check(f"net.{f}", na[f], nb[f])
+    off = (np.arange(na["out_words"].shape[2])[None, None, :]
+           - na["out_head"][..., None]) % na["out_words"].shape[2]
+    live = off < na["out_count"][..., None]
+    for f in ("out_words", "out_priority"):
+        lv = live[..., None] if na[f].ndim == 4 else live
+        check(f"net.{f} (live)", np.where(lv, na[f], 0),
+              np.where(lv, nb[f], 0))
+    for grp in ("tcp", "app"):
+        ga, gb = group(la, grp), group(lb, grp)
+        for f in ga:
+            check(f"{grp}.{f}", ga[f], gb[f])
+    qa, qb = group(la, "events"), group(lb, "events")
+    va = qa["time"] != INVALID_TIME
+    vb = qb["time"] != INVALID_TIME
+    for f in ("time", "kind", "src", "seq", "words", "next_seq",
+              "overflow"):
+        x, y = qa[f], qb[f]
+        if f in ("kind", "src", "seq", "words"):
+            ma = va[..., None] if f == "words" else va
+            mb = vb[..., None] if f == "words" else vb
+            x, y = np.where(ma, x, 0), np.where(mb, y, 0)
+        check(f"events.{f}", x, y)
+    oa, ob = group(la, "outbox"), group(lb, "outbox")
+    for f in ("dst", "time", "count", "overflow"):
+        check(f"outbox.{f}", oa[f], ob[f])
+    for k in ("events_processed", "windows"):
+        if sa[k] != sb[k]:
+            diffs.append(f"EngineStats.{k} {sa[k]} vs {sb[k]}")
+    if diffs:
+        raise AssertionError(f"{label}: {len(diffs)} differ, first "
+                             f"{diffs[:5]}")
+    if not sa["micro_steps"] < sb["micro_steps"]:
+        raise AssertionError(f"{label}: {sa['micro_steps']} micro-steps "
+                             f"with the pass, {sb['micro_steps']} without")
+    log(f"  {label}: equal under the reference's contract; micro-steps "
+        f"{sa['micro_steps']} with the TCP bulk pass, {sb['micro_steps']} "
+        f"serial")
 
 
 def compare_relay_cuda_cpu(label, hosts, hop, total, sim_s, loss=0.0,
-                           ring=True):
+                           ring=True, tcp_bulk=False, lossless=False):
     """Phase 5, TCP: the relay on CUDA equals the relay on the CPU, leaf
     by leaf (tolerance zero), and completes."""
     out = {}
@@ -633,7 +846,8 @@ def compare_relay_cuda_cpu(label, hosts, hop, total, sim_s, loss=0.0,
         b, circuits = build_relay(hosts, hop, total, sim_s, seed=6,
                                   device=dev, loss=loss, ring=ring)
         t0 = time.perf_counter()
-        sim, stats = relay_runner(b, dev)(b.sim)
+        sim, stats = relay_runner(b, dev, tcp_bulk=tcp_bulk,
+                                  lossless=lossless)(b.sim)
         out[dev] = (stats, sim)
         log(f"  {label} {dev}: {stats.as_dict()} in "
             f"{time.perf_counter() - t0:.2f} s")
@@ -755,13 +969,14 @@ def profile_windows(device, gather_ms):
 
 def profile_relay(device, first=10, n=3):
     """Optional: windows `first`..`first+n-1` of phase 6 (busy relay
-    windows, mid-transfer). The run is driven window by window with
-    core.engine.step_window, as engine.run does, to window `first`; the
-    next `n` windows then run twice from copies of that state, once
-    unprofiled (wall) and once under torch.profiler: the device-busy
-    share (union of the device intervals over the unprofiled wall),
-    launches and host syncs (cudaStreamSynchronize calls) per window and
-    per micro-step, and the top device ops."""
+    windows, mid-transfer), with the TCP bulk pass. The run is driven
+    window by window with core.engine.step_window, as engine.run does,
+    to window `first`; the next `n` windows then run twice from copies
+    of that state, once unprofiled (wall) and once under
+    torch.profiler: the device-busy share (union of the device
+    intervals over the unprofiled wall), launches and host syncs
+    (cudaStreamSynchronize calls) per window and per bulk-pass
+    iteration plus micro-step, and the top device ops."""
     import copy
 
     import torch
@@ -772,11 +987,13 @@ def profile_relay(device, first=10, n=3):
     from shadow_tpu_torch.core.engine import (
         EngineStats, resolve_sparse_lanes, step_window)
     from shadow_tpu_torch.net.step import make_step_fn
+    from shadow_tpu_torch.net.tcp_bulk import make_tcp_bulk_fn
     from shadow_tpu_torch.telemetry import make_telem_fn
 
     b, _ = build_relay(HOSTS, RELAY_HOP, RELAY_BYTES, RELAY_SIM_S, seed=1,
                        device=device)
     step = make_step_fn(b.cfg, (relay.handler,))
+    bulk = make_tcp_bulk_fn(b.cfg, relay.TCP_BULK)
     telem_fn = make_telem_fn()
     sparse = resolve_sparse_lanes(b.cfg)
 
@@ -786,7 +1003,8 @@ def profile_relay(device, first=10, n=3):
             wend = min(wstart + b.min_jump, b.cfg.end_time + 1)
             sim, stats, wstart = step_window(
                 sim, stats, step, wend, b.cfg.emit_capacity, sim.net.lane_id,
-                telem_fn=telem_fn, wstart=wstart, sparse_lanes=sparse)
+                bulk_fn=bulk, telem_fn=telem_fn, wstart=wstart,
+                sparse_lanes=sparse)
         return sim, stats, wstart
 
     sim, _, wstart = windows(b.sim, int(b.sim.events.min_time().amin()),
@@ -802,10 +1020,12 @@ def profile_relay(device, first=10, n=3):
         walls.append(time.perf_counter() - t0)
     s0 = copy.deepcopy(sim)
     torch.cuda.synchronize()
+    it0 = bulk.counters["iterations"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, pst, _ = windows(s0, wstart, n)
         torch.cuda.synchronize()
+    iters = bulk.counters["iterations"] - it0
     st, pst = st.as_dict(), pst.as_dict()
     if st != pst:
         raise AssertionError("relay profile: profiled windows differ")
@@ -815,14 +1035,16 @@ def profile_relay(device, first=10, n=3):
     launches = host_launches(events)
     syncs = sum(1 for e in events if e.device_type == DeviceType.CPU
                 and e.name == "cudaStreamSynchronize")
-    ms = max(st["micro_steps"], 1)
-    log(f"  relay profile, windows {first}-{first + n - 1}: {st}; wall "
-        f"{wall:.4f} s unprofiled (least of {len(walls)}), "
-        f"{wall / ms * 1e3:.3f} ms per micro-step; device busy "
-        f"{busy_us / 1e6:.4f} s = {busy_us / 1e6 / wall * 100:.2f}% of it")
+    ms = max(st["micro_steps"] + iters, 1)
+    log(f"  relay profile, windows {first}-{first + n - 1}: {st}, {iters} "
+        f"TCP bulk iterations; wall {wall:.4f} s unprofiled (least of "
+        f"{len(walls)}), {wall / ms * 1e3:.3f} ms per iteration or "
+        f"micro-step; device busy {busy_us / 1e6:.4f} s = "
+        f"{busy_us / 1e6 / wall * 100:.2f}% of it")
     log(f"  relay profile: {launches} launches = {launches / n:.0f} per "
-        f"window, {launches / ms:.0f} per micro-step; {syncs} "
-        f"cudaStreamSynchronize = {syncs / ms:.1f} per micro-step")
+        f"window, {launches / ms:.0f} per iteration or micro-step; {syncs} "
+        f"cudaStreamSynchronize = {syncs / ms:.2f} per iteration or "
+        f"micro-step")
     by_name: dict[str, list[float]] = {}
     for e in events:
         if e.device_type == DeviceType.CUDA:
@@ -916,24 +1138,51 @@ def main(argv=None) -> int:
     compare_cuda_cpu("bulk + ring", 64, 4, 1.0, bulk=True, ring=True)
     compare_cuda_cpu("sparse", 64, 2, 1.0, sparse_lanes=16, active_hosts=4)
     t0 = time.perf_counter()
-    compare_relay_cuda_cpu("relay 2x5 hops + ring", 10, 5, 30_000, 3.0)
-    compare_relay_cuda_cpu("relay 2x2 hops 1% loss", 4, 2, 50_000, 4.0,
+    compare_relay_cuda_cpu("relay 2x5 hops + ring", 10, 5, 15_000, 3.0)
+    compare_relay_cuda_cpu("relay 2x2 hops 1% loss", 4, 2, 25_000, 4.0,
                            loss=0.01, ring=False)
-    log(f"  the two relay configs took {time.perf_counter() - t0:.1f} s")
+    compare_relay_cuda_cpu("relay 2x5 hops + ring, TCP bulk", 10, 5,
+                           30_000, 3.0, tcp_bulk=True)
+    compare_relay_cuda_cpu("relay 2x2 hops 1% loss, TCP bulk lossless", 4,
+                           2, 25_000, 4.0, loss=0.01, tcp_bulk=True,
+                           lossless=True)
+    log(f"  the four relay configs took {time.perf_counter() - t0:.1f} s")
 
-    log(f"[6] TCP relay: {HOSTS} hosts, {HOSTS // RELAY_HOP} circuits x "
-        f"{RELAY_HOP} hops, {RELAY_BYTES} bytes, {RELAY_SIM_S} sim-s, "
-        f"sparse default, ring")
-    relay_launches = run_relay(device)
-    row["launches_relay"] = relay_launches["mailbox_gather"]
+    log(f"[6] TCP relay as tools/scale_run.py runs it: {HOSTS} hosts, "
+        f"{HOSTS // RELAY_HOP} circuits x {RELAY_HOP} hops, {RELAY_BYTES} "
+        f"bytes, {RELAY_SIM_S} sim-s, TCP bulk pass, sparse default, ring")
+    relay = relay_cell("relay", device, RELAY_HOP, RELAY_BYTES, RELAY_SIM_S,
+                       keep=RELAY_KEEP_WINDOW)
+    row["launches_relay"] = relay[2]["mailbox_gather"]
     if args.profile:
         log("[6p] relay profile")
         profile_relay(device)
 
+    log("[6s] the same cell serial (scale_run's --no-bulk)")
+    serial = relay_cell("relay serial", device, RELAY_HOP, RELAY_BYTES,
+                        RELAY_SIM_S, tcp_bulk=False)
+    row["launches_relay_serial"] = serial[2]["mailbox_gather"]
+    assert_contract("relay 6 vs 6s", relay[:2], serial[:2])
+    del relay, serial
+
     log(f"[6a] lossy relay: {HOSTS // LOSSY_HOP} circuits x {LOSSY_HOP} "
         f"hops, {LOSSY_BYTES} bytes, {LOSSY_LOSS:.0%} loss, "
-        f"{LOSSY_SIM_S} sim-s")
-    run_relay_lossy(device)
+        f"{LOSSY_SIM_S} sim-s, TCP bulk pass")
+    lossy = relay_cell("lossy relay", device, LOSSY_HOP, LOSSY_BYTES,
+                       LOSSY_SIM_S, loss=LOSSY_LOSS, keep=LOSSY_KEEP_WINDOW,
+                       profile_call=False)
+    row["launches_relay_lossy"] = lossy[2]["mailbox_gather"]
+    got = {"events_processed": lossy[1]["events_processed"],
+           "windows": lossy[1]["windows"], "retx_segs": lossy[3],
+           "fr_entries": lossy[4]}
+    if got != LOSSY_EXPECT:
+        raise AssertionError(f"lossy relay: {got} != {LOSSY_EXPECT}")
+    log(f"  lossy relay: counters as the serial path gives them: {got}")
+    log("[6as] the lossy cell serial")
+    lossy_serial = relay_cell("lossy relay serial", device, LOSSY_HOP,
+                              LOSSY_BYTES, LOSSY_SIM_S, loss=LOSSY_LOSS,
+                              tcp_bulk=False)
+    assert_contract("lossy relay 6a vs 6as", lossy[:2], lossy_serial[:2])
 
     log("  done")
     print(smi)

@@ -1,6 +1,7 @@
 """Tor-relay-shaped application model (PyTorch port of
-shadow_tpu/apps/relay.py: the serial form, setup and handler;
-BASELINE.json config #3, "10k-host Tor").
+shadow_tpu/apps/relay.py: setup, handler, and RelayTcpBulk / TCP_BULK
+for the TCP bulk window pass; BASELINE.json config #3, "10k-host
+Tor").
 
 Fixed circuits of TCP hops (client -> relays -> server) where every
 relay stream-forwards bytes between an upstream and a downstream TCP
@@ -169,3 +170,74 @@ def handler(cfg: NetConfig, sim, popped, buf):
     # ... and closes its upstream side
     sim = sim.replace(app=app)
     return tcp.tcp_close(cfg, sim, relay_fin, app.up_conn, now, buf)
+
+
+class RelayTcpBulk:
+    """TCP bulk-pass contract (net/tcp_bulk.TcpAppBulk) for the relay
+    model: in the steady state every delivery is read in full from
+    up_conn and (for relays) immediately forwarded downstream — the
+    per-micro-step behavior of handler() above, minus the
+    accept/feed/close phases, which precheck routes to the serial
+    path."""
+
+    def precheck(self, cfg, sim):
+        app = sim.app
+        client = app.role == ROLE_CLIENT
+        relay = app.role == ROLE_RELAY
+        listener = app.lsock >= 0
+        ok = torch.where(listener, app.up_conn >= 0, True)
+        # clients must be past the feed + close calls (pure draining)
+        ok = ok & torch.where(client, (app.to_send == 0) & app.closed_down,
+                              True)
+        ok = ok & (app.fwd_pending == 0)
+        ok = ok & torch.where(relay | client, app.connected, True)
+        # past-EOF hosts are fine once their close calls were issued:
+        # relays must have propagated (closed_down); servers must have
+        # taken up_conn out of the readable states (a closed or freed
+        # slot; pre-ESTABLISHED states cannot occur past EOF)
+        S = sim.tcp.st.shape[1]
+        up = app.up_conn.clamp(0, S - 1).to(I64)
+        up_st = sim.tcp.st[torch.arange(up.shape[0], device=up.device), up]
+        up_done = (up_st != tcp.TcpSt.ESTABLISHED) \
+            & (up_st != tcp.TcpSt.CLOSE_WAIT)
+        return ok & torch.where(
+            app.up_eof, torch.where(relay, app.closed_down, up_done), True)
+
+    def on_data(self, cfg, app, mask, slot, nread, now):
+        # the app only reads up_conn; data on any other socket is out
+        # of the model, as is a delivery larger than one CHUNK read
+        ok = ~mask | ((slot == app.up_conn) & (nread <= CHUNK))
+        m = mask & (slot == app.up_conn)
+        server = app.role == ROLE_SERVER
+        relay = app.role == ROLE_RELAY
+        app = app.replace(
+            rcvd=app.rcvd + torch.where(m & server, nread, 0).to(I64))
+        fwd_mask = m & relay
+        return app, ok, fwd_mask, app.down_sock, torch.where(
+            fwd_mask, nread, 0)
+
+    def on_eof(self, cfg, app, mask, slot, now):
+        """EOF on up_conn: the server closes it; a fully-forwarded
+        relay closes down_sock then up_conn (handler()'s relay_fin). A
+        FIN on any other socket needs no app action."""
+        m = mask & (slot == app.up_conn) & ~app.up_eof
+        server = m & (app.role == ROLE_SERVER)
+        relay = m & (app.role == ROLE_RELAY)
+        # a relay with unforwarded bytes would defer its closes to a
+        # later wake — out of model
+        ok = ~(relay & ((app.fwd_pending > 0) | ~app.connected
+                        | app.closed_down))
+        app = app.replace(
+            up_eof=app.up_eof | m,
+            done_at=torch.where(server & (app.done_at < 0), now,
+                                app.done_at),
+        )
+        c1_mask = server | relay
+        c1_slot = torch.where(server, app.up_conn, app.down_sock)
+        c2_mask = relay
+        c2_slot = app.up_conn
+        app = app.replace(closed_down=app.closed_down | relay)
+        return app, ok, c1_mask & ok, c1_slot, c2_mask & ok, c2_slot
+
+
+TCP_BULK = RelayTcpBulk()

@@ -35,6 +35,7 @@ from shadow_tpu_torch.net.state import (
     make_sim,
 )
 from shadow_tpu_torch.net.step import make_step_fn
+from shadow_tpu_torch.net.tcp_bulk import make_tcp_bulk_fn
 from shadow_tpu_torch.routing.dns import DNS
 from shadow_tpu_torch.routing.graphml import parse_graphml
 from shadow_tpu_torch.routing.topology import Topology
@@ -181,27 +182,43 @@ def build(cfg: NetConfig, graphml_text: str, hosts: Sequence[HostSpec],
     )
 
 
-def _resolve_bulk_fn(bundle: SimBundle, app_bulk):
-    """The reference's bulk-pass selection rule without its TCP bulk
-    pass (not ported): the app's bulk hooks when make_bulk_fn's static
-    preconditions hold, else no bulk pass — always none for a TCP
-    config, as in the reference."""
-    if app_bulk is None:
-        return None
-    return make_bulk_fn(bundle.cfg, app_bulk)
+def _resolve_bulk_fn(bundle: SimBundle, app_bulk, app_tcp_bulk=None,
+                     tcp_bulk_lossless: bool = False):
+    """The reference's bulk-pass selection rule: the UDP bulk pass
+    (net/bulk.py) wins when both are given and its static
+    preconditions hold, else the TCP bulk pass (net/tcp_bulk.py) when
+    `app_tcp_bulk` is given and the config supports it, else none.
+    `tcp_bulk_lossless` builds the narrow loss-free TCP pass
+    (bit-identical for any workload)."""
+    if app_bulk is not None:
+        fn = make_bulk_fn(bundle.cfg, app_bulk)
+        if fn is not None:
+            return fn
+    if app_tcp_bulk is not None:
+        return make_tcp_bulk_fn(bundle.cfg, app_tcp_bulk,
+                                lossless=tcp_bulk_lossless)
+    return None
 
 
 def make_runner(bundle: SimBundle, app_handlers=(),
-                end_time: int | None = None, app_bulk=None, device=None):
+                end_time: int | None = None, app_bulk=None,
+                app_tcp_bulk=None, tcp_bulk_lossless: bool = False,
+                device=None):
     """A sim -> (sim, stats) callable for the whole run on `device`
     (None -> "cuda"; raises when CUDA is missing or the bundle was
     built on another device).
 
     `app_bulk` (a net.bulk.AppBulk, e.g. apps.phold.BULK) turns on the
-    bulk window pass. The sparse fast path runs at the config's
-    resolved budget (core/engine.resolve_sparse_lanes), and a
-    telemetry ring attached to the input sim (telemetry.attach) records
-    every window."""
+    UDP bulk window pass; `app_tcp_bulk` (a net.tcp_bulk.TcpAppBulk,
+    e.g. apps.relay.TCP_BULK) the TCP bulk window pass, narrowed to
+    its loss-free model by `tcp_bulk_lossless`. The sparse fast path
+    runs at the config's resolved budget
+    (core/engine.resolve_sparse_lanes), and a telemetry ring attached
+    to the input sim (telemetry.attach) records every window.
+
+    The runner's `bulk_fn` attribute is its bulk pass (None without
+    one), read at each call: a caller may wrap it, e.g. to time the
+    pass."""
     dev = resolve_device(device)
     if bundle.device is not None and not same_device(bundle.device, dev):
         raise ValueError(f"bundle was built on {bundle.device}, runner "
@@ -209,7 +226,8 @@ def make_runner(bundle: SimBundle, app_handlers=(),
     check_supported(bundle.cfg)
     step = make_step_fn(bundle.cfg, app_handlers)
     end = end_time if end_time is not None else bundle.cfg.end_time
-    bulk_fn = _resolve_bulk_fn(bundle, app_bulk)
+    bulk_fn = _resolve_bulk_fn(bundle, app_bulk, app_tcp_bulk,
+                               tcp_bulk_lossless)
     telem_fn = make_telem_fn()
     sparse = resolve_sparse_lanes(bundle.cfg)
 
@@ -220,14 +238,18 @@ def make_runner(bundle: SimBundle, app_handlers=(),
         return engine_run(
             sim, step, end_time=end, min_jump=bundle.min_jump,
             emit_capacity=bundle.cfg.emit_capacity,
-            lane_id=sim.net.lane_id, bulk_fn=bulk_fn, telem_fn=telem_fn,
+            lane_id=sim.net.lane_id, bulk_fn=go.bulk_fn, telem_fn=telem_fn,
             sparse_lanes=sparse)
 
+    go.bulk_fn = bulk_fn
     return go
 
 
 def run(bundle: SimBundle, app_handlers=(), end_time: int | None = None,
-        app_bulk=None, device=None):
+        app_bulk=None, app_tcp_bulk=None, tcp_bulk_lossless: bool = False,
+        device=None):
     """Run the whole simulation; returns (sim, stats)."""
     return make_runner(bundle, app_handlers, end_time, app_bulk=app_bulk,
+                       app_tcp_bulk=app_tcp_bulk,
+                       tcp_bulk_lossless=tcp_bulk_lossless,
                        device=device)(bundle.sim)

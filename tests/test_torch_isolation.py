@@ -39,7 +39,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.telemetry.ring",
                 "shadow_tpu_torch.telemetry.harvest",
                 "shadow_tpu_torch.net.tcp", "shadow_tpu_torch.net.tcp_cong",
-                "shadow_tpu_torch.apps.relay"):
+                "shadow_tpu_torch.apps.relay",
+                "shadow_tpu_torch.net.tcp_bulk"):
         assert mod in out["modules"]
 
 
@@ -65,3 +66,16 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         make_runner(b)
     with pytest.raises(RuntimeError, match="CUDA"):
         run(b)
+
+
+def test_tcp_bulk_runner_needs_cuda_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behavior without a CUDA device")
+    from shadow_tpu_torch.apps.relay import TCP_BULK
+    from shadow_tpu_torch.net.build import make_runner, run
+
+    b = _tiny_build(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_runner(b, app_tcp_bulk=TCP_BULK)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run(b, app_tcp_bulk=TCP_BULK, tcp_bulk_lossless=True)
