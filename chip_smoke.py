@@ -12,10 +12,13 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a);
 3. each kernel against its plain PyTorch version on the card, exact
    int32 equality, at the main path's shape and at a ragged shape (and
-   mailbox_gather again at the TCP relay's width, P = 22), with
-   CUDA-event timings of the kernel, the plain version and one PyTorch
-   library call computing the same function (one event pair around
-   many calls that cycle through input sets larger than the L2);
+   mailbox_gather again at the TCP relay's width, P = 22, at the Tor
+   cell's widest route, 10,240 hosts x 256 columns, and at the gossip
+   cells' route shapes, 5,120 hosts x 24 and 64 columns at P = 11 and
+   22), with CUDA-event timings of the kernel, the plain version and
+   one PyTorch library call computing the same function (one event
+   pair around many calls that cycle through input sets larger than
+   the L2) at the main shape, the relay's and the Tor cell's;
 4. the main path at full width: bench.py's default PHOLD program —
    10,240 hosts, load 8, the one-vertex 50 ms topology, capacities 48
    and in_ring 16 as bench.py settles them, 5 simulated seconds, the
@@ -46,7 +49,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    disjoint 5-hop circuits, 100,000 bytes each, the one-vertex 50 ms
    topology, 4 sockets per host, capacities 64, PROC_START at 1 s, the
    default sparse budget and the ring, 4 simulated seconds, the TCP
-   bulk pass (relay.TCP_BULK) — checking every transfer complete, zero
+   bulk pass (relay.TCP_BULK) — checking every transfer complete, the
+   reference's counts (894,976 events, 22 windows, 6 micro-steps), zero
    overflow, hit + miss == windows, the ring's events and retx planes
    against EngineStats and tcp.retx_segs, and mailbox_gather launched;
    it prints the pass's iterations per window, its ms per iteration on
@@ -55,14 +59,50 @@ Phases, in order; any failure exits non-zero and prints no result:
    share of hosts that commit, the abort bits of those that stopped)
    and under torch.profiler (launches and cudaStreamSynchronize per
    iteration, device-busy share);
-   6s. the same cell serial (scale_run's --no-bulk), held against phase
-   6 under the reference's bulk-vs-serial contract
-   (tests/test_tcp_bulk.py) with fewer micro-steps in phase 6;
+   6s. the same cell serial (scale_run's --no-bulk), with the
+   reference's counts (281 micro-steps), held against phase 6 under the
+   reference's bulk-vs-serial contract (tests/test_tcp_bulk.py) with
+   fewer micro-steps with the pass;
    6a. the same shape lossy with the TCP bulk pass: 5,120 two-hop
    circuits, 50,000 bytes each, 1% loss on the self-edge, every
    transfer complete, and the serial path's counters (351,064 events,
    62 windows, 2,310 retransmitted segments, 1,421 fast-recovery
-   entries); 6as its serial twin, held against it under the contract.
+   entries); 6as the lossy cell serial and with the pass, both cut to
+   1.8 sim-s, held to each other under the contract;
+
+7. UDP gossip, BASELINE config #4, as tools/scale_run.py --workload
+   gossip --hosts 5120 --sim-seconds 5 builds it (K = 8 peers, 2
+   blocks, capacities 64, in_ring 32), plus the ring, at full width and
+   depth: every tip at the last block, the reference's counts (174,144
+   events, 17 windows, 199 micro-steps), zero overflow, hit + miss ==
+   windows, the ring against EngineStats, mailbox_gather launched
+   and equal to its plain version on the inputs the run's route gave
+   it;
+8. the shared-relay Tor model as tools/scale_run.py --workload tor
+   --hosts 10240 builds it (6,144 three-relay circuits drawn by
+   consensus weight, 8 slots, 18 sockets, out_ring 8, 100,000 bytes,
+   relay.MUX_TCP_BULK), with capacities 256 and emit_capacity 40 (see
+   TOR_CAP), plus the ring, cut to 1.25 sim-s: the reference's counts
+   for that end time (92,246 events, 6 windows, 41 micro-steps), the
+   checks of 7, the TCP bulk pass's iterations per window and a debug
+   replay of one window's call (commit share);
+9. CUDA against CPU inside the port at the reference tests' small
+   shapes: the Tor model at 10 hosts to 10 sim-s (serial and with the
+   TCP bulk pass, every stream complete, then held to each other under
+   the reference's contract), UDP gossip at 64 hosts and TCP gossip at
+   8 hosts (cut to 4 sim-s);
+10. TCP gossip as tools/scale_run.py --workload gossip
+   --gossip-transport tcp --hosts 5120 builds it (K = 8, 12 sockets,
+   out_ring 16), with emit_capacity 40, plus the ring, cut to 2
+   sim-s (the mesh handshakes): the reference's counts (67,323 events,
+   5 windows, 38 micro-steps) and the checks of 7.
+
+Phases 7, 8 and 10 each replay one window through the engine's own
+core.engine.step_window, from the state the run held at its start
+(micro-steps timed one by one through a step_fn shim, then the first
+again under torch.profiler: launches and cudaStreamSynchronize per
+micro-step). The last log line before the results gives each
+phase's seconds.
 
 `--profile` also profiles windows 0-2 of phase 4 and windows 10-12 of
 phase 6 with the TCP bulk pass.
@@ -113,6 +153,10 @@ RELAY_HOP = 5
 RELAY_BYTES = 100_000
 RELAY_CAP = 64
 RELAY_SIM_S = 4.0
+# The reference's counts for the relay cell (its CPU runs of the same
+# config at full width): with the TCP bulk pass, and serial.
+RELAY_EXPECT = {"events_processed": 894_976, "windows": 22, "micro_steps": 6}
+RELAY_SERIAL_EXPECT = dict(RELAY_EXPECT, micro_steps=281)
 # The lossy relay (phase 6a): two-hop circuits over a 1% loss self-edge.
 LOSSY_HOP = 2
 LOSSY_BYTES = 50_000
@@ -128,6 +172,81 @@ LOSSY_EXPECT = {"events_processed": 351_064, "windows": 62,
 # window 12.
 RELAY_KEEP_WINDOW = 9
 LOSSY_KEEP_WINDOW = 12
+# The lossy serial twin 6as runs to a cut depth, beside a run of its
+# cell with the TCP bulk pass to the same depth (the contract compares
+# like with like): at full depth it took 102 s of a 558-s run on an
+# NVIDIA H100 80GB HBM3 at 700 W. 1.8 sim-s holds 108 of the lossy
+# cell's 374 serial micro-steps (the first losses, retransmits and
+# recoveries); 6a's exact counters cover the rest.
+LOSSY_SERIAL_SIM_S = 1.8
+
+
+# Phase 7: UDP gossip, BASELINE config #4, as tools/scale_run.py
+# --workload gossip --hosts 5120 --sim-seconds 5 builds it: K = 8 peers,
+# a block every 2 s, max(2, (5 - 3) // 2 + 1) = 2 blocks, tcp=False,
+# in_ring 32, capacities 64 (scale_run's first and smallest; no
+# overflow), hosts started at 0; plus the telemetry ring.
+GOSSIP_HOSTS = 5_120
+GOSSIP_K = 8
+GOSSIP_BLOCKS = 2
+GOSSIP_CAP = 64
+GOSSIP_SIM_S = 5.0
+# The reference's counts for this config (its CPU run, seed 1).
+GOSSIP_EXPECT = {"events_processed": 174_144, "windows": 17,
+                 "micro_steps": 199}
+# The windows phases 7, 8 and 10 replay for launches and syncs per
+# micro-step (block 0's flood; a data window; a handshake window).
+GOSSIP_KEEP_WINDOW = 1
+TOR_KEEP_WINDOW = 4
+GTCP_KEEP_WINDOW = 1
+# Phase 8: the shared-relay Tor model as tools/scale_run.py --workload
+# tor --hosts 10240 builds it: 60% clients, 30% relays, 10% servers, one
+# 3-relay circuit per client drawn by consensus weight (seed 1), 8
+# slots, 18 sockets, out_ring 8, 100,000 bytes, PROC_START at 1 s, the
+# TCP bulk pass (relay.MUX_TCP_BULK); plus the ring. Two settings differ
+# from scale_run's defaults. emit_capacity is 40, not nic_drain + 6 =
+# 10: the PROC_START micro-step issues one tcp_connect per slot (8), so
+# the default buffer overflows in the reference itself (counted in
+# events.overflow), and scale_run's escalation raises only the queue
+# capacities, which cannot help. Capacities are 256: with emit_capacity
+# 40 the reference's 100-host run still overflows its queues at 128 and
+# runs clean at 256, as its 1,024-host run does (their CPU runs).
+TOR_HOSTS = 10_240
+TOR_SLOTS = 8
+TOR_HOPS = 3
+TOR_BYTES = 100_000
+TOR_CAP = 256
+TOR_EMIT = 40
+# Depth cut to 1.25 sim-s: the connect/accept windows and the first
+# data windows (a full-depth run is ~2,400 serial-heavy micro-steps).
+TOR_SIM_S = 1.25
+# The reference's counts for this config to that end time (its CPU run
+# at 10,240 hosts; no overflow of any kind).
+TOR_EXPECT = {"events_processed": 92_246, "windows": 6, "micro_steps": 41}
+# Phase 10: TCP gossip as tools/scale_run.py --workload gossip
+# --gossip-transport tcp --hosts 5120 --sim-seconds 5 builds it: K = 8,
+# 12 sockets, out_ring 16, PROC_START at 1 s, 2 blocks every 2 s from
+# 2 s; plus the ring. emit_capacity is 40 for the reason of phase 8 (the
+# connect burst is one tcp_connect per peer, 8); capacities 64,
+# scale_run's first and smallest, stay clean to this end time in the
+# reference.
+GTCP_HOSTS = 5_120
+GTCP_CAP = 64
+GTCP_EMIT = 40
+# Depth cut to 2 sim-s: the mesh handshakes (8 edges per host) and the
+# mining of block 0.
+GTCP_SIM_S = 2.0
+GTCP_EXPECT = {"events_processed": 67_323, "windows": 5, "micro_steps": 38}
+# Phase 9's small shapes: the reference tests' (tests/test_relay_mux.py,
+# tests/test_gossip_tcp.py). The mux runs at the test's full depth, 10
+# sim-s (the server's EOFs at 1.553 s; 211 serial micro-steps, 57 s on
+# the card); TCP gossip is cut from 12 to 4 sim-s so that it takes well
+# under a minute on the card (block 0 at every host, block 1 just
+# mined).
+MUX_SLOTS = 4
+MUX_BYTES = 20_000
+MUX_SIM_S = 10.0
+SMALL_GTCP_SIM_S = 4.0
 
 
 T0 = time.perf_counter()
@@ -320,16 +439,37 @@ def mailbox_bound(stream, start, Wn):
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
-def check_mailbox_gather(device, P, main_n):
+def assert_gather_equal(label, stream, start, Wn):
+    """mailbox_gather == mailbox_gather_ref on (stream, start), exact.
+    Returns the max abs error (0)."""
+    import torch
+
+    from shadow_tpu_torch.core.insert_kernels import (
+        mailbox_gather, mailbox_gather_ref)
+
+    got = mailbox_gather(stream, start, Wn)
+    want = mailbox_gather_ref(stream, start, Wn)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"mailbox_gather differs from its plain "
+                             f"version at {label} (max abs err {err})")
+    log(f"  mailbox_gather == plain at {label}: H={start.numel()} "
+        f"rows={stream.shape[0]} Wn={Wn} P={stream.shape[1]}: exact")
+    return err
+
+
+def check_mailbox_gather(device, P, main_n, H=HOSTS, also=()):
     """Phase 3: kernel == plain on the card, plus timings, at row width
     P (5 + the packet words: 11 for UDP's 6, 22 for TCP's 17) and
-    `main_n` stream rows at the main shape (10,240 hosts times the
-    outbox columns the route inserts: 24 on PHOLD's narrow tier, 64 for
-    the relay's capacity). `ms`, `plain_ms` and `library_ms` are cold:
-    the calls cycle through input sets that together hold twice the L2,
-    so every call reads its inputs from device memory, like the bound.
-    The warm time (one input set, resident in L2) is printed beside
-    them."""
+    `main_n` stream rows for H hosts (the hosts times the outbox
+    columns the route inserts: 24 on the narrow tier, else the outbox
+    capacity); `also` adds (H, n) shapes checked for equality only.
+    `ms`, `plain_ms` and `library_ms` are cold: the calls cycle through
+    input sets that together hold twice the L2 (one set when it alone
+    is larger), so every call reads its inputs from device memory, like
+    the bound. The warm time (one input set, resident in L2) is printed
+    beside them."""
     import torch
 
     from shadow_tpu_torch.core.events import INSERT_SWEEP
@@ -337,23 +477,16 @@ def check_mailbox_gather(device, P, main_n):
         mailbox_gather, mailbox_gather_ref)
 
     Wn = INSERT_SWEEP
-    shapes = {"main": (HOSTS, main_n, 0), "ragged": (1_001, 5_000, 77)}
+    shapes = [(H, main_n, 0), (1_001, 5_000, 77)]
+    shapes += [(h, n, 0) for h, n in also]
     err = 0
-    for label, (H, n, tail) in shapes.items():
-        stream, start = mailbox_inputs(H, n, Wn, P, seed=H, device=device,
+    for h, n, tail in shapes:
+        stream, start = mailbox_inputs(h, n, Wn, P, seed=h, device=device,
                                        empty_tail=tail)
-        got = mailbox_gather(stream, start, Wn)
-        want = mailbox_gather_ref(stream, start, Wn)
-        torch.cuda.synchronize()
-        err = max(err, int((got.long() - want.long()).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"mailbox_gather differs from its plain version at the "
-                f"{label} shape (max abs err {err})")
-        log(f"  mailbox_gather == plain at {label} shape H={H} n={n} "
-            f"Wn={Wn} P={P}: exact")
+        err = max(err, assert_gather_equal(
+            f"a {'ragged' if tail else 'full'} shape", stream, start, Wn))
 
-    H, n = shapes["main"][:2]
+    n = main_n
     n_sets = int(COLD_BYTES // ((n + Wn) * P * 4)) + 1
     sets = [mailbox_inputs(H, n, Wn, P, seed=100 + k, device=device)
             for k in range(n_sets)]
@@ -376,7 +509,7 @@ def check_mailbox_gather(device, P, main_n):
     bounds = [mailbox_bound(sm, st, Wn) for sm, st in sets]
     bound_ms = statistics.mean(b for b, _ in bounds)
     nbytes = statistics.mean(nb for _, nb in bounds)
-    log(f"  mailbox_gather main shape P={P} n={n}, {n_sets} input sets "
+    log(f"  mailbox_gather timed shape H={H} P={P} n={n}, {n_sets} input sets "
         f"cycled (cold): "
         f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, index_select "
         f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes:.0f} B); "
@@ -387,6 +520,36 @@ def check_mailbox_gather(device, P, main_n):
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": lib_ms}, warm_ms
+
+
+class KeepGatherInputs:
+    """While active, the route's mailbox_gather calls go through a
+    wrapper that keeps the inputs of the first call of each stream
+    shape, then calls the kernel's wrapper (whose launch count is the
+    one read). `check` then holds the kernel against its plain version
+    on those inputs: the real streams of the run's routed windows."""
+
+    def __enter__(self):
+        from shadow_tpu_torch.core import events
+
+        self.events, self.real, self.kept = events, events.mailbox_gather, {}
+        events.mailbox_gather = self.keep
+        return self
+
+    def keep(self, stream, start, Wn):
+        self.kept.setdefault(tuple(stream.shape), (stream, start, Wn))
+        return self.real(stream, start, Wn)
+
+    def __exit__(self, *exc):
+        self.events.mailbox_gather = self.real
+
+    def check(self, label):
+        """Returns the max abs error over the kept calls (0)."""
+        if not self.kept:
+            raise AssertionError(f"{label}: no routed window called "
+                                 f"mailbox_gather")
+        return max(assert_gather_equal(f"{label}'s route", s, st, Wn)
+                   for s, st, Wn in self.kept.values())
 
 
 def drive(label, b, runner, device):
@@ -517,7 +680,7 @@ def compare_order_forms(device):
                                          ProfilerActivity.CUDA]) as prof:
                     out = fn(sim, wend)
                     torch.cuda.synchronize()
-                events = prof.events()
+                events = raw_events(prof)
                 prof_call.append((host_launches(events),
                                   device_busy_us(events) / 1e3))
                 calls.append(None)
@@ -578,48 +741,41 @@ def compare_sparse_shape(device):
         f"leaves equal")
 
 
-def check_relay(label, cfg, sim, stats, circuits, total, launches):
+def check_relay(label, cfg, sim, stats, circuits, total, launches,
+                complete=True, expect=None):
     """The checks every relay run of the smoke holds: every transfer
-    complete, zero overflow (events.overflow also counts the emit
-    buffer's), the sparse census and the ring against EngineStats, and
-    mailbox_gather launched. Returns the retransmit and fast-recovery
-    totals."""
+    complete (unless the run's depth is cut: `complete` False), and
+    check_cell's with `expect`. Returns the retransmit and
+    fast-recovery totals."""
     import torch
 
-    from shadow_tpu_torch.core.engine import resolve_sparse_lanes
-
-    app, tcp, st = sim.app, sim.tcp, stats.as_dict()
-    armed = resolve_sparse_lanes(cfg) > 0
+    app, tcp = sim.app, sim.tcp
     servers = torch.as_tensor([c[-1] for c in circuits],
                               device=app.rcvd.device)
-    retx, fr = int(tcp.retx_segs.sum()), int(tcp.fr_entries.sum())
-    checks = {
+    done = {} if not complete else {
         "servers with rcvd == bytes": (
             int((app.rcvd[servers] == total).sum()), len(circuits)),
         "servers at EOF": (int(app.up_eof[servers].sum()), len(circuits)),
         "sum(to_send) + sum(fwd_pending)": (
             int(app.to_send.sum()) + int(app.fwd_pending.sum()), 0),
-        "events.overflow": (int(sim.events.overflow), 0),
-        "outbox.overflow": (int(sim.outbox.overflow), 0),
-        "rq_overflow": (int(sim.net.rq_overflow), 0),
-        "fastpath_hit + fastpath_miss == windows when armed": (
-            st["fastpath_hit"] + st["fastpath_miss"],
-            st["windows"] if armed else 0),
-        "ring count == windows": (int(sim.telem.count), st["windows"]),
-        "sum(ring.events) == events_processed": (
-            int(sim.telem.events.sum()), st["events_processed"]),
-        "sum(ring.retx) == sum(retx_segs)": (int(sim.telem.retx.sum()),
-                                             retx),
     }
-    for k, (got, want) in checks.items():
-        if got != want:
-            raise AssertionError(f"{label}: {k}: {got} != {want}")
-    if launches["mailbox_gather"] <= 0:
-        raise AssertionError(f"{label}: mailbox_gather was never launched")
-    log(f"  {label}: checks hold ({', '.join(checks)}); retx_segs {retx}, "
-        f"fr_entries {fr}, last server EOF at "
+    check_cell(label, cfg, sim, stats, launches, expect or {}, done)
+    retx, fr = int(tcp.retx_segs.sum()), int(tcp.fr_entries.sum())
+    log(f"  {label}: retx_segs {retx}, fr_entries {fr}, servers received "
+        f"{int(app.rcvd.sum())} bytes, last server EOF at "
         f"{int(app.done_at[servers].max()) / 1e9:.3f} sim-s")
     return retx, fr
+
+
+def log_micro_steps_by_time(label, ring):
+    """The ring's micro-steps per window, cumulated, against each
+    window's end (sim-s): where a run's micro-steps fall in simulated
+    time, which sets the cost of a cut depth."""
+    w = min(int(ring.count), ring.wend.shape[0])
+    ends = (ring.wend[:w].cpu() / 1e9).tolist()
+    cum = ring.micro_steps[:w].cpu().cumsum(0).tolist()
+    log(f"  {label}: cumulative micro-steps by window end (sim-s): "
+        + ", ".join(f"{e:.3f}:{c}" for e, c in zip(ends, cum)))
 
 
 class TimedBulk:
@@ -665,8 +821,9 @@ def why_bits(why, mask):
     return {b: c for b, c in enumerate(counts) if c}
 
 
-def replay_bulk_call(label, b, fn, kept, profile_call=True):
-    """One debug=True call of the TCP bulk pass on a kept mid-transfer
+def replay_bulk_call(label, b, fn, kept, profile_call=True, app_bulk=None):
+    """One debug=True call of the TCP bulk pass (with the app contract
+    `app_bulk`, relay.TCP_BULK when None) on a kept mid-transfer
     window: the share of hosts that commit and the abort-bit histogram
     of the eligible hosts that stopped. Then, with `profile_call`, the
     same call plain, once timed and once under torch.profiler: launches
@@ -680,7 +837,7 @@ def replay_bulk_call(label, b, fn, kept, profile_call=True):
     from shadow_tpu_torch.net.tcp_bulk import make_tcp_bulk_fn
 
     sim, wend = kept
-    dbg = make_tcp_bulk_fn(b.cfg, relay.TCP_BULK, debug=True)
+    dbg = make_tcp_bulk_fn(b.cfg, app_bulk or relay.TCP_BULK, debug=True)
     _, _, d = dbg(sim, wend)
     H = int(d["elig"].numel())
     elig, commit = int(d["elig"].sum()), int(d["commit"].sum())
@@ -706,7 +863,7 @@ def replay_bulk_call(label, b, fn, kept, profile_call=True):
                              ProfilerActivity.CUDA]) as prof:
         fn(sim, wend)
         torch.cuda.synchronize()
-    events = prof.events()
+    events = raw_events(prof)
     launches = host_launches(events)
     syncs = sum(1 for e in events if e.device_type == DeviceType.CPU
                 and e.name == "cudaStreamSynchronize")
@@ -724,13 +881,14 @@ def replay_bulk_call(label, b, fn, kept, profile_call=True):
 
 
 def relay_cell(label, device, hop, total, sim_s, loss=0.0, tcp_bulk=True,
-               keep=None, profile_call=True):
+               keep=None, profile_call=True, complete=True, expect=None):
     """One relay run at full width through the port's entry points
     (build -> relay.setup -> telemetry.attach -> make_runner), checked
-    by check_relay. With the TCP bulk pass, its per-call timings and
-    the replay of window `keep` are reported (the profiled replay only
-    with `profile_call`). Returns (leaves, stats dict, launches, retx,
-    fr)."""
+    by check_relay (every transfer complete unless `complete` is False,
+    for a cut depth; the reference's counts `expect`). With the TCP
+    bulk pass, its per-call timings and the replay of window `keep` are
+    reported (the profiled replay only with `profile_call`). Returns
+    (leaves, stats dict, launches, retx, fr)."""
     import torch
 
     from shadow_tpu_torch import convert
@@ -748,8 +906,9 @@ def relay_cell(label, device, hop, total, sim_s, loss=0.0, tcp_bulk=True,
         f"{time.perf_counter() - t0:.2f} s")
     sim, stats, wall, launches = drive(label, b, runner, device)
     retx, fr = check_relay(label, b.cfg, sim, stats, circuits, total,
-                           launches)
+                           launches, complete, expect)
     st = stats.as_dict()
+    log_micro_steps_by_time(label, sim.telem)
     if timed is not None:
         fn = timed.fn
         iters, dev_ms, host_ms = timed.per_iteration()
@@ -837,28 +996,66 @@ def assert_contract(label, a, b):
         f"serial")
 
 
-def compare_relay_cuda_cpu(label, hosts, hop, total, sim_s, loss=0.0,
-                           ring=True, tcp_bulk=False, lossless=False):
-    """Phase 5, TCP: the relay on CUDA equals the relay on the CPU, leaf
-    by leaf (tolerance zero), and completes."""
+def compare_bundles_cuda_cpu(label, make):
+    """Phases 5 and 9: `make(device) -> (bundle, runner)` run on CUDA and
+    on the CPU inside the port: equal EngineStats and every leaf equal
+    (tolerance zero). Returns the CPU (stats, sim)."""
     out = {}
     for dev in ("cuda", "cpu"):
-        b, circuits = build_relay(hosts, hop, total, sim_s, seed=6,
-                                  device=dev, loss=loss, ring=ring)
+        b, runner = make(dev)
         t0 = time.perf_counter()
-        sim, stats = relay_runner(b, dev, tcp_bulk=tcp_bulk,
-                                  lossless=lossless)(b.sim)
+        sim, stats = runner(b.sim)
         out[dev] = (stats, sim)
         log(f"  {label} {dev}: {stats.as_dict()} in "
             f"{time.perf_counter() - t0:.2f} s")
     n = assert_same_run(label, out["cuda"], out["cpu"])
-    sim = out["cpu"][1]
-    done = int((sim.app.rcvd[[c[-1] for c in circuits]] == total).sum())
-    if done != len(circuits):
-        raise AssertionError(f"{label}: {done} of {len(circuits)} transfers "
-                             f"complete")
-    log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves equal; "
-        f"retx_segs {int(sim.tcp.retx_segs.sum())}")
+    log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves equal")
+    return out["cpu"]
+
+
+def compare_relay_cuda_cpu(label, hosts, hop, total, sim_s, loss=0.0,
+                           ring=True, tcp_bulk=False, lossless=False):
+    """Phase 5, TCP: the relay on CUDA equals the relay on the CPU, leaf
+    by leaf (tolerance zero), and completes."""
+    from shadow_tpu_torch.apps.relay import ROLE_SERVER
+
+    def make(dev):
+        b, _ = build_relay(hosts, hop, total, sim_s, seed=6, device=dev,
+                           loss=loss, ring=ring)
+        return b, relay_runner(b, dev, tcp_bulk=tcp_bulk, lossless=lossless)
+
+    _, sim = compare_bundles_cuda_cpu(label, make)
+    servers = sim.app.role == ROLE_SERVER
+    done = int((sim.app.rcvd[servers] == total).sum())
+    if done != int(servers.sum()):
+        raise AssertionError(f"{label}: {done} of {int(servers.sum())} "
+                             f"transfers complete")
+    log(f"  {label}: every transfer complete; retx_segs "
+        f"{int(sim.tcp.retx_segs.sum())}")
+
+
+class _Span:
+    __slots__ = ("start", "end")
+
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+
+class _Event:
+    """One profiler record with the fields the smoke reads (name,
+    device_type, time_range in µs), as FunctionEvent has them."""
+    __slots__ = ("name", "device_type", "time_range")
+
+    def __init__(self, e):
+        self.name, self.device_type = e.name(), e.device_type()
+        self.time_range = _Span(e.start_ns() / 1e3, e.end_ns() / 1e3)
+
+
+def raw_events(prof):
+    """The records of a finished torch.profiler run, read straight from
+    its Kineto results: prof.events() builds a FunctionEvent tree first,
+    which costs ~0.5 ms per kernel launch recorded."""
+    return [_Event(e) for e in prof.profiler.kineto_results.events()]
 
 
 def device_busy_us(events):
@@ -931,7 +1128,7 @@ def profile_windows(device, gather_ms):
         if pstats.as_dict() != stats.as_dict():
             raise AssertionError("profiled run differs from the unprofiled "
                                  "one")
-        return stats.as_dict(), min(walls), prof.events()
+        return stats.as_dict(), min(walls), raw_events(prof)
 
     st, wall, events = measure(first_windows)
     busy_us = device_busy_us(events)
@@ -1029,7 +1226,7 @@ def profile_relay(device, first=10, n=3):
     st, pst = st.as_dict(), pst.as_dict()
     if st != pst:
         raise AssertionError("relay profile: profiled windows differ")
-    events = prof.events()
+    events = raw_events(prof)
     wall = min(walls)
     busy_us = device_busy_us(events)
     launches = host_launches(events)
@@ -1059,20 +1256,421 @@ def profile_relay(device, first=10, n=3):
 
 def compare_cuda_cpu(label, hosts, load, sim_s, bulk=False, ring=False,
                      sparse_lanes=0, active_hosts=None):
-    """Phase 5: the port on CUDA equals the port on the CPU, leaf by
-    leaf (tolerance zero)."""
-    out = {}
-    for dev in ("cuda", "cpu"):
+    """Phase 5: PHOLD on CUDA equals PHOLD on the CPU, leaf by leaf
+    (tolerance zero)."""
+    def make(dev):
         b = build_phold(hosts, load, sim_s, seed=5, device=dev,
                         sparse_lanes=sparse_lanes, active_hosts=active_hosts,
                         ring=ring)
+        return b, main_runner(b, dev, bulk=bulk)
+
+    compare_bundles_cuda_cpu(label, make)
+
+
+def build_gossip(H, sim_s, seed, device, tcp=False, cap=GOSSIP_CAP,
+                 emit_capacity=None, k=GOSSIP_K, blocks=GOSSIP_BLOCKS,
+                 sockets=12, ring=True):
+    """A gossip bundle through the port's entry points, as
+    tools/scale_run.py builds --workload gossip: UDP (gossip.setup,
+    in_ring 32, hosts started at 0) or, with `tcp`, over persistent TCP
+    peer links (gossip.setup_tcp, `sockets` per host, out_ring 16,
+    PROC_START at 1 s); a block every 2 s; telemetry.attach when
+    `ring`. The sparse budget is the default."""
+    from shadow_tpu_torch import telemetry
+    from shadow_tpu_torch.apps import gossip
+    from shadow_tpu_torch.core import simtime
+    from shadow_tpu_torch.net.build import HostSpec, build
+    from shadow_tpu_torch.net.state import NetConfig
+
+    kw = dict(num_hosts=H, seed=seed, end_time=int(sim_s * simtime.ONE_SECOND),
+              event_capacity=cap, outbox_capacity=cap, router_ring=cap)
+    interval = 2 * simtime.ONE_SECOND
+    if tcp:
+        cfg = NetConfig(sockets_per_host=sockets, out_ring=16,
+                        emit_capacity=emit_capacity, **kw)
+        hosts = [HostSpec(name=f"n{i}", proc_start_time=simtime.ONE_SECOND)
+                 for i in range(H)]
+        b = build(cfg, ONE_VERTEX, hosts, device=device)
+        b.sim = gossip.setup_tcp(b.sim, peers_per_host=k,
+                                 block_interval=interval, max_blocks=blocks)
+    else:
+        cfg = NetConfig(tcp=False, in_ring=32, **kw)
+        b = build(cfg, ONE_VERTEX, [HostSpec(name=f"n{i}") for i in range(H)],
+                  device=device)
+        b.sim = gossip.setup(b.sim, peers_per_host=k, block_interval=interval,
+                             max_blocks=blocks)
+    if ring:
+        b.sim = telemetry.attach(b.sim)
+    return b
+
+
+def gossip_runner(b, device, tcp=False, end_time=None):
+    from shadow_tpu_torch.apps import gossip
+    from shadow_tpu_torch.net.build import make_runner
+
+    return make_runner(b, app_handlers=(
+        gossip.tcp_handler if tcp else gossip.handler,), end_time=end_time,
+        device=device)
+
+
+def build_tor(H, sim_s, seed, device, ring=True):
+    """The shared-relay Tor bundle through the port's entry points, as
+    tools/scale_run.py builds --workload tor (with phase 8's capacities
+    and emit_capacity). Returns (bundle, chains)."""
+    import numpy as np
+
+    from shadow_tpu_torch import telemetry
+    from shadow_tpu_torch.apps import relay
+    from shadow_tpu_torch.core import simtime
+    from shadow_tpu_torch.net.build import HostSpec, build
+    from shadow_tpu_torch.net.state import NetConfig
+
+    rng = np.random.default_rng(seed)
+    n_cl, n_rl = int(H * 0.6), int(H * 0.3)
+    chains = relay.consensus_circuits(
+        rng, n_circuits=n_cl, clients=list(range(n_cl)),
+        relays=list(range(n_cl, n_cl + n_rl)),
+        servers=list(range(n_cl + n_rl, H)), hops=TOR_HOPS,
+        max_slots=TOR_SLOTS)
+    cfg = NetConfig(num_hosts=H, seed=seed,
+                    end_time=int(sim_s * simtime.ONE_SECOND),
+                    sockets_per_host=2 + 2 * TOR_SLOTS, event_capacity=TOR_CAP,
+                    outbox_capacity=TOR_CAP, router_ring=TOR_CAP, out_ring=8,
+                    emit_capacity=TOR_EMIT)
+    hosts = [HostSpec(name=f"n{i}", proc_start_time=simtime.ONE_SECOND)
+             for i in range(H)]
+    b = build(cfg, ONE_VERTEX, hosts, device=device)
+    b.sim = relay.setup_shared(b.sim, circuits=chains, total_bytes=TOR_BYTES,
+                               max_slots=TOR_SLOTS)
+    if ring:
+        b.sim = telemetry.attach(b.sim)
+    return b, chains
+
+
+def build_mux_small(device, sim_s, loss=0.0):
+    """The reference test's mux shape (tests/test_relay_mux.py): 10 hosts,
+    4 two-relay circuits over relays 6-8 to server 9 (consensus draw,
+    seed 5), MUX_SLOTS slots, 2 + 2*MUX_SLOTS sockets, capacities 64."""
+    import numpy as np
+
+    from shadow_tpu_torch.apps import relay
+    from shadow_tpu_torch.core import simtime
+    from shadow_tpu_torch.net.build import HostSpec, build
+    from shadow_tpu_torch.net.state import NetConfig
+
+    chains = relay.consensus_circuits(
+        np.random.default_rng(5), n_circuits=4, clients=list(range(6)),
+        relays=[6, 7, 8], servers=[9], hops=2, max_slots=MUX_SLOTS)
+    cfg = NetConfig(num_hosts=10, seed=1,
+                    end_time=int(sim_s * simtime.ONE_SECOND),
+                    sockets_per_host=2 + 2 * MUX_SLOTS, event_capacity=64,
+                    outbox_capacity=64, router_ring=64)
+    hosts = [HostSpec(name=f"n{i}", proc_start_time=simtime.ONE_SECOND)
+             for i in range(10)]
+    b = build(cfg, one_vertex(loss), hosts, device=device)
+    b.sim = relay.setup_shared(b.sim, circuits=chains, total_bytes=MUX_BYTES,
+                               max_slots=MUX_SLOTS)
+    return b, chains
+
+
+def mux_runner(b, device, tcp_bulk=True, end_time=None):
+    """The Tor model's runner as tools/scale_run.py makes it: the TCP
+    bulk pass on unless `tcp_bulk` is False (scale_run's --no-bulk)."""
+    from shadow_tpu_torch.apps import relay
+    from shadow_tpu_torch.net.build import make_runner
+
+    return make_runner(b, app_handlers=(relay.mux_handler,),
+                       app_tcp_bulk=relay.MUX_TCP_BULK if tcp_bulk else None,
+                       end_time=end_time, device=device)
+
+
+def state_at_window(runner_to, b, ring, k):
+    """(The state at the start of window k, its wend) for a replay: the
+    cell's runner, `runner_to(end_time)`, again from the boot state to
+    the end of window k-1, read from the first run's ring."""
+    wends = ring.wend[:k + 1].tolist()
+    sim, _ = runner_to(wends[k - 1] - 1)(b.sim)
+    return sim, wends[k]
+
+
+class StepShim:
+    """The step_fn of a replayed window: the host clock at every
+    micro-step's handler call (the engine's host read of the popped
+    summary comes just before it, so each mark follows a drained
+    stream), and, with `prof`, torch.profiler running from the first
+    call to the second: one whole micro-step."""
+
+    def __init__(self, step, prof=None):
+        self.step, self.prof, self.marks = step, prof, []
+
+    def __call__(self, sim, popped, buf, kinds=None):
+        self.marks.append(time.perf_counter())
+        if self.prof is not None and len(self.marks) == 1:
+            self.prof.start()
+        elif self.prof is not None and len(self.marks) == 2:
+            self.prof.stop()
+        return self.step(sim, popped, buf, kinds=kinds)
+
+
+def replay_window(label, b, handler, kept, app_tcp_bulk=None):
+    """Window `kept` = (the state at its start, wend) again, from copies
+    of that state, through core.engine.step_window as the engine drives
+    it (the TCP bulk pass with `app_tcp_bulk`, the sparse fast path at
+    the config's budget, the fixpoint, the route) with a StepShim as its
+    step_fn: each micro-step's wall from one handler call to the next
+    (the last one's includes the route). Then again with the profiler
+    over its first micro-step: launches and cudaStreamSynchronize
+    calls, and the device-busy share (union of the profiled device
+    intervals over that micro-step's unprofiled wall)."""
+    import copy
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shadow_tpu_torch.core.engine import (
+        EngineStats, resolve_sparse_lanes, step_window)
+    from shadow_tpu_torch.net.step import make_step_fn
+    from shadow_tpu_torch.net.tcp_bulk import make_tcp_bulk_fn
+
+    sim0, wend = kept
+    cfg = b.cfg
+    step = make_step_fn(cfg, (handler,))
+    bulk = (make_tcp_bulk_fn(cfg, app_tcp_bulk) if app_tcp_bulk is not None
+            else None)
+
+    def window(shim):
+        sim = copy.deepcopy(sim0)
+        it0 = bulk.counters["iterations"] if bulk is not None else 0
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim, stats = main_runner(b, dev, bulk=bulk)(b.sim)
-        out[dev] = (stats, sim)
-        log(f"  {label} {dev}: {stats.as_dict()} in "
-            f"{time.perf_counter() - t0:.2f} s")
-    n = assert_same_run(label, out["cuda"], out["cpu"])
-    log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves equal")
+        _, stats, _ = step_window(
+            sim, EngineStats.create(device=sim.events.time.device), shim,
+            wend, cfg.emit_capacity, sim.net.lane_id, bulk_fn=bulk,
+            sparse_lanes=resolve_sparse_lanes(cfg))
+        torch.cuda.synchronize()
+        iters = (bulk.counters["iterations"] - it0 if bulk is not None
+                 else 0)
+        return t0, time.perf_counter(), stats.as_dict(), iters
+
+    timed = StepShim(step)
+    t0, end, st, iters = window(timed)
+    marks = timed.marks + [end]
+    walls = [(y - x) * 1e3 for x, y in zip(marks, marks[1:])]
+    if len(walls) < 2:
+        raise AssertionError(f"{label}: the replayed window ran "
+                             f"{len(walls)} micro-steps; pick a busier one")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window(StepShim(step, prof))
+    events = raw_events(prof)
+    launches = host_launches(events)
+    syncs = sum(1 for e in events if e.device_type == DeviceType.CPU
+                and e.name == "cudaStreamSynchronize")
+    busy_ms = device_busy_us(events) / 1e3
+    width = "compacted: fast path hit" if st["fastpath_hit"] else \
+        "at full width"
+    log(f"  {label}: window ending {wend / 1e9:.3f} sim-s replayed through "
+        f"core.engine.step_window ({width}): "
+        f"{iters} TCP bulk iterations and the first pop in "
+        f"{(timed.marks[0] - t0) * 1e3:.1f} ms, then {len(walls)} "
+        f"micro-steps of {', '.join(f'{w:.1f}' for w in walls)} ms (the "
+        f"last with the route; mean of the others "
+        f"{statistics.mean(walls[:-1]):.1f} ms); its first micro-step "
+        f"profiled: {launches} launches, {syncs} cudaStreamSynchronize, "
+        f"device busy {busy_ms:.2f} ms = {busy_ms / walls[0] * 100:.2f}% of "
+        f"its {walls[0]:.1f} ms")
+
+
+def check_cell(label, cfg, sim, stats, launches, expect, extra=None):
+    """The checks the relay cells and phases 7, 8 and 10 hold: `expect`
+    (the reference's counts for the config: events, windows,
+    micro-steps), `extra` ({name: (got, want)}), zero overflow of any
+    kind (events.overflow also counts the emit buffer's), the sparse
+    census and the ring against EngineStats, mailbox_gather launched."""
+    from shadow_tpu_torch.core.engine import resolve_sparse_lanes
+
+    st = stats.as_dict()
+    armed = resolve_sparse_lanes(cfg) > 0
+    checks = {k: (st[k], v) for k, v in expect.items()}
+    checks.update(extra or {})
+    checks.update({
+        "events.overflow": (int(sim.events.overflow), 0),
+        "outbox.overflow": (int(sim.outbox.overflow), 0),
+        "rq_overflow": (int(sim.net.rq_overflow), 0),
+        "fastpath_hit + fastpath_miss == windows when armed": (
+            st["fastpath_hit"] + st["fastpath_miss"],
+            st["windows"] if armed else 0),
+        "ring count == windows": (int(sim.telem.count), st["windows"]),
+        "sum(ring.events) == events_processed": (
+            int(sim.telem.events.sum()), st["events_processed"]),
+        "sum(ring.fastpath) == fastpath_hit": (
+            int(sim.telem.fastpath.sum()), st["fastpath_hit"]),
+    })
+    if sim.tcp is not None:
+        checks["sum(ring.retx) == sum(retx_segs)"] = (
+            int(sim.telem.retx.sum()), int(sim.tcp.retx_segs.sum()))
+    for k, (got, want) in checks.items():
+        if got != want:
+            raise AssertionError(f"{label}: {k}: {got} != {want}")
+    if launches["mailbox_gather"] <= 0:
+        raise AssertionError(f"{label}: mailbox_gather was never launched")
+    log(f"  {label}: checks hold ({', '.join(checks)})")
+
+
+def gossip_cell(device):
+    """Phase 7: UDP gossip at full width and full depth; mailbox_gather
+    held to its plain version on the run's route inputs, and window
+    GOSSIP_KEEP_WINDOW replayed. Returns (launches, max abs err)."""
+    import torch
+
+    t0 = time.perf_counter()
+    b = build_gossip(GOSSIP_HOSTS, GOSSIP_SIM_S, seed=1, device=device)
+    torch.cuda.synchronize()
+    log(f"  gossip: built {GOSSIP_HOSTS} hosts in "
+        f"{time.perf_counter() - t0:.2f} s")
+    runner = gossip_runner(b, device)
+    with KeepGatherInputs() as gathered:
+        sim, stats, _, launches = drive("gossip", b, runner, device)
+    check_cell("gossip", b.cfg, sim, stats, launches, GOSSIP_EXPECT)
+    err = gathered.check("gossip")
+    del gathered
+    at_last = sim.app.tip == GOSSIP_BLOCKS - 1
+    if not bool(at_last.all()):
+        raise AssertionError(f"gossip: {int(at_last.sum())} of "
+                             f"{GOSSIP_HOSTS} tips at the last block")
+    log(f"  gossip: every tip at block {GOSSIP_BLOCKS - 1}; dup_rx "
+        f"{int(sim.app.dup_rx.sum())}, relays {int(sim.app.relays.sum())}")
+    from shadow_tpu_torch.apps import gossip
+
+    kept = state_at_window(lambda end: gossip_runner(b, device, end_time=end),
+                           b, sim.telem, GOSSIP_KEEP_WINDOW)
+    replay_window("gossip", b, gossip.handler, kept)
+    return launches, err
+
+
+def tor_cell(device):
+    """Phase 8: the shared-relay Tor model at full width, cut depth,
+    with the TCP bulk pass; mailbox_gather held to its plain version on
+    the run's route inputs, the pass's iterations per window, and window
+    TOR_KEEP_WINDOW replayed (its pass call with debug=True, then the
+    whole window). Returns (launches, max abs err)."""
+    import torch
+
+    from shadow_tpu_torch.apps import relay
+
+    t0 = time.perf_counter()
+    b, chains = build_tor(TOR_HOSTS, TOR_SIM_S, seed=1, device=device)
+    runner = mux_runner(b, device)
+    timed = TimedBulk(runner.bulk_fn, TOR_KEEP_WINDOW)
+    runner.bulk_fn = timed
+    torch.cuda.synchronize()
+    log(f"  tor: built {TOR_HOSTS} hosts, {len(chains)} circuits, "
+        f"{int(b.sim.app.nslots.sum())} slots (at most "
+        f"{int(b.sim.app.nslots.max())} a host) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    with KeepGatherInputs() as gathered:
+        sim, stats, wall, launches = drive("tor", b, runner, device)
+    check_cell("tor", b.cfg, sim, stats, launches, TOR_EXPECT)
+    err = gathered.check("tor")
+    del gathered
+    app, st = sim.app, stats.as_dict()
+    live = app.s_role != relay.ROLE_NONE
+    log(f"  tor: {int((app.connected & live).sum())} of "
+        f"{int((app.down_sock >= 0).sum())} downstream connects issued, "
+        f"{int((app.up_conn >= 0).sum())} upstream children matched, "
+        f"servers received {int(app.rcvd.sum())} bytes by "
+        f"{TOR_SIM_S} sim-s; retx_segs {int(sim.tcp.retx_segs.sum())}")
+    fn = timed.fn
+    iters, dev_ms, host_ms = timed.per_iteration()
+    serial_ms = (wall * 1e3 - sum(a.elapsed_time(z) for a, z, _, _
+                                  in timed.calls)) / max(st["micro_steps"], 1)
+    log(f"  tor: TCP bulk pass {fn.counters}: {iters / st['windows']:.3f} "
+        f"iterations per window, {st['micro_steps'] / st['windows']:.3f} "
+        f"micro-steps per window left; {dev_ms:.3f} ms per iteration on "
+        f"the device clock, {host_ms:.3f} ms on the host clock; the rest "
+        f"of the wall {serial_ms:.1f} ms per micro-step")
+    replay_bulk_call("tor", b, fn, timed.kept, profile_call=False,
+                     app_bulk=relay.MUX_TCP_BULK)
+    replay_window("tor", b, relay.mux_handler, timed.kept,
+                  app_tcp_bulk=relay.MUX_TCP_BULK)
+    return launches, err
+
+
+def gossip_tcp_cell(device):
+    """Phase 10: TCP gossip at full width, cut depth; as phase 7.
+    Returns (launches, max abs err)."""
+    import torch
+
+    t0 = time.perf_counter()
+    b = build_gossip(GTCP_HOSTS, GTCP_SIM_S, seed=1, device=device, tcp=True,
+                     cap=GTCP_CAP, emit_capacity=GTCP_EMIT)
+    torch.cuda.synchronize()
+    log(f"  gossip tcp: built {GTCP_HOSTS} hosts, "
+        f"{int((b.sim.app.conn >= 0).sum())} connecting edges in "
+        f"{time.perf_counter() - t0:.2f} s")
+    runner = gossip_runner(b, device, tcp=True)
+    with KeepGatherInputs() as gathered:
+        sim, stats, _, launches = drive("gossip tcp", b, runner, device)
+    check_cell("gossip tcp", b.cfg, sim, stats, launches, GTCP_EXPECT)
+    err = gathered.check("gossip tcp")
+    del gathered
+    app = sim.app
+    log(f"  gossip tcp: {int(app.est.sum())} edge ends usable, "
+        f"{int((app.conn >= 0).sum())} edge sockets, blocks mined "
+        f"{int(app.blocks_mined.sum())}, relays {int(app.relays.sum())}")
+    from shadow_tpu_torch.apps import gossip
+
+    kept = state_at_window(
+        lambda end: gossip_runner(b, device, tcp=True, end_time=end), b,
+        sim.telem, GTCP_KEEP_WINDOW)
+    replay_window("gossip tcp", b, gossip.tcp_handler, kept)
+    return launches, err
+
+
+def compare_new_apps_cuda_cpu():
+    """Phase 9: the reference tests' small shapes of the Tor model
+    (serial and with the TCP bulk pass, then held to each other under
+    the reference's contract) and of UDP and TCP gossip."""
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.apps import relay
+
+    runs = {}
+    for bulk in (False, True):
+        label = f"mux 10 hosts {'TCP bulk' if bulk else 'serial'}"
+
+        def make(dev, bulk=bulk):
+            b, _ = build_mux_small(dev, MUX_SIM_S)
+            return b, mux_runner(b, dev, tcp_bulk=bulk)
+
+        stats, sim = compare_bundles_cuda_cpu(label, make)
+        live = sim.app.s_role == relay.ROLE_SERVER
+        streams = sim.app.rcvd[live].tolist()
+        if streams != [MUX_BYTES] * 4 or not bool(
+                (sim.app.done_at[live] >= 0).all()):
+            raise AssertionError(f"{label}: server streams {streams}, EOF "
+                                 f"at {sim.app.done_at[live].tolist()}")
+        log(f"  {label}: the server's 4 streams complete, EOF at "
+            f"{sim.app.done_at[live].tolist()} ns")
+        runs[bulk] = (convert.sim_to_numpy(sim), stats.as_dict())
+    assert_contract("mux bulk vs serial", runs[True], runs[False])
+
+    def make_udp(dev):
+        b = build_gossip(64, 5.0, seed=1, device=dev)
+        return b, gossip_runner(b, dev)
+
+    _, sim = compare_bundles_cuda_cpu("gossip 64 hosts", make_udp)
+    if not bool((sim.app.tip == GOSSIP_BLOCKS - 1).all()):
+        raise AssertionError("gossip 64 hosts: a tip short of the last block")
+
+    def make_tcp(dev):
+        b = build_gossip(8, SMALL_GTCP_SIM_S, seed=3, device=dev, tcp=True,
+                         k=3, blocks=3, sockets=10, ring=False)
+        return b, gossip_runner(b, dev, tcp=True)
+
+    _, sim = compare_bundles_cuda_cpu("gossip tcp 8 hosts", make_tcp)
+    if not bool((sim.app.tip >= 0).all()):
+        raise AssertionError("gossip tcp 8 hosts: block 0 did not reach "
+                             "every host")
 
 
 def main(argv=None) -> int:
@@ -1088,6 +1686,16 @@ def main(argv=None) -> int:
         return 2
     from shadow_tpu_torch.core import insert_kernels
 
+    phase_s = {}
+    mark = {"name": None, "t": time.perf_counter()}
+
+    def phase(name):
+        now = time.perf_counter()
+        if mark["name"] is not None:
+            phase_s[mark["name"]] = round(now - mark["t"], 1)
+        mark.update(name=name, t=now)
+
+    phase("1-3")
     log("[1] device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1107,32 +1715,47 @@ def main(argv=None) -> int:
 
     log("[3] kernels against their plain versions")
     device = torch.device("cuda", 0)
-    row, warm_ms = check_mailbox_gather(device, P=11, main_n=HOSTS * 24)
-    tcp_row, _ = check_mailbox_gather(device, P=22,
-                                      main_n=HOSTS * RELAY_CAP)
-    row["max_abs_err"] = max(row["max_abs_err"], tcp_row["max_abs_err"])
-    row["p22"] = {k: tcp_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "library_ms")}
+    # the gossip cells' route shapes (narrow tier and full outbox)
+    gossip_n = [(GOSSIP_HOSTS, GOSSIP_HOSTS * 24),
+                (GOSSIP_HOSTS, GOSSIP_HOSTS * GOSSIP_CAP)]
+    row, warm_ms = check_mailbox_gather(device, P=11, main_n=HOSTS * 24,
+                                        also=gossip_n)
+    tcp_row, _ = check_mailbox_gather(
+        device, P=22, main_n=HOSTS * RELAY_CAP,
+        also=gossip_n + [(TOR_HOSTS, TOR_HOSTS * 24)])
+    tor_row, _ = check_mailbox_gather(device, P=22, H=TOR_HOSTS,
+                                      main_n=TOR_HOSTS * TOR_CAP)
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    row["max_abs_err"] = max(row["max_abs_err"], tcp_row["max_abs_err"],
+                             tor_row["max_abs_err"])
+    row["p22"] = {k: tcp_row[k] for k in keys}
+    row["p22_tor"] = {k: tor_row[k] for k in keys}
 
+    phase("4")
     log(f"[4] main path: bench.py's default PHOLD, {HOSTS} hosts load "
         f"{LOAD} {SIM_S} sim-s, bulk pass, sparse default, ring")
     launches = run_main_path(device)
     row["launches"] = launches["mailbox_gather"]
 
     if args.profile:
+        phase("4p")
         log("[4p] profile")
         profile_windows(device, (row["ms"], warm_ms))
 
+    phase("4a")
     log("[4a] the serial path: no bulk, sparse_lanes=0, no ring, "
         "1 sim-s")
     run_serial_path(device)
 
+    phase("4b")
     log("[4b] bulk pass: cube and sort order forms, 1 sim-s")
     compare_order_forms(device)
 
+    phase("4c")
     log("[4c] sparse shape: 64 of 10,240 hosts active, 1 sim-s")
     compare_sparse_shape(device)
 
+    phase("5")
     log("[5] CUDA against CPU inside the port")
     compare_cuda_cpu("serial", 64, 4, 1.0)
     compare_cuda_cpu("bulk + ring", 64, 4, 1.0, bulk=True, ring=True)
@@ -1148,23 +1771,28 @@ def main(argv=None) -> int:
                            lossless=True)
     log(f"  the four relay configs took {time.perf_counter() - t0:.1f} s")
 
+    phase("6")
     log(f"[6] TCP relay as tools/scale_run.py runs it: {HOSTS} hosts, "
         f"{HOSTS // RELAY_HOP} circuits x {RELAY_HOP} hops, {RELAY_BYTES} "
         f"bytes, {RELAY_SIM_S} sim-s, TCP bulk pass, sparse default, ring")
     relay = relay_cell("relay", device, RELAY_HOP, RELAY_BYTES, RELAY_SIM_S,
-                       keep=RELAY_KEEP_WINDOW)
+                       keep=RELAY_KEEP_WINDOW, expect=RELAY_EXPECT)
     row["launches_relay"] = relay[2]["mailbox_gather"]
     if args.profile:
+        phase("6p")
         log("[6p] relay profile")
         profile_relay(device)
 
+    phase("6s")
     log("[6s] the same cell serial (scale_run's --no-bulk)")
     serial = relay_cell("relay serial", device, RELAY_HOP, RELAY_BYTES,
-                        RELAY_SIM_S, tcp_bulk=False)
+                        RELAY_SIM_S, tcp_bulk=False,
+                        expect=RELAY_SERIAL_EXPECT)
     row["launches_relay_serial"] = serial[2]["mailbox_gather"]
     assert_contract("relay 6 vs 6s", relay[:2], serial[:2])
     del relay, serial
 
+    phase("6a")
     log(f"[6a] lossy relay: {HOSTS // LOSSY_HOP} circuits x {LOSSY_HOP} "
         f"hops, {LOSSY_BYTES} bytes, {LOSSY_LOSS:.0%} loss, "
         f"{LOSSY_SIM_S} sim-s, TCP bulk pass")
@@ -1178,13 +1806,54 @@ def main(argv=None) -> int:
     if got != LOSSY_EXPECT:
         raise AssertionError(f"lossy relay: {got} != {LOSSY_EXPECT}")
     log(f"  lossy relay: counters as the serial path gives them: {got}")
-    log("[6as] the lossy cell serial")
-    lossy_serial = relay_cell("lossy relay serial", device, LOSSY_HOP,
-                              LOSSY_BYTES, LOSSY_SIM_S, loss=LOSSY_LOSS,
-                              tcp_bulk=False)
-    assert_contract("lossy relay 6a vs 6as", lossy[:2], lossy_serial[:2])
+    del lossy
+    phase("6as")
+    log(f"[6as] the lossy cell serial and with the TCP bulk pass, both cut "
+        f"to {LOSSY_SERIAL_SIM_S} sim-s")
+    twin = relay_cell("lossy relay to the serial depth", device, LOSSY_HOP,
+                      LOSSY_BYTES, LOSSY_SERIAL_SIM_S, loss=LOSSY_LOSS,
+                      complete=False)
+    serial = relay_cell("lossy relay serial", device, LOSSY_HOP,
+                        LOSSY_BYTES, LOSSY_SERIAL_SIM_S, loss=LOSSY_LOSS,
+                        tcp_bulk=False, complete=False)
+    if serial[3] <= 0:
+        raise AssertionError("lossy relay serial: no segment was "
+                             "retransmitted by the cut depth")
+    assert_contract("lossy relay 6as twins", twin[:2], serial[:2])
+    del twin, serial
 
-    log("  done")
+    phase("7")
+    log(f"[7] UDP gossip as tools/scale_run.py runs it: {GOSSIP_HOSTS} "
+        f"hosts, K = {GOSSIP_K}, {GOSSIP_BLOCKS} blocks, {GOSSIP_SIM_S} "
+        f"sim-s, sparse default, ring")
+    launches, err = gossip_cell(device)
+    row["launches_gossip"] = launches["mailbox_gather"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    phase("8")
+    log(f"[8] the shared-relay Tor model as tools/scale_run.py runs it: "
+        f"{TOR_HOSTS} hosts, {TOR_SLOTS} slots, {TOR_HOPS} relays a "
+        f"circuit, cut to {TOR_SIM_S} sim-s, TCP bulk pass, sparse "
+        f"default, ring")
+    launches, err = tor_cell(device)
+    row["launches_tor"] = launches["mailbox_gather"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    phase("9")
+    log("[9] CUDA against CPU inside the port: the Tor model and gossip")
+    t0 = time.perf_counter()
+    compare_new_apps_cuda_cpu()
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    phase("10")
+    log(f"[10] TCP gossip: {GTCP_HOSTS} hosts, K = {GOSSIP_K}, cut to "
+        f"{GTCP_SIM_S} sim-s, sparse default, ring")
+    launches, err = gossip_tcp_cell(device)
+    row["launches_gossip_tcp"] = launches["mailbox_gather"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    phase(None)
+    log(f"  done; seconds per phase {json.dumps(phase_s)}")
     print(smi)
     print(json.dumps({"kernels": [row]}))
     print(json.dumps({"ok": True, "device": {

@@ -15,17 +15,21 @@ import dataclasses
 import numpy as np
 import torch
 
+from shadow_tpu_torch.apps.gossip import GossipApp, GossipTcpApp
 from shadow_tpu_torch.apps.phold import PholdApp
-from shadow_tpu_torch.apps.relay import RelayApp
+from shadow_tpu_torch.apps.relay import RelayApp, RelayMuxApp
 from shadow_tpu_torch.core.events import EventQueue, Outbox
 from shadow_tpu_torch.net.state import U32_FIELDS, NetState, Sim
 from shadow_tpu_torch.net.tcp import TcpState
 from shadow_tpu_torch.telemetry.ring import TelemetryRing
 
 # The container classes each Sim field the port knows how to build may
-# hold; the one whose field names match the leaves is taken.
+# hold; the one whose field names match the leaves is taken (no two
+# classes of one field accept the same set of leaves).
 _SIM_FIELDS = {"events": (EventQueue,), "outbox": (Outbox,),
-               "net": (NetState,), "app": (PholdApp, RelayApp),
+               "net": (NetState,),
+               "app": (PholdApp, RelayApp, RelayMuxApp, GossipApp,
+                       GossipTcpApp),
                "tcp": (TcpState,), "telem": (TelemetryRing,)}
 
 

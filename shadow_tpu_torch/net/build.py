@@ -9,7 +9,11 @@ latency, initialize the struct-of-arrays state on the requested device
 and seed PROC_START / PROC_STOP events (ref: process.c:1326-1360).
 
 Settings of NetConfig that the port does not implement yet raise
-NotImplementedError here (the list is in ROADMAP.md).
+NotImplementedError here (the list is in ROADMAP.md). The apps the
+port runs through these entry points: PHOLD (apps/phold.py, with its
+UDP bulk pass), the disjoint and the shared-relay Tor models
+(apps/relay.py, each with its TCP bulk pass) and UDP and TCP gossip
+(apps/gossip.py) — every workload of tools/scale_run.py.
 """
 
 from __future__ import annotations
@@ -88,7 +92,11 @@ class SimBundle:
 
 
 def check_supported(cfg: NetConfig) -> None:
-    """Raise NotImplementedError for settings off the port's path."""
+    """Raise NotImplementedError for settings off the port's path. Every
+    other NetConfig field is taken as the reference takes it, its
+    derived defaults included (emit_capacity = nic_drain + 6 with TCP,
+    e.g. 10; tools/scale_run.py's TCP shapes overflow it, counted in
+    events.overflow, in both packages alike)."""
     off = []
     if cfg.pcap:
         off.append("pcap=True")
@@ -210,7 +218,8 @@ def make_runner(bundle: SimBundle, app_handlers=(),
 
     `app_bulk` (a net.bulk.AppBulk, e.g. apps.phold.BULK) turns on the
     UDP bulk window pass; `app_tcp_bulk` (a net.tcp_bulk.TcpAppBulk,
-    e.g. apps.relay.TCP_BULK) the TCP bulk window pass, narrowed to
+    e.g. apps.relay.TCP_BULK or apps.relay.MUX_TCP_BULK) the TCP bulk
+    window pass, narrowed to
     its loss-free model by `tcp_bulk_lossless`. The sparse fast path
     runs at the config's resolved budget
     (core/engine.resolve_sparse_lanes), and a telemetry ring attached

@@ -24,6 +24,15 @@ def set_hs(arr, mask, slot, value):
     return _put(arr, _onehot(mask, slot, arr.shape[1]), value)
 
 
+def set_col(arr, c: int, value):
+    """arr[H,C] with column c replaced by `value` (cast to arr's dtype),
+    as a new tensor: the reference's .at[:, c].set(value). The old
+    tensor is left as it was (state is never written in place)."""
+    out = arr.clone()
+    out[:, c] = value.to(arr.dtype)
+    return out
+
+
 def set_ring(arr, mask, slot, pos, value):
     """arr[H,S,B] (or [H,S,B,W] with value [H,W]) masked write at
     (lane, slot, pos) via one-hot select."""

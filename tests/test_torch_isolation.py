@@ -40,8 +40,31 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.telemetry.harvest",
                 "shadow_tpu_torch.net.tcp", "shadow_tpu_torch.net.tcp_cong",
                 "shadow_tpu_torch.apps.relay",
+                "shadow_tpu_torch.apps.gossip",
                 "shadow_tpu_torch.net.tcp_bulk"):
         assert mod in out["modules"]
+
+
+def test_each_app_state_crosses_into_its_own_class():
+    """convert picks the app class by its field names: each app's full
+    leaf set (and its required fields alone) matches exactly one
+    class."""
+    import dataclasses
+
+    from shadow_tpu_torch import convert
+
+    classes = convert._SIM_FIELDS["app"]
+    for cls in classes:
+        fields = dataclasses.fields(cls)
+        for keys in ({f.name for f in fields},
+                     {f.name for f in fields
+                      if f.default is dataclasses.MISSING}):
+            assert convert._container("app", keys) is cls
+            required = [c for c in classes if {
+                f.name for f in dataclasses.fields(c)
+                if f.default is dataclasses.MISSING} <= keys <= {
+                f.name for f in dataclasses.fields(c)}]
+            assert required == [cls]
 
 
 def _tiny_build(**kw):
