@@ -95,9 +95,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    --gossip-transport tcp --hosts 5120 builds it (K = 8, 12 sockets,
    out_ring 16), with emit_capacity 40, plus the ring, cut to 2
    sim-s (the mesh handshakes): the reference's counts (67,323 events,
-   5 windows, 38 micro-steps) and the checks of 7.
+   5 windows, 38 micro-steps) and the checks of 7;
+11. bench.py's pingpong workload as `python -m shadow_tpu_torch.bench`
+   runs it with BENCH_WORKLOAD=pingpong (through its runner; its JSON
+   row printed): 10,240 hosts, 5,120 client/server pairs, 20 UDP
+   pings each, __graft_entry__'s one-vertex 50 ms graph, 5 sim-s —
+   every host at 20 received, the reference's counts scaled per pair
+   (209,920 events, 41 windows, 41 micro-steps), zero overflow, every
+   client's RTT sum 2 s, mailbox_gather launched and equal to its plain
+   version on the run's route inputs, one window replayed;
+12. chunked and checkpointed dispatch on bench's default PHOLD program
+   (10,240 hosts, load 8, capacities 48, bulk pass, ring) to 1 sim-s:
+   make_runner, make_chunked_runner (K = 8), run_windows at K = 1 with
+   a snapshot at 0.5 s, then the snapshot loaded on the card and
+   resumed to the end, and run_windows at K = 16 with the adaptive
+   rule — equal EngineStats and every leaf equal — and the snapshot
+   loaded onto the CPU equal to the card's; its bytes and save and load
+   seconds; then PHOLD on bench.py's MIX_VERTICES (~1.1 ms windows) to
+   0.1 sim-s through make_runner and run_windows at K = 16, leaf-equal,
+   with ms per window.
 
-Phases 7, 8 and 10 each replay one window through the engine's own
+Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
 (micro-steps timed one by one through a step_fn shim, then the first
 again under torch.profiler: launches and cudaStreamSynchronize per
@@ -117,7 +135,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -248,6 +265,30 @@ MUX_BYTES = 20_000
 MUX_SIM_S = 10.0
 SMALL_GTCP_SIM_S = 4.0
 
+
+# Phase 11: bench.py's pingpong (BENCH_WORKLOAD=pingpong) at 10,240
+# hosts: __graft_entry__._build with tcp=False, count=20, 5 sim-s. The
+# pairs are independent and identical, so the counts scale per pair
+# from the reference's CPU run of the 2-host config (41 events, 41
+# windows, 41 micro-steps: the PROC_START, 20 pings, 20 echoes, one
+# window each); its 1,024-host run gives 20,992 = 512 x 41 events and
+# the same 41 windows and micro-steps. Every window holds 5,120 active
+# hosts, over the sparse budget of 256: all 41 miss the fast path.
+PING_HOSTS = 10_240
+PING_COUNT = 20
+PING_SIM_S = 5
+PING_EXPECT = {"events_processed": PING_HOSTS // 2 * 41, "windows": 41,
+               "micro_steps": 41, "fastpath_hit": 0, "fastpath_miss": 41}
+# 20 round trips over the 50 ms self-edge (2 x 50 ms each)
+PING_RTT_SUM = 20 * 100_000_000
+PING_KEEP_WINDOW = 10
+# Phase 12: bench's default PHOLD program at full width, cut to 1 sim-s,
+# snapshot at 0.5 s; chunks of 8 and 16 windows; MIX_VERTICES to
+# 0.1 sim-s (~90 windows of ~1.1 ms).
+CK_SIM_S = 1
+CK_EVERY_NS = 500_000_000
+MIX_SIM_S = 0.1
+MIX_CHUNK = 16
 
 T0 = time.perf_counter()
 # simtime.INVALID: an empty event slot
@@ -1412,7 +1453,7 @@ class StepShim:
         return self.step(sim, popped, buf, kinds=kinds)
 
 
-def replay_window(label, b, handler, kept, app_tcp_bulk=None):
+def replay_window(label, b, handler, kept, app_tcp_bulk=None, min_steps=2):
     """Window `kept` = (the state at its start, wend) again, from copies
     of that state, through core.engine.step_window as the engine drives
     it (the TCP bulk pass with `app_tcp_bulk`, the sparse fast path at
@@ -1421,7 +1462,8 @@ def replay_window(label, b, handler, kept, app_tcp_bulk=None):
     (the last one's includes the route). Then again with the profiler
     over its first micro-step: launches and cudaStreamSynchronize
     calls, and the device-busy share (union of the profiled device
-    intervals over that micro-step's unprofiled wall)."""
+    intervals over that micro-step's unprofiled wall). A window of one
+    micro-step (`min_steps=1`) is profiled whole, its route included."""
     import copy
 
     import torch
@@ -1457,11 +1499,16 @@ def replay_window(label, b, handler, kept, app_tcp_bulk=None):
     t0, end, st, iters = window(timed)
     marks = timed.marks + [end]
     walls = [(y - x) * 1e3 for x, y in zip(marks, marks[1:])]
-    if len(walls) < 2:
+    if len(walls) < min_steps:
         raise AssertionError(f"{label}: the replayed window ran "
                              f"{len(walls)} micro-steps; pick a busier one")
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    window(StepShim(step, prof))
+    shim = StepShim(step, prof)
+    window(shim)
+    if len(shim.marks) == 1:
+        # a one-micro-step window: the profile ends with the window
+        # (the route included), as its wall does
+        prof.stop()
     events = raw_events(prof)
     launches = host_launches(events)
     syncs = sum(1 for e in events if e.device_type == DeviceType.CPU
@@ -1475,7 +1522,8 @@ def replay_window(label, b, handler, kept, app_tcp_bulk=None):
         f"{(timed.marks[0] - t0) * 1e3:.1f} ms, then {len(walls)} "
         f"micro-steps of {', '.join(f'{w:.1f}' for w in walls)} ms (the "
         f"last with the route; mean of the others "
-        f"{statistics.mean(walls[:-1]):.1f} ms); its first micro-step "
+        f"{statistics.mean(walls[:-1]) if len(walls) > 1 else 0:.1f} ms); "
+        f"its first micro-step "
         f"profiled: {launches} launches, {syncs} cudaStreamSynchronize, "
         f"device busy {busy_ms:.2f} ms = {busy_ms / walls[0] * 100:.2f}% of "
         f"its {walls[0]:.1f} ms")
@@ -1673,6 +1721,197 @@ def compare_new_apps_cuda_cpu():
                              "every host")
 
 
+def pingpong_cell(device):
+    """Phase 11: bench.py's pingpong at 10,240 hosts through the bench
+    module's runner (one warm-up call, then the timed call with the
+    launch counter set to 0 just before it); the reference's counts
+    scaled per pair, every host at 20 received, zero overflow, equal RTT
+    sums, mailbox_gather equal to its plain version on the route's
+    inputs, window PING_KEEP_WINDOW replayed. Returns (launches, max abs
+    err)."""
+    import torch
+
+    from shadow_tpu_torch import bench, telemetry
+    from shadow_tpu_torch.apps import pingpong
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+    from shadow_tpu_torch.net.build import make_runner
+
+    t0 = time.perf_counter()
+    runner = bench.pingpong_runner(PING_HOSTS, PING_SIM_S, device)
+    torch.cuda.synchronize()
+    log(f"  pingpong: built {PING_HOSTS} hosts in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    runner()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    mailbox_gather.launches = 0
+    with KeepGatherInputs() as gathered:
+        m = bench.timed(runner, device)
+    launches = {"mailbox_gather": mailbox_gather.launches}
+    sim, stats = runner.last_sim, runner.last_stats
+    row = bench.make_row(
+        f"events_per_sec_per_chip@{PING_HOSTS}hosts_udp_pingpong",
+        PING_HOSTS, m, stats, device, warmup_s)
+    log(f"  pingpong: bench row {json.dumps(row)}")
+    st = stats.as_dict()
+    app = sim.app
+    half = PING_HOSTS // 2
+    rtt = app.rtt_sum[:half]
+    checks = {k: (st[k], v) for k, v in PING_EXPECT.items()}
+    checks.update({
+        "clients and servers at 20 received": (
+            int((app.rcvd == PING_COUNT).sum()), PING_HOSTS),
+        "clients at 20 sent": (int((app.sent[:half] == PING_COUNT).sum()),
+                               half),
+        "clients' rtt_sum == 2 s": (int((rtt == PING_RTT_SUM).sum()), half),
+        "events.overflow": (int(sim.events.overflow), 0),
+        "outbox.overflow": (int(sim.outbox.overflow), 0),
+        "rq_overflow": (int(sim.net.rq_overflow), 0),
+    })
+    for k, (got, want) in checks.items():
+        if got != want:
+            raise AssertionError(f"pingpong: {k}: {got} != {want}")
+    if launches["mailbox_gather"] <= 0:
+        raise AssertionError("pingpong: mailbox_gather was never launched")
+    log(f"  pingpong: checks hold ({', '.join(checks)})")
+    err = gathered.check("pingpong")
+    del gathered
+    log(f"  pingpong: wall {m['wall_s']:.3f} s, "
+        f"{m['events'] / m['wall_s']:.1f} events/s, "
+        f"{m['wall_s'] / st['micro_steps'] * 1e3:.2f} ms per micro-step "
+        f"(one a window, route included), launches {launches}")
+    b = runner.state["bundle"]
+
+    def runner_to(end):
+        return make_runner(b, app_handlers=(pingpong.handler,),
+                           end_time=end, device=device)
+
+    ringed, _ = runner_to(None)(telemetry.attach(b.sim))
+    kept = state_at_window(runner_to, b, ringed.telem, PING_KEEP_WINDOW)
+    replay_window("pingpong", b, pingpong.handler, kept, min_steps=1)
+    return launches, err
+
+
+def dispatch_cell(device):
+    """Phase 12: bench's default PHOLD program (10,240 hosts, load 8,
+    capacities 48, bulk pass, ring) to CK_SIM_S through make_runner,
+    make_chunked_runner (K = 8), run_windows at K = 1 with a snapshot
+    at 0.5 s, the snapshot loaded on the card and resumed, and
+    run_windows at K = 16 with the adaptive rule: equal EngineStats and
+    every leaf equal. The snapshot loaded onto the CPU equals the card's.
+    Then MIX_VERTICES to MIX_SIM_S, make_runner against run_windows at
+    K = 16. Returns the chunked run's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from shadow_tpu_torch import bench, convert
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.core.engine import EngineStats
+    from shadow_tpu_torch.net.build import make_chunked_runner
+    from shadow_tpu_torch.utils import checkpoint
+
+    def bundle(graph=bench.ONE_VERTEX, sim_s=CK_SIM_S):
+        b = bench.build_phold(HOSTS, LOAD, sim_s, 1, CAPACITY, graph, device)
+        b.app_bulk = phold.BULK
+        return b
+
+    def windows(**kw):
+        """A runner for drive(): run_windows on the sim it is given."""
+        def go(sim):
+            out, stats, go.saved = checkpoint.run_windows(
+                b, (phold.handler,), sim=sim, device=device, **kw)
+            return out, stats
+        return go
+
+    def run(label, runner):
+        sim, stats, wall, launches = drive(label, b, runner, device)
+        check_phold(label, sim, HOSTS, LOAD, launches)
+        return (stats, sim), wall, launches
+
+    b = bundle()
+    first, _, _ = run("make_runner", main_runner(b, device))
+    chunked, _, launches = run("make_chunked_runner K=8", make_chunked_runner(
+        b, app_handlers=(phold.handler,), app_bulk=phold.BULK,
+        chunk_windows=8, device=device))
+    assert_same_run("make_chunked_runner K=8", first, chunked)
+    del chunked
+
+    # the stats of the windows before the snapshot (those starting
+    # before the cadence point), carried into the resume
+    pre = [EngineStats.create(device=device)]
+
+    def before_snapshot(sim, stats, wstart, wend, nm):
+        if wstart < CK_EVERY_NS:
+            pre[0] = pre[0].add(stats)
+
+    with tempfile.TemporaryDirectory(prefix="shadow_ckpt_") as d:
+        go = windows(checkpoint_every_ns=CK_EVERY_NS,
+                     checkpoint_path=os.path.join(d, "ck"),
+                     on_round=before_snapshot)
+        k1, _, _ = run("run_windows K=1 with snapshots", go)
+        assert_same_run("run_windows K=1", first, k1)
+        del k1
+        if not go.saved:
+            raise AssertionError("run_windows: no snapshot was written")
+        path, t_ck = go.saved[0]
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        sim_ck, t_load, _ = checkpoint.load(path, b.sim)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if t_load != t_ck or sim_ck.events.time.device != \
+                b.sim.events.time.device:
+            raise AssertionError(f"load: time {t_load} != {t_ck}, or the sim "
+                                 f"is not on the template's device")
+        t0 = time.perf_counter()
+        checkpoint.save(os.path.join(d, "again.npz"), sim_ck, time_ns=t_ck)
+        save_s = time.perf_counter() - t0
+        card_leaves = convert.sim_to_numpy(sim_ck)
+        resume = windows(start_time=t_ck, stats0=pre[0])
+        # drive() hands the runner the boot state; the resume starts from
+        # the loaded one
+        resumed, _, _ = run("resume K=1 from the snapshot",
+                            lambda _boot: resume(sim_ck))
+        assert_same_run("snapshot + load + resume", first, resumed)
+        del resumed, sim_ck
+        log(f"  snapshot at {t_ck} ns: {nbytes} bytes, save {save_s:.3f} s, "
+            f"load {load_s:.3f} s; resumed == make_runner, every leaf")
+        template = convert.sim_from_numpy(convert.sim_to_numpy(b.sim),
+                                          device="cpu")
+        cpu_leaves = convert.sim_to_numpy(checkpoint.load(path, template)[0])
+        bad = [k for k in card_leaves if k not in cpu_leaves
+               or card_leaves[k].dtype != cpu_leaves[k].dtype
+               or not np.array_equal(card_leaves[k], cpu_leaves[k])]
+        if bad or card_leaves.keys() != cpu_leaves.keys():
+            raise AssertionError(f"the snapshot loaded onto the CPU differs "
+                                 f"from the card's: {bad[:5]}")
+        log(f"  the snapshot loaded onto the CPU == on the card: all "
+            f"{len(cpu_leaves)} leaves")
+        del template, cpu_leaves, card_leaves
+
+    k16, _, _ = run("run_windows K=16 adaptive",
+                    windows(windows_per_dispatch=16, adaptive_jump=True))
+    assert_same_run("run_windows K=16 adaptive (the static partition)",
+                    first, k16)
+    del k16, first
+
+    b = bundle(bench.MIX_VERTICES, MIX_SIM_S)
+    mix, wall, _ = run("MIX_VERTICES make_runner", main_runner(b, device))
+    mk, kwall, _ = run(f"MIX_VERTICES run_windows K={MIX_CHUNK}",
+                       windows(windows_per_dispatch=MIX_CHUNK))
+    n = assert_same_run(f"MIX_VERTICES run_windows K={MIX_CHUNK}", mix, mk)
+    w = mix[0].as_dict()["windows"]
+    log(f"  MIX_VERTICES: min_jump {b.min_jump} ns, {w} windows; "
+        f"make_runner {wall / w * 1e3:.2f} ms/window, run_windows "
+        f"K={MIX_CHUNK} {kwall / w * 1e3:.2f} ms/window; all {n} leaves "
+        f"equal")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1684,6 +1923,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from shadow_tpu_torch import bench
     from shadow_tpu_torch.core import insert_kernels
 
     phase_s = {}
@@ -1697,10 +1937,8 @@ def main(argv=None) -> int:
 
     phase("1-3")
     log("[1] device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=120, check=True).stdout.strip().splitlines()[0]
+    device = torch.device("cuda", 0)
+    smi = bench.device_line(device)
     kind = torch.cuda.get_device_name(0)
     log(f"  nvidia-smi: {smi}")
     log(f"  torch: {torch.__version__} cuda {torch.version.cuda} device "
@@ -1714,7 +1952,6 @@ def main(argv=None) -> int:
         log(f"  [nvcc] {line}")
 
     log("[3] kernels against their plain versions")
-    device = torch.device("cuda", 0)
     # the gossip cells' route shapes (narrow tier and full outbox)
     gossip_n = [(GOSSIP_HOSTS, GOSSIP_HOSTS * 24),
                 (GOSSIP_HOSTS, GOSSIP_HOSTS * GOSSIP_CAP)]
@@ -1851,6 +2088,20 @@ def main(argv=None) -> int:
     launches, err = gossip_tcp_cell(device)
     row["launches_gossip_tcp"] = launches["mailbox_gather"]
     row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    phase("11")
+    log(f"[11] pingpong as python -m shadow_tpu_torch.bench runs it: "
+        f"{PING_HOSTS} hosts, {PING_HOSTS // 2} pairs, {PING_COUNT} pings, "
+        f"{PING_SIM_S} sim-s")
+    launches, err = pingpong_cell(device)
+    row["launches_pingpong"] = launches["mailbox_gather"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    phase("12")
+    log(f"[12] chunked and checkpointed dispatch: bench's PHOLD, {HOSTS} "
+        f"hosts, {CK_SIM_S} sim-s; MIX_VERTICES to {MIX_SIM_S} sim-s")
+    launches = dispatch_cell(device)
+    row["launches_chunked"] = launches["mailbox_gather"]
 
     phase(None)
     log(f"  done; seconds per phase {json.dumps(phase_s)}")

@@ -17,8 +17,10 @@ import torch
 
 from shadow_tpu_torch.apps.gossip import GossipApp, GossipTcpApp
 from shadow_tpu_torch.apps.phold import PholdApp
+from shadow_tpu_torch.apps.pingpong import PingPongApp
 from shadow_tpu_torch.apps.relay import RelayApp, RelayMuxApp
 from shadow_tpu_torch.core.events import EventQueue, Outbox
+from shadow_tpu_torch.device import resolve_device
 from shadow_tpu_torch.net.state import U32_FIELDS, NetState, Sim
 from shadow_tpu_torch.net.tcp import TcpState
 from shadow_tpu_torch.telemetry.ring import TelemetryRing
@@ -28,8 +30,8 @@ from shadow_tpu_torch.telemetry.ring import TelemetryRing
 # classes of one field accept the same set of leaves).
 _SIM_FIELDS = {"events": (EventQueue,), "outbox": (Outbox,),
                "net": (NetState,),
-               "app": (PholdApp, RelayApp, RelayMuxApp, GossipApp,
-                       GossipTcpApp),
+               "app": (PholdApp, PingPongApp, RelayApp, RelayMuxApp,
+                       GossipApp, GossipTcpApp),
                "tcp": (TcpState,), "telem": (TelemetryRing,)}
 
 
@@ -40,9 +42,9 @@ def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
     return a
 
 
-def sim_to_numpy(sim: Sim) -> dict[str, np.ndarray]:
-    """{flax field path: numpy leaf} of a port Sim."""
-    out: dict[str, np.ndarray] = {}
+def sim_tensors(sim: Sim) -> dict[str, torch.Tensor]:
+    """{flax field path: tensor} of a port Sim, in field order."""
+    out: dict[str, torch.Tensor] = {}
 
     def walk(obj, prefix):
         for f in dataclasses.fields(obj):
@@ -53,10 +55,24 @@ def sim_to_numpy(sim: Sim) -> dict[str, np.ndarray]:
             if dataclasses.is_dataclass(v):
                 walk(v, path)
             else:
-                out[path] = _to_numpy(f.name, v)
+                out[path] = v
 
     walk(sim, "")
     return out
+
+
+def numpy_dtype(path: str, t: torch.Tensor) -> np.dtype:
+    """The dtype `path`'s leaf has in the reference (and in
+    sim_to_numpy)."""
+    if path.rsplit(".", 1)[-1] in U32_FIELDS:
+        return np.dtype(np.uint32)
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
+
+
+def sim_to_numpy(sim: Sim) -> dict[str, np.ndarray]:
+    """{flax field path: numpy leaf} of a port Sim."""
+    return {path: _to_numpy(path.rsplit(".", 1)[-1], t)
+            for path, t in sim_tensors(sim).items()}
 
 
 def _leaf(name: str, a, device) -> torch.Tensor:
@@ -67,8 +83,11 @@ def _leaf(name: str, a, device) -> torch.Tensor:
 
 
 def sim_from_numpy(leaves: dict, device=None) -> Sim:
-    """A port Sim from {flax field path: numpy leaf}. Raises
-    NotImplementedError for a Sim field the port does not implement."""
+    """A port Sim from {flax field path: numpy leaf} on `device` (None
+    -> "cuda"; raises when CUDA is missing, as every entry point does).
+    Raises NotImplementedError for a Sim field the port does not
+    implement."""
+    device = resolve_device(device)
     groups: dict[str, dict] = {}
     for path, a in leaves.items():
         parts = path.lstrip(".").split(".")

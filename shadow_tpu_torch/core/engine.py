@@ -1,6 +1,6 @@
 """The conservative windowed-PDES loop (PyTorch port of
 shadow_tpu/core/engine.py: EngineStats, window_fixpoint, step_window,
-run).
+make_wend_fn, make_chunk_body, run).
 
 Reference semantics (ref: SURVEY.md §3.2): all events inside the window
 [wstart, wend) run, one host's events serially in (time, src, seq)
@@ -22,8 +22,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
+from shadow_tpu_torch.core import simtime
 from shadow_tpu_torch.core.compact import (
     active_indices,
     gather_lanes,
@@ -81,6 +83,16 @@ class EngineStats(_Replace):
             return torch.zeros((), dtype=I64, device=device)
         return EngineStats(events_processed=z(), micro_steps=z(),
                            windows=z(), fastpath_hit=z(), fastpath_miss=z())
+
+    def add(self, other: "EngineStats") -> "EngineStats":
+        """Field-wise sum: running totals across dispatches."""
+        return EngineStats(
+            events_processed=self.events_processed + other.events_processed,
+            micro_steps=self.micro_steps + other.micro_steps,
+            windows=self.windows + other.windows,
+            fastpath_hit=self.fastpath_hit + other.fastpath_hit,
+            fastpath_miss=self.fastpath_miss + other.fastpath_miss,
+        )
 
     def as_dict(self) -> dict:
         return {
@@ -195,20 +207,173 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
     return sim, stats, int(sim.events.min_time().amin())
 
 
+def _next_record(ft, wstart: int) -> int:
+    """The first record time > wstart in the sorted array `ft`
+    (INVALID when none, or no records)."""
+    if ft is None:
+        return simtime.INVALID
+    i = int(np.searchsorted(ft, wstart, side="right"))
+    return int(ft[i]) if i < len(ft) else simtime.INVALID
+
+
+def _record_times(fault_times):
+    if fault_times is None or not len(fault_times):
+        return None
+    return np.unique(np.asarray(fault_times, np.int64))
+
+
+def make_wend_fn(*, min_jump: int, end_time: int,
+                 pair_mask=None, fault_times=None, table_fn=None):
+    """The window-end rule ``wend = wend_fn(sim, wstart)`` shared by the
+    chunked runners; wstart and wend are host ints.
+
+    Static (``pair_mask`` None): ``wstart + max(min_jump, 1)`` clamped
+    to ``end_time + 1`` (ref: master.c:450-480).
+
+    Adaptive (``pair_mask`` a [V,V] bool array of host-bearing vertex
+    pairs, net.build.adaptive_jump_spec): advance by the current
+    minimum over the masked pairs of ``sim.net.latency_ns`` whose
+    ``reliability`` is > 0 (or of ``table_fn(wstart + 1)``'s tables),
+    floored at the static jump and clipped at ``end_time + 1`` (when
+    no pair constrains the window any span is conservative).
+
+    Both rules clamp wend at the next ``fault_times`` record > wstart,
+    so each record lands on a window boundary.
+
+    ``wend_fn.explain(sim, wstart) -> (wend, cause, edge_a, edge_b,
+    raw_jump)`` gives the same wend with its attribution
+    (telemetry/causality.py CAUSE_* codes): the binding vertex pair
+    under the adaptive rule (the first minimum of the flattened table,
+    as jnp.argmin picks it; -1 otherwise) and the jump before the
+    record and end clamps. A clamp takes the cause only when it
+    strictly lowers wend, in the order floor, record, end.
+
+    The adaptive rule reads its [V,V] table to the host once per
+    window."""
+    from shadow_tpu_torch.telemetry.causality import (
+        CAUSE_ADAPTIVE_EDGE,
+        CAUSE_END_TIME,
+        CAUSE_FAULT_RECORD,
+        CAUSE_MIN_JUMP,
+    )
+    if int(min_jump) <= 0:
+        raise ValueError(f"min_jump must be positive, got {min_jump}")
+    end = int(end_time)
+    jump0 = max(int(min_jump), 1)
+    ft = _record_times(fault_times)
+
+    def clamps(wend, cause, wstart):
+        nxt = _next_record(ft, wstart)
+        if nxt < wend:
+            cause, wend = CAUSE_FAULT_RECORD, nxt
+        if end + 1 < wend:
+            cause, wend = CAUSE_END_TIME, end + 1
+        return wend, cause
+
+    if pair_mask is None:
+        def explain(sim, wstart):
+            wstart = int(wstart)
+            wend, cause = clamps(wstart + jump0, CAUSE_MIN_JUMP, wstart)
+            return wend, cause, -1, -1, jump0
+    else:
+        mask = np.asarray(pair_mask, bool)
+        V = int(mask.shape[0])
+
+        def table(sim, wstart):
+            """[V,V] latencies of the live masked pairs, INVALID
+            elsewhere, flattened on the host (one read)."""
+            if table_fn is not None:
+                lat, rel = table_fn(wstart + 1)
+            else:
+                lat, rel = sim.net.latency_ns, sim.net.reliability
+            lat = torch.as_tensor(lat)
+            live = torch.as_tensor(mask, device=lat.device) \
+                & (torch.as_tensor(rel, device=lat.device) > 0)
+            return torch.where(live, lat.to(torch.int64),
+                               simtime.INVALID).cpu().numpy().reshape(-1)
+
+        def explain(sim, wstart):
+            wstart = int(wstart)
+            flat = table(sim, wstart)
+            k = int(np.argmin(flat))      # first min: deterministic edge
+            jump_u = int(flat[k])
+            jump = min(max(jump_u, jump0), end + 1)
+            # at (or below) the floor the edge is not the constraint
+            adaptive = jump_u > jump0
+            cause = CAUSE_ADAPTIVE_EDGE if adaptive else CAUSE_MIN_JUMP
+            edge_a, edge_b = (k // V, k % V) if adaptive else (-1, -1)
+            wend, cause = clamps(wstart + jump, cause, wstart)
+            return wend, cause, edge_a, edge_b, jump
+
+    def wend_fn(sim, wstart):
+        return explain(sim, wstart)[0]
+
+    wend_fn.explain = explain
+    return wend_fn
+
+
+def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
+                    chunk_windows: int, emit_capacity: int = 4,
+                    lane_fn=None, bulk_fn=None, telem_fn=None,
+                    sparse_lanes: int = 0):
+    """Build ``chunk(sim, stats, wstart) -> (sim, stats, wstart')``: up
+    to `chunk_windows` step_window rounds while ``wstart <= end_time``,
+    each ending at ``wend_fn(sim, wstart)`` (make_wend_fn) — the
+    window sequence of `run`. A chunk dispatched past the end (or on
+    an empty queue: wstart INVALID) returns its carry unchanged, so
+    callers chain chunks without an end check of their own.
+
+    The reference's device while_loop becomes a Python loop. step_window
+    already reads each next window start to the host, so no chunk runs
+    ahead of the host: the chunk boundary is only where the caller's
+    hooks and snapshots run. ``lane_fn(sim)`` gives step_window's
+    lane_id, once per chunk; the bulk pass, the ring and the sparse
+    fast path run per window as in `run`."""
+    if int(chunk_windows) < 1:
+        raise ValueError(
+            f"chunk_windows must be >= 1, got {chunk_windows}")
+    end = int(end_time)
+    K = int(chunk_windows)
+
+    def chunk(sim, stats, wstart):
+        for name in ("inject", "causality"):
+            if getattr(sim, name, None) is not None:
+                raise NotImplementedError(
+                    f"shadow_tpu_torch: a Sim carrying {name!r} is not "
+                    f"ported yet (ROADMAP.md Queue 1 item 8)")
+        wstart = int(wstart)
+        lane = None if lane_fn is None else lane_fn(sim)
+        i = 0
+        while i < K and wstart <= end:
+            sim, stats, wstart = step_window(
+                sim, stats, step_fn, wend_fn(sim, wstart), emit_capacity,
+                lane, bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,
+                sparse_lanes=sparse_lanes)
+            i += 1
+        return sim, stats, wstart
+
+    return chunk
+
+
 def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
-        emit_capacity: int = 4, lane_id=None, bulk_fn=None, telem_fn=None,
-        sparse_lanes: int = 0):
+        start_time: int = 0, emit_capacity: int = 4, lane_id=None,
+        bulk_fn=None, telem_fn=None, sparse_lanes: int = 0,
+        fault_times=None):
     """Run the whole simulation. Window advance rule is the
     reference's: newStart = minNextEventTime, newEnd = newStart +
-    minJump, clamped to end_time + 1 (ref: master.c:450-480)."""
+    minJump, clamped to end_time + 1 (ref: master.c:450-480). The first
+    window starts at max(min pending time, start_time). `fault_times`
+    (record times) clamps each window at the next record > wstart — the
+    rule of make_wend_fn."""
     if min_jump <= 0:
         raise ValueError(f"min_jump must be positive, got {min_jump}")
     end_time = int(end_time)
     jump = max(int(min_jump), 1)
+    ft = _record_times(fault_times)
     stats = EngineStats.create(device=sim.events.time.device)
-    wstart = int(sim.events.min_time().amin())
+    wstart = max(int(sim.events.min_time().amin()), int(start_time))
     while wstart <= end_time:
-        wend = min(wstart + jump, end_time + 1)
+        wend = min(wstart + jump, end_time + 1, _next_record(ft, wstart))
         sim, stats, wstart = step_window(
             sim, stats, step_fn, wend, emit_capacity, lane_id,
             bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,

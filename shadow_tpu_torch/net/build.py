@@ -1,6 +1,6 @@
 """Build and run a simulation from topology + host specs (PyTorch port
 of shadow_tpu/net/build.py: HostSpec, SimBundle, build, make_runner,
-run).
+make_chunked_runner and its window rules, run).
 
 The startup path of the reference (ref: master.c:161-398): load the
 topology, register every host with DNS, attach hosts to vertices from
@@ -25,7 +25,12 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from shadow_tpu_torch.core.engine import resolve_sparse_lanes
+from shadow_tpu_torch.core.engine import (
+    EngineStats,
+    make_chunk_body,
+    make_wend_fn,
+    resolve_sparse_lanes,
+)
 from shadow_tpu_torch.core.engine import run as engine_run
 from shadow_tpu_torch.core.events import EventKind, emit_words, push_rows
 from shadow_tpu_torch.device import resolve_device, same_device
@@ -82,6 +87,9 @@ class SimBundle:
     min_jump: int
     host_names: list[str]
     name_to_index: dict[str, int] = field(default_factory=dict)
+    # Optional net.bulk.AppBulk of the bundle's app (e.g. phold.BULK):
+    # utils.checkpoint.run_windows runs the bulk window pass with it.
+    app_bulk: Any = None
     device: Any = None
 
     def ip_of(self, name: str) -> int:
@@ -208,6 +216,80 @@ def _resolve_bulk_fn(bundle: SimBundle, app_bulk, app_tcp_bulk=None,
     return None
 
 
+def refuse_unported(**off) -> None:
+    """NotImplementedError naming each argument given that the port does
+    not take yet ({name: (value, its ROADMAP.md Queue 1 item)})."""
+    given = [f"{k} (ROADMAP.md Queue 1 item {item})"
+             for k, (v, item) in off.items() if v is not None]
+    if given:
+        raise NotImplementedError(
+            "shadow_tpu_torch does not implement these arguments yet: "
+            + ", ".join(given))
+
+
+def adaptive_jump_spec(bundle: SimBundle):
+    """Constants of the adaptive window rule (engine.make_wend_fn):
+    ``(pair_mask, fault_times)``. pair_mask is the [V,V] bool set of
+    vertex pairs that constrain the conservative window — ordered
+    pairs of distinct host-bearing vertices, plus the self-path of a
+    vertex carrying >= 2 hosts (topology.min_jump_ns's pair rules),
+    evaluated against the live tables each window; fault_times is
+    plan_times(bundle)."""
+    voh = bundle.sim.net.vertex_of_host.cpu().numpy()
+    V = int(bundle.sim.net.latency_ns.shape[0])
+    mask = np.zeros((V, V), dtype=bool)
+    if voh.size:
+        verts, counts = np.unique(voh, return_counts=True)
+        mask[np.ix_(verts, verts)] = True
+        mask[np.arange(V), np.arange(V)] = False
+        for v, c in zip(verts, counts):
+            if c >= 2:
+                mask[v, v] = True
+    return mask, plan_times(bundle)
+
+
+def plan_times(bundle: SimBundle):
+    """The installed fault plan's unique record times (None without a
+    plan; the port's SimBundle has no plan until faults/ is ported)."""
+    plan = getattr(bundle, "fault_plan", None)
+    if plan is not None and getattr(plan, "n", 0):
+        return np.unique(np.asarray(plan.t_ns, np.int64))
+    return None
+
+
+def resolve_wend_fn(bundle: SimBundle, end_time: int, adaptive: bool):
+    """The window-end rule of the chunked runners: the static
+    ``wstart + min_jump`` (adaptive=False) or the live-table adaptive
+    jump, both clamped at the plan's record times. A bundle with a
+    fault plan raises NotImplementedError: its adaptive rule reads the
+    plan-replayed tables of faults.apply."""
+    if getattr(bundle, "fault_plan", None) is not None:
+        raise NotImplementedError(
+            "shadow_tpu_torch: a bundle's fault plan needs faults.apply "
+            "(ROADMAP.md Queue 1 item 6)")
+    if not adaptive:
+        return make_wend_fn(min_jump=bundle.min_jump, end_time=end_time,
+                            fault_times=plan_times(bundle))
+    mask, ft = adaptive_jump_spec(bundle)
+    return make_wend_fn(min_jump=bundle.min_jump, end_time=end_time,
+                        pair_mask=mask, fault_times=ft)
+
+
+def _runner_device(bundle: SimBundle, device):
+    dev = resolve_device(device)
+    if bundle.device is not None and not same_device(bundle.device, dev):
+        raise ValueError(f"bundle was built on {bundle.device}, runner "
+                         f"asked for {dev}")
+    check_supported(bundle.cfg)
+    return dev
+
+
+def _check_sim_device(sim, dev) -> None:
+    if not same_device(sim.events.time.device, dev):
+        raise ValueError(f"sim lies on {sim.events.time.device}, runner "
+                         f"runs on {dev}")
+
+
 def make_runner(bundle: SimBundle, app_handlers=(),
                 end_time: int | None = None, app_bulk=None,
                 app_tcp_bulk=None, tcp_bulk_lossless: bool = False,
@@ -228,11 +310,7 @@ def make_runner(bundle: SimBundle, app_handlers=(),
     The runner's `bulk_fn` attribute is its bulk pass (None without
     one), read at each call: a caller may wrap it, e.g. to time the
     pass."""
-    dev = resolve_device(device)
-    if bundle.device is not None and not same_device(bundle.device, dev):
-        raise ValueError(f"bundle was built on {bundle.device}, runner "
-                         f"asked for {dev}")
-    check_supported(bundle.cfg)
+    dev = _runner_device(bundle, device)
     step = make_step_fn(bundle.cfg, app_handlers)
     end = end_time if end_time is not None else bundle.cfg.end_time
     bulk_fn = _resolve_bulk_fn(bundle, app_bulk, app_tcp_bulk,
@@ -241,16 +319,63 @@ def make_runner(bundle: SimBundle, app_handlers=(),
     sparse = resolve_sparse_lanes(bundle.cfg)
 
     def go(sim):
-        if not same_device(sim.events.time.device, dev):
-            raise ValueError(f"sim lies on {sim.events.time.device}, runner "
-                             f"runs on {dev}")
+        _check_sim_device(sim, dev)
         return engine_run(
             sim, step, end_time=end, min_jump=bundle.min_jump,
             emit_capacity=bundle.cfg.emit_capacity,
             lane_id=sim.net.lane_id, bulk_fn=go.bulk_fn, telem_fn=telem_fn,
-            sparse_lanes=sparse)
+            sparse_lanes=sparse, fault_times=plan_times(bundle))
 
     go.bulk_fn = bulk_fn
+    return go
+
+
+def make_chunked_runner(bundle: SimBundle, app_handlers=(),
+                        end_time: int | None = None, app_bulk=None,
+                        app_tcp_bulk=None, chunk_windows: int = 256,
+                        tcp_bulk_lossless: bool = False,
+                        adaptive_jump: bool = False, device=None,
+                        fault_fn=None, warm_start=None,
+                        compile_info=None):
+    """make_runner's variant that runs `chunk_windows` windows per
+    chunk (engine.make_chunk_body) under a host loop — window for
+    window the sequence engine.run produces, so the result is the
+    same. `adaptive_jump` takes the live-table window rule
+    (resolve_wend_fn); on a graph where no latency changes it gives
+    the static partition. The caller's sim is left as it was (the
+    state is never written in place). Device rules are make_runner's.
+
+    `fault_fn` (ROADMAP.md Queue 1 item 6), `warm_start` and
+    `compile_info` (item 11) are not ported yet and raise
+    NotImplementedError."""
+    if chunk_windows < 1:
+        raise ValueError(
+            f"chunk_windows must be >= 1, got {chunk_windows} "
+            "(0 iterations would spin the host loop forever)")
+    refuse_unported(fault_fn=(fault_fn, 6), warm_start=(warm_start, 11),
+                    compile_info=(compile_info, 11))
+    dev = _runner_device(bundle, device)
+    step = make_step_fn(bundle.cfg, app_handlers)
+    end = int(end_time if end_time is not None else bundle.cfg.end_time)
+    bulk_fn = _resolve_bulk_fn(bundle, app_bulk, app_tcp_bulk,
+                               tcp_bulk_lossless)
+    chunk = make_chunk_body(
+        step, end_time=end,
+        wend_fn=resolve_wend_fn(bundle, end, adaptive_jump),
+        chunk_windows=int(chunk_windows),
+        emit_capacity=bundle.cfg.emit_capacity,
+        lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
+        telem_fn=make_telem_fn(),
+        sparse_lanes=resolve_sparse_lanes(bundle.cfg))
+
+    def go(sim):
+        _check_sim_device(sim, dev)
+        stats = EngineStats.create(device=dev)
+        wstart = int(sim.events.min_time().amin())
+        while wstart <= end:
+            sim, stats, wstart = chunk(sim, stats, wstart)
+        return sim, stats
+
     return go
 
 

@@ -41,7 +41,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.net.tcp", "shadow_tpu_torch.net.tcp_cong",
                 "shadow_tpu_torch.apps.relay",
                 "shadow_tpu_torch.apps.gossip",
-                "shadow_tpu_torch.net.tcp_bulk"):
+                "shadow_tpu_torch.net.tcp_bulk",
+                "shadow_tpu_torch.apps.pingpong",
+                "shadow_tpu_torch.utils.checkpoint",
+                "shadow_tpu_torch.telemetry.causality",
+                "shadow_tpu_torch.bench"):
         assert mod in out["modules"]
 
 
@@ -89,6 +93,20 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         make_runner(b)
     with pytest.raises(RuntimeError, match="CUDA"):
         run(b)
+
+
+def test_sim_from_numpy_defaults_to_cuda():
+    """Carrying state across builds on the card unless the caller asks
+    for the CPU, like every other entry point."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behavior without a CUDA device")
+    from shadow_tpu_torch import convert
+
+    leaves = convert.sim_to_numpy(_tiny_build(device="cpu").sim)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.sim_from_numpy(leaves)
+    sim = convert.sim_from_numpy(leaves, device="cpu")
+    assert sim.events.time.device.type == "cpu"
 
 
 def test_tcp_bulk_runner_needs_cuda_by_default():

@@ -131,4 +131,5 @@ def test_reference_boot_state_runs_identically_in_port(runs):
 def test_convert_round_trip(runs):
     leaves = runs["jax_final"]
     _assert_leaves_equal(
-        leaves, convert.sim_to_numpy(convert.sim_from_numpy(leaves)))
+        leaves, convert.sim_to_numpy(convert.sim_from_numpy(leaves,
+                                                            device="cpu")))
