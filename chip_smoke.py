@@ -113,7 +113,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    loaded onto the CPU equal to the card's; its bytes and save and load
    seconds; then PHOLD on bench.py's MIX_VERTICES (~1.1 ms windows) to
    0.1 sim-s through make_runner and run_windows at K = 16, leaf-equal,
-   with ms per window.
+   with ms per window;
+13. faults at full width: (13a) phase 4's program with
+   examples/faultplan_degraded.json installed — at 1,024 hosts the
+   reference's exact counts (events, windows, micro-steps, reliability
+   drops), then at 10,240 hosts make_runner, make_chunked_runner (K =
+   8), run_supervised at K = 1 and K = 8 (a snapshot every 32 windows)
+   and a supervised run stopped at the first barrier past 2.2 s and
+   resumed from its snapshot: every run leaf-equal to make_runner with
+   equal EngineStats, conserve.check clean over every barrier, health
+   not fatal, zero overflow, drops > 0, no window straddling a record
+   time; the snapshot's bytes and save and load seconds; the fault
+   replay's launches, copies and ms in a window before and after a
+   record; (13b) pingpong at 10,240 hosts with every 80th server
+   crashed at 1.0 s and restarted at 1.5 s — the reference's counts
+   scaled per pair, crashed pairs at 0 received, the others at 20 with
+   a 2-s RTT sum, and the crash reset's cost per window — and a 3-host
+   TCP relay whose relay crashes mid-transfer, CUDA against CPU leaf by
+   leaf; (13c) the program with an event queue of 16 (the reference's
+   1,024-host run overflows it; here the first barrier does), to 0.3
+   sim-s under
+   run_supervised(escalation=EscalationPolicy()): healed with no retry,
+   zero overflow, tests/test_escalate.py's checks, and leaf-equal to a
+   from-scratch run at the grown capacity.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
@@ -289,6 +311,80 @@ CK_SIM_S = 1
 CK_EVERY_NS = 500_000_000
 MIX_SIM_S = 0.1
 MIX_CHUNK = 16
+# Phase 13: faults. 13a is phase 4's program with bench.py's degraded
+# plan installed (loss flaps over [1.0, 1.5) and [3.0, 3.5) s, +20 ms
+# latency over [2.0, 2.5) s). The same program at FAULT_SMALL_HOSTS
+# gives the reference's exact counts, from its CPU run (run from the
+# repository root with jax and this package importable):
+#
+#   import jax; jax.config.update("jax_platforms", "cpu")
+#   from shadow_tpu import faults; from shadow_tpu.apps import phold
+#   from shadow_tpu.net.build import HostSpec, build, make_runner
+#   from shadow_tpu.net.state import NetConfig
+#   from shadow_tpu_torch.bench import ONE_VERTEX
+#   H = 1024
+#   cfg = NetConfig(num_hosts=H, tcp=False, end_time=5 * 10**9, seed=1,
+#                   event_capacity=48, outbox_capacity=48,
+#                   router_ring=48, in_ring=16)
+#   b = build(cfg, ONE_VERTEX,
+#             [HostSpec(name=f"peer{i}", proc_start_time=0)
+#              for i in range(H)])
+#   b.sim = phold.setup(b.sim, load=8)
+#   faults.install(b, faults.records_from_json(
+#       open("examples/faultplan_degraded.json").read()))
+#   sim, st = make_runner(b, app_handlers=(phold.handler,),
+#                         app_bulk=phold.BULK)(b.sim)
+#   print(st, int(sim.net.ctr_drop_reliability.sum()))
+#
+# (98 windows: fewer than the fault-free 101 — the latency spike pushes
+# window starts later — in spite of the record clamps.)
+FAULT_PLAN = "examples/faultplan_degraded.json"
+FAULT_SMALL_HOSTS = 1_024
+FAULT_SMALL_EXPECT = {"events_processed": 591_839, "windows": 98,
+                      "micro_steps": 47, "fastpath_hit": 6,
+                      "fastpath_miss": 92}
+FAULT_SMALL_DROPS = 4_222
+FAULT_CKPT_WINDOWS = 32
+FAULT_CHUNK = 8
+FAULT_STOP_NS = 2_200_000_000   # inside the latency spike
+# 13b: phase 11's pingpong with every 80th server (64 of 5,120) crashed
+# at 1.0 s and restarted at 1.5 s. The pairs are independent, so the
+# counts scale per pair from the reference's 2-host runs: a clean pair
+# 41 events (phase 11); a crashed pair 3 — its client's PROC_START, the
+# crash wakeup and the restart's PROC_START; the ping reaches a server
+# that is down and is flushed, so the client waits for ever (0
+# received). Windows and micro-steps are the clean pairs' 41. The
+# reference's 1,024-host run with every 80th server crashed (7) gives
+# 20,726 = 7 x 3 + 505 x 41 events, 41 windows, 41 micro-steps, and its
+# 1,280-host run with 8 crashed (the same share as here) 25,936 =
+# 8 x 3 + 632 x 41. Its command: __graft_entry__._build(H, end_time_s=5, count=20,
+# tcp=False), faults.install with a CRASH record (t_ns=10**9) and a
+# RESTART record (t_ns=1.5e9) for each crashed server, then
+# make_runner(b, app_handlers=(pingpong.handler,)).
+CRASH_EVERY = 80
+CRASH_NS, RESTART_NS = 1_000_000_000, 1_500_000_000
+CRASH_PAIRS = PING_HOSTS // 2 // CRASH_EVERY
+CRASH_EXPECT = {"events_processed": CRASH_PAIRS * 3
+                + (PING_HOSTS // 2 - CRASH_PAIRS) * 41,
+                "windows": 41, "micro_steps": 41, "fastpath_hit": 0,
+                "fastpath_miss": 41}
+# the crash reset of TCP rows, CUDA against CPU: a 3-host circuit
+# (client, relay, server), 20,000 bytes on a 25 ms 10,240 KiB/s
+# self-edge, the relay down over [1.2, 2.0) s (the shape of
+# tests/test_torch_faults.py)
+RELAY_CRASH_GRAPH = ONE_VERTEX.replace(
+    '<data key="lat">50.0</data>', '<data key="lat">25.0</data>').replace(
+    "102400", "10240")
+# 13c: phase 4's program with the event queue at ESC_CAP, which the
+# reference's 1,024-host CPU run shows to overflow (the command of 13a
+# with event_capacity=ESC_CAP and no plan: 456 events dropped), cut to
+# ESC_SIM_S, under run_supervised(escalation=EscalationPolicy()). At
+# 10,240 hosts the initial burst overflows it at the first barrier, so
+# the heal reboots at the grown capacity (no snapshot precedes the
+# trip); tests/test_torch_supervisor.py transplants a mid-run one.
+ESC_CAP = 16
+ESC_SIM_S = 0.3
+ESC_CKPT_WINDOWS = 4
 
 T0 = time.perf_counter()
 # simtime.INVALID: an empty event slot
@@ -300,10 +396,11 @@ def log(*a):
 
 
 def build_phold(H, load, sim_s, seed, device, cap=None, sparse_lanes=0,
-                active_hosts=None, ring=False):
+                active_hosts=None, ring=False, event_capacity=None):
     """A PHOLD bundle through the port's entry points: build,
     phold.setup, and telemetry.attach when `ring`. `sparse_lanes=None`
-    takes the engine default, as bench.py does."""
+    takes the engine default, as bench.py does; `event_capacity`
+    overrides `cap` for the event queue alone."""
     from shadow_tpu_torch import telemetry
     from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.core import simtime
@@ -313,6 +410,8 @@ def build_phold(H, load, sim_s, seed, device, cap=None, sparse_lanes=0,
     kw = {}
     if cap is not None:
         kw = dict(event_capacity=cap, outbox_capacity=cap, router_ring=cap)
+    if event_capacity is not None:
+        kw["event_capacity"] = event_capacity
     cfg = NetConfig(num_hosts=H, tcp=False, seed=seed, in_ring=IN_RING,
                     end_time=int(sim_s * simtime.ONE_SECOND),
                     sparse_lanes=sparse_lanes, **kw)
@@ -1912,6 +2011,347 @@ def dispatch_cell(device):
     return launches
 
 
+def fault_replay_cost(label, fn, sim, wends):
+    """One call of a fault_fn at each of `wends`, in order, under
+    torch.profiler: host launches and copies, and ms (synchronized).
+    Returns [(wend, launches, copies, ms)]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    for wend in wends:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sim = fn(sim, wend)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        ev = raw_events(prof)
+        copies = sum(1 for e in ev if e.device_type == DeviceType.CPU
+                     and e.name.startswith("cudaMemcpy"))
+        out.append((wend, host_launches(ev), copies, ms))
+    log(f"  {label}: fault_fn per window (wend, launches, copies, ms) "
+        f"{[(w, n, c, round(t, 3)) for w, n, c, t in out]}")
+    return out
+
+
+def check_record_boundaries(label, ring, plan):
+    """No window of the ring straddles a record time: each record lands
+    on a window boundary (the record clamp). Returns how many windows
+    the clamp cut short."""
+    import numpy as np
+
+    ws, we = ring.wstart.cpu().numpy(), ring.wend.cpu().numpy()
+    n = int(ring.count)
+    ws, we = ws[:n], we[:n]
+    t = np.unique(plan.t_ns)
+    bad = [int(x) for x in t if ((ws < x) & (x < we)).any()]
+    if bad:
+        raise AssertionError(f"{label}: windows straddle records {bad}")
+    return int(np.isin(we, t).sum())
+
+
+def faults_cell(device):
+    """Phase 13: fault plans, crash and restart, and escalation at full
+    width (13a, 13b, 13c; the module docstring). Returns ({"launches_faults",
+    "launches_crash", "launches_escalate", "max_abs_err"}, seconds per
+    sub-phase)."""
+    import os
+    import pathlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from shadow_tpu_torch import faults, telemetry
+    from shadow_tpu_torch.apps import phold, pingpong, relay
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+    from shadow_tpu_torch.faults import conserve
+    from shadow_tpu_torch.net.build import (
+        HostSpec, build, make_chunked_runner, make_runner)
+    from shadow_tpu_torch.net.state import NetConfig
+    from shadow_tpu_torch.utils import checkpoint
+
+    out, secs = {}, {}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = round(now - mark[0], 1)
+        mark[0] = now
+
+    plan = faults.records_from_json(
+        (pathlib.Path(__file__).resolve().parent / FAULT_PLAN).read_text())
+
+    def bundle(H, sim_s=SIM_S, event_capacity=None, with_plan=True):
+        b = build_phold(H, LOAD, sim_s, seed=1, device=device, cap=CAPACITY,
+                        sparse_lanes=None, ring=True,
+                        event_capacity=event_capacity)
+        if with_plan:
+            faults.install(b, plan)
+        b.app_bulk = phold.BULK
+        return b
+
+    # --- 13a: the degraded network -----------------------------------
+    bs = bundle(FAULT_SMALL_HOSTS)
+    sim, stats = main_runner(bs, device)(bs.sim)
+    got = stats.as_dict()
+    drops = int(sim.net.ctr_drop_reliability.sum())
+    if got != FAULT_SMALL_EXPECT or drops != FAULT_SMALL_DROPS:
+        raise AssertionError(f"faults at {FAULT_SMALL_HOSTS} hosts: "
+                             f"{got}, drops {drops} != the reference's "
+                             f"{FAULT_SMALL_EXPECT}, {FAULT_SMALL_DROPS}")
+    log(f"  faults at {FAULT_SMALL_HOSTS} hosts == the reference's counts: "
+        f"{got}, reliability drops {drops}")
+    del bs, sim
+    lap("13a_1024")
+
+    b = bundle(HOSTS)
+    with KeepGatherInputs() as gathered:
+        sim0, stats0, _, launches = drive("faults make_runner", b,
+                                          main_runner(b, device), device)
+    out["max_abs_err"] = gathered.check("faults make_runner")
+    del gathered
+    out["launches_faults"] = launches["mailbox_gather"]
+    check_phold("faults make_runner", sim0, HOSTS, LOAD, launches)
+    first = (stats0, sim0)
+    drops = int(sim0.net.ctr_drop_reliability.sum())
+    clamped = check_record_boundaries("faults make_runner", sim0.telem,
+                                      b.fault_plan)
+    if drops <= 0:
+        raise AssertionError("faults make_runner: the loss flaps dropped "
+                             "nothing")
+    log(f"  faults make_runner: {stats0.as_dict()['windows']} windows "
+        f"({clamped} ending at a record time), reliability drops {drops}")
+    lap("13a_make_runner")
+
+    sim, stats, _, _ = drive(
+        f"faults make_chunked_runner K={FAULT_CHUNK}", b,
+        make_chunked_runner(b, app_handlers=(phold.handler,),
+                            app_bulk=phold.BULK, chunk_windows=FAULT_CHUNK,
+                            device=device), device)
+    assert_same_run("faults make_chunked_runner", first, (stats, sim))
+    del sim
+    lap("13a_chunked")
+
+    ckdir = tempfile.mkdtemp(prefix="shadow_faults_")
+
+    def supervised(label, processed0=0, stop_past=None, **kw):
+        """run_supervised on b with a conserve.sample at every barrier,
+        preempted at the first barrier whose window ends past
+        `stop_past`. Returns (result, samples)."""
+        samples, total = [], [processed0]
+        if stop_past is not None:
+            kw["stop"] = lambda: samples[-1].wend > stop_past
+
+        def on_round(sim, wstats, wstart, wend, next_min):
+            total[0] += int(wstats.events_processed)
+            samples.append(conserve.sample(
+                sim, wstart=wstart, wend=wend, next_min=next_min,
+                processed_total=total[0]))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = faults.run_supervised(
+            b, (phold.handler,), checkpoint_path=os.path.join(ckdir, label),
+            checkpoint_every_windows=FAULT_CKPT_WINDOWS, on_round=on_round,
+            device=device, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        h = res.health
+        log(f"  {label}: ok {res.ok} in {wall:.3f} s, {len(samples)} "
+            f"barriers, {len(res.checkpoints)} snapshots, health fatal "
+            f"{h.fatal} overflow {h.events_overflow}/{h.outbox_overflow}/"
+            f"{h.rq_overflow}")
+        if h.fatal or h.events_overflow or h.outbox_overflow \
+                or h.rq_overflow:
+            raise AssertionError(f"{label}: {h.failure_report()}")
+        return res, samples
+
+    def conserved(label, samples):
+        bad = conserve.check(samples)
+        if bad:
+            raise AssertionError(f"{label}: conservation: {bad[:3]}")
+        log(f"  {label}: conserve.check([] over {len(samples)} barriers)")
+
+    for k in (1, FAULT_CHUNK):
+        label = f"run_supervised K={k}"
+        res, samples = supervised(f"supervised_k{k}",
+                                  windows_per_dispatch=k)
+        if not res.ok or not res.checkpoints:
+            raise AssertionError(f"{label}: ok {res.ok}, snapshots "
+                                 f"{res.checkpoints}")
+        conserved(label, samples)
+        assert_same_run(f"faults {label}", first, (res.stats, res.sim))
+        if k == 1:
+            path, t_ck = res.checkpoints[0]
+            nbytes = os.path.getsize(path)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save(os.path.join(ckdir, "again.npz"), res.sim,
+                            time_ns=t_ck)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            checkpoint.load(path, b.sim)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            log(f"  faults snapshot at {t_ck} ns: {nbytes} bytes, save "
+                f"{save_s:.3f} s, load {load_s:.3f} s")
+        del res
+        lap(f"13a_supervised_k{k}")
+
+    stopped, before = supervised("supervised_stop", stop_past=FAULT_STOP_NS)
+    if not stopped.preempted:
+        raise AssertionError("supervised stop: the run was not preempted")
+    t_stop = int(stopped.final_checkpoint.rsplit(".", 2)[1])
+    resumed, after = supervised(
+        "supervised_resume", processed0=before[-1].processed,
+        resume_from=stopped.final_checkpoint)
+    conserved("stop + resume", conserve.stitch(before, after, t_stop))
+    if resumed.resume_of != stopped.run_id or not resumed.ok:
+        raise AssertionError("resume: the chain was not continued")
+    assert_same_run("faults stop at 2.2 s + resume", first,
+                    (resumed.stats, resumed.sim))
+    log(f"  stopped at {t_stop} ns (the spike is over [2.0, 2.5) s), "
+        f"resumed: == make_runner, every leaf")
+    del stopped, resumed, first
+    lap("13a_stop_resume")
+
+    fn = faults.fault_fn_for(b)
+    t_rec = int(b.fault_plan.t_ns[0])
+    fault_replay_cost("faults table replay (warm, before, after the 1.0 s "
+                      "record)", fn, b.sim,
+                      [b.min_jump, t_rec, t_rec + b.min_jump])
+    del b, sim0
+
+    # --- 13b: crash and restart --------------------------------------
+    pb = pingpong.build_bench(PING_HOSTS, end_time_s=PING_SIM_S,
+                              count=PING_COUNT, tcp=False, device=device)
+    half = PING_HOSTS // 2
+    servers = list(range(half, PING_HOSTS, CRASH_EVERY))
+    recs = ([faults.FaultRecord(t_ns=CRASH_NS, kind=faults.FaultKind.CRASH,
+                                a=h) for h in servers]
+            + [faults.FaultRecord(t_ns=RESTART_NS,
+                                  kind=faults.FaultKind.RESTART, a=h)
+               for h in servers])
+    faults.install(pb, recs)
+    sim, stats, _, launches = drive(
+        "crash pingpong", pb,
+        make_runner(pb, app_handlers=(pingpong.handler,), device=device),
+        device)
+    out["launches_crash"] = launches["mailbox_gather"]
+    crashed = torch.zeros(PING_HOSTS, dtype=torch.bool, device=device)
+    crashed[torch.tensor(servers, device=device)] = True
+    crashed[torch.tensor(servers, device=device) - half] = True
+    app = sim.app
+    clean_rtt = app.rtt_sum[:half][~crashed[:half]]
+    checks = {k: (stats.as_dict()[k], v) for k, v in CRASH_EXPECT.items()}
+    checks.update({
+        "clean hosts at 20 received": (
+            int((app.rcvd[~crashed] == PING_COUNT).sum()),
+            PING_HOSTS - 2 * len(servers)),
+        "crashed pairs at 0 received": (int((app.rcvd[crashed] == 0).sum()),
+                                        2 * len(servers)),
+        "clean clients' rtt_sum == 2 s": (
+            int((clean_rtt == PING_RTT_SUM).sum()), half - len(servers)),
+        "events.overflow": (int(sim.events.overflow), 0),
+    })
+    for k, (g, want) in checks.items():
+        if g != want:
+            raise AssertionError(f"crash pingpong: {k}: {g} != {want}")
+    log(f"  crash pingpong: {len(servers)} servers down over [1.0, 1.5) s; "
+        f"checks hold ({', '.join(checks)})")
+    fault_replay_cost("crash reset (before, while down, after the restart)",
+                      faults.fault_fn_for(pb), pb.sim,
+                      [CRASH_NS, CRASH_NS + 200_000_000, RESTART_NS + 1])
+    del pb, sim
+    lap("13b_pingpong")
+
+    def relay_crash(dev):
+        hosts = [HostSpec(name=f"n{i}", proc_start_time=10**9)
+                 for i in range(3)]
+        rb = build(NetConfig(num_hosts=3, end_time=6 * 10**9,
+                             sockets_per_host=4), RELAY_CRASH_GRAPH, hosts,
+                   device=dev)
+        rb.sim = relay.setup(rb.sim, circuits=[[0, 1, 2]],
+                             total_bytes=20_000)
+        faults.install(rb, [
+            faults.FaultRecord(t_ns=1_200_000_000,
+                               kind=faults.FaultKind.CRASH, a=1),
+            faults.FaultRecord(t_ns=2_000_000_000,
+                               kind=faults.FaultKind.RESTART, a=1)])
+        return rb, make_runner(rb, app_handlers=(relay.handler,),
+                               device=dev)
+
+    st, sim = compare_bundles_cuda_cpu("relay crash + restart", relay_crash)
+    if not 0 < int(sim.app.rcvd[2]) < 20_000:
+        raise AssertionError("relay crash: the transfer was not cut short")
+    lap("13b_relay_cuda_cpu")
+
+    # --- 13c: escalation ----------------------------------------------
+    caps = {"event_capacity": ESC_CAP}
+
+    def rebuild(overrides):
+        caps.update(overrides)
+        return bundle(HOSTS, ESC_SIM_S, caps["event_capacity"],
+                      with_plan=False)
+
+    harv = telemetry.Harvester()
+    start = rebuild({})
+    torch.cuda.synchronize()
+    mailbox_gather.launches = 0
+    t0 = time.perf_counter()
+    res = faults.run_supervised(
+        start, (phold.handler,),
+        checkpoint_path=os.path.join(ckdir, "esc"),
+        checkpoint_every_windows=ESC_CKPT_WINDOWS, max_retries=0,
+        harvester=harv,
+        escalation=faults.EscalationPolicy(), rebuild=rebuild,
+        device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["launches_escalate"] = mailbox_gather.launches
+    rep = res.failure_report()
+    checks = {
+        "ok": (res.ok, True),
+        "retries_used": (res.retries_used, 0),
+        "escalated": (res.escalation_restarts >= 1 and bool(res.escalations),
+                      True),
+        "doubled event_capacity": (all(
+            e.knob == "event_capacity" and e.new == 2 * e.old
+            for e in res.escalations), True),
+        "grown == last new": (caps["event_capacity"],
+                              res.escalations[-1].new if res.escalations
+                              else None),
+        "events.overflow": (int(res.sim.events.overflow), 0),
+        "report": ((rep["retries_used"], rep["escalation_restarts"],
+                    bool(rep.get("escalations"))),
+                   (0, res.escalation_restarts, True)),
+        "harvester marks": (len(harv.escalation_marks),
+                            len(res.escalations)),
+    }
+    for k, (g, want) in checks.items():
+        if g != want:
+            raise AssertionError(f"escalation: {k}: {g} != {want}")
+    log(f"  escalation: {[e.as_dict() for e in res.escalations]} in "
+        f"{wall:.3f} s, {len(res.checkpoints)} snapshots, healed from "
+        f"{res.resumed_from or 'boot (no snapshot before the trip)'}; "
+        f"checks hold ({', '.join(checks)})")
+    ref = rebuild({})
+    sim, stats, _ = checkpoint.run_windows(ref, (phold.handler,),
+                                           device=device)
+    n = assert_same_run("escalation == the grown capacity from scratch",
+                        (stats, sim), (res.stats, res.sim))
+    log(f"  escalation: == a from-scratch run at event_capacity "
+        f"{caps['event_capacity']}: EngineStats and all {n} leaves")
+    lap("13c_escalation")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"  phase 13 seconds per sub-phase {json.dumps(secs)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2102,6 +2542,15 @@ def main(argv=None) -> int:
         f"hosts, {CK_SIM_S} sim-s; MIX_VERTICES to {MIX_SIM_S} sim-s")
     launches = dispatch_cell(device)
     row["launches_chunked"] = launches["mailbox_gather"]
+
+    phase("13")
+    log(f"[13] faults: the degraded plan on bench's PHOLD ({HOSTS} hosts, "
+        f"{SIM_S} sim-s) through every runner; pingpong with "
+        f"{CRASH_PAIRS} servers crashed; escalation of an event queue of "
+        f"{ESC_CAP}")
+    got = faults_cell(device)
+    row["max_abs_err"] = max(row["max_abs_err"], got.pop("max_abs_err"))
+    row.update(got)
 
     phase(None)
     log(f"  done; seconds per phase {json.dumps(phase_s)}")

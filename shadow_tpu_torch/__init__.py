@@ -9,7 +9,10 @@ exports no names of its own beyond ``__version__``: import the modules.
 Module names mirror ``shadow_tpu/`` one for one, so each counterpart
 is easy to find; the JAX package stays the reference and this port is
 held against it bit for bit (same config and seed -> the same
-``EngineStats`` and the same value in every state leaf).
+``EngineStats`` and the same value in every state leaf). Its
+robustness layer, ``faults/`` (fault plans, crash and restart, health
+latches, the supervised window loop with capacity escalation), is the
+reference's too.
 
 Rules the package keeps:
 

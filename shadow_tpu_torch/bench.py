@@ -1,7 +1,11 @@
 """Benchmark of the port: events/s on bench.py's two workloads, printed
 as bench.py's one JSON row. Run it as
 
-    python -m shadow_tpu_torch.bench
+    python -m shadow_tpu_torch.bench [--faults PLAN.json]
+
+`--faults` (or BENCH_FAULTS) installs a JSON fault plan
+(faults.records_from_json, e.g. examples/faultplan_degraded.json) on
+every PHOLD input: the degraded-network row, named with `_faults`.
 
 Env knobs (bench.py's, for what the port runs):
 
@@ -22,10 +26,26 @@ Env knobs (bench.py's, for what the port runs):
                                  ring (default on)
   BENCH_CHUNK_WINDOWS=K          run through net.build.make_chunked_runner,
                                  K windows per chunk (metric name gains
-                                 _chunk{K})
+                                 _chunk{K}; the port's own row, bench.py
+                                 takes K only under BENCH_SUPERVISE=1);
+                                 under BENCH_SUPERVISE=1 the supervised
+                                 loop's windows_per_dispatch
+  BENCH_SUPERVISE=1              PHOLD through faults.run_supervised (name
+                                 gains _supervised_chunk{K or 1}, and
+                                 _adaptive with BENCH_ADAPTIVE_JUMP=1)
+  BENCH_CHECKPOINT_WINDOWS=N     supervised checkpoint cadence (default:
+                                 never)
+  BENCH_ADAPTIVE_JUMP=1          the supervised loop's adaptive window rule
+  BENCH_MIN_JUMP_MS=M            PHOLD only: lowers (never raises) the
+                                 window span to M ms (name gains _mj{M}ms)
+  BENCH_FAULTS=PLAN.json         as --faults
   BENCH_PLATFORM=cpu             run on the CPU
 
-Every other BENCH_* knob of bench.py is refused (SystemExit naming it).
+Every other BENCH_* knob of bench.py is refused (SystemExit naming it),
+and so are bench.py's own refusals: --faults, BENCH_SUPERVISE and
+BENCH_MIN_JUMP_MS with pingpong (bench.py ignores the last there),
+BENCH_ADAPTIVE_JUMP and BENCH_CHECKPOINT_WINDOWS without
+BENCH_SUPERVISE=1.
 
 PHOLD is bench.py's default program: capacities start at max(16,
 3*load) and double on a counted overflow, then the run goes again; the
@@ -90,15 +110,21 @@ MIX_VERTICES = """<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
 
 KNOBS = frozenset({"BENCH_WORKLOAD", "BENCH_TOPO", "BENCH_HOSTS",
                    "BENCH_SIM_SECONDS", "BENCH_LOAD", "BENCH_TELEMETRY",
-                   "BENCH_CHUNK_WINDOWS", "BENCH_PLATFORM"})
+                   "BENCH_CHUNK_WINDOWS", "BENCH_PLATFORM", "BENCH_FAULTS",
+                   "BENCH_SUPERVISE", "BENCH_CHECKPOINT_WINDOWS",
+                   "BENCH_ADAPTIVE_JUMP", "BENCH_MIN_JUMP_MS"})
 
 PINGPONG_COUNT = 20
+ONE_MILLISECOND = 1_000_000   # core.simtime's, without importing torch
 
 
-def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True):
-    """bench.py's _build_phold (no replicas, faults or active subset):
+def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True,
+                fault_records=None, ring_capacity=None):
+    """bench.py's _build_phold (no replicas or active subset):
     capacities `cap`, in_ring max(16, 2*load), the default sparse
-    budget; plus the telemetry ring when `ring`."""
+    budget, the fault plan `fault_records` installed when given; plus
+    the telemetry ring (of `ring_capacity` records, default the ring's)
+    when `ring`."""
     from shadow_tpu_torch import telemetry
     from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.core import simtime
@@ -112,8 +138,13 @@ def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True):
     hosts = [HostSpec(name=f"peer{i}", proc_start_time=0) for i in range(H)]
     b = build(cfg, graph, hosts, device=device)
     b.sim = phold.setup(b.sim, load=load)
+    if fault_records:
+        from shadow_tpu_torch import faults
+
+        faults.install(b, fault_records)
     if ring:
-        b.sim = telemetry.attach(b.sim)
+        b.sim = (telemetry.attach(b.sim) if ring_capacity is None
+                 else telemetry.attach(b.sim, capacity=ring_capacity))
     return b
 
 
@@ -128,11 +159,20 @@ def _runner(b, handler, device, chunk_windows, app_bulk=None):
                        device=device)
 
 
+def _lower_min_jump(b, min_jump_ns):
+    """bench.py's BENCH_MIN_JUMP_MS rule: lower the window span, never
+    raise it (a larger span would break the conservative window)."""
+    if min_jump_ns is not None:
+        b.min_jump = min(b.min_jump, int(min_jump_ns))
+    return b
+
+
 def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
-                 chunk_windows=None):
+                 chunk_windows=None, fault_records=None, min_jump_ns=None):
     """bench.py's _phold_runner: a zero-argument callable that runs the
     workload once and returns its events; each call takes the next of
-    three inputs (seeds 1, 2, 3). A counted queue or outbox
+    three inputs (seeds 1, 2, 3), each with its own seeded fault
+    wakeups when `fault_records` is given. A counted queue or outbox
     overflow doubles the capacities, rebuilds and runs again
     (`go.escalated`). `go.last_sim` / `go.last_stats` hold the last
     clean run."""
@@ -141,8 +181,10 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
     state = {"n": 0}
 
     def build_at(cap):
-        bundles = [build_phold(H, load, sim_s, seed, cap, graph, device,
-                               ring=ring) for seed in (1, 2, 3)]
+        bundles = [_lower_min_jump(build_phold(
+            H, load, sim_s, seed, cap, graph, device, ring=ring,
+            fault_records=fault_records), min_jump_ns)
+            for seed in (1, 2, 3)]
         state.update(cap=cap, bundle=bundles[0],
                      sims=[x.sim for x in bundles],
                      fn=_runner(bundles[0], phold.handler, device,
@@ -164,6 +206,75 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
                 raise RuntimeError("PHOLD: no message was received")
             go.last_sim, go.last_stats = sim, stats
             return int(stats.events_processed)
+
+    go.escalated = False
+    go.state = state
+    return go
+
+
+def phold_supervised_runner(H, load, sim_s, device, graph=ONE_VERTEX,
+                            ring=True, fault_records=None,
+                            chunk_windows=None, adaptive_jump=False,
+                            min_jump_ns=None, checkpoint_windows=None):
+    """bench.py's _phold_supervised_runner: PHOLD through
+    faults.run_supervised with the bulk pass (bundle.app_bulk), health
+    checks at every dispatch barrier, `chunk_windows` windows a dispatch
+    and a checkpoint every `checkpoint_windows` windows (default never).
+    The ring is sized for a chunk (at least twice its windows, rounded
+    up to a power of two). Inputs, escalation and `go.last_*` as
+    phold_runner; `go.last_result` is the SupervisorResult."""
+    import atexit
+    import shutil
+    import tempfile
+
+    from shadow_tpu_torch import faults, telemetry
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.faults.escalate import quantize_pow2
+    from shadow_tpu_torch.telemetry.ring import DEFAULT_CAPACITY
+
+    state = {"n": 0}
+    every = checkpoint_windows or (1 << 30)
+    ckdir = tempfile.mkdtemp(prefix="bench_sup_")
+    atexit.register(shutil.rmtree, ckdir, True)
+    W = quantize_pow2(max(DEFAULT_CAPACITY, 2 * (chunk_windows or 1)))
+
+    def build_at(cap):
+        bundles = [_lower_min_jump(build_phold(
+            H, load, sim_s, seed, cap, graph, device, ring=ring,
+            fault_records=fault_records, ring_capacity=W), min_jump_ns)
+            for seed in (1, 2, 3)]
+        b = bundles[0]
+        b.app_bulk = phold.BULK
+        state.update(cap=cap, bundle=b, sims=[x.sim for x in bundles])
+
+    build_at(max(16, 3 * load))
+
+    def go():
+        go.escalated = False
+        while True:
+            b = state["bundle"]
+            b.sim = state["sims"][state["n"] % len(state["sims"])]
+            state["n"] += 1
+            h = telemetry.Harvester()
+            result = faults.run_supervised(
+                b, app_handlers=(phold.handler,),
+                checkpoint_path=os.path.join(ckdir, "ck"),
+                checkpoint_every_windows=every, harvester=h,
+                windows_per_dispatch=chunk_windows,
+                adaptive_jump=adaptive_jump or None, device=device)
+            sim = result.sim
+            if int(sim.events.overflow) + int(sim.outbox.overflow):
+                build_at(state["cap"] * 2)
+                go.escalated = True
+                continue
+            if not result.ok:
+                raise RuntimeError(f"PHOLD supervised: "
+                                   f"{result.failure_report()}")
+            if int(sim.app.rcvd.sum()) <= 0:
+                raise RuntimeError("PHOLD: no message was received")
+            go.last_sim, go.last_stats = sim, result.stats
+            go.last_result, go.harvester = result, h
+            return int(result.stats.events_processed)
 
     go.escalated = False
     go.state = state
@@ -283,7 +394,16 @@ def _env_int(name, default):
         raise SystemExit(f"{name}={v!r} is not an integer") from None
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="the port's benchmark (env knobs in the module "
+                    "docstring)")
+    ap.add_argument("--faults", default=os.environ.get("BENCH_FAULTS"),
+                    help="JSON fault plan (faults.records_from_json): "
+                    "measure PHOLD on a degraded network")
+    args = ap.parse_args(argv)
     off = sorted(k for k, v in os.environ.items()
                  if k.startswith("BENCH_") and v and k not in KNOBS)
     if off:
@@ -293,12 +413,6 @@ def main() -> int:
     if platform not in (None, "cpu"):
         raise SystemExit(f"BENCH_PLATFORM={platform!r}: only 'cpu' "
                          f"(unset = the GPU)")
-    from shadow_tpu_torch.device import resolve_device
-
-    try:
-        device = resolve_device(platform)
-    except RuntimeError as e:
-        raise SystemExit(f"shadow_tpu_torch.bench: {e}") from None
 
     workload = os.environ.get("BENCH_WORKLOAD") or "phold"
     topo = os.environ.get("BENCH_TOPO") or "one"
@@ -314,22 +428,74 @@ def main() -> int:
     if chunk is not None and chunk < 1:
         raise SystemExit(f"BENCH_CHUNK_WINDOWS={chunk}: must be >= 1")
     ring = os.environ.get("BENCH_TELEMETRY", "1") != "0"
+    supervise = os.environ.get("BENCH_SUPERVISE") == "1"
+    adaptive = os.environ.get("BENCH_ADAPTIVE_JUMP") == "1"
+    ck_w = _env_int("BENCH_CHECKPOINT_WINDOWS", None)
+    mjms = os.environ.get("BENCH_MIN_JUMP_MS")
+    min_jump_ns = None
+    if mjms:
+        try:
+            min_jump_ns = int(float(mjms) * ONE_MILLISECOND)
+        except ValueError:
+            raise SystemExit(f"BENCH_MIN_JUMP_MS={mjms!r} is not a "
+                             f"number") from None
+    if (adaptive or ck_w) and not supervise:
+        raise SystemExit(
+            "BENCH_ADAPTIVE_JUMP / BENCH_CHECKPOINT_WINDOWS shape the "
+            "supervised window loop; set BENCH_SUPERVISE=1")
+    if workload != "phold":
+        for flag, on in (("--faults", args.faults),
+                         ("BENCH_SUPERVISE=1", supervise),
+                         ("BENCH_MIN_JUMP_MS", mjms)):
+            if on:
+                raise SystemExit(f"{flag} is only wired for "
+                                 f"BENCH_WORKLOAD=phold")
+    # every knob is checked before torch loads and the device resolves
+    from shadow_tpu_torch.device import resolve_device
 
-    if workload == "phold":
+    try:
+        device = resolve_device(platform)
+    except RuntimeError as e:
+        raise SystemExit(f"shadow_tpu_torch.bench: {e}") from None
+    fault_records = None
+    if args.faults:
+        from shadow_tpu_torch import faults
+
+        with open(args.faults) as f:
+            fault_records = faults.records_from_json(f.read())
+
+    graph = MIX_VERTICES if topo == "mix" else ONE_VERTEX
+    if workload == "phold" and supervise:
+        runner = phold_supervised_runner(
+            H, load, sim_s, device, graph=graph, ring=ring,
+            fault_records=fault_records, chunk_windows=chunk,
+            adaptive_jump=adaptive, min_jump_ns=min_jump_ns,
+            checkpoint_windows=ck_w)
+    elif workload == "phold":
         runner = phold_runner(
-            H, load, sim_s, device,
-            graph=MIX_VERTICES if topo == "mix" else ONE_VERTEX, ring=ring,
-            chunk_windows=chunk)
-        name = f"events_per_sec_per_chip@{H}hosts_phold_load{load}"
+            H, load, sim_s, device, graph=graph, ring=ring,
+            chunk_windows=chunk, fault_records=fault_records,
+            min_jump_ns=min_jump_ns)
     else:
         runner = pingpong_runner(
             H, sim_s, device, graph=MIX_VERTICES if topo == "mix" else None,
             chunk_windows=chunk)
+    if workload == "phold":
+        name = f"events_per_sec_per_chip@{H}hosts_phold_load{load}"
+    else:
         name = f"events_per_sec_per_chip@{H}hosts_udp_pingpong"
-    if chunk:
+    if supervise:
+        name += f"_supervised_chunk{chunk or 1}"
+        if adaptive:
+            name += "_adaptive"
+    elif chunk:
         name += f"_chunk{chunk}"
+    if mjms:
+        name += f"_mj{mjms}ms"
     if topo == "mix":
         name += "_mixtopo"
+    if fault_records:
+        name += "_faults"
 
     _sync(device)
     t0 = time.perf_counter()

@@ -84,6 +84,18 @@ class EngineStats(_Replace):
         return EngineStats(events_processed=z(), micro_steps=z(),
                            windows=z(), fastpath_hit=z(), fastpath_miss=z())
 
+    @staticmethod
+    def from_dict(d: dict, device=None) -> "EngineStats":
+        """EngineStats from host ints (a snapshot's carried totals);
+        absent keys are 0."""
+        def v(k):
+            return torch.tensor(int(d.get(k, 0)), dtype=I64, device=device)
+        return EngineStats(events_processed=v("events_processed"),
+                           micro_steps=v("micro_steps"),
+                           windows=v("windows"),
+                           fastpath_hit=v("fastpath_hit"),
+                           fastpath_miss=v("fastpath_miss"))
+
     def add(self, other: "EngineStats") -> "EngineStats":
         """Field-wise sum: running totals across dispatches."""
         return EngineStats(
@@ -95,13 +107,11 @@ class EngineStats(_Replace):
         )
 
     def as_dict(self) -> dict:
-        return {
-            "events_processed": int(self.events_processed),
-            "micro_steps": int(self.micro_steps),
-            "windows": int(self.windows),
-            "fastpath_hit": int(self.fastpath_hit),
-            "fastpath_miss": int(self.fastpath_miss),
-        }
+        """The five counters as host ints, in one host read."""
+        keys = ("events_processed", "micro_steps", "windows",
+                "fastpath_hit", "fastpath_miss")
+        vals = torch.stack([getattr(self, k) for k in keys]).tolist()
+        return dict(zip(keys, (int(v) for v in vals)))
 
 
 def _popped_summary(popped) -> tuple[int, int]:
@@ -142,11 +152,17 @@ def window_fixpoint(sim, stats: EngineStats, step_fn: StepFn, wend: int,
 def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
                 emit_capacity: int = 4, lane_id=None, bulk_fn=None,
                 telem_fn=None, wstart: int | None = None,
-                sparse_lanes: int = 0):
+                sparse_lanes: int = 0, fault_fn=None):
     """One full round: drain the window, then route cross-host events
     staged in the outbox into destination queues. Returns (sim, stats,
     next window start as a host int: the global minimum pending time,
     INVALID when the queues are empty).
+
+    `fault_fn` (faults.apply.make_fault_fn) runs first, at the window
+    boundary: it rewrites the latency/reliability tables and applies
+    crash resets as a pure function of wend, so every event inside the
+    window sees the post-fault network. It runs at full width before
+    the bulk pass and the census.
 
     `bulk_fn` (net.bulk.make_bulk_fn) consumes eligible hosts' whole
     windows in one vectorized pass first; its count is added to
@@ -165,6 +181,8 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
     count from before the bulk pass. `wstart` is only read by it (None
     records a zero-length window)."""
     ev0, ms0 = stats.events_processed, stats.micro_steps
+    if fault_fn is not None:
+        sim = fault_fn(sim, wend)
     if bulk_fn is not None:
         sim, n_bulk = bulk_fn(sim, wend)
         stats = stats.replace(
@@ -315,7 +333,7 @@ def make_wend_fn(*, min_jump: int, end_time: int,
 def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
                     chunk_windows: int, emit_capacity: int = 4,
                     lane_fn=None, bulk_fn=None, telem_fn=None,
-                    sparse_lanes: int = 0):
+                    sparse_lanes: int = 0, fault_fn=None):
     """Build ``chunk(sim, stats, wstart) -> (sim, stats, wstart')``: up
     to `chunk_windows` step_window rounds while ``wstart <= end_time``,
     each ending at ``wend_fn(sim, wstart)`` (make_wend_fn) — the
@@ -327,8 +345,8 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
     already reads each next window start to the host, so no chunk runs
     ahead of the host: the chunk boundary is only where the caller's
     hooks and snapshots run. ``lane_fn(sim)`` gives step_window's
-    lane_id, once per chunk; the bulk pass, the ring and the sparse
-    fast path run per window as in `run`."""
+    lane_id, once per chunk; the fault rewrite, the bulk pass, the ring
+    and the sparse fast path run per window as in `run`."""
     if int(chunk_windows) < 1:
         raise ValueError(
             f"chunk_windows must be >= 1, got {chunk_windows}")
@@ -348,7 +366,7 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
             sim, stats, wstart = step_window(
                 sim, stats, step_fn, wend_fn(sim, wstart), emit_capacity,
                 lane, bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,
-                sparse_lanes=sparse_lanes)
+                sparse_lanes=sparse_lanes, fault_fn=fault_fn)
             i += 1
         return sim, stats, wstart
 
@@ -358,13 +376,13 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
 def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
         start_time: int = 0, emit_capacity: int = 4, lane_id=None,
         bulk_fn=None, telem_fn=None, sparse_lanes: int = 0,
-        fault_times=None):
+        fault_times=None, fault_fn=None):
     """Run the whole simulation. Window advance rule is the
     reference's: newStart = minNextEventTime, newEnd = newStart +
     minJump, clamped to end_time + 1 (ref: master.c:450-480). The first
     window starts at max(min pending time, start_time). `fault_times`
     (record times) clamps each window at the next record > wstart — the
-    rule of make_wend_fn."""
+    rule of make_wend_fn; `fault_fn` is step_window's."""
     if min_jump <= 0:
         raise ValueError(f"min_jump must be positive, got {min_jump}")
     end_time = int(end_time)
@@ -377,5 +395,5 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
         sim, stats, wstart = step_window(
             sim, stats, step_fn, wend, emit_capacity, lane_id,
             bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,
-            sparse_lanes=sparse_lanes)
+            sparse_lanes=sparse_lanes, fault_fn=fault_fn)
     return sim, stats

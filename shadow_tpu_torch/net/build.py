@@ -91,6 +91,16 @@ class SimBundle:
     # utils.checkpoint.run_windows runs the bulk window pass with it.
     app_bulk: Any = None
     device: Any = None
+    # Optional faults.plan.FaultPlan attached by faults.install():
+    # every runner derives the window-boundary fault_fn from it (and
+    # the boot sim) through faults.fault_fn_for(bundle).
+    fault_plan: Any = None
+    # Optional rebuild(overrides: dict) -> SimBundle: the whole build
+    # (topology, app setup, fault install) again with capacity
+    # overrides merged in — the escalation path's lever
+    # (faults/escalate.py); a grown capacity needs a fresh Sim and
+    # fresh step/fault closures.
+    rebuild: Any = None
 
     def ip_of(self, name: str) -> int:
         return self.dns.resolve_name(name).ip
@@ -248,31 +258,57 @@ def adaptive_jump_spec(bundle: SimBundle):
     return mask, plan_times(bundle)
 
 
+def _resolve_fault_fn(bundle: SimBundle, fault_fn):
+    """Every runner applies a bundle's installed fault plan by default —
+    a schedule must hold wherever the bundle runs. An explicit fault_fn
+    overrides."""
+    if fault_fn is not None:
+        return fault_fn
+    if getattr(bundle, "fault_plan", None) is not None:
+        from shadow_tpu_torch.faults.apply import fault_fn_for
+
+        return fault_fn_for(bundle)
+    return None
+
+
 def plan_times(bundle: SimBundle):
     """The installed fault plan's unique record times (None without a
-    plan; the port's SimBundle has no plan until faults/ is ported)."""
+    plan) — the wend clamp every window rule shares, so records land at
+    window boundaries exactly."""
     plan = getattr(bundle, "fault_plan", None)
     if plan is not None and getattr(plan, "n", 0):
         return np.unique(np.asarray(plan.t_ns, np.int64))
     return None
 
 
-def resolve_wend_fn(bundle: SimBundle, end_time: int, adaptive: bool):
+def resolve_wend_fn(bundle: SimBundle, end_time: int, adaptive: bool,
+                    fault_fn=None):
     """The window-end rule of the chunked runners: the static
     ``wstart + min_jump`` (adaptive=False) or the live-table adaptive
-    jump, both clamped at the plan's record times. A bundle with a
-    fault plan raises NotImplementedError: its adaptive rule reads the
-    plan-replayed tables of faults.apply."""
-    if getattr(bundle, "fault_plan", None) is not None:
-        raise NotImplementedError(
-            "shadow_tpu_torch: a bundle's fault plan needs faults.apply "
-            "(ROADMAP.md Queue 1 item 6)")
+    jump, both clamped at the plan's record times. `fault_fn` is the
+    rule the runner resolved: the adaptive jump needs the plan's record
+    times to stay conservative, so an opaque fault_fn with no installed
+    plan raises ValueError. With a plan the adaptive rule sizes each
+    window from the plan replay at ``wstart + 1``
+    (faults.apply.make_table_fn, host tables), never from the live
+    tables that step_window rewrites only after the span is chosen."""
     if not adaptive:
         return make_wend_fn(min_jump=bundle.min_jump, end_time=end_time,
                             fault_times=plan_times(bundle))
+    plan = getattr(bundle, "fault_plan", None)
+    if fault_fn is not None and plan is None:
+        raise ValueError(
+            "adaptive_jump requires the fault plan's record times "
+            "(faults.install) — cannot bound an opaque fault_fn's "
+            "table rewrites")
     mask, ft = adaptive_jump_spec(bundle)
+    tf = None
+    if plan is not None:
+        from shadow_tpu_torch.faults.apply import make_table_fn
+
+        tf = make_table_fn(plan, bundle.sim)
     return make_wend_fn(min_jump=bundle.min_jump, end_time=end_time,
-                        pair_mask=mask, fault_times=ft)
+                        pair_mask=mask, fault_times=ft, table_fn=tf)
 
 
 def _runner_device(bundle: SimBundle, device):
@@ -293,7 +329,7 @@ def _check_sim_device(sim, dev) -> None:
 def make_runner(bundle: SimBundle, app_handlers=(),
                 end_time: int | None = None, app_bulk=None,
                 app_tcp_bulk=None, tcp_bulk_lossless: bool = False,
-                device=None):
+                device=None, fault_fn=None):
     """A sim -> (sim, stats) callable for the whole run on `device`
     (None -> "cuda"; raises when CUDA is missing or the bundle was
     built on another device).
@@ -305,7 +341,9 @@ def make_runner(bundle: SimBundle, app_handlers=(),
     its loss-free model by `tcp_bulk_lossless`. The sparse fast path
     runs at the config's resolved budget
     (core/engine.resolve_sparse_lanes), and a telemetry ring attached
-    to the input sim (telemetry.attach) records every window.
+    to the input sim (telemetry.attach) records every window. The
+    bundle's installed fault plan (faults.install) applies at every
+    window boundary unless an explicit `fault_fn` replaces it.
 
     The runner's `bulk_fn` attribute is its bulk pass (None without
     one), read at each call: a caller may wrap it, e.g. to time the
@@ -317,6 +355,7 @@ def make_runner(bundle: SimBundle, app_handlers=(),
                                tcp_bulk_lossless)
     telem_fn = make_telem_fn()
     sparse = resolve_sparse_lanes(bundle.cfg)
+    fault_fn = _resolve_fault_fn(bundle, fault_fn)
 
     def go(sim):
         _check_sim_device(sim, dev)
@@ -324,7 +363,8 @@ def make_runner(bundle: SimBundle, app_handlers=(),
             sim, step, end_time=end, min_jump=bundle.min_jump,
             emit_capacity=bundle.cfg.emit_capacity,
             lane_id=sim.net.lane_id, bulk_fn=go.bulk_fn, telem_fn=telem_fn,
-            sparse_lanes=sparse, fault_times=plan_times(bundle))
+            sparse_lanes=sparse, fault_times=plan_times(bundle),
+            fault_fn=fault_fn)
 
     go.bulk_fn = bulk_fn
     return go
@@ -343,30 +383,31 @@ def make_chunked_runner(bundle: SimBundle, app_handlers=(),
     same. `adaptive_jump` takes the live-table window rule
     (resolve_wend_fn); on a graph where no latency changes it gives
     the static partition. The caller's sim is left as it was (the
-    state is never written in place). Device rules are make_runner's.
+    state is never written in place). Device rules and the fault plan
+    are make_runner's.
 
-    `fault_fn` (ROADMAP.md Queue 1 item 6), `warm_start` and
-    `compile_info` (item 11) are not ported yet and raise
-    NotImplementedError."""
+    `warm_start` and `compile_info` (ROADMAP.md Queue 1 item 11) are
+    not ported yet and raise NotImplementedError."""
     if chunk_windows < 1:
         raise ValueError(
             f"chunk_windows must be >= 1, got {chunk_windows} "
             "(0 iterations would spin the host loop forever)")
-    refuse_unported(fault_fn=(fault_fn, 6), warm_start=(warm_start, 11),
+    refuse_unported(warm_start=(warm_start, 11),
                     compile_info=(compile_info, 11))
     dev = _runner_device(bundle, device)
     step = make_step_fn(bundle.cfg, app_handlers)
     end = int(end_time if end_time is not None else bundle.cfg.end_time)
     bulk_fn = _resolve_bulk_fn(bundle, app_bulk, app_tcp_bulk,
                                tcp_bulk_lossless)
+    fault_fn = _resolve_fault_fn(bundle, fault_fn)
     chunk = make_chunk_body(
         step, end_time=end,
-        wend_fn=resolve_wend_fn(bundle, end, adaptive_jump),
+        wend_fn=resolve_wend_fn(bundle, end, adaptive_jump, fault_fn),
         chunk_windows=int(chunk_windows),
         emit_capacity=bundle.cfg.emit_capacity,
         lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
         telem_fn=make_telem_fn(),
-        sparse_lanes=resolve_sparse_lanes(bundle.cfg))
+        sparse_lanes=resolve_sparse_lanes(bundle.cfg), fault_fn=fault_fn)
 
     def go(sim):
         _check_sim_device(sim, dev)
@@ -381,9 +422,9 @@ def make_chunked_runner(bundle: SimBundle, app_handlers=(),
 
 def run(bundle: SimBundle, app_handlers=(), end_time: int | None = None,
         app_bulk=None, app_tcp_bulk=None, tcp_bulk_lossless: bool = False,
-        device=None):
+        device=None, fault_fn=None):
     """Run the whole simulation; returns (sim, stats)."""
     return make_runner(bundle, app_handlers, end_time, app_bulk=app_bulk,
                        app_tcp_bulk=app_tcp_bulk,
                        tcp_bulk_lossless=tcp_bulk_lossless,
-                       device=device)(bundle.sim)
+                       device=device, fault_fn=fault_fn)(bundle.sim)

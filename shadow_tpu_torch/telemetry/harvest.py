@@ -50,6 +50,13 @@ class Harvester:
     seen: int = 0                 # ring count at the last drain
     records: list = field(default_factory=list)
     records_lost: int = 0
+    # capacity escalations the supervisor healed (Escalation.as_dict()
+    # records, faults/escalate.py), in the order they happened
+    escalation_marks: list = field(default_factory=list)
+
+    def mark_escalation(self, esc) -> None:
+        self.escalation_marks.append(
+            esc if isinstance(esc, dict) else esc.as_dict())
 
     def drain(self, sim) -> int:
         """Pull records written since the last drain; returns how many
@@ -115,4 +122,6 @@ class Harvester:
             out["inj_dropped_sum"] = int(
                 sum(r.inj_dropped for r in self.records))
             out["inj_deferred_last"] = int(self.records[-1].inj_deferred)
+        if self.escalation_marks:
+            out["escalations"] = len(self.escalation_marks)
         return out

@@ -15,10 +15,15 @@ save() writes a temp file in the target directory, fsyncs it,
 os.replace()s it into place and fsyncs the directory: readers see the
 old snapshot or the new one, never a partial write.
 
-Not ported yet (ROADMAP.md): save_salvage, replan_shards and
-elastic_meta (faults/ and parallel/), prewarm_dispatch (compile/), and
-run_windows' mesh, feeder, warm_start, compile_info, dispatch_wrap and
-fault_fn arguments, which raise NotImplementedError.
+The determinism contract holds with a fault plan installed too: fault
+effects are a pure function of (plan, window end), so the plan is not
+state and a snapshot carries none (faults/apply.py).
+
+Not ported yet (ROADMAP.md): save_salvage and elastic_meta (lane
+salvage and the sentinel, items 8-9), replan_shards (parallel/, item
+9), prewarm_dispatch (compile/, item 11), and run_windows' mesh,
+feeder, warm_start, compile_info and dispatch_wrap arguments, which
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -235,12 +240,14 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     times and may raise to abort the loop (`on_round` is its name at
     K = 1, called only when on_chunk is not given). `stats0` seeds the
     running totals (resume chains). The bundle's bulk pass
-    (``bundle.app_bulk``, when set) rides every path. The caller's sim
-    is left as it was. `device` None is "cuda" (make_runner's rules).
+    (``bundle.app_bulk``, when set) rides every path, and so does its
+    installed fault plan unless an explicit `fault_fn` replaces it. The
+    caller's sim is left as it was. `device` None is "cuda"
+    (make_runner's rules).
 
     `mesh` and `dispatch_wrap` (ROADMAP.md Queue 1 item 9), `feeder`
-    (item 8), `warm_start` and `compile_info` (item 11) and `fault_fn`
-    (item 6) are not ported yet and raise NotImplementedError."""
+    (item 8), `warm_start` and `compile_info` (item 11) are not ported
+    yet and raise NotImplementedError."""
     from shadow_tpu_torch.core import simtime
     from shadow_tpu_torch.core.engine import (
         EngineStats,
@@ -252,6 +259,7 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     from shadow_tpu_torch.net.build import (
         _check_sim_device,
         _resolve_bulk_fn,
+        _resolve_fault_fn,
         _runner_device,
         plan_times,
         refuse_unported,
@@ -262,13 +270,14 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
 
     refuse_unported(mesh=(mesh, 9), dispatch_wrap=(dispatch_wrap, 9),
                     feeder=(feeder, 8), warm_start=(warm_start, 11),
-                    compile_info=(compile_info, 11), fault_fn=(fault_fn, 6))
+                    compile_info=(compile_info, 11))
     dev = _runner_device(bundle, device)
     cfg = bundle.cfg
     step = make_step_fn(cfg, app_handlers)
     end = int(end_time if end_time is not None else cfg.end_time)
     min_jump = max(int(bundle.min_jump), 1)
     bulk_fn = _resolve_bulk_fn(bundle, getattr(bundle, "app_bulk", None))
+    fault_fn = _resolve_fault_fn(bundle, fault_fn)
     wpd = (int(windows_per_dispatch) if windows_per_dispatch is not None
            else max(1, int(getattr(cfg, "windows_per_dispatch", 1) or 1)))
     if wpd < 1:
@@ -291,10 +300,10 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     if wpd > 1 or adaptive:
         chunk = make_chunk_body(
             step, end_time=end,
-            wend_fn=resolve_wend_fn(bundle, end, adaptive),
+            wend_fn=resolve_wend_fn(bundle, end, adaptive, fault_fn),
             chunk_windows=wpd, emit_capacity=cfg.emit_capacity,
             lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
-            telem_fn=telem_fn, sparse_lanes=sparse)
+            telem_fn=telem_fn, sparse_lanes=sparse, fault_fn=fault_fn)
         while wstart <= end:
             sim, cstats, nm = chunk(sim, EngineStats.create(device=dev),
                                     wstart)
@@ -324,7 +333,8 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
         sim, stats, nm = step_window(
             sim, EngineStats.create(device=dev), step, wend,
             cfg.emit_capacity, sim.net.lane_id, bulk_fn=bulk_fn,
-            telem_fn=telem_fn, wstart=wstart, sparse_lanes=sparse)
+            telem_fn=telem_fn, wstart=wstart, sparse_lanes=sparse,
+            fault_fn=fault_fn)
         total = total.add(stats)
         if on_window is not None:
             on_window(sim, wend)

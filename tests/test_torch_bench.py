@@ -78,7 +78,8 @@ def test_baseline_rule_by_scale():
 
 @pytest.mark.parametrize("env,word", [
     ({"BENCH_SHARDS": "2"}, "BENCH_SHARDS"),
-    ({"BENCH_SUPERVISE": "1"}, "BENCH_SUPERVISE"),
+    ({"BENCH_SUPERVISE": "1", "BENCH_WORKLOAD": "pingpong"},
+     "BENCH_SUPERVISE"),
     ({"BENCH_TOPO": "ref"}, "BENCH_TOPO"),
     ({"BENCH_WORKLOAD": "relay"}, "BENCH_WORKLOAD"),
     ({"BENCH_CHUNK_WINDOWS": "0"}, "BENCH_CHUNK_WINDOWS"),

@@ -33,6 +33,7 @@ from shadow_tpu.net import build as jbuild
 from shadow_tpu.net.state import NetConfig as JConfig
 from shadow_tpu.net.step import make_step_fn as jmake_step_fn
 from shadow_tpu_torch import convert
+from shadow_tpu_torch import faults as tfaults
 from shadow_tpu_torch import telemetry as ttelemetry
 from shadow_tpu_torch.apps import phold as tphold
 from shadow_tpu_torch.bench import MIX_VERTICES, ONE_VERTEX
@@ -353,18 +354,37 @@ def test_chunk_past_the_end_returns_its_carry():
         assert sim is tb.sim and st is stats and out == ws
 
 
+def _counting_fault_fn():
+    """A fault_fn that records each window end it is applied at."""
+    def fault_fn(sim, wend):
+        fault_fn.wends.append(int(wend))
+        return sim
+    fault_fn.wends = []
+    return fault_fn
+
+
 def test_chunked_runner_refusals():
     tb = _bundle("port")
     with pytest.raises(ValueError, match="chunk_windows must be >= 1"):
         tbuild.make_chunked_runner(tb, chunk_windows=0, device="cpu")
-    for kw, item in (({"fault_fn": lambda *a: a}, "item 6"),
-                     ({"warm_start": True}, "item 11"),
+    for kw, item in (({"warm_start": True}, "item 11"),
                      ({"compile_info": {}}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             tbuild.make_chunked_runner(tb, device="cpu", **kw)
-    tb.fault_plan = object()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tbuild.resolve_wend_fn(tb, SEC, adaptive=False)
+    # a fault_fn is accepted and applied at every window's end
+    fn = _counting_fault_fn()
+    _, st = tbuild.make_chunked_runner(
+        tb, app_handlers=(tphold.handler,), chunk_windows=4, fault_fn=fn,
+        device="cpu")(tb.sim)
+    assert len(fn.wends) == int(st.windows) > 0
+    assert fn.wends == sorted(fn.wends)
+    # an installed plan's record times clamp both window rules
+    tfaults.install(tb, [tfaults.FaultRecord(
+        t_ns=1_234_567, kind=tfaults.FaultKind.LOSS, a=0, b=0, value=1)])
+    for adaptive in (False, True):
+        wend_fn = tbuild.resolve_wend_fn(tb, SEC, adaptive=adaptive)
+        assert wend_fn(tb.sim, 0) == 1_234_567
+        assert wend_fn(tb.sim, 1_234_567) == 1_234_567 + tb.min_jump
 
 
 def test_run_windows_refusals():
@@ -373,12 +393,18 @@ def test_run_windows_refusals():
                      ({"dispatch_wrap": lambda f: f}, "item 9"),
                      ({"feeder": object()}, "item 8"),
                      ({"warm_start": True}, "item 11"),
-                     ({"compile_info": {}}, "item 11"),
-                     ({"fault_fn": lambda *a: a}, "item 6")):
+                     ({"compile_info": {}}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             tckpt.run_windows(tb, device="cpu", **kw)
     with pytest.raises(ValueError, match="windows_per_dispatch"):
         tckpt.run_windows(tb, device="cpu", windows_per_dispatch=0)
+    # a fault_fn is accepted and applied at every window's end, on the
+    # per-window and the chunked path
+    for k in (1, 4):
+        fn = _counting_fault_fn()
+        _, st, _ = tckpt.run_windows(tb, (tphold.handler,), device="cpu",
+                                     windows_per_dispatch=k, fault_fn=fn)
+        assert len(fn.wends) == int(st.windows) > 0
 
 
 def test_chunked_runner_needs_cuda_by_default():

@@ -45,7 +45,14 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.apps.pingpong",
                 "shadow_tpu_torch.utils.checkpoint",
                 "shadow_tpu_torch.telemetry.causality",
-                "shadow_tpu_torch.bench"):
+                "shadow_tpu_torch.bench",
+                "shadow_tpu_torch.faults",
+                "shadow_tpu_torch.faults.plan",
+                "shadow_tpu_torch.faults.apply",
+                "shadow_tpu_torch.faults.health",
+                "shadow_tpu_torch.faults.escalate",
+                "shadow_tpu_torch.faults.conserve",
+                "shadow_tpu_torch.faults.supervisor"):
         assert mod in out["modules"]
 
 
