@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    22), with CUDA-event timings of the kernel, the plain version and
    one PyTorch library call computing the same function (one event
    pair around many calls that cycle through input sets larger than
-   the L2) at the main shape, the relay's and the Tor cell's;
+   the L2) at the main shape, the relay's, the Tor cell's and the
+   --test example's route (1,001 hosts, P = 22, the narrow tier's 24
+   columns; equality also at its full outbox of 4,096);
 4. the main path at full width: bench.py's default PHOLD program —
    10,240 hosts, load 8, the one-vertex 50 ms topology, capacities 48
    and in_ring 16 as bench.py settles them, 5 simulated seconds, the
@@ -87,10 +89,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    checks of 7, the TCP bulk pass's iterations per window and a debug
    replay of one window's call (commit share);
 9. CUDA against CPU inside the port at the reference tests' small
-   shapes: the Tor model at 10 hosts to 10 sim-s (serial and with the
-   TCP bulk pass, every stream complete, then held to each other under
-   the reference's contract), UDP gossip at 64 hosts and TCP gossip at
-   8 hosts (cut to 4 sim-s);
+   shapes: the Tor model at 10 hosts to 10 sim-s with the TCP bulk
+   pass (every stream complete) and serial cut to 1.4 sim-s
+   (mid-transfer), the serial run held under the reference's contract
+   to a TCP bulk run on the card to 1.4 sim-s; UDP gossip at 64 hosts
+   and TCP gossip at 8 hosts (cut to 4 sim-s);
 10. TCP gossip as tools/scale_run.py --workload gossip
    --gossip-transport tcp --hosts 5120 builds it (K = 8, 12 sockets,
    out_ring 16), with emit_capacity 40, plus the ring, cut to 2
@@ -135,7 +138,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    sim-s under
    run_supervised(escalation=EscalationPolicy()): healed with no retry,
    zero overflow, tests/test_escalate.py's checks, and leaf-equal to a
-   from-scratch run at the grown capacity.
+   from-scratch run at the grown capacity;
+14. the command-line entry point on reference-format configs: (14a)
+   `python -m shadow_tpu_torch.cli <config> --platform gpu` as a
+   subprocess on the built-in --test example (1,000 clients upload 330
+   KiB each to one server over TCP) cut at 2.05 sim-s, where the
+   server's SYN burst begins: its report equal to the reference's
+   counts (1,001 events, 2 windows, app_rcvd 0, overflow 0); the same
+   bundle in-process through the loader and make_runner (2
+   micro-steps), and 4 micro-steps of the burst window that follows
+   replayed, the second under torch.profiler; (14b) the example at 2
+   clients x 33 KiB, seed 3, through the CLI to full depth (109
+   events, 17 windows, every byte received), its CUDA and CPU runs cut
+   to 2.2 sim-s leaf-equal with mailbox_gather held to its plain
+   version on their route, and the reference's PHOLD test config
+   through the CLI (its report equal to the reference CLI's); (14c)
+   CUDA against CPU through the loader: pingpong under the RR
+   interface qdisc and the SINGLE and STATIC router queues, the
+   testtcp echo pair, testdeterminism (randdump) and the ring model.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
@@ -277,14 +297,18 @@ GTCP_EMIT = 40
 GTCP_SIM_S = 2.0
 GTCP_EXPECT = {"events_processed": 67_323, "windows": 5, "micro_steps": 38}
 # Phase 9's small shapes: the reference tests' (tests/test_relay_mux.py,
-# tests/test_gossip_tcp.py). The mux runs at the test's full depth, 10
-# sim-s (the server's EOFs at 1.553 s; 211 serial micro-steps, 57 s on
-# the card); TCP gossip is cut from 12 to 4 sim-s so that it takes well
-# under a minute on the card (block 0 at every host, block 1 just
-# mined).
+# tests/test_gossip_tcp.py). The mux runs with the TCP bulk pass at the
+# test's full depth, 10 sim-s (17 micro-steps; the server's EOFs at
+# 1.553 s). Serial it is cut to 1.4 sim-s, mid-transfer (4,302 of the
+# 20,000 bytes at each stream's server; 65 micro-steps, against 185 to
+# the EOFs and 211 to 10 sim-s, at ~360 ms each on the card), and held
+# to a bulk run to the same depth. TCP gossip is cut from 12 to 4 sim-s
+# so that it takes well under a minute on the card (block 0 at every
+# host, block 1 just mined).
 MUX_SLOTS = 4
 MUX_BYTES = 20_000
 MUX_SIM_S = 10.0
+MUX_SERIAL_SIM_S = 1.4
 SMALL_GTCP_SIM_S = 4.0
 
 
@@ -385,6 +409,91 @@ RELAY_CRASH_GRAPH = ONE_VERTEX.replace(
 ESC_CAP = 16
 ESC_SIM_S = 0.3
 ESC_CKPT_WINDOWS = 4
+
+# Phase 14: the CLI and the reference-format configs. 14a is the
+# built-in `--test` example (1,000 clients upload 330 KiB each to one
+# server; shadow_tpu_torch/config/examples.py) at full width, cut at
+# 2.05 sim-s where the server's SYN burst begins (the parser's
+# int(2.05 * 1e9) = 2,049,999,999 ns). The reference's counts (its CPU
+# run, the loader's hints, seed 1): 1,001 events, 2 windows, 2
+# micro-steps, app_rcvd 0, overflow 0. The burst's route delivers
+# 1,000 SYNs to one row, past the sweep's INSERT_SWEEP arrivals, so it
+# takes the sorted scatter and launches no mailbox_gather (as the
+# reference's "sort2" does); CLI_1K_BURST_STEPS micro-steps of the
+# burst window that follows are replayed.
+CLI_1K_CLIENTS = 1000
+CLI_1K_STOP = 2.05
+CLI_1K_EXPECT = {"events": 1_001, "windows": 2, "app_rcvd": 0,
+                 "overflow": 0}
+CLI_1K_MICRO_STEPS = 2
+CLI_1K_BURST_STEPS = 4
+# 14b: the example at tests/test_example_e2e.py's shape (33 KiB, 40
+# sim-s, seed 3) but 2 clients instead of its 5, to full depth through
+# the CLI; the reference CLI's counts (its CPU run): 109 events, 17
+# windows (90 micro-steps), every byte received (5 clients: 268, 28,
+# 211 micro-steps). Its CUDA/CPU twin is cut to CLI_TWIN_STOP.
+CLI_EX_CLIENTS = 2
+CLI_EX_KIB = 33
+CLI_EX_SEED = 3
+CLI_EX_EXPECT = {"events": 109, "windows": 17,
+                 "app_rcvd": CLI_EX_CLIENTS * CLI_EX_KIB * 1024,
+                 "overflow": 0}
+CLI_TWIN_STOP = 2.2
+# 14b: the reference's PHOLD test config (tests/test_config_cli.py:
+# 10 peers, load 25, 3 s) and the reference CLI's report on the CPU
+# (seed 1).
+REFERENCE_PHOLD_XML = """<shadow>
+  <topology><![CDATA[<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="packetloss" attr.type="double" for="edge" id="d4" />
+  <key attr.name="latency" attr.type="double" for="edge" id="d3" />
+  <key attr.name="bandwidthup" attr.type="int" for="node" id="d2" />
+  <key attr.name="bandwidthdown" attr.type="int" for="node" id="d1" />
+  <key attr.name="countrycode" attr.type="string" for="node" id="d0" />
+  <graph edgedefault="undirected">
+    <node id="poi-1">
+      <data key="d0">US</data>
+      <data key="d1">10240</data>
+      <data key="d2">10240</data>
+    </node>
+    <edge source="poi-1" target="poi-1">
+      <data key="d3">50.0</data>
+      <data key="d4">0.0</data>
+    </edge>
+  </graph>
+</graphml>
+]]></topology>
+  <kill time="3"/>
+  <plugin id="testphold" path="shadow-plugin-test-phold"/>
+  <node id="peer" quantity="10">
+    <application plugin="testphold" starttime="1"
+      arguments="loglevel=info basename=peer quantity=10 load=25 weightsfilepath=weights.txt"/>
+  </node>
+</shadow>"""
+PHOLD_REF_REPORT = {"events": 10_250, "windows": 41, "sim_seconds": 3.0,
+                    "app_rcvd": 10_000, "overflow": 0}
+# 14c: queue disciplines and the small apps, CUDA against CPU (bodies
+# of reference-format configs over the example's one-vertex graph).
+PING_BODY = """  <plugin id="pp" path="tgen-ping"/>
+  <host id="server">
+    <process plugin="pp" starttime="1" arguments="mode=server port=6000"/>
+  </host>
+  <host id="client" quantity="7">
+    <process plugin="pp" starttime="1"
+      arguments="mode=client server=server port=6000 count=5 size=1000"/>
+  </host>"""
+ECHO_BODY = """  <plugin id="testtcp" path="shadow-plugin-test-tcp"/>
+  <host id="testserver">
+    <process plugin="testtcp" starttime="1" arguments="blocking server"/>
+  </host>
+  <host id="testclient" quantity="3">
+    <process plugin="testtcp" starttime="2"
+      arguments="blocking client testserver"/>
+  </host>"""
+RANDDUMP_BODY = """  <plugin id="det" path="shadow-plugin-test-determinism"/>
+  <host id="det" quantity="16">
+    <process plugin="det" starttime="1"/>
+  </host>"""
+SMALL_STOP = {"ping": 3, "echo": 2.2, "randdump": 1.5}
 
 T0 = time.perf_counter()
 # simtime.INVALID: an empty event slot
@@ -1775,31 +1884,43 @@ def gossip_tcp_cell(device):
 
 
 def compare_new_apps_cuda_cpu():
-    """Phase 9: the reference tests' small shapes of the Tor model
-    (serial and with the TCP bulk pass, then held to each other under
-    the reference's contract) and of UDP and TCP gossip."""
+    """Phase 9: the reference tests' small shapes of the Tor model (with
+    the TCP bulk pass to the test's 10 sim-s, every stream complete;
+    serial cut to MUX_SERIAL_SIM_S and held under the reference's
+    contract to a TCP bulk run on the card to the same depth) and of UDP
+    and TCP gossip."""
     from shadow_tpu_torch import convert
     from shadow_tpu_torch.apps import relay
 
-    runs = {}
-    for bulk in (False, True):
-        label = f"mux 10 hosts {'TCP bulk' if bulk else 'serial'}"
+    def make(dev, bulk, sim_s):
+        b, _ = build_mux_small(dev, sim_s)
+        return b, mux_runner(b, dev, tcp_bulk=bulk)
 
-        def make(dev, bulk=bulk):
-            b, _ = build_mux_small(dev, MUX_SIM_S)
-            return b, mux_runner(b, dev, tcp_bulk=bulk)
+    label = f"mux 10 hosts TCP bulk to {MUX_SIM_S} sim-s"
+    _, sim = compare_bundles_cuda_cpu(
+        label, lambda dev: make(dev, True, MUX_SIM_S))
+    live = sim.app.s_role == relay.ROLE_SERVER
+    streams = sim.app.rcvd[live].tolist()
+    if streams != [MUX_BYTES] * 4 or not bool(
+            (sim.app.done_at[live] >= 0).all()):
+        raise AssertionError(f"{label}: server streams {streams}, EOF "
+                             f"at {sim.app.done_at[live].tolist()}")
+    log(f"  {label}: the server's 4 streams complete, EOF at "
+        f"{sim.app.done_at[live].tolist()} ns")
 
-        stats, sim = compare_bundles_cuda_cpu(label, make)
-        live = sim.app.s_role == relay.ROLE_SERVER
-        streams = sim.app.rcvd[live].tolist()
-        if streams != [MUX_BYTES] * 4 or not bool(
-                (sim.app.done_at[live] >= 0).all()):
-            raise AssertionError(f"{label}: server streams {streams}, EOF "
-                                 f"at {sim.app.done_at[live].tolist()}")
-        log(f"  {label}: the server's 4 streams complete, EOF at "
-            f"{sim.app.done_at[live].tolist()} ns")
-        runs[bulk] = (convert.sim_to_numpy(sim), stats.as_dict())
-    assert_contract("mux bulk vs serial", runs[True], runs[False])
+    stats, sim = compare_bundles_cuda_cpu(
+        f"mux 10 hosts serial to {MUX_SERIAL_SIM_S} sim-s",
+        lambda dev: make(dev, False, MUX_SERIAL_SIM_S))
+    serial = (convert.sim_to_numpy(sim), stats.as_dict())
+    b, runner = make("cuda", True, MUX_SERIAL_SIM_S)
+    t0 = time.perf_counter()
+    sim, stats = runner(b.sim)
+    live = sim.app.s_role == relay.ROLE_SERVER
+    log(f"  mux 10 hosts TCP bulk to {MUX_SERIAL_SIM_S} sim-s cuda: "
+        f"{stats.as_dict()} in {time.perf_counter() - t0:.2f} s; the "
+        f"server's streams at {sim.app.rcvd[live].tolist()} bytes")
+    assert_contract("mux bulk vs serial",
+                    (convert.sim_to_numpy(sim), stats.as_dict()), serial)
 
     def make_udp(dev):
         b = build_gossip(64, 5.0, seed=1, device=dev)
@@ -2352,6 +2473,296 @@ def faults_cell(device):
     return out
 
 
+def small_config(body, stoptime):
+    """A reference-format config: `body` over the example's one-vertex
+    50 ms graph."""
+    from shadow_tpu_torch.config.examples import EXAMPLE_GRAPHML
+
+    return (f'<shadow stoptime="{stoptime}">\n  <topology><![CDATA['
+            f'{EXAMPLE_GRAPHML}]]></topology>\n{body}\n</shadow>')
+
+
+def run_cli(label, text, tmp, *flags):
+    """`python -m shadow_tpu_torch.cli <config> --platform gpu -d <dir>
+    [flags]` as a subprocess from the repository root, the config
+    written to a file first: the entry point a user calls. Exit code 0
+    required. Returns (the report of its last line, wall s)."""
+    import os
+    import subprocess
+    from pathlib import Path
+
+    path = os.path.join(tmp, f"{label}.shadow.config.xml")
+    with open(path, "w") as f:
+        f.write(text)
+    cmd = [sys.executable, "-m", "shadow_tpu_torch.cli", path, "--platform",
+           "gpu", "-d", os.path.join(tmp, f"{label}.data"), *flags]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = done.stdout.strip().splitlines()
+    if done.returncode != 0 or not lines:
+        raise AssertionError(f"{label}: the CLI exited {done.returncode}:\n"
+                             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    report = json.loads(lines[-1])
+    log(f"  {label}: `python -m shadow_tpu_torch.cli {' '.join(cmd[4:])}` "
+        f"exit 0 in {wall:.1f} s, {len(lines)} lines; report "
+        f"{json.dumps(report)}")
+    for ln in lines:
+        if "ObjectCounter" in ln:
+            log(f"  {label}: {ln}")
+    return report, wall
+
+
+def check_report(label, report, expect):
+    """The report's keys as the reference's CLI prints them, and
+    `expect`'s counts."""
+    keys = {"events", "windows", "sim_seconds", "wall_seconds",
+            "events_per_second", "simulated_seconds_per_wall_second",
+            "overflow"}
+    if not keys <= set(report):
+        raise AssertionError(f"{label}: report lacks "
+                             f"{sorted(keys - set(report))}")
+    got = {k: report.get(k) for k in expect}
+    if got != expect:
+        raise AssertionError(f"{label}: report {got} != the reference's "
+                             f"{expect}")
+    log(f"  {label}: report equals the reference's counts {expect}")
+
+
+def load_config(text, seed, device, overrides=None):
+    """(bundle, runner) of a config text through the port's loader and
+    make_runner, as the CLI's run branch builds them."""
+    from shadow_tpu_torch.config.loader import load
+    from shadow_tpu_torch.config.xmlconfig import parse_config
+    from shadow_tpu_torch.net.build import make_runner
+
+    loaded = load(parse_config(text), seed=seed, overrides=overrides,
+                  device=device)
+    b = loaded.bundle
+    return b, make_runner(b, app_handlers=loaded.handlers,
+                          app_bulk=b.app_bulk, device=device)
+
+
+class BurstShim:
+    """The step_fn of a replayed burst window: the host clock at every
+    micro-step's handler call; torch.profiler over the second micro-step
+    (call 2 to call 3); after `steps` micro-steps it raises Enough to
+    leave the window (a burst window runs ~1,000 micro-steps)."""
+
+    class Enough(Exception):
+        pass
+
+    def __init__(self, step, steps, prof=None):
+        self.step, self.steps, self.prof, self.marks = step, steps, prof, []
+
+    def __call__(self, sim, popped, buf, kinds=None):
+        import torch
+
+        torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+        n = len(self.marks)
+        if self.prof is not None and n == 2:
+            self.prof.start()
+        elif self.prof is not None and n == 3:
+            self.prof.stop()
+        if n > self.steps:
+            raise BurstShim.Enough
+        return self.step(sim, popped, buf, kinds=kinds)
+
+
+def replay_burst(label, b, handlers, sim0, wend, steps):
+    """The first `steps` micro-steps of the window from `sim0` to `wend`
+    through core.engine.step_window (the sparse fast path at the
+    config's budget), each timed from one handler call to the next,
+    then again with the second one under torch.profiler: launches,
+    cudaStreamSynchronize calls and device busy. Returns the profiled
+    micro-step's {ms, launches, syncs, busy_ms}."""
+    import copy
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shadow_tpu_torch.core.engine import (
+        EngineStats, resolve_sparse_lanes, step_window)
+    from shadow_tpu_torch.net.step import make_step_fn
+
+    step = make_step_fn(b.cfg, handlers)
+
+    def window(shim):
+        sim = copy.deepcopy(sim0)
+        try:
+            step_window(sim, EngineStats.create(device=sim.events.time.device),
+                        shim, wend, b.cfg.emit_capacity, sim.net.lane_id,
+                        sparse_lanes=resolve_sparse_lanes(b.cfg))
+        except BurstShim.Enough:
+            pass
+        else:
+            raise AssertionError(f"{label}: the window ended within "
+                                 f"{steps} micro-steps")
+
+    timed = BurstShim(step, steps)
+    window(timed)
+    walls = [(y - x) * 1e3 for x, y in zip(timed.marks, timed.marks[1:])]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window(BurstShim(step, steps, prof))
+    events = raw_events(prof)
+    launches = host_launches(events)
+    syncs = sum(1 for e in events if e.device_type == DeviceType.CPU
+                and e.name == "cudaStreamSynchronize")
+    busy_ms = device_busy_us(events) / 1e3
+    log(f"  {label}: {steps} micro-steps of the window to "
+        f"{wend / 1e9:.3f} sim-s replayed through core.engine.step_window: "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms; the second "
+        f"profiled: {launches} launches, {syncs} cudaStreamSynchronize, "
+        f"device busy {busy_ms:.2f} ms = {busy_ms / walls[1] * 100:.2f}% "
+        f"of its {walls[1]:.1f} ms")
+    return {"ms": walls[1], "ms_all": walls, "launches": launches,
+            "syncs": syncs, "busy_ms": busy_ms}
+
+
+def cli_cell(device):
+    """Phase 14: the CLI and the reference-format configs on the card,
+    one run after another. Returns the kernel row's additions (launches
+    on the phase's in-process runs, the burst micro-step's profile) and
+    the max abs error of mailbox_gather against its plain version on
+    their route inputs."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="shadow_cli_") as tmp:
+        return _cli_cell(device, tmp)
+
+
+def _cli_cell(device, tmp):
+    import torch
+
+    from shadow_tpu_torch.apps import bulk
+    from shadow_tpu_torch.config.examples import example_config
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+
+    out = {}
+    # ---- 14a: the built-in --test example at full width ----------
+    text = example_config(clients=CLI_1K_CLIENTS, stoptime=CLI_1K_STOP)
+    log(f"[14a] the --test example at {CLI_1K_CLIENTS} clients cut to "
+        f"{CLI_1K_STOP} sim-s")
+    report, _ = run_cli("cli-1k-bulk", text, tmp)
+    check_report("cli-1k-bulk", report, CLI_1K_EXPECT)
+    t0 = time.perf_counter()
+    b, runner = load_config(text, seed=1, device=device)
+    torch.cuda.synchronize()
+    log(f"  cli-1k-bulk in-process: loaded {b.cfg.num_hosts} hosts "
+        f"(capacities {b.cfg.event_capacity}, {b.cfg.sockets_per_host} "
+        f"sockets) in {time.perf_counter() - t0:.2f} s")
+    sim, stats, wall, launches = drive("cli-1k-bulk in-process", b,
+                                       runner, device)
+    st = stats.as_dict()
+    got = {"events": st["events_processed"], "windows": st["windows"],
+           "micro_steps": st["micro_steps"],
+           "app_rcvd": int(sim.app.rcvd.sum()),
+           "overflow": int(sim.events.overflow)
+           + int(sim.outbox.overflow) + int(sim.net.rq_overflow)}
+    want = dict(CLI_1K_EXPECT, micro_steps=CLI_1K_MICRO_STEPS)
+    if got != want:
+        raise AssertionError(f"cli-1k-bulk in-process: {got} != {want}")
+    if launches["mailbox_gather"] != 0:
+        raise AssertionError("cli-1k-bulk: the SYN burst's route took "
+                             "the sweep; expected the sorted scatter")
+    queued = int((sim.events.time < INVALID_TIME).sum(dim=1).amax())
+    log(f"  cli-1k-bulk in-process: counts as the reference's {got}; "
+        f"{wall / st['micro_steps'] * 1e3:.1f} ms per micro-step; "
+        f"mailbox_gather launched {launches['mailbox_gather']} times "
+        f"(the burst route sends {queued} SYNs to one row, past the "
+        f"sweep's 32: the sorted scatter)")
+    if queued < CLI_1K_CLIENTS:
+        raise AssertionError(f"cli-1k-bulk: the server holds {queued} "
+                             f"events, expected {CLI_1K_CLIENTS} SYNs")
+    out["launches_cli_1k"] = launches["mailbox_gather"]
+    out["cli_1k_burst"] = replay_burst(
+        "cli-1k-bulk burst", b, (bulk.handler,), sim,
+        int(sim.events.min_time().amin()) + b.min_jump, CLI_1K_BURST_STEPS)
+    del sim, b, runner
+
+    # ---- 14b: reference-format configs through the CLI -----------
+    ex_label = f"cli-example-{CLI_EX_CLIENTS}"
+    log(f"[14b] the example at {CLI_EX_CLIENTS} clients x "
+        f"{CLI_EX_KIB} KiB to full depth and the reference PHOLD "
+        f"config through the CLI, the example's CUDA/CPU twin")
+    ex = example_config(clients=CLI_EX_CLIENTS, kib=CLI_EX_KIB, stoptime=40)
+    report, _ = run_cli(ex_label, ex, tmp, "-s", str(CLI_EX_SEED))
+    check_report(ex_label, report, CLI_EX_EXPECT)
+    report, _ = run_cli("cli-phold-ref", REFERENCE_PHOLD_XML, tmp)
+    check_report("cli-phold-ref", report, PHOLD_REF_REPORT)
+    twin = example_config(clients=CLI_EX_CLIENTS, kib=CLI_EX_KIB,
+                          stoptime=CLI_TWIN_STOP)
+    mailbox_gather.launches = 0
+    with KeepGatherInputs() as gathered:
+        compare_bundles_cuda_cpu(
+            f"{ex_label} cut to {CLI_TWIN_STOP} sim-s",
+            lambda dev: load_config(twin, CLI_EX_SEED, dev))
+    twin_launches = mailbox_gather.launches
+    if twin_launches <= 0:
+        raise AssertionError(f"{ex_label} twin: mailbox_gather was "
+                             "never launched")
+    err = gathered.check(f"{ex_label} twin")
+    log(f"  {ex_label} twin: mailbox_gather launched {twin_launches} "
+        f"times on the card")
+
+    # ---- 14c: queue disciplines and the small apps ---------------
+    log("[14c] queue disciplines and the small apps, CUDA against CPU")
+    mailbox_gather.launches = 0
+    ping = small_config(PING_BODY, SMALL_STOP["ping"])
+    for label, ov in (("ping --interface-qdisc rr",
+                       {"interface_qdisc": "rr"}),
+                      ("ping --router-qdisc single",
+                       {"router_qdisc": "single"}),
+                      ("ping --router-qdisc static",
+                       {"router_qdisc": "static"})):
+        _, sim = compare_bundles_cuda_cpu(
+            label, lambda dev, ov=ov: load_config(ping, 1, dev, dict(ov)))
+        if int(sim.app.rcvd[sim.app.role == 1].sum()) <= 0:
+            raise AssertionError(f"{label}: no client got a reply")
+    _, sim = compare_bundles_cuda_cpu(
+        "testtcp echo", lambda dev: load_config(
+            small_config(ECHO_BODY, SMALL_STOP["echo"]), 7, dev))
+    if int(sim.app.s_rcvd.sum()) <= 0:
+        raise AssertionError("testtcp echo: the server drained nothing")
+    _, sim = compare_bundles_cuda_cpu(
+        "testdeterminism", lambda dev: load_config(
+            small_config(RANDDUMP_BODY, SMALL_STOP["randdump"]), 11,
+            dev))
+    if not bool((sim.app.start_at >= 0).all()):
+        raise AssertionError("testdeterminism: a host drew nothing")
+    small_launches = mailbox_gather.launches
+    ring_cuda_cpu()
+    out["launches_cli"] = twin_launches + small_launches
+    log(f"  14c: mailbox_gather launched {small_launches} times on the "
+        f"card")
+    return out, err
+
+
+def ring_cuda_cpu():
+    """apps/ring.py, the smallest program, on CUDA and on the CPU: equal
+    EngineStats and every leaf equal."""
+    from shadow_tpu_torch.apps import ring
+    from shadow_tpu_torch.core import simtime
+    from shadow_tpu_torch.core.engine import run
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        sim, stats = run(ring.make(16, device=dev), ring.step,
+                         end_time=simtime.ONE_SECOND, min_jump=ring.LATENCY)
+        res[dev] = (stats, sim)
+        log(f"  ring 16 hosts {dev}: {stats.as_dict()} in "
+            f"{time.perf_counter() - t0:.2f} s")
+    n = assert_same_run("ring", res["cuda"], res["cpu"])
+    if int(res["cpu"][1].hops.sum()) != int(
+            res["cpu"][0].events_processed):
+        raise AssertionError("ring: hops != events")
+    log(f"  ring: cuda == cpu, EngineStats and all {n} leaves equal")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2402,11 +2813,18 @@ def main(argv=None) -> int:
         also=gossip_n + [(TOR_HOSTS, TOR_HOSTS * 24)])
     tor_row, _ = check_mailbox_gather(device, P=22, H=TOR_HOSTS,
                                       main_n=TOR_HOSTS * TOR_CAP)
+    # the --test example's route (phase 14): 1,001 hosts, P = 22, the
+    # narrow tier's 24 columns, and the full outbox of 4,096
+    cli_h = CLI_1K_CLIENTS + 1
+    cli_row, _ = check_mailbox_gather(device, P=22, H=cli_h,
+                                      main_n=cli_h * 24,
+                                      also=[(cli_h, cli_h * 4096)])
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     row["max_abs_err"] = max(row["max_abs_err"], tcp_row["max_abs_err"],
-                             tor_row["max_abs_err"])
+                             tor_row["max_abs_err"], cli_row["max_abs_err"])
     row["p22"] = {k: tcp_row[k] for k in keys}
     row["p22_tor"] = {k: tor_row[k] for k in keys}
+    row["p22_cli"] = {k: cli_row[k] for k in keys}
 
     phase("4")
     log(f"[4] main path: bench.py's default PHOLD, {HOSTS} hosts load "
@@ -2550,6 +2968,14 @@ def main(argv=None) -> int:
         f"{ESC_CAP}")
     got = faults_cell(device)
     row["max_abs_err"] = max(row["max_abs_err"], got.pop("max_abs_err"))
+    row.update(got)
+
+    phase("14")
+    log("[14] the CLI and reference-format configs: python -m "
+        "shadow_tpu_torch.cli on the --test example and the reference's "
+        "configs")
+    got, err = cli_cell(device)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update(got)
 
     phase(None)

@@ -1,9 +1,11 @@
 """shadow_tpu_torch — the PyTorch/CUDA port of shadow_tpu.
 
 The same conservative windowed-PDES engine, UDP and TCP netstack (with
-the UDP and TCP bulk window passes), and PHOLD, Tor-relay (disjoint
-and shared-relay) and Bitcoin-gossip (UDP and TCP) applications as
-``shadow_tpu``, written with PyTorch tensors so that it runs on an
+the UDP and TCP bulk window passes), PHOLD, ping/echo, bulk-transfer,
+TCP-echo, Tor-relay (disjoint and shared-relay) and Bitcoin-gossip (UDP
+and TCP) applications, config loader and command line
+(``python -m shadow_tpu_torch.cli``) as ``shadow_tpu``, written with
+PyTorch tensors so that it runs on an
 NVIDIA GPU (Hopper, ``sm_90a``). Like the reference's, the package
 exports no names of its own beyond ``__version__``: import the modules.
 Module names mirror ``shadow_tpu/`` one for one, so each counterpart

@@ -1,0 +1,583 @@
+"""Command-line entry point of the PyTorch/CUDA port (the counterpart of
+shadow_tpu/cli.py; ref: main.c:734-802, options.c): parse flags, load
+the XML config, build device state, run, report.
+
+    python -m shadow_tpu_torch.cli --test            # 1,000-client example
+    python -m shadow_tpu_torch.cli my.shadow.config.xml
+    python -m shadow_tpu_torch.cli my.shadow.config.xml --platform cpu
+
+The parser takes every flag of the reference's, with the same defaults,
+and the run prints the reference's report (events, windows, app_rcvd,
+overflow, ... as its last line), tracker heartbeat, object counts and
+per-host executed-event lines. Runs go to the GPU unless `--platform
+cpu` asks for the CPU: `auto` and `gpu` both mean the card, and raise
+without CUDA.
+
+Flags whose mechanism the port does not have yet are refused by name
+(exit 2) with the ROADMAP.md Queue 1 item they wait for: `--workers` >
+1 (item 9); `--inject-trace`, `--inject-lanes`, `--trace-out`,
+`--metrics-out`, `--telemetry-capacity`, `--flow-*`, `--causality-*`,
+`--lane-isolation`, `--resident` (item 8); `--host-kernel`,
+`--host-time-scale`, `--track-paths`, `--cpu-threshold` and configs with
+logpcap (item 10); `--profile-dir`, which names jax.profiler. The
+`fleet` and `sweep` sub-commands wait for item 12. `--specialize` is
+accepted: the port runs the untrimmed program, which the reference's
+own contract makes bit-identical to the trimmed one (the trim is item
+11). The reference's compatibility flags (`--preload`,
+`--data-template`, `--gdb`, `--valgrind`, `--interface-batch`,
+`--interface-buffer`, `--scheduler-policy`) are accepted and have no
+effect, as there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import hashlib
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+from shadow_tpu_torch import __version__
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="shadow-tpu-torch",
+        description="parallel discrete-event network simulator "
+                    "(PyTorch/CUDA port of shadow-tpu)",
+    )
+    p.add_argument("config", nargs="?", help="shadow.config.xml path")
+    p.add_argument("--test", action="store_true",
+                   help="run the built-in example config (ref: --test)")
+    p.add_argument("--test-clients", type=int, default=1000,
+                   help="clients in the built-in --test config; the "
+                        "reference bakes in 1000 (examples.c:10-12)")
+    p.add_argument("-w", "--workers", type=int, default=1,
+                   help="device shards (refused above 1: ROADMAP.md "
+                        "Queue 1 item 9)")
+    p.add_argument("-s", "--seed", type=int, default=1)
+    p.add_argument("--scheduler-policy", default="device",
+                   choices=["device", "host", "steal", "thread",
+                            "threadXthread", "threadXhost"],
+                   help="accepted for config compatibility; one device "
+                        "scheduler implements the window semantics")
+    p.add_argument("--runahead", type=int, default=0,
+                   help="minimum window (ms), 0 = derive from topology "
+                        "min latency (ref: master.c:133-159)")
+    p.add_argument("--bootstrap-end", type=int, default=0,
+                   help="unlimited-bandwidth bootstrap period (s)")
+    p.add_argument("--interface-qdisc", default="fifo",
+                   choices=["fifo", "rr"])
+    p.add_argument("--router-qdisc", default="codel",
+                   choices=["codel", "single", "static"],
+                   help="upstream router queue manager (ref: router.c; "
+                        "CoDel default per host.c:205)")
+    p.add_argument("--socket-recv-buffer", type=int, default=174760)
+    p.add_argument("--socket-send-buffer", type=int, default=131072)
+    p.add_argument("--tcp-congestion-control", default="reno",
+                   choices=["reno", "aimd", "cubic"])
+    p.add_argument("--tcp-ssthresh", type=int, default=0,
+                   help="initial slow-start threshold in packets, "
+                        "0 = discover via loss (ref: options.c:137)")
+    p.add_argument("--tcp-windows", type=int, default=0,
+                   help="pin the initial congestion window in packets, "
+                        "0 = protocol default (ref: options.c:138)")
+    p.add_argument("--cpu-threshold", type=int, default=-1,
+                   help="virtual-CPU blocking threshold in microseconds, "
+                        "negative disables the CPU model (refused when "
+                        "set: ROADMAP.md Queue 1 item 10)")
+    p.add_argument("--cpu-precision", type=int, default=200,
+                   help="round CPU delays to this many microseconds "
+                        "(ref: options.c:129)")
+    p.add_argument("-l", "--log-level", default="message",
+                   choices=["error", "critical", "warning", "message",
+                            "info", "debug"])
+    p.add_argument("--heartbeat-frequency", type=int, default=60,
+                   help="tracker heartbeat interval (s)")
+    p.add_argument("--heartbeat-log-level", default="message")
+    p.add_argument("-i", "--heartbeat-log-info",
+                   default="node,socket,ram",
+                   help="comma list of heartbeat sections "
+                        "('node','socket','ram')")
+    # accepted for reference-invocation compatibility; no effect
+    for flag in ("--preload", "--data-template"):
+        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    for flag in ("--gdb", "--valgrind"):
+        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    for flag in ("--interface-batch", "--interface-buffer"):
+        p.add_argument(flag, type=int, default=None,
+                       help=argparse.SUPPRESS)
+    p.add_argument("-d", "--data-directory", default="shadow.data")
+    # default None = let the plugin capacity hints size these
+    p.add_argument("--sockets-per-host", type=int, default=None)
+    p.add_argument("--platform", default="auto",
+                   choices=["auto", "gpu", "cpu"],
+                   help="device to run on: 'auto' and 'gpu' are the "
+                        "CUDA card (an error without one); 'cpu' asks "
+                        "for the CPU explicitly")
+    p.add_argument("--track-paths", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="per-path packet counters (refused: ROADMAP.md "
+                        "Queue 1 item 10)")
+    p.add_argument("--event-capacity", type=int, default=None)
+    p.add_argument("--outbox-capacity", type=int, default=None)
+    p.add_argument("--router-ring", type=int, default=None)
+    for flag, kw in (("--inject-trace", {"metavar": "PATH"}),
+                     ("--inject-lanes", {"type": int}),
+                     ("--trace-out", {}), ("--metrics-out", {}),
+                     ("--telemetry-capacity", {"type": int})):
+        p.add_argument(flag, default=None,
+                       help="refused: ROADMAP.md Queue 1 item 8", **kw)
+    for flag in ("--flow-sample", "--causality-sample"):
+        p.add_argument(flag, type=int, default=0, metavar="N",
+                       help="refused: ROADMAP.md Queue 1 item 8")
+    for flag in ("--flow-capacity", "--causality-capacity"):
+        p.add_argument(flag, type=int, default=None,
+                       help="refused: ROADMAP.md Queue 1 item 8")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="refused: names jax.profiler (chip_smoke.py "
+                        "--profile profiles the port)")
+    p.add_argument("--host-kernel", choices=("run", "diff"), default=None,
+                   help="refused: ROADMAP.md Queue 1 item 10")
+    p.add_argument("--host-time-scale", type=float, default=0.05,
+                   help="refused when set: ROADMAP.md Queue 1 item 10")
+    p.add_argument("--supervise", action="store_true",
+                   help="host-driven window loop with health latches, "
+                        "periodic checkpoints, and checkpoint-backed "
+                        "retry on a latch trip (exit 3 + structured "
+                        "failure report when retries are exhausted)")
+    p.add_argument("--chunk-windows", type=int, default=None,
+                   metavar="K",
+                   help="windows per dispatch: the chunked runner (and "
+                        "the supervised loop's chunk size)")
+    p.add_argument("--adaptive-jump", action="store_true", default=None,
+                   help="derive each window's span from the live "
+                        "latency tables (supervised loop only)")
+    p.add_argument("--checkpoint-every-windows", type=int, default=64,
+                   help="supervisor snapshot cadence in windows")
+    p.add_argument("--checkpoint-path", default=None,
+                   help="snapshot path prefix (default: "
+                        "<data-directory>/checkpoint)")
+    p.add_argument("--max-retries", type=int, default=2,
+                   help="resume attempts after a latch trip before "
+                        "giving up")
+    p.add_argument("--retry-backoff", type=float, default=0.25,
+                   help="base seconds of exponential backoff between "
+                        "retries")
+    p.add_argument("--max-run-wallclock", type=float, default=None,
+                   metavar="SECONDS",
+                   help="supervised runs: wallclock deadline; when a "
+                        "barrier finds it spent, take a final snapshot "
+                        "and exit 3 (--resume continues)")
+    p.add_argument("--stall-windows", type=int, default=512,
+                   help="consecutive zero-event windows before the "
+                        "stall latch trips")
+    p.add_argument("--lane-isolation", type=int, default=None,
+                   metavar="R", help="refused: ROADMAP.md Queue 1 item 8")
+    p.add_argument("--resident", action="store_true",
+                   help="refused: ROADMAP.md Queue 1 item 8")
+    p.add_argument("--auto-grow", action="store_true",
+                   help="supervisor escalation: a fatal capacity "
+                        "overflow doubles the tripped knob, rebuilds "
+                        "and transplants the last clean checkpoint")
+    p.add_argument("--max-grow", type=int, default=8,
+                   help="escalation budget: total capacity doublings")
+    p.add_argument("--specialize", choices=("auto", "off"),
+                   default="auto",
+                   help="compile-time specialization: accepted; the "
+                        "port runs the untrimmed program (ROADMAP.md "
+                        "Queue 1 item 11)")
+    p.add_argument("--resume", default=None, metavar="PATH",
+                   help="continue a previous run from its checkpoint: "
+                        "a snapshot file, a checkpoint path prefix, or "
+                        "a data directory (newest snapshot wins). "
+                        "Implies --supervise")
+    p.add_argument("--version", action="version",
+                   version=f"shadow-tpu-torch {__version__} "
+                           f"(capability target: shadow 1.x)")
+    return p
+
+
+def overrides_from_args(args) -> dict:
+    """Map parsed CLI flags onto config-loader overrides (None values
+    mean "keep the config/default"). Reference units: the CPU knobs are
+    microseconds (options.c:129-130), negative threshold = CPU model
+    disabled."""
+    overrides = {
+        "tcp_ssthresh": args.tcp_ssthresh or None,
+        "tcp_windows": args.tcp_windows or None,
+        "cpu_threshold_ns": (args.cpu_threshold * 1000
+                             if args.cpu_threshold >= 0 else None),
+        "cpu_precision_ns": (args.cpu_precision * 1000
+                             if args.cpu_precision >= 0 else None),
+        "interface_qdisc": args.interface_qdisc,
+        "router_qdisc": args.router_qdisc,
+        "socket_recv_buffer": args.socket_recv_buffer,
+        "socket_send_buffer": args.socket_send_buffer,
+        "tcp_congestion_control": args.tcp_congestion_control,
+        "runahead": args.runahead,
+        "sockets_per_host": args.sockets_per_host,
+        "event_capacity": args.event_capacity,
+        "outbox_capacity": args.outbox_capacity,
+        "router_ring": args.router_ring,
+        "track_paths": args.track_paths,
+        "windows_per_dispatch": args.chunk_windows,
+        "adaptive_jump": args.adaptive_jump,
+        "inject_lanes": args.inject_lanes,
+    }
+    return {k: v for k, v in overrides.items() if v is not None}
+
+
+def refused_flags(args) -> list[str]:
+    """The flags given whose mechanism is not ported, each with its
+    ROADMAP.md Queue 1 item."""
+    checks = (
+        ("--workers > 1", args.workers > 1, 9),
+        ("--inject-trace", args.inject_trace is not None, 8),
+        ("--inject-lanes", args.inject_lanes is not None, 8),
+        ("--trace-out", args.trace_out is not None, 8),
+        ("--metrics-out", args.metrics_out is not None, 8),
+        ("--telemetry-capacity", args.telemetry_capacity is not None, 8),
+        ("--flow-sample", args.flow_sample > 0, 8),
+        ("--flow-capacity", args.flow_capacity is not None, 8),
+        ("--causality-sample", args.causality_sample > 0, 8),
+        ("--causality-capacity", args.causality_capacity is not None, 8),
+        ("--lane-isolation", args.lane_isolation is not None, 8),
+        ("--resident", args.resident, 8),
+        ("--host-kernel", args.host_kernel is not None, 10),
+        ("--host-time-scale", args.host_time_scale != 0.05, 10),
+        ("--track-paths", bool(args.track_paths), 10),
+        ("--cpu-threshold", args.cpu_threshold >= 0, 10),
+    )
+    out = [f"{flag} (ROADMAP.md Queue 1 item {item})"
+           for flag, given, item in checks if given]
+    if args.profile_dir is not None:
+        out.append("--profile-dir (it names jax.profiler; "
+                   "chip_smoke.py --profile profiles the port)")
+    return out
+
+
+def config_hash(cfg) -> str:
+    """sha256 of the canonicalized NetConfig — two runs with the same
+    hash ran the same simulation parameters (a copy of
+    shadow_tpu/telemetry/export.py's; the rest of export.py is
+    ROADMAP.md Queue 1 item 8)."""
+    d = dataclasses.asdict(cfg)
+    blob = json.dumps(d, sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def _resolve_resume(path: str) -> str | None:
+    """--resume accepts a snapshot file, a checkpoint prefix, or a data
+    directory; returns the newest matching snapshot path."""
+    from shadow_tpu_torch.utils import checkpoint as ckpt
+
+    if os.path.isdir(path):
+        return ckpt.latest_checkpoint(os.path.join(path, "checkpoint"))
+    if os.path.isfile(path):
+        return path
+    return ckpt.latest_checkpoint(path)
+
+
+def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] in ("fleet", "sweep"):
+        print(f"error: `{argv[0]}` is not ported yet (ROADMAP.md Queue 1 "
+              f"item 12)", file=sys.stderr)
+        return 2
+    args = make_parser().parse_args(argv)
+    refused = refused_flags(args)
+    if refused:
+        print("error: shadow_tpu_torch does not implement these flags "
+              "yet: " + ", ".join(refused), file=sys.stderr)
+        return 2
+
+    from shadow_tpu_torch.device import resolve_device
+
+    # no quiet move to the CPU: 'auto' and 'gpu' are the card
+    try:
+        device = resolve_device("cpu" if args.platform == "cpu" else "cuda")
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+    from shadow_tpu_torch.config.examples import example_config
+    from shadow_tpu_torch.utils.shadowlog import SimLogger, level_from_name
+
+    if args.test:
+        text = example_config(clients=args.test_clients)
+    elif args.config:
+        with open(args.config) as f:
+            text = f.read()
+    else:
+        print("error: provide a config path or --test", file=sys.stderr)
+        return 1
+
+    logger = SimLogger(level=level_from_name(args.log_level))
+    # flush on every exit path so a mid-run failure still surfaces the
+    # buffered sim log (the reference flushes each round,
+    # slave.c:446-450)
+    try:
+        return _run(args, text, device, logger)
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    finally:
+        logger.flush()
+
+
+def _run(args, text, device, logger) -> int:
+    from shadow_tpu_torch.config.loader import load
+    from shadow_tpu_torch.config.xmlconfig import parse_config
+
+    cfg = parse_config(text)
+    # --resume: find the snapshot BEFORE building, because its recorded
+    # capacities must size the build
+    resume_ckpt = None
+    resume_meta = None
+    overrides = overrides_from_args(args)
+    if args.resume:
+        resume_ckpt = _resolve_resume(args.resume)
+        if resume_ckpt is None:
+            print(f"error: no checkpoint found at {args.resume}",
+                  file=sys.stderr)
+            return 1
+        args.supervise = True
+        from shadow_tpu_torch.utils import checkpoint as ckpt_mod
+
+        resume_meta = ckpt_mod.peek_meta(resume_ckpt)
+        for k, v in (resume_meta.get("capacities") or {}).items():
+            if k in ("event_capacity", "outbox_capacity", "router_ring"):
+                overrides[k] = max(int(overrides.get(k) or 0), int(v))
+    loaded = load(cfg, seed=args.seed, overrides=overrides,
+                  base_dir=os.path.dirname(os.path.abspath(args.config))
+                  if args.config else None, device=device)
+    b = loaded.bundle
+    if resume_meta is not None and resume_meta.get("config_digest"):
+        if resume_meta["config_digest"] != config_hash(b.cfg):
+            logger.warning(
+                0, "shadow-tpu",
+                "resume snapshot was taken under a different config "
+                "digest — continuing, but the runs are not the same "
+                "simulation")
+    logger.message(0, "shadow-tpu", f"built {b.cfg.num_hosts} hosts, "
+                   f"min window {b.min_jump} ns, end {b.cfg.end_time} ns")
+    if args.specialize == "auto":
+        logger.message(
+            0, "shadow-tpu",
+            "specialization: the trim is not ported (ROADMAP.md Queue 1 "
+            "item 11); running the untrimmed program, bit-identical by "
+            "the reference's contract")
+
+    t0 = time.time()
+    # periodic run-time progress records (the reference's per-round
+    # heartbeat, slave.c:390-411); the host-driven supervised loop calls
+    # it per window
+    prog_state = {"last": -1}
+
+    def progress_hook(s, wend):
+        sec = int(wend) // 10**9
+        bucket = sec // max(args.heartbeat_frequency, 1)
+        if bucket > prog_state["last"]:
+            prog_state["last"] = bucket
+            logger.message(
+                int(wend), "shadow-tpu", "[shadow-progress] "
+                + json.dumps({
+                    "sim_seconds": round(int(wend) / 1e9, 3),
+                    "wall_seconds": round(time.time() - t0, 3)}))
+
+    sup_result = None
+    if args.supervise:
+        code, sup_result = _supervise(args, b, loaded, device, logger,
+                                      progress_hook, resume_ckpt)
+        if code is not None:
+            return code
+        sim, stats = sup_result.sim, sup_result.stats
+    else:
+        from shadow_tpu_torch.net.build import make_chunked_runner, \
+            make_runner
+
+        if args.chunk_windows:
+            runner = make_chunked_runner(
+                b, app_handlers=loaded.handlers, app_bulk=b.app_bulk,
+                chunk_windows=args.chunk_windows, device=device)
+        else:
+            runner = make_runner(b, app_handlers=loaded.handlers,
+                                 app_bulk=b.app_bulk, device=device)
+        sim, stats = runner(b.sim)
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+    wall = time.time() - t0
+    return _report(args, b, sim, stats, wall, logger, sup_result)
+
+
+def _supervise(args, b, loaded, device, logger, progress_hook, resume_ckpt):
+    """The --supervise branch: (exit code or None, SupervisorResult)."""
+    import signal
+
+    from shadow_tpu_torch.faults.escalate import EscalationPolicy
+    from shadow_tpu_torch.faults.supervisor import run_supervised
+
+    ckpt_prefix = args.checkpoint_path or os.path.join(
+        args.data_directory, "checkpoint")
+    os.makedirs(os.path.dirname(os.path.abspath(ckpt_prefix)),
+                exist_ok=True)
+
+    # preemption safety: the first SIGTERM/SIGINT asks the supervisor
+    # for a final atomic snapshot at the next window barrier (exit 5);
+    # the handler restores the previous disposition immediately, so a
+    # second signal kills a hung run the ordinary way
+    stop_flag = {"v": False}
+    prev_handlers = {}
+
+    def _on_signal(signum, frame):
+        stop_flag["v"] = True
+        signal.signal(signum, prev_handlers[signum])
+
+    for sg in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev_handlers[sg] = signal.signal(sg, _on_signal)
+        except ValueError:
+            pass  # not the main thread (embedded use)
+    try:
+        result = run_supervised(
+            b, app_handlers=loaded.handlers,
+            checkpoint_path=ckpt_prefix,
+            checkpoint_every_windows=args.checkpoint_every_windows,
+            max_retries=args.max_retries,
+            backoff_s=args.retry_backoff,
+            stall_windows=args.stall_windows,
+            escalation=(EscalationPolicy(max_grow=args.max_grow)
+                        if args.auto_grow else None),
+            stop=lambda: stop_flag["v"],
+            resume_from=resume_ckpt,
+            max_run_wallclock=args.max_run_wallclock,
+            config_digest=config_hash(b.cfg),
+            log=lambda m: logger.message(0, "shadow-tpu", m),
+            on_window=progress_hook, device=device)
+    finally:
+        for sg, h in prev_handlers.items():
+            with contextlib.suppress(ValueError, TypeError):
+                signal.signal(sg, h)
+
+    if result.preempted:
+        # interrupted, not failed: the final snapshot is on disk and
+        # `--resume <data-directory>` continues the run
+        report = {
+            "preempted": True,
+            "checkpoint": result.final_checkpoint,
+            "run_id": result.run_id,
+            "escalations": len(result.escalations),
+            "resume": f"--resume {args.data_directory}",
+        }
+        logger.message(0, "shadow-tpu", "run preempted "
+                       + json.dumps(report))
+        logger.flush()
+        print(json.dumps(report))
+        return 5, result
+    if not result.ok:
+        failure = result.failure_report()
+        # critical, not error: SimLogger.error raises
+        for _, msg in result.health.diagnostics():
+            logger.critical(0, "shadow-tpu", msg)
+        report = {"failure": failure, "attempts": result.attempts}
+        if result.deadline_exceeded:
+            report["checkpoint"] = result.final_checkpoint
+            report["resume"] = f"--resume {args.data_directory}"
+        if result.sim is not None:
+            from shadow_tpu_torch.utils import objcount
+
+            oc = objcount.gather(result.sim)
+            logger.message(0, "shadow-tpu", oc.format())
+            logger.message(0, "shadow-tpu", oc.format_diff())
+        logger.flush()
+        print(json.dumps(report))
+        return 3, result
+    return None, result
+
+
+def _report(args, b, sim, stats, wall, logger, sup_result) -> int:
+    """End-of-run heartbeat, object accounting, executed-event lines,
+    the health verdict and the JSON report (the reference's keys)."""
+    from shadow_tpu_torch.faults import health as health_mod
+    from shadow_tpu_torch.utils import objcount
+    from shadow_tpu_torch.utils.shadowlog import level_from_name
+    from shadow_tpu_torch.utils.tracker import Tracker
+
+    end = b.cfg.end_time
+    # ref: the tracker heartbeat subsystem, tracker.c:419-607, and the
+    # shutdown object counter dump, slave.c:237-241
+    tracker = Tracker(
+        logger, b.host_names, interval_s=args.heartbeat_frequency,
+        level=level_from_name(args.heartbeat_log_level),
+        sections=tuple(x.strip() for x in args.heartbeat_log_info.split(",")
+                       if x.strip()))
+    tracker.heartbeat(sim, end)
+    oc = objcount.gather(sim, stats=stats)
+    logger.message(end, "shadow-tpu", oc.format())
+    logger.message(end, "shadow-tpu", oc.format_diff())
+
+    # per-host executed-event lines (ref: host.c:314-317), info level
+    exec_h = sim.net.ctr_events_exec.cpu().numpy()
+    for hi in np.argsort(-exec_h)[: min(len(exec_h), 10)]:
+        if exec_h[hi] > 0:
+            logger.info(end, b.host_names[hi],
+                        f"executed {int(exec_h[hi])} events")
+
+    # health-latch enforcement: every run ends with an explicit verdict,
+    # and a fatal latch means exit 3 with a structured failure report
+    run_health = health_mod.gather(sim)
+    for sev, msg in run_health.diagnostics():
+        if sev == "fatal":
+            logger.critical(end, "shadow-tpu", msg)
+        else:
+            logger.warning(end, "shadow-tpu", msg)
+
+    ev = int(stats.events_processed)
+    sim_s = end / 1e9
+    app = getattr(sim, "app", None)
+    report = {
+        "events": ev,
+        "windows": int(stats.windows),
+        "sim_seconds": round(sim_s, 3),
+        # the app's own rcvd units — bytes for bulk, replies for
+        # pingpong (ref: the example's downloads verified by size)
+        **({"app_rcvd": int(app.rcvd.sum())}
+           if app is not None and hasattr(app, "rcvd") else {}),
+        "wall_seconds": round(wall, 3),
+        "events_per_second": round(ev / wall, 1) if wall > 0 else None,
+        "simulated_seconds_per_wall_second":
+            round(sim_s / wall, 3) if wall > 0 else None,
+        "overflow": int(sim.events.overflow) + int(sim.outbox.overflow)
+        + int(sim.net.rq_overflow),
+    }
+    if sup_result is not None:
+        if sup_result.escalations:
+            report["escalations"] = [
+                e.as_dict() for e in sup_result.escalations]
+        if sup_result.resume_of:
+            report["resume_of"] = sup_result.resume_of
+    if run_health.fatal:
+        report["failure"] = run_health.failure_report()
+        logger.critical(end, "shadow-tpu",
+                        "simulation FAILED " + json.dumps(report))
+        logger.flush()
+        print(json.dumps(report))
+        return 3
+    logger.message(end, "shadow-tpu", "simulation complete "
+                   + json.dumps(report))
+    logger.flush()
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

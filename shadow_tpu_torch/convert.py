@@ -15,9 +15,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from shadow_tpu_torch.apps.bulk import BulkApp
+from shadow_tpu_torch.apps.echo import EchoApp
 from shadow_tpu_torch.apps.gossip import GossipApp, GossipTcpApp
 from shadow_tpu_torch.apps.phold import PholdApp
 from shadow_tpu_torch.apps.pingpong import PingPongApp
+from shadow_tpu_torch.apps.randdump import RandDumpApp
 from shadow_tpu_torch.apps.relay import RelayApp, RelayMuxApp
 from shadow_tpu_torch.core.events import EventQueue, Outbox
 from shadow_tpu_torch.device import resolve_device
@@ -31,7 +34,8 @@ from shadow_tpu_torch.telemetry.ring import TelemetryRing
 _SIM_FIELDS = {"events": (EventQueue,), "outbox": (Outbox,),
                "net": (NetState,),
                "app": (PholdApp, PingPongApp, RelayApp, RelayMuxApp,
-                       GossipApp, GossipTcpApp),
+                       GossipApp, GossipTcpApp, BulkApp, EchoApp,
+                       RandDumpApp),
                "tcp": (TcpState,), "telem": (TelemetryRing,)}
 
 

@@ -12,8 +12,10 @@ Settings of NetConfig that the port does not implement yet raise
 NotImplementedError here (the list is in ROADMAP.md). The apps the
 port runs through these entry points: PHOLD (apps/phold.py, with its
 UDP bulk pass), the disjoint and the shared-relay Tor models
-(apps/relay.py, each with its TCP bulk pass) and UDP and TCP gossip
-(apps/gossip.py) — every workload of tools/scale_run.py.
+(apps/relay.py, each with its TCP bulk pass), UDP and TCP gossip
+(apps/gossip.py) — every workload of tools/scale_run.py — and the
+config loader's device apps (config/loader.py: pingpong, bulk, echo,
+randdump).
 """
 
 from __future__ import annotations
@@ -37,8 +39,6 @@ from shadow_tpu_torch.device import resolve_device, same_device
 from shadow_tpu_torch.net.bulk import make_bulk_fn
 from shadow_tpu_torch.net.state import (
     NetConfig,
-    QDisc,
-    RouterQ,
     Sim,
     make_net_state,
     make_sim,
@@ -117,21 +117,19 @@ def check_supported(cfg: NetConfig) -> None:
     events.overflow, in both packages alike)."""
     off = []
     if cfg.pcap:
-        off.append("pcap=True")
+        off.append("pcap=True (ROADMAP.md Queue 1 item 10)")
     if cfg.track_paths:
-        off.append("track_paths=True")
+        off.append("track_paths=True (ROADMAP.md Queue 1 item 10)")
     if cfg.cpu_threshold_ns >= 0:
-        off.append(f"cpu_threshold_ns={cfg.cpu_threshold_ns} (virtual CPU)")
+        off.append(f"cpu_threshold_ns={cfg.cpu_threshold_ns} (virtual CPU, "
+                   "ROADMAP.md Queue 1 item 10)")
     if cfg.inject_lanes:
-        off.append(f"inject_lanes={cfg.inject_lanes} (injection)")
-    if cfg.qdisc != QDisc.FIFO:
-        off.append(f"qdisc={cfg.qdisc} (round-robin)")
-    if cfg.router_qdisc != RouterQ.CODEL:
-        off.append(f"router_qdisc={cfg.router_qdisc}")
+        off.append(f"inject_lanes={cfg.inject_lanes} (injection, "
+                   "ROADMAP.md Queue 1 item 8)")
     if off:
         raise NotImplementedError(
-            "shadow_tpu_torch does not implement these settings yet "
-            "(see ROADMAP.md): " + ", ".join(off))
+            "shadow_tpu_torch does not implement these settings yet: "
+            + ", ".join(off))
 
 
 def build(cfg: NetConfig, graphml_text: str, hosts: Sequence[HostSpec],

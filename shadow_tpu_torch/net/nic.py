@@ -1,18 +1,22 @@
-"""NIC token buckets, FIFO qdisc, upstream-router CoDel, and the packet
-send/receive event handlers — the PyTorch port of shadow_tpu/net/nic.py
-with its FIFO qdisc and CoDel router queue (ref: network_interface.c,
-router.c, router_queue_codel.c).
+"""NIC token buckets, interface qdiscs, upstream-router queue managers,
+and the packet send/receive event handlers — the PyTorch port of
+shadow_tpu/net/nic.py (ref: network_interface.c, router.c,
+router_queue_codel.c, router_queue_single.c, router_queue_static.c).
 
 - Token buckets both directions, refilled analytically per whole 1 ms
   quantum elapsed, capacity = refill + MTU.
 - Sending drains up to cfg.nic_drain packets per micro-step through the
-  FIFO-by-priority qdisc; longer bursts chain a same-time NIC_SEND.
+  interface qdisc (QDisc.FIFO: lowest head-packet priority; QDisc.RR:
+  cyclic from a per-host cursor); longer bursts chain a same-time
+  NIC_SEND.
 - Loopback delivery is a +1 ns self event (no router, no tokens).
 - Remote sends take one Bernoulli reliability draw from the host's
   threefry stream and deliver after the topology latency.
-- Arrivals enqueue into the per-host router ring under CoDel (target
-  10 ms, interval 100 ms, the RFC-8289 control law as in the
-  reference) and are drained by the receive-side token bucket.
+- Arrivals enqueue into the per-host router ring under the router
+  queue manager — CoDel (target 10 ms, interval 100 ms, the RFC-8289
+  control law as in the reference), SINGLE (one packet) or STATIC
+  (drop-tail at ring capacity) — and are drained by the receive-side
+  token bucket.
 - TCP: a delivered segment enters the connection state machine
   (tcp.tcp_packet_in); a segment that matches no socket is answered
   with a RST when cfg.tcp; a departing TCP packet has its volatile
@@ -33,6 +37,8 @@ from shadow_tpu_torch.net.state import (
     TB_REFILL_INTERVAL,
     NetConfig,
     NetState,
+    QDisc,
+    RouterQ,
     SocketType,
     host_of_ip,
 )
@@ -199,9 +205,16 @@ def handle_nic_recv(cfg: NetConfig, sim, popped, buf):
     # -- arrival enqueue (ref: router_enqueue, router.c:104-125) ------
     arr = popped.valid & (popped.kind == EventKind.PACKET)
     was_empty = net.rq_count == 0
+    # queue-manager admission (ref: QueueManagerHooks enqueue):
     # CODEL admits to ring capacity (a full ring is an honest overflow
-    # error — CoDel itself drops at dequeue)
-    aok = arr & (net.rq_count < R)
+    # error — CoDel itself drops at dequeue); SINGLE holds one packet
+    # (router_queue_single.c); STATIC drop-tails at capacity
+    # (router_queue_static.c) — both drop the arrival, counted, with
+    # the audit trail recorded.
+    codel = cfg.router_qdisc == RouterQ.CODEL
+    cap = 1 if cfg.router_qdisc == RouterQ.SINGLE else R
+    aok = arr & (net.rq_count < cap)
+    lost = arr & ~aok if codel else torch.zeros_like(arr)
     apos = (net.rq_head + net.rq_count) % R
     awl = pf.wire_length(pf.proto_of(popped.words), popped.words[:, pf.W_LEN])
     arr_words = _set_col(popped.words, pf.W_STATUS, torch.where(
@@ -213,11 +226,17 @@ def handle_nic_recv(cfg: NetConfig, sim, popped, buf):
         rq_words=set_row(net.rq_words, aok, apos, arr_words),
         rq_count=net.rq_count + aok.to(I32),
         rq_bytes=net.rq_bytes + torch.where(aok, awl, 0).to(I64),
-        rq_overflow=net.rq_overflow + (arr & ~aok).sum(dtype=I32),
+        rq_overflow=net.rq_overflow + lost.sum(dtype=I32),
     )
     if net.rq_overflow_h is not None:
-        net = net.replace(rq_overflow_h=net.rq_overflow_h
-                          + (arr & ~aok).to(I32))
+        net = net.replace(rq_overflow_h=net.rq_overflow_h + lost.to(I32))
+    if not codel:
+        qdrop = arr & ~aok
+        net = net.replace(
+            ctr_drop_codel=net.ctr_drop_codel + qdrop.to(I64),
+            last_drop_status=torch.where(
+                qdrop, popped.words[:, pf.W_STATUS] | pf.PDS_ROUTER_DROPPED,
+                net.last_drop_status))
     # fused drain: idle queue served immediately; a busy queue already
     # has a drain in flight (nic_recv_pending invariant)
     kick = aok & was_empty & ~net.nic_recv_pending
@@ -246,6 +265,13 @@ def handle_nic_recv(cfg: NetConfig, sim, popped, buf):
         rq_count=net.rq_count - active.to(I32),
         rq_bytes=bytes_after,
     )
+
+    if not codel:
+        # single/static managers dequeue without AQM
+        # (ref: router_queue_single.c / router_queue_static.c)
+        return _finish_recv_common(
+            cfg, sim.replace(net=net), popped, buf, mask, active,
+            torch.zeros_like(active), e_src, e_words, wl, now, H)
 
     # CoDel good/bad state (ref: router_queue_codel.c:161-196)
     sojourn = now - e_ts
@@ -356,11 +382,18 @@ def _finish_recv_common(cfg, sim, popped, buf, mask, delivered, drop_now,
 
 def _qdisc_select(cfg: NetConfig, net: NetState):
     """Pick the next socket slot to send from per host ([H] -> slot or
-    -1): FIFO = lowest head-packet priority (network_interface.c:484-517)."""
+    -1). FIFO = lowest head-packet priority (app ordering,
+    network_interface.c:484-517); RR = cyclic from the per-host cursor
+    (network_interface.c:465-483)."""
     nonempty = net.out_count > 0
-    BO = net.out_words.shape[2]
-    head_pos = (net.out_head % BO).to(I64)
-    key = torch.gather(net.out_priority, 2, head_pos[..., None])[..., 0]
+    if cfg.qdisc == QDisc.RR:
+        S = nonempty.shape[1]
+        key = (torch.arange(S, device=nonempty.device)[None, :]
+               - net.rr_ptr[:, None].to(I64)) % S
+    else:
+        BO = net.out_words.shape[2]
+        head_pos = (net.out_head % BO).to(I64)
+        key = torch.gather(net.out_priority, 2, head_pos[..., None])[..., 0]
     key = torch.where(nonempty, key, torch.iinfo(key.dtype).max)
     sel = key.argmin(dim=1).to(I32)
     found = nonempty.any(dim=1)
@@ -451,6 +484,9 @@ def _drain_one(cfg: NetConfig, sim, buf, mask, now, bootstrap,
     # sockets (ref: descriptor_adjustStatus -> epoll EPOLLOUT)
     is_dgram = active & (net.sk_type[lane, selc] == SocketType.UDP)
     net = set_writable(net, is_dgram, sel, True)
+    if cfg.qdisc == QDisc.RR:
+        net = net.replace(rr_ptr=torch.where(active, (sel + 1) % S,
+                                             net.rr_ptr))
 
     # volatile TCP header fields are stamped at wire time
     # (ref: tcp_networkInterfaceIsAboutToSendPacket, tcp.c:1090-1120)

@@ -152,8 +152,13 @@ UNSUPPORTED = {
     "pcap": dict(pcap=True),
     "track_paths": dict(track_paths=True),
     "cpu_model": dict(cpu_threshold_ns=0),
-    "router_single": dict(router_qdisc=RouterQ.SINGLE),
     "inject": dict(inject_lanes=8),
+}
+
+# The interface and router queue settings the port once refused
+# (tests/test_torch_qdisc.py runs them against the reference).
+QUEUES = {
+    "router_single": dict(router_qdisc=RouterQ.SINGLE),
     "rr_qdisc": dict(qdisc=QDisc.RR),
     "router_static": dict(router_qdisc=RouterQ.STATIC),
 }
@@ -164,6 +169,17 @@ def test_settings_off_the_path_raise(name):
     cfg = TConfig(**{**KW, **UNSUPPORTED[name]})
     with pytest.raises(NotImplementedError):
         tbuild.build(cfg, ONE_VERTEX, _hosts(tbuild), device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(QUEUES))
+def test_queue_settings_build_the_reference_boot_state(name):
+    kw = {**KW, **QUEUES[name]}
+    jb = jbuild.build(JConfig(**kw), ONE_VERTEX, _hosts(jbuild))
+    tb = tbuild.build(TConfig(**kw), ONE_VERTEX, _hosts(tbuild), device="cpu")
+    want, got = _jax_leaves(jb.sim), convert.sim_to_numpy(tb.sim)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_tcp_config_builds_the_reference_boot_state():

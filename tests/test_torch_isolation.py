@@ -52,7 +52,18 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.faults.health",
                 "shadow_tpu_torch.faults.escalate",
                 "shadow_tpu_torch.faults.conserve",
-                "shadow_tpu_torch.faults.supervisor"):
+                "shadow_tpu_torch.faults.supervisor",
+                "shadow_tpu_torch.cli",
+                "shadow_tpu_torch.config.xmlconfig",
+                "shadow_tpu_torch.config.examples",
+                "shadow_tpu_torch.config.loader",
+                "shadow_tpu_torch.apps.bulk",
+                "shadow_tpu_torch.apps.echo",
+                "shadow_tpu_torch.apps.randdump",
+                "shadow_tpu_torch.apps.ring",
+                "shadow_tpu_torch.utils.shadowlog",
+                "shadow_tpu_torch.utils.objcount",
+                "shadow_tpu_torch.utils.tracker"):
         assert mod in out["modules"]
 
 
