@@ -61,8 +61,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    share of hosts that commit, the abort bits of those that stopped)
    and under torch.profiler (launches and cudaStreamSynchronize per
    iteration, device-busy share);
-   6s. the same cell serial (scale_run's --no-bulk), with the
-   reference's counts (281 micro-steps), held against phase 6 under the
+   6s. the same cell serial (scale_run's --no-bulk) and with the TCP
+   bulk pass, both cut to 1.55 sim-s, held to each other under the
    reference's bulk-vs-serial contract (tests/test_tcp_bulk.py) with
    fewer micro-steps with the pass;
    6a. the same shape lossy with the TCP bulk pass: 5,120 two-hop
@@ -90,9 +90,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    replay of one window's call (commit share);
 9. CUDA against CPU inside the port at the reference tests' small
    shapes: the Tor model at 10 hosts to 10 sim-s with the TCP bulk
-   pass (every stream complete) and serial cut to 1.4 sim-s
+   pass (every stream complete) and serial cut to 1.25 sim-s
    (mid-transfer), the serial run held under the reference's contract
-   to a TCP bulk run on the card to 1.4 sim-s; UDP gossip at 64 hosts
+   to a TCP bulk run on the card to 1.25 sim-s; UDP gossip at 64 hosts
    and TCP gossip at 8 hosts (cut to 4 sim-s);
 10. TCP gossip as tools/scale_run.py --workload gossip
    --gossip-transport tcp --hosts 5120 builds it (K = 8, 12 sockets,
@@ -155,7 +155,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    through the CLI (its report equal to the reference CLI's); (14c)
    CUDA against CPU through the loader: pingpong under the RR
    interface qdisc and the SINGLE and STATIC router queues, the
-   testtcp echo pair, testdeterminism (randdump) and the ring model.
+   testtcp echo pair, testdeterminism (randdump) and the ring model;
+15. open-system injection at full width: (15a) bench.py's
+   BENCH_INJECT_RATE=10240 scenario as `python -m
+   shadow_tpu_torch.bench` runs it, as a subprocess — the tgen app on
+   10,240 hosts fed 51,200 events over 5 sim-s through 1,024 staging
+   lanes, its row printed — then the same program in-process through
+   run_supervised (the launch counter set to 0 just before it) with
+   the reference's exact counts (112,128 events, 100 windows, 199
+   micro-steps; 51,200 injected, 0 dropped, late or deferred,
+   backpressure 99; 51,200 sent, 3,276,800 bytes, 50,688 received; zero
+   overflow), mailbox_gather held to its plain version on the run's own
+   merge and route inputs, and through run_windows at K = 1 (leaf-equal
+   to the supervised run) and K = 16 (leaf-equal under the carve-outs
+   of tests/test_inject.py; its windows, micro-steps and backpressure
+   pinned), with ms per window and per micro-step, the refills' host
+   time, and one window profiled (launches, syncs, device busy share,
+   the refill's share); the cell cut to 64 hosts through run_windows at
+   K = 16, the reference's counts, CUDA against CPU; (15b) the
+   supervised run stopped at
+   the first barrier past 2.2 sim-s and resumed from its snapshot with
+   a fresh feeder, leaf-equal to the straight run with its injection
+   block reconciled; (15c) examples/tgen_traffic.shadow.config.xml
+   through `python -m shadow_tpu_torch.cli --platform gpu --trace-out
+   --metrics-out`: the reference CLI's report and manifest injection
+   and telemetry blocks, a Chrome trace that loads and Prometheus text
+   that parses; the same config CUDA against CPU inside the port.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
@@ -213,9 +238,15 @@ RELAY_BYTES = 100_000
 RELAY_CAP = 64
 RELAY_SIM_S = 4.0
 # The reference's counts for the relay cell (its CPU runs of the same
-# config at full width): with the TCP bulk pass, and serial.
+# config at full width) with the TCP bulk pass.
 RELAY_EXPECT = {"events_processed": 894_976, "windows": 22, "micro_steps": 6}
-RELAY_SERIAL_EXPECT = dict(RELAY_EXPECT, micro_steps=281)
+# The serial twin 6s runs to a cut depth, beside a run of the cell with
+# the TCP bulk pass to the same depth (the contract compares like with
+# like): at full depth (281 serial micro-steps, the reference's count)
+# it took 58-72 s of a 479-569-s run on an NVIDIA H100 80GB HBM3 at
+# 700 W. 1.55 sim-s holds ~50 of them: the circuits' handshakes and the
+# first half of the transfers' ramp.
+RELAY_SERIAL_SIM_S = 1.55
 # The lossy relay (phase 6a): two-hop circuits over a 1% loss self-edge.
 LOSSY_HOP = 2
 LOSSY_BYTES = 50_000
@@ -299,16 +330,17 @@ GTCP_EXPECT = {"events_processed": 67_323, "windows": 5, "micro_steps": 38}
 # Phase 9's small shapes: the reference tests' (tests/test_relay_mux.py,
 # tests/test_gossip_tcp.py). The mux runs with the TCP bulk pass at the
 # test's full depth, 10 sim-s (17 micro-steps; the server's EOFs at
-# 1.553 s). Serial it is cut to 1.4 sim-s, mid-transfer (4,302 of the
-# 20,000 bytes at each stream's server; 65 micro-steps, against 185 to
-# the EOFs and 211 to 10 sim-s, at ~360 ms each on the card), and held
-# to a bulk run to the same depth. TCP gossip is cut from 12 to 4 sim-s
+# 1.553 s). Serial it is cut to 1.25 sim-s, where the data reaches the
+# server (1,434 of the 20,000 bytes at each stream's server; 27
+# micro-steps, against 65 to 1.4 s, 185 to the EOFs and 211 to 10 sim-s,
+# at ~360 ms each on the card), and held to a bulk run to the same depth
+# (17 micro-steps; the port's CPU runs). TCP gossip is cut from 12 to 4 sim-s
 # so that it takes well under a minute on the card (block 0 at every
 # host, block 1 just mined).
 MUX_SLOTS = 4
 MUX_BYTES = 20_000
 MUX_SIM_S = 10.0
-MUX_SERIAL_SIM_S = 1.4
+MUX_SERIAL_SIM_S = 1.25
 SMALL_GTCP_SIM_S = 4.0
 
 
@@ -494,6 +526,89 @@ RANDDUMP_BODY = """  <plugin id="det" path="shadow-plugin-test-determinism"/>
     <process plugin="det" starttime="1"/>
   </host>"""
 SMALL_STOP = {"ping": 3, "echo": 2.2, "randdump": 1.5}
+# Phase 15: open-system injection. 15a is bench.py's BENCH_INJECT_RATE
+# scenario at full width: the tgen app on 10,240 hosts fed
+# bench._rate_trace(10240, 10240 events/s, 5 sim-s) — 51,200 events,
+# round-robin sources, 64-byte datagrams to the next host — through
+# tgen.lanes_for(51,200) = 1,024 staging lanes, capacities 64, seed 1,
+# the one-vertex 50 ms graph, one window a dispatch. The reference's
+# counts, from its CPU run of the same program through
+# checkpoint.run_windows(feeder=Feeder(list(events))) (repository root,
+# jax and this package importable):
+#
+#   import jax; jax.config.update("jax_platforms", "cpu")
+#   from shadow_tpu.apps import tgen; from shadow_tpu.inject import Feeder
+#   from shadow_tpu.net.build import HostSpec, build
+#   from shadow_tpu.net.state import NetConfig
+#   from shadow_tpu.utils import checkpoint
+#   import bench
+#   H = 10240; ev = bench._rate_trace(H, 10240.0, 5)
+#   cfg = NetConfig(num_hosts=H, tcp=False, end_time=5 * 10**9, seed=1,
+#                   event_capacity=64, outbox_capacity=64, router_ring=64,
+#                   in_ring=16, inject_lanes=tgen.lanes_for(len(ev)))
+#   b = build(cfg, bench.ONE_VERTEX, [HostSpec(name=f"peer{i}",
+#             proc_start_time=0) for i in range(H)])
+#   b.sim = tgen.setup(b.sim); f = Feeder(list(ev))
+#   sim, st, _ = checkpoint.run_windows(b, (tgen.handler,), feeder=f)
+#
+# 15b stops the supervised run at the first barrier past INJ_STOP_S and
+# resumes it with a fresh feeder.
+INJ_HOSTS = 10_240
+INJ_RATE = 10_240
+INJ_SIM_S = 5
+INJ_CHUNK = 16
+INJ_STOP_S = 2.2
+INJ_EXPECT = {"events_processed": 112_128, "windows": 100,
+              "micro_steps": 199}
+INJ_BLOCK = {"lanes": 1_024, "injected": 51_200, "dropped": 0, "late": 0,
+             "deferred": 0, "trace_events": 51_200,
+             "staged_cursor": 51_200, "backpressure": 99}
+INJ_APP = {"sent": 51_200, "bytes_sent": 3_276_800, "rcvd": 50_688,
+           "refused": 0}
+# the staging planes are feeder-written scratch (consumed lanes keep
+# their residue, the horizon follows the refill pacing); the heap slots
+# permute with the refill pacing (the live event multiset is compared);
+# the route counters and the ring follow the window partition, which
+# the chunked loop's horizon clamp refines — tests/test_inject.py's
+# carve-outs
+INJ_SCRATCH = {".inject.time", ".inject.host", ".inject.kind",
+               ".inject.seq", ".inject.words", ".inject.horizon"}
+INJ_SLOTS = {f".events.{n}" for n in ("time", "kind", "src", "seq",
+                                      "words")}
+INJ_PARTITION = {".outbox.max_occupied", ".outbox.narrow_hit",
+                 ".outbox.narrow_miss", ".outbox.route_elided"}
+# K = 16's partition-dependent counts at this width: the port's own, on
+# an NVIDIA H100 80GB HBM3 at 700 W (no reference run at full width
+# exists). The reference's partition at K = 16 is held on the 64-host
+# cut below, on the card here and on the CPU in
+# tests/test_torch_inject_chunked.py.
+INJ_CHUNK_EXPECT = {"windows": 100, "micro_steps": 151, "backpressure": 49}
+# 15a's cut of the cell: hosts, rate, sim-s, staging lanes, and the
+# reference's counts at K = 16 (its CPU run, seed 1, capacities 64). The
+# trace period does not divide the window, as at full width, so K = 16
+# partitions it otherwise than K = 1 (195 micro-steps in 98 windows).
+INJ_CUT = (64, 321, 5, 32)
+INJ_CUT_EXPECT = {"events_processed": 3257, "micro_steps": 152,
+                  "windows": 101, "fastpath_hit": 0, "fastpath_miss": 0}
+# the window whose barrier and drain 15a profiles
+INJ_PROFILE_WINDOW = 40
+# 15c: examples/tgen_traffic.shadow.config.xml (16 hosts, one <traffic>
+# element: a stream, a pause and a markov phase) through the CLI. The
+# reference CLI's report and manifest blocks (its CPU run, seed 1,
+# --trace-out --metrics-out):
+TRAFFIC_CONFIG = "examples/tgen_traffic.shadow.config.xml"
+TRAFFIC_REPORT = {"events": 98, "windows": 32, "sim_seconds": 3.0,
+                  "app_rcvd": 41, "overflow": 0}
+TRAFFIC_INJECTION = {"lanes": 64, "injected": 41, "dropped": 0, "late": 0,
+                     "trace_path": None, "trace_events": 41,
+                     "staged_cursor": 41, "backpressure": 0, "deferred": 0}
+TRAFFIC_TELEMETRY = {
+    "windows_recorded": 32, "records_lost": 0,
+    "events_per_window": {"p50": 2.0, "p90": 4.0,
+                          "p99": 12.590000000000014, "mean": 3.0625},
+    "micro_steps_per_window_max": 3, "qocc_max": 0, "fastpath_windows": 0,
+    "active_lanes_max": 16, "window_span_ns_mean": 50000000.0,
+    "injected_sum": 41, "inj_dropped_sum": 0, "inj_deferred_last": 0}
 
 T0 = time.perf_counter()
 # simtime.INVALID: an empty event slot
@@ -2763,6 +2878,454 @@ def ring_cuda_cpu():
     log(f"  ring: cuda == cpu, EngineStats and all {n} leaves equal")
 
 
+def timed_feeder(events):
+    """An inject.Feeder whose refills are timed on the host clock, per
+    refill: `t_refill` the whole refill, `t_stage` the mirror's
+    bookkeeping (reading, validating and staging trace records),
+    `t_planes` the plane build (the mirror's planes in pinned memory)
+    and `t_install` the install (the plane build plus the
+    host-to-device copies). run_windows' per-window loop refills once on
+    entry, then before every window: refill w + 1 is window w's
+    barrier."""
+    from shadow_tpu_torch.inject import Feeder
+
+    def timed(name, fn):
+        def call(self, *a):
+            t0 = time.perf_counter()
+            out = fn(self, *a)
+            getattr(self, name).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    class TimedFeeder(Feeder):
+        refill = timed("t_refill", Feeder.refill)
+        _stage_ready = timed("t_stage", Feeder._stage_ready)
+        _planes = timed("t_planes", Feeder._planes)
+        _install = timed("t_install", Feeder._install)
+
+    f = TimedFeeder(events)
+    f.t_refill, f.t_stage, f.t_planes, f.t_install = [], [], [], []
+    return f
+
+
+class WindowProbe:
+    """run_windows' on_window hook: the host clock at every window's
+    end, and torch.profiler running over window `k` + 1 whole — the
+    barrier's refill, the merge, the drain and the route."""
+
+    def __init__(self, k):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.k, self.marks = k, []
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+
+    def __call__(self, sim, wend):
+        import torch
+
+        n = len(self.marks)
+        if n == self.k + 1:
+            torch.cuda.synchronize()
+            self.prof.stop()
+        self.marks.append(time.perf_counter())
+        if n == self.k:
+            torch.cuda.synchronize()
+            self.marks[-1] = time.perf_counter()
+            self.prof.start()
+
+
+def build_inject(device, ring=True):
+    """15a's bundle: bench.py's injection program (shadow_tpu_torch.bench
+    build_inject, seed 1, capacities 64) with bench's ring."""
+    from shadow_tpu_torch import bench, telemetry
+    from shadow_tpu_torch.apps import tgen
+
+    b = bench.build_inject(INJ_HOSTS, INJ_SIM_S, 1, 64,
+                           tgen.lanes_for(INJ_HOSTS * INJ_SIM_S),
+                           ONE_VERTEX, device)
+    if ring:
+        b.sim = telemetry.attach(b.sim)
+    return b
+
+
+def check_inject(label, sim, stats, feeder, chunked=False):
+    """15a's counts: the reference's EngineStats, injection block and tgen
+    sums, zero overflow; when `chunked`, the partition-dependent ones
+    (windows, micro-steps, backpressure) are INJ_CHUNK_EXPECT's."""
+    from shadow_tpu_torch.inject import manifest_block
+
+    st = stats.as_dict()
+    blk = manifest_block(sim, feeder)
+    app = {k: int(getattr(sim.app, k).sum()) for k in INJ_APP}
+
+    def want(k, v):
+        return INJ_CHUNK_EXPECT.get(k, v) if chunked else v
+    checks = {f"block.{k}": (blk[k], want(k, v))
+              for k, v in INJ_BLOCK.items()}
+    checks.update({f"app.{k}": (app[k], v) for k, v in INJ_APP.items()})
+    checks.update({k: (st[k], want(k, v)) for k, v in INJ_EXPECT.items()})
+    checks.update({
+        "events.overflow": (int(sim.events.overflow), 0),
+        "outbox.overflow": (int(sim.outbox.overflow), 0),
+        "rq_overflow": (int(sim.net.rq_overflow), 0),
+        "ring count == windows": (int(sim.telem.count), st["windows"]),
+        "sum(ring.injected) == injected": (int(sim.telem.injected.sum()),
+                                           blk["injected"]),
+    })
+    for k, (got, v) in checks.items():
+        if got != v:
+            raise AssertionError(f"{label}: {k}: {got} != {v}")
+    whose = ("the reference's counts, K = 16's partition as pinned"
+             if chunked else "the reference's counts")
+    log(f"  {label}: EngineStats {st}; injection {json.dumps(blk)}; tgen "
+        f"{app}: {whose}")
+
+
+def inject_leaves_equal(label, a, b, exclude=()):
+    """Every leaf of two injection runs equal apart from `exclude`, and
+    their live event multisets equal. Returns the leaves compared."""
+    import numpy as np
+
+    from shadow_tpu_torch import convert
+
+    la, lb = convert.sim_to_numpy(a), convert.sim_to_numpy(b)
+    if la.keys() != lb.keys():
+        raise AssertionError(f"{label}: leaf sets differ")
+    bad = [k for k in la if k not in exclude and (
+        la[k].dtype != lb[k].dtype or not np.array_equal(la[k], lb[k]))]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} leaves differ, first "
+                             f"{bad[:5]}")
+
+    def live(lv):
+        t = lv[".events.time"]
+        m = t < INVALID_TIME
+        cols = [lv[f".events.{n}"][m] for n in ("time", "kind", "src",
+                                                "seq")]
+        rows = np.nonzero(m)[0]
+        words = lv[".events.words"][m].sum(axis=1)
+        return sorted(zip(rows.tolist(), *(c.tolist() for c in cols),
+                          words.tolist()))
+    if live(la) != live(lb):
+        raise AssertionError(f"{label}: live event multisets differ")
+    return len(la) - len(exclude & la.keys())
+
+
+def log_run(label, stats, wall):
+    st = stats.as_dict()
+    log(f"  {label}: wall {wall:.3f} s, {st['events_processed'] / wall:.1f} "
+        f"events/s, {wall / st['windows'] * 1e3:.2f} ms per window, "
+        f"{wall / st['micro_steps'] * 1e3:.2f} ms per micro-step")
+
+
+def chunk_cut(device):
+    """15a's cut of the cell (INJ_CUT) through run_windows at K =
+    INJ_CHUNK on the card and on the CPU: the reference's counts and
+    every leaf equal between the two."""
+    import numpy as np
+    import torch
+
+    from shadow_tpu_torch import bench, convert
+    from shadow_tpu_torch.apps import tgen
+    from shadow_tpu_torch.inject import Feeder, manifest_block
+    from shadow_tpu_torch.utils import checkpoint
+
+    H, rate, sim_s, lanes = INJ_CUT
+    trace = bench.rate_trace(H, rate, sim_s)
+    got = []
+    for dev in (device, torch.device("cpu")):
+        b = bench.build_inject(H, sim_s, 1, 64, lanes, ONE_VERTEX, dev)
+        f = Feeder(list(trace))
+        t0 = time.perf_counter()
+        sim, stats, _ = checkpoint.run_windows(
+            b, (tgen.handler,), feeder=f, windows_per_dispatch=INJ_CHUNK,
+            device=dev)
+        blk = manifest_block(sim, f)
+        st = stats.as_dict()
+        if st != INJ_CUT_EXPECT or (blk["injected"], blk["dropped"],
+                                    blk["late"], blk["deferred"]) != (
+                len(trace), 0, 0, 0):
+            raise AssertionError(f"inject cut {dev.type}: {st} {blk} != "
+                                 f"the reference's {INJ_CUT_EXPECT}")
+        got.append(convert.sim_to_numpy(sim))
+        log(f"  inject cut to {H} hosts, K = {INJ_CHUNK}, {dev.type}: the "
+            f"reference's counts {st} in {time.perf_counter() - t0:.2f} s")
+    a, c = got
+    bad = [k for k in a if a[k].dtype != c[k].dtype
+           or not np.array_equal(a[k], c[k])]
+    if a.keys() != c.keys() or bad:
+        raise AssertionError(f"inject cut: cuda != cpu, first {bad[:5]}")
+    log(f"  inject cut: cuda == cpu, all {len(a)} leaves equal")
+
+
+def inject_cell(device):
+    """Phase 15: open-system injection. Returns the kernel row's
+    additions and the max abs error of mailbox_gather against its plain
+    version on the runs' inputs."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="shadow_inj_") as tmp:
+        return _inject_cell(device, tmp)
+
+
+def _inject_cell(device, tmp):
+    import os
+    import subprocess
+    from pathlib import Path
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from shadow_tpu_torch import bench, convert, faults, telemetry
+    from shadow_tpu_torch.apps import tgen
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+    from shadow_tpu_torch.inject import Feeder, manifest_block
+    from shadow_tpu_torch.utils import checkpoint
+
+    out = {}
+    root = Path(__file__).resolve().parent
+    # ---- 15a: the bench row as a user runs it --------------------------
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env["BENCH_INJECT_RATE"] = str(INJ_RATE)
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "shadow_tpu_torch.bench"],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"inject bench exited {done.returncode}:\n"
+                             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    row = json.loads(done.stdout.strip().splitlines()[-1])
+    log(f"  inject-10k-rate: `BENCH_INJECT_RATE={INJ_RATE} python -m "
+        f"shadow_tpu_torch.bench` exit 0 in {wall:.1f} s: {json.dumps(row)}")
+    name = (f"events_per_sec_per_chip@{INJ_HOSTS}hosts_inject_rate"
+            f"{INJ_RATE}_chunk1")
+    got = {"metric": row["metric"], "events": row["events"],
+           "windows": row["windows"], "micro_steps": row["micro_steps"]}
+    want = {"metric": name, "events": INJ_EXPECT["events_processed"],
+            "windows": INJ_EXPECT["windows"],
+            "micro_steps": INJ_EXPECT["micro_steps"]}
+    if got != want:
+        raise AssertionError(f"inject bench row: {got} != {want}")
+    out["inject_bench_row"] = {k: row[k] for k in (
+        "value", "wall_s", "warmup_s")}
+
+    # ---- 15a in-process: the same program through the supervised loop
+    trace = bench.rate_trace(INJ_HOSTS, INJ_RATE, INJ_SIM_S)
+    if len(trace) != INJ_BLOCK["trace_events"]:
+        raise AssertionError(f"inject: the trace holds {len(trace)} "
+                             f"events")
+    t0 = time.perf_counter()
+    b = build_inject(device)
+    sim0 = b.sim
+    torch.cuda.synchronize()
+    log(f"  inject: built {INJ_HOSTS} hosts ({b.cfg.inject_lanes} staging "
+        f"lanes) in {time.perf_counter() - t0:.2f} s")
+
+    def supervised(feeder, **kw):
+        b.sim = sim0
+        h = telemetry.Harvester()
+        res = faults.run_supervised(
+            b, (tgen.handler,), checkpoint_path=os.path.join(tmp, "ck"),
+            checkpoint_every_windows=1 << 30, harvester=h, feeder=feeder,
+            device=device, **kw)
+        return res, h
+
+    torch.cuda.synchronize()
+    mailbox_gather.launches = 0
+    f_sup = timed_feeder(list(trace))
+    t0 = time.perf_counter()
+    with KeepGatherInputs() as gathered:
+        sup, harvester = supervised(f_sup)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mailbox_gather.launches
+    if not sup.ok:
+        raise AssertionError(f"inject supervised: "
+                             f"{sup.failure_report()}")
+    check_inject("inject supervised (K = 1)", sup.sim, sup.stats, f_sup)
+    log_run("inject supervised (K = 1)", sup.stats, wall)
+    if launches <= 0:
+        raise AssertionError("inject: mailbox_gather was never launched")
+    refill = sum(f_sup.t_refill)
+    log(f"  inject supervised: mailbox_gather launched {launches} times "
+        f"(the merges' and the routes' sweeps); {len(f_sup.t_refill)} "
+        f"refills took {refill:.3f} s of the {wall:.3f} s "
+        f"({refill / wall * 100:.2f}%; staging the mirror "
+        f"{sum(f_sup.t_stage):.3f} s, plane builds "
+        f"{sum(f_sup.t_planes):.3f} s); health "
+        f"{sup.health.failure_report()['diagnostics']}; harvested "
+        f"{json.dumps(harvester.summary())}")
+    out["launches_inject"] = launches
+    err = gathered.check("inject")
+    del gathered
+
+    # the same trace through run_windows, one window a dispatch (the
+    # profiled window in it) and 16
+    runs = {}
+    for K in (1, INJ_CHUNK):
+        f = timed_feeder(list(trace))
+        probe = WindowProbe(INJ_PROFILE_WINDOW) if K == 1 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim, stats, _ = checkpoint.run_windows(
+            b, (tgen.handler,), sim=sim0, feeder=f, windows_per_dispatch=K,
+            on_window=probe, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[K] = (sim, stats, f, probe)
+        check_inject(f"inject run_windows (K = {K})", sim, stats, f,
+                     chunked=K > 1)
+        log_run(f"inject run_windows (K = {K})", stats, wall)
+    n = inject_leaves_equal("inject K = 1 vs supervised", runs[1][0],
+                            sup.sim)
+    log(f"  inject: run_windows (K = 1) == run_supervised: all {n} leaves")
+    n = inject_leaves_equal(
+        f"inject K = 1 vs K = {INJ_CHUNK}", runs[1][0], runs[INJ_CHUNK][0],
+        exclude=INJ_SCRATCH | INJ_SLOTS | INJ_PARTITION | {
+            k for k in convert.sim_tensors(runs[1][0])
+            if k.startswith(".telem.")})
+    log(f"  inject: K = 1 == K = {INJ_CHUNK}: {n} leaves and the live "
+        f"event multiset (staging scratch, heap slots, route marks and "
+        f"ring excluded); {runs[INJ_CHUNK][1].as_dict()}")
+    chunk_cut(device)
+
+    # one window profiled: barrier refill, merge, drain and route
+    _, stats1, f1, probe = runs[1]
+    k = INJ_PROFILE_WINDOW
+    events = raw_events(probe.prof)
+    marks = probe.marks
+    unprof_ms = (marks[k] - marks[k - 1]) * 1e3
+    prof_ms = (marks[k + 1] - marks[k]) * 1e3
+    busy_ms = device_busy_us(events) / 1e3
+    syncs = sum(1 for e in events if e.device_type == DeviceType.CPU
+                and e.name == "cudaStreamSynchronize")
+    h2d = sum(1 for e in events if e.device_type == DeviceType.CPU
+              and e.name == "cudaMemcpyAsync")
+    # the profiled window is k + 1: its barrier is refill k + 2
+    ref_ms, st_ms, pl_ms, in_ms = (getattr(f1, n)[k + 2] * 1e3 for n in (
+        "t_refill", "t_stage", "t_planes", "t_install"))
+    mean_ms = {n: statistics.mean(getattr(f1, n)) * 1e3 for n in (
+        "t_refill", "t_stage", "t_planes", "t_install")}
+    out["inject_window"] = {"launches": host_launches(events),
+                            "syncs": syncs, "ms": round(unprof_ms, 3),
+                            "busy_ms": round(busy_ms, 3),
+                            "refill_ms": round(ref_ms, 3),
+                            "stage_ms": round(st_ms, 3)}
+    log(f"  inject: window {k + 1} profiled: {host_launches(events)} "
+        f"launches, {syncs} cudaStreamSynchronize, {h2d} cudaMemcpyAsync, "
+        f"device busy {busy_ms:.2f} ms = {busy_ms / unprof_ms * 100:.2f}% "
+        f"of the unprofiled window {k}'s {unprof_ms:.2f} ms ({prof_ms:.2f} "
+        f"ms profiled); its barrier's refill {ref_ms:.3f} ms "
+        f"({ref_ms / unprof_ms * 100:.2f}% of a window: staging the "
+        f"mirror {st_ms:.3f} ms, plane build {pl_ms:.3f} ms, copies "
+        f"{in_ms - pl_ms:.3f} ms); refills over the run "
+        f"{mean_ms['t_refill']:.3f} ms mean (staging "
+        f"{mean_ms['t_stage']:.3f}, planes {mean_ms['t_planes']:.3f}, "
+        f"copies {mean_ms['t_install'] - mean_ms['t_planes']:.3f}), "
+        f"{max(f1.t_refill) * 1e3:.3f} ms max")
+    del runs
+
+    # ---- 15b: supervised stop at INJ_STOP_S, resume with a fresh feeder
+    stop = {"v": False}
+
+    def on_round(sim, ws, wstart, wend, nm):
+        stop["v"] = nm >= int(INJ_STOP_S * 1e9)
+    first, _ = supervised(Feeder(list(trace)), on_round=on_round,
+                          stop=lambda: stop["v"])
+    if not first.preempted or not first.final_checkpoint:
+        raise AssertionError("inject 15b: the run did not stop")
+    t_stop = checkpoint.peek_meta(first.final_checkpoint)["time_ns"]
+    f2 = Feeder(list(trace))
+    b.sim = sim0
+    rest = faults.run_supervised(
+        b, (tgen.handler,), checkpoint_path=os.path.join(tmp, "ck2"),
+        resume_from=first.final_checkpoint, feeder=f2, device=device)
+    if not rest.ok:
+        raise AssertionError(f"inject 15b resume: "
+                             f"{rest.failure_report()}")
+    n = inject_leaves_equal("inject 15b resumed vs straight", rest.sim,
+                            sup.sim, exclude=INJ_SCRATCH)
+    blk = manifest_block(rest.sim, f2)
+    if (blk["injected"] + blk["dropped"] + blk["deferred"]
+            != blk["trace_events"] or blk["late"]
+            or rest.stats.as_dict() != sup.stats.as_dict()):
+        raise AssertionError(f"inject 15b: block {blk} stats "
+                             f"{rest.stats.as_dict()}")
+    log(f"  inject 15b: stopped at t={t_stop}, resumed with a fresh feeder "
+        f"(cursor {f2.cursor} after the run): == the straight run "
+        f"({n} leaves, staging scratch excluded), injection block "
+        f"reconciles {json.dumps(blk)}")
+    del first, rest, sup, b, sim0
+
+    # ---- 15c: a <traffic> config through the CLI ----------------------
+    cfg_path = str(root / TRAFFIC_CONFIG)
+    d = os.path.join(tmp, "traffic.data")
+    trace_out, metrics_out = (os.path.join(tmp, "traffic.trace.json"),
+                              os.path.join(tmp, "traffic.prom"))
+    cmd = [sys.executable, "-m", "shadow_tpu_torch.cli", cfg_path,
+           "--platform", "gpu", "-d", d, "--trace-out", trace_out,
+           "--metrics-out", metrics_out]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    lines = done.stdout.strip().splitlines()
+    if done.returncode != 0 or not lines:
+        raise AssertionError(f"traffic CLI exited {done.returncode}:\n"
+                             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    report = json.loads(lines[-1])
+    check_report("cli-tgen-traffic", report, TRAFFIC_REPORT)
+    with open(os.path.join(d, "run_manifest.json")) as fh:
+        man = json.load(fh)
+    for key, want in (("injection", TRAFFIC_INJECTION),
+                      ("telemetry", TRAFFIC_TELEMETRY)):
+        if report.get(key) != want or man.get(key) != want:
+            raise AssertionError(f"cli-tgen-traffic: {key} {report.get(key)}"
+                                 f" / manifest {man.get(key)} != the "
+                                 f"reference's {want}")
+    with open(trace_out) as fh:
+        tr = json.load(fh)
+    n_win = sum(1 for e in tr["traceEvents"] if e["pid"] == 0
+                and e["ph"] == "X")
+    with open(metrics_out) as fh:
+        prom = fh.read().splitlines()
+    for ln in prom:
+        if not ln.startswith("# TYPE "):
+            name, val = ln.rsplit(" ", 1)
+            float(val)
+            if not name.startswith("shadow_tpu_"):
+                raise AssertionError(f"cli-tgen-traffic: metric line {ln!r}")
+    if n_win != TRAFFIC_REPORT["windows"]:
+        raise AssertionError(f"cli-tgen-traffic: trace holds {n_win} "
+                             f"windows")
+    log(f"  cli-tgen-traffic: exit 0 in {wall:.1f} s; report and manifest "
+        f"injection and telemetry blocks equal the reference CLI's; Chrome "
+        f"trace {len(tr['traceEvents'])} events ({n_win} windows), "
+        f"Prometheus text {len(prom)} lines parsed")
+
+    def make(dev):
+        from shadow_tpu_torch.config.loader import load
+        from shadow_tpu_torch.config.xmlconfig import parse_config
+        from shadow_tpu_torch.net.build import make_runner
+
+        with open(cfg_path) as fh:
+            loaded = load(parse_config(fh.read()), seed=1, device=dev)
+        tb = loaded.bundle
+        tb.sim = Feeder(list(loaded.inject_events)).fill_all(tb.sim)
+        return tb, make_runner(tb, app_handlers=loaded.handlers,
+                               device=dev)
+
+    mailbox_gather.launches = 0
+    with KeepGatherInputs() as gathered:
+        _, sim = compare_bundles_cuda_cpu("tgen traffic config", make)
+    if int(sim.app.rcvd.sum()) != TRAFFIC_INJECTION["injected"]:
+        raise AssertionError("tgen traffic config: a datagram was lost")
+    out["launches_traffic"] = mailbox_gather.launches
+    err = max(err, gathered.check("tgen traffic config"))
+    return out, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2878,14 +3441,20 @@ def main(argv=None) -> int:
         log("[6p] relay profile")
         profile_relay(device)
 
+    del relay
     phase("6s")
-    log("[6s] the same cell serial (scale_run's --no-bulk)")
+    log(f"[6s] the same cell serial (scale_run's --no-bulk) and with the "
+        f"TCP bulk pass, both cut to {RELAY_SERIAL_SIM_S} sim-s")
+    twin = relay_cell("relay to the serial depth", device, RELAY_HOP,
+                      RELAY_BYTES, RELAY_SERIAL_SIM_S, complete=False)
     serial = relay_cell("relay serial", device, RELAY_HOP, RELAY_BYTES,
-                        RELAY_SIM_S, tcp_bulk=False,
-                        expect=RELAY_SERIAL_EXPECT)
+                        RELAY_SERIAL_SIM_S, tcp_bulk=False, complete=False)
     row["launches_relay_serial"] = serial[2]["mailbox_gather"]
-    assert_contract("relay 6 vs 6s", relay[:2], serial[:2])
-    del relay, serial
+    if serial[1]["micro_steps"] <= twin[1]["micro_steps"]:
+        raise AssertionError("relay serial: no more micro-steps than the "
+                             "TCP bulk pass left by the cut depth")
+    assert_contract("relay 6s twins", twin[:2], serial[:2])
+    del twin, serial
 
     phase("6a")
     log(f"[6a] lossy relay: {HOSTS // LOSSY_HOP} circuits x {LOSSY_HOP} "
@@ -2975,6 +3544,16 @@ def main(argv=None) -> int:
         "shadow_tpu_torch.cli on the --test example and the reference's "
         "configs")
     got, err = cli_cell(device)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row.update(got)
+
+    phase("15")
+    log(f"[15] open-system injection: bench.py's BENCH_INJECT_RATE="
+        f"{INJ_RATE} scenario ({INJ_HOSTS} hosts, {INJ_SIM_S} sim-s) "
+        f"through the bench, run_supervised and run_windows (K = 1, "
+        f"{INJ_CHUNK}); a stop at {INJ_STOP_S} sim-s and resume; a "
+        f"<traffic> config through the CLI")
+    got, err = inject_cell(device)
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update(got)
 

@@ -3,7 +3,8 @@
 The same conservative windowed-PDES engine, UDP and TCP netstack (with
 the UDP and TCP bulk window passes), PHOLD, ping/echo, bulk-transfer,
 TCP-echo, Tor-relay (disjoint and shared-relay) and Bitcoin-gossip (UDP
-and TCP) applications, config loader and command line
+and TCP) applications, open-system injection (``inject/`` and the tgen
+app), config loader and command line
 (``python -m shadow_tpu_torch.cli``) as ``shadow_tpu``, written with
 PyTorch tensors so that it runs on an
 NVIDIA GPU (Hopper, ``sm_90a``). Like the reference's, the package

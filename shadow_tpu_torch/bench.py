@@ -5,7 +5,8 @@ as bench.py's one JSON row. Run it as
 
 `--faults` (or BENCH_FAULTS) installs a JSON fault plan
 (faults.records_from_json, e.g. examples/faultplan_degraded.json) on
-every PHOLD input: the degraded-network row, named with `_faults`.
+every PHOLD or injection input: the degraded-network row, named with
+`_faults`.
 
 Env knobs (bench.py's, for what the port runs):
 
@@ -38,6 +39,22 @@ Env knobs (bench.py's, for what the port runs):
   BENCH_ADAPTIVE_JUMP=1          the supervised loop's adaptive window rule
   BENCH_MIN_JUMP_MS=M            PHOLD only: lowers (never raises) the
                                  window span to M ms (name gains _mj{M}ms)
+  BENCH_INJECT_RATE=R            open-system injection: the tgen app
+                                 (every host binds a UDP socket) fed a
+                                 synthesized uniform trace of R events/s
+                                 (round-robin sources, 64-byte datagrams
+                                 to the next host) streamed through
+                                 faults.run_supervised with a fresh
+                                 inject.Feeder per run; the name is
+                                 ..._inject_rate{R}_chunk{K or 1}
+  BENCH_INJECT_TRACE=PATH        the same scenario replaying a trace file
+                                 (name ..._inject_trace_chunk{K or 1});
+                                 exclusive with BENCH_INJECT_RATE. The
+                                 loop knobs (BENCH_CHUNK_WINDOWS,
+                                 BENCH_ADAPTIVE_JUMP,
+                                 BENCH_CHECKPOINT_WINDOWS,
+                                 BENCH_MIN_JUMP_MS) apply; BENCH_WORKLOAD
+                                 and BENCH_SUPERVISE do not
   BENCH_FAULTS=PLAN.json         as --faults
   BENCH_PLATFORM=cpu             run on the CPU
 
@@ -45,7 +62,10 @@ Every other BENCH_* knob of bench.py is refused (SystemExit naming it),
 and so are bench.py's own refusals: --faults, BENCH_SUPERVISE and
 BENCH_MIN_JUMP_MS with pingpong (bench.py ignores the last there),
 BENCH_ADAPTIVE_JUMP and BENCH_CHECKPOINT_WINDOWS without
-BENCH_SUPERVISE=1.
+BENCH_SUPERVISE=1 or an injection scenario, and BENCH_INJECT_* with
+BENCH_WORKLOAD or BENCH_SUPERVISE. The reference's flow, causality,
+sentinel and bucketed knobs (BENCH_FLOW_SAMPLE, BENCH_CAUSALITY_SAMPLE,
+BENCH_SENTINEL, BENCH_BUCKETED) stay refused as unknown knobs.
 
 PHOLD is bench.py's default program: capacities start at max(16,
 3*load) and double on a counted overflow, then the run goes again; the
@@ -112,7 +132,8 @@ KNOBS = frozenset({"BENCH_WORKLOAD", "BENCH_TOPO", "BENCH_HOSTS",
                    "BENCH_SIM_SECONDS", "BENCH_LOAD", "BENCH_TELEMETRY",
                    "BENCH_CHUNK_WINDOWS", "BENCH_PLATFORM", "BENCH_FAULTS",
                    "BENCH_SUPERVISE", "BENCH_CHECKPOINT_WINDOWS",
-                   "BENCH_ADAPTIVE_JUMP", "BENCH_MIN_JUMP_MS"})
+                   "BENCH_ADAPTIVE_JUMP", "BENCH_MIN_JUMP_MS",
+                   "BENCH_INJECT_RATE", "BENCH_INJECT_TRACE"})
 
 PINGPONG_COUNT = 20
 ONE_MILLISECOND = 1_000_000   # core.simtime's, without importing torch
@@ -212,23 +233,26 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
     return go
 
 
-def phold_supervised_runner(H, load, sim_s, device, graph=ONE_VERTEX,
-                            ring=True, fault_records=None,
-                            chunk_windows=None, adaptive_jump=False,
-                            min_jump_ns=None, checkpoint_windows=None):
-    """bench.py's _phold_supervised_runner: PHOLD through
-    faults.run_supervised with the bulk pass (bundle.app_bulk), health
-    checks at every dispatch barrier, `chunk_windows` windows a dispatch
-    and a checkpoint every `checkpoint_windows` windows (default never).
-    The ring is sized for a chunk (at least twice its windows, rounded
-    up to a power of two). Inputs, escalation and `go.last_*` as
-    phold_runner; `go.last_result` is the SupervisorResult."""
+def _supervised_runner(what, make_bundles, cap, handler, device,
+                       chunk_windows=None, adaptive_jump=False,
+                       checkpoint_windows=None, feeder=None):
+    """The supervised bench loop of bench.py's _phold_supervised_runner
+    and _inject_runner: `handler`'s app through faults.run_supervised,
+    health checks at every dispatch barrier, `chunk_windows` windows a
+    dispatch and a checkpoint every `checkpoint_windows` windows
+    (default never). make_bundles(cap, W) builds the three inputs
+    (seeds 1..3) with a ring of W records: at least twice a chunk's
+    windows, rounded up to a power of two. Each call runs the next
+    input, with a fresh Feeder from `feeder()` when given. Capacities
+    start at `cap` and double on a counted queue or outbox overflow or
+    an injection drop (`go.escalated`). `go.last_sim`, `go.last_stats`,
+    `go.last_result`, `go.last_feeder` and `go.harvester` hold the last
+    clean run."""
     import atexit
     import shutil
     import tempfile
 
     from shadow_tpu_torch import faults, telemetry
-    from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.faults.escalate import quantize_pow2
     from shadow_tpu_torch.telemetry.ring import DEFAULT_CAPACITY
 
@@ -239,15 +263,11 @@ def phold_supervised_runner(H, load, sim_s, device, graph=ONE_VERTEX,
     W = quantize_pow2(max(DEFAULT_CAPACITY, 2 * (chunk_windows or 1)))
 
     def build_at(cap):
-        bundles = [_lower_min_jump(build_phold(
-            H, load, sim_s, seed, cap, graph, device, ring=ring,
-            fault_records=fault_records, ring_capacity=W), min_jump_ns)
-            for seed in (1, 2, 3)]
-        b = bundles[0]
-        b.app_bulk = phold.BULK
-        state.update(cap=cap, bundle=b, sims=[x.sim for x in bundles])
+        bundles = make_bundles(cap, W)
+        state.update(cap=cap, bundle=bundles[0],
+                     sims=[x.sim for x in bundles])
 
-    build_at(max(16, 3 * load))
+    build_at(cap)
 
     def go():
         go.escalated = False
@@ -255,30 +275,144 @@ def phold_supervised_runner(H, load, sim_s, device, graph=ONE_VERTEX,
             b = state["bundle"]
             b.sim = state["sims"][state["n"] % len(state["sims"])]
             state["n"] += 1
+            f = feeder() if feeder is not None else None
             h = telemetry.Harvester()
             result = faults.run_supervised(
-                b, app_handlers=(phold.handler,),
+                b, app_handlers=(handler,),
                 checkpoint_path=os.path.join(ckdir, "ck"),
                 checkpoint_every_windows=every, harvester=h,
                 windows_per_dispatch=chunk_windows,
-                adaptive_jump=adaptive_jump or None, device=device)
+                adaptive_jump=adaptive_jump or None, feeder=f,
+                device=device)
             sim = result.sim
-            if int(sim.events.overflow) + int(sim.outbox.overflow):
-                build_at(state["cap"] * 2)
+            over = int(sim.events.overflow) + int(sim.outbox.overflow)
+            if f is not None:
+                over += int(sim.inject.dropped)
+            if over:
+                build_at(state["cap"] * 2)   # rebuild, run again clean
                 go.escalated = True
                 continue
             if not result.ok:
-                raise RuntimeError(f"PHOLD supervised: "
+                raise RuntimeError(f"{what} supervised: "
                                    f"{result.failure_report()}")
             if int(sim.app.rcvd.sum()) <= 0:
-                raise RuntimeError("PHOLD: no message was received")
+                raise RuntimeError(f"{what}: nothing was received")
             go.last_sim, go.last_stats = sim, result.stats
-            go.last_result, go.harvester = result, h
+            go.last_result, go.last_feeder, go.harvester = result, f, h
             return int(result.stats.events_processed)
 
     go.escalated = False
     go.state = state
     return go
+
+
+def phold_supervised_runner(H, load, sim_s, device, graph=ONE_VERTEX,
+                            ring=True, fault_records=None,
+                            chunk_windows=None, adaptive_jump=False,
+                            min_jump_ns=None, checkpoint_windows=None):
+    """bench.py's _phold_supervised_runner: PHOLD through
+    _supervised_runner with the bulk pass (bundle.app_bulk). Inputs and
+    escalation as phold_runner."""
+    from shadow_tpu_torch.apps import phold
+
+    def make_bundles(cap, W):
+        bundles = [_lower_min_jump(build_phold(
+            H, load, sim_s, seed, cap, graph, device, ring=ring,
+            fault_records=fault_records, ring_capacity=W), min_jump_ns)
+            for seed in (1, 2, 3)]
+        bundles[0].app_bulk = phold.BULK
+        return bundles
+
+    return _supervised_runner("PHOLD", make_bundles, max(16, 3 * load),
+                              phold.handler, device, chunk_windows,
+                              adaptive_jump, checkpoint_windows)
+
+
+def rate_trace(H: int, rate: float, sim_s: int) -> list:
+    """bench.py's _rate_trace: a synthesized uniform injection trace of
+    aggregate `rate` events/s, round-robin source host, each a
+    KIND_TGEN datagram of 64 bytes to the next host. Pure arithmetic —
+    a function of (H, rate, sim_s) alone."""
+    from shadow_tpu_torch.apps.tgen import KIND_TGEN
+    from shadow_tpu_torch.core import simtime
+
+    period = max(1, int(simtime.ONE_SECOND / rate))
+    end = sim_s * simtime.ONE_SECOND
+    events = []
+    t, i = period, 0
+    while t < end:
+        src = i % H
+        events.append({"t_ns": t, "host": src, "kind": KIND_TGEN,
+                       "payload": [(src + 1) % H, 9100, 64]})
+        i += 1
+        t += period
+    return events
+
+
+def build_inject(H, sim_s, seed, cap, lanes, graph, device,
+                 fault_records=None, min_jump_ns=None):
+    """bench.py's injection bundle: the tgen app on every host (UDP,
+    capacities `cap`, in_ring 16, `lanes` staging lanes), the fault plan
+    installed when given, the window span lowered to `min_jump_ns`."""
+    from shadow_tpu_torch.apps import tgen
+    from shadow_tpu_torch.core import simtime
+    from shadow_tpu_torch.net.build import HostSpec, build
+    from shadow_tpu_torch.net.state import NetConfig
+
+    cfg = NetConfig(num_hosts=H, tcp=False,
+                    end_time=sim_s * simtime.ONE_SECOND, seed=seed,
+                    event_capacity=cap, outbox_capacity=cap,
+                    router_ring=cap, in_ring=16, inject_lanes=lanes)
+    hosts = [HostSpec(name=f"peer{i}", proc_start_time=0) for i in range(H)]
+    b = build(cfg, graph, hosts, device=device)
+    b.sim = tgen.setup(b.sim)
+    if fault_records:
+        from shadow_tpu_torch import faults
+
+        faults.install(b, fault_records)
+    return _lower_min_jump(b, min_jump_ns)
+
+
+def inject_runner(H, sim_s, device, seed=1, graph=ONE_VERTEX,
+                  trace_path=None, rate=None, ring=True,
+                  fault_records=None, chunk_windows=None,
+                  adaptive_jump=False, min_jump_ns=None,
+                  checkpoint_windows=None):
+    """bench.py's _inject_runner: the tgen app driven by a streamed trace
+    (`trace_path`, or rate_trace(H, `rate`, sim_s)) through
+    _supervised_runner — the feeder refills the staging lanes at every
+    dispatch barrier, so the rate covers the whole on-ramp. A fresh
+    Feeder per call replays the trace from position 0 against the next
+    of three inputs (seeds `seed`..`seed`+2). Staging lanes
+    tgen.lanes_for(trace length); capacities start at 64."""
+    from shadow_tpu_torch import telemetry
+    from shadow_tpu_torch.apps import tgen
+    from shadow_tpu_torch.inject import Feeder, read_trace
+
+    if trace_path is not None:
+        n_ev = sum(1 for _ in read_trace(trace_path))
+        mem_events = None
+    else:
+        mem_events = rate_trace(H, rate, sim_s)
+        n_ev = len(mem_events)
+    lanes = tgen.lanes_for(n_ev)
+
+    def make_bundles(cap, W):
+        bundles = [build_inject(H, sim_s, seed + i, cap, lanes, graph,
+                                device, fault_records, min_jump_ns)
+                   for i in (0, 1, 2)]
+        if ring:
+            for x in bundles:
+                x.sim = telemetry.attach(x.sim, capacity=W)
+        return bundles
+
+    def feeder():
+        return Feeder(trace_path if trace_path is not None
+                      else list(mem_events))
+
+    return _supervised_runner("injection", make_bundles, 64, tgen.handler,
+                              device, chunk_windows, adaptive_jump,
+                              checkpoint_windows, feeder=feeder)
 
 
 def pingpong_runner(H, sim_s, device, graph=None, chunk_windows=None):
@@ -439,10 +573,32 @@ def main(argv=None) -> int:
         except ValueError:
             raise SystemExit(f"BENCH_MIN_JUMP_MS={mjms!r} is not a "
                              f"number") from None
-    if (adaptive or ck_w) and not supervise:
+    inj_trace = os.environ.get("BENCH_INJECT_TRACE") or None
+    inj_rate = os.environ.get("BENCH_INJECT_RATE") or None
+    if inj_rate:
+        try:
+            inj_rate = float(inj_rate)
+        except ValueError:
+            raise SystemExit(f"BENCH_INJECT_RATE={inj_rate!r} is not a "
+                             f"number") from None
+    inject_on = bool(inj_trace or inj_rate)
+    if inj_trace and inj_rate:
+        raise SystemExit("BENCH_INJECT_TRACE and BENCH_INJECT_RATE are "
+                         "mutually exclusive (replay xor synthesize)")
+    if (adaptive or ck_w) and not (supervise or inject_on):
         raise SystemExit(
             "BENCH_ADAPTIVE_JUMP / BENCH_CHECKPOINT_WINDOWS shape the "
             "supervised window loop; set BENCH_SUPERVISE=1")
+    if inject_on:
+        # the injection scenario is its own workload: the tgen app under
+        # the supervised loop (streaming needs the host-driven barrier)
+        if os.environ.get("BENCH_WORKLOAD"):
+            raise SystemExit("BENCH_INJECT_* defines its own scenario; "
+                             "leave BENCH_WORKLOAD unset")
+        if supervise:
+            raise SystemExit(
+                "BENCH_INJECT_* does not combine with BENCH_SUPERVISE — "
+                "it is already a supervised tgen scenario")
     if workload != "phold":
         for flag, on in (("--faults", args.faults),
                          ("BENCH_SUPERVISE=1", supervise),
@@ -465,7 +621,13 @@ def main(argv=None) -> int:
             fault_records = faults.records_from_json(f.read())
 
     graph = MIX_VERTICES if topo == "mix" else ONE_VERTEX
-    if workload == "phold" and supervise:
+    if inject_on:
+        runner = inject_runner(
+            H, sim_s, device, graph=graph, trace_path=inj_trace,
+            rate=inj_rate, ring=ring, fault_records=fault_records,
+            chunk_windows=chunk, adaptive_jump=adaptive,
+            min_jump_ns=min_jump_ns, checkpoint_windows=ck_w)
+    elif workload == "phold" and supervise:
         runner = phold_supervised_runner(
             H, load, sim_s, device, graph=graph, ring=ring,
             fault_records=fault_records, chunk_windows=chunk,
@@ -480,7 +642,13 @@ def main(argv=None) -> int:
         runner = pingpong_runner(
             H, sim_s, device, graph=MIX_VERTICES if topo == "mix" else None,
             chunk_windows=chunk)
-    if workload == "phold":
+    if inject_on:
+        name = f"events_per_sec_per_chip@{H}hosts_inject"
+        name += "_trace" if inj_trace else f"_rate{int(inj_rate)}"
+        name += f"_chunk{chunk or 1}"
+        if adaptive:
+            name += "_adaptive"
+    elif workload == "phold":
         name = f"events_per_sec_per_chip@{H}hosts_phold_load{load}"
     else:
         name = f"events_per_sec_per_chip@{H}hosts_udp_pingpong"
@@ -488,7 +656,7 @@ def main(argv=None) -> int:
         name += f"_supervised_chunk{chunk or 1}"
         if adaptive:
             name += "_adaptive"
-    elif chunk:
+    elif chunk and not inject_on:
         name += f"_chunk{chunk}"
     if mjms:
         name += f"_mj{mjms}ms"

@@ -13,11 +13,18 @@ per-host executed-event lines. Runs go to the GPU unless `--platform
 cpu` asks for the CPU: `auto` and `gpu` both mean the card, and raise
 without CUDA.
 
+Open-system injection streams a trace (`--inject-trace`) or the
+config's <traffic> elements through inject.Feeder: the supervised loop
+refills the staging lanes at every barrier, the whole-run path stages
+the whole trace up front; the report gains the `injection` block.
+`--trace-out`, `--metrics-out` and `--telemetry-capacity` attach the
+window ring and write `run_manifest.json` into the data directory, the
+Chrome trace and the Prometheus text.
+
 Flags whose mechanism the port does not have yet are refused by name
 (exit 2) with the ROADMAP.md Queue 1 item they wait for: `--workers` >
-1 (item 9); `--inject-trace`, `--inject-lanes`, `--trace-out`,
-`--metrics-out`, `--telemetry-capacity`, `--flow-*`, `--causality-*`,
-`--lane-isolation`, `--resident` (item 8); `--host-kernel`,
+1 (item 9); `--flow-*`, `--causality-*`, `--lane-isolation`,
+`--resident` (item 8); `--host-kernel`,
 `--host-time-scale`, `--track-paths`, `--cpu-threshold` and configs with
 logpcap (item 10); `--profile-dir`, which names jax.profiler. The
 `fleet` and `sweep` sub-commands wait for item 12. `--specialize` is
@@ -33,8 +40,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
-import hashlib
 import json
 import os
 import sys
@@ -43,6 +48,7 @@ import time
 import numpy as np
 
 from shadow_tpu_torch import __version__
+from shadow_tpu_torch.telemetry.export import config_hash
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -127,12 +133,30 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--event-capacity", type=int, default=None)
     p.add_argument("--outbox-capacity", type=int, default=None)
     p.add_argument("--router-ring", type=int, default=None)
-    for flag, kw in (("--inject-trace", {"metavar": "PATH"}),
-                     ("--inject-lanes", {"type": int}),
-                     ("--trace-out", {}), ("--metrics-out", {}),
-                     ("--telemetry-capacity", {"type": int})):
-        p.add_argument(flag, default=None,
-                       help="refused: ROADMAP.md Queue 1 item 8", **kw)
+    p.add_argument("--inject-trace", default=None, metavar="PATH",
+                   help="stream an injection trace (newline-JSON or "
+                        "binary, see docs/9-injection.md) into the "
+                        "simulated hosts; overrides a config's "
+                        "<traffic> elements. The injected kinds must "
+                        "have a device handler (the tgen plugin, or "
+                        "tools/trace_gen.py targeting one)")
+    p.add_argument("--inject-lanes", type=int, default=None,
+                   help="device staging lanes for injection "
+                        "(power of two; default sized from the trace "
+                        "length, capped at 1024 — longer traces "
+                        "stream through a host-driven loop)")
+    p.add_argument("--trace-out", default=None,
+                   help="write a Chrome-trace/Perfetto JSON of "
+                        "per-window telemetry records (sim-time track) "
+                        "plus wall-clock phase spans; enables the "
+                        "device-resident telemetry ring")
+    p.add_argument("--metrics-out", default=None,
+                   help="write final counters as Prometheus text "
+                        "exposition; enables the telemetry ring")
+    p.add_argument("--telemetry-capacity", type=int, default=None,
+                   help="telemetry ring capacity in window records "
+                        "(default 4096); overruns are latched as a "
+                        "health warning, never silently")
     for flag in ("--flow-sample", "--causality-sample"):
         p.add_argument(flag, type=int, default=0, metavar="N",
                        help="refused: ROADMAP.md Queue 1 item 8")
@@ -238,11 +262,6 @@ def refused_flags(args) -> list[str]:
     ROADMAP.md Queue 1 item."""
     checks = (
         ("--workers > 1", args.workers > 1, 9),
-        ("--inject-trace", args.inject_trace is not None, 8),
-        ("--inject-lanes", args.inject_lanes is not None, 8),
-        ("--trace-out", args.trace_out is not None, 8),
-        ("--metrics-out", args.metrics_out is not None, 8),
-        ("--telemetry-capacity", args.telemetry_capacity is not None, 8),
         ("--flow-sample", args.flow_sample > 0, 8),
         ("--flow-capacity", args.flow_capacity is not None, 8),
         ("--causality-sample", args.causality_sample > 0, 8),
@@ -260,16 +279,6 @@ def refused_flags(args) -> list[str]:
         out.append("--profile-dir (it names jax.profiler; "
                    "chip_smoke.py --profile profiles the port)")
     return out
-
-
-def config_hash(cfg) -> str:
-    """sha256 of the canonicalized NetConfig — two runs with the same
-    hash ran the same simulation parameters (a copy of
-    shadow_tpu/telemetry/export.py's; the rest of export.py is
-    ROADMAP.md Queue 1 item 8)."""
-    d = dataclasses.asdict(cfg)
-    blob = json.dumps(d, sort_keys=True, default=str)
-    return hashlib.sha256(blob.encode()).hexdigest()
 
 
 def _resolve_resume(path: str) -> str | None:
@@ -332,6 +341,30 @@ def main(argv=None) -> int:
         logger.flush()
 
 
+class _Telemetry:
+    """The run's optional observability: the injection feeder, and the
+    window ring's harvester and phase timers (None when off)."""
+
+    def __init__(self, feeder=None, harvester=None, timers=None):
+        self.feeder = feeder
+        self.harvester = harvester
+        self.timers = timers
+
+    def phase(self, name):
+        return (self.timers.phase(name) if self.timers is not None
+                else contextlib.nullcontext())
+
+    def lost(self) -> int:
+        return 0 if self.harvester is None else self.harvester.records_lost
+
+    def injection(self, sim):
+        if self.feeder is None:
+            return None
+        from shadow_tpu_torch import inject
+
+        return inject.manifest_block(sim, self.feeder)
+
+
 def _run(args, text, device, logger) -> int:
     from shadow_tpu_torch.config.loader import load
     from shadow_tpu_torch.config.xmlconfig import parse_config
@@ -355,6 +388,14 @@ def _run(args, text, device, logger) -> int:
         for k, v in (resume_meta.get("capacities") or {}).items():
             if k in ("event_capacity", "outbox_capacity", "router_ring"):
                 overrides[k] = max(int(overrides.get(k) or 0), int(v))
+    if args.inject_trace and "inject_lanes" not in overrides:
+        # size the staging buffer from the trace before the build (the
+        # loader's default for <traffic> elements)
+        from shadow_tpu_torch.apps.tgen import lanes_for
+        from shadow_tpu_torch.inject import read_trace
+
+        n_ev = sum(1 for _ in read_trace(args.inject_trace))
+        overrides["inject_lanes"] = lanes_for(n_ev)
     loaded = load(cfg, seed=args.seed, overrides=overrides,
                   base_dir=os.path.dirname(os.path.abspath(args.config))
                   if args.config else None, device=device)
@@ -368,6 +409,22 @@ def _run(args, text, device, logger) -> int:
                 "simulation")
     logger.message(0, "shadow-tpu", f"built {b.cfg.num_hosts} hosts, "
                    f"min window {b.min_jump} ns, end {b.cfg.end_time} ns")
+
+    # open-system injection: an explicit --inject-trace beats the
+    # config's compiled <traffic> trace
+    tel = _Telemetry()
+    if args.inject_trace or loaded.inject_events:
+        from shadow_tpu_torch.inject import Feeder
+
+        if args.inject_trace and loaded.inject_events:
+            logger.warning(0, "shadow-tpu",
+                           "--inject-trace overrides the config's "
+                           "<traffic> elements")
+        tel.feeder = Feeder(args.inject_trace or list(loaded.inject_events))
+        logger.message(
+            0, "shadow-tpu",
+            f"injection staging: {b.sim.inject.lanes} lanes, source "
+            f"{args.inject_trace or '<traffic> elements'}")
     if args.specialize == "auto":
         logger.message(
             0, "shadow-tpu",
@@ -392,10 +449,21 @@ def _run(args, text, device, logger) -> int:
                     "sim_seconds": round(int(wend) / 1e9, 3),
                     "wall_seconds": round(time.time() - t0, 3)}))
 
+    # window telemetry: attach the ring BEFORE the run so the supervisor's
+    # resume template and the runners see the same state
+    if args.trace_out or args.metrics_out or args.telemetry_capacity:
+        from shadow_tpu_torch import telemetry
+
+        b.sim = telemetry.attach(
+            b.sim, capacity=args.telemetry_capacity
+            or telemetry.DEFAULT_CAPACITY)
+        tel.harvester = telemetry.Harvester()
+        tel.timers = telemetry.PhaseTimers()
+
     sup_result = None
     if args.supervise:
         code, sup_result = _supervise(args, b, loaded, device, logger,
-                                      progress_hook, resume_ckpt)
+                                      progress_hook, resume_ckpt, tel)
         if code is not None:
             return code
         sim, stats = sup_result.sim, sup_result.stats
@@ -403,23 +471,35 @@ def _run(args, text, device, logger) -> int:
         from shadow_tpu_torch.net.build import make_chunked_runner, \
             make_runner
 
-        if args.chunk_windows:
-            runner = make_chunked_runner(
-                b, app_handlers=loaded.handlers, app_bulk=b.app_bulk,
-                chunk_windows=args.chunk_windows, device=device)
-        else:
-            runner = make_runner(b, app_handlers=loaded.handlers,
-                                 app_bulk=b.app_bulk, device=device)
-        sim, stats = runner(b.sim)
+        if tel.feeder is not None:
+            # whole-run path: the entire trace must fit the staging
+            # lanes (fill_all names the streaming alternative)
+            b.sim = tel.feeder.fill_all(b.sim)
+        with tel.phase("trace-compile"):
+            if args.chunk_windows:
+                runner = make_chunked_runner(
+                    b, app_handlers=loaded.handlers, app_bulk=b.app_bulk,
+                    chunk_windows=args.chunk_windows, device=device)
+            else:
+                runner = make_runner(b, app_handlers=loaded.handlers,
+                                     app_bulk=b.app_bulk, device=device)
+        with tel.phase("device-execute"):
+            sim, stats = runner(b.sim)
+            _sync(device)
+    _sync(device)
+    wall = time.time() - t0
+    return _report(args, b, sim, stats, wall, logger, sup_result, tel)
+
+
+def _sync(device) -> None:
     if device.type == "cuda":
         import torch
 
         torch.cuda.synchronize(device)
-    wall = time.time() - t0
-    return _report(args, b, sim, stats, wall, logger, sup_result)
 
 
-def _supervise(args, b, loaded, device, logger, progress_hook, resume_ckpt):
+def _supervise(args, b, loaded, device, logger, progress_hook, resume_ckpt,
+               tel):
     """The --supervise branch: (exit code or None, SupervisorResult)."""
     import signal
 
@@ -448,21 +528,23 @@ def _supervise(args, b, loaded, device, logger, progress_hook, resume_ckpt):
         except ValueError:
             pass  # not the main thread (embedded use)
     try:
-        result = run_supervised(
-            b, app_handlers=loaded.handlers,
-            checkpoint_path=ckpt_prefix,
-            checkpoint_every_windows=args.checkpoint_every_windows,
-            max_retries=args.max_retries,
-            backoff_s=args.retry_backoff,
-            stall_windows=args.stall_windows,
-            escalation=(EscalationPolicy(max_grow=args.max_grow)
-                        if args.auto_grow else None),
-            stop=lambda: stop_flag["v"],
-            resume_from=resume_ckpt,
-            max_run_wallclock=args.max_run_wallclock,
-            config_digest=config_hash(b.cfg),
-            log=lambda m: logger.message(0, "shadow-tpu", m),
-            on_window=progress_hook, device=device)
+        with tel.phase("supervised-run"):
+            result = run_supervised(
+                b, app_handlers=loaded.handlers,
+                checkpoint_path=ckpt_prefix,
+                checkpoint_every_windows=args.checkpoint_every_windows,
+                max_retries=args.max_retries,
+                backoff_s=args.retry_backoff,
+                stall_windows=args.stall_windows,
+                escalation=(EscalationPolicy(max_grow=args.max_grow)
+                            if args.auto_grow else None),
+                stop=lambda: stop_flag["v"],
+                resume_from=resume_ckpt,
+                max_run_wallclock=args.max_run_wallclock,
+                config_digest=config_hash(b.cfg),
+                log=lambda m: logger.message(0, "shadow-tpu", m),
+                on_window=progress_hook, harvester=tel.harvester,
+                feeder=tel.feeder, device=device)
     finally:
         for sg, h in prev_handlers.items():
             with contextlib.suppress(ValueError, TypeError):
@@ -478,6 +560,11 @@ def _supervise(args, b, loaded, device, logger, progress_hook, resume_ckpt):
             "escalations": len(result.escalations),
             "resume": f"--resume {args.data_directory}",
         }
+        if tel.harvester is not None and result.sim is not None:
+            tel.harvester.drain(result.sim)
+            report["manifest"] = _export(
+                args, b, result.sim, result.stats, None, tel, result,
+                preempted=True)
         logger.message(0, "shadow-tpu", "run preempted "
                        + json.dumps(report))
         logger.flush()
@@ -498,15 +585,61 @@ def _supervise(args, b, loaded, device, logger, progress_hook, resume_ckpt):
             oc = objcount.gather(result.sim)
             logger.message(0, "shadow-tpu", oc.format())
             logger.message(0, "shadow-tpu", oc.format_diff())
+            if tel.harvester is not None:
+                tel.harvester.drain(result.sim)
+                report["manifest"] = _export(
+                    args, b, result.sim, None, result.health, tel, result)
         logger.flush()
         print(json.dumps(report))
         return 3, result
     return None, result
 
 
-def _report(args, b, sim, stats, wall, logger, sup_result) -> int:
+def _export(args, b, sim, stats, health, tel, sup_result=None, *,
+            wall=None, preempted=None) -> dict:
+    """Write run_manifest.json into the data directory (and the Chrome
+    trace / Prometheus text when asked); returns the manifest."""
+    from shadow_tpu_torch import telemetry
+
+    extra = {}
+    if sup_result is not None:
+        wpd = max(1, int(getattr(b.cfg, "windows_per_dispatch", 1) or 1))
+        disp = {"windows_per_dispatch": wpd,
+                "dispatches": sup_result.dispatches}
+        # the per-dispatch window list only sums to the chain's window
+        # counter for a clean single-attempt run
+        if (wpd > 1 and sup_result.dispatch_windows
+                and sup_result.attempts == 1
+                and sup_result.resume_of is None):
+            disp["windows"] = list(sup_result.dispatch_windows)
+        if getattr(b.cfg, "adaptive_jump", False):
+            m = tel.harvester.mean_window_ns()
+            if m is not None:
+                disp["adaptive_jump_mean_ns"] = m
+        extra = {"run_id": sup_result.run_id,
+                 "resume_of": sup_result.resume_of,
+                 "escalations": sup_result.escalations,
+                 "dispatch": disp}
+    man = telemetry.run_manifest(
+        cfg=b.cfg, seed=args.seed, shards=1, sim=sim, stats=stats,
+        health=health, fault_plan=b.fault_plan, harvester=tel.harvester,
+        timers=tel.timers, wall_seconds=wall, preempted=preempted,
+        injection=tel.injection(sim), **extra)
+    os.makedirs(args.data_directory, exist_ok=True)
+    telemetry.write_manifest(
+        os.path.join(args.data_directory, "run_manifest.json"), man)
+    if args.trace_out:
+        telemetry.write_trace(args.trace_out, tel.harvester.records,
+                              tel.timers, 1)
+    if args.metrics_out:
+        telemetry.write_metrics(args.metrics_out, man)
+    return man
+
+
+def _report(args, b, sim, stats, wall, logger, sup_result, tel) -> int:
     """End-of-run heartbeat, object accounting, executed-event lines,
-    the health verdict and the JSON report (the reference's keys)."""
+    the health verdict, the run manifest and the JSON report (the
+    reference's keys)."""
     from shadow_tpu_torch.faults import health as health_mod
     from shadow_tpu_torch.utils import objcount
     from shadow_tpu_torch.utils.shadowlog import level_from_name
@@ -534,7 +667,10 @@ def _report(args, b, sim, stats, wall, logger, sup_result) -> int:
 
     # health-latch enforcement: every run ends with an explicit verdict,
     # and a fatal latch means exit 3 with a structured failure report
-    run_health = health_mod.gather(sim)
+    if tel.harvester is not None:
+        with tel.phase("harvest"):
+            tel.harvester.drain(sim)
+    run_health = health_mod.gather(sim, telemetry_lost=tel.lost())
     for sev, msg in run_health.diagnostics():
         if sev == "fatal":
             logger.critical(end, "shadow-tpu", msg)
@@ -559,12 +695,27 @@ def _report(args, b, sim, stats, wall, logger, sup_result) -> int:
         "overflow": int(sim.events.overflow) + int(sim.outbox.overflow)
         + int(sim.net.rq_overflow),
     }
+    inj_blk = tel.injection(sim)
+    if inj_blk is not None:
+        report["injection"] = inj_blk
     if sup_result is not None:
         if sup_result.escalations:
             report["escalations"] = [
                 e.as_dict() for e in sup_result.escalations]
         if sup_result.resume_of:
             report["resume_of"] = sup_result.resume_of
+    if tel.harvester is not None:
+        with tel.phase("export"):
+            man = _export(args, b, sim, stats, run_health, tel, sup_result,
+                          wall=wall)
+            logger.message(end, "shadow-tpu", "run manifest -> "
+                           + os.path.join(args.data_directory,
+                                          "run_manifest.json"))
+            if args.trace_out:
+                logger.message(end, "shadow-tpu",
+                               f"trace -> {args.trace_out} (load in "
+                               f"chrome://tracing or ui.perfetto.dev)")
+        report["telemetry"] = man["telemetry"]
     if run_health.fatal:
         report["failure"] = run_health.failure_report()
         logger.critical(end, "shadow-tpu",

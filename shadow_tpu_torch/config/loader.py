@@ -6,13 +6,18 @@ configure and capacity hints, the reference's precedence of overrides,
 hints and host attributes, the <fault> install and the rebuild closure
 of the supervisor's escalation.
 
+<traffic> elements compile to an injection trace before the build
+(apps/tgen.py; `LoadedSim.inject_events`, which the CLI streams through
+inject.Feeder) and size the staging lanes; a traffic-only config runs
+the tgen app on every host.
+
 Plugins the port cannot run yet are refused by name before the device
 build, each with the ROADMAP.md item it waits for: `.py` plugins and
-the reftests syscall plugins (virtual processes, Queue 1 item 10), and
-`tgen` or <traffic> elements (injection, item 8). The reference
-registers `testrandom` twice and its second registration, the reftests
-syscall plugin, wins; so the port refuses it with the other reftests
-names, and the randdump model stays reachable as `testdeterminism`.
+the reftests syscall plugins (virtual processes, Queue 1 item 10). The
+reference registers `testrandom` twice and its second registration,
+the reftests syscall plugin, wins; so the port refuses it with the
+other reftests names, and the randdump model stays reachable as
+`testdeterminism`.
 """
 
 from __future__ import annotations
@@ -42,8 +47,6 @@ _REFUSED: dict[str, str] = {}
 
 _VPROC_ITEM = ("virtual processes (process/vproc.py) are not ported "
                "yet: ROADMAP.md Queue 1 item 10")
-_INJECT_ITEM = ("open-system injection (apps/tgen.py, inject/) is not "
-                "ported yet: ROADMAP.md Queue 1 item 8")
 
 
 def register_plugin(name: str, configure: Callable, hints: Callable = None):
@@ -184,9 +187,24 @@ def _udp_only_hints(assignments):
     return {"tcp": False}
 
 
+def _configure_tgen(bundle: SimBundle, assignments):
+    """Open-system traffic endpoints (apps/tgen.py): every host binds
+    the tgen UDP socket; the send schedule itself comes from the
+    config's <traffic> elements (or --inject-trace), not from here."""
+    from shadow_tpu_torch.apps import tgen
+
+    port = 9100
+    for _, spec in assignments:
+        kv = kv_arguments(spec.arguments)
+        port = int(kv.get("port", port))
+    bundle.sim = tgen.setup(bundle.sim, port=port)
+    return (tgen.handler,)
+
+
 _configure_phold.hints = _phold_hints
 _configure_bulk.hints = _tcp_stream_hints
 _configure_pingpong.hints = _udp_only_hints
+_configure_tgen.hints = _udp_only_hints
 
 
 def _testtcp_mode(spec):
@@ -281,9 +299,9 @@ for _name in ("pingpong", "tgen-ping"):
     register_plugin(_name, _configure_pingpong)
 for _name in ("bulk", "tgen-bulk", "filetransfer"):
     register_plugin(_name, _configure_bulk)
+register_plugin("tgen", _configure_tgen)
 
-# the reference's reftests syscall plugins (virtual processes) and its
-# open-system traffic endpoint
+# the reference's reftests syscall plugins (virtual processes)
 for _name in (
         "testbind", "libshadow-plugin-test-bind.so",
         "testepoll", "libshadow-plugin-test-epoll.so",
@@ -299,7 +317,6 @@ for _name in (
         "testpthreads", "libshadow-plugin-test-pthreads.so",
         "test-unistd", "testunistd"):
     _REFUSED[_name] = f"the reftests syscall plugin: {_VPROC_ITEM}"
-_REFUSED["tgen"] = f"the tgen traffic endpoint: {_INJECT_ITEM}"
 
 
 @dataclass
@@ -307,6 +324,9 @@ class LoadedSim:
     bundle: SimBundle
     handlers: tuple
     config: ShadowConfig
+    # <traffic> elements compiled to an injection trace
+    # (apps/tgen.py compile_trace; feed to inject.Feeder)
+    inject_events: tuple = ()
 
 
 def _refuse(model: str) -> None:
@@ -338,10 +358,6 @@ def load(config: ShadowConfig, *, seed: int = 1,
     # closure replays the caller's overrides, then layers the
     # escalation's capacity bumps on top
     caller_overrides = dict(overrides)
-
-    if config.traffics:
-        raise NotImplementedError(
-            f"shadow_tpu_torch: <traffic> elements: {_INJECT_ITEM}")
 
     def _resolve(path: str) -> str:
         # a relative <topology path> is relative to the config file
@@ -393,6 +409,21 @@ def load(config: ShadowConfig, *, seed: int = 1,
     else:
         with open(_resolve(config.topology_path)) as f:
             graphml = f.read()
+
+    # <traffic> elements compile BEFORE the build: host indices follow
+    # expanded_hosts() order (the order host_specs was filled in), and
+    # the trace length sizes the default staging width the way plugin
+    # hints size the rings
+    inject_events: tuple = ()
+    if config.traffics:
+        from shadow_tpu_torch.apps import tgen
+
+        name_to_index = {name: i for i, (name, _)
+                         in enumerate(config.expanded_hosts())}
+        inject_events = tuple(tgen.compile_trace(
+            config.traffics, name_to_index, end_time=config.stoptime))
+        overrides.setdefault("inject_lanes",
+                             tgen.lanes_for(len(inject_events)))
 
     # model-provided capacity hints (CLI overrides still win)
     hinted: dict = {}
@@ -451,6 +482,21 @@ def load(config: ShadowConfig, *, seed: int = 1,
         faults_mod.install(bundle, faults_mod.records_from_config(
             config, bundle))
 
+    if config.traffics:
+        from shadow_tpu_torch.apps import tgen
+
+        if not handlers:
+            # traffic-only config: tgen IS the app
+            bundle.sim = tgen.setup(bundle.sim,
+                                    port=config.traffics[0].port)
+            handlers.append(tgen.handler)
+        elif not any(h is tgen.handler for h in handlers):
+            raise ValueError(
+                "<traffic> elements compile to tgen events, but "
+                "another device app owns the app state; run the "
+                "traffic hosts under the 'tgen' plugin or drop the "
+                "<traffic> elements")
+
     def _rebuild(new_overrides: dict) -> SimBundle:
         # Full reload — topology placement, app setup, fault install —
         # at the merged capacities. Everything but the overridden shapes
@@ -463,4 +509,5 @@ def load(config: ShadowConfig, *, seed: int = 1,
                     base_dir=base_dir, device=bundle.device).bundle
 
     bundle.rebuild = _rebuild
-    return LoadedSim(bundle=bundle, handlers=tuple(handlers), config=config)
+    return LoadedSim(bundle=bundle, handlers=tuple(handlers), config=config,
+                     inject_events=inject_events)

@@ -22,8 +22,10 @@ from shadow_tpu_torch.apps.phold import PholdApp
 from shadow_tpu_torch.apps.pingpong import PingPongApp
 from shadow_tpu_torch.apps.randdump import RandDumpApp
 from shadow_tpu_torch.apps.relay import RelayApp, RelayMuxApp
+from shadow_tpu_torch.apps.tgen import TgenApp
 from shadow_tpu_torch.core.events import EventQueue, Outbox
 from shadow_tpu_torch.device import resolve_device
+from shadow_tpu_torch.inject.staging import InjectStaging
 from shadow_tpu_torch.net.state import U32_FIELDS, NetState, Sim
 from shadow_tpu_torch.net.tcp import TcpState
 from shadow_tpu_torch.telemetry.ring import TelemetryRing
@@ -35,8 +37,9 @@ _SIM_FIELDS = {"events": (EventQueue,), "outbox": (Outbox,),
                "net": (NetState,),
                "app": (PholdApp, PingPongApp, RelayApp, RelayMuxApp,
                        GossipApp, GossipTcpApp, BulkApp, EchoApp,
-                       RandDumpApp),
-               "tcp": (TcpState,), "telem": (TelemetryRing,)}
+                       RandDumpApp, TgenApp),
+               "tcp": (TcpState,), "telem": (TelemetryRing,),
+               "inject": (InjectStaging,)}
 
 
 def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:

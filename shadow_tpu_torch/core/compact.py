@@ -6,8 +6,8 @@ width S, and scatter the results back. The row rule is the
 reference's: a leaf whose leading dimension is the host dimension is
 gathered; the replicated lookup tables of NetState
 (net.state.REPLICATED_FIELDS), the whole-sim subtrees (the telemetry
-ring; injection and lanes, which the port does not implement) and
-scalars pass through whole. The port's state has no pytree, so the
+ring and the injection staging buffer; lanes, which the port does not
+implement) and scalars pass through whole. The port's state has no pytree, so the
 Sim's dataclasses are walked field by field, by name.
 
 Bit-identity: the gathered indices are DISTINCT real rows (a stable
@@ -31,7 +31,7 @@ def _replicated(names: tuple) -> bool:
     # Lazy import: core must not depend on net at module load.
     from shadow_tpu_torch.net.state import REPLICATED_FIELDS
 
-    if names[0] == "telem":
+    if names[0] in ("telem", "inject"):
         return True
     return (len(names) > 1 and names[-2] == "net"
             and names[-1] in REPLICATED_FIELDS)

@@ -12,9 +12,10 @@ The reference's lax.while_loop / lax.cond become Python loops and ifs.
 Host syncs: one per micro-step (the popped-valid count and kind
 bitmask, read together: they decide whether the fixpoint continues and
 which handler families run), and per window the sparse fast path's
-active-row count (when armed), the route's two reads (core/events.py)
-and the next window start. The bulk pass and the telemetry record
-read nothing back.
+active-row count (when armed), the route's two reads (core/events.py),
+the injection merge's insert decision (with a staging buffer) and the
+next window start; a chunk reads the injection horizon once. The bulk
+pass and the telemetry record read nothing back.
 """
 
 from __future__ import annotations
@@ -178,9 +179,24 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
 
     `telem_fn` (telemetry.ring.make_telem_fn) records the window after
     the drain and BEFORE the route; its event and micro-step deltas
-    count from before the bulk pass. `wstart` is only read by it (None
-    records a zero-length window)."""
+    count from before the bulk pass. `wstart` is read by it and by the
+    injection merge (None records a zero-length window and merges from
+    0).
+
+    A Sim carrying an injection staging buffer (inject/staging.py)
+    merges its staged events < wend FIRST, before the fault rewrite and
+    the bulk/census passes, so an injected event inside the window
+    drains exactly like one an application scheduled; the window's
+    (injected, dropped, deferred) deltas go to the ring, and the staged
+    minimum joins the next window start."""
     ev0, ms0 = stats.events_processed, stats.micro_steps
+    inject_deltas = None
+    if getattr(sim, "inject", None) is not None:
+        from shadow_tpu_torch.inject.staging import merge_staged
+
+        sim, inj_w, drop_w, def_w = merge_staged(
+            sim, 0 if wstart is None else wstart, wend, lane_id)
+        inject_deltas = (inj_w, drop_w, def_w)
     if fault_fn is not None:
         sim = fault_fn(sim, wend)
     if bulk_fn is not None:
@@ -218,11 +234,24 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
     if recording:
         sim = telem_fn(sim, wend if wstart is None else wstart, wend,
                        stats.events_processed - ev0,
-                       stats.micro_steps - ms0, n_active, fastpath)
+                       stats.micro_steps - ms0, n_active, fastpath,
+                       inject_deltas=inject_deltas)
     q, out = route_outbox(sim.events, sim.outbox)
     sim = sim.replace(events=q, outbox=out)
     stats = stats.replace(windows=stats.windows + 1)
-    return sim, stats, int(sim.events.min_time().amin())
+    return sim, stats, int(global_min_time(sim))
+
+
+def global_min_time(sim) -> torch.Tensor:
+    """[] i64 global minimum pending time: the queue heads joined, when
+    injection is live, with the earliest staged-but-unmerged event (a
+    quiet queue still advances to the next injected timestamp)."""
+    m = sim.events.min_time().amin()
+    if getattr(sim, "inject", None) is not None:
+        from shadow_tpu_torch.inject.staging import staged_pending_min
+
+        m = torch.minimum(m, staged_pending_min(sim.inject))
+    return m
 
 
 def _next_record(ft, wstart: int) -> int:
@@ -256,15 +285,19 @@ def make_wend_fn(*, min_jump: int, end_time: int,
     no pair constrains the window any span is conservative).
 
     Both rules clamp wend at the next ``fault_times`` record > wstart,
-    so each record lands on a window boundary.
+    so each record lands on a window boundary. Neither reads the
+    injection horizon: the chunk body (make_chunk_body) clamps to it.
 
     ``wend_fn.explain(sim, wstart) -> (wend, cause, edge_a, edge_b,
-    raw_jump)`` gives the same wend with its attribution
+    raw_jump)`` gives the window end a chunk runs with its attribution
     (telemetry/causality.py CAUSE_* codes): the binding vertex pair
     under the adaptive rule (the first minimum of the flattened table,
     as jnp.argmin picks it; -1 otherwise) and the jump before the
     record and end clamps. A clamp takes the cause only when it
-    strictly lowers wend, in the order floor, record, end.
+    strictly lowers wend, in the order floor, record, end, and then
+    the injection horizon of a Sim carrying a staging buffer
+    (CAUSE_INJECT_HORIZON, as the reference's chunk body attributes
+    it; one host read of the horizon).
 
     The adaptive rule reads its [V,V] table to the host once per
     window."""
@@ -272,6 +305,7 @@ def make_wend_fn(*, min_jump: int, end_time: int,
         CAUSE_ADAPTIVE_EDGE,
         CAUSE_END_TIME,
         CAUSE_FAULT_RECORD,
+        CAUSE_INJECT_HORIZON,
         CAUSE_MIN_JUMP,
     )
     if int(min_jump) <= 0:
@@ -289,7 +323,7 @@ def make_wend_fn(*, min_jump: int, end_time: int,
         return wend, cause
 
     if pair_mask is None:
-        def explain(sim, wstart):
+        def attribute(sim, wstart):
             wstart = int(wstart)
             wend, cause = clamps(wstart + jump0, CAUSE_MIN_JUMP, wstart)
             return wend, cause, -1, -1, jump0
@@ -310,7 +344,7 @@ def make_wend_fn(*, min_jump: int, end_time: int,
             return torch.where(live, lat.to(torch.int64),
                                simtime.INVALID).cpu().numpy().reshape(-1)
 
-        def explain(sim, wstart):
+        def attribute(sim, wstart):
             wstart = int(wstart)
             flat = table(sim, wstart)
             k = int(np.argmin(flat))      # first min: deterministic edge
@@ -324,7 +358,16 @@ def make_wend_fn(*, min_jump: int, end_time: int,
             return wend, cause, edge_a, edge_b, jump
 
     def wend_fn(sim, wstart):
-        return explain(sim, wstart)[0]
+        return attribute(sim, wstart)[0]
+
+    def explain(sim, wstart):
+        from shadow_tpu_torch.inject.staging import wend_clamp
+
+        wend, cause, edge_a, edge_b, raw = attribute(sim, wstart)
+        clamped = wend_clamp(sim, wend)
+        if clamped < wend:
+            cause, wend = CAUSE_INJECT_HORIZON, clamped
+        return wend, cause, edge_a, edge_b, raw
 
     wend_fn.explain = explain
     return wend_fn
@@ -346,7 +389,14 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
     ahead of the host: the chunk boundary is only where the caller's
     hooks and snapshots run. ``lane_fn(sim)`` gives step_window's
     lane_id, once per chunk; the fault rewrite, the bulk pass, the ring
-    and the sparse fast path run per window as in `run`."""
+    and the sparse fast path run per window as in `run`.
+
+    Streamed injection: a Sim carrying a staging buffer clamps every
+    wend to its horizon (the first trace event the host has NOT yet
+    staged) and stops the chunk at a window that would start there, so
+    no event merges late; the host refills and dispatches again. The
+    horizon is read to the host once per chunk (only the feeder writes
+    it, between chunks); INVALID never binds."""
     if int(chunk_windows) < 1:
         raise ValueError(
             f"chunk_windows must be >= 1, got {chunk_windows}")
@@ -354,17 +404,19 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
     K = int(chunk_windows)
 
     def chunk(sim, stats, wstart):
-        for name in ("inject", "causality"):
-            if getattr(sim, name, None) is not None:
-                raise NotImplementedError(
-                    f"shadow_tpu_torch: a Sim carrying {name!r} is not "
-                    f"ported yet (ROADMAP.md Queue 1 item 8)")
+        if getattr(sim, "causality", None) is not None:
+            raise NotImplementedError(
+                "shadow_tpu_torch: a Sim carrying 'causality' is not "
+                "ported yet (ROADMAP.md Queue 1 item 8)")
         wstart = int(wstart)
         lane = None if lane_fn is None else lane_fn(sim)
+        st = getattr(sim, "inject", None)
+        horizon = simtime.INVALID if st is None else int(st.horizon)
         i = 0
-        while i < K and wstart <= end:
+        while i < K and wstart <= end and wstart < horizon:
+            wend = min(wend_fn(sim, wstart), horizon)
             sim, stats, wstart = step_window(
-                sim, stats, step_fn, wend_fn(sim, wstart), emit_capacity,
+                sim, stats, step_fn, wend, emit_capacity,
                 lane, bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,
                 sparse_lanes=sparse_lanes, fault_fn=fault_fn)
             i += 1
@@ -382,14 +434,19 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
     minJump, clamped to end_time + 1 (ref: master.c:450-480). The first
     window starts at max(min pending time, start_time). `fault_times`
     (record times) clamps each window at the next record > wstart — the
-    rule of make_wend_fn; `fault_fn` is step_window's."""
+    rule of make_wend_fn; `fault_fn` is step_window's.
+
+    A Sim carrying an injection staging buffer must hold the whole
+    trace (inject.Feeder.fill_all: the run never returns to the host to
+    refill); its staged minimum joins the first-window rule, so a
+    trace-only run (empty queue) still starts."""
     if min_jump <= 0:
         raise ValueError(f"min_jump must be positive, got {min_jump}")
     end_time = int(end_time)
     jump = max(int(min_jump), 1)
     ft = _record_times(fault_times)
     stats = EngineStats.create(device=sim.events.time.device)
-    wstart = max(int(sim.events.min_time().amin()), int(start_time))
+    wstart = max(int(global_min_time(sim)), int(start_time))
     while wstart <= end_time:
         wend = min(wstart + jump, end_time + 1, _next_record(ft, wstart))
         sim, stats, wstart = step_window(

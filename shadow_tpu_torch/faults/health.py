@@ -316,7 +316,7 @@ class RunHealth:
 
 # Sim layers whose health reports the port does not read yet, and the
 # ROADMAP.md Queue 1 item that ports each.
-_UNPORTED_LAYERS = {"lanes": 8, "admission": 8, "inject": 8, "guard": 11,
+_UNPORTED_LAYERS = {"lanes": 8, "admission": 8, "guard": 11,
                     "sentinel": 9}
 
 
@@ -324,19 +324,23 @@ def gather(sim, *, window_start=None, stalled_windows=0, stall_limit=0,
            time_regression=False, telemetry_lost=0,
            trace_warnings=(), max_suspects=8) -> RunHealth:
     """Pull the device latches into a RunHealth: one host read of the
-    four scalars, plus the queue's fill counts only when it overflowed.
-    Raises NotImplementedError for a Sim carrying lanes, admission,
-    injection, a specialization guard or a sentinel."""
+    four scalars (six with an injection staging buffer: its dropped and
+    late counters), plus the queue's fill counts only when it
+    overflowed. Raises NotImplementedError for a Sim carrying lanes,
+    admission, a specialization guard or a sentinel."""
     for name, item in _UNPORTED_LAYERS.items():
         if getattr(sim, name, None) is not None:
             raise NotImplementedError(
                 f"shadow_tpu_torch: health.gather on a Sim carrying "
                 f"{name!r} (ROADMAP.md Queue 1 item {item})")
-    ev, ob, rq, nm = torch.stack([
-        sim.events.overflow.to(torch.int64),
-        sim.outbox.overflow.to(torch.int64),
-        sim.net.rq_overflow.to(torch.int64),
-        sim.outbox.narrow_miss.to(torch.int64)]).tolist()
+    inj = getattr(sim, "inject", None)
+    latches = [sim.events.overflow, sim.outbox.overflow,
+               sim.net.rq_overflow, sim.outbox.narrow_miss]
+    if inj is not None:
+        latches += [inj.dropped, inj.late]
+    vals = torch.stack([v.to(torch.int64) for v in latches]).tolist()
+    ev, ob, rq, nm = vals[:4]
+    inj_dropped, inj_late = vals[4:] if inj is not None else (0, 0)
     suspects = ()
     if ev:
         fill = sim.events.fill_count()
@@ -352,6 +356,8 @@ def gather(sim, *, window_start=None, stalled_windows=0, stall_limit=0,
         stall_limit=int(stall_limit),
         time_regression=bool(time_regression),
         telemetry_lost=int(telemetry_lost),
+        inject_dropped=int(inj_dropped),
+        inject_late=int(inj_late),
         trace_warnings=tuple(trace_warnings),
         window_start=None if window_start is None else int(window_start),
         suspect_hosts=suspects,

@@ -28,10 +28,14 @@ snapshot's `extra`, so a resumed chain reports cumulative work. A
 barrier reads the device twice: the chunk's five stats and the four
 latch scalars, one host read each.
 
+`feeder` (inject.Feeder) streams an injection trace through the loop
+(checkpoint.run_windows); its trace warnings reach the health report,
+and a resume re-syncs it from the snapshot's staging planes.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
 Queue 1 item): `mesh`, `exchange_capacity`, `elastic`, `dispatch_wrap`
-and `on_mesh_change` (item 9), `feeder` and `on_lane_quarantine` (item
-8), `warm_start` (item 11).
+and `on_mesh_change` (item 9), `on_lane_quarantine` (item 8),
+`warm_start` (item 11).
 """
 
 from __future__ import annotations
@@ -172,7 +176,7 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
 
     refuse_unported(mesh=(mesh, 9), exchange_capacity=(exchange_capacity, 9),
                     elastic=(elastic, 9), dispatch_wrap=(dispatch_wrap, 9),
-                    on_mesh_change=(on_mesh_change, 9), feeder=(feeder, 8),
+                    on_mesh_change=(on_mesh_change, 9),
                     on_lane_quarantine=(on_lane_quarantine, 8),
                     warm_start=(warm_start, 11))
 
@@ -236,7 +240,9 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                 stall_limit=stall_windows,
                 time_regression=tele["regressed"],
                 telemetry_lost=(harvester.records_lost
-                                if harvester is not None else 0))
+                                if harvester is not None else 0),
+                trace_warnings=tuple(
+                    getattr(feeder, "warnings", ()) or ()))
 
         def _on_chunk(sim, wstats, wstart, wend, next_min):
             tele["wstart"] = wstart
@@ -312,7 +318,7 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                     base_stats, device=bundle.sim.events.time.device)
                     if base_stats else None),
                 windows_per_dispatch=windows_per_dispatch,
-                adaptive_jump=adaptive_jump, device=device)
+                adaptive_jump=adaptive_jump, feeder=feeder, device=device)
             if harvester is not None:
                 harvester.drain(sim)
             h = _gather(sim)
@@ -352,6 +358,7 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                     if harvester is not None:
                         harvester.mark_escalation(ev)
                 old_telem = getattr(bundle.sim, "telem", None)
+                old_inject = getattr(bundle.sim, "inject", None)
                 bundle = rebuild_fn(grow)
                 if old_telem is not None:
                     # the ring at the grown shapes, so the transplant
@@ -360,6 +367,15 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
 
                     bundle.sim = attach(bundle.sim,
                                         capacity=old_telem.capacity)
+                if old_inject is not None:
+                    # the staging buffer at the same lane count, so the
+                    # transplant finds the .inject leaves and the
+                    # feeder's sync() resumes the trace without replay
+                    from shadow_tpu_torch.inject.staging import attach \
+                        as inject_attach
+
+                    bundle.sim = inject_attach(bundle.sim,
+                                               old_inject.lanes)
                 # a caller-supplied fault_fn closes over the OLD
                 # shapes; run_windows re-resolves from the rebuilt
                 # bundle's installed plan

@@ -29,6 +29,7 @@ import torch
 
 from shadow_tpu_torch.core.engine import (
     EngineStats,
+    global_min_time,
     make_chunk_body,
     make_wend_fn,
     resolve_sparse_lanes,
@@ -123,9 +124,6 @@ def check_supported(cfg: NetConfig) -> None:
     if cfg.cpu_threshold_ns >= 0:
         off.append(f"cpu_threshold_ns={cfg.cpu_threshold_ns} (virtual CPU, "
                    "ROADMAP.md Queue 1 item 10)")
-    if cfg.inject_lanes:
-        off.append(f"inject_lanes={cfg.inject_lanes} (injection, "
-                   "ROADMAP.md Queue 1 item 8)")
     if off:
         raise NotImplementedError(
             "shadow_tpu_torch does not implement these settings yet: "
@@ -410,7 +408,8 @@ def make_chunked_runner(bundle: SimBundle, app_handlers=(),
     def go(sim):
         _check_sim_device(sim, dev)
         stats = EngineStats.create(device=dev)
-        wstart = int(sim.events.min_time().amin())
+        # engine.run's first-window rule: staged injection joins it
+        wstart = int(global_min_time(sim))
         while wstart <= end:
             sim, stats, wstart = chunk(sim, stats, wstart)
         return sim, stats

@@ -157,7 +157,8 @@ class NetConfig:
     # Adaptive time jump of the reference's chunked loops; the
     # whole-run loop (engine.run) ignores it.
     adaptive_jump: bool = False
-    # Open-system injection staging lanes (not ported yet); 0 = off.
+    # Open-system injection staging lanes (inject/staging.py, attached
+    # at build when > 0; a power of two); 0 = off.
     inject_lanes: int = 0
     seed: int = 1
     # Packets drained per micro-step by the NIC send pass (the
@@ -391,8 +392,9 @@ class Sim(_Replace):
     app: Any = None
     # Opt-in layers of the reference. None contributes no leaf, as in
     # the reference. The TCP sockets' state (net/tcp.py TcpState, set
-    # when cfg.tcp) and the window telemetry ring (telemetry/ring.py
-    # attach) are ported; the others (injection, lanes, flows,
+    # when cfg.tcp), the window telemetry ring (telemetry/ring.py
+    # attach) and the injection staging buffer (inject/staging.py,
+    # cfg.inject_lanes) are ported; the others (lanes, flows,
     # admission, causality, guard, sentinel) are not yet (ROADMAP.md)
     # and stay None.
     tcp: Any = None
@@ -567,8 +569,9 @@ def make_net_state(
 
 
 def make_sim(cfg: NetConfig, net: NetState, app: Any = None) -> Sim:
-    """The boot Sim: empty queues/outbox on the NetState's device, and
-    the TCP sockets' state when cfg.tcp."""
+    """The boot Sim: empty queues/outbox on the NetState's device, the
+    TCP sockets' state when cfg.tcp and the injection staging buffer
+    when cfg.inject_lanes."""
     dev = net.host_ip.device
     tcp = None
     if cfg.tcp:
@@ -579,7 +582,7 @@ def make_sim(cfg: NetConfig, net: NetState, app: Any = None) -> Sim:
             cfg.num_hosts, cfg.sockets_per_host,
             init_cwnd=initial_cwnd(cfg),
             init_ssthresh=initial_ssthresh(cfg), device=dev)
-    return Sim(
+    sim = Sim(
         events=EventQueue.create(cfg.num_hosts, cfg.event_capacity,
                                  cfg.words_width, device=dev),
         outbox=Outbox.create(cfg.num_hosts, cfg.outbox_capacity,
@@ -588,6 +591,11 @@ def make_sim(cfg: NetConfig, net: NetState, app: Any = None) -> Sim:
         app=app,
         tcp=tcp,
     )
+    if cfg.inject_lanes:
+        from shadow_tpu_torch.inject.staging import attach
+
+        sim = attach(sim, cfg.inject_lanes)
+    return sim
 
 
 def host_of_ip(net: NetState, ip: torch.Tensor) -> torch.Tensor:

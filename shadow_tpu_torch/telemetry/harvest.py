@@ -1,5 +1,5 @@
-"""Host-side drain of the window telemetry ring (PyTorch port of the
-window-ring part of shadow_tpu/telemetry/harvest.py).
+"""Host-side telemetry: the window ring's drain and wall-clock phase
+timers (PyTorch port of shadow_tpu/telemetry/harvest.py).
 
 The Harvester pulls the device ring (telemetry/ring.py) into plain
 Python records between calls — after a whole run, or per window from a
@@ -8,11 +8,17 @@ advancing more than `capacity` since the last drain means records were
 overwritten before the host saw them; the total is kept in
 `records_lost`, never dropped silently. The reference's flow and
 causality drains are not ported: drain() raises when a Sim carries
-those rings.
+those rings (ROADMAP.md Queue 1 item 8).
+
+PhaseTimers records named wall-clock spans (trace/compile, device
+execute, harvest, export) on the host timeline; export.chrome_trace
+draws them as wall-time tracks beside the ring's sim-time track.
 """
 
 from __future__ import annotations
 
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -66,7 +72,7 @@ class Harvester:
             if getattr(sim, name, None) is not None:
                 raise NotImplementedError(
                     f"shadow_tpu_torch: the {name} ring drain is not "
-                    "ported yet")
+                    "ported yet (ROADMAP.md Queue 1 item 8)")
         ring = getattr(sim, "telem", None)
         if ring is None:
             return 0
@@ -124,4 +130,38 @@ class Harvester:
             out["inj_deferred_last"] = int(self.records[-1].inj_deferred)
         if self.escalation_marks:
             out["escalations"] = len(self.escalation_marks)
+        return out
+
+
+@dataclass
+class Phase:
+    name: str
+    start_s: float     # offset from the timer origin
+    dur_s: float
+    shard: int | None  # None = applies to every shard
+
+
+class PhaseTimers:
+    """Named wall-clock spans on one origin, for the wall-time trace
+    tracks. `shard=None` spans are drawn on every shard's track."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.phases: list[Phase] = []
+
+    @contextmanager
+    def phase(self, name: str, shard: int | None = None):
+        s = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.phases.append(Phase(
+                name=name, start_s=s - self.t0,
+                dur_s=time.perf_counter() - s, shard=shard))
+
+    def totals(self) -> dict:
+        """phase name -> total seconds (merged over repeats)."""
+        out: dict = {}
+        for p in self.phases:
+            out[p.name] = out.get(p.name, 0.0) + p.dur_s
         return out

@@ -25,8 +25,11 @@ Record fields (one [W] plane each, PLANES order):
                      window fixpoint started (the sparse census input)
 - fastpath           1 when the window drained on the compact [S]-lane
                      fast path
-- injected / inj_dropped / inj_deferred   open-system injection (not
-                     ported; always 0)
+- injected / inj_dropped / inj_deferred   open-system injection: the
+                     window's merged and row-full-dropped staged events
+                     and the staged events still pending past wend
+                     (inject/staging.py merge_staged; 0 without a
+                     staging buffer)
 
 Overflow: `count` is monotonic and slot = count % capacity; the
 harvester detects count advancing more than `capacity` since its last
@@ -144,16 +147,20 @@ def _record(ring: TelemetryRing, vals: dict) -> TelemetryRing:
 
 def make_telem_fn():
     """Build the engine's telem hook ``telem_fn(sim, wstart, wend,
-    ev_delta, ms_delta, active_lanes=None, fastpath=None) -> sim``. It
-    runs inside step_window after the window drain and BEFORE the
-    route, so the outbox still holds the window's staged sends. When
-    sim.telem is None it returns `sim` untouched.
+    ev_delta, ms_delta, active_lanes=None, fastpath=None,
+    inject_deltas=None) -> sim``. It runs inside step_window after the
+    window drain and BEFORE the route, so the outbox still holds the
+    window's staged sends. When sim.telem is None it returns `sim`
+    untouched.
 
     `active_lanes` is the window's live-lane count and `fastpath` the
-    census-branch indicator (tensors, bools or None = 0)."""
+    census-branch indicator (tensors, bools or None = 0).
+    `inject_deltas` is the window's (injected, dropped, deferred) from
+    inject.merge_staged (None, without a staging buffer, records
+    zeros)."""
 
     def telem_fn(sim, wstart, wend, ev_delta, ms_delta,
-                 active_lanes=None, fastpath=None):
+                 active_lanes=None, fastpath=None, inject_deltas=None):
         ring = getattr(sim, "telem", None)
         if ring is None:
             return sim
@@ -176,6 +183,9 @@ def make_telem_fn():
                     else tcp.retx_segs.sum(dtype=I64))
         qmin, qmax, qsum = sim.events.occupancy()
         zero = 0
+        inj, inj_drop, inj_def = ((zero, zero, zero)
+                                  if inject_deltas is None
+                                  else inject_deltas)
         ring = _record(ring, dict(
             wstart=wstart,
             wend=wend,
@@ -190,9 +200,9 @@ def make_telem_fn():
             qocc_max=qmax,
             active_lanes=zero if active_lanes is None else active_lanes,
             fastpath=zero if fastpath is None else fastpath,
-            injected=zero,
-            inj_dropped=zero,
-            inj_deferred=zero,
+            injected=inj,
+            inj_dropped=inj_drop,
+            inj_deferred=inj_def,
         ))
         return sim.replace(telem=ring.replace(prev_drops=drops_cum,
                                               prev_retx=retx_cum))

@@ -19,11 +19,16 @@ The determinism contract holds with a fault plan installed too: fault
 effects are a pure function of (plan, window end), so the plan is not
 state and a snapshot carries none (faults/apply.py).
 
+A Sim carrying an injection staging buffer (inject/staging.py)
+snapshots its `.inject.*` leaves in the same layout, so a mid-trace
+snapshot crosses between the packages both ways; a resume re-syncs a
+fresh feeder from them (inject.Feeder.sync), replaying nothing.
+
 Not ported yet (ROADMAP.md): save_salvage and elastic_meta (lane
 salvage and the sentinel, items 8-9), replan_shards (parallel/, item
 9), prewarm_dispatch (compile/, item 11), and run_windows' mesh,
-feeder, warm_start, compile_info and dispatch_wrap arguments, which
-raise NotImplementedError.
+warm_start, compile_info and dispatch_wrap arguments, which raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -245,9 +250,18 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     caller's sim is left as it was. `device` None is "cuda"
     (make_runner's rules).
 
-    `mesh` and `dispatch_wrap` (ROADMAP.md Queue 1 item 9), `feeder`
-    (item 8), `warm_start` and `compile_info` (item 11) are not ported
-    yet and raise NotImplementedError."""
+    `feeder` (inject.Feeder) streams an open-system injection trace
+    into the sim's staging buffer (docs/9-injection.md). On entry
+    feeder.sync(sim) reconciles against the (possibly restored)
+    staging state — a resume replays nothing and drops nothing — then
+    every dispatch boundary prunes merged entries and stages fresh
+    ones. The staging horizon bounds every window, so streamed runs
+    equal fully-staged ones. A trace whose same-timestamp burst
+    outgrows the lanes stalls with a RuntimeError naming the knob.
+
+    `mesh` and `dispatch_wrap` (ROADMAP.md Queue 1 item 9), `warm_start`
+    and `compile_info` (item 11) are not ported yet and raise
+    NotImplementedError."""
     from shadow_tpu_torch.core import simtime
     from shadow_tpu_torch.core.engine import (
         EngineStats,
@@ -269,7 +283,7 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     from shadow_tpu_torch.telemetry.ring import make_telem_fn
 
     refuse_unported(mesh=(mesh, 9), dispatch_wrap=(dispatch_wrap, 9),
-                    feeder=(feeder, 8), warm_start=(warm_start, 11),
+                    warm_start=(warm_start, 11),
                     compile_info=(compile_info, 11))
     dev = _runner_device(bundle, device)
     cfg = bundle.cfg
@@ -296,6 +310,26 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     next_ckpt = (start_time + checkpoint_every_ns
                  if checkpoint_every_ns else None)
     wstart = max(int(sim.events.min_time().amin()), start_time)
+    if feeder is not None:
+        if getattr(sim, "inject", None) is None:
+            raise ValueError(
+                "run_windows(feeder=...) needs a sim with injection "
+                "staging attached (NetConfig.inject_lanes > 0 or "
+                "inject.attach)")
+        # reconcile against (possibly restored) staging state, then
+        # stage the first batch; staged events join the first-window
+        # rule so a trace-only run (empty queue) still starts
+        feeder.sync(sim)
+        sim = feeder.refill(sim)
+        wstart = max(min(int(sim.events.min_time().amin()),
+                         feeder.pending_min()), start_time)
+
+    def _stall_msg(t):
+        return (f"injection stalled at t={t}: all {sim.inject.lanes} "
+                f"staging lanes hold events at one timestamp and more "
+                f"remain in the trace — raise --inject-lanes (or "
+                f"NetConfig.inject_lanes) past the largest "
+                f"same-timestamp burst")
 
     if wpd > 1 or adaptive:
         chunk = make_chunk_body(
@@ -304,6 +338,45 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
             chunk_windows=wpd, emit_capacity=cfg.emit_capacity,
             lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
             telem_fn=telem_fn, sparse_lanes=sparse, fault_fn=fault_fn)
+        if feeder is not None and wstart <= end:
+            # streaming: each refill must land in the staging planes
+            # before the next chunk reads them; the plain loop below
+            # takes the closed-loop tail once the trace is staged and
+            # merged
+            prev_state = (None, None)
+            while not feeder.done:
+                sim, cstats, cnext = chunk(
+                    sim, EngineStats.create(device=dev), wstart)
+                # the chunk's next start only sees the queue and the
+                # STAGED events; an unstaged trace event below it pulls
+                # the next window start back (read before the refill
+                # moves the horizon)
+                nm = min(int(cnext), feeder.horizon)
+                total = total.add(cstats)
+                wend_c = min(nm, end + 1)
+                if (next_ckpt is not None and checkpoint_path is not None
+                        and next_ckpt <= nm <= end):
+                    p = save(f"{checkpoint_path}.{nm}.npz", sim,
+                             time_ns=nm)
+                    saved.append((p, nm))
+                    while next_ckpt <= nm:
+                        next_ckpt += checkpoint_every_ns
+                if on_window is not None:
+                    on_window(sim, wend_c)
+                if hook is not None:
+                    hook(sim, cstats, wstart, wend_c, nm)
+                sim = feeder.refill(sim, nm)
+                if nm >= simtime.INVALID:
+                    # quiet queue: jump to the next staged event
+                    nm = feeder.pending_min()
+                if nm > end or nm >= simtime.INVALID:
+                    return sim, total, saved
+                if not feeder.done and feeder.horizon <= nm:
+                    raise RuntimeError(_stall_msg(nm))
+                if (nm, feeder.cursor) == prev_state:
+                    raise RuntimeError(_stall_msg(nm))
+                prev_state = (nm, feeder.cursor)
+                wstart = nm
         while wstart <= end:
             sim, cstats, nm = chunk(sim, EngineStats.create(device=dev),
                                     wstart)
@@ -330,17 +403,36 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
             next_ckpt += checkpoint_every_ns
         wend = min(wstart + min_jump, end + 1,
                    _next_record(records, wstart))
+        if feeder is not None:
+            # prune merged (everything < this window's start), stage
+            # fresh events, and keep the window inside the horizon
+            sim = feeder.refill(sim, wstart)
+            wend = min(wend, feeder.horizon)
+            if wend <= wstart:
+                raise RuntimeError(_stall_msg(wstart))
         sim, stats, nm = step_window(
             sim, EngineStats.create(device=dev), step, wend,
             cfg.emit_capacity, sim.net.lane_id, bulk_fn=bulk_fn,
             telem_fn=telem_fn, wstart=wstart, sparse_lanes=sparse,
             fault_fn=fault_fn)
         total = total.add(stats)
+        if feeder is not None:
+            # the chunked loop's horizon rule: the first unstaged trace
+            # event bounds the next window start
+            nm = min(nm, feeder.horizon)
         if on_window is not None:
             on_window(sim, wend)
         if hook is not None:
             hook(sim, stats, wstart, wend, nm)
         if nm >= simtime.INVALID:
+            if feeder is not None and not feeder.done:
+                # queue and staging both drained, but the trace still
+                # holds events: stage the next batch and jump there
+                sim = feeder.refill(sim, nm)
+                nm = feeder.pending_min()
+                if nm < simtime.INVALID:
+                    wstart = nm
+                    continue
             break
         wstart = nm
     return sim, total, saved

@@ -1,7 +1,8 @@
 """The port's bench entry point, `python -m shadow_tpu_torch.bench`, on
 the CPU: one JSON row per workload and topology at 16 hosts with the
-documented keys, bench.py's metric names and vs_baseline rule; refused
-knobs and a missing CUDA device exit non-zero."""
+documented keys, bench.py's metric names and vs_baseline rule, the
+BENCH_INJECT_* rows and bench.py's synthesized trace; refused knobs and
+a missing CUDA device exit non-zero."""
 
 import json
 import os
@@ -86,6 +87,66 @@ def test_baseline_rule_by_scale():
     ({"BENCH_PLATFORM": "tpu"}, "BENCH_PLATFORM"),
 ])
 def test_refused_knob_exits_non_zero(env, word):
+    r = _run(**{"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16", **env})
+    assert r.returncode != 0
+    assert word in r.stderr and r.stdout == ""
+
+
+@pytest.mark.parametrize("env,name", [
+    ({}, "events_per_sec_per_chip@16hosts_inject_rate160_chunk1"),
+    ({"BENCH_CHUNK_WINDOWS": "4", "BENCH_CHECKPOINT_WINDOWS": "8"},
+     "events_per_sec_per_chip@16hosts_inject_rate160_chunk4"),
+    ({"BENCH_INJECT_RATE": "", "BENCH_INJECT_TRACE": "{trace}"},
+     "events_per_sec_per_chip@16hosts_inject_trace_chunk1"),
+], ids=["rate", "rate_chunk4", "trace"])
+def test_injection_rows_are_named_as_bench_py_names_them(env, name,
+                                                          tmp_path):
+    """bench.py's BENCH_INJECT_* scenario: the tgen app fed 320 events
+    (160/s for 2 sim-s, round-robin sources) through the supervised
+    loop; the same trace from a file gives the same events."""
+    from shadow_tpu_torch.inject import write_trace
+
+    trace = str(tmp_path / "rate.trace")
+    write_trace(trace, tbench.rate_trace(16, 160, 2), binary=True)
+    full = {"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16",
+            "BENCH_SIM_SECONDS": "2", "BENCH_INJECT_RATE": "160",
+            **{k: v.format(trace=trace) for k, v in env.items()}}
+    r = _run(**{k: v for k, v in full.items() if v})
+    assert r.returncode == 0, r.stderr
+    row = json.loads(r.stdout)
+    assert set(row) == ROW_KEYS and row["metric"] == name
+    # 320 injected sends, each delivered by a NIC receive and a packet
+    # event (the last few after the end), plus 16 process starts
+    assert 320 * 2 < row["events"] < 320 * 3 + 16
+    assert row["windows"] == 41
+
+
+def test_rate_trace_matches_bench_py():
+    from conftest import load_tool  # noqa: F401  (tests/ on the path)
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("ref_bench",
+                                                  ROOT / "bench.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    for H, rate, sim_s in ((16, 160.0, 2), (10_240, 10_240.0, 5)):
+        assert tbench.rate_trace(H, rate, sim_s) == \
+            ref._rate_trace(H, rate, sim_s)
+    assert len(tbench.rate_trace(10_240, 10_240.0, 5)) == 51_200
+
+
+@pytest.mark.parametrize("env,word", [
+    ({"BENCH_INJECT_RATE": "100", "BENCH_INJECT_TRACE": "t"},
+     "mutually exclusive"),
+    ({"BENCH_INJECT_RATE": "100", "BENCH_WORKLOAD": "pingpong"},
+     "BENCH_WORKLOAD"),
+    ({"BENCH_INJECT_RATE": "100", "BENCH_SUPERVISE": "1"},
+     "BENCH_SUPERVISE"),
+    ({"BENCH_INJECT_RATE": "fast"}, "BENCH_INJECT_RATE"),
+    ({"BENCH_INJECT_RATE": "100", "BENCH_FLOW_SAMPLE": "4"},
+     "BENCH_FLOW_SAMPLE"),
+], ids=["rate_and_trace", "workload", "supervise", "nan", "flows"])
+def test_injection_refusals(env, word):
     r = _run(**{"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16", **env})
     assert r.returncode != 0
     assert word in r.stderr and r.stdout == ""

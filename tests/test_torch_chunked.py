@@ -391,11 +391,16 @@ def test_run_windows_refusals():
     tb = _bundle("port")
     for kw, item in (({"mesh": object()}, "item 9"),
                      ({"dispatch_wrap": lambda f: f}, "item 9"),
-                     ({"feeder": object()}, "item 8"),
                      ({"warm_start": True}, "item 11"),
                      ({"compile_info": {}}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             tckpt.run_windows(tb, device="cpu", **kw)
+    # a feeder is taken (tests/test_torch_inject.py runs it), but only
+    # into a sim with staging lanes, as in the reference
+    from shadow_tpu_torch.inject import Feeder
+
+    with pytest.raises(ValueError, match="inject_lanes"):
+        tckpt.run_windows(tb, device="cpu", feeder=Feeder([]))
     with pytest.raises(ValueError, match="windows_per_dispatch"):
         tckpt.run_windows(tb, device="cpu", windows_per_dispatch=0)
     # a fault_fn is accepted and applied at every window's end, on the

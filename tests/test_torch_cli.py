@@ -9,7 +9,10 @@ reference's (shadow_tpu.cli), on the CPU:
   the same tracker heartbeat, object-count and executed-event lines;
 - `--supervise` (with snapshots), `--chunk-windows` and `--resume`
   give the plain run's report;
-- every refused flag exits 2 and names its ROADMAP.md item;
+- every refused flag exits 2 and names its ROADMAP.md item; the
+  injection and telemetry flags (`--inject-trace`, `--inject-lanes`,
+  `--trace-out`, `--metrics-out`, `--telemetry-capacity`) give the
+  reference's report, manifest and files;
 - `--platform auto` and `gpu` without CUDA fail, and never run on the
   CPU;
 - the logger's time-sorted flush and the tracker's section filter
@@ -167,11 +170,6 @@ def test_resume_continues_to_the_plain_report(cli_runs, xml):
 
 REFUSED = {
     "workers": (["-w", "2"], "item 9"),
-    "inject_trace": (["--inject-trace", "t.jsonl"], "item 8"),
-    "inject_lanes": (["--inject-lanes", "8"], "item 8"),
-    "trace_out": (["--trace-out", "t.json"], "item 8"),
-    "metrics_out": (["--metrics-out", "m.prom"], "item 8"),
-    "telemetry_capacity": (["--telemetry-capacity", "64"], "item 8"),
     "flow_sample": (["--flow-sample", "4"], "item 8"),
     "flow_capacity": (["--flow-capacity", "64"], "item 8"),
     "causality_sample": (["--causality-sample", "4"], "item 8"),
@@ -193,6 +191,71 @@ def test_refused_flag_exits_and_names_its_item(xml, name):
     assert code == 2
     assert item in err and flags[0] in err
     assert lines == []
+
+
+# flags the port once refused, run against the reference's CLI on the
+# PHOLD XML: "{trace}" is an 8-event tgen trace, "{d}" the run's data
+# directory
+LIFTED = {
+    "inject_trace": ["--inject-trace", "{trace}"],
+    "inject_lanes": ["--inject-lanes", "16"],
+    "trace_out": ["--trace-out", "{d}/t.json"],
+    "metrics_out": ["--metrics-out", "{d}/m.prom"],
+    "telemetry_capacity": ["--telemetry-capacity", "64"],
+}
+# report fields measured on the wall clock; manifest blocks of the
+# compile store and the specialization trim (ROADMAP.md Queue 1 item
+# 11: the port runs the untrimmed program) and the wall-clock ones
+WALL = ("wall_seconds", "events_per_second",
+        "simulated_seconds_per_wall_second")
+UNPORTED_MANIFEST = ("compile", "specialization", "wall_seconds",
+                     "wall_phases_s")
+
+
+def _lifted_run(mod, xml, tmp_path, name, trace):
+    d = tmp_path / f"{name}_{mod.__name__.split('.')[0]}"
+    d.mkdir()
+    flags = [f.format(d=d, trace=trace) for f in LIFTED[name]]
+    code, lines, err = _main(mod, [xml, "--platform", "cpu", "-d", str(d),
+                                   *flags])
+    assert code == 0, err
+    man = None
+    if (d / "run_manifest.json").exists():
+        man = json.loads((d / "run_manifest.json").read_text())
+        man = {k: v for k, v in man.items() if k not in UNPORTED_MANIFEST}
+        man["health"].pop("guard", None)   # the trim's guard latch
+    return json.loads(lines[-1]), man, d
+
+
+@pytest.mark.parametrize("name", sorted(LIFTED))
+def test_lifted_flag_runs_like_the_reference(xml, tmp_path, name):
+    """Each flag the port took over from the refusals gives the
+    reference's report, manifest and files."""
+    from shadow_tpu.inject import write_trace
+
+    trace = str(tmp_path / "eight.trace")
+    write_trace(trace, [{"t_ns": (2 + i) * 100_000_000, "host": i,
+                         "kind": 24, "payload": [i + 1, 9100, 64]}
+                        for i in range(8)])
+    want, wman, wd = _lifted_run(jcli, xml, tmp_path, name, trace)
+    got, gman, gd = _lifted_run(tcli, xml, tmp_path, name, trace)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if k not in WALL:
+            assert got[k] == want[k], k
+    assert gman == wman
+    assert (gman is None) == (name.startswith("inject"))
+    if name == "inject_trace":
+        assert got["injection"]["injected"] == 8
+    if name == "trace_out":
+        sim_track = [[e for e in json.loads((d / "t.json").read_text())[
+            "traceEvents"] if e["pid"] == 0] for d in (wd, gd)]
+        assert sim_track[1] == sim_track[0] and len(sim_track[1]) > 2
+    if name == "metrics_out":
+        prom = [[ln for ln in (d / "m.prom").read_text().splitlines()
+                 if "wall_phase" not in ln and "compile" not in ln]
+                for d in (wd, gd)]
+        assert prom[1] == prom[0]
 
 
 @pytest.mark.parametrize("sub", ["fleet", "sweep"])
@@ -312,3 +375,6 @@ def test_config_hash_matches_reference():
                       device="cpu").bundle
     assert dataclasses.asdict(tb.cfg) == dataclasses.asdict(jb.cfg)
     assert tcli.config_hash(tb.cfg) == jconfig_hash(jb.cfg)
+    from shadow_tpu_torch.telemetry.export import config_hash
+
+    assert tcli.config_hash is config_hash    # one copy, in export.py

@@ -10,7 +10,9 @@ reference's, on the CPU:
   (EngineStats and every leaf, tolerance zero) for phold, pingpong,
   randdump and the faults config;
 - every plugin the port refuses raises NotImplementedError before the
-  device build, naming the ROADMAP.md item it waits for.
+  device build, naming the ROADMAP.md item it waits for; the tgen
+  plugin, <traffic> elements and inject_lanes load as the reference
+  loads them.
 
 One JAX TCP program: randdump's (testdeterminism has no hints, so the
 TCP machine stays on, as in the reference).
@@ -228,16 +230,57 @@ REFUSED = {
     "reftests": ('<plugin id="p" path="libshadow-plugin-test-epoll.so"/>',
                  "item 10"),
     "testrandom": ('<plugin id="p" path="testrandom"/>', "item 10"),
-    "tgen": ('<plugin id="p" path="tgen"/>', "item 8"),
-    "traffic": ('<plugin id="p" path="phold"/>\n  <traffic host="h">'
-                '<stream rate="10" count="5"/></traffic>', "item 8"),
     "logpcap": ('<plugin id="p" path="phold"/>', "item 10"),
 }
 # settings the CLI passes as loader overrides, refused by
 # net.build.check_supported before any state is made
 SETTINGS = {"track_paths": ({"track_paths": True}, "item 10"),
-            "cpu_threshold": ({"cpu_threshold_ns": 0}, "item 10"),
-            "inject_lanes": ({"inject_lanes": 8}, "item 8")}
+            "cpu_threshold": ({"cpu_threshold_ns": 0}, "item 10")}
+
+_TRAFFIC = ('  <traffic id="t" host="h" dst="h3" start="0.5">'
+            '<stream rate="10" count="5" size="80"/><pause duration="0.2"/>'
+            '<markov rate="40" duration="0.5" p_on="0.5" p_off="0.4" '
+            'seed="2"/></traffic>')
+# the plugin, <traffic> and setting the port once refused, each loaded
+# in both packages: (config text, loader overrides)
+LIFTED = {
+    "tgen": (_config('  <plugin id="p" path="tgen"/>\n  <host id="h" '
+                     'quantity="4"><process plugin="p" starttime="1" '
+                     'arguments="port=9300"/></host>\n' + _TRAFFIC), {}),
+    # traffic-only: no process, so tgen is the app on every host
+    "traffic": (_config('  <host id="h" quantity="4"/>\n' + _TRAFFIC), {}),
+    # <traffic> beside another device app: both packages refuse it
+    "traffic_with_phold": (_config(
+        '  <plugin id="p" path="phold"/>\n  <host id="h" quantity="4">'
+        '<process plugin="p" starttime="1"/></host>\n' + _TRAFFIC), {}),
+    "inject_lanes": (REFERENCE_PHOLD_XML, {"inject_lanes": 8}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LIFTED))
+def test_lifted_setting_loads_like_the_reference(name):
+    """Equal NetConfig, boot state (staging planes included), handlers
+    and compiled trace — or the same refusal."""
+    text, overrides = LIFTED[name]
+    try:
+        jl = jloader.load(jxml.parse_config(text), seed=3,
+                          overrides=dict(overrides))
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            tloader.load(txml.parse_config(text), seed=3,
+                         overrides=dict(overrides), device="cpu")
+        assert str(got.value) == str(e) and name == "traffic_with_phold"
+        return
+    tl = tloader.load(txml.parse_config(text), seed=3,
+                      overrides=dict(overrides), device="cpu")
+    jb, tb = jl.bundle, tl.bundle
+    assert dataclasses.asdict(tb.cfg) == dataclasses.asdict(jb.cfg)
+    assert tb.cfg.inject_lanes > 0
+    assert [h.__name__ for h in tl.handlers] == [
+        h.__name__ for h in jl.handlers]
+    assert list(tl.inject_events) == list(jl.inject_events)
+    assert bool(tl.inject_events) == name.startswith(("tgen", "traffic"))
+    _assert_leaves_equal(_jax_leaves(jb.sim), convert.sim_to_numpy(tb.sim))
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED) + sorted(SETTINGS))

@@ -152,15 +152,16 @@ UNSUPPORTED = {
     "pcap": dict(pcap=True),
     "track_paths": dict(track_paths=True),
     "cpu_model": dict(cpu_threshold_ns=0),
-    "inject": dict(inject_lanes=8),
 }
 
 # The interface and router queue settings the port once refused
-# (tests/test_torch_qdisc.py runs them against the reference).
+# (tests/test_torch_qdisc.py runs them against the reference), and the
+# injection staging lanes (tests/test_torch_inject.py runs them).
 QUEUES = {
     "router_single": dict(router_qdisc=RouterQ.SINGLE),
     "rr_qdisc": dict(qdisc=QDisc.RR),
     "router_static": dict(router_qdisc=RouterQ.STATIC),
+    "inject": dict(inject_lanes=8),
 }
 
 

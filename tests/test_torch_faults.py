@@ -424,9 +424,30 @@ def test_gather_on_a_poisoned_overflow_matches_reference():
         f: getattr(want, f) for f in vars(want)})
 
 
+@pytest.mark.parametrize("layer", ["inject"])
+def test_gather_reads_a_ported_layer_like_the_reference(layer):
+    """A Sim carrying an injection staging buffer whose dropped and
+    late latches are set: the reference's warnings and report."""
+    from shadow_tpu.inject import staging as jstaging
+    from shadow_tpu_torch.inject import staging as tstaging
+
+    sims = {}
+    for pkg, st in (("jax", jstaging), ("port", tstaging)):
+        sim = st.attach(_bundle(pkg).sim, 16)
+        inj = sim.inject
+        sims[pkg] = sim.replace(inject=inj.replace(
+            dropped=inj.dropped + 3, late=inj.late + 2))
+    kw = dict(window_start=5, trace_warnings=("trace: torn tail",))
+    want = jfaults.gather(sims["jax"], **kw)
+    got = tfaults.gather(sims["port"], **kw)
+    assert (got.inject_dropped, got.inject_late) == (3, 2)
+    assert not got.fatal
+    assert got.diagnostics() == want.diagnostics()
+    assert got.failure_report() == want.failure_report()
+
+
 @pytest.mark.parametrize("layer,item", [("lanes", 8), ("admission", 8),
-                                        ("inject", 8), ("guard", 11),
-                                        ("sentinel", 9)])
+                                        ("guard", 11), ("sentinel", 9)])
 def test_gather_refuses_unported_layers(layer, item):
     sim = _bundle("port").sim
     with pytest.raises(NotImplementedError, match=f"item {item}"):

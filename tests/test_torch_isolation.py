@@ -63,8 +63,26 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.apps.ring",
                 "shadow_tpu_torch.utils.shadowlog",
                 "shadow_tpu_torch.utils.objcount",
-                "shadow_tpu_torch.utils.tracker"):
+                "shadow_tpu_torch.utils.tracker", *INJECTION):
         assert mod in out["modules"]
+
+
+# the injection slice's modules, each also imported alone
+INJECTION = ("shadow_tpu_torch.inject", "shadow_tpu_torch.inject.trace",
+             "shadow_tpu_torch.inject.staging",
+             "shadow_tpu_torch.inject.feeder", "shadow_tpu_torch.apps.tgen",
+             "shadow_tpu_torch.telemetry.export")
+
+
+@pytest.mark.parametrize("mod", INJECTION)
+def test_injection_module_imports_alone_without_jax(mod):
+    probe = (f"import importlib, json, sys; importlib.import_module({mod!r});"
+             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')"
+             "[0] in ('jax', 'jaxlib', 'flax', 'shadow_tpu'))))")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
 
 
 def test_each_app_state_crosses_into_its_own_class():

@@ -311,13 +311,43 @@ def test_stall_and_regression_latches_trip(case, monkeypatch):
 
 @pytest.mark.parametrize("arg,item", [
     ("mesh", 9), ("exchange_capacity", 9), ("elastic", 9),
-    ("dispatch_wrap", 9), ("on_mesh_change", 9), ("feeder", 8),
+    ("dispatch_wrap", 9), ("on_mesh_change", 9),
     ("on_lane_quarantine", 8), ("warm_start", 11)])
 def test_unported_arguments_are_refused(arg, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tfaults.run_supervised(_bundle("port", plan=False),
                                checkpoint_path="/nonexistent/ck",
                                device="cpu", **{arg: object()})
+
+
+@pytest.mark.parametrize("arg", ["feeder"])
+def test_once_refused_arguments_run(arg, tmp_path):
+    """A feeder (tests/test_torch_inject.py holds the tgen runs against
+    the reference): tgen-kind events streamed into the PHOLD program
+    under supervision land on run_windows' state, every one merged."""
+    from shadow_tpu_torch.inject import Feeder, attach, manifest_block
+
+    events = [{"t_ns": (1 + i) * 40_000_000, "host": i % 8, "kind": 24,
+               "payload": [i]} for i in range(24)]
+    out = []
+    for sup in (True, False):
+        b = _bundle("port", plan=False)
+        b.sim = attach(b.sim, 16)
+        f = Feeder(list(events))
+        if sup:
+            res = tfaults.run_supervised(
+                b, (tphold.handler,), checkpoint_path=str(tmp_path / "ck"),
+                checkpoint_every_windows=4, device="cpu", **{arg: f})
+            assert res.ok
+            sim, stats = res.sim, res.stats
+        else:
+            sim, stats, _ = tckpt.run_windows(b, (tphold.handler,),
+                                              device="cpu", feeder=f)
+        out.append((convert.sim_to_numpy(sim), stats.as_dict(),
+                    manifest_block(sim, f)))
+    (a, sa, ba), (b_, sb, bb) = out
+    assert sa == sb and ba == bb and ba["injected"] == 24
+    _assert_leaves_equal(a, b_)
 
 
 # -------------------------------------------------------------- escalation
