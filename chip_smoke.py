@@ -29,23 +29,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    and read just after; checks zero overflow, sent == H*load + rcvd,
    hit + miss == windows and the ring against EngineStats;
    4a. the serial path (no bulk pass, sparse_lanes=0, no ring) at full
-   width for 1 simulated second;
+   width for 0.5 simulated seconds;
    4b. the bulk program in both EventOrder forms ("cube", the card's
-   default, and "sort") at full width for 1 simulated second: equal
+   default, and "sort") at full width for 0.5 simulated seconds: equal
    EngineStats and every leaf equal, with the bulk pass's time per
    window (CUDA-event pair and host clock) and launches per call;
    4c. bench.py's sparse shape (10,240 hosts, 64 active, no bulk pass)
-   for 1 simulated second with sparse_lanes=256 and 0: the fast path
+   for 0.5 simulated seconds with sparse_lanes=256 and 0: the fast path
    hits, every leaf equal, EngineStats equal apart from hit/miss;
 5. small runs on CUDA and on the CPU inside the port — PHOLD at 64
    hosts serial, with the bulk pass and ring, and with 4 active and
    sparse_lanes=16; the TCP relay serial at 10 hosts (2 circuits x 5
-   hops, 15,000 bytes, ring on) and at 4 hosts (2 circuits x 2 hops,
+   hops, 4,000 bytes, ring on) and at 4 hosts (2 circuits x 2 hops,
    25,000 bytes, 1% loss), and through the TCP bulk pass at 10 hosts
-   with 30,000 bytes and at the 4-host shape with
-   tcp_bulk_lossless=True — each with equal EngineStats and
-   every state leaf equal (tolerance zero — the state is integer apart
-   from bit-exact f32 draws);
+   and at the 4-host shape with tcp_bulk_lossless=True — the 5-hop pair
+   to 1.5 sim-s, the lossy pair to 1.6 sim-s — every transfer complete,
+   with equal EngineStats and every state leaf equal (tolerance zero —
+   the state is integer apart from bit-exact f32 draws);
 6. the TCP relay at full width as tools/scale_run.py runs it by default
    (--workload relay --hosts 10240): BASELINE config #3 — 2,048
    disjoint 5-hop circuits, 100,000 bytes each, the one-vertex 50 ms
@@ -180,7 +180,33 @@ Phases, in order; any failure exits non-zero and prints no result:
    through `python -m shadow_tpu_torch.cli --platform gpu --trace-out
    --metrics-out`: the reference CLI's report and manifest injection
    and telemetry blocks, a Chrome trace that loads and Prometheus text
-   that parses; the same config CUDA against CPU inside the port.
+   that parses; the same config CUDA against CPU inside the port;
+16. lane isolation and the flight recorders: (16a) bench.py's
+   BENCH_REPLICAS=4 BENCH_LANE_ISOLATION=1 BENCH_FLOW_SAMPLE=64
+   BENCH_CAUSALITY=64 row as `python -m shadow_tpu_torch.bench` runs it,
+   as a subprocess — phase 4's program packed four times (40,960 rows,
+   one lane a replica) with the flow ring and the lineage and advance
+   planes — then the same program in-process (the launch counter set
+   to 0 just before it): zero overflow, no lane tripped, sent == H*load
+   + rcvd globally and per lane, the three latches equal to the sums of
+   their planes, the flow ring's count + lost == sampled, lineage count
+   <= seen, one advance record a window, the ring's per-lane events
+   summing to its events plane every window, mailbox_gather held to its
+   plain version on the run's own 983,040-row route and timed there,
+   and the first windows profiled; (16b) the program with the recorders
+   off equal on every shared leaf, lanes.attach(sim, 1) equal to no
+   lanes, a flooded victim lane quarantined on events_overflow alone
+   with the healthy lanes byte-identical to a clean run, and the same
+   flood under run_supervised with on_lane_quarantine (its salvage
+   artifact read back by checkpoint.load) — these cut to 1 sim-s;
+   (16c) the program cut to 4 x 256 hosts and 15a's 64-host cut with
+   BENCH_CAUSALITY=8 on the card and the CPU: the reference's pinned
+   counts on both (lane report, flows, lineage, binding causes), every
+   leaf equal; (16d) `python -m shadow_tpu_torch.cli` on the <traffic>
+   config with --lane-isolation 4 --resident --flow-sample 8
+   --causality-sample 8 --trace-out --metrics-out: the report and the
+   manifest's lanes, admission, flows and causality blocks equal to a
+   CPU run's, the manifest accepted by tools/telemetry_lint.py.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
@@ -189,8 +215,10 @@ again under torch.profiler: launches and cudaStreamSynchronize per
 micro-step). The last log line before the results gives each
 phase's seconds.
 
-`--profile` also profiles windows 0-2 of phase 4 and windows 10-12 of
-phase 6 with the TCP bulk pass.
+`--profile` also profiles windows 0-2 of phase 4, windows 10-12 of
+phase 6 with the TCP bulk pass, and the hooks of phase 16's program
+(launches and host ms a call of the lineage and flow recorders, the
+advance latch and the lane barrier).
 
 The last lines are the nvidia-smi line, one JSON object listing every
 kernel, and {"ok": true, "device": {...}}. The script imports nothing
@@ -228,6 +256,8 @@ LOAD = 8
 SIM_S = 5.0
 CAPACITY = 48
 IN_RING = 16
+# 4a-4c's depth, cut from 1 sim-s to make room for phase 16
+PATH_SIM_S = 0.5
 
 
 # The relay cell: BASELINE config #3 as tools/scale_run.py builds it
@@ -247,6 +277,16 @@ RELAY_EXPECT = {"events_processed": 894_976, "windows": 22, "micro_steps": 6}
 # 700 W. 1.55 sim-s holds ~50 of them: the circuits' handshakes and the
 # first half of the transfers' ramp.
 RELAY_SERIAL_SIM_S = 1.55
+# Phase 5's four small relay configs, cut in depth (3 and 4 sim-s
+# with 15,000 and 30,000 bytes on the 5-hop pair before: 66, 46, 6 and
+# 29 micro-steps): the 5-hop pair moves 4,000 bytes a circuit, complete
+# by 1.5 sim-s (30 serial micro-steps, 6 with the pass); the lossy 2-hop
+# pair completes by 1.6 sim-s after 2 retransmits (37 serial
+# micro-steps, 23 with the lossless pass; the port's CPU runs).
+RELAY_SMALL_BYTES = 4_000
+RELAY_SMALL_SIM_S = 1.5
+RELAY_SMALL_LOSSY_SIM_S = 1.6
+
 # The lossy relay (phase 6a): two-hop circuits over a 1% loss self-edge.
 LOSSY_HOP = 2
 LOSSY_BYTES = 50_000
@@ -609,6 +649,77 @@ TRAFFIC_TELEMETRY = {
     "micro_steps_per_window_max": 3, "qocc_max": 0, "fastpath_windows": 0,
     "active_lanes_max": 16, "window_span_ns_mean": 50000000.0,
     "injected_sum": 41, "inj_dropped_sum": 0, "inj_deferred_last": 0}
+
+# Phase 16: lane isolation and the flight recorders. 16a is bench.py's
+# ensemble row BENCH_REPLICAS=4 BENCH_LANE_ISOLATION=1
+# BENCH_FLOW_SAMPLE=64 BENCH_CAUSALITY=64: phase 4's program packed four
+# times (40,960 rows, one lane a replica) with the flow ring (4,096
+# records, 1-in-64) and the lineage sub-rings (64 records a host) and
+# advance plane (4,096 windows) attached. 16b's side runs (the recorders
+# off apart, which runs to full depth: R = 1 against no lanes, a flooded
+# victim lane, the supervised flood) are cut to LANE_SIDE_S or less.
+LANE_R = 4
+LANE_SAMPLE = 64
+LANE_SIDE_S = 1.0
+LANE_VICTIM = 1
+# the profiled windows of 16a and 16p end here: window 0 and 3 more
+LANE_PROFILE_NS = 150_000_000
+LANE_NAME = (f"events_per_sec_per_chip@{HOSTS}hosts_phold_load{LOAD}"
+             f"_x{LANE_R}replicas_lanes_flow{LANE_SAMPLE}"
+             f"_caus{LANE_SAMPLE}")
+# 16c: the program cut to 4 x 256 hosts and 2 sim-s (capacities 48)
+# and 15a's 64-host cut with BENCH_CAUSALITY=8 (run_windows at K =
+# 16), pinned
+# from the reference's CPU runs (run from the repository root with jax
+# and this package importable):
+#
+#   import jax; jax.config.update("jax_platforms", "cpu")
+#   from shadow_tpu import telemetry; from shadow_tpu.core import lanes
+#   from shadow_tpu.apps import phold, tgen
+#   from shadow_tpu.inject import Feeder
+#   from shadow_tpu.net.build import HostSpec, build, make_runner
+#   from shadow_tpu.net.state import NetConfig
+#   from shadow_tpu.utils.checkpoint import run_windows
+#   from bench import ONE_VERTEX, _rate_trace
+#   H = 1024
+#   cfg = NetConfig(num_hosts=H, tcp=False, end_time=2 * 10**9, seed=1,
+#                   event_capacity=48, outbox_capacity=48,
+#                   router_ring=48, in_ring=16)
+#   b = build(cfg, ONE_VERTEX, [HostSpec(name=f"peer{i}",
+#             proc_start_time=0) for i in range(H)])
+#   b.sim = phold.setup(b.sim, load=8, replica_size=256)
+#   b.sim = telemetry.attach(lanes.attach(b.sim, 4))
+#   b.sim = telemetry.attach_flows(b.sim, sample_period=64)
+#   b.sim = telemetry.attach_causality(b.sim, sample_period=64)
+#   sim, st = make_runner(b, app_handlers=(phold.handler,),
+#                         app_bulk=phold.BULK)(b.sim)
+#   h = telemetry.Harvester(); h.drain(sim)
+#   print(st, lanes.lane_report(sim), sim.flows.sampled, sim.flows.count,
+#         sim.flows.lost, sim.causality.seen.sum(),
+#         sim.causality.count.sum(),
+#         telemetry.binding_histogram(h.adv_records))
+#   # and 15a's cut: H, rate, sim_s, lanes = 64, 321, 5, 32; capacities
+#   # 64, in_ring 16, inject_lanes=32, tgen.setup, attach_causality(
+#   # sample_period=8), run_windows(b, (tgen.handler,), feeder=Feeder(
+#   # _rate_trace(H, rate, sim_s)), windows_per_dispatch=16)
+LANE_CUT_HOSTS = 256
+LANE_CUT_S = 2.0
+LANE_CUT_EXPECT = {
+    "stats": {"events_processed": 335_872, "micro_steps": 8,
+              "windows": 41, "fastpath_hit": 0, "fastpath_miss": 41},
+    "events_exec": [83_968] * 4, "quarantined": [],
+    "flows": {"sampled": 5262, "count": 5262, "lost": 0},
+    "lineage": {"seen": 15_360, "count": 239},
+    "causes": {"min_jump_floor": 40, "end_time": 1}}
+INJ_CAUS_SAMPLE = 8
+INJ_CAUS_EXPECT = {
+    "stats": {"events_processed": 3257, "micro_steps": 152, "windows": 101,
+              "fastpath_hit": 0, "fastpath_miss": 0},
+    "lineage": {"seen": 1605, "count": 213},
+    "causes": {"min_jump_floor": 50, "inject_horizon": 50, "end_time": 1}}
+# 16d: the CLI flags on the in-repo <traffic> config (16 hosts)
+LANE_CLI_FLAGS = ["--lane-isolation", "4", "--resident", "--flow-sample",
+                  "8", "--causality-sample", "8"]
 
 T0 = time.perf_counter()
 # simtime.INVALID: an empty event slot
@@ -1006,8 +1117,9 @@ def run_main_path(device):
 
 def run_serial_path(device):
     """Phase 4a: the serial path (no bulk pass, no sparse fast path,
-    no ring) at full width, depth cut to 1 simulated second."""
-    b = build_phold(HOSTS, LOAD, 1.0, seed=1, device=device, cap=CAPACITY)
+    no ring) at full width, depth cut to PATH_SIM_S."""
+    b = build_phold(HOSTS, LOAD, PATH_SIM_S, seed=1, device=device,
+                    cap=CAPACITY)
     sim, _, _, launches = drive("serial path", b,
                                 main_runner(b, device, bulk=False), device)
     check_phold("serial path", sim, HOSTS, LOAD, launches)
@@ -1015,7 +1127,7 @@ def run_serial_path(device):
 
 def compare_order_forms(device):
     """Phase 4b: the bulk program with the cube and the sort EventOrder
-    forms at full width for 1 simulated second (the same config, seed,
+    forms at full width for PATH_SIM_S (the same config, seed,
     sparse budget and ring): equal EngineStats and every leaf equal.
     Each bulk call is timed with a CUDA-event pair and the host clock;
     one call (window 2) runs under torch.profiler to count its
@@ -1031,7 +1143,7 @@ def compare_order_forms(device):
 
     results = {}
     for form in ("cube", "sort"):
-        b = build_phold(HOSTS, LOAD, 1.0, seed=3, device=device,
+        b = build_phold(HOSTS, LOAD, PATH_SIM_S, seed=3, device=device,
                         cap=CAPACITY, sparse_lanes=None, ring=True)
         fn = make_bulk_fn(b.cfg, phold.BULK, order_impl=form)
         calls = []
@@ -1085,11 +1197,11 @@ def compare_order_forms(device):
 
 def compare_sparse_shape(device):
     """Phase 4c: bench.py's sparse shape (BENCH_ACTIVE=64: 10,240 hosts,
-    64 active, no bulk pass) for 1 simulated second, with the fast path
+    64 active, no bulk pass) for PATH_SIM_S, with the fast path
     armed (sparse_lanes=256) and off (0)."""
     out = {}
     for sparse in (256, 0):
-        b = build_phold(HOSTS, LOAD, 1.0, seed=4, device=device,
+        b = build_phold(HOSTS, LOAD, PATH_SIM_S, seed=4, device=device,
                         cap=CAPACITY, sparse_lanes=sparse, active_hosts=64)
         sim, stats, _, launches = drive(
             f"sparse shape, sparse_lanes={sparse}", b,
@@ -1380,7 +1492,7 @@ def compare_bundles_cuda_cpu(label, make):
 def compare_relay_cuda_cpu(label, hosts, hop, total, sim_s, loss=0.0,
                            ring=True, tcp_bulk=False, lossless=False):
     """Phase 5, TCP: the relay on CUDA equals the relay on the CPU, leaf
-    by leaf (tolerance zero), and completes."""
+    by leaf (tolerance zero), and every transfer completes by `sim_s`."""
     from shadow_tpu_torch.apps.relay import ROLE_SERVER
 
     def make(dev):
@@ -3326,6 +3438,579 @@ def _inject_cell(device, tmp):
     return out, err
 
 
+def build_lanes(device, hosts=HOSTS, sim_s=SIM_S, lanes=True, recorders=True,
+                replicas=LANE_R):
+    """16a's program through bench's own builder: phase 4's PHOLD packed
+    `replicas` times (one lane a replica when `lanes`), the ring, and
+    the flow and causality recorders at 1-in-LANE_SAMPLE when
+    `recorders`."""
+    from shadow_tpu_torch import bench
+
+    n = LANE_SAMPLE if recorders else 0
+    return bench.build_phold(hosts * replicas, LOAD, sim_s, 1, CAPACITY,
+                             ONE_VERTEX, device, replica_size=hosts,
+                             lanes=lanes, flow_sample=n, causality_sample=n)
+
+
+def flood_fn(hosts, cap, trig):
+    """tests/test_lanes.py's seq-conserving flood: cap+1 far-future
+    events into the victim lane's rows in every window past `trig`,
+    next_seq bumped per attempt."""
+    import torch
+
+    from shadow_tpu_torch.core.events import push_rows
+
+    def flood(sim, wend):
+        q = sim.events
+        n = q.num_hosts
+        if wend <= trig:
+            return sim
+        ar = torch.arange(n, device=q.time.device)
+        mask = (ar >= LANE_VICTIM * hosts) & (ar < (LANE_VICTIM + 1) * hosts)
+        t = torch.full((n,), INVALID_TIME - 1, dtype=torch.int64,
+                       device=q.time.device)
+        z = torch.zeros((n,), dtype=torch.int32, device=q.time.device)
+        w = torch.zeros((n, q.words.shape[-1]), dtype=torch.int32,
+                        device=q.time.device)
+        for _ in range(cap + 1):
+            q = push_rows(q, mask, t, z, z, q.next_seq, w)
+            q = q.replace(next_seq=q.next_seq + mask.to(torch.int32))
+        return sim.replace(events=q)
+
+    return flood
+
+
+def check_lanes_run(label, sim, stats, hosts, launches):
+    """16a's invariants on a finished 4-lane run with the recorders."""
+    from shadow_tpu_torch.core.lanes import lane_report
+
+    R = sim.lanes.replicas
+    check_phold(label, sim, hosts * R, LOAD, launches)
+    sent = sim.app.sent.reshape(R, -1).sum(1).tolist()
+    rcvd = sim.app.rcvd.reshape(R, -1).sum(1).tolist()
+    if sent != [hosts * LOAD + r for r in rcvd]:
+        raise AssertionError(f"{label}: per-lane sent {sent} != H*load + "
+                             f"rcvd {rcvd}")
+    rep = lane_report(sim)
+    if any(d["quarantined"] for d in rep):
+        raise AssertionError(f"{label}: a lane tripped: {rep}")
+    for name, scalar, plane in (
+            ("events", sim.events.overflow, sim.events.overflow_h),
+            ("outbox", sim.outbox.overflow, sim.outbox.overflow_h),
+            ("rq", sim.net.rq_overflow, sim.net.rq_overflow_h)):
+        if int(scalar) != int(plane.sum()):
+            raise AssertionError(f"{label}: {name} overflow {int(scalar)} "
+                                 f"!= sum of its plane {int(plane.sum())}")
+    st = stats.as_dict()
+    f, cz, ring = sim.flows, sim.causality, sim.telem
+    n = int(ring.count)
+    checks = {
+        "flows count + lost == sampled":
+            (int(f.count + f.lost), int(f.sampled)),
+        "lineage count <= seen (hosts over)":
+            (int((cz.count > cz.seen).sum()), 0),
+        "advance records == windows": (int(cz.adv_count), st["windows"]),
+        "ring count == windows": (n, st["windows"]),
+        "windows where sum(lane_events) != events": (int(
+            (ring.lane_events[:n].sum(1) != ring.events[:n]).sum()), 0),
+        "sum(ring.events) == events_processed":
+            (int(ring.events.sum()), st["events_processed"]),
+    }
+    for k, (got, want) in checks.items():
+        if got != want:
+            raise AssertionError(f"{label}: {k}: {got} != {want}")
+    log(f"  {label}: zero overflow, no lane tripped, per-lane sent == "
+        f"H*load + rcvd {sent}; scalar == sum(plane) for the three "
+        f"latches; {', '.join(checks)}; flows sampled {int(f.sampled)} "
+        f"stored {int(f.count)} lost {int(f.lost)}; lineage seen "
+        f"{int(cz.seen.sum())} kept {int(cz.count.sum())}; per-lane events "
+        f"{[d['events_exec'] for d in rep]}")
+
+
+def profile_lanes_window(b, device):
+    """The 4-lane program's windows after window 0 (which holds the
+    run's micro-steps) to LANE_PROFILE_NS, from the state window 0 left:
+    unprofiled (the least of 3) and once under torch.profiler —
+    launches, cudaStreamSynchronize and device busy per window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.net.build import make_runner
+
+    def runner(end):
+        return make_runner(b, app_handlers=(phold.handler,), end_time=end,
+                           app_bulk=phold.BULK, device=device)
+
+    sim0, _ = runner(20_000_000)(b.sim)
+    later = runner(LANE_PROFILE_NS)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = later(sim0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        later(sim0)
+        torch.cuda.synchronize()
+    events = raw_events(prof)
+    w = max(st.as_dict()["windows"], 1)
+    wall_ms = min(walls) * 1e3 / w
+    busy_ms = device_busy_us(events) / 1e3 / w
+    launches = host_launches(events) / w
+    syncs = sum(1 for e in events if e.device_type == DeviceType.CPU
+                and e.name == "cudaStreamSynchronize") / w
+    log(f"  lanes profile, windows after window 0: {st.as_dict()}: "
+        f"{wall_ms:.2f} ms a window unprofiled, {launches:.0f} launches, "
+        f"{syncs:.1f} cudaStreamSynchronize, device busy {busy_ms:.3f} ms "
+        f"= {busy_ms / wall_ms * 100:.2f}% a window")
+    return {"ms": round(wall_ms, 3), "launches": round(launches, 1),
+            "syncs": round(syncs, 1), "busy_ms": round(busy_ms, 3)}
+
+
+def time_gather(label, kept):
+    """mailbox_gather on a run's own route inputs, at the narrowest
+    stream shape the route gave it (the narrow tier: most windows),
+    one input set of more than the L2, so cold: kernel, plain and
+    index_select device times and the byte bound."""
+    import torch
+
+    from shadow_tpu_torch.core.insert_kernels import (
+        mailbox_gather, mailbox_gather_ref)
+
+    stream, start, Wn = min(kept.values(), key=lambda v: v[0].shape[0])
+    rows = (start.long()[:, None] + torch.arange(Wn, device=start.device)
+            ).clamp(max=stream.shape[0] - 1).reshape(-1)
+    ms = {k: device_ms([fn])[0] for k, fn in (
+        ("ms", lambda: mailbox_gather(stream, start, Wn)),
+        ("plain_ms", lambda: mailbox_gather_ref(stream, start, Wn)),
+        ("library_ms", lambda: torch.index_select(stream, 0, rows)))}
+    bound_ms, nbytes = mailbox_bound(stream, start, Wn)
+    out = {"n": int(stream.shape[0]) - Wn, "H": int(start.numel()),
+           "P": int(stream.shape[1]), **ms, "bound_ms": bound_ms,
+           "bound_bytes": nbytes}
+    log(f"  {label}: mailbox_gather on the route's own stream (H="
+        f"{out['H']}, n={out['n']}, P={out['P']}): kernel {ms['ms']:.5f} "
+        f"ms, plain {ms['plain_ms']:.5f} ms, index_select "
+        f"{ms['library_ms']:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} B)")
+    return out
+
+
+def profile_lane_hooks(device):
+    """--profile: what each hook of the 4-lane program costs a call —
+    the lineage recorder (window 0's micro-steps), the flow recorder,
+    the advance latch and the lane barrier (every window) — as host
+    launches and host ms inside a torch.profiler range around each
+    call, over the first windows, to LANE_PROFILE_NS."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.core import lanes
+    from shadow_tpu_torch.net import build as build_mod
+    from shadow_tpu_torch.telemetry import causality, flows
+
+    def ranged(name, fn):
+        def hook(*a, **kw):
+            with record_function(f"hook:{name}"):
+                return fn(*a, **kw)
+        return hook
+
+    patches = [(causality, "lineage_update"), (causality, "advance_latch"),
+               (lanes, "window_update")]
+    real = {name: getattr(mod, name) for mod, name in patches}
+    real_make = build_mod.make_flow_fn
+    b = build_lanes(device)
+    try:
+        for mod, name in patches:
+            setattr(mod, name, ranged(name, real[name]))
+        build_mod.make_flow_fn = lambda: ranged("flow_fn",
+                                                flows.make_flow_fn())
+        runner = build_mod.make_runner(
+            b, app_handlers=(phold.handler,), end_time=LANE_PROFILE_NS,
+            app_bulk=phold.BULK, device=device)
+        runner(b.sim)                     # warm: first-call costs
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, st = runner(b.sim)
+            torch.cuda.synchronize()
+    finally:
+        for mod, name in patches:
+            setattr(mod, name, real[name])
+        build_mod.make_flow_fn = real_make
+    events = raw_events(prof)
+    launches = sorted(e.time_range.start for e in events
+                      if e.device_type == DeviceType.CPU
+                      and e.name.startswith("cuda") and "Launch" in e.name)
+    out = {}
+    for name in ("lineage_update", "flow_fn", "advance_latch",
+                 "window_update"):
+        spans = [e.time_range for e in events
+                 if e.name == f"hook:{name}"
+                 and e.device_type == DeviceType.CPU]
+        n = sum(1 for t in launches for r in spans
+                if r.start <= t <= r.end)
+        ms = sum(r.end - r.start for r in spans) / 1e3
+        calls = max(len(spans), 1)
+        out[name] = {"calls": len(spans), "launches": round(n / calls, 1),
+                     "host_ms": round(ms / calls, 3)}
+    log(f"  lanes hooks over {st.as_dict()}: "
+        + "; ".join(f"{k} {v['calls']} calls, {v['launches']} launches "
+                    f"and {v['host_ms']} ms a call (profiled)"
+                    for k, v in out.items()))
+    return out
+
+
+def lanes_cell(device):
+    """Phase 16. Returns the kernel row's additions and the max abs
+    error of mailbox_gather against its plain version on the run's own
+    route inputs."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="shadow_lanes_") as tmp:
+        return _lanes_cell(device, tmp)
+
+
+def _lanes_cell(device, tmp):
+    import copy
+    import os
+    import subprocess
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from shadow_tpu_torch import convert, faults
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.core import lanes
+    from shadow_tpu_torch.net.build import make_runner
+    from shadow_tpu_torch.utils import checkpoint
+
+    out = {}
+    root = Path(__file__).resolve().parent
+    hosts = HOSTS
+
+    # ---- 16a: the bench row as a user runs it --------------------------
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_REPLICAS=str(LANE_R), BENCH_LANE_ISOLATION="1",
+               BENCH_FLOW_SAMPLE=str(LANE_SAMPLE),
+               BENCH_CAUSALITY=str(LANE_SAMPLE))
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "shadow_tpu_torch.bench"],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"lanes bench exited {done.returncode}:\n"
+                             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    row = json.loads(done.stdout.strip().splitlines()[-1])
+    log(f"  phold-10k-x4-lanes: `BENCH_REPLICAS={LANE_R} "
+        f"BENCH_LANE_ISOLATION=1 BENCH_FLOW_SAMPLE={LANE_SAMPLE} "
+        f"BENCH_CAUSALITY={LANE_SAMPLE} python -m shadow_tpu_torch.bench` "
+        f"exit 0 in {wall:.1f} s: {json.dumps(row)}")
+    fl, cz, ln = row["flows"], row["causality"], row["lanes"]
+    checks = {
+        "metric": (row["metric"], LANE_NAME),
+        "quarantined lanes": (ln["quarantined"], []),
+        "lane overflow": (sum(d["events_overflow"] + d["outbox_overflow"]
+                              + d["rq_overflow"] for d in ln["per_lane"]),
+                          0),
+        "per-lane events": (sum(d["events_exec"] for d in ln["per_lane"]),
+                            row["events"]),
+        "flows recorded + lost_window_clamp == sampled":
+            (fl["recorded"] + fl["lost_window_clamp"], fl["sampled"]),
+        "flows harvested + lost_ring == recorded":
+            (fl["harvested"] + fl["lost_ring"], fl["recorded"]),
+        "advance records == windows":
+            (cz["windows_attributed"] + cz["windows_lost"], row["windows"]),
+        "lineage harvested + lost_ring == sampled":
+            (cz["harvested"] + cz["lost_ring"], cz["sampled"]),
+    }
+    for k, (got, want) in checks.items():
+        if got != want:
+            raise AssertionError(f"lanes bench row: {k}: {got} != {want}")
+    out["lanes_bench_row"] = {k: row[k] for k in ("value", "wall_s",
+                                                  "warmup_s")}
+    out["lanes_bench_row"]["ms_per_window"] = round(
+        row["wall_s"] * 1e3 / row["windows"], 3)
+
+    # ---- 16a in-process: the main path of this phase -------------------
+    t0 = time.perf_counter()
+    b = build_lanes(device)
+    torch.cuda.synchronize()
+    log(f"  lanes: built {hosts * LANE_R} rows ({LANE_R} lanes) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    runner = make_runner(b, app_handlers=(phold.handler,),
+                         app_bulk=phold.BULK, device=device)
+    with KeepGatherInputs() as gathered:
+        sim_a, st_a, wall, launches = drive("lanes main path", b, runner,
+                                            device)
+    check_lanes_run("lanes main path", sim_a, st_a, hosts, launches)
+    out["launches_lanes"] = launches["mailbox_gather"]
+    err = gathered.check("lanes main path")
+    out["lanes_gather"] = time_gather("lanes main path", gathered.kept)
+    out["lanes_window"] = profile_lanes_window(b, device)
+    del gathered, sim_a
+
+    # ---- 16b: the recorders off, R = 1, a flooded lane, the supervisor.
+    # The variants are A's boot state with planes detached or attached,
+    # run to LANE_SIDE_S through A's bundle (one build for all).
+    side = int(LANE_SIDE_S * 1e9)
+
+    def side_run(sim, end=side, fault_fn=None, bundle=b):
+        out = make_runner(bundle, app_handlers=(phold.handler,),
+                          end_time=end, app_bulk=phold.BULK, device=device,
+                          fault_fn=fault_fn)(sim)
+        torch.cuda.synchronize()
+        return out
+
+    off = b.sim.replace(flows=None, causality=None)
+    (sim_on, st_on), (clean, st_off) = side_run(b.sim), side_run(off)
+    la, lb = convert.sim_to_numpy(sim_on), convert.sim_to_numpy(clean)
+    extra = set(la) - set(lb)
+    bad = [k for k in lb if not np.array_equal(la[k], lb[k])]
+    if st_on.as_dict() != st_off.as_dict() or bad or set(lb) - set(la) or \
+            not all(k.startswith((".flows", ".causality")) for k in extra):
+        raise AssertionError(f"lanes: the recorders changed the run: "
+                             f"{bad[:5]} {sorted(extra)[:5]}")
+    log(f"  lanes: recorders off == on to {LANE_SIDE_S} sim-s over all "
+        f"{len(lb)} shared leaves ({len(extra)} recorder leaves more); "
+        f"EngineStats equal")
+    del sim_on, la, lb
+
+    pb = build_lanes(device, lanes=False, recorders=False)
+    (p_sim, p_st), (r_sim, r_st) = (
+        side_run(sim, side // 2, bundle=pb)
+        for sim in (pb.sim, lanes.attach(pb.sim, 1)))
+    lp, lr = convert.sim_to_numpy(p_sim), convert.sim_to_numpy(r_sim)
+    bad = [k for k in lp if not np.array_equal(lp[k], lr[k])]
+    extra = sorted(set(lr) - set(lp))
+    if p_st.as_dict() != r_st.as_dict() or bad or set(lp) - set(lr) or \
+            not all(k.startswith(".lanes") or k.endswith("overflow_h")
+                    for k in extra):
+        raise AssertionError(f"lanes: attach(sim, 1) changed the run: "
+                             f"{bad[:5]} {extra}")
+    log(f"  lanes: lanes.attach(sim, 1) == no lanes to {LANE_SIDE_S / 2} "
+        f"sim-s over all {len(lp)} shared leaves (+{extra})")
+    del pb, p_sim, r_sim, lp, lr
+
+    cap, trig = b.cfg.event_capacity, side // 2
+    flooded, _ = side_run(off, fault_fn=flood_fn(hosts, cap, trig))
+    rep = lanes.lane_report(flooded)
+    v = rep[LANE_VICTIM]
+    if [d["lane"] for d in rep if d["quarantined"]] != [LANE_VICTIM] \
+            or v["trip"] != ["events_overflow"] or v["flushed"] <= 0:
+        raise AssertionError(f"lanes flood: {rep}")
+    healthy = [r for r in range(LANE_R) if r != LANE_VICTIM]
+    for plane in ("app.rcvd", "net.ctr_events_exec", "events.time"):
+        a = clean
+        c = flooded
+        for part in plane.split("."):
+            a, c = getattr(a, part), getattr(c, part)
+        for r in healthy:
+            if not torch.equal(a[r * hosts:(r + 1) * hosts],
+                               c[r * hosts:(r + 1) * hosts]):
+                raise AssertionError(f"lanes flood: lane {r}'s {plane} "
+                                     f"differs from the clean run")
+    log(f"  lanes flood: lane {LANE_VICTIM} quarantined at "
+        f"t={v['quarantined_at_ns']} on {v['trip']}, {v['flushed']} events "
+        f"flushed; lanes {healthy}' app.rcvd, ctr_events_exec and "
+        f"events.time byte-identical to the clean run")
+    del clean, flooded
+
+    seen = []
+    sb = copy.copy(b)
+    sb.sim, sb.app_bulk = off, phold.BULK
+    t0 = time.perf_counter()
+    # to 0.6 of the side depth: one snapshot (after window 8, t=0.4 s)
+    # before the trip, the salvage's source
+    res = faults.run_supervised(
+        sb, (phold.handler,), fault_fn=flood_fn(hosts, cap, trig),
+        end_time=side * 6 // 10, checkpoint_path=os.path.join(tmp, "ck"),
+        checkpoint_every_windows=8, max_retries=0, sleep=lambda s: None,
+        on_lane_quarantine=seen.append, device=device)
+    if not res.ok or [i.lane for i in seen] != [LANE_VICTIM] \
+            or not res.health.lane_contained:
+        raise AssertionError(f"lanes supervised: {res.failure_report()}")
+    inc = res.lane_incidents[0]
+    tmpl = build_lanes(device, lanes=False, recorders=False, replicas=1)
+    tmpl.sim = lanes.attach(tmpl.sim, 1)
+    salvage, t_salv, _ = checkpoint.load(inc.salvage, tmpl.sim)
+    if int(salvage.events.num_hosts) != hosts:
+        raise AssertionError("lanes supervised: the salvage holds "
+                             f"{salvage.events.num_hosts} rows")
+    log(f"  lanes supervised: contained trip, incident "
+        f"{json.dumps(inc.as_dict())}; the salvage artifact loads through "
+        f"checkpoint.load ({hosts} rows, t={t_salv}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    del res, salvage, sb, off, b
+
+    # ---- 16c: the cuts on the card and the CPU, the reference's counts -
+    err = max(err, lanes_cuts(device))
+
+    # ---- 16d: the CLI's flags on the <traffic> config ------------------
+    out["lanes_cli_s"] = lanes_cli(device, root, tmp)
+    return out, err
+
+
+def lane_counts(sim, stats):
+    """16c's pinned quantities of a finished run."""
+    from shadow_tpu_torch import telemetry
+    from shadow_tpu_torch.core.lanes import lane_report
+
+    h = telemetry.Harvester()
+    h.drain(sim)
+    cz = sim.causality
+    got = {"stats": stats.as_dict(),
+           "lineage": {"seen": int(cz.seen.sum()),
+                       "count": int(cz.count.sum())},
+           "causes": telemetry.binding_histogram(h.adv_records)}
+    if getattr(sim, "lanes", None) is not None:
+        rep = lane_report(sim)
+        got["events_exec"] = [d["events_exec"] for d in rep]
+        got["quarantined"] = [d["lane"] for d in rep if d["quarantined"]]
+        f = sim.flows
+        got["flows"] = {"sampled": int(f.sampled), "count": int(f.count),
+                        "lost": int(f.lost)}
+    return got
+
+
+def lanes_cuts(device):
+    """16c: the 4 x LANE_CUT_HOSTS cut of 16a's program (to LANE_CUT_S)
+    and 15a's 64-host cut with BENCH_CAUSALITY=8, each on the card and
+    on the CPU: the
+    reference's pinned counts on both, every leaf equal between them.
+    Returns the max abs error of mailbox_gather on the card run's
+    route."""
+    import numpy as np
+    import torch
+
+    from shadow_tpu_torch import bench, convert, telemetry
+    from shadow_tpu_torch.apps import phold, tgen
+    from shadow_tpu_torch.inject import Feeder
+    from shadow_tpu_torch.net.build import make_runner
+    from shadow_tpu_torch.utils import checkpoint
+
+    H, rate, sim_s, nl = INJ_CUT
+    trace = bench.rate_trace(H, rate, sim_s)
+
+    def phold_cut(dev):
+        b = build_lanes(dev, LANE_CUT_HOSTS, sim_s=LANE_CUT_S)
+        return make_runner(b, app_handlers=(phold.handler,),
+                           app_bulk=phold.BULK, device=dev)(b.sim)
+
+    def inject_cut(dev):
+        b = bench.build_inject(H, sim_s, 1, 64, nl, ONE_VERTEX, dev)
+        b.sim = telemetry.attach_causality(b.sim,
+                                           sample_period=INJ_CAUS_SAMPLE)
+        sim, stats, _ = checkpoint.run_windows(
+            b, (tgen.handler,), feeder=Feeder(list(trace)),
+            windows_per_dispatch=INJ_CHUNK, device=dev)
+        return sim, stats
+
+    err = 0
+    for label, run, expect in (
+            (f"{LANE_R} x {LANE_CUT_HOSTS}-host cut", phold_cut,
+             LANE_CUT_EXPECT),
+            (f"injection {H}-host cut, BENCH_CAUSALITY={INJ_CAUS_SAMPLE}",
+             inject_cut, INJ_CAUS_EXPECT)):
+        leaves = []
+        for dev in (torch.device(device), torch.device("cpu")):
+            t0 = time.perf_counter()
+            if dev.type == "cuda":
+                with KeepGatherInputs() as gathered:
+                    sim, stats = run(dev)
+                err = max(err, gathered.check(label))
+            else:
+                sim, stats = run(dev)
+            got = lane_counts(sim, stats)
+            if got != expect:
+                raise AssertionError(f"{label} {dev.type}: {got} != the "
+                                     f"reference's {expect}")
+            leaves.append(convert.sim_to_numpy(sim))
+            log(f"  {label} {dev.type}: the reference's counts in "
+                f"{time.perf_counter() - t0:.2f} s: {json.dumps(got)}")
+        a, c = leaves
+        bad = [k for k in a if a[k].dtype != c[k].dtype
+               or not np.array_equal(a[k], c[k])]
+        if a.keys() != c.keys() or bad:
+            raise AssertionError(f"{label}: cuda != cpu, first {bad[:5]}")
+        log(f"  {label}: {device} == cpu, all {len(a)} leaves equal")
+    return err
+
+
+def lanes_cli(device, root, tmp):
+    """16d: `python -m shadow_tpu_torch.cli <traffic config>
+    --lane-isolation 4 --resident --flow-sample 8 --causality-sample 8
+    --trace-out --metrics-out` as a subprocess on `device` and in-process
+    on the CPU: equal reports (wall-clock fields aside) and manifest
+    lanes, admission, flows and causality blocks; the manifest passes
+    tools/telemetry_lint.py. Returns the subprocess's wall seconds."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+
+    from shadow_tpu_torch import cli
+
+    cfg = str(root / TRAFFIC_CONFIG)
+    runs = {}
+    for key in ("card", "cpu"):
+        d = os.path.join(tmp, f"lanes_cli_{key}")
+        argv = [cfg, "-d", d, "--trace-out", os.path.join(d, "t.json"),
+                "--metrics-out", os.path.join(d, "m.prom"), *LANE_CLI_FLAGS]
+        t0 = time.perf_counter()
+        if key == "card":
+            done = subprocess.run(
+                [sys.executable, "-m", "shadow_tpu_torch.cli", *argv,
+                 "--platform", "gpu"], cwd=root, capture_output=True,
+                text=True, timeout=600)
+            code, lines = done.returncode, done.stdout.strip().splitlines()
+            errs = done.stderr
+        else:
+            so, se = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(so), \
+                    contextlib.redirect_stderr(se):
+                code = cli.main([*argv, "--platform", "cpu"])
+            lines, errs = so.getvalue().strip().splitlines(), se.getvalue()
+        wall = time.perf_counter() - t0
+        if code != 0 or not lines:
+            raise AssertionError(f"lanes CLI {key} exited {code}:\n"
+                                 f"{errs[-3000:]}")
+        with open(os.path.join(d, "run_manifest.json")) as fh:
+            runs[key] = (json.loads(lines[-1]), json.load(fh), d, wall)
+    (rep, man, d, wall), (crep, cman, _, _) = runs["card"], runs["cpu"]
+    wallk = ("wall_seconds", "events_per_second",
+             "simulated_seconds_per_wall_second")
+    strip = {k: v for k, v in rep.items() if k not in wallk}
+    if strip != {k: v for k, v in crep.items() if k not in wallk}:
+        raise AssertionError(f"lanes CLI: report {rep} != the CPU's {crep}")
+    for block in ("lanes", "admission", "flows", "causality"):
+        if block not in man or man[block] != cman[block]:
+            raise AssertionError(f"lanes CLI: manifest {block} differs from "
+                                 f"the CPU run's")
+    lint = subprocess.run(
+        [sys.executable, "tools/telemetry_lint.py", "--manifest",
+         os.path.join(d, "run_manifest.json")], cwd=root,
+        capture_output=True, text=True, timeout=120)
+    if lint.returncode != 0:
+        raise AssertionError(f"lanes CLI: telemetry_lint refused the "
+                             f"manifest:\n{lint.stdout[-2000:]}"
+                             f"{lint.stderr[-2000:]}")
+    log(f"  lanes CLI: exit 0 in {wall:.1f} s on {device}; report "
+        f"{json.dumps(strip)}; manifest lanes {man['lanes']['replicas']} "
+        f"replicas, admission {man['admission']['admitted']} admitted, "
+        f"flows sampled {man['flows']['sampled']}, causality sampled "
+        f"{man['causality']['sampled']} — equal to the CPU run's; "
+        f"telemetry_lint --manifest: ok")
+    return round(wall, 1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3401,16 +4086,17 @@ def main(argv=None) -> int:
         profile_windows(device, (row["ms"], warm_ms))
 
     phase("4a")
-    log("[4a] the serial path: no bulk, sparse_lanes=0, no ring, "
-        "1 sim-s")
+    log(f"[4a] the serial path: no bulk, sparse_lanes=0, no ring, "
+        f"{PATH_SIM_S} sim-s")
     run_serial_path(device)
 
     phase("4b")
-    log("[4b] bulk pass: cube and sort order forms, 1 sim-s")
+    log(f"[4b] bulk pass: cube and sort order forms, {PATH_SIM_S} sim-s")
     compare_order_forms(device)
 
     phase("4c")
-    log("[4c] sparse shape: 64 of 10,240 hosts active, 1 sim-s")
+    log(f"[4c] sparse shape: 64 of 10,240 hosts active, {PATH_SIM_S} "
+        f"sim-s")
     compare_sparse_shape(device)
 
     phase("5")
@@ -3419,14 +4105,16 @@ def main(argv=None) -> int:
     compare_cuda_cpu("bulk + ring", 64, 4, 1.0, bulk=True, ring=True)
     compare_cuda_cpu("sparse", 64, 2, 1.0, sparse_lanes=16, active_hosts=4)
     t0 = time.perf_counter()
-    compare_relay_cuda_cpu("relay 2x5 hops + ring", 10, 5, 15_000, 3.0)
-    compare_relay_cuda_cpu("relay 2x2 hops 1% loss", 4, 2, 25_000, 4.0,
-                           loss=0.01, ring=False)
+    compare_relay_cuda_cpu("relay 2x5 hops + ring", 10, 5,
+                           RELAY_SMALL_BYTES, RELAY_SMALL_SIM_S)
+    compare_relay_cuda_cpu("relay 2x2 hops 1% loss", 4, 2, 25_000,
+                           RELAY_SMALL_LOSSY_SIM_S, loss=0.01, ring=False)
     compare_relay_cuda_cpu("relay 2x5 hops + ring, TCP bulk", 10, 5,
-                           30_000, 3.0, tcp_bulk=True)
+                           RELAY_SMALL_BYTES, RELAY_SMALL_SIM_S,
+                           tcp_bulk=True)
     compare_relay_cuda_cpu("relay 2x2 hops 1% loss, TCP bulk lossless", 4,
-                           2, 25_000, 4.0, loss=0.01, tcp_bulk=True,
-                           lossless=True)
+                           2, 25_000, RELAY_SMALL_LOSSY_SIM_S, loss=0.01,
+                           tcp_bulk=True, lossless=True)
     log(f"  the four relay configs took {time.perf_counter() - t0:.1f} s")
 
     phase("6")
@@ -3556,6 +4244,24 @@ def main(argv=None) -> int:
     got, err = inject_cell(device)
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update(got)
+
+    phase("16")
+    log(f"[16] lane isolation and the recorders: bench.py's BENCH_REPLICAS="
+        f"{LANE_R} BENCH_LANE_ISOLATION=1 BENCH_FLOW_SAMPLE={LANE_SAMPLE} "
+        f"BENCH_CAUSALITY={LANE_SAMPLE} row ({LANE_R} x {HOSTS} hosts, "
+        f"{SIM_S} sim-s); the recorders off, R = 1, a flooded lane and its "
+        f"lane surgery to {LANE_SIDE_S} sim-s; the cuts against the "
+        f"reference's counts; the CLI's lane and recorder flags")
+    got, err = lanes_cell(device)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    gather = got.pop("lanes_gather")
+    row["x4_lanes"] = {k: gather[k] for k in (
+        "n", "ms", "plain_ms", "bound_ms", "library_ms")}
+    row.update(got)
+    if args.profile:
+        phase("16p")
+        log("[16p] the 4-lane program's hooks, profiled")
+        profile_lane_hooks(device)
 
     phase(None)
     log(f"  done; seconds per phase {json.dumps(phase_s)}")

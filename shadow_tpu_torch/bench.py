@@ -56,16 +56,35 @@ Env knobs (bench.py's, for what the port runs):
                                  BENCH_MIN_JUMP_MS) apply; BENCH_WORKLOAD
                                  and BENCH_SUPERVISE do not
   BENCH_FAULTS=PLAN.json         as --faults
+  BENCH_REPLICAS=R               PHOLD ensemble: R independent replicas
+                                 of the H-host program packed into one
+                                 program of R*H rows (aggregate
+                                 events/s; name gains _x{R}replicas)
+  BENCH_LANE_ISOLATION=1         with BENCH_REPLICAS > 1: lane-scoped
+                                 health latches, one lane a replica
+                                 (core/lanes.py; name gains _lanes)
+  BENCH_FLOW_SAMPLE=N            the flow flight-recorder on the timed
+                                 inputs, 1-in-N sampling (PHOLD and
+                                 injection; name gains _flow{N}; the
+                                 row gains a "flows" block)
+  BENCH_FLOW_OVERHEAD=1          rebuild without the flow ring, time it
+                                 and record flow_overhead_pct
+  BENCH_CAUSALITY=N              the causality recorder on the timed
+                                 inputs (name gains _caus{N}; the row
+                                 gains a "causality" block)
+  BENCH_CAUSALITY_OVERHEAD=1     the same A/B for the causality planes
   BENCH_PLATFORM=cpu             run on the CPU
 
-Every other BENCH_* knob of bench.py is refused (SystemExit naming it),
-and so are bench.py's own refusals: --faults, BENCH_SUPERVISE and
-BENCH_MIN_JUMP_MS with pingpong (bench.py ignores the last there),
-BENCH_ADAPTIVE_JUMP and BENCH_CHECKPOINT_WINDOWS without
+Every other BENCH_* knob of bench.py is refused (SystemExit naming it;
+BENCH_RESIDENT waits for ROADMAP.md Queue 1 item 12, BENCH_SHARDS for
+item 9), and so are bench.py's own refusals: --faults, BENCH_SUPERVISE
+and BENCH_MIN_JUMP_MS with pingpong (bench.py ignores the last there),
+BENCH_REPLICAS, BENCH_FLOW_SAMPLE and BENCH_CAUSALITY with pingpong,
+BENCH_REPLICAS with BENCH_SUPERVISE or an injection scenario,
+BENCH_FLOW_OVERHEAD / BENCH_CAUSALITY_OVERHEAD without their sample
+knob, BENCH_ADAPTIVE_JUMP and BENCH_CHECKPOINT_WINDOWS without
 BENCH_SUPERVISE=1 or an injection scenario, and BENCH_INJECT_* with
-BENCH_WORKLOAD or BENCH_SUPERVISE. The reference's flow, causality,
-sentinel and bucketed knobs (BENCH_FLOW_SAMPLE, BENCH_CAUSALITY_SAMPLE,
-BENCH_SENTINEL, BENCH_BUCKETED) stay refused as unknown knobs.
+BENCH_WORKLOAD or BENCH_SUPERVISE.
 
 PHOLD is bench.py's default program: capacities start at max(16,
 3*load) and double on a counted overflow, then the run goes again; the
@@ -82,7 +101,10 @@ The row: metric (bench.py's names, with _mixtopo under BENCH_TOPO=mix),
 value (events/s of the timed call), unit, vs_baseline (value over
 BASELINE.json's published rate at the same scale, bench.py's rule),
 backend ("cuda" or "cpu"), device (the nvidia-smi name and power-limit
-line; null on the CPU), warmup_s, wall_s, windows, micro_steps, events.
+line; null on the CPU), warmup_s, wall_s, windows, micro_steps, events;
+with a recorder, bench.py's "flows" and "causality" blocks of the timed
+run (and the A/B's overhead fields); with lane isolation, a "lanes"
+block (replicas, quarantined lanes, per-lane events).
 """
 
 from __future__ import annotations
@@ -133,19 +155,28 @@ KNOBS = frozenset({"BENCH_WORKLOAD", "BENCH_TOPO", "BENCH_HOSTS",
                    "BENCH_CHUNK_WINDOWS", "BENCH_PLATFORM", "BENCH_FAULTS",
                    "BENCH_SUPERVISE", "BENCH_CHECKPOINT_WINDOWS",
                    "BENCH_ADAPTIVE_JUMP", "BENCH_MIN_JUMP_MS",
-                   "BENCH_INJECT_RATE", "BENCH_INJECT_TRACE"})
+                   "BENCH_INJECT_RATE", "BENCH_INJECT_TRACE",
+                   "BENCH_REPLICAS", "BENCH_LANE_ISOLATION",
+                   "BENCH_FLOW_SAMPLE", "BENCH_FLOW_OVERHEAD",
+                   "BENCH_CAUSALITY", "BENCH_CAUSALITY_OVERHEAD"})
+# bench.py knobs whose mechanism waits for a ROADMAP.md Queue 1 item
+UNPORTED = {"BENCH_RESIDENT": 12, "BENCH_SHARDS": 9}
 
 PINGPONG_COUNT = 20
 ONE_MILLISECOND = 1_000_000   # core.simtime's, without importing torch
 
 
 def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True,
-                fault_records=None, ring_capacity=None):
-    """bench.py's _build_phold (no replicas or active subset):
-    capacities `cap`, in_ring max(16, 2*load), the default sparse
-    budget, the fault plan `fault_records` installed when given; plus
-    the telemetry ring (of `ring_capacity` records, default the ring's)
-    when `ring`."""
+                fault_records=None, ring_capacity=None, replica_size=None,
+                lanes=False, flow_sample=0, causality_sample=0):
+    """bench.py's _build_phold (no active subset): capacities `cap`,
+    in_ring max(16, 2*load), the default sparse budget; `replica_size`
+    packs H/replica_size independent replicas, each a lane-isolated
+    lane when `lanes` (attached before the ring, which sizes its
+    per-lane planes off it); the fault plan `fault_records` installed
+    when given; the telemetry ring (of `ring_capacity` records, default
+    the ring's) when `ring`; the flow and causality recorders at 1-in-N
+    when `flow_sample` / `causality_sample` > 0."""
     from shadow_tpu_torch import telemetry
     from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.core import simtime
@@ -158,7 +189,11 @@ def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True,
                     router_ring=cap, in_ring=max(16, 2 * load))
     hosts = [HostSpec(name=f"peer{i}", proc_start_time=0) for i in range(H)]
     b = build(cfg, graph, hosts, device=device)
-    b.sim = phold.setup(b.sim, load=load)
+    b.sim = phold.setup(b.sim, load=load, replica_size=replica_size)
+    if replica_size and H > replica_size and lanes:
+        from shadow_tpu_torch.core import lanes as lanes_mod
+
+        b.sim = lanes_mod.attach(b.sim, H // replica_size)
     if fault_records:
         from shadow_tpu_torch import faults
 
@@ -166,7 +201,20 @@ def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True,
     if ring:
         b.sim = (telemetry.attach(b.sim) if ring_capacity is None
                  else telemetry.attach(b.sim, capacity=ring_capacity))
+    b.sim = attach_recorders(b.sim, flow_sample, causality_sample)
     return b
+
+
+def attach_recorders(sim, flow_sample=0, causality_sample=0):
+    """bench.py's _attach_flow_ring and _attach_causality_ring: the
+    recorders ride the timed inputs."""
+    from shadow_tpu_torch import telemetry
+
+    if flow_sample > 0:
+        sim = telemetry.attach_flows(sim, sample_period=flow_sample)
+    if causality_sample > 0:
+        sim = telemetry.attach_causality(sim, sample_period=causality_sample)
+    return sim
 
 
 def _runner(b, handler, device, chunk_windows, app_bulk=None):
@@ -189,14 +237,17 @@ def _lower_min_jump(b, min_jump_ns):
 
 
 def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
-                 chunk_windows=None, fault_records=None, min_jump_ns=None):
+                 chunk_windows=None, fault_records=None, min_jump_ns=None,
+                 replica_size=None, lanes=False, flow_sample=0,
+                 causality_sample=0):
     """bench.py's _phold_runner: a zero-argument callable that runs the
     workload once and returns its events; each call takes the next of
     three inputs (seeds 1, 2, 3), each with its own seeded fault
     wakeups when `fault_records` is given. A counted queue or outbox
     overflow doubles the capacities, rebuilds and runs again
     (`go.escalated`). `go.last_sim` / `go.last_stats` hold the last
-    clean run."""
+    clean run. `replica_size`, `lanes` and the samples are
+    build_phold's."""
     from shadow_tpu_torch.apps import phold
 
     state = {"n": 0}
@@ -204,7 +255,9 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
     def build_at(cap):
         bundles = [_lower_min_jump(build_phold(
             H, load, sim_s, seed, cap, graph, device, ring=ring,
-            fault_records=fault_records), min_jump_ns)
+            fault_records=fault_records, replica_size=replica_size,
+            lanes=lanes, flow_sample=flow_sample,
+            causality_sample=causality_sample), min_jump_ns)
             for seed in (1, 2, 3)]
         state.update(cap=cap, bundle=bundles[0],
                      sims=[x.sim for x in bundles],
@@ -309,7 +362,8 @@ def _supervised_runner(what, make_bundles, cap, handler, device,
 def phold_supervised_runner(H, load, sim_s, device, graph=ONE_VERTEX,
                             ring=True, fault_records=None,
                             chunk_windows=None, adaptive_jump=False,
-                            min_jump_ns=None, checkpoint_windows=None):
+                            min_jump_ns=None, checkpoint_windows=None,
+                            flow_sample=0, causality_sample=0):
     """bench.py's _phold_supervised_runner: PHOLD through
     _supervised_runner with the bulk pass (bundle.app_bulk). Inputs and
     escalation as phold_runner."""
@@ -318,7 +372,9 @@ def phold_supervised_runner(H, load, sim_s, device, graph=ONE_VERTEX,
     def make_bundles(cap, W):
         bundles = [_lower_min_jump(build_phold(
             H, load, sim_s, seed, cap, graph, device, ring=ring,
-            fault_records=fault_records, ring_capacity=W), min_jump_ns)
+            fault_records=fault_records, ring_capacity=W,
+            flow_sample=flow_sample, causality_sample=causality_sample),
+            min_jump_ns)
             for seed in (1, 2, 3)]
         bundles[0].app_bulk = phold.BULK
         return bundles
@@ -377,7 +433,8 @@ def inject_runner(H, sim_s, device, seed=1, graph=ONE_VERTEX,
                   trace_path=None, rate=None, ring=True,
                   fault_records=None, chunk_windows=None,
                   adaptive_jump=False, min_jump_ns=None,
-                  checkpoint_windows=None):
+                  checkpoint_windows=None, flow_sample=0,
+                  causality_sample=0):
     """bench.py's _inject_runner: the tgen app driven by a streamed trace
     (`trace_path`, or rate_trace(H, `rate`, sim_s)) through
     _supervised_runner — the feeder refills the staging lanes at every
@@ -401,9 +458,10 @@ def inject_runner(H, sim_s, device, seed=1, graph=ONE_VERTEX,
         bundles = [build_inject(H, sim_s, seed + i, cap, lanes, graph,
                                 device, fault_records, min_jump_ns)
                    for i in (0, 1, 2)]
-        if ring:
-            for x in bundles:
+        for x in bundles:
+            if ring:
                 x.sim = telemetry.attach(x.sim, capacity=W)
+            x.sim = attach_recorders(x.sim, flow_sample, causality_sample)
         return bundles
 
     def feeder():
@@ -541,8 +599,10 @@ def main(argv=None) -> int:
     off = sorted(k for k, v in os.environ.items()
                  if k.startswith("BENCH_") and v and k not in KNOBS)
     if off:
+        named = [f"{k} (ROADMAP.md Queue 1 item {UNPORTED[k]})"
+                 if k in UNPORTED else k for k in off]
         raise SystemExit(f"shadow_tpu_torch.bench does not implement "
-                         f"{', '.join(off)} (see ROADMAP.md)")
+                         f"{', '.join(named)} (see ROADMAP.md)")
     platform = os.environ.get("BENCH_PLATFORM") or None
     if platform not in (None, "cpu"):
         raise SystemExit(f"BENCH_PLATFORM={platform!r}: only 'cpu' "
@@ -582,6 +642,20 @@ def main(argv=None) -> int:
             raise SystemExit(f"BENCH_INJECT_RATE={inj_rate!r} is not a "
                              f"number") from None
     inject_on = bool(inj_trace or inj_rate)
+    replicas = _env_int("BENCH_REPLICAS", 1)
+    if replicas < 1:
+        raise SystemExit(f"BENCH_REPLICAS={replicas}: must be >= 1")
+    lanes = os.environ.get("BENCH_LANE_ISOLATION", "0") != "0"
+    flow_n = _env_int("BENCH_FLOW_SAMPLE", 0)
+    caus_n = _env_int("BENCH_CAUSALITY", 0)
+    flow_ab = os.environ.get("BENCH_FLOW_OVERHEAD") == "1"
+    caus_ab = os.environ.get("BENCH_CAUSALITY_OVERHEAD") == "1"
+    if flow_ab and flow_n <= 0:
+        raise SystemExit("BENCH_FLOW_OVERHEAD=1 needs BENCH_FLOW_SAMPLE=N "
+                         "(what would it A/B?)")
+    if caus_ab and caus_n <= 0:
+        raise SystemExit("BENCH_CAUSALITY_OVERHEAD=1 needs "
+                         "BENCH_CAUSALITY=N (what would it A/B?)")
     if inj_trace and inj_rate:
         raise SystemExit("BENCH_INJECT_TRACE and BENCH_INJECT_RATE are "
                          "mutually exclusive (replay xor synthesize)")
@@ -595,14 +669,21 @@ def main(argv=None) -> int:
         if os.environ.get("BENCH_WORKLOAD"):
             raise SystemExit("BENCH_INJECT_* defines its own scenario; "
                              "leave BENCH_WORKLOAD unset")
-        if supervise:
+        if supervise or replicas > 1:
             raise SystemExit(
-                "BENCH_INJECT_* does not combine with BENCH_SUPERVISE — "
-                "it is already a supervised tgen scenario")
+                "BENCH_INJECT_* does not combine with BENCH_SUPERVISE / "
+                "BENCH_REPLICAS — it is already a supervised tgen "
+                "scenario")
+    if supervise and replicas > 1:
+        raise SystemExit("BENCH_SUPERVISE=1 does not combine with "
+                         "BENCH_REPLICAS")
     if workload != "phold":
         for flag, on in (("--faults", args.faults),
                          ("BENCH_SUPERVISE=1", supervise),
-                         ("BENCH_MIN_JUMP_MS", mjms)):
+                         ("BENCH_MIN_JUMP_MS", mjms),
+                         ("BENCH_REPLICAS", replicas > 1),
+                         ("BENCH_FLOW_SAMPLE", flow_n > 0),
+                         ("BENCH_CAUSALITY", caus_n > 0)):
             if on:
                 raise SystemExit(f"{flag} is only wired for "
                                  f"BENCH_WORKLOAD=phold")
@@ -621,27 +702,34 @@ def main(argv=None) -> int:
             fault_records = faults.records_from_json(f.read())
 
     graph = MIX_VERTICES if topo == "mix" else ONE_VERTEX
-    if inject_on:
-        runner = inject_runner(
-            H, sim_s, device, graph=graph, trace_path=inj_trace,
-            rate=inj_rate, ring=ring, fault_records=fault_records,
-            chunk_windows=chunk, adaptive_jump=adaptive,
-            min_jump_ns=min_jump_ns, checkpoint_windows=ck_w)
-    elif workload == "phold" and supervise:
-        runner = phold_supervised_runner(
-            H, load, sim_s, device, graph=graph, ring=ring,
-            fault_records=fault_records, chunk_windows=chunk,
-            adaptive_jump=adaptive, min_jump_ns=min_jump_ns,
-            checkpoint_windows=ck_w)
-    elif workload == "phold":
-        runner = phold_runner(
-            H, load, sim_s, device, graph=graph, ring=ring,
-            chunk_windows=chunk, fault_records=fault_records,
-            min_jump_ns=min_jump_ns)
-    else:
-        runner = pingpong_runner(
+
+    def make_runner(flow_sample, causality_sample):
+        rec = dict(flow_sample=flow_sample,
+                   causality_sample=causality_sample)
+        if inject_on:
+            return inject_runner(
+                H, sim_s, device, graph=graph, trace_path=inj_trace,
+                rate=inj_rate, ring=ring, fault_records=fault_records,
+                chunk_windows=chunk, adaptive_jump=adaptive,
+                min_jump_ns=min_jump_ns, checkpoint_windows=ck_w, **rec)
+        if workload == "phold" and supervise:
+            return phold_supervised_runner(
+                H, load, sim_s, device, graph=graph, ring=ring,
+                fault_records=fault_records, chunk_windows=chunk,
+                adaptive_jump=adaptive, min_jump_ns=min_jump_ns,
+                checkpoint_windows=ck_w, **rec)
+        if workload == "phold":
+            return phold_runner(
+                H * replicas, load, sim_s, device, graph=graph, ring=ring,
+                chunk_windows=chunk, fault_records=fault_records,
+                min_jump_ns=min_jump_ns,
+                replica_size=H if replicas > 1 else None, lanes=lanes,
+                **rec)
+        return pingpong_runner(
             H, sim_s, device, graph=MIX_VERTICES if topo == "mix" else None,
             chunk_windows=chunk)
+
+    runner = make_runner(flow_n, caus_n)
     if inject_on:
         name = f"events_per_sec_per_chip@{H}hosts_inject"
         name += "_trace" if inj_trace else f"_rate{int(inj_rate)}"
@@ -650,6 +738,10 @@ def main(argv=None) -> int:
             name += "_adaptive"
     elif workload == "phold":
         name = f"events_per_sec_per_chip@{H}hosts_phold_load{load}"
+        if replicas > 1:
+            name += f"_x{replicas}replicas"
+            if lanes:
+                name += "_lanes"
     else:
         name = f"events_per_sec_per_chip@{H}hosts_udp_pingpong"
     if supervise:
@@ -664,6 +756,10 @@ def main(argv=None) -> int:
         name += "_mixtopo"
     if fault_records:
         name += "_faults"
+    if flow_n > 0:
+        name += f"_flow{flow_n}"
+    if caus_n > 0:
+        name += f"_caus{caus_n}"
 
     _sync(device)
     t0 = time.perf_counter()
@@ -671,9 +767,62 @@ def main(argv=None) -> int:
     _sync(device)
     warmup_s = time.perf_counter() - t0
     m = timed(runner, device)
-    print(json.dumps(make_row(name, H, m, runner.last_stats, device,
-                              warmup_s)))
+    row = make_row(name, H, m, runner.last_stats, device, warmup_s)
+    row.update(recorder_blocks(runner, flow_n, caus_n))
+    # bench.py's A/B: the same workload rebuilt without the recorder,
+    # timed the same way; overhead = (off - on) / off
+    for on, key, off_kw in (
+            (flow_ab, "flow", dict(flow_sample=0, causality_sample=caus_n)),
+            (caus_ab, "causality",
+             dict(flow_sample=flow_n, causality_sample=0))):
+        if on:
+            base = make_runner(**off_kw)
+            base()                # warm-up
+            m_off = timed(base, device)
+            off = m_off["events"] / m_off["wall_s"]
+            row[f"{key}_overhead_pct"] = round(
+                (off - row["value"]) / off * 100.0, 2)
+            row[f"events_per_sec_{key}_off"] = round(off, 1)
+    print(json.dumps(row))
     return 0
+
+
+def recorder_blocks(runner, flow_n, caus_n) -> dict:
+    """bench.py's "flows" and "causality" row blocks of the timed run,
+    and a "lanes" block for a lane-isolated one (replicas, quarantined
+    lanes, the per-lane report)."""
+    from shadow_tpu_torch import telemetry
+
+    sim = runner.last_sim
+    out = {}
+    if getattr(sim, "lanes", None) is not None:
+        from shadow_tpu_torch.core.lanes import lane_report
+
+        rep = lane_report(sim)
+        out["lanes"] = {"replicas": len(rep),
+                        "quarantined": [d["lane"] for d in rep
+                                        if d["quarantined"]],
+                        "per_lane": rep}
+    if not (flow_n > 0 or caus_n > 0):
+        return out
+    h = getattr(runner, "harvester", None) or telemetry.Harvester()
+    h.drain(sim)
+    H = int(sim.events.num_hosts)
+    if flow_n > 0:
+        fb = telemetry.flows_manifest_block(h, num_hosts=H,
+                                            sample_period=flow_n)
+        out["flows"] = {k: fb[k] for k in
+                        ("sample_period", "sampled", "recorded",
+                         "harvested", "lost_ring", "lost_window_clamp",
+                         "per_lane")}
+    if caus_n > 0:
+        cb = telemetry.causality_manifest_block(h, num_hosts=H,
+                                                sample_period=caus_n)
+        out["causality"] = {k: cb[k] for k in
+                            ("sample_period", "sampled", "harvested",
+                             "lost_ring", "windows_attributed",
+                             "windows_lost", "causes") if k in cb}
+    return out
 
 
 if __name__ == "__main__":

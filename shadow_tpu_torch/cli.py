@@ -19,14 +19,18 @@ refills the staging lanes at every barrier, the whole-run path stages
 the whole trace up front; the report gains the `injection` block.
 `--trace-out`, `--metrics-out` and `--telemetry-capacity` attach the
 window ring and write `run_manifest.json` into the data directory, the
-Chrome trace and the Prometheus text.
+Chrome trace and the Prometheus text. `--flow-sample N` and
+`--causality-sample N` attach the flow and causality recorders (their
+manifest blocks, and trace groups with `--trace-out`).
+`--lane-isolation R` partitions the hosts into R lanes with lane-scoped
+health latches (core/lanes.py; the manifest's `lanes` block), and
+`--resident` adds the resident lease planes (its `admission` block).
 
 Flags whose mechanism the port does not have yet are refused by name
 (exit 2) with the ROADMAP.md Queue 1 item they wait for: `--workers` >
-1 (item 9); `--flow-*`, `--causality-*`, `--lane-isolation`,
-`--resident` (item 8); `--host-kernel`,
-`--host-time-scale`, `--track-paths`, `--cpu-threshold` and configs with
-logpcap (item 10); `--profile-dir`, which names jax.profiler. The
+1 (item 9); `--host-kernel`, `--host-time-scale`, `--track-paths`,
+`--cpu-threshold` and configs with logpcap (item 10); `--profile-dir`,
+which names jax.profiler. The
 `fleet` and `sweep` sub-commands wait for item 12. `--specialize` is
 accepted: the port runs the untrimmed program, which the reference's
 own contract makes bit-identical to the trimmed one (the trim is item
@@ -157,12 +161,33 @@ def make_parser() -> argparse.ArgumentParser:
                    help="telemetry ring capacity in window records "
                         "(default 4096); overruns are latched as a "
                         "health warning, never silently")
-    for flag in ("--flow-sample", "--causality-sample"):
-        p.add_argument(flag, type=int, default=0, metavar="N",
-                       help="refused: ROADMAP.md Queue 1 item 8")
-    for flag in ("--flow-capacity", "--causality-capacity"):
-        p.add_argument(flag, type=int, default=None,
-                       help="refused: ROADMAP.md Queue 1 item 8")
+    p.add_argument("--flow-sample", type=int, default=0, metavar="N",
+                   help="sample 1-in-N cross-host packets into the "
+                        "per-flow latency flight recorder "
+                        "(telemetry/flows.py): deterministic "
+                        "(time,dst,src,seq)-hash sampling, per-lane "
+                        "latency histograms and a cross-shard traffic "
+                        "matrix in the manifest. 0 (default) = off, "
+                        "byte-identical to builds without the recorder")
+    p.add_argument("--flow-capacity", type=int, default=None,
+                   help="flow ring capacity in sampled records "
+                        "(default 4096); window-clamp and overrun "
+                        "losses are accounted, never silent")
+    p.add_argument("--causality-sample", type=int, default=0, metavar="N",
+                   help="sample 1-in-N emitted events into the causal "
+                        "lineage recorder (telemetry/causality.py): "
+                        "parent/child event keys, window-advance "
+                        "attribution (which clamp decided every window "
+                        "end), top-K critical chains and a binding-"
+                        "cause histogram in the manifest, a critical-"
+                        "path track in --trace-out, and the input "
+                        "tools/critpath.py turns into a speed-of-light "
+                        "report. 0 (default) = off, byte-identical to "
+                        "builds without the recorder")
+    p.add_argument("--causality-capacity", type=int, default=None,
+                   help="per-host lineage sub-ring capacity in sampled "
+                        "events (default 64); overruns are accounted "
+                        "in the manifest, never silently")
     p.add_argument("--profile-dir", default=None, metavar="DIR",
                    help="refused: names jax.profiler (chip_smoke.py "
                         "--profile profiles the port)")
@@ -202,9 +227,29 @@ def make_parser() -> argparse.ArgumentParser:
                    help="consecutive zero-event windows before the "
                         "stall latch trips")
     p.add_argument("--lane-isolation", type=int, default=None,
-                   metavar="R", help="refused: ROADMAP.md Queue 1 item 8")
+                   metavar="R",
+                   help="partition the hosts into R contiguous lanes "
+                        "with lane-scoped health latches "
+                        "(core/lanes.py): a capacity trip quarantines "
+                        "only the tripped lane — its hosts freeze at "
+                        "the window barrier while healthy lanes run to "
+                        "completion (blast-radius containment for "
+                        "packed ensemble runs; supervised runs salvage "
+                        "the sick lane's slice from the last clean "
+                        "checkpoint). Lanes must not exchange traffic "
+                        "for healthy-lane bit-exactness; single-shard "
+                        "only (docs/6-robustness.md)")
     p.add_argument("--resident", action="store_true",
-                   help="refused: ROADMAP.md Queue 1 item 8")
+                   help="attach resident-admission lease planes to a "
+                        "lane-isolated run (requires --lane-isolation; "
+                        "core/lanes.py LaneAdmission): every lane "
+                        "boots with an open lease, barriers enforce "
+                        "free-lane flush + completion latching, and "
+                        "the manifest gains an 'admission' block. "
+                        "This is the static-population twin of the "
+                        "fleet's resident programs, whose lease table "
+                        "churns lanes at barriers (not ported: "
+                        "ROADMAP.md Queue 1 item 12)")
     p.add_argument("--auto-grow", action="store_true",
                    help="supervisor escalation: a fatal capacity "
                         "overflow doubles the tripped knob, rebuilds "
@@ -262,12 +307,6 @@ def refused_flags(args) -> list[str]:
     ROADMAP.md Queue 1 item."""
     checks = (
         ("--workers > 1", args.workers > 1, 9),
-        ("--flow-sample", args.flow_sample > 0, 8),
-        ("--flow-capacity", args.flow_capacity is not None, 8),
-        ("--causality-sample", args.causality_sample > 0, 8),
-        ("--causality-capacity", args.causality_capacity is not None, 8),
-        ("--lane-isolation", args.lane_isolation is not None, 8),
-        ("--resident", args.resident, 8),
         ("--host-kernel", args.host_kernel is not None, 10),
         ("--host-time-scale", args.host_time_scale != 0.05, 10),
         ("--track-paths", bool(args.track_paths), 10),
@@ -355,7 +394,9 @@ class _Telemetry:
                 else contextlib.nullcontext())
 
     def lost(self) -> int:
-        return 0 if self.harvester is None else self.harvester.records_lost
+        """Window and flow records overwritten before a drain."""
+        h = self.harvester
+        return 0 if h is None else h.records_lost + h.flow_lost
 
     def injection(self, sim):
         if self.feeder is None:
@@ -449,14 +490,72 @@ def _run(args, text, device, logger) -> int:
                     "sim_seconds": round(int(wend) / 1e9, 3),
                     "wall_seconds": round(time.time() - t0, 3)}))
 
-    # window telemetry: attach the ring BEFORE the run so the supervisor's
-    # resume template and the runners see the same state
-    if args.trace_out or args.metrics_out or args.telemetry_capacity:
-        from shadow_tpu_torch import telemetry
+    # lane-isolated health: attach BEFORE the telemetry ring, which
+    # sizes its per-lane fan-out planes off sim.lanes
+    if args.lane_isolation:
+        from shadow_tpu_torch.core import lanes as lanes_mod
 
+        try:
+            b.sim = lanes_mod.attach(b.sim, args.lane_isolation)
+        except ValueError as e:
+            print(f"error: --lane-isolation: {e}", file=sys.stderr)
+            return 1
+        logger.message(
+            0, "shadow-tpu",
+            f"lane isolation: {args.lane_isolation} lanes x "
+            f"{b.cfg.num_hosts // args.lane_isolation} hosts")
+        if args.resident:
+            # static-population resident planes: every lane admitted at
+            # t=0 with an open lease
+            b.sim = lanes_mod.admit_all(lanes_mod.attach_admission(b.sim))
+            logger.message(
+                0, "shadow-tpu",
+                f"resident admission: {args.lane_isolation} lanes "
+                f"admitted with open leases")
+    if args.resident and getattr(b.sim, "admission", None) is None:
+        logger.warning(0, "shadow-tpu",
+                       "--resident requires --lane-isolation (admission "
+                       "is lease bookkeeping over lanes); ignored")
+
+    # window telemetry and the recorders: attach BEFORE the run so the
+    # supervisor's resume template and the runners see the same state
+    from shadow_tpu_torch import telemetry
+
+    telem_on = bool(args.trace_out or args.metrics_out
+                    or args.telemetry_capacity)
+    flows_on = bool(args.flow_sample and args.flow_sample > 0)
+    caus_on = bool(args.causality_sample and args.causality_sample > 0)
+    if telem_on:
         b.sim = telemetry.attach(
             b.sim, capacity=args.telemetry_capacity
             or telemetry.DEFAULT_CAPACITY)
+    if flows_on:
+        from shadow_tpu_torch.telemetry import flows as flows_mod
+
+        cap = args.flow_capacity or flows_mod.DEFAULT_CAPACITY
+        try:
+            b.sim = telemetry.attach_flows(
+                b.sim, sample_period=args.flow_sample, capacity=cap)
+        except ValueError as e:
+            print(f"error: --flow-sample: {e}", file=sys.stderr)
+            return 1
+        logger.message(0, "shadow-tpu",
+                       f"flow tracing: 1-in-{args.flow_sample} packet "
+                       f"sampling, ring capacity {cap}")
+    if caus_on:
+        from shadow_tpu_torch.telemetry import causality as caus_mod
+
+        cap = args.causality_capacity or caus_mod.DEFAULT_CAPACITY
+        try:
+            b.sim = telemetry.attach_causality(
+                b.sim, sample_period=args.causality_sample, capacity=cap)
+        except ValueError as e:
+            print(f"error: --causality-sample: {e}", file=sys.stderr)
+            return 1
+        logger.message(0, "shadow-tpu",
+                       f"causality tracing: 1-in-{args.causality_sample} "
+                       f"event sampling, per-host lineage capacity {cap}")
+    if telem_on or flows_on or caus_on:
         tel.harvester = telemetry.Harvester()
         tel.timers = telemetry.PhaseTimers()
 
@@ -620,17 +719,40 @@ def _export(args, b, sim, stats, health, tel, sup_result=None, *,
                  "resume_of": sup_result.resume_of,
                  "escalations": sup_result.escalations,
                  "dispatch": disp}
+    from shadow_tpu_torch.telemetry.causality import (
+        causality_manifest_block,
+    )
+    from shadow_tpu_torch.telemetry.export import (
+        admission_manifest_block,
+        lanes_manifest_block,
+    )
+    from shadow_tpu_torch.telemetry.flows import flows_manifest_block
+
+    h = tel.harvester
+    caus_blk = causality_manifest_block(
+        h, num_hosts=b.cfg.num_hosts, shards=1,
+        sample_period=args.causality_sample or None)
     man = telemetry.run_manifest(
         cfg=b.cfg, seed=args.seed, shards=1, sim=sim, stats=stats,
-        health=health, fault_plan=b.fault_plan, harvester=tel.harvester,
+        health=health, fault_plan=b.fault_plan, harvester=h,
         timers=tel.timers, wall_seconds=wall, preempted=preempted,
-        injection=tel.injection(sim), **extra)
+        injection=tel.injection(sim),
+        lanes=lanes_manifest_block(
+            health, sup_result.lane_incidents
+            if sup_result is not None else ()),
+        flows=flows_manifest_block(
+            h, num_hosts=b.cfg.num_hosts, shards=1,
+            sample_period=args.flow_sample or None),
+        admission=admission_manifest_block(health),
+        causality=caus_blk, **extra)
     os.makedirs(args.data_directory, exist_ok=True)
     telemetry.write_manifest(
         os.path.join(args.data_directory, "run_manifest.json"), man)
     if args.trace_out:
-        telemetry.write_trace(args.trace_out, tel.harvester.records,
-                              tel.timers, 1)
+        telemetry.write_trace(args.trace_out, h.records, tel.timers, 1,
+                              flow_records=h.flow_records,
+                              adv_records=h.adv_records or None,
+                              chains=(caus_blk or {}).get("chains"))
     if args.metrics_out:
         telemetry.write_metrics(args.metrics_out, man)
     return man

@@ -6,9 +6,10 @@ width S, and scatter the results back. The row rule is the
 reference's: a leaf whose leading dimension is the host dimension is
 gathered; the replicated lookup tables of NetState
 (net.state.REPLICATED_FIELDS), the whole-sim subtrees (the telemetry
-ring and the injection staging buffer; lanes, which the port does not
-implement) and scalars pass through whole. The port's state has no pytree, so the
-Sim's dataclasses are walked field by field, by name.
+ring, the injection staging buffer, the lane and admission planes, the
+flow ring and the causality advance plane) and scalars pass through
+whole; the lineage sub-rings gather by host row. The port's state has
+no pytree, so the Sim's dataclasses are walked field by field, by name.
 
 Bit-identity: the gathered indices are DISTINCT real rows (a stable
 partition of the activity mask, actives first in ascending row order),
@@ -24,6 +25,8 @@ import dataclasses
 
 import torch
 
+from shadow_tpu_torch.core.events import is_static
+
 I32 = torch.int32
 
 
@@ -31,7 +34,11 @@ def _replicated(names: tuple) -> bool:
     # Lazy import: core must not depend on net at module load.
     from shadow_tpu_torch.net.state import REPLICATED_FIELDS
 
-    if names[0] in ("telem", "inject"):
+    if names[0] in ("telem", "inject", "lanes", "flows", "admission"):
+        return True
+    # the causality advance plane's [W] leaves are window slots; its
+    # [H, F] lineage sub-rings and [H] counters are host rows
+    if names[0] == "causality" and names[-1].startswith("adv_"):
         return True
     return (len(names) > 1 and names[-2] == "net"
             and names[-1] in REPLICATED_FIELDS)
@@ -43,7 +50,7 @@ def _map(fn, obj, other=None, names=()):
     kw = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
-        if v is None:
+        if v is None or is_static(f):
             continue
         o = None if other is None else getattr(other, f.name)
         path = names + (f.name,)

@@ -15,7 +15,8 @@ which handler families run), and per window the sparse fast path's
 active-row count (when armed), the route's two reads (core/events.py),
 the injection merge's insert decision (with a staging buffer) and the
 next window start; a chunk reads the injection horizon once. The bulk
-pass and the telemetry record read nothing back.
+pass, the telemetry record, the flow and lineage recorders and the lane
+barrier read nothing back.
 """
 
 from __future__ import annotations
@@ -132,6 +133,14 @@ def window_fixpoint(sim, stats: EngineStats, step_fn: StepFn, wend: int,
     buf0 = EmitBuffer.create(sim.events.num_hosts, emit_capacity,
                              nwords=sim.events.words.shape[-1],
                              device=sim.events.time.device)
+    if sim.events.overflow_h is not None:
+        # lane isolation (core/lanes.py): emission overflow carries
+        # per-host attribution too, or the queue plane would drift
+        # from the scalar latch at apply_emissions
+        buf0 = buf0.replace(overflow_h=torch.zeros(
+            (sim.events.num_hosts,), dtype=I32,
+            device=sim.events.time.device))
+    tracing = getattr(sim, "causality", None) is not None
     n_ev = n_ms = 0
     while True:
         q, popped = pop_earliest(sim.events, wend)
@@ -141,6 +150,12 @@ def window_fixpoint(sim, stats: EngineStats, step_fn: StepFn, wend: int,
             break
         sim = sim.replace(events=q)
         sim, buf = step_fn(sim, popped, buf0, kinds=kinds)
+        if tracing:
+            # the lineage recorder must see the PRE-apply next_seq, so
+            # each emission hashes with the seq apply_emissions assigns
+            from shadow_tpu_torch.telemetry.causality import lineage_update
+
+            sim = lineage_update(sim, popped, buf, lane_id)
         q, out = apply_emissions(sim.events, sim.outbox, buf, lane_id)
         sim = sim.replace(events=q, outbox=out)
         n_ev += n
@@ -153,7 +168,8 @@ def window_fixpoint(sim, stats: EngineStats, step_fn: StepFn, wend: int,
 def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
                 emit_capacity: int = 4, lane_id=None, bulk_fn=None,
                 telem_fn=None, wstart: int | None = None,
-                sparse_lanes: int = 0, fault_fn=None):
+                sparse_lanes: int = 0, fault_fn=None, flow_fn=None,
+                adv_attr=None):
     """One full round: drain the window, then route cross-host events
     staged in the outbox into destination queues. Returns (sim, stats,
     next window start as a host int: the global minimum pending time,
@@ -188,7 +204,17 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
     the bulk/census passes, so an injected event inside the window
     drains exactly like one an application scheduled; the window's
     (injected, dropped, deferred) deltas go to the ring, and the staged
-    minimum joins the next window start."""
+    minimum joins the next window start.
+
+    `flow_fn` (telemetry.flows.make_flow_fn) samples the staged outbox
+    after the ring and before the route. `adv_attr` — a (cause, edge_a,
+    edge_b, raw_jump) tuple of host ints from a window-end rule's
+    `.explain` — latches the window's advance attribution into
+    Sim.causality (telemetry/causality.py advance_latch) with the
+    window's active-row census; None, and always without causality,
+    latches nothing. A lane-isolated Sim (core/lanes.py) runs the lane
+    barrier after the route: its deliveries are attributed, and a
+    frozen lane stops holding the next window start back."""
     ev0, ms0 = stats.events_processed, stats.micro_steps
     inject_deltas = None
     if getattr(sim, "inject", None) is not None:
@@ -204,11 +230,13 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
         stats = stats.replace(
             events_processed=stats.events_processed + n_bulk)
 
+    if adv_attr is not None and getattr(sim, "causality", None) is None:
+        adv_attr = None
     S = int(sparse_lanes or 0)
     recording = telem_fn is not None and getattr(sim, "telem", None) \
         is not None
     n_active = None
-    if S > 0 or recording:
+    if S > 0 or recording or adv_attr is not None:
         active = sim.events.min_time() < wend
         n_active = active.sum(dtype=I32)
     fastpath = False
@@ -236,8 +264,19 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
                        stats.events_processed - ev0,
                        stats.micro_steps - ms0, n_active, fastpath,
                        inject_deltas=inject_deltas)
+    w0 = wend if wstart is None else wstart
+    if flow_fn is not None:
+        sim = flow_fn(sim, w0, wend)
+    if adv_attr is not None:
+        from shadow_tpu_torch.telemetry.causality import advance_latch
+
+        sim = advance_latch(sim, w0, wend, *adv_attr, n_active)
     q, out = route_outbox(sim.events, sim.outbox)
     sim = sim.replace(events=q, outbox=out)
+    if getattr(sim, "lanes", None) is not None:
+        from shadow_tpu_torch.core.lanes import window_update
+
+        sim = window_update(sim, wend)
     stats = stats.replace(windows=stats.windows + 1)
     return sim, stats, int(global_min_time(sim))
 
@@ -376,7 +415,7 @@ def make_wend_fn(*, min_jump: int, end_time: int,
 def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
                     chunk_windows: int, emit_capacity: int = 4,
                     lane_fn=None, bulk_fn=None, telem_fn=None,
-                    sparse_lanes: int = 0, fault_fn=None):
+                    sparse_lanes: int = 0, fault_fn=None, flow_fn=None):
     """Build ``chunk(sim, stats, wstart) -> (sim, stats, wstart')``: up
     to `chunk_windows` step_window rounds while ``wstart <= end_time``,
     each ending at ``wend_fn(sim, wstart)`` (make_wend_fn) — the
@@ -396,29 +435,40 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
     staged) and stops the chunk at a window that would start there, so
     no event merges late; the host refills and dispatches again. The
     horizon is read to the host once per chunk (only the feeder writes
-    it, between chunks); INVALID never binds."""
+    it, between chunks); INVALID never binds.
+
+    A Sim carrying `causality` takes each window's end from
+    ``wend_fn.explain`` (the same wend, the horizon clamp included) and
+    latches its attribution. `flow_fn` is step_window's."""
     if int(chunk_windows) < 1:
         raise ValueError(
             f"chunk_windows must be >= 1, got {chunk_windows}")
     end = int(end_time)
     K = int(chunk_windows)
 
+    explain = getattr(wend_fn, "explain", None)
+
     def chunk(sim, stats, wstart):
-        if getattr(sim, "causality", None) is not None:
-            raise NotImplementedError(
-                "shadow_tpu_torch: a Sim carrying 'causality' is not "
-                "ported yet (ROADMAP.md Queue 1 item 8)")
         wstart = int(wstart)
         lane = None if lane_fn is None else lane_fn(sim)
         st = getattr(sim, "inject", None)
         horizon = simtime.INVALID if st is None else int(st.horizon)
+        tracing = (getattr(sim, "causality", None) is not None
+                   and explain is not None)
         i = 0
         while i < K and wstart <= end and wstart < horizon:
-            wend = min(wend_fn(sim, wstart), horizon)
+            adv = None
+            if tracing:
+                # explain applies the horizon clamp and its cause
+                wend, cause, edge_a, edge_b, raw = explain(sim, wstart)
+                adv = (cause, edge_a, edge_b, raw)
+            else:
+                wend = min(wend_fn(sim, wstart), horizon)
             sim, stats, wstart = step_window(
                 sim, stats, step_fn, wend, emit_capacity,
                 lane, bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,
-                sparse_lanes=sparse_lanes, fault_fn=fault_fn)
+                sparse_lanes=sparse_lanes, fault_fn=fault_fn,
+                flow_fn=flow_fn, adv_attr=adv)
             i += 1
         return sim, stats, wstart
 
@@ -428,7 +478,7 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
 def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
         start_time: int = 0, emit_capacity: int = 4, lane_id=None,
         bulk_fn=None, telem_fn=None, sparse_lanes: int = 0,
-        fault_times=None, fault_fn=None):
+        fault_times=None, fault_fn=None, flow_fn=None):
     """Run the whole simulation. Window advance rule is the
     reference's: newStart = minNextEventTime, newEnd = newStart +
     minJump, clamped to end_time + 1 (ref: master.c:450-480). The first
@@ -439,7 +489,17 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
     A Sim carrying an injection staging buffer must hold the whole
     trace (inject.Feeder.fill_all: the run never returns to the host to
     refill); its staged minimum joins the first-window rule, so a
-    trace-only run (empty queue) still starts."""
+    trace-only run (empty queue) still starts.
+
+    A Sim carrying `causality` latches every window's attribution by
+    the static rule of make_wend_fn's explain (floor, record, end; the
+    raw jump is the floored min_jump), as the reference's whole-run
+    program does. `flow_fn` is step_window's."""
+    from shadow_tpu_torch.telemetry.causality import (
+        CAUSE_END_TIME,
+        CAUSE_FAULT_RECORD,
+        CAUSE_MIN_JUMP,
+    )
     if min_jump <= 0:
         raise ValueError(f"min_jump must be positive, got {min_jump}")
     end_time = int(end_time)
@@ -448,9 +508,15 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
     stats = EngineStats.create(device=sim.events.time.device)
     wstart = max(int(global_min_time(sim)), int(start_time))
     while wstart <= end_time:
-        wend = min(wstart + jump, end_time + 1, _next_record(ft, wstart))
+        wend, cause = wstart + jump, CAUSE_MIN_JUMP
+        nxt = _next_record(ft, wstart)
+        if nxt < wend:
+            cause, wend = CAUSE_FAULT_RECORD, nxt
+        if end_time + 1 < wend:
+            cause, wend = CAUSE_END_TIME, end_time + 1
         sim, stats, wstart = step_window(
             sim, stats, step_fn, wend, emit_capacity, lane_id,
             bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,
-            sparse_lanes=sparse_lanes, fault_fn=fault_fn)
+            sparse_lanes=sparse_lanes, fault_fn=fault_fn,
+            flow_fn=flow_fn, adv_attr=(cause, -1, -1, jump))
     return sim, stats

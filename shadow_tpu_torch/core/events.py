@@ -45,6 +45,18 @@ class _Replace:
         return dataclasses.replace(self, **kw)
 
 
+def static(default):
+    """A dataclass field that is configuration, not state (the
+    reference's struct.field(pytree_node=False)): it holds no tensor,
+    is no leaf of the flax field-path tree (convert.py), and compaction
+    passes it through."""
+    return dataclasses.field(default=default, metadata={"static": True})
+
+
+def is_static(f: dataclasses.Field) -> bool:
+    return bool(f.metadata.get("static"))
+
+
 def fit_words(words: torch.Tensor, width: int) -> torch.Tensor:
     """Pad (zeros) or slice the trailing word dim to `width`. Slicing
     is only sound when the dropped columns are zero (narrow queues

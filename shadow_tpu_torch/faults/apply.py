@@ -234,12 +234,16 @@ def make_fault_fn(plan: FaultPlan, boot_sim):
             return dataclasses.replace(cur, **upd)
 
         def crash_reset(sim, down):
-            if getattr(sim, "admission", None) is not None:
-                raise NotImplementedError(
-                    "shadow_tpu_torch: a crash reset on a resident-lane "
-                    "Sim (admission) needs core/lanes.py (ROADMAP.md "
-                    "Queue 1 item 8)")
             q = sim.events
+            adm = getattr(sim, "admission", None)
+            if adm is not None:
+                # resident program: a crash or restart in a FREE lane
+                # is a no-op (restoring boot rows would resurrect a
+                # lane the lease table returned to the pool); the
+                # admission planes ride untouched, like rq_overflow_h
+                from shadow_tpu_torch.core.lanes import host_mask
+
+                down = down & host_mask(adm.active, q.time.shape[0])
             spare = ((q.kind == EventKind.PROC_START)
                      | (q.kind == EventKind.FAULT_WAKEUP))
             keep = ~down[:, None] | spare

@@ -310,5 +310,6 @@ def transplant(leaves: dict, meta: dict, template_sim):
         canvas = np.full(shape, _fill_for(key), dtype=dtype)
         canvas[tuple(slice(0, s) for s in arr.shape)] = arr
         out[key] = canvas
-    sim = convert.sim_from_numpy(out, device=template_sim.events.time.device)
+    sim = convert.sim_from_numpy(out, device=template_sim.events.time.device,
+                                 template=template_sim)
     return sim, meta["time_ns"], meta.get("extra", {})

@@ -13,9 +13,11 @@ next start preceded the current window's *start*).
 Those five are fatal: state is corrupt or the clock is broken; the
 diagnostics name the knob to grow. Outbox.narrow_miss is a warning
 (perf only). RunHealth is the reference's, field for field, so a
-failure report reads the same from either package; the lane,
-admission, guard and sentinel parts stay zero or empty here, and
-gather() refuses a Sim that carries one of those layers.
+failure report reads the same from either package. gather() reads the
+lane and admission planes (core/lanes.py): a capacity trip attributed to
+quarantined lanes only is CONTAINED — a warning, not fatal, while a
+healthy lane remains. The guard and sentinel parts stay zero or empty
+here, and gather() refuses a Sim that carries one of those layers.
 """
 
 from __future__ import annotations
@@ -316,8 +318,7 @@ class RunHealth:
 
 # Sim layers whose health reports the port does not read yet, and the
 # ROADMAP.md Queue 1 item that ports each.
-_UNPORTED_LAYERS = {"lanes": 8, "admission": 8, "guard": 11,
-                    "sentinel": 9}
+_UNPORTED_LAYERS = {"guard": 11, "sentinel": 9}
 
 
 def gather(sim, *, window_start=None, stalled_windows=0, stall_limit=0,
@@ -326,8 +327,9 @@ def gather(sim, *, window_start=None, stalled_windows=0, stall_limit=0,
     """Pull the device latches into a RunHealth: one host read of the
     four scalars (six with an injection staging buffer: its dropped and
     late counters), plus the queue's fill counts only when it
-    overflowed. Raises NotImplementedError for a Sim carrying lanes,
-    admission, a specialization guard or a sentinel."""
+    overflowed, and the lane and admission reports when the Sim
+    carries them. Raises NotImplementedError for a Sim carrying a
+    specialization guard or a sentinel."""
     for name, item in _UNPORTED_LAYERS.items():
         if getattr(sim, name, None) is not None:
             raise NotImplementedError(
@@ -347,7 +349,31 @@ def gather(sim, *, window_start=None, stalled_windows=0, stall_limit=0,
         full = torch.nonzero(fill >= sim.events.capacity).flatten()
         lane = sim.net.lane_id[full[:max_suspects]].tolist()
         suspects = tuple(int(h) for h in lane)
+    lanes_total, lane_rep, quar, contained = 0, (), (), False
+    if getattr(sim, "lanes", None) is not None:
+        from shadow_tpu_torch.core.lanes import lane_report
+
+        lane_rep = tuple(lane_report(sim))
+        lanes_total = len(lane_rep)
+        quar = tuple(d["lane"] for d in lane_rep if d["quarantined"])
+        # contained: no un-quarantined lane carries a latched trip
+        contained = not any(
+            d["events_overflow"] or d["outbox_overflow"]
+            or d["rq_overflow"] or d["time_regression"]
+            for d in lane_rep if not d["quarantined"])
+    resident, adm_rep = False, ()
+    if getattr(sim, "admission", None) is not None:
+        from shadow_tpu_torch.core.lanes import admission_report
+
+        resident = True
+        adm_rep = tuple(admission_report(sim))
     return RunHealth(
+        lanes_total=lanes_total,
+        lanes=lane_rep,
+        lanes_quarantined=quar,
+        lane_contained=contained,
+        resident=resident,
+        admission=adm_rep,
         events_overflow=int(ev),
         outbox_overflow=int(ob),
         rq_overflow=int(rq),

@@ -32,10 +32,16 @@ latch scalars, one host read each.
 (checkpoint.run_windows); its trace warnings reach the health report,
 and a resume re-syncs it from the snapshot's staging planes.
 
+Lane-isolated runs (core/lanes.py): a CONTAINED lane quarantine is not
+fatal (faults/health.py), so the run goes on while the supervisor
+performs lane surgery at the detecting barrier — the sick lane's slice
+of the last clean snapshot (faults/escalate.py extract_lane) becomes a
+salvage artifact beside the checkpoints, and `on_lane_quarantine`
+(called with one LaneIncident) fires once per lane, chain-wide.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
 Queue 1 item): `mesh`, `exchange_capacity`, `elastic`, `dispatch_wrap`
-and `on_mesh_change` (item 9), `on_lane_quarantine` (item 8),
-`warm_start` (item 11).
+and `on_mesh_change` (item 9), `warm_start` (item 11).
 """
 
 from __future__ import annotations
@@ -87,6 +93,33 @@ class DeadlineExceeded(Preempted):
         self.elapsed_s = elapsed_s
 
 
+@dataclasses.dataclass(frozen=True)
+class LaneIncident:
+    """One quarantined lane, detected at a chunk barrier of a packed
+    (lane-isolated) run. Carries the blast-radius evidence plus the
+    requeue context the fleet consumes (fleet/scenario.py packed
+    jobs): which capacity knobs the trip bits say to regrow, and
+    where the lane's salvage slice landed."""
+
+    lane: int
+    time_ns: int          # window barrier the device quarantined at
+    detected_ns: int      # chunk barrier the host noticed it at
+    trip_bits: int
+    trip: tuple           # TRIP_* names (core.lanes.trip_names)
+    flushed: int          # pending events flushed when frozen
+    salvage: Optional[str] = None       # lane-surgery artifact path
+    salvaged_from: Optional[str] = None  # snapshot the slice came from
+    regrow: dict = dataclasses.field(default_factory=dict)
+
+    def as_dict(self) -> dict:
+        return {"lane": self.lane, "time_ns": self.time_ns,
+                "detected_ns": self.detected_ns,
+                "trip_bits": self.trip_bits, "trip": list(self.trip),
+                "flushed": self.flushed, "salvage": self.salvage,
+                "salvaged_from": self.salvaged_from,
+                "regrow": dict(self.regrow)}
+
+
 @dataclasses.dataclass
 class SupervisorResult:
     ok: bool
@@ -109,6 +142,9 @@ class SupervisorResult:
     # (sum == stats.windows for a clean single-attempt run)
     dispatches: int = 0
     dispatch_windows: tuple = ()
+    # lane-isolated runs: every lane quarantined across the chain, with
+    # salvage pointers
+    lane_incidents: tuple = ()
 
     def failure_report(self) -> dict:
         rep = self.health.failure_report() if self.health is not None \
@@ -119,6 +155,9 @@ class SupervisorResult:
         rep["escalation_restarts"] = self.escalation_restarts
         if self.escalations:
             rep["escalations"] = [e.as_dict() for e in self.escalations]
+        if self.lane_incidents:
+            rep["lane_incidents"] = [i.as_dict()
+                                     for i in self.lane_incidents]
         if self.preempted:
             rep["verdict"] = "preempted"
             rep["final_checkpoint"] = self.final_checkpoint
@@ -170,14 +209,15 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
     knobs) select the chunked loop: the barrier — health latches,
     harvest, checkpoint cadence, stop/deadline polls, on_round — runs
     once per chunk on its aggregate stats. Streak and checkpoint
-    cadences count executed windows, quantized up to a chunk boundary."""
+    cadences count executed windows, quantized up to a chunk boundary.
+    `on_lane_quarantine(incident)` is the lane-surgery hook (module
+    doc)."""
     from shadow_tpu_torch.core.engine import EngineStats
     from shadow_tpu_torch.net.build import refuse_unported
 
     refuse_unported(mesh=(mesh, 9), exchange_capacity=(exchange_capacity, 9),
                     elastic=(elastic, 9), dispatch_wrap=(dispatch_wrap, 9),
                     on_mesh_change=(on_mesh_change, 9),
-                    on_lane_quarantine=(on_lane_quarantine, 8),
                     warm_start=(warm_start, 11))
 
     def say(msg):
@@ -200,6 +240,8 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
     resumed_from = None
     resume_of = None
     base_stats = {}                    # chain totals at the resume point
+    lane_incidents: list = []          # chain-wide, one per lane
+    lanes_seen: set = set()            # lanes already surgeried
 
     if resume_from is not None:
         leaves, meta = ckpt.load_leaves(resume_from)
@@ -220,6 +262,62 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
         return {"stats": stats, "run_id": run_id,
                 "escalations": [e.as_dict() for e in escalations]}
 
+    def _lane_surgery(h, detected_ns):
+        """Record newly quarantined lanes (once per lane, chain-wide)
+        and cut each lane's slice out of the last clean snapshot —
+        every snapshot predates the trip (health precedes every save),
+        so the salvage is the lane's best pre-corruption evidence."""
+        if not h.lanes_total:
+            return
+        caps = ckpt.capacities_of_sim(bundle.sim)
+        # resident programs (core/lanes.LaneAdmission): a lane with no
+        # live lease holds no tenant — there is nothing to salvage or
+        # requeue, and the lease table (fleet/admission.py) owns the
+        # lane's lifecycle; raising an incident for it would fabricate
+        # a tenant failure out of an empty vessel
+        inactive = {d["lane"] for d in getattr(h, "admission", ())
+                    if not d.get("active")}
+        for d in h.lanes:
+            if not d.get("quarantined") or d["lane"] in lanes_seen:
+                continue
+            if d["lane"] in inactive:
+                lanes_seen.add(d["lane"])
+                continue
+            lanes_seen.add(d["lane"])
+            bits = int(d.get("trip_bits", 0))
+            salvage, src = None, None
+            if total_saved:
+                src = total_saved[-1][0]
+                try:
+                    leaves, meta = ckpt.load_leaves(src)
+                    ll, lm = escalate_mod.extract_lane(
+                        leaves, meta, d["lane"], h.lanes_total)
+                    lm["trip_bits"] = bits
+                    lm["trip"] = list(d.get("trip", []))
+                    lm["quarantined_at_ns"] = d.get("quarantined_at_ns")
+                    salvage = ckpt.save_salvage(
+                        f"{checkpoint_path}.lane{d['lane']}.salvage",
+                        ll, lm)
+                except (OSError, ValueError, KeyError) as e:
+                    say(f"supervisor: lane {d['lane']} salvage "
+                        f"failed: {e}")
+            inc = LaneIncident(
+                lane=int(d["lane"]),
+                time_ns=int(d.get("quarantined_at_ns") or 0),
+                detected_ns=int(detected_ns), trip_bits=bits,
+                trip=tuple(d.get("trip", ())),
+                flushed=int(d.get("flushed", 0)),
+                salvage=salvage, salvaged_from=src,
+                regrow=escalate_mod.plan_lane_regrow(bits, caps))
+            lane_incidents.append(inc)
+            say(f"supervisor: lane {inc.lane} quarantined at "
+                f"t={inc.time_ns} (trip={list(inc.trip)}), "
+                f"{inc.flushed} event(s) flushed"
+                + (f"; salvage {salvage}" if salvage
+                   else "; no snapshot to salvage"))
+            if on_lane_quarantine is not None:
+                on_lane_quarantine(inc)
+
     def _save(sim, t, acc):
         p = ckpt.save(f"{checkpoint_path}.{t}", sim, time_ns=t,
                       config_digest=config_digest, extra=_ckpt_extra(acc))
@@ -239,7 +337,10 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                 stalled_windows=tele["worst_streak"],
                 stall_limit=stall_windows,
                 time_regression=tele["regressed"],
+                # flow-ring overruns ride the same observability
+                # warning: results exact, the recorder has gaps
                 telemetry_lost=(harvester.records_lost
+                                + harvester.flow_lost
                                 if harvester is not None else 0),
                 trace_warnings=tuple(
                     getattr(feeder, "warnings", ()) or ()))
@@ -265,6 +366,9 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
             if harvester is not None:
                 harvester.drain(sim)
             h = _gather(sim)
+            # lane surgery BEFORE the fatal check: even the
+            # all-lanes-quarantined abort leaves salvage behind
+            _lane_surgery(h, wend)
             if h.fatal:
                 # before the user hooks: a tripped round's state is
                 # corrupt and will be replayed after the heal
@@ -303,7 +407,8 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                 escalations=tuple(escalations),
                 run_id=run_id, resume_of=resume_of,
                 dispatches=len(tele["dispatch_windows"]),
-                dispatch_windows=tuple(tele["dispatch_windows"]), **kw)
+                dispatch_windows=tuple(tele["dispatch_windows"]),
+                lane_incidents=tuple(lane_incidents), **kw)
 
         def _chain_stats(sim):
             return EngineStats.from_dict(_ckpt_extra(tele["acc"])["stats"],
@@ -322,6 +427,7 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
             if harvester is not None:
                 harvester.drain(sim)
             h = _gather(sim)
+            _lane_surgery(h, tele["wstart"] or 0)
             if h.fatal:
                 raise LatchTrip(h, sim)
             return _result(True, sim, h, stats=stats)
@@ -359,7 +465,18 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                         harvester.mark_escalation(ev)
                 old_telem = getattr(bundle.sim, "telem", None)
                 old_inject = getattr(bundle.sim, "inject", None)
+                old_lanes = getattr(bundle.sim, "lanes", None)
                 bundle = rebuild_fn(grow)
+                if old_lanes is not None:
+                    # lane isolation at the grown shapes FIRST (the ring
+                    # sizes its per-lane planes off sim.lanes), so the
+                    # transplant finds the .lanes and overflow-plane
+                    # leaves and containment survives the heal
+                    from shadow_tpu_torch.core import lanes as lanes_mod
+
+                    bundle.sim = lanes_mod.attach(
+                        bundle.sim, old_lanes.replicas,
+                        stall_limit=old_lanes.stall_limit)
                 if old_telem is not None:
                     # the ring at the grown shapes, so the transplant
                     # finds the snapshot's .telem leaves

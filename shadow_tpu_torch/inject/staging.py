@@ -37,8 +37,10 @@ it, which is what keeps `late` at zero under streaming.
 
 The merge is plain torch (a masked select and one insert_flat, whose
 select sweep is the mailbox_gather kernel), as the reference's is plain
-jnp inside the window body. The reference's per-lane drop diversion
-(lane isolation) is not ported: a Sim carrying lanes is refused.
+jnp inside the window body. On a lane-isolated Sim the merge's
+row-full drops are diverted per host too: the queue's attribution plane
+is restored (it keeps matching the scalar latch) and the drops land on
+the lanes' `inj_dropped` counter.
 """
 
 from __future__ import annotations
@@ -151,12 +153,6 @@ def merge_staged(sim, wstart: int, wend: int, lane_id=None):
     order within a row follows lane order == seq order (insert_flat's
     caller-order contract), and the queue seq SEQ_BASE + trace position
     makes the (time, src, seq) order independent of chunk size."""
-    if getattr(sim, "lanes", None) is not None \
-            or sim.events.overflow_h is not None:
-        raise NotImplementedError(
-            "shadow_tpu_torch: the injection merge's per-lane drop "
-            "diversion (lane isolation) is not ported yet (ROADMAP.md "
-            "Queue 1 item 8)")
     st = sim.inject
     pend = (st.time != simtime.INVALID) & (st.seq >= st.seq_floor)
     take = pend & (st.time < wend)
@@ -167,7 +163,7 @@ def merge_staged(sim, wstart: int, wend: int, lane_id=None):
     row = st.host if lane_id is None else st.host - lane_id[0].to(I32)
     local = take & (row >= 0) & (row < H)
 
-    ov0 = sim.events.overflow
+    ov0, ov0_h = sim.events.overflow, sim.events.overflow_h
     q = insert_flat(
         sim.events, local, row.to(I32), t_ins, st.kind, st.host,
         (SEQ_BASE + st.seq % SEQ_BASE).to(I32), st.words)
@@ -175,6 +171,18 @@ def merge_staged(sim, wstart: int, wend: int, lane_id=None):
     # sticky counter (a health WARNING), not the fatal engine latch
     drop_w = (q.overflow - ov0).to(I64)
     q = q.replace(overflow=ov0)
+    if ov0_h is not None:
+        # the same diversion on the per-host plane (lane isolation):
+        # the merge's per-row drops go to the per-lane injection
+        # counter, and the plane is restored to match the scalar
+        drop_h = (q.overflow_h - ov0_h).to(I64)
+        q = q.replace(overflow_h=ov0_h)
+        if getattr(sim, "lanes", None) is not None:
+            from shadow_tpu_torch.core.lanes import lane_sum
+
+            sim = sim.replace(lanes=sim.lanes.replace(
+                inj_dropped=sim.lanes.inj_dropped
+                + lane_sum(drop_h, sim.lanes.replicas)))
 
     inj_w = local.sum(dtype=I64) - drop_w
     late_w = (late & local).sum(dtype=I64)

@@ -49,6 +49,7 @@ from shadow_tpu_torch.net.tcp_bulk import make_tcp_bulk_fn
 from shadow_tpu_torch.routing.dns import DNS
 from shadow_tpu_torch.routing.graphml import parse_graphml
 from shadow_tpu_torch.routing.topology import Topology
+from shadow_tpu_torch.telemetry.flows import make_flow_fn
 from shadow_tpu_torch.telemetry.ring import make_telem_fn
 
 
@@ -336,8 +337,10 @@ def make_runner(bundle: SimBundle, app_handlers=(),
     window pass, narrowed to
     its loss-free model by `tcp_bulk_lossless`. The sparse fast path
     runs at the config's resolved budget
-    (core/engine.resolve_sparse_lanes), and a telemetry ring attached
-    to the input sim (telemetry.attach) records every window. The
+    (core/engine.resolve_sparse_lanes), and a telemetry ring, flow ring
+    or causality planes attached to the input sim (telemetry.attach,
+    attach_flows, attach_causality) record every window; a lane-isolated
+    sim (core.lanes.attach) runs the lane barrier. The
     bundle's installed fault plan (faults.install) applies at every
     window boundary unless an explicit `fault_fn` replaces it.
 
@@ -350,6 +353,7 @@ def make_runner(bundle: SimBundle, app_handlers=(),
     bulk_fn = _resolve_bulk_fn(bundle, app_bulk, app_tcp_bulk,
                                tcp_bulk_lossless)
     telem_fn = make_telem_fn()
+    flow_fn = make_flow_fn()
     sparse = resolve_sparse_lanes(bundle.cfg)
     fault_fn = _resolve_fault_fn(bundle, fault_fn)
 
@@ -360,7 +364,7 @@ def make_runner(bundle: SimBundle, app_handlers=(),
             emit_capacity=bundle.cfg.emit_capacity,
             lane_id=sim.net.lane_id, bulk_fn=go.bulk_fn, telem_fn=telem_fn,
             sparse_lanes=sparse, fault_times=plan_times(bundle),
-            fault_fn=fault_fn)
+            fault_fn=fault_fn, flow_fn=flow_fn)
 
     go.bulk_fn = bulk_fn
     return go
@@ -403,7 +407,8 @@ def make_chunked_runner(bundle: SimBundle, app_handlers=(),
         emit_capacity=bundle.cfg.emit_capacity,
         lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
         telem_fn=make_telem_fn(),
-        sparse_lanes=resolve_sparse_lanes(bundle.cfg), fault_fn=fault_fn)
+        sparse_lanes=resolve_sparse_lanes(bundle.cfg), fault_fn=fault_fn,
+        flow_fn=make_flow_fn())
 
     def go(sim):
         _check_sim_device(sim, dev)

@@ -391,12 +391,15 @@ class Sim(_Replace):
     net: NetState
     app: Any = None
     # Opt-in layers of the reference. None contributes no leaf, as in
-    # the reference. The TCP sockets' state (net/tcp.py TcpState, set
-    # when cfg.tcp), the window telemetry ring (telemetry/ring.py
-    # attach) and the injection staging buffer (inject/staging.py,
-    # cfg.inject_lanes) are ported; the others (lanes, flows,
-    # admission, causality, guard, sentinel) are not yet (ROADMAP.md)
-    # and stay None.
+    # the reference. Ported: the TCP sockets' state (net/tcp.py
+    # TcpState, set when cfg.tcp), the window telemetry ring
+    # (telemetry/ring.py attach), the injection staging buffer
+    # (inject/staging.py, cfg.inject_lanes), the lane health planes and
+    # the resident lease planes (core/lanes.py attach,
+    # attach_admission), the flow ring (telemetry/flows.py attach_flows)
+    # and the causality planes (telemetry/causality.py
+    # attach_causality). Not yet (ROADMAP.md): guard (item 11) and
+    # sentinel (item 9), which stay None.
     tcp: Any = None
     telem: Any = None
     inject: Any = None

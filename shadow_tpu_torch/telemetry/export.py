@@ -13,15 +13,12 @@ Three host-side views over the harvested ring + phase timers:
   as gauges/counters — scrape-file style for dashboards.
 - run_manifest(): the run's identity + outcome in one JSON object:
   config hash, seed, shard count, fault-plan digest, final counters,
-  health verdict, telemetry summary. The CLI writes it next to the
-  trace.
+  health verdict, telemetry summary, and the lanes, admission, flows
+  and causality blocks of the runs that carry them. The CLI writes it
+  next to the trace.
 
-The planes of ROADMAP.md Queue 1 item 8 that are not ported — flows,
-causality, lane isolation and resident admission — are refused by
-name: run_manifest's `lanes`, `admission`, `flows` and `causality`
-blocks, chrome_trace's flow and critical-path groups, and the lane
-metric families raise NotImplementedError when given. The elastic mesh
-transitions (item 9) likewise.
+The elastic mesh transitions (ROADMAP.md Queue 1 item 9) are not
+ported: chrome_trace refuses them by name.
 """
 
 from __future__ import annotations
@@ -46,11 +43,18 @@ def chrome_trace(records, timers=None, num_shards: int = 1,
     from the timer origin. Both Chrome and Perfetto accept mixed
     timelines as separate process groups.
 
-    The reference's flow group (pid 2, `flow_records`), critical-path
-    group (pid 3, `adv_records` / `chains`) and mesh-transition markers
-    (`elastic`) are not ported and raise when given."""
-    _refuse_unported(flow_records=flow_records, adv_records=adv_records,
-                     chains=chains, elastic=elastic)
+    `flow_records` (harvested flows.FlowRecord list) adds pid 2: one
+    thread per isolation lane, one "X" span per sampled packet from its
+    staging window to its delivery timestamp. `adv_records` / `chains`
+    (harvested causality.AdvanceRecord list and critical_chains()
+    dicts) add pid 3, the critical-path group: one thread per chain
+    drawing its events, plus "C" counter events of the window binding
+    cause and jump utilization. The mesh-transition markers
+    (`elastic`, ROADMAP.md Queue 1 item 9) raise when given."""
+    if elastic:
+        raise NotImplementedError(
+            "shadow_tpu_torch: telemetry export of elastic mesh "
+            "transitions is not ported yet (ROADMAP.md Queue 1 item 9)")
     events = [{"ph": "M", "name": "process_name", "pid": 0, "tid": 0,
                "args": {"name": "sim-time (simulated µs)"}},
               {"ph": "M", "name": "thread_name", "pid": 0, "tid": 0,
@@ -93,6 +97,56 @@ def chrome_trace(records, timers=None, num_shards: int = 1,
                     "ts": p.start_s * 1e6, "dur": p.dur_s * 1e6,
                     "args": {},
                 })
+    if flow_records:
+        events.append({"ph": "M", "name": "process_name", "pid": 2,
+                       "tid": 0,
+                       "args": {"name": "flows per-lane (simulated µs)"}})
+        for lane in sorted({r.lane for r in flow_records}):
+            events.append({"ph": "M", "name": "thread_name", "pid": 2,
+                           "tid": lane,
+                           "args": {"name": f"lane {lane}"}})
+        for r in flow_records:
+            events.append({
+                "ph": "X", "pid": 2, "tid": r.lane,
+                "name": f"{r.src}->{r.dst} k{r.kind}",
+                "ts": _us(r.t_enq),
+                "dur": max(_us(r.t_deliver - r.t_enq), 0.001),
+                "args": {
+                    "src": r.src, "dst": r.dst, "kind": r.kind,
+                    "flags": r.flags,
+                    "latency_ns": r.t_deliver - r.t_enq,
+                    "t_route": r.t_route,
+                },
+            })
+    if adv_records or chains:
+        events.append({"ph": "M", "name": "process_name", "pid": 3,
+                       "tid": 0,
+                       "args": {"name":
+                                "critical path (simulated µs)"}})
+        for rank, ch in enumerate(chains or ()):
+            events.append({"ph": "M", "name": "thread_name", "pid": 3,
+                           "tid": rank,
+                           "args": {"name": f"chain {rank} "
+                                            f"(len {ch['length']})"}})
+            for ev in ch.get("events", ()):
+                events.append({
+                    "ph": "X", "pid": 3, "tid": rank,
+                    "name": f"h{ev['host']}->h{ev['dst']} k{ev['kind']}",
+                    "ts": _us(ev["t_emit"]),
+                    "dur": max(_us(ev["t_due"] - ev["t_emit"]), 0.001),
+                    "args": {"depth": ev["depth"], "key": ev["key"]},
+                })
+        for r in (adv_records or ()):
+            util = r.utilization_pct
+            args = {"cause": r.cause}
+            if util is not None:
+                args["jump_utilization_pct"] = util
+            events.append({
+                "ph": "C", "pid": 3, "tid": 0,
+                "name": "window_advance",
+                "ts": _us(r.wstart),
+                "args": args,
+            })
     return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
@@ -174,14 +228,65 @@ def final_counters(sim, stats=None) -> dict:
     return dict(zip(vals, (int(v) for v in flat.tolist())))
 
 
-def _refuse_unported(**blocks) -> None:
-    """Raise for a plane of ROADMAP.md Queue 1 items 8-9 the port does
-    not have (flows, causality, lanes, admission, elastic)."""
-    given = sorted(k for k, v in blocks.items() if v)
-    if given:
-        raise NotImplementedError(
-            f"shadow_tpu_torch: telemetry export of {', '.join(given)} "
-            f"is not ported yet (ROADMAP.md Queue 1 items 8-9)")
+def lanes_manifest_block(health, incidents=()) -> dict | None:
+    """Build the manifest's top-level "lanes" block for a lane-isolated
+    (packed) run: per-lane counters from the health gather, with each
+    quarantined lane carrying its salvage pointer + requeue context
+    from the supervisor's LaneIncident records. None when the run
+    carried no lane isolation. tools/telemetry_lint.py checks that the
+    per-lane overflow counts sum to the run totals and that every
+    quarantined lane names its salvage artifact."""
+    if health is None or not getattr(health, "lanes_total", 0):
+        return None
+    inc_dicts = [i if isinstance(i, dict) else i.as_dict()
+                 for i in (incidents or ())]
+    by_lane = {d["lane"]: d for d in inc_dicts}
+    per = []
+    for d in health.lanes:
+        d = dict(d)
+        inc = by_lane.get(d["lane"])
+        if inc is not None:
+            d["salvage"] = inc.get("salvage")
+            d["requeue"] = {"regrow": dict(inc.get("regrow") or {}),
+                            "salvaged_from": inc.get("salvaged_from")}
+        per.append(d)
+    out = {
+        "replicas": int(health.lanes_total),
+        "quarantined": [int(r) for r in health.lanes_quarantined],
+        "contained": bool(health.lane_contained),
+        "per_lane": per,
+    }
+    if inc_dicts:
+        out["incidents"] = inc_dicts
+    return out
+
+
+def admission_manifest_block(health) -> dict | None:
+    """Build the manifest's top-level "admission" block for a
+    STANDALONE resident run (`shadow-tpu --resident`): every lane is
+    admitted at boot and holds an open lease, so the lease-count
+    conservation the lint checks (admitted == completed + evicted +
+    quarantined + resident) folds directly from the device planes —
+    there is no host-side lease table in this mode. Fleet-managed
+    resident programs build their block from fleet/admission.py's
+    LeaseTable instead. None when the run carried no admission
+    planes."""
+    if health is None or not getattr(health, "resident", False):
+        return None
+    per = [dict(d) for d in health.admission]
+    quarantined = {int(r) for r in
+                   getattr(health, "lanes_quarantined", ())}
+    completed = sum(1 for d in per
+                    if d.get("completed") and d["lane"] not in quarantined)
+    return {
+        "admitted": len(per),
+        "completed": completed,
+        "evicted": 0,
+        "quarantined": len(quarantined),
+        "resident": len(per) - completed - len(quarantined),
+        "deferred": 0,
+        "per_lane": per,
+    }
 
 
 def run_manifest(*, cfg, seed: int, shards: int, sim, stats=None,
@@ -215,8 +320,6 @@ def run_manifest(*, cfg, seed: int, shards: int, sim, stats=None,
     [per-dispatch executed-window counts], "adaptive_jump_mean_ns":
     mean harvested window span} — the "windows" list, when present,
     must sum to counters.windows (tools/telemetry_lint.py)."""
-    _refuse_unported(lanes=lanes, admission=admission, flows=flows,
-                     causality=causality)
     man = {
         "config_hash": config_hash(cfg),
         "seed": int(seed),
@@ -264,6 +367,10 @@ def run_manifest(*, cfg, seed: int, shards: int, sim, stats=None,
         # manifest_block): device latches + feeder accounting; the
         # lint reconciles injected+dropped+deferred == trace_events
         man["injection"] = injection
+    if lanes is not None:
+        # lane-isolated packed run (lanes_manifest_block): per-lane
+        # counters, quarantine verdicts, salvage/requeue pointers
+        man["lanes"] = lanes
     if compile_info is not None:
         # warm-program serving (compile/): program key, bucket plan,
         # hit/miss, and the compile-path timing (load_s on a hit,
@@ -271,11 +378,26 @@ def run_manifest(*, cfg, seed: int, shards: int, sim, stats=None,
         # checks key format, hit/timing consistency, and that every
         # bucketed capacity >= its requested value
         man["compile"] = dict(compile_info)
+    if flows is not None:
+        # the flow flight-recorder (flows.flows_manifest_block):
+        # sampling accounting, latency histograms, per-lane
+        # percentiles, the traffic matrix
+        man["flows"] = flows
+    if admission is not None:
+        # resident program (admission_manifest_block): lease-count
+        # conservation and the per-lane lease planes
+        man["admission"] = admission
     if profile is not None:
         # profiler capture: where the trace artifact landed, so the
         # manifest is the one pointer from a run to every artifact it
         # produced
         man["profile"] = dict(profile)
+    if causality is not None:
+        # causal critical-path profiling
+        # (causality.causality_manifest_block): lineage accounting,
+        # critical chains, the binding-cause histogram, jump
+        # utilization
+        man["causality"] = causality
     if specialization is not None:
         # compile-time capability trimming (compile/specialize.py
         # specialization_block): the derived capability vector, the
@@ -348,8 +470,14 @@ def metrics_from_manifest(man: dict) -> dict:
             if inj.get(k) is not None:
                 out[f"inject_{k}"] = inj[k]
     if "lanes" in man:
-        # the per-lane gauge families (core/lanes.py) are not ported
-        _refuse_unported(lanes=man["lanes"])
+        from shadow_tpu_torch.core.lanes import lane_metric_families
+
+        ln = man["lanes"]
+        out["lanes_replicas"] = ln.get("replicas", 0)
+        out["lanes_quarantined_total"] = len(ln.get("quarantined", []))
+        out["lanes_contained"] = bool(ln.get("contained", False))
+        # per-lane gauge families: which tenant tripped
+        out.update(lane_metric_families(ln.get("per_lane", [])))
     if "flows" in man:
         fl = man["flows"]
         for k in ("sampled", "recorded", "harvested", "lost_ring",

@@ -6,9 +6,11 @@ Python records between calls — after a whole run, or per window from a
 host loop. It detects overruns from the monotonic write counter: count
 advancing more than `capacity` since the last drain means records were
 overwritten before the host saw them; the total is kept in
-`records_lost`, never dropped silently. The reference's flow and
-causality drains are not ported: drain() raises when a Sim carries
-those rings (ROADMAP.md Queue 1 item 8).
+`records_lost`, never dropped silently. The same pass drains the flow
+ring (telemetry/flows.py) and the causality planes (telemetry/
+causality.py: per-host lineage sub-rings, each its own monotonic ring,
+and the advance plane), with the same overrun and rewind accounting;
+lineage keys come back as the reference's unsigned ints.
 
 PhaseTimers records named wall-clock spans (trace/compile, device
 execute, harvest, export) on the host timeline; export.chrome_trace
@@ -22,7 +24,16 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from shadow_tpu_torch.telemetry.causality import (
+    ADVANCE_PLANES,
+    LINEAGE_PLANES,
+    U64_PLANES,
+    AdvanceRecord,
+    CausalityRecord,
+)
+from shadow_tpu_torch.telemetry.flows import FLOW_PLANES, FlowRecord
 from shadow_tpu_torch.telemetry.ring import PLANES
 
 
@@ -47,6 +58,17 @@ class WindowRecord:
     injected: int
     inj_dropped: int
     inj_deferred: int
+    # lane-isolated runs: events executed per lane this window (the
+    # ring's lane_events row); empty without the lane fan-out
+    lane_events: tuple = ()
+
+
+def _drain_ring(count: int, seen: int, capacity: int):
+    """(indices to take, records lost) of a monotonic-count ring drained
+    at `seen` now holding `count` records."""
+    new = count - seen
+    take = min(new, capacity)
+    return np.arange(count - take, count), max(0, new - capacity)
 
 
 @dataclass
@@ -59,6 +81,24 @@ class Harvester:
     # capacity escalations the supervisor healed (Escalation.as_dict()
     # records, faults/escalate.py), in the order they happened
     escalation_marks: list = field(default_factory=list)
+    # the flow ring (flow_enabled latches on the first drain of a sim
+    # carrying one)
+    flow_enabled: bool = False
+    flow_seen: int = 0            # flow ring count at the last drain
+    flow_records: list = field(default_factory=list)
+    flow_lost: int = 0            # ring overrun (host drained too late)
+    flow_lost_clamp: int = 0      # device window-clamp loss (cumulative)
+    flow_sampled: int = 0         # device cumulative sampled count
+    # the causality planes: per-host lineage counts + the advance plane
+    caus_enabled: bool = False
+    caus_seen: list = field(default_factory=list)   # [H] per-host counts
+    caus_records: list = field(default_factory=list)
+    caus_lost: int = 0            # per-host ring overrun total
+    caus_sampled: int = 0         # device cumulative kept (sum of counts)
+    caus_emitted: int = 0         # device cumulative ALL emissions seen
+    adv_seen: int = 0             # advance-plane count at the last drain
+    adv_records: list = field(default_factory=list)
+    adv_lost: int = 0
 
     def mark_escalation(self, esc) -> None:
         self.escalation_marks.append(
@@ -68,11 +108,8 @@ class Harvester:
         """Pull records written since the last drain; returns how many
         were taken. A count REWIND (a resume from an older state)
         discards already-harvested records past the restored count."""
-        for name in ("flows", "causality"):
-            if getattr(sim, name, None) is not None:
-                raise NotImplementedError(
-                    f"shadow_tpu_torch: the {name} ring drain is not "
-                    "ported yet (ROADMAP.md Queue 1 item 8)")
+        self._drain_flows(sim)
+        self._drain_causality(sim)
         ring = getattr(sim, "telem", None)
         if ring is None:
             return 0
@@ -80,20 +117,109 @@ class Harvester:
         if c < self.seen:
             self.records = [r for r in self.records if r.index < c]
             self.seen = c
-        new = c - self.seen
-        if new <= 0:
+        if c <= self.seen:
             return 0
-        W = ring.capacity
-        self.records_lost += max(0, new - W)
-        take = min(new, W)
-        idx = np.arange(c - take, c)
-        slots = idx % W
+        idx, lost = _drain_ring(c, self.seen, ring.capacity)
+        self.records_lost += lost
+        slots = idx % ring.capacity
         cols = [getattr(ring, name).cpu().numpy()[slots].tolist()
                 for name, _ in PLANES]
+        if ring.lane_events is not None:
+            cols.append([tuple(row) for row in
+                         ring.lane_events.cpu().numpy()[slots].tolist()])
         self.records.extend(
             WindowRecord(*row) for row in zip(idx.tolist(), *cols))
         self.seen = c
-        return take
+        return len(idx)
+
+    def _drain_flows(self, sim) -> int:
+        """The flow ring's drain: the window drain's overrun and rewind
+        accounting; the device's cumulative sampled/lost scalars are
+        snapshotted as they are."""
+        ring = getattr(sim, "flows", None)
+        if ring is None:
+            return 0
+        self.flow_enabled = True
+        c, sampled, lost = torch.stack(
+            [ring.count, ring.sampled, ring.lost]).tolist()
+        self.flow_sampled, self.flow_lost_clamp = int(sampled), int(lost)
+        if c < self.flow_seen:
+            self.flow_records = [r for r in self.flow_records
+                                 if r.index < c]
+            self.flow_seen = c
+        if c <= self.flow_seen:
+            return 0
+        idx, lost = _drain_ring(c, self.flow_seen, ring.capacity)
+        self.flow_lost += lost
+        slots = idx % ring.capacity
+        cols = [getattr(ring, name).cpu().numpy()[slots].tolist()
+                for name, _ in FLOW_PLANES]
+        self.flow_records.extend(
+            FlowRecord(*row) for row in zip(idx.tolist(), *cols))
+        self.flow_seen = c
+        return len(idx)
+
+    def _drain_causality(self, sim) -> int:
+        """The causality drain: each host row's lineage sub-ring is its
+        own monotonic ring (overrun and rewind accounting per host),
+        plus the advance plane. Returns the records taken."""
+        ring = getattr(sim, "causality", None)
+        if ring is None:
+            return 0
+        self.caus_enabled = True
+        counts = ring.count.cpu().numpy()
+        H = counts.shape[0]
+        F = ring.capacity
+        if len(self.caus_seen) != H:
+            self.caus_seen = [0] * H
+        self.caus_sampled = int(counts.sum())
+        self.caus_emitted = int(ring.seen.sum())
+        taken = 0
+        planes = None
+        for h in range(H):
+            c = int(counts[h])
+            if c < self.caus_seen[h]:
+                self.caus_records = [
+                    r for r in self.caus_records
+                    if not (r.host == h and r.index >= c)]
+                self.caus_seen[h] = c
+            if c <= self.caus_seen[h]:
+                continue
+            if planes is None:
+                # one read per plane, shared by every host row; the
+                # keys as the reference's unsigned ints
+                planes = [
+                    (getattr(ring, n).cpu().numpy().view(np.uint64)
+                     if n in U64_PLANES else getattr(ring, n).cpu().numpy())
+                    for n, _ in LINEAGE_PLANES]
+            idx, lost = _drain_ring(c, self.caus_seen[h], F)
+            self.caus_lost += lost
+            slots = idx % F
+            cols = [p[h][slots].tolist() for p in planes]
+            self.caus_records.extend(
+                CausalityRecord(h, *row)
+                for row in zip(idx.tolist(), *cols))
+            self.caus_seen[h] = c
+            taken += len(idx)
+        return taken + self._drain_advance(ring)
+
+    def _drain_advance(self, ring) -> int:
+        c = int(ring.adv_count)
+        if c < self.adv_seen:
+            self.adv_records = [r for r in self.adv_records
+                                if r.index < c]
+            self.adv_seen = c
+        if c <= self.adv_seen:
+            return 0
+        idx, lost = _drain_ring(c, self.adv_seen, ring.adv_capacity)
+        self.adv_lost += lost
+        slots = idx % ring.adv_capacity
+        cols = [getattr(ring, name).cpu().numpy()[slots].tolist()
+                for name, _ in ADVANCE_PLANES]
+        self.adv_records.extend(
+            AdvanceRecord(*row) for row in zip(idx.tolist(), *cols))
+        self.adv_seen = c
+        return len(idx)
 
     def mean_window_ns(self) -> float | None:
         """Mean harvested window span (wend - wstart) in ns, or None
@@ -128,8 +254,23 @@ class Harvester:
             out["inj_dropped_sum"] = int(
                 sum(r.inj_dropped for r in self.records))
             out["inj_deferred_last"] = int(self.records[-1].inj_deferred)
+            if self.records[-1].lane_events:
+                R = len(self.records[-1].lane_events)
+                out["lane_events_sum"] = [
+                    int(sum(r.lane_events[i] for r in self.records
+                            if r.lane_events)) for i in range(R)]
         if self.escalation_marks:
             out["escalations"] = len(self.escalation_marks)
+        if self.flow_enabled:
+            out["flows_sampled"] = int(self.flow_sampled)
+            out["flows_harvested"] = len(self.flow_records)
+            out["flows_lost_ring"] = int(self.flow_lost)
+            out["flows_lost_window_clamp"] = int(self.flow_lost_clamp)
+        if self.caus_enabled:
+            out["causality_sampled"] = int(self.caus_sampled)
+            out["causality_harvested"] = len(self.caus_records)
+            out["causality_lost_ring"] = int(self.caus_lost)
+            out["causality_windows_attributed"] = len(self.adv_records)
         return out
 
 

@@ -33,14 +33,18 @@ Record fields (one [W] plane each, PLANES order):
 
 Overflow: `count` is monotonic and slot = count % capacity; the
 harvester detects count advancing more than `capacity` since its last
-drain and reports the lost records. The reference's per-lane fan-out
-planes (lane isolation) are not ported: attach refuses a Sim with
-lanes.
+drain and reports the lost records.
+
+Lane-isolated runs (core/lanes.py, attached BEFORE the ring) also get
+the per-lane fan-out of the events plane: lane_events[w, r] is the
+events lane r executed in window w (the delta of the lane share of
+net.ctr_events_exec).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 
@@ -98,6 +102,9 @@ class TelemetryRing(_Replace):
     # cumulative counters at the previous record
     prev_drops: torch.Tensor    # [] i64
     prev_retx: torch.Tensor     # [] i64
+    # lane-isolated runs only (None otherwise: no leaf)
+    lane_events: Any = None     # [W, R] i64 events per lane per window
+    prev_lane_exec: Any = None  # [R] i64 cumulative at the last record
 
     @property
     def capacity(self) -> int:
@@ -120,16 +127,19 @@ class TelemetryRing(_Replace):
 
 def attach(sim, capacity: int = DEFAULT_CAPACITY):
     """Return `sim` with a telemetry ring on its device attached (no-op
-    if one already is). Raises for a lane-isolated Sim: the per-lane
-    fan-out planes are not ported."""
+    if one already is). A lane-isolated Sim (core.lanes.attach first)
+    gets the per-lane fan-out planes sized off sim.lanes.replicas."""
     if getattr(sim, "telem", None) is not None:
         return sim
-    if getattr(sim, "lanes", None) is not None:
-        raise NotImplementedError(
-            "shadow_tpu_torch: the telemetry ring's lane fan-out planes "
-            "are not ported yet")
-    return sim.replace(telem=TelemetryRing.create(
-        capacity, device=sim.events.time.device))
+    dev = sim.events.time.device
+    ring = TelemetryRing.create(capacity, device=dev)
+    lanes = getattr(sim, "lanes", None)
+    if lanes is not None:
+        R = lanes.replicas
+        ring = ring.replace(
+            lane_events=torch.zeros((capacity, R), dtype=I64, device=dev),
+            prev_lane_exec=torch.zeros((R,), dtype=I64, device=dev))
+    return sim.replace(telem=ring)
 
 
 def _record(ring: TelemetryRing, vals: dict) -> TelemetryRing:
@@ -204,7 +214,21 @@ def make_telem_fn():
             inj_dropped=inj_drop,
             inj_deferred=inj_def,
         ))
-        return sim.replace(telem=ring.replace(prev_drops=drops_cum,
-                                              prev_retx=retx_cum))
+        ring = ring.replace(prev_drops=drops_cum, prev_retx=retx_cum)
+        lanes_st = getattr(sim, "lanes", None)
+        if ring.lane_events is not None and lanes_st is not None:
+            # the per-lane fan-out, into the slot _record just wrote
+            from shadow_tpu_torch.core.lanes import lane_sum
+
+            cum = lane_sum(sim.net.ctr_events_exec, lanes_st.replicas)
+            W = ring.capacity
+            sel = (torch.arange(W, device=cum.device)
+                   == (ring.count - 1) % W)
+            ring = ring.replace(
+                lane_events=torch.where(
+                    sel[:, None], (cum - ring.prev_lane_exec)[None, :],
+                    ring.lane_events),
+                prev_lane_exec=cum)
+        return sim.replace(telem=ring)
 
     return telem_fn

@@ -24,11 +24,14 @@ snapshots its `.inject.*` leaves in the same layout, so a mid-trace
 snapshot crosses between the packages both ways; a resume re-syncs a
 fresh feeder from them (inject.Feeder.sync), replaying nothing.
 
-Not ported yet (ROADMAP.md): save_salvage and elastic_meta (lane
-salvage and the sentinel, items 8-9), replan_shards (parallel/, item
-9), prewarm_dispatch (compile/, item 11), and run_windows' mesh,
-warm_start, compile_info and dispatch_wrap arguments, which raise
-NotImplementedError.
+save_salvage writes the supervisor's lane-surgery artifact (a packed
+snapshot's lane slice, faults/escalate.py extract_lane) in the same
+atomic, checksummed layout; load_leaves reads it back.
+
+Not ported yet (ROADMAP.md): elastic_meta (the sentinel, item 9),
+replan_shards (parallel/, item 9), prewarm_dispatch (compile/, item
+11), and run_windows' mesh, warm_start, compile_info and dispatch_wrap
+arguments, which raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -88,9 +91,26 @@ def save(path: str, sim, *, time_ns: int, extra: dict | None = None,
             "shards": int(shards),
             "config_digest": config_digest,
             "torch_version": torch.__version__}
-    path = _npz_path(path)
+    return _write_npz(_npz_path(path), leaves, meta, ".ckpt.")
+
+
+def save_salvage(path: str, leaves: dict, meta: dict) -> str:
+    """Write a raw-leaves artifact (the lane-surgery output of
+    faults/escalate.py extract_lane) with save()'s atomic write and
+    per-leaf CRC32; it reads back through load_leaves(). The meta rides
+    verbatim plus the layout stamp and the kind "lane_salvage"."""
+    meta = dict(meta)
+    meta.setdefault("layout", LAYOUT_VERSION)
+    meta["kind"] = "lane_salvage"
+    leaves = {k: np.asarray(v) for k, v in leaves.items()}
+    meta["keys"] = sorted(leaves)
+    meta["crc32"] = {k: _crc(v) for k, v in leaves.items()}
+    return _write_npz(_npz_path(path), leaves, meta, ".salvage.")
+
+
+def _write_npz(path: str, leaves: dict, meta: dict, prefix: str) -> str:
     d = os.path.dirname(os.path.abspath(path))
-    fd, tmp = tempfile.mkstemp(prefix=".ckpt.", suffix=".tmp", dir=d)
+    fd, tmp = tempfile.mkstemp(prefix=prefix, suffix=".tmp", dir=d)
     try:
         with os.fdopen(fd, "wb") as f:
             np.savez_compressed(f, __meta__=json.dumps(meta), **leaves)
@@ -214,7 +234,8 @@ def load(path: str, template_sim):
             raise ValueError(_shape_mismatch_msg(key, arr, spec, meta))
         leaves[key] = arr
     sim = convert.sim_from_numpy(leaves,
-                                 device=template_sim.events.time.device)
+                                 device=template_sim.events.time.device,
+                                 template=template_sim)
     return sim, meta["time_ns"], meta["extra"]
 
 
@@ -234,9 +255,11 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
 
     `windows_per_dispatch` K (default cfg.windows_per_dispatch, 1):
     at 1 the loop runs one step_window per round; at K > 1 (or with
-    `adaptive_jump`, default cfg.adaptive_jump) it runs
-    engine.make_chunk_body chunks of K windows, and hooks and snapshot
-    cadences snap to chunk boundaries. Snapshots are written as
+    `adaptive_jump`, default cfg.adaptive_jump, or on a Sim carrying
+    causality, whose advance attribution lives in the chunk body's
+    explain path) it runs engine.make_chunk_body chunks of K windows,
+    and hooks and snapshot cadences snap to chunk boundaries. The flow
+    recorder (telemetry/flows.py) rides every path. Snapshots are written as
     f"{checkpoint_path}.{time_ns}.npz" once the next window start
     reaches each multiple of `checkpoint_every_ns` past `start_time`.
 
@@ -280,6 +303,7 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
         resolve_wend_fn,
     )
     from shadow_tpu_torch.net.step import make_step_fn
+    from shadow_tpu_torch.telemetry.flows import make_flow_fn
     from shadow_tpu_torch.telemetry.ring import make_telem_fn
 
     refuse_unported(mesh=(mesh, 9), dispatch_wrap=(dispatch_wrap, 9),
@@ -300,6 +324,7 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                 else bool(getattr(cfg, "adaptive_jump", False)))
     sparse = resolve_sparse_lanes(cfg)
     telem_fn = make_telem_fn()
+    flow_fn = make_flow_fn()
     # the record-time wend clamp of make_wend_fn
     records = plan_times(bundle)
     sim = sim if sim is not None else bundle.sim
@@ -331,13 +356,14 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                 f"NetConfig.inject_lanes) past the largest "
                 f"same-timestamp burst")
 
-    if wpd > 1 or adaptive:
+    if wpd > 1 or adaptive or getattr(sim, "causality", None) is not None:
         chunk = make_chunk_body(
             step, end_time=end,
             wend_fn=resolve_wend_fn(bundle, end, adaptive, fault_fn),
             chunk_windows=wpd, emit_capacity=cfg.emit_capacity,
             lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
-            telem_fn=telem_fn, sparse_lanes=sparse, fault_fn=fault_fn)
+            telem_fn=telem_fn, sparse_lanes=sparse, fault_fn=fault_fn,
+            flow_fn=flow_fn)
         if feeder is not None and wstart <= end:
             # streaming: each refill must land in the staging planes
             # before the next chunk reads them; the plain loop below
@@ -414,7 +440,7 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
             sim, EngineStats.create(device=dev), step, wend,
             cfg.emit_capacity, sim.net.lane_id, bulk_fn=bulk_fn,
             telem_fn=telem_fn, wstart=wstart, sparse_lanes=sparse,
-            fault_fn=fault_fn)
+            fault_fn=fault_fn, flow_fn=flow_fn)
         total = total.add(stats)
         if feeder is not None:
             # the chunked loop's horizon rule: the first unstaged trace

@@ -143,7 +143,7 @@ def test_rate_trace_matches_bench_py():
     ({"BENCH_INJECT_RATE": "100", "BENCH_SUPERVISE": "1"},
      "BENCH_SUPERVISE"),
     ({"BENCH_INJECT_RATE": "fast"}, "BENCH_INJECT_RATE"),
-    ({"BENCH_INJECT_RATE": "100", "BENCH_FLOW_SAMPLE": "4"},
+    ({"BENCH_INJECT_RATE": "100", "BENCH_FLOW_OVERHEAD": "1"},
      "BENCH_FLOW_SAMPLE"),
 ], ids=["rate_and_trace", "workload", "supervise", "nan", "flows"])
 def test_injection_refusals(env, word):

@@ -170,12 +170,6 @@ def test_resume_continues_to_the_plain_report(cli_runs, xml):
 
 REFUSED = {
     "workers": (["-w", "2"], "item 9"),
-    "flow_sample": (["--flow-sample", "4"], "item 8"),
-    "flow_capacity": (["--flow-capacity", "64"], "item 8"),
-    "causality_sample": (["--causality-sample", "4"], "item 8"),
-    "causality_capacity": (["--causality-capacity", "8"], "item 8"),
-    "lane_isolation": (["--lane-isolation", "2"], "item 8"),
-    "resident": (["--resident"], "item 8"),
     "host_kernel": (["--host-kernel", "run"], "item 10"),
     "host_time_scale": (["--host-time-scale", "1.0"], "item 10"),
     "track_paths": (["--track-paths"], "item 10"),
@@ -256,6 +250,44 @@ def test_lifted_flag_runs_like_the_reference(xml, tmp_path, name):
                  if "wall_phase" not in ln and "compile" not in ln]
                 for d in (wd, gd)]
         assert prom[1] == prom[0]
+
+
+# flags the port once refused that attach lanes, the admission planes
+# and the recorders: their runs are held to the reference in
+# tests/test_torch_lanes_cli.py; here each parses to the reference's
+# value, is refused no more, and a value the reference rejects before
+# the run (10 hosts do not split into 3 lanes; a negative capacity)
+# exits as the reference's CLI does
+LANE_FLAGS = {
+    "flow_sample": ["--flow-sample", "4", "--flow-capacity", "-1"],
+    "flow_capacity": ["--flow-sample", "1", "--flow-capacity", "-8"],
+    "causality_sample": ["--causality-sample", "4",
+                         "--causality-capacity", "-1"],
+    "causality_capacity": ["--causality-sample", "1",
+                           "--causality-capacity", "-8"],
+    "lane_isolation": ["--lane-isolation", "3"],
+    "resident": ["--lane-isolation", "3", "--resident"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(LANE_FLAGS))
+def test_lifted_lane_flag_parses_and_errors_like_the_reference(
+        xml, tmp_path, name):
+    flags = LANE_FLAGS[name]
+    want = vars(jcli.make_parser().parse_args([xml, *flags]))
+    got = vars(tcli.make_parser().parse_args([xml, *flags]))
+    assert got[name] == want[name] and got[name] not in (None, False)
+    assert tcli.refused_flags(tcli.make_parser().parse_args(
+        [xml, *flags])) == []
+    runs = []
+    for mod in (jcli, tcli):
+        d = tmp_path / mod.__name__.split(".")[0]
+        code, lines, err = _main(mod, [xml, "--platform", "cpu", "-d",
+                                       str(d), *flags])
+        runs.append((code, [ln for ln in err.splitlines()
+                            if ln.startswith("error:")]))
+    assert runs[1] == runs[0]
+    assert runs[1][0] == 1 and len(runs[1][1]) == 1
 
 
 @pytest.mark.parametrize("sub", ["fleet", "sweep"])

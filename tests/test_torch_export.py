@@ -8,12 +8,13 @@ installed (one reference program). From each run's harvested ring,
 health and injection block: run_manifest, metrics_from_manifest,
 prometheus_text and chrome_trace are equal, except the wall-clock
 fields, which are named here (WALL_*): the phase timers' durations and
-start offsets. config_hash and fault_plan_digest are equal, and the
-planes the port does not have (flows, causality, lanes, admission) are
-refused by name. Tolerance zero.
+start offsets. config_hash and fault_plan_digest are equal. The lanes,
+admission, flows and causality blocks, their trace groups and the lane
+metric families are equal on hand-made inputs (a real run's in
+tests/test_torch_lanes_cli.py), and the elastic mesh transitions, which
+the port does not have, are refused by name. Tolerance zero.
 """
 
-import copy
 import json
 
 import pytest
@@ -184,25 +185,117 @@ def test_config_hash_and_plan_digest_match_reference(runs):
     assert export.fault_plan_digest(None) is None
 
 
-@pytest.mark.parametrize("block", ["lanes", "admission", "flows",
-                                   "causality"])
-def test_unported_manifest_blocks_are_refused(runs, block):
-    r = runs["port"]
-    b = r["bundle"]
-    with pytest.raises(NotImplementedError, match="item"):
-        export.run_manifest(cfg=b.cfg, seed=7, shards=1, sim=b.sim,
-                            **{block: {"x": 1}})
-
-
-@pytest.mark.parametrize("arg", ["flow_records", "adv_records", "chains",
-                                 "elastic"])
+@pytest.mark.parametrize("arg", ["elastic"])
 def test_unported_trace_groups_are_refused(arg):
     with pytest.raises(NotImplementedError, match=arg):
-        export.chrome_trace([], **{arg: [{"x": 1}]})
+        export.chrome_trace([], **{arg: {"mesh_transitions": [{}]}})
 
 
-def test_lane_metric_families_are_refused(runs):
-    man = copy.deepcopy(runs["port"]["man"])
-    man["lanes"] = {"replicas": 2, "per_lane": []}
-    with pytest.raises(NotImplementedError, match="lanes"):
-        export.metrics_from_manifest(man)
+# ------------------------------------- the lane and recorder blocks
+#
+# Hand-made inputs, the same in both packages (each built from its own
+# record classes): two lanes, lane 1 quarantined with its incident, the
+# admission planes, flow records, lineage records joined into a chain
+# and advance records of every cause. The blocks of real runs are held
+# to the reference in tests/test_torch_lanes_cli.py.
+
+
+def _recorder_inputs(tel, incident_cls):
+    import types
+
+    flows = [tel.FlowRecord(i, i % 4, (i + 1) % 4, i // 2, 24, 0,
+                            100 * i, 100 * i + 50, 100 * i + 70 + 13 * i)
+             for i in range(4)]
+    lineage = [tel.CausalityRecord(h, 0, 10 + h, 9 + h, (h + 1) % 4, 24, h,
+                                   1000 * h, 1000 * (h + 1))
+               for h in range(4)]
+    adv = [tel.AdvanceRecord(i, 50 * i, 50 * i + jump, raw, cause, a, b,
+                             act)
+           for i, (jump, raw, cause, a, b, act) in enumerate([
+               (50, 50, 0, -1, -1, 4), (30, 60, 1, 0, 1, 2),
+               (20, 50, 2, -1, -1, 3), (10, 50, 3, -1, -1, -1),
+               (1, 50, 4, -1, -1, 1)])]
+    harvester = types.SimpleNamespace(
+        flow_enabled=True, flow_records=flows, flow_sampled=6, flow_seen=5,
+        flow_lost=1, flow_lost_clamp=1, caus_enabled=True,
+        caus_records=lineage, adv_records=adv, caus_sampled=4,
+        caus_emitted=9, caus_lost=0, adv_lost=0)
+    per_lane = [{"lane": r, "events_overflow": r, "outbox_overflow": 0,
+                 "rq_overflow": 0, "inj_dropped": 0, "stall_streak": 0,
+                 "time_regression": 0, "events_exec": 40 + r,
+                 "quarantined": bool(r), "flushed": 7 * r}
+                for r in range(2)]
+    health = types.SimpleNamespace(
+        lanes_total=2, lanes=per_lane, lanes_quarantined=[1],
+        lane_contained=True, resident=True,
+        admission=[{"lane": r, "admitted": True, "completed": not r}
+                   for r in range(2)])
+    incident = incident_cls(lane=1, time_ns=300, detected_ns=350,
+                            trip_bits=1, trip=("events_overflow",),
+                            flushed=7, salvage="s.npz",
+                            salvaged_from="c.npz",
+                            regrow={"event_capacity": 128})
+    return harvester, health, incident
+
+
+@pytest.fixture(scope="module")
+def recorder_blocks(runs):
+    from shadow_tpu.faults.supervisor import LaneIncident as JIncident
+    from shadow_tpu_torch.faults.supervisor import LaneIncident
+
+    out = {}
+    for pkg, tel, inc_cls in (("jax", jtel, JIncident),
+                              ("port", ttel, LaneIncident)):
+        h, health, inc = _recorder_inputs(tel, inc_cls)
+        mod = runs[pkg]["mod"]
+        exp = mod.export if pkg == "jax" else export
+        blocks = {
+            "lanes": exp.lanes_manifest_block(health, [inc]),
+            "admission": exp.admission_manifest_block(health),
+            "flows": tel.flows_manifest_block(h, num_hosts=4, shards=2,
+                                              sample_period=8),
+            "causality": tel.causality_manifest_block(
+                h, num_hosts=4, sample_period=8, path_shards=2)}
+        b = runs[pkg]["bundle"]
+        man = mod.run_manifest(cfg=b.cfg, seed=7, shards=1, sim=b.sim,
+                               wall_seconds=1.0, **blocks)
+        out[pkg] = {"h": h, "blocks": blocks,
+                    "man": json.loads(json.dumps(man))}
+    return out
+
+
+@pytest.mark.parametrize("block", ["lanes", "admission", "flows",
+                                   "causality"])
+def test_recorder_manifest_blocks_match_reference(recorder_blocks, block):
+    want, got = recorder_blocks["jax"], recorder_blocks["port"]
+    assert got["blocks"][block] is not None
+    assert got["blocks"][block] == want["blocks"][block]
+    assert got["man"][block] == want["man"][block]
+    assert _drop(got["man"], WALL_MANIFEST) \
+        == _drop(want["man"], WALL_MANIFEST)
+
+
+@pytest.mark.parametrize("arg", ["flow_records", "adv_records", "chains"])
+def test_recorder_trace_groups_match_reference(recorder_blocks, arg):
+    from shadow_tpu.telemetry import export as jexport
+
+    def group(exp, pkg):
+        h = recorder_blocks[pkg]["h"]
+        src = {"flow_records": h.flow_records, "adv_records": h.adv_records,
+               "chains": recorder_blocks[pkg]["blocks"]["causality"][
+                   "chains"]}[arg]
+        return exp.chrome_trace([], **{arg: src})
+
+    got, want = group(export, "port"), group(jexport, "jax")
+    assert got == want
+    assert any(e["pid"] in (2, 3) for e in got["traceEvents"])
+
+
+def test_lane_metric_families_match_reference(recorder_blocks):
+    from shadow_tpu.telemetry import export as jexport
+
+    want = jexport.metrics_from_manifest(recorder_blocks["jax"]["man"])
+    got = export.metrics_from_manifest(recorder_blocks["port"]["man"])
+    assert got == want
+    assert any(k.startswith("lane_") for k in got)
+    assert export.prometheus_text(got) == jexport.prometheus_text(want)

@@ -424,15 +424,51 @@ def test_gather_on_a_poisoned_overflow_matches_reference():
         f: getattr(want, f) for f in vars(want)})
 
 
-@pytest.mark.parametrize("layer", ["inject"])
+def _lane_sim(pkg, layer):
+    """The 8-host boot state packed as 2 lanes, lane 1 quarantined on
+    events_overflow (2 of its rows' drops, 7 events flushed); with
+    `admission`, the resident planes under admit_all, lane 0 run dry."""
+    from shadow_tpu.core import lanes as jlanes
+    from shadow_tpu_torch.core import lanes as tlanes
+
+    lanes, arr = ((jlanes, jax.numpy.asarray) if pkg == "jax"
+                  else (tlanes, torch.as_tensor))
+    sim = lanes.attach(_bundle(pkg).sim, 2)
+    q, ln = sim.events, sim.lanes
+    plane = np.zeros(8, np.int32)
+    plane[5:7] = 1
+    sim = sim.replace(
+        events=q.replace(overflow=q.overflow + 2,
+                         overflow_h=arr(plane)),
+        lanes=ln.replace(
+            overflow_events=arr(np.array([0, 2], np.int32)),
+            quarantined=arr(np.array([False, True])),
+            quarantined_at=arr(np.array([2**63 - 1, 300], np.int64)),
+            trip_bits=arr(np.array([0, 1], np.int32)),
+            flushed=arr(np.array([0, 7], np.int64))))
+    if layer == "admission":
+        sim = lanes.admit_all(lanes.attach_admission(sim))
+        adm = sim.admission
+        sim = sim.replace(admission=adm.replace(
+            completed=arr(np.array([True, False])),
+            completed_at=arr(np.array([250, 2**63 - 1], np.int64))))
+    return sim
+
+
+@pytest.mark.parametrize("layer", ["inject", "lanes", "admission"])
 def test_gather_reads_a_ported_layer_like_the_reference(layer):
     """A Sim carrying an injection staging buffer whose dropped and
-    late latches are set: the reference's warnings and report."""
+    late latches are set, or lane-isolated with a quarantined lane
+    (a contained trip), with or without the resident admission planes:
+    the reference's health, warnings and report."""
     from shadow_tpu.inject import staging as jstaging
     from shadow_tpu_torch.inject import staging as tstaging
 
     sims = {}
     for pkg, st in (("jax", jstaging), ("port", tstaging)):
+        if layer != "inject":
+            sims[pkg] = _lane_sim(pkg, layer)
+            continue
         sim = st.attach(_bundle(pkg).sim, 16)
         inj = sim.inject
         sims[pkg] = sim.replace(inject=inj.replace(
@@ -440,14 +476,19 @@ def test_gather_reads_a_ported_layer_like_the_reference(layer):
     kw = dict(window_start=5, trace_warnings=("trace: torn tail",))
     want = jfaults.gather(sims["jax"], **kw)
     got = tfaults.gather(sims["port"], **kw)
-    assert (got.inject_dropped, got.inject_late) == (3, 2)
+    if layer == "inject":
+        assert (got.inject_dropped, got.inject_late) == (3, 2)
+    else:
+        assert tuple(got.lanes_quarantined) == (1,) and got.lane_contained
+        assert got.resident == (layer == "admission")
     assert not got.fatal
     assert got.diagnostics() == want.diagnostics()
     assert got.failure_report() == want.failure_report()
+    assert got == tfaults.RunHealth(**{
+        f: getattr(want, f) for f in vars(want)})
 
 
-@pytest.mark.parametrize("layer,item", [("lanes", 8), ("admission", 8),
-                                        ("guard", 11), ("sentinel", 9)])
+@pytest.mark.parametrize("layer,item", [("guard", 11), ("sentinel", 9)])
 def test_gather_refuses_unported_layers(layer, item):
     sim = _bundle("port").sim
     with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -231,6 +231,10 @@ MERGES = {
     # PROC_START: 7 row-full drops
     "row_full": ([dict(e, host=0) for e in _trace(n=10, step=1000)],
                  0, SEC, 4),
+    # the same on a Sim packed as 2 lanes (core/lanes.py): the drops go
+    # to lane 0's inj_dropped too (the merge's per-lane diversion)
+    "row_full_lanes": ([dict(e, host=0) for e in _trace(n=10, step=1000)],
+                       0, SEC, 4),
 }
 
 
@@ -238,6 +242,11 @@ MERGES = {
 def test_merge_staged_matches_reference(case):
     events, wstart, wend, cap = MERGES[case]
     jb, tb = _jax_bundle(cap=cap), _port_bundle(cap=cap)
+    if case.endswith("_lanes"):
+        from shadow_tpu.core import lanes as jlanes
+        from shadow_tpu_torch.core import lanes as tlanes
+
+        jb.sim, tb.sim = jlanes.attach(jb.sim, 2), tlanes.attach(tb.sim, 2)
     jsim = JFeeder(list(events)).refill(jb.sim)
     tsim = Feeder(list(events)).refill(tb.sim)
     _assert_leaves(_jax_leaves(jsim), convert.sim_to_numpy(tsim))
@@ -251,16 +260,12 @@ def test_merge_staged_matches_reference(case):
     assert int(tsim.events.overflow) == 0   # drops moved off the latch
     if case == "late":
         assert int(tsim.inject.late) > 0
-    if case == "row_full":
+    if case.startswith("row_full"):
         assert drop == 7
+    if case == "row_full_lanes":
+        assert tsim.lanes.inj_dropped.tolist() == [7, 0]
     assert int(staging.staged_pending_min(tsim.inject)) == int(
         jstaging.staged_pending_min(jsim.inject))
-
-
-def test_merge_refuses_a_lane_isolated_sim():
-    sim = Feeder(_trace(n=4)).refill(_port_bundle().sim)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        staging.merge_staged(sim.replace(lanes=object()), 0, SEC)
 
 
 # ------------------------------------------------------- streamed runs

@@ -63,7 +63,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.apps.ring",
                 "shadow_tpu_torch.utils.shadowlog",
                 "shadow_tpu_torch.utils.objcount",
-                "shadow_tpu_torch.utils.tracker", *INJECTION):
+                "shadow_tpu_torch.utils.tracker", *INJECTION, *LANES):
         assert mod in out["modules"]
 
 
@@ -74,8 +74,12 @@ INJECTION = ("shadow_tpu_torch.inject", "shadow_tpu_torch.inject.trace",
              "shadow_tpu_torch.telemetry.export")
 
 
-@pytest.mark.parametrize("mod", INJECTION)
-def test_injection_module_imports_alone_without_jax(mod):
+# the lane-isolation and recorder slice's modules
+LANES = ("shadow_tpu_torch.core.lanes", "shadow_tpu_torch.telemetry.flows",
+         "shadow_tpu_torch.telemetry.causality")
+
+
+def _imports_alone(mod):
     probe = (f"import importlib, json, sys; importlib.import_module({mod!r});"
              "print(json.dumps(sorted(m for m in sys.modules if m.split('.')"
              "[0] in ('jax', 'jaxlib', 'flax', 'shadow_tpu'))))")
@@ -83,6 +87,73 @@ def test_injection_module_imports_alone_without_jax(mod):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("mod", INJECTION)
+def test_injection_module_imports_alone_without_jax(mod):
+    _imports_alone(mod)
+
+
+@pytest.mark.parametrize("mod", LANES)
+def test_lane_module_imports_alone_without_jax(mod):
+    _imports_alone(mod)
+
+
+@pytest.mark.parametrize("make", ["lanes", "admission", "flows",
+                                  "causality"])
+def test_new_state_defaults_to_cuda(make):
+    """The lane and recorder planes are built on the card unless the
+    caller names the CPU, like every other entry point."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behavior without a CUDA device")
+    from shadow_tpu_torch.core import lanes
+    from shadow_tpu_torch.telemetry import causality, flows
+
+    create = {"lanes": lambda **kw: lanes.LaneHealth.create(4, **kw),
+              "admission": lambda **kw: lanes.LaneAdmission.create(4, **kw),
+              "flows": lambda **kw: flows.FlowRing.create(**kw),
+              "causality": lambda **kw: causality.CausalityState.create(
+                  4, **kw)}[make]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create()
+    state = create(device="cpu")
+    assert all(t.device.type == "cpu" for t in vars(state).values()
+               if isinstance(t, torch.Tensor))
+
+
+def test_lane_isolated_sim_crosses_into_the_port_classes():
+    """convert takes every new container by its field names, keeps the
+    static fields of a template, and round-trips the uint64 keys."""
+    import numpy as np
+
+    from shadow_tpu_torch import convert, telemetry
+    from shadow_tpu_torch.core import lanes
+
+    b = _tiny_build(device="cpu")
+    sim = lanes.admit_all(lanes.attach_admission(lanes.attach(b.sim, 2)))
+    sim = telemetry.attach(sim, capacity=8)
+    sim = telemetry.attach_flows(sim, sample_period=5, capacity=16)
+    sim = telemetry.attach_causality(sim, sample_period=3, capacity=4)
+    sim = sim.replace(causality=sim.causality.replace(
+        key=sim.causality.key - 1))             # all ones: 2**64 - 1
+    leaves = convert.sim_to_numpy(sim)
+    assert leaves[".causality.key"].dtype == np.uint64
+    assert int(leaves[".causality.key"].max()) == 2**64 - 1
+    back = convert.sim_from_numpy(leaves, device="cpu", template=sim)
+    for name, cls in (("lanes", lanes.LaneHealth),
+                      ("admission", lanes.LaneAdmission),
+                      ("flows", telemetry.FlowRing),
+                      ("causality", telemetry.CausalityState)):
+        assert type(getattr(back, name)) is cls
+    assert back.flows.sample_period == 5
+    assert back.causality.sample_period == 3
+    assert back.telem.lane_events.shape == (8, 2)
+    assert bool((back.causality.key == -1).all())
+    for k, v in convert.sim_to_numpy(back).items():
+        np.testing.assert_array_equal(v, leaves[k], err_msg=k)
+    # without a template the static fields take their defaults
+    assert convert.sim_from_numpy(leaves, device="cpu").flows.sample_period \
+        == telemetry.DEFAULT_SAMPLE_PERIOD
 
 
 def test_each_app_state_crosses_into_its_own_class():

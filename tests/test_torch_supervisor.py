@@ -311,8 +311,7 @@ def test_stall_and_regression_latches_trip(case, monkeypatch):
 
 @pytest.mark.parametrize("arg,item", [
     ("mesh", 9), ("exchange_capacity", 9), ("elastic", 9),
-    ("dispatch_wrap", 9), ("on_mesh_change", 9),
-    ("on_lane_quarantine", 8), ("warm_start", 11)])
+    ("dispatch_wrap", 9), ("on_mesh_change", 9), ("warm_start", 11)])
 def test_unported_arguments_are_refused(arg, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tfaults.run_supervised(_bundle("port", plan=False),
@@ -320,33 +319,54 @@ def test_unported_arguments_are_refused(arg, item):
                                device="cpu", **{arg: object()})
 
 
-@pytest.mark.parametrize("arg", ["feeder"])
+@pytest.mark.parametrize("arg", ["feeder", "on_lane_quarantine"])
 def test_once_refused_arguments_run(arg, tmp_path):
     """A feeder (tests/test_torch_inject.py holds the tgen runs against
     the reference): tgen-kind events streamed into the PHOLD program
-    under supervision land on run_windows' state, every one merged."""
+    under supervision land on run_windows' state, every one merged. A
+    lane callback on a clean 2-lane program (tests/test_torch_lanes.py
+    holds the lane surgery of a tripped lane): never called, no
+    incident, the run equal to run_windows'."""
+    from shadow_tpu_torch.core import lanes
     from shadow_tpu_torch.inject import Feeder, attach, manifest_block
 
     events = [{"t_ns": (1 + i) * 40_000_000, "host": i % 8, "kind": 24,
                "payload": [i]} for i in range(24)]
+    seen = []
     out = []
     for sup in (True, False):
         b = _bundle("port", plan=False)
-        b.sim = attach(b.sim, 16)
-        f = Feeder(list(events))
+        if arg == "feeder":
+            b.sim = attach(b.sim, 16)
+            kw = {"feeder": Feeder(list(events))}
+        else:
+            b.sim = lanes.attach(b.sim, 2)
+            kw = {}
         if sup:
+            given = dict(kw)
+            if arg == "on_lane_quarantine":
+                given[arg] = seen.append
             res = tfaults.run_supervised(
                 b, (tphold.handler,), checkpoint_path=str(tmp_path / "ck"),
-                checkpoint_every_windows=4, device="cpu", **{arg: f})
+                checkpoint_every_windows=4, device="cpu", **given)
             assert res.ok
             sim, stats = res.sim, res.stats
         else:
             sim, stats, _ = tckpt.run_windows(b, (tphold.handler,),
-                                              device="cpu", feeder=f)
+                                              device="cpu", **kw)
         out.append((convert.sim_to_numpy(sim), stats.as_dict(),
-                    manifest_block(sim, f)))
+                    manifest_block(sim, kw["feeder"]) if kw else
+                    lanes.lane_report(sim)))
+        if sup and arg == "on_lane_quarantine":
+            assert not res.lane_incidents and seen == []
+            assert res.health.lanes_total == 2 and not res.health.fatal
     (a, sa, ba), (b_, sb, bb) = out
-    assert sa == sb and ba == bb and ba["injected"] == 24
+    assert sa == sb and ba == bb
+    if arg == "feeder":
+        assert ba["injected"] == 24
+    else:
+        assert [d["quarantined"] for d in ba] == [False, False]
+        assert sum(d["events_exec"] for d in ba) == sa["events_processed"]
     _assert_leaves_equal(a, b_)
 
 
