@@ -70,7 +70,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    transfer complete, and the serial path's counters (351,064 events,
    62 windows, 2,310 retransmitted segments, 1,421 fast-recovery
    entries); 6as the lossy cell serial and with the pass, both cut to
-   1.8 sim-s, held to each other under the contract;
+   1.55 sim-s, held to each other under the contract;
 
 7. UDP gossip, BASELINE config #4, as tools/scale_run.py --workload
    gossip --hosts 5120 --sim-seconds 5 builds it (K = 8 peers, 2
@@ -205,8 +205,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    leaf equal; (16d) `python -m shadow_tpu_torch.cli` on the <traffic>
    config with --lane-isolation 4 --resident --flow-sample 8
    --causality-sample 8 --trace-out --metrics-out: the report and the
-   manifest's lanes, admission, flows and causality blocks equal to a
-   CPU run's, the manifest accepted by tools/telemetry_lint.py.
+   manifest's lanes, admission, flows, causality and specialization
+   blocks equal to a CPU run's, the manifest accepted by
+   tools/telemetry_lint.py;
+17. the capability-trimmed programs (compile/specialize.py; the CLI's
+   default since the trim was ported, so phases 14-16's CLI runs are
+   trimmed too, and 14b's PHOLD config writes a manifest whose
+   specialization block tools/telemetry_lint.py checks): (17a) phase
+   4's bundle through specialize.apply (loss and timers dropped) and
+   make_runner: every leaf but the guard and the EngineStats equal to
+   phase 4's run, the guard's counters 0, mailbox_gather launched every
+   window and exact against its plain version on the run's own route
+   streams (and timed there), and windows 1-3 profiled with and without
+   the trim (launches, syncs, device busy a window); (17b) bench.py's
+   BENCH_SPECIALIZE=1 row as `python -m shadow_tpu_torch.bench` runs
+   it, as a subprocess: its _spec name, 17a's counts and its
+   specialize_speedup against the untrimmed twin it times; (17c) the
+   guard latch: 17a's bundle with a halved reliability table and with a
+   TIMER planted in the queue, each to 0.3 sim-s — health.gather
+   reports the trip fatal with the reference's diagnostics; (17d) 6s's
+   relay bulk twin trimmed (loss dropped: relay declares no kinds) to
+   6s's depth, equal to the untrimmed twin in every leaf but the guard.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
@@ -305,10 +324,11 @@ LOSSY_KEEP_WINDOW = 12
 # The lossy serial twin 6as runs to a cut depth, beside a run of its
 # cell with the TCP bulk pass to the same depth (the contract compares
 # like with like): at full depth it took 102 s of a 558-s run on an
-# NVIDIA H100 80GB HBM3 at 700 W. 1.8 sim-s holds 108 of the lossy
-# cell's 374 serial micro-steps (the first losses, retransmits and
-# recoveries); 6a's exact counters cover the rest.
-LOSSY_SERIAL_SIM_S = 1.8
+# NVIDIA H100 80GB HBM3 at 700 W. 1.55 sim-s holds 36 of the lossy
+# cell's 374 serial micro-steps: the first losses, retransmits and fast
+# recoveries, which the run checks are there; 6a's exact counters cover
+# the rest.
+LOSSY_SERIAL_SIM_S = 1.55
 
 
 # Phase 7: UDP gossip, BASELINE config #4, as tools/scale_run.py
@@ -721,6 +741,13 @@ INJ_CAUS_EXPECT = {
 LANE_CLI_FLAGS = ["--lane-isolation", "4", "--resident", "--flow-sample",
                   "8", "--causality-sample", "8"]
 
+# Phase 17: the capability-trimmed programs (compile/specialize.py).
+# 17b's row name (bench.py's, BENCH_SPECIALIZE=1); 17c's tampered runs'
+# depth; the windows profiled before and after the trim end at
+# LANE_PROFILE_NS, as phase 16's do.
+SPEC_NAME = f"events_per_sec_per_chip@{HOSTS}hosts_phold_load{LOAD}_spec"
+SPEC_TAMPER_S = 0.3
+
 T0 = time.perf_counter()
 # simtime.INVALID: an empty event slot
 INVALID_TIME = 2**63 - 1
@@ -1081,7 +1108,9 @@ def check_phold(label, sim, hosts, load, launches):
 
 def run_main_path(device):
     """Phase 4: bench.py's default PHOLD program at full width through
-    the port's entry points."""
+    the port's entry points. Returns (launches, the bundle, the final
+    sim, its EngineStats): phase 17 trims this program and holds it to
+    this run."""
     import torch
 
     from shadow_tpu_torch import telemetry
@@ -1112,7 +1141,7 @@ def run_main_path(device):
             raise AssertionError(f"main path: {k}: {got} != {want}")
     log(f"  main path: ring identities hold ({', '.join(ring_checks)})")
     log(f"  main path: Harvester.summary() {json.dumps(h.summary())}")
-    return launches
+    return launches, b, sim, stats
 
 
 def run_serial_path(device):
@@ -1364,7 +1393,7 @@ def relay_cell(label, device, hop, total, sim_s, loss=0.0, tcp_bulk=True,
     for a cut depth; the reference's counts `expect`). With the TCP
     bulk pass, its per-call timings and the replay of window `keep` are
     reported (the profiled replay only with `profile_call`). Returns
-    (leaves, stats dict, launches, retx, fr)."""
+    (leaves, stats dict, launches, retx, fr, the bundle)."""
     import torch
 
     from shadow_tpu_torch import convert
@@ -1397,7 +1426,7 @@ def relay_cell(label, device, hop, total, sim_s, loss=0.0, tcp_bulk=True,
             f"per iteration")
         if timed.kept is not None:
             replay_bulk_call(label, b, fn, timed.kept, profile_call)
-    return convert.sim_to_numpy(sim), st, launches, retx, fr
+    return convert.sim_to_numpy(sim), st, launches, retx, fr, b
 
 
 # dead storage under the reference's bulk-vs-serial contract
@@ -2861,7 +2890,36 @@ def cli_cell(device):
         return _cli_cell(device, tmp)
 
 
+def check_spec_manifest(label, data_dir, dropped):
+    """The CLI's default trimmed program (--specialize auto): the run
+    manifest's specialization block drops `dropped` with the guard at 0,
+    and tools/telemetry_lint.py accepts the manifest."""
+    import os
+    import subprocess
+    from pathlib import Path
+
+    path = os.path.join(data_dir, "run_manifest.json")
+    with open(path) as fh:
+        spec = json.load(fh).get("specialization")
+    if (spec is None or spec["mode"] != "auto"
+            or spec["dropped"] != dropped
+            or spec["guard"]["loss_trips"] + spec["guard"]["timer_trips"]):
+        raise AssertionError(f"{label}: manifest specialization {spec}")
+    lint = subprocess.run(
+        [sys.executable, "tools/telemetry_lint.py", "--manifest", path],
+        cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=120)
+    if lint.returncode != 0:
+        raise AssertionError(f"{label}: telemetry_lint refused the "
+                             f"manifest:\n{lint.stdout[-2000:]}"
+                             f"{lint.stderr[-2000:]}")
+    log(f"  {label}: manifest specialization {json.dumps(spec)}; "
+        f"telemetry_lint --manifest: ok")
+
+
 def _cli_cell(device, tmp):
+    import os
+
     import torch
 
     from shadow_tpu_torch.apps import bulk
@@ -2918,8 +2976,12 @@ def _cli_cell(device, tmp):
     ex = example_config(clients=CLI_EX_CLIENTS, kib=CLI_EX_KIB, stoptime=40)
     report, _ = run_cli(ex_label, ex, tmp, "-s", str(CLI_EX_SEED))
     check_report(ex_label, report, CLI_EX_EXPECT)
-    report, _ = run_cli("cli-phold-ref", REFERENCE_PHOLD_XML, tmp)
+    report, _ = run_cli("cli-phold-ref", REFERENCE_PHOLD_XML, tmp,
+                        "--telemetry-capacity", "64")
     check_report("cli-phold-ref", report, PHOLD_REF_REPORT)
+    check_spec_manifest("cli-phold-ref",
+                        os.path.join(tmp, "cli-phold-ref.data"),
+                        ["loss", "timers"])
     twin = example_config(clients=CLI_EX_CLIENTS, kib=CLI_EX_KIB,
                           stoptime=CLI_TWIN_STOP)
     mailbox_gather.launches = 0
@@ -3527,11 +3589,13 @@ def check_lanes_run(label, sim, stats, hosts, launches):
         f"{[d['events_exec'] for d in rep]}")
 
 
-def profile_lanes_window(b, device):
-    """The 4-lane program's windows after window 0 (which holds the
-    run's micro-steps) to LANE_PROFILE_NS, from the state window 0 left:
+def profile_lanes_window(b, device, label="lanes profile"):
+    """A PHOLD program's windows after window 0 (which holds the run's
+    micro-steps) to LANE_PROFILE_NS, from the state window 0 left:
     unprofiled (the least of 3) and once under torch.profiler —
-    launches, cudaStreamSynchronize and device busy per window."""
+    launches, cudaStreamSynchronize and device busy per window (the
+    4-lane program's in phase 16, phase 4's with and without the trim
+    in phase 17)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3563,7 +3627,7 @@ def profile_lanes_window(b, device):
     launches = host_launches(events) / w
     syncs = sum(1 for e in events if e.device_type == DeviceType.CPU
                 and e.name == "cudaStreamSynchronize") / w
-    log(f"  lanes profile, windows after window 0: {st.as_dict()}: "
+    log(f"  {label}, windows after window 0: {st.as_dict()}: "
         f"{wall_ms:.2f} ms a window unprofiled, {launches:.0f} launches, "
         f"{syncs:.1f} cudaStreamSynchronize, device busy {busy_ms:.3f} ms "
         f"= {busy_ms / wall_ms * 100:.2f}% a window")
@@ -3990,7 +4054,8 @@ def lanes_cli(device, root, tmp):
     strip = {k: v for k, v in rep.items() if k not in wallk}
     if strip != {k: v for k, v in crep.items() if k not in wallk}:
         raise AssertionError(f"lanes CLI: report {rep} != the CPU's {crep}")
-    for block in ("lanes", "admission", "flows", "causality"):
+    for block in ("lanes", "admission", "flows", "causality",
+                  "specialization"):
         if block not in man or man[block] != cman[block]:
             raise AssertionError(f"lanes CLI: manifest {block} differs from "
                                  f"the CPU run's")
@@ -4009,6 +4074,190 @@ def lanes_cli(device, root, tmp):
         f"{man['causality']['sampled']} — equal to the CPU run's; "
         f"telemetry_lint --manifest: ok")
     return round(wall, 1)
+
+
+def leaves_equal_but_guard(label, want, got):
+    """Every leaf of the trimmed run's `got` ({path: numpy}) but the
+    guard's equal to the untrimmed run's `want`, dtype included, and the
+    guard's trip counters 0. Returns the number of leaves compared."""
+    import numpy as np
+
+    guard = sorted(k for k in got if k.startswith(".guard."))
+    if not guard:
+        raise AssertionError(f"{label}: the trimmed sim carries no guard")
+    if sorted(set(got) - set(guard)) != sorted(want):
+        raise AssertionError(f"{label}: leaf sets differ: "
+                             f"{sorted(set(got) ^ set(want))[:5]}")
+    bad = [k for k in want if want[k].dtype != got[k].dtype
+           or not np.array_equal(want[k], got[k])]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} leaves differ from the "
+                             f"untrimmed run, first {bad[:5]}")
+    trips = {k: int(got[k]) for k in guard}
+    if any(trips.values()):
+        raise AssertionError(f"{label}: the guard tripped: {trips}")
+    return len(want)
+
+
+def spec_cell(device, main4, relay6s):
+    """Phase 17: the capability-trimmed programs on the card.
+
+    17a: phase 4's bundle through specialize.apply (loss and timers
+    dropped) and make_runner, driven once: every leaf but the guard and
+    the EngineStats equal to phase 4's untrimmed run (`main4`: bundle,
+    final sim, stats), the guard's counters 0, mailbox_gather launched
+    every window and held exact to its plain version on this run's own
+    route streams (and timed there); one steady window profiled with
+    and without the trim. 17b: the BENCH_SPECIALIZE=1 row of `python -m
+    shadow_tpu_torch.bench`. 17c: the guard on a halved reliability
+    table and on a planted TIMER, each to SPEC_TAMPER_S: health.gather
+    reports a fatal trip. 17d: 6s's relay bulk twin (`relay6s`: leaves,
+    stats, bundle) trimmed (loss dropped; relay declares no kinds),
+    equal to the untrimmed twin. Returns (row fields, max abs err, the
+    gather timing on 17a's route)."""
+    import os
+    import subprocess
+    from pathlib import Path
+
+    import torch
+
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.apps import phold, relay
+    from shadow_tpu_torch.compile import specialize
+    from shadow_tpu_torch.core.events import EventKind
+    from shadow_tpu_torch.faults import health
+    from shadow_tpu_torch.net.build import make_runner
+
+    out = {}
+    b4, sim4, stats4 = main4
+
+    # ---- 17a: phase 4's program, trimmed -------------------------------
+    bt = specialize.apply(b4, (phold.handler,), app_bulk=phold.BULK)
+    if bt.caps.dropped() != ("loss", "timers"):
+        raise AssertionError(f"17a: dropped {bt.caps.dropped()}, expected "
+                             f"('loss', 'timers')")
+    log(f"  17a: specialize.apply: dropped {bt.caps.dropped()}, key extra "
+        f"{bt.caps.key_extra()!r}, guard watching {bt.sim.guard.watched()}")
+    with KeepGatherInputs() as gathered:
+        sim, stats, wall, launches = drive(
+            "17a trimmed main path", bt, main_runner(bt, device), device)
+    check_phold("17a trimmed main path", sim, HOSTS, LOAD, launches)
+    st = stats.as_dict()
+    if st != stats4.as_dict():
+        raise AssertionError(f"17a: EngineStats {st} != phase 4's "
+                             f"{stats4.as_dict()}")
+    if launches["mailbox_gather"] != st["windows"]:
+        raise AssertionError(f"17a: mailbox_gather launched "
+                             f"{launches['mailbox_gather']} times in "
+                             f"{st['windows']} windows")
+    n = leaves_equal_but_guard("17a", convert.sim_to_numpy(sim4),
+                               convert.sim_to_numpy(sim))
+    report = specialize.guard_report(sim)
+    log(f"  17a: EngineStats and all {n} leaves equal to phase 4's "
+        f"untrimmed run; guard {report}; mailbox_gather launched "
+        f"{launches['mailbox_gather']} times in {st['windows']} windows")
+    err = gathered.check("17a")
+    gather = time_gather("17a", gathered.kept)
+    out["launches_spec"] = launches["mailbox_gather"]
+    out["spec_wall_s"] = round(wall, 3)
+    del sim
+    prof = {k: profile_lanes_window(b, device, label=f"17a {k} program")
+            for k, b in (("untrimmed", b4), ("trimmed", bt))}
+    out["spec_window"] = prof
+    log(f"  17a: a steady window drops "
+        f"{prof['untrimmed']['launches'] - prof['trimmed']['launches']:.0f}"
+        f" launches with the trim ({prof['untrimmed']['launches']:.0f} -> "
+        f"{prof['trimmed']['launches']:.0f}), "
+        f"{prof['untrimmed']['ms']:.2f} -> {prof['trimmed']['ms']:.2f} ms")
+
+    # ---- 17b: the bench row as a user runs it ----------------------------
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_SPECIALIZE="1")
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "shadow_tpu_torch.bench"],
+                          cwd=Path(__file__).resolve().parent, env=env,
+                          capture_output=True, text=True, timeout=600)
+    bwall = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"spec bench exited {done.returncode}:\n"
+                             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    row = json.loads(done.stdout.strip().splitlines()[-1])
+    log(f"  17b: `BENCH_SPECIALIZE=1 python -m shadow_tpu_torch.bench` exit "
+        f"0 in {bwall:.1f} s: {json.dumps(row)}")
+    checks = {
+        "metric": (row["metric"], SPEC_NAME),
+        "events": (row["events"], st["events_processed"]),
+        "windows": (row["windows"], st["windows"]),
+        "micro_steps": (row["micro_steps"], st["micro_steps"]),
+        "specialization": (row.get("specialization"),
+                           {"dropped": ["loss", "timers"],
+                            "key_extra": "no_loss-no_timers"}),
+    }
+    for k, (got, want) in checks.items():
+        if got != want:
+            raise AssertionError(f"17b: {k}: {got} != {want}")
+    log(f"  17b: name, counts and block as 17a's; specialize_speedup "
+        f"{row['specialize_speedup']} ({row['value']} against "
+        f"{row['events_per_sec_full_program']} events/s)")
+    out["spec_row"] = {k: row[k] for k in (
+        "value", "events_per_sec_full_program", "specialize_speedup",
+        "wall_s")}
+
+    # ---- 17c: the guard latch on the card --------------------------------
+    end = int(SPEC_TAMPER_S * 1e9)
+
+    def halve(s):
+        return s.replace(net=s.net.replace(
+            reliability=s.net.reliability * 0.5))
+
+    def plant(s):
+        q = s.events
+        if int(q.time[0, 0]) == INVALID_TIME:
+            raise AssertionError("17c: host 0's first slot is empty")
+        kind = q.kind.clone()
+        kind[0, 0] = EventKind.TIMER
+        return s.replace(events=q.replace(kind=kind))
+
+    for what, tamper, watch in (("a halved table", halve, "loss"),
+                                ("a planted TIMER", plant, "timer")):
+        runner = make_runner(bt, app_handlers=(phold.handler,),
+                             end_time=end, app_bulk=phold.BULK,
+                             device=device)
+        tsim, tstats = runner(tamper(bt.sim))
+        h = health.gather(tsim)
+        fatal = [m for sev, m in h.diagnostics() if sev == "fatal"]
+        trips = (h.guard_loss_trips, h.guard_timer_trips)
+        want_trip = trips[0] if watch == "loss" else trips[1]
+        other = trips[1] if watch == "loss" else trips[0]
+        if not (h.fatal and h.guard_tripped and want_trip > 0
+                and other == 0 and any(
+                    "specialization guard tripped" in m
+                    and "--specialize off" in m for m in fatal)):
+            raise AssertionError(f"17c {what}: guard trips {trips}, fatal "
+                                 f"{h.fatal}, diagnostics {fatal}")
+        log(f"  17c {what}: {tstats.as_dict()['windows']} windows; guard "
+            f"{specialize.guard_report(tsim)}; fatal: {fatal[0]}")
+        del tsim
+
+    # ---- 17d: the TCP trim on 6s's relay bulk twin -------------------------
+    leaves6, st6, b6 = relay6s
+    bt6 = specialize.apply(b6, (relay.handler,), app_tcp_bulk=relay.TCP_BULK)
+    if bt6.caps.dropped() != ("loss",):
+        raise AssertionError(f"17d: dropped {bt6.caps.dropped()}, expected "
+                             f"('loss',)")
+    sim, stats, _, launches = drive("17d trimmed relay", bt6,
+                                    relay_runner(bt6, device), device)
+    check_cell("17d trimmed relay", bt6.cfg, sim, stats, launches, {})
+    if stats.as_dict() != st6:
+        raise AssertionError(f"17d: EngineStats {stats.as_dict()} != 6s's "
+                             f"{st6}")
+    n = leaves_equal_but_guard("17d", leaves6, convert.sim_to_numpy(sim))
+    log(f"  17d: dropped {bt6.caps.dropped()}; EngineStats and all {n} "
+        f"leaves equal to 6s's untrimmed bulk twin; guard "
+        f"{specialize.guard_report(sim)}")
+    out["launches_spec_relay"] = launches["mailbox_gather"]
+    torch.cuda.synchronize()
+    return out, err, gather
 
 
 def main(argv=None) -> int:
@@ -4077,7 +4326,7 @@ def main(argv=None) -> int:
     phase("4")
     log(f"[4] main path: bench.py's default PHOLD, {HOSTS} hosts load "
         f"{LOAD} {SIM_S} sim-s, bulk pass, sparse default, ring")
-    launches = run_main_path(device)
+    launches, *main4 = run_main_path(device)
     row["launches"] = launches["mailbox_gather"]
 
     if args.profile:
@@ -4142,6 +4391,7 @@ def main(argv=None) -> int:
         raise AssertionError("relay serial: no more micro-steps than the "
                              "TCP bulk pass left by the cut depth")
     assert_contract("relay 6s twins", twin[:2], serial[:2])
+    relay6s = (twin[0], twin[1], twin[5])   # phase 17d trims this twin
     del twin, serial
 
     phase("6a")
@@ -4168,9 +4418,10 @@ def main(argv=None) -> int:
     serial = relay_cell("lossy relay serial", device, LOSSY_HOP,
                         LOSSY_BYTES, LOSSY_SERIAL_SIM_S, loss=LOSSY_LOSS,
                         tcp_bulk=False, complete=False)
-    if serial[3] <= 0:
+    if serial[3] <= 0 or serial[4] <= 0:
         raise AssertionError("lossy relay serial: no segment was "
-                             "retransmitted by the cut depth")
+                             "retransmitted or no fast recovery entered "
+                             "by the cut depth")
     assert_contract("lossy relay 6as twins", twin[:2], serial[:2])
     del twin, serial
 
@@ -4262,6 +4513,19 @@ def main(argv=None) -> int:
         phase("16p")
         log("[16p] the 4-lane program's hooks, profiled")
         profile_lane_hooks(device)
+
+    phase("17")
+    log(f"[17] the capability-trimmed programs: phase 4's PHOLD ({HOSTS} "
+        f"hosts, {SIM_S} sim-s) through specialize.apply against phase 4's "
+        f"run; bench.py's BENCH_SPECIALIZE=1 row; the guard on a halved "
+        f"table and a planted TIMER to {SPEC_TAMPER_S} sim-s; 6s's relay "
+        f"bulk twin trimmed to {RELAY_SERIAL_SIM_S} sim-s")
+    got, err, gather = spec_cell(device, main4, relay6s)
+    del main4, relay6s
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["spec"] = {k: gather[k] for k in (
+        "n", "ms", "plain_ms", "bound_ms", "library_ms")}
+    row.update(got)
 
     phase(None)
     log(f"  done; seconds per phase {json.dumps(phase_s)}")

@@ -197,3 +197,11 @@ def handler(cfg: NetConfig, sim, popped, buf, kinds=None):
     sim = sim.replace(net=net,
                       app=sim.app.replace(rcvd=sim.app.rcvd + got.to(I64)))
     return _send_one(cfg, sim, buf, got, now)
+
+
+# Complete set of event kinds this handler can emit (its UDP sends go
+# through the netstack's own NIC_SEND/PACKET machinery, which is always
+# live). The capability analysis (compile/specialize.py) reads this
+# declaration to prove the timer handler family dead: PHOLD never arms
+# a host timer, so TIMER events cannot exist and the family is left out.
+handler.specialize_kinds = frozenset({int(KIND_INJECT)})

@@ -73,6 +73,32 @@ Env knobs (bench.py's, for what the port runs):
                                  inputs (name gains _caus{N}; the row
                                  gains a "causality" block)
   BENCH_CAUSALITY_OVERHEAD=1     the same A/B for the causality planes
+  BENCH_ACTIVE=N                 sparse PHOLD shape: only the first N
+                                 hosts inject load (phold.setup
+                                 active_hosts); the bulk pass is off
+                                 (it would consume whole windows before
+                                 the sparse fast path ran); name gains
+                                 _active{N}
+  BENCH_SPARSE_LANES=S           the compact-lane budget
+                                 (cfg.sparse_lanes; unset = the engine
+                                 default 256, 0 = the fast path off)
+  BENCH_SPECIALIZE=1             plain PHOLD runner only: the timed
+                                 program is the capability-trimmed one
+                                 (compile/specialize.py, applied after
+                                 every attachment, the guard on every
+                                 timed input; name gains _spec); the
+                                 unspecialized twin of the same
+                                 workload is warmed and timed too, and
+                                 the row gains specialize_speedup
+                                 (trimmed / full events/s),
+                                 events_per_sec_full_program and
+                                 "specialization" {dropped, key_extra}
+  BENCH_BUCKETED=1               quantize the capacity knobs to their
+                                 power-of-two buckets before the build
+                                 (compile/buckets.py; the row gains
+                                 "compile": {"buckets": ...}); unset is
+                                 off (bench.py's default follows warm
+                                 serving, ROADMAP.md Queue 1 item 11b)
   BENCH_PLATFORM=cpu             run on the CPU
 
 Every other BENCH_* knob of bench.py is refused (SystemExit naming it;
@@ -81,10 +107,12 @@ item 9), and so are bench.py's own refusals: --faults, BENCH_SUPERVISE
 and BENCH_MIN_JUMP_MS with pingpong (bench.py ignores the last there),
 BENCH_REPLICAS, BENCH_FLOW_SAMPLE and BENCH_CAUSALITY with pingpong,
 BENCH_REPLICAS with BENCH_SUPERVISE or an injection scenario,
-BENCH_FLOW_OVERHEAD / BENCH_CAUSALITY_OVERHEAD without their sample
-knob, BENCH_ADAPTIVE_JUMP and BENCH_CHECKPOINT_WINDOWS without
-BENCH_SUPERVISE=1 or an injection scenario, and BENCH_INJECT_* with
-BENCH_WORKLOAD or BENCH_SUPERVISE.
+BENCH_ACTIVE with BENCH_REPLICAS or BENCH_SUPERVISE, BENCH_ACTIVE and
+BENCH_SPARSE_LANES with an injection scenario, BENCH_SPECIALIZE outside
+the plain PHOLD runner, BENCH_FLOW_OVERHEAD / BENCH_CAUSALITY_OVERHEAD
+without their sample knob, BENCH_ADAPTIVE_JUMP and
+BENCH_CHECKPOINT_WINDOWS without BENCH_SUPERVISE=1 or an injection
+scenario, and BENCH_INJECT_* with BENCH_WORKLOAD or BENCH_SUPERVISE.
 
 PHOLD is bench.py's default program: capacities start at max(16,
 3*load) and double on a counted overflow, then the run goes again; the
@@ -158,7 +186,9 @@ KNOBS = frozenset({"BENCH_WORKLOAD", "BENCH_TOPO", "BENCH_HOSTS",
                    "BENCH_INJECT_RATE", "BENCH_INJECT_TRACE",
                    "BENCH_REPLICAS", "BENCH_LANE_ISOLATION",
                    "BENCH_FLOW_SAMPLE", "BENCH_FLOW_OVERHEAD",
-                   "BENCH_CAUSALITY", "BENCH_CAUSALITY_OVERHEAD"})
+                   "BENCH_CAUSALITY", "BENCH_CAUSALITY_OVERHEAD",
+                   "BENCH_SPECIALIZE", "BENCH_BUCKETED", "BENCH_ACTIVE",
+                   "BENCH_SPARSE_LANES"})
 # bench.py knobs whose mechanism waits for a ROADMAP.md Queue 1 item
 UNPORTED = {"BENCH_RESIDENT": 12, "BENCH_SHARDS": 9}
 
@@ -168,15 +198,19 @@ ONE_MILLISECOND = 1_000_000   # core.simtime's, without importing torch
 
 def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True,
                 fault_records=None, ring_capacity=None, replica_size=None,
-                lanes=False, flow_sample=0, causality_sample=0):
-    """bench.py's _build_phold (no active subset): capacities `cap`,
-    in_ring max(16, 2*load), the default sparse budget; `replica_size`
-    packs H/replica_size independent replicas, each a lane-isolated
-    lane when `lanes` (attached before the ring, which sizes its
-    per-lane planes off it); the fault plan `fault_records` installed
-    when given; the telemetry ring (of `ring_capacity` records, default
-    the ring's) when `ring`; the flow and causality recorders at 1-in-N
-    when `flow_sample` / `causality_sample` > 0."""
+                lanes=False, flow_sample=0, causality_sample=0,
+                active_hosts=None, sparse_lanes=None, bucketed=False):
+    """bench.py's _build_phold: capacities `cap`, in_ring max(16,
+    2*load), the sparse budget `sparse_lanes` (None = the default),
+    only the first `active_hosts` hosts loaded when given; the capacity
+    knobs quantized to their power-of-two buckets when `bucketed` (the
+    plan on `b.bucket_plan`); `replica_size` packs H/replica_size
+    independent replicas, each a lane-isolated lane when `lanes`
+    (attached before the ring, which sizes its per-lane planes off it);
+    the fault plan `fault_records` installed when given; the telemetry
+    ring (of `ring_capacity` records, default the ring's) when `ring`;
+    the flow and causality recorders at 1-in-N when `flow_sample` /
+    `causality_sample` > 0."""
     from shadow_tpu_torch import telemetry
     from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.core import simtime
@@ -186,10 +220,14 @@ def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True,
     cfg = NetConfig(num_hosts=H, tcp=False,
                     end_time=int(sim_s * simtime.ONE_SECOND), seed=seed,
                     event_capacity=cap, outbox_capacity=cap,
-                    router_ring=cap, in_ring=max(16, 2 * load))
+                    router_ring=cap, in_ring=max(16, 2 * load),
+                    sparse_lanes=sparse_lanes)
+    cfg, plan = _bucket(cfg, bucketed)
     hosts = [HostSpec(name=f"peer{i}", proc_start_time=0) for i in range(H)]
     b = build(cfg, graph, hosts, device=device)
-    b.sim = phold.setup(b.sim, load=load, replica_size=replica_size)
+    b.bucket_plan = plan
+    b.sim = phold.setup(b.sim, load=load, replica_size=replica_size,
+                        active_hosts=active_hosts)
     if replica_size and H > replica_size and lanes:
         from shadow_tpu_torch.core import lanes as lanes_mod
 
@@ -203,6 +241,33 @@ def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True,
                  else telemetry.attach(b.sim, capacity=ring_capacity))
     b.sim = attach_recorders(b.sim, flow_sample, causality_sample)
     return b
+
+
+def _bucket(cfg, bucketed):
+    """bench.py's BENCH_BUCKETED rule: (cfg with its capacity knobs
+    quantized to their power-of-two buckets, the BucketPlan), or (cfg,
+    None) when off."""
+    if not bucketed:
+        return cfg, None
+    from shadow_tpu_torch.compile.buckets import bucket_config
+
+    return bucket_config(cfg)
+
+
+def specialize_inputs(b, sims, app_bulk):
+    """bench.py's BENCH_SPECIALIZE step, after every attachment: the
+    capability-trimmed bundle for PHOLD, and the timed inputs each
+    carrying its guard (the trimmed program expects the guard leaves in
+    every input)."""
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.compile import specialize
+
+    b.sim = sims[0]
+    b = specialize.apply(b, (phold.handler,), app_bulk=app_bulk)
+    guard = getattr(b.sim, "guard", None)
+    if guard is not None:
+        sims = [b.sim] + [s.replace(guard=guard) for s in sims[1:]]
+    return b, sims
 
 
 def attach_recorders(sim, flow_sample=0, causality_sample=0):
@@ -239,30 +304,41 @@ def _lower_min_jump(b, min_jump_ns):
 def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
                  chunk_windows=None, fault_records=None, min_jump_ns=None,
                  replica_size=None, lanes=False, flow_sample=0,
-                 causality_sample=0):
+                 causality_sample=0, active_hosts=None, sparse_lanes=None,
+                 bucketed=False, specialize=False):
     """bench.py's _phold_runner: a zero-argument callable that runs the
     workload once and returns its events; each call takes the next of
     three inputs (seeds 1, 2, 3), each with its own seeded fault
     wakeups when `fault_records` is given. A counted queue or outbox
     overflow doubles the capacities, rebuilds and runs again
     (`go.escalated`). `go.last_sim` / `go.last_stats` hold the last
-    clean run. `replica_size`, `lanes` and the samples are
-    build_phold's."""
+    clean run; `go.state` holds the bundle (its `caps`, the capability
+    vector) and `plan`, the BucketPlan (None unbucketed). `replica_size`,
+    `lanes`, the samples, `active_hosts` (which leaves the bulk pass
+    off, as bench.py does: it would consume whole windows before the
+    sparse fast path the shape exists to exercise), `sparse_lanes` and
+    `bucketed` are build_phold's; `specialize` times the
+    capability-trimmed program (specialize_inputs)."""
     from shadow_tpu_torch.apps import phold
 
     state = {"n": 0}
+    app_bulk = phold.BULK if active_hosts is None else None
 
     def build_at(cap):
         bundles = [_lower_min_jump(build_phold(
             H, load, sim_s, seed, cap, graph, device, ring=ring,
             fault_records=fault_records, replica_size=replica_size,
             lanes=lanes, flow_sample=flow_sample,
-            causality_sample=causality_sample), min_jump_ns)
+            causality_sample=causality_sample, active_hosts=active_hosts,
+            sparse_lanes=sparse_lanes, bucketed=bucketed), min_jump_ns)
             for seed in (1, 2, 3)]
-        state.update(cap=cap, bundle=bundles[0],
-                     sims=[x.sim for x in bundles],
-                     fn=_runner(bundles[0], phold.handler, device,
-                                chunk_windows, app_bulk=phold.BULK))
+        b, sims = bundles[0], [x.sim for x in bundles]
+        plan = b.bucket_plan
+        if specialize:
+            b, sims = specialize_inputs(b, sims, app_bulk)
+        state.update(cap=cap, bundle=b, sims=sims, plan=plan,
+                     fn=_runner(b, phold.handler, device, chunk_windows,
+                                app_bulk=app_bulk))
 
     build_at(max(16, 3 * load))
 
@@ -300,13 +376,14 @@ def _supervised_runner(what, make_bundles, cap, handler, device,
     start at `cap` and double on a counted queue or outbox overflow or
     an injection drop (`go.escalated`). `go.last_sim`, `go.last_stats`,
     `go.last_result`, `go.last_feeder` and `go.harvester` hold the last
-    clean run."""
+    clean run; `go.state["plan"]` the inputs' BucketPlan (None
+    unbucketed)."""
     import atexit
     import shutil
     import tempfile
 
     from shadow_tpu_torch import faults, telemetry
-    from shadow_tpu_torch.faults.escalate import quantize_pow2
+    from shadow_tpu_torch.compile.buckets import quantize_pow2
     from shadow_tpu_torch.telemetry.ring import DEFAULT_CAPACITY
 
     state = {"n": 0}
@@ -318,7 +395,8 @@ def _supervised_runner(what, make_bundles, cap, handler, device,
     def build_at(cap):
         bundles = make_bundles(cap, W)
         state.update(cap=cap, bundle=bundles[0],
-                     sims=[x.sim for x in bundles])
+                     sims=[x.sim for x in bundles],
+                     plan=getattr(bundles[0], "bucket_plan", None))
 
     build_at(cap)
 
@@ -363,7 +441,8 @@ def phold_supervised_runner(H, load, sim_s, device, graph=ONE_VERTEX,
                             ring=True, fault_records=None,
                             chunk_windows=None, adaptive_jump=False,
                             min_jump_ns=None, checkpoint_windows=None,
-                            flow_sample=0, causality_sample=0):
+                            flow_sample=0, causality_sample=0,
+                            bucketed=False):
     """bench.py's _phold_supervised_runner: PHOLD through
     _supervised_runner with the bulk pass (bundle.app_bulk). Inputs and
     escalation as phold_runner."""
@@ -373,8 +452,8 @@ def phold_supervised_runner(H, load, sim_s, device, graph=ONE_VERTEX,
         bundles = [_lower_min_jump(build_phold(
             H, load, sim_s, seed, cap, graph, device, ring=ring,
             fault_records=fault_records, ring_capacity=W,
-            flow_sample=flow_sample, causality_sample=causality_sample),
-            min_jump_ns)
+            flow_sample=flow_sample, causality_sample=causality_sample,
+            bucketed=bucketed), min_jump_ns)
             for seed in (1, 2, 3)]
         bundles[0].app_bulk = phold.BULK
         return bundles
@@ -406,10 +485,11 @@ def rate_trace(H: int, rate: float, sim_s: int) -> list:
 
 
 def build_inject(H, sim_s, seed, cap, lanes, graph, device,
-                 fault_records=None, min_jump_ns=None):
+                 fault_records=None, min_jump_ns=None, bucketed=False):
     """bench.py's injection bundle: the tgen app on every host (UDP,
-    capacities `cap`, in_ring 16, `lanes` staging lanes), the fault plan
-    installed when given, the window span lowered to `min_jump_ns`."""
+    capacities `cap`, in_ring 16, `lanes` staging lanes; bucketed when
+    `bucketed`, the plan on `b.bucket_plan`), the fault plan installed
+    when given, the window span lowered to `min_jump_ns`."""
     from shadow_tpu_torch.apps import tgen
     from shadow_tpu_torch.core import simtime
     from shadow_tpu_torch.net.build import HostSpec, build
@@ -419,8 +499,10 @@ def build_inject(H, sim_s, seed, cap, lanes, graph, device,
                     end_time=sim_s * simtime.ONE_SECOND, seed=seed,
                     event_capacity=cap, outbox_capacity=cap,
                     router_ring=cap, in_ring=16, inject_lanes=lanes)
+    cfg, plan = _bucket(cfg, bucketed)
     hosts = [HostSpec(name=f"peer{i}", proc_start_time=0) for i in range(H)]
     b = build(cfg, graph, hosts, device=device)
+    b.bucket_plan = plan
     b.sim = tgen.setup(b.sim)
     if fault_records:
         from shadow_tpu_torch import faults
@@ -434,7 +516,7 @@ def inject_runner(H, sim_s, device, seed=1, graph=ONE_VERTEX,
                   fault_records=None, chunk_windows=None,
                   adaptive_jump=False, min_jump_ns=None,
                   checkpoint_windows=None, flow_sample=0,
-                  causality_sample=0):
+                  causality_sample=0, bucketed=False):
     """bench.py's _inject_runner: the tgen app driven by a streamed trace
     (`trace_path`, or rate_trace(H, `rate`, sim_s)) through
     _supervised_runner — the feeder refills the staging lanes at every
@@ -456,7 +538,8 @@ def inject_runner(H, sim_s, device, seed=1, graph=ONE_VERTEX,
 
     def make_bundles(cap, W):
         bundles = [build_inject(H, sim_s, seed + i, cap, lanes, graph,
-                                device, fault_records, min_jump_ns)
+                                device, fault_records, min_jump_ns,
+                                bucketed=bucketed)
                    for i in (0, 1, 2)]
         for x in bundles:
             if ring:
@@ -646,6 +729,13 @@ def main(argv=None) -> int:
     if replicas < 1:
         raise SystemExit(f"BENCH_REPLICAS={replicas}: must be >= 1")
     lanes = os.environ.get("BENCH_LANE_ISOLATION", "0") != "0"
+    active = _env_int("BENCH_ACTIVE", None)
+    sparse = _env_int("BENCH_SPARSE_LANES", None)
+    spec_on = os.environ.get("BENCH_SPECIALIZE", "0") == "1"
+    # bench.py's default follows warm serving, which the port does not
+    # have (ROADMAP.md Queue 1 item 11b): unset is off, as there with
+    # warm serving off
+    bucketed = os.environ.get("BENCH_BUCKETED", "0") != "0"
     flow_n = _env_int("BENCH_FLOW_SAMPLE", 0)
     caus_n = _env_int("BENCH_CAUSALITY", 0)
     flow_ab = os.environ.get("BENCH_FLOW_OVERHEAD") == "1"
@@ -669,14 +759,23 @@ def main(argv=None) -> int:
         if os.environ.get("BENCH_WORKLOAD"):
             raise SystemExit("BENCH_INJECT_* defines its own scenario; "
                              "leave BENCH_WORKLOAD unset")
-        if supervise or replicas > 1:
+        if supervise or replicas > 1 or active is not None \
+                or sparse is not None:
             raise SystemExit(
                 "BENCH_INJECT_* does not combine with BENCH_SUPERVISE / "
-                "BENCH_REPLICAS — it is already a supervised tgen "
-                "scenario")
-    if supervise and replicas > 1:
+                "BENCH_REPLICAS / BENCH_ACTIVE / BENCH_SPARSE_LANES — it "
+                "is already a supervised tgen scenario")
+    if workload == "phold" and active is not None and replicas > 1:
+        raise SystemExit("BENCH_ACTIVE and BENCH_REPLICAS are mutually "
+                         "exclusive PHOLD shapes")
+    if supervise and (replicas > 1 or active is not None):
         raise SystemExit("BENCH_SUPERVISE=1 does not combine with "
-                         "BENCH_REPLICAS")
+                         "BENCH_REPLICAS/BENCH_ACTIVE")
+    if spec_on and (workload != "phold" or supervise or inject_on):
+        raise SystemExit(
+            "BENCH_SPECIALIZE=1 is only wired for the plain PHOLD "
+            "runner (the supervised/injection loops build their own "
+            "bundles)")
     if workload != "phold":
         for flag, on in (("--faults", args.faults),
                          ("BENCH_SUPERVISE=1", supervise),
@@ -703,9 +802,9 @@ def main(argv=None) -> int:
 
     graph = MIX_VERTICES if topo == "mix" else ONE_VERTEX
 
-    def make_runner(flow_sample, causality_sample):
+    def make_runner(flow_sample, causality_sample, specialize=spec_on):
         rec = dict(flow_sample=flow_sample,
-                   causality_sample=causality_sample)
+                   causality_sample=causality_sample, bucketed=bucketed)
         if inject_on:
             return inject_runner(
                 H, sim_s, device, graph=graph, trace_path=inj_trace,
@@ -724,7 +823,8 @@ def main(argv=None) -> int:
                 chunk_windows=chunk, fault_records=fault_records,
                 min_jump_ns=min_jump_ns,
                 replica_size=H if replicas > 1 else None, lanes=lanes,
-                **rec)
+                active_hosts=active, sparse_lanes=sparse,
+                specialize=specialize, **rec)
         return pingpong_runner(
             H, sim_s, device, graph=MIX_VERTICES if topo == "mix" else None,
             chunk_windows=chunk)
@@ -742,6 +842,8 @@ def main(argv=None) -> int:
             name += f"_x{replicas}replicas"
             if lanes:
                 name += "_lanes"
+        if active is not None:
+            name += f"_active{active}"
     else:
         name = f"events_per_sec_per_chip@{H}hosts_udp_pingpong"
     if supervise:
@@ -758,6 +860,8 @@ def main(argv=None) -> int:
         name += "_faults"
     if flow_n > 0:
         name += f"_flow{flow_n}"
+    if spec_on:
+        name += "_spec"
     if caus_n > 0:
         name += f"_caus{caus_n}"
 
@@ -768,6 +872,9 @@ def main(argv=None) -> int:
     warmup_s = time.perf_counter() - t0
     m = timed(runner, device)
     row = make_row(name, H, m, runner.last_stats, device, warmup_s)
+    plan = runner.state.get("plan")
+    if plan is not None:
+        row["compile"] = {"buckets": plan.as_dict()}
     row.update(recorder_blocks(runner, flow_n, caus_n))
     # bench.py's A/B: the same workload rebuilt without the recorder,
     # timed the same way; overhead = (off - on) / off
@@ -783,6 +890,19 @@ def main(argv=None) -> int:
             row[f"{key}_overhead_pct"] = round(
                 (off - row["value"]) / off * 100.0, 2)
             row[f"events_per_sec_{key}_off"] = round(off, 1)
+    if spec_on:
+        # bench.py's A/B: the unspecialized twin of the same workload,
+        # timed the same way; specialize_speedup = trimmed / full
+        base = make_runner(flow_n, caus_n, specialize=False)
+        base()                    # warm-up
+        m_full = timed(base, device)
+        full = m_full["events"] / m_full["wall_s"]
+        row["specialize_speedup"] = round(row["value"] / full, 4)
+        row["events_per_sec_full_program"] = round(full, 1)
+        caps = runner.state["bundle"].caps
+        if caps is not None:
+            row["specialization"] = {"dropped": list(caps.dropped()),
+                                     "key_extra": caps.key_extra()}
     print(json.dumps(row))
     return 0
 

@@ -31,10 +31,15 @@ Flags whose mechanism the port does not have yet are refused by name
 1 (item 9); `--host-kernel`, `--host-time-scale`, `--track-paths`,
 `--cpu-threshold` and configs with logpcap (item 10); `--profile-dir`,
 which names jax.profiler. The
-`fleet` and `sweep` sub-commands wait for item 12. `--specialize` is
-accepted: the port runs the untrimmed program, which the reference's
-own contract makes bit-identical to the trimmed one (the trim is item
-11). The reference's compatibility flags (`--preload`,
+`fleet` and `sweep` sub-commands wait for item 12.
+
+`--specialize auto` (the default) runs the capability-trimmed program,
+as the reference does (compile/specialize.py: on a lossless topology
+with no plan touching reliability the loss draws are left out, and the
+timer handlers when every app declares it arms no timer), with a guard
+latch that makes a violated assumption a fatal health fault; the
+manifest gains its `specialization` block. `--specialize off` runs the
+full program. The reference's compatibility flags (`--preload`,
 `--data-template`, `--gdb`, `--valgrind`, `--interface-batch`,
 `--interface-buffer`, `--scheduler-policy`) are accepted and have no
 effect, as there.
@@ -258,9 +263,13 @@ def make_parser() -> argparse.ArgumentParser:
                    help="escalation budget: total capacity doublings")
     p.add_argument("--specialize", choices=("auto", "off"),
                    default="auto",
-                   help="compile-time specialization: accepted; the "
-                        "port runs the untrimmed program (ROADMAP.md "
-                        "Queue 1 item 11)")
+                   help="program specialization "
+                        "(compile/specialize.py): auto (default) "
+                        "leaves the loss draws and timer handlers the "
+                        "build proves dead out of the program, with a "
+                        "device guard latch that turns any violation "
+                        "into a fatal health fault; off runs the full "
+                        "program")
     p.add_argument("--resume", default=None, metavar="PATH",
                    help="continue a previous run from its checkpoint: "
                         "a snapshot file, a checkpoint path prefix, or "
@@ -466,13 +475,6 @@ def _run(args, text, device, logger) -> int:
             0, "shadow-tpu",
             f"injection staging: {b.sim.inject.lanes} lanes, source "
             f"{args.inject_trace or '<traffic> elements'}")
-    if args.specialize == "auto":
-        logger.message(
-            0, "shadow-tpu",
-            "specialization: the trim is not ported (ROADMAP.md Queue 1 "
-            "item 11); running the untrimmed program, bit-identical by "
-            "the reference's contract")
-
     t0 = time.time()
     # periodic run-time progress records (the reference's per-round
     # heartbeat, slave.c:390-411); the host-driven supervised loop calls
@@ -558,6 +560,23 @@ def _run(args, text, device, logger) -> int:
     if telem_on or flows_on or caus_on:
         tel.harvester = telemetry.Harvester()
         tel.timers = telemetry.PhaseTimers()
+
+    # program specialization (compile/specialize.py): derive the
+    # capability vector from the concrete build AFTER every attachment,
+    # so the analysis sees the final Sim. The reference runs the full
+    # program for .py-plugin runtimes and --host-kernel; the port
+    # refuses both (ROADMAP.md Queue 1 item 10b), which takes that
+    # branch over when it lands.
+    from shadow_tpu_torch.compile import specialize
+
+    b = specialize.apply(b, loaded.handlers, app_bulk=b.app_bulk,
+                         mode=args.specialize)
+    if b.caps is not None and b.caps.dropped():
+        logger.message(
+            0, "shadow-tpu",
+            "specialization: trimmed " + ",".join(b.caps.dropped())
+            + f" (program-key extra {b.caps.key_extra()!r}; guard latch "
+              f"armed)")
 
     sup_result = None
     if args.supervise:
@@ -719,6 +738,7 @@ def _export(args, b, sim, stats, health, tel, sup_result=None, *,
                  "resume_of": sup_result.resume_of,
                  "escalations": sup_result.escalations,
                  "dispatch": disp}
+    from shadow_tpu_torch.compile import specialize
     from shadow_tpu_torch.telemetry.causality import (
         causality_manifest_block,
     )
@@ -744,7 +764,10 @@ def _export(args, b, sim, stats, health, tel, sup_result=None, *,
             h, num_hosts=b.cfg.num_hosts, shards=1,
             sample_period=args.flow_sample or None),
         admission=admission_manifest_block(health),
-        causality=caus_blk, **extra)
+        causality=caus_blk,
+        specialization=specialize.specialization_block(
+            getattr(b, "caps", None), sim, mode=args.specialize),
+        **extra)
     os.makedirs(args.data_directory, exist_ok=True)
     telemetry.write_manifest(
         os.path.join(args.data_directory, "run_manifest.json"), man)

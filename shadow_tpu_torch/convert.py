@@ -8,9 +8,9 @@ the reference. The reference's uint32 leaves (net.state.U32_FIELDS)
 are int64 holding 32-bit values in the port and uint32 in the dict; its
 uint64 leaves (the causality keys, U64_PATHS) are int64 with the same
 bits in the port and uint64 in the dict. Static fields (the reference's
-non-pytree fields: sample periods, the lanes' stall limit) are not
-leaves; sim_from_numpy takes them from a template Sim when given, else
-their defaults.
+non-pytree fields: sample periods, the lanes' stall limit, the
+specialization guard's watch flags) are not leaves; sim_from_numpy
+takes them from a template Sim when given, else their defaults.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from shadow_tpu_torch.apps.pingpong import PingPongApp
 from shadow_tpu_torch.apps.randdump import RandDumpApp
 from shadow_tpu_torch.apps.relay import RelayApp, RelayMuxApp
 from shadow_tpu_torch.apps.tgen import TgenApp
+from shadow_tpu_torch.compile.specialize import GuardState
 from shadow_tpu_torch.core.events import EventQueue, Outbox, is_static
 from shadow_tpu_torch.core.lanes import LaneAdmission, LaneHealth
 from shadow_tpu_torch.device import resolve_device
@@ -49,7 +50,7 @@ _SIM_FIELDS = {"events": (EventQueue,), "outbox": (Outbox,),
                "tcp": (TcpState,), "telem": (TelemetryRing,),
                "inject": (InjectStaging,), "lanes": (LaneHealth,),
                "admission": (LaneAdmission,), "flows": (FlowRing,),
-               "causality": (CausalityState,)}
+               "causality": (CausalityState,), "guard": (GuardState,)}
 
 # the leaves that are uint64 in the reference
 U64_PATHS = frozenset(f".causality.{n}" for n in U64_PLANES)

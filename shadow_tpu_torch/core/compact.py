@@ -7,9 +7,10 @@ reference's: a leaf whose leading dimension is the host dimension is
 gathered; the replicated lookup tables of NetState
 (net.state.REPLICATED_FIELDS), the whole-sim subtrees (the telemetry
 ring, the injection staging buffer, the lane and admission planes, the
-flow ring and the causality advance plane) and scalars pass through
-whole; the lineage sub-rings gather by host row. The port's state has
-no pytree, so the Sim's dataclasses are walked field by field, by name.
+flow ring and the causality advance plane) and scalars (the
+specialization guard's two counters among them) pass through whole; the
+lineage sub-rings gather by host row. The port's state has no pytree,
+so the Sim's dataclasses are walked field by field, by name.
 
 Bit-identity: the gathered indices are DISTINCT real rows (a stable
 partition of the activity mask, actives first in ascending row order),

@@ -179,7 +179,8 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
     boundary: it rewrites the latency/reliability tables and applies
     crash resets as a pure function of wend, so every event inside the
     window sees the post-fault network. It runs at full width before
-    the bulk pass and the census.
+    the bulk pass and the census. A Sim carrying a specialization guard
+    (compile/specialize.py) updates it right after, on the device.
 
     `bulk_fn` (net.bulk.make_bulk_fn) consumes eligible hosts' whole
     windows in one vectorized pass first; its count is added to
@@ -225,6 +226,14 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
         inject_deltas = (inj_w, drop_w, def_w)
     if fault_fn is not None:
         sim = fault_fn(sim, wend)
+    if getattr(sim, "guard", None) is not None:
+        # the specialization guard (compile/specialize.py): one device
+        # predicate per dropped capability right after the fault rewrite
+        # (the only in-window writer of the watched tables); a trip is
+        # latched and becomes a fatal health fault at gather time
+        from shadow_tpu_torch.compile.specialize import guard_update
+
+        sim = guard_update(sim, wend)
     if bulk_fn is not None:
         sim, n_bulk = bulk_fn(sim, wend)
         stats = stats.replace(

@@ -31,6 +31,7 @@ import dataclasses
 
 import numpy as np
 
+from shadow_tpu_torch.compile.buckets import quantize_pow2
 from shadow_tpu_torch.core import simtime
 
 # fatal overflow latch (faults/health.py RunHealth field) -> the
@@ -42,17 +43,6 @@ LATCH_KNOBS = {
     "outbox_overflow": "outbox_capacity",
     "rq_overflow": "router_ring",
 }
-
-
-def quantize_pow2(n: int) -> int:
-    """Smallest power of two >= n (shadow_tpu/compile/buckets.py's
-    rule, copied): 0 stays 0 and negatives are rejected."""
-    n = int(n)
-    if n < 0:
-        raise ValueError(f"cannot bucket a negative capacity: {n}")
-    if n <= 1:
-        return n
-    return 1 << (n - 1).bit_length()
 
 
 class GrowBudgetExceeded(RuntimeError):

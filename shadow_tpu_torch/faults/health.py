@@ -318,7 +318,7 @@ class RunHealth:
 
 # Sim layers whose health reports the port does not read yet, and the
 # ROADMAP.md Queue 1 item that ports each.
-_UNPORTED_LAYERS = {"guard": 11, "sentinel": 9}
+_UNPORTED_LAYERS = {"sentinel": 9}
 
 
 def gather(sim, *, window_start=None, stalled_windows=0, stall_limit=0,
@@ -326,23 +326,31 @@ def gather(sim, *, window_start=None, stalled_windows=0, stall_limit=0,
            trace_warnings=(), max_suspects=8) -> RunHealth:
     """Pull the device latches into a RunHealth: one host read of the
     four scalars (six with an injection staging buffer: its dropped and
-    late counters), plus the queue's fill counts only when it
+    late counters; two more with a specialization guard: its loss and
+    timer trips), plus the queue's fill counts only when it
     overflowed, and the lane and admission reports when the Sim
     carries them. Raises NotImplementedError for a Sim carrying a
-    specialization guard or a sentinel."""
+    sentinel."""
     for name, item in _UNPORTED_LAYERS.items():
         if getattr(sim, name, None) is not None:
             raise NotImplementedError(
                 f"shadow_tpu_torch: health.gather on a Sim carrying "
                 f"{name!r} (ROADMAP.md Queue 1 item {item})")
     inj = getattr(sim, "inject", None)
+    guard = getattr(sim, "guard", None)
     latches = [sim.events.overflow, sim.outbox.overflow,
                sim.net.rq_overflow, sim.outbox.narrow_miss]
     if inj is not None:
         latches += [inj.dropped, inj.late]
+    if guard is not None:
+        latches += [guard.loss_trips, guard.timer_trips]
     vals = torch.stack([v.to(torch.int64) for v in latches]).tolist()
     ev, ob, rq, nm = vals[:4]
-    inj_dropped, inj_late = vals[4:] if inj is not None else (0, 0)
+    inj_dropped, inj_late = vals[4:6] if inj is not None else (0, 0)
+    g_watched, g_loss, g_timer = (), 0, 0
+    if guard is not None:
+        g_watched = guard.watched()
+        g_loss, g_timer = vals[-2:]
     suspects = ()
     if ev:
         fill = sim.events.fill_count()
@@ -368,6 +376,9 @@ def gather(sim, *, window_start=None, stalled_windows=0, stall_limit=0,
         resident = True
         adm_rep = tuple(admission_report(sim))
     return RunHealth(
+        guard_watched=g_watched,
+        guard_loss_trips=int(g_loss),
+        guard_timer_trips=int(g_timer),
         lanes_total=lanes_total,
         lanes=lane_rep,
         lanes_quarantined=quar,

@@ -41,7 +41,7 @@ salvage artifact beside the checkpoints, and `on_lane_quarantine`
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
 Queue 1 item): `mesh`, `exchange_capacity`, `elastic`, `dispatch_wrap`
-and `on_mesh_change` (item 9), `warm_start` (item 11).
+and `on_mesh_change` (item 9), `warm_start` (item 11b).
 """
 
 from __future__ import annotations
@@ -194,7 +194,9 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
     `rebuild(overrides) -> SimBundle` defaults to bundle.rebuild. When
     escalation rebuilds, an explicit `fault_fn` is dropped and
     re-resolved from the rebuilt bundle's installed plan (a closure over
-    the old shapes would poison the new run). `stop()` is polled at
+    the old shapes would poison the new run); a specialized bundle
+    (compile/specialize.py) is specialized again at the grown shapes, so
+    the healed program stays trimmed. `stop()` is polled at
     every round barrier; `resume_from` is a snapshot path continuing a
     previous chain (grown-capacity snapshots transplant automatically).
     `max_run_wallclock` is a chain-wide wallclock budget in seconds:
@@ -218,7 +220,7 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
     refuse_unported(mesh=(mesh, 9), exchange_capacity=(exchange_capacity, 9),
                     elastic=(elastic, 9), dispatch_wrap=(dispatch_wrap, 9),
                     on_mesh_change=(on_mesh_change, 9),
-                    warm_start=(warm_start, 11))
+                    warm_start=(warm_start, "11b"))
 
     def say(msg):
         if log is not None:
@@ -466,6 +468,7 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                 old_telem = getattr(bundle.sim, "telem", None)
                 old_inject = getattr(bundle.sim, "inject", None)
                 old_lanes = getattr(bundle.sim, "lanes", None)
+                old_caps = getattr(bundle, "caps", None)
                 bundle = rebuild_fn(grow)
                 if old_lanes is not None:
                     # lane isolation at the grown shapes FIRST (the ring
@@ -493,6 +496,18 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
 
                     bundle.sim = inject_attach(bundle.sim,
                                                old_inject.lanes)
+                if old_caps is not None:
+                    # re-derive the capability vector at the grown
+                    # shapes (growth cannot change it: the reliability
+                    # table and the handler set do not depend on
+                    # capacity), after every attachment, so the
+                    # transplant finds the snapshot's guard leaves and
+                    # the healed program stays trimmed
+                    from shadow_tpu_torch.compile import specialize
+
+                    bundle = specialize.apply(
+                        bundle, app_handlers,
+                        app_bulk=getattr(bundle, "app_bulk", None))
                 # a caller-supplied fault_fn closes over the OLD
                 # shapes; run_windows re-resolves from the rebuilt
                 # bundle's installed plan

@@ -101,8 +101,14 @@ class SimBundle:
     # (topology, app setup, fault install) again with capacity
     # overrides merged in — the escalation path's lever
     # (faults/escalate.py); a grown capacity needs a fresh Sim and
-    # fresh step/fault closures.
+    # fresh step/fault closures. A rebuilt bundle is unspecialized:
+    # the caller re-applies compile/specialize.py.
     rebuild: Any = None
+    # Optional compile/specialize.Capabilities attached by
+    # specialize.apply(): the runner factories pass it to
+    # make_step_fn and the bulk passes, which leave out the work of
+    # each dropped capability. None = the full (unspecialized) program.
+    caps: Any = None
 
     def ip_of(self, name: str) -> int:
         return self.dns.resolve_name(name).ip
@@ -206,21 +212,44 @@ def build(cfg: NetConfig, graphml_text: str, hosts: Sequence[HostSpec],
 
 
 def _resolve_bulk_fn(bundle: SimBundle, app_bulk, app_tcp_bulk=None,
-                     tcp_bulk_lossless: bool = False):
+                     tcp_bulk_lossless: bool = False, caps=None):
     """The reference's bulk-pass selection rule: the UDP bulk pass
     (net/bulk.py) wins when both are given and its static
     preconditions hold, else the TCP bulk pass (net/tcp_bulk.py) when
     `app_tcp_bulk` is given and the config supports it, else none.
     `tcp_bulk_lossless` builds the narrow loss-free TCP pass
-    (bit-identical for any workload)."""
+    (bit-identical for any workload). `caps` is the bundle's capability
+    vector (compile/specialize.py): the passes trim their reliability
+    draws under it."""
     if app_bulk is not None:
-        fn = make_bulk_fn(bundle.cfg, app_bulk)
+        fn = make_bulk_fn(bundle.cfg, app_bulk, caps=caps)
         if fn is not None:
             return fn
     if app_tcp_bulk is not None:
         return make_tcp_bulk_fn(bundle.cfg, app_tcp_bulk,
-                                lossless=tcp_bulk_lossless)
+                                lossless=tcp_bulk_lossless, caps=caps)
     return None
+
+
+def _resolve_caps(bundle: SimBundle, caller_fault_fn):
+    """The capability vector a runner may trim under. An explicit
+    caller fault_fn is OPAQUE — its closure could rewrite any table
+    (e.g. bring loss back) where the static analysis cannot see it — so
+    a bundle with dropped capabilities refuses it: running the guarded
+    sim under the full program would turn any such rewrite into a false
+    fatal. The installed-plan path (bundle.fault_plan) stays
+    trimmable: derive() already folded the plan's record kinds into
+    the vector."""
+    caps = getattr(bundle, "caps", None)
+    if caller_fault_fn is not None:
+        if caps is not None and caps.dropped():
+            raise ValueError(
+                "explicit fault_fn on a specialized bundle: an opaque "
+                "fault rule defeats the static capability analysis — "
+                "rebuild with specialize.apply(mode='off') or install "
+                "the plan via faults.install()")
+        return None
+    return caps
 
 
 def refuse_unported(**off) -> None:
@@ -346,12 +375,17 @@ def make_runner(bundle: SimBundle, app_handlers=(),
 
     The runner's `bulk_fn` attribute is its bulk pass (None without
     one), read at each call: a caller may wrap it, e.g. to time the
-    pass."""
+    pass.
+
+    A specialized bundle (compile/specialize.py apply) runs its trimmed
+    program; an explicit `fault_fn` on one raises ValueError
+    (_resolve_caps)."""
     dev = _runner_device(bundle, device)
-    step = make_step_fn(bundle.cfg, app_handlers)
+    caps = _resolve_caps(bundle, fault_fn)
+    step = make_step_fn(bundle.cfg, app_handlers, caps=caps)
     end = end_time if end_time is not None else bundle.cfg.end_time
     bulk_fn = _resolve_bulk_fn(bundle, app_bulk, app_tcp_bulk,
-                               tcp_bulk_lossless)
+                               tcp_bulk_lossless, caps=caps)
     telem_fn = make_telem_fn()
     flow_fn = make_flow_fn()
     sparse = resolve_sparse_lanes(bundle.cfg)
@@ -383,22 +417,23 @@ def make_chunked_runner(bundle: SimBundle, app_handlers=(),
     same. `adaptive_jump` takes the live-table window rule
     (resolve_wend_fn); on a graph where no latency changes it gives
     the static partition. The caller's sim is left as it was (the
-    state is never written in place). Device rules and the fault plan
-    are make_runner's.
+    state is never written in place). Device rules, the fault plan
+    and the specialization are make_runner's.
 
-    `warm_start` and `compile_info` (ROADMAP.md Queue 1 item 11) are
+    `warm_start` and `compile_info` (ROADMAP.md Queue 1 item 11b) are
     not ported yet and raise NotImplementedError."""
     if chunk_windows < 1:
         raise ValueError(
             f"chunk_windows must be >= 1, got {chunk_windows} "
             "(0 iterations would spin the host loop forever)")
-    refuse_unported(warm_start=(warm_start, 11),
-                    compile_info=(compile_info, 11))
+    refuse_unported(warm_start=(warm_start, "11b"),
+                    compile_info=(compile_info, "11b"))
     dev = _runner_device(bundle, device)
-    step = make_step_fn(bundle.cfg, app_handlers)
+    caps = _resolve_caps(bundle, fault_fn)
+    step = make_step_fn(bundle.cfg, app_handlers, caps=caps)
     end = int(end_time if end_time is not None else bundle.cfg.end_time)
     bulk_fn = _resolve_bulk_fn(bundle, app_bulk, app_tcp_bulk,
-                               tcp_bulk_lossless)
+                               tcp_bulk_lossless, caps=caps)
     fault_fn = _resolve_fault_fn(bundle, fault_fn)
     chunk = make_chunk_body(
         step, end_time=end,

@@ -36,6 +36,7 @@ from typing import Any, Callable
 
 import torch
 
+from shadow_tpu_torch.compile.specialize import loss_trimmed
 from shadow_tpu_torch.core import rng, simtime
 from shadow_tpu_torch.core.events import (
     EventKind, _tie_key, u32_to_i32)
@@ -274,12 +275,21 @@ def _per_socket(mask, slot, S):
 
 
 def make_bulk_fn(cfg: NetConfig, app_bulk: AppBulk,
-                 order_impl: str | None = None) -> Callable | None:
+                 order_impl: str | None = None,
+                 caps=None) -> Callable | None:
     """Build the per-window bulk pass ``bulk_fn(sim, wend) -> (sim,
     events consumed as a [] i64 tensor)``, or None when the config
     cannot support it (the reference's static preconditions).
     `order_impl` forces the EventOrder form ("cube"/"sort"); None takes
-    _default_impl's rule for the state's device."""
+    _default_impl's rule for the state's device.
+
+    `caps` (compile/specialize.py, None = full program) with a dropped
+    loss capability leaves the NIC-egress reliability draw out:
+    uniform_at is a pure counter query (the app owns every window draw
+    advance — BulkSends.nic_draw_ctr), so skipping it moves no RNG
+    state, and with rel == 1.0 the drop mask it fed is constant
+    False."""
+    lossless = loss_trimmed(caps)
     if cfg.tcp or cfg.qdisc != QDisc.FIFO:
         return None
     if cfg.router_qdisc != RouterQ.CODEL:
@@ -366,15 +376,19 @@ def make_bulk_fn(cfg: NetConfig, app_bulk: AppBulk,
         V = net.latency_ns.shape[0]
         if V == 1:
             lat = net.latency_ns[0, 0]
-            rel = net.reliability[0, 0]
         else:
             vsrc = net.vertex_of_host[lane.long()][:, None].long()
             vdst = net.vertex_of_host[dsth.clamp(0, GH - 1).long()].long()
             lat = net.latency_ns[vsrc, vdst]
-            rel = net.reliability[vsrc, vdst]
-        u2 = rng.uniform_at(net.rng_keys, sends.nic_draw_ctr)
-        drop = known & nonboot & (sends.length > 0) & (u2 > rel)
-        emit_ok = known & ~drop
+        if lossless:
+            drop = None
+            emit_ok = known
+        else:
+            rel = (net.reliability[0, 0] if V == 1
+                   else net.reliability[vsrc, vdst])
+            u2 = rng.uniform_at(net.rng_keys, sends.nic_draw_ctr)
+            drop = known & nonboot & (sends.length > 0) & (u2 > rel)
+            emit_ok = known & ~drop
 
         # ---- audit parity: last_drop_status of the LAST drop in event
         # order (a no-socket arrival or a reliability-dropped reply)
@@ -384,7 +398,7 @@ def make_bulk_fn(cfg: NetConfig, app_bulk: AppBulk,
             | pf.PDS_RCV_INTERFACE_RECEIVED | pf.PDS_RCV_SOCKET_DROPPED)
         reply_drop_status = (pf.PDS_SND_CREATED | pf.PDS_SND_SOCKET_BUFFERED
                              | pf.PDS_SND_INTERFACE_SENT | pf.PDS_INET_DROPPED)
-        drop_any = nosock | drop
+        drop_any = nosock if drop is None else nosock | drop
         drop_status = torch.where(nosock, nosock_status, reply_drop_status)
         n_drop = drop_any.sum(dim=1, dtype=I32)
         drop_rank = rank_in_order(order, drop_any)
@@ -521,7 +535,9 @@ def make_bulk_fn(cfg: NetConfig, app_bulk: AppBulk,
             + rowsum(smask & (dsth < 0)),
             ctr_tx_packets=net.ctr_tx_packets + rowsum(smask),
             ctr_tx_bytes=net.ctr_tx_bytes + rowsum(smask, swl),
-            ctr_drop_reliability=net.ctr_drop_reliability + rowsum(drop),
+            ctr_drop_reliability=(net.ctr_drop_reliability if drop is None
+                                  else net.ctr_drop_reliability
+                                  + rowsum(drop)),
             ctr_events_exec=net.ctr_events_exec + n_ev.to(I64),
         )
 

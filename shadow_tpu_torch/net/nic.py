@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from shadow_tpu_torch.compile.specialize import loss_trimmed
 from shadow_tpu_torch.core import rng, simtime
 from shadow_tpu_torch.core.events import NWORDS, EventKind, emit, u32_to_i32
 from shadow_tpu_torch.net import packetfmt as pf
@@ -400,14 +401,16 @@ def _qdisc_select(cfg: NetConfig, net: NetState):
     return torch.where(found, sel, -1)
 
 
-def handle_nic_send(cfg: NetConfig, sim, popped, buf):
+def handle_nic_send(cfg: NetConfig, sim, popped, buf, caps=None):
     """Drain up to cfg.nic_drain packets chosen by the qdisc; chain a
     same-time NIC_SEND event if more remain sendable (ref:
     _networkinterface_sendPackets, network_interface.c:519-579).
 
     Acts on kind=NIC_SEND events plus lanes whose nic_send_now bit was
     set earlier in this micro-step (the fused form of the reference's
-    synchronous networkinterface_wantsSend)."""
+    synchronous networkinterface_wantsSend). `caps`
+    (compile/specialize.py Capabilities, None = full program) trims the
+    loss draw (see _drain_one)."""
     net = sim.net
     H = net.rq_head.shape[0]
     dev = net.rq_head.device
@@ -424,7 +427,7 @@ def handle_nic_send(cfg: NetConfig, sim, popped, buf):
     bootstrap = now < cfg.bootstrap_end
     for i in range(max(int(cfg.nic_drain), 1)):
         sim, buf, drained = _drain_one(cfg, sim, buf, mask, now, bootstrap,
-                                       skip_if_idle=i > 0)
+                                       skip_if_idle=i > 0, caps=caps)
         if not drained:
             break
 
@@ -444,10 +447,19 @@ def handle_nic_send(cfg: NetConfig, sim, popped, buf):
 
 
 def _drain_one(cfg: NetConfig, sim, buf, mask, now, bootstrap,
-               skip_if_idle=False):
+               skip_if_idle=False, caps=None):
     """One qdisc selection + wire transmission across all lanes (the
     loop body of the reference's send loop). Lanes with no sendable
     packet (or no tokens) are masked off and unchanged.
+
+    A dropped loss capability (compile/specialize.py: reliability
+    all-ones, no fault plan touching it) skips the Bernoulli draw and
+    the drop bookkeeping. Bit-identical: the draw's counter advance is
+    data-independent (rng.uniform returns counters + 1 mod 2**32), so
+    the trimmed path advances it arithmetically, masked to 32 bits as
+    the draw does, and every later draw lands on the same counter; with
+    rel == 1.0 the drop mask is constant False and the skipped updates
+    are the identity.
 
     Returns (sim, buf, drained). With `skip_if_idle`, one host read
     checks for an active lane first; when there is none the pass is
@@ -516,25 +528,34 @@ def _drain_one(cfg: NetConfig, sim, buf, mask, now, bootstrap,
     # remote: reliability draw + latency lookup (worker.c:243-304)
     dsth = host_of_ip(net, dst_ip)
     known = remote & (dsth >= 0)
-    u, ctr = rng.uniform(net.rng_keys, net.rng_ctr)
-    net = net.replace(rng_ctr=torch.where(remote, ctr, net.rng_ctr))
+    lossless = loss_trimmed(caps)
+    if lossless:
+        net = net.replace(rng_ctr=(net.rng_ctr + remote.to(I64)) & rng.M32)
+    else:
+        u, ctr = rng.uniform(net.rng_keys, net.rng_ctr)
+        net = net.replace(rng_ctr=torch.where(remote, ctr, net.rng_ctr))
     vsrc = net.vertex_of_host[net.lane_id.to(I64)].to(I64)
     vdst = net.vertex_of_host[dsth.clamp(0, GH - 1).to(I64)].to(I64)
     lat = net.latency_ns[vsrc, vdst]
-    rel = net.reliability[vsrc, vdst]
-    drop = known & ~bootstrap & (length > 0) & (u > rel)
-    send = known & ~drop
+    if lossless:
+        send = known
+    else:
+        rel = net.reliability[vsrc, vdst]
+        drop = known & ~bootstrap & (length > 0) & (u > rel)
+        send = known & ~drop
     words = _set_col(words, pf.W_STATUS, torch.where(
         send, words[:, pf.W_STATUS] | pf.PDS_INET_SENT,
         words[:, pf.W_STATUS]))
     buf = emit(buf, send, dsth, now + lat, EventKind.PACKET, words)
 
     is_retx = (words[:, pf.W_STATUS] & pf.PDS_SND_TCP_RETRANSMITTED) != 0
+    if not lossless:
+        net = net.replace(
+            last_drop_status=torch.where(
+                drop, words[:, pf.W_STATUS] | pf.PDS_INET_DROPPED,
+                net.last_drop_status),
+            ctr_drop_reliability=net.ctr_drop_reliability + drop.to(I64))
     net = net.replace(
-        last_drop_status=torch.where(
-            drop, words[:, pf.W_STATUS] | pf.PDS_INET_DROPPED,
-            net.last_drop_status),
-        ctr_drop_reliability=net.ctr_drop_reliability + drop.to(I64),
         ctr_drop_nosocket=net.ctr_drop_nosocket + (remote & ~known).to(I64),
         ctr_tx_packets=net.ctr_tx_packets + active.to(I64),
         ctr_tx_bytes=net.ctr_tx_bytes + torch.where(active, wl, 0),

@@ -396,10 +396,12 @@ class Sim(_Replace):
     # (telemetry/ring.py attach), the injection staging buffer
     # (inject/staging.py, cfg.inject_lanes), the lane health planes and
     # the resident lease planes (core/lanes.py attach,
-    # attach_admission), the flow ring (telemetry/flows.py attach_flows)
-    # and the causality planes (telemetry/causality.py
-    # attach_causality). Not yet (ROADMAP.md): guard (item 11) and
-    # sentinel (item 9), which stay None.
+    # attach_admission), the flow ring (telemetry/flows.py
+    # attach_flows), the causality planes (telemetry/causality.py
+    # attach_causality) and the specialization guard latch
+    # (compile/specialize.py GuardState, attached by specialize.apply
+    # when a capability was trimmed). Not yet (ROADMAP.md): sentinel
+    # (item 9), which stays None.
     tcp: Any = None
     telem: Any = None
     inject: Any = None

@@ -26,6 +26,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from shadow_tpu_torch.compile.specialize import timers_trimmed
 from shadow_tpu_torch.core.events import EventKind, census_mask
 from shadow_tpu_torch.net import nic, tcp, timers
 from shadow_tpu_torch.net.state import NetConfig
@@ -54,17 +55,31 @@ def _handle_proc_stop(cfg: NetConfig, sim, popped, buf):
         proc_stopped=net.proc_stopped | stop)), buf
 
 
-def make_step_fn(cfg: NetConfig, app_handlers: Sequence[AppHandler] = ()):
+def make_step_fn(cfg: NetConfig, app_handlers: Sequence[AppHandler] = (),
+                 caps=None):
     """Build the engine step_fn: netstack receive/timer handlers, then
     app handlers, then the send drain. The TCP timer handlers are
     included only when cfg.tcp. ``step(sim, popped, buf, kinds=None)``:
     ``kinds`` is the host-side bitmask of the kinds popped this
-    micro-step (events.census_mask layout); None runs every family."""
+    micro-step (events.census_mask layout); None runs every family.
+
+    `caps` (compile/specialize.py Capabilities, None = full program)
+    leaves provably-dead work out of the step function: a dropped
+    timers capability removes the timer handler family (whatever
+    `kinds` says), and the send drain skips the loss draw (see
+    nic._drain_one). Bit-identical wherever the capabilities hold; the
+    per-window guard latch (engine.step_window) turns a violation into
+    a fatal health fault."""
     if cfg.cpu_threshold_ns >= 0:
         raise NotImplementedError(
             "shadow_tpu_torch: the virtual-CPU gate is not ported yet")
     pre = tuple((h, census_mask(k)) for h, k in _PRE_APP
                 if cfg.tcp or h not in _TCP_HANDLERS)
+    if timers_trimmed(caps):
+        # no handler can arm a host timer (specialize.derive): leaving
+        # the family out is the identity, and the guard latch trips
+        # fatally if a TIMER appears anyway
+        pre = tuple((h, m) for h, m in pre if h is not timers.handle_timer)
     # app handlers that take the kinds bitmask use it to skip their
     # own families (same identity argument)
     takes_kinds = tuple(
@@ -83,7 +98,7 @@ def make_step_fn(cfg: NetConfig, app_handlers: Sequence[AppHandler] = ()):
                 sim, buf = h(cfg, sim, app_popped, buf, kinds=kinds)
             else:
                 sim, buf = h(cfg, sim, app_popped, buf)
-        sim, buf = nic.handle_nic_send(cfg, sim, popped, buf)
+        sim, buf = nic.handle_nic_send(cfg, sim, popped, buf, caps=caps)
         # per-host executed-event accounting (host.c:314-317)
         sim = sim.replace(net=sim.net.replace(
             ctr_events_exec=sim.net.ctr_events_exec

@@ -54,6 +54,7 @@ from typing import Callable
 
 import torch
 
+from shadow_tpu_torch.compile.specialize import loss_trimmed
 from shadow_tpu_torch.core import rng, simtime
 from shadow_tpu_torch.core.events import (
     EventKind, Popped, _onehot, _tie_key, kind_mask, push_rows, u32_to_i32)
@@ -212,6 +213,12 @@ def _outbox_put(out, rows, colc, okb, dst, time, lane, seq, words):
     )
 
 
+def _col(u, k):
+    """Column k of the precomputed draws, None when the loss trim left
+    them out."""
+    return None if u is None else u[:, k]
+
+
 def _read(counters, *preds):
     """One host read of several predicates' any() (one sync)."""
     counters["reads"] += 1
@@ -220,13 +227,16 @@ def _read(counters, *preds):
 
 def make_tcp_bulk_fn(cfg: NetConfig, app_bulk: TcpAppBulk,
                      debug: bool = False,
-                     lossless: bool = False) -> Callable | None:
+                     lossless: bool = False,
+                     caps=None) -> Callable | None:
     """Build the TCP bulk window pass ``bulk_fn(sim, wend) -> (sim, n)``,
     or None when the config cannot support it (the reference's static
     preconditions). debug=True makes bulk_fn return a third value, the
     dict {elig, bad, why, commit, iters}. lossless=True is the
     reference's narrow pass: every loss artifact stops the lane instead
-    of being modeled (bit-identical for any workload).
+    of being modeled (bit-identical for any workload). `caps`
+    (compile/specialize.py, None = full program) with a dropped loss
+    capability skips the wire reliability draws (see rel_dead below).
 
     `bulk_fn.counters` accumulates host-side tallies across calls:
     calls, passes (calls with an eligible host), iterations and host
@@ -248,6 +258,14 @@ def make_tcp_bulk_fn(cfg: NetConfig, app_bulk: TcpAppBulk,
 
     R = cfg.router_ring
     BO = cfg.out_ring
+    # Capability trim (compile/specialize.py): a dropped loss capability
+    # removes the per-wire reliability draws. Distinct from `lossless`
+    # above: that knob narrows the TCP *artifact* model (SACK, recovery
+    # and RTO stop lanes); this one skips the wire drop draw itself.
+    # uniform_at is a pure counter query and the draw bookkeeping
+    # (`drawn`, the counter offsets) is kept, so every surviving draw
+    # site sees the reference's counters.
+    rel_dead = loss_trimmed(caps)
     alg = cfg.tcp_cong
     counters = {"calls": 0, "passes": 0, "iterations": 0, "reads": 0}
 
@@ -1373,7 +1391,8 @@ def make_tcp_bulk_fn(cfg: NetConfig, app_bulk: TcpAppBulk,
             ob_count = out.count
             ob_over = zb
             rt_n = retx_sent.to(I32)
-            if g_rt or g_pure or g_fin2f or n_burst:
+            u_fast = None
+            if not rel_dead and (g_rt or g_pure or g_fin2f or n_burst):
                 # the fast path's reliability draws, one per counter it
                 # can use: retransmit 0, burst rt_n + j, pure ACK
                 # rt_n + n_seg + fin1, secondary FIN n_pkt
@@ -1418,14 +1437,18 @@ def make_tcp_bulk_fn(cfg: NetConfig, app_bulk: TcpAppBulk,
                     pf.PDS_SND_CREATED | pf.PDS_SND_TCP_ENQUEUE_THROTTLED
                     | pf.PDS_SND_SOCKET_BUFFERED | pf.PDS_SND_INTERFACE_SENT
                     | extraj)
-                dropj = pj & (lenj > 0) & (u > s_rel)
-                sendj = pj & ~dropj
+                if u is None:
+                    # the loss trim: no draw, nothing dropped
+                    sendj = pj
+                else:
+                    dropj = pj & (lenj > 0) & (u > s_rel)
+                    sendj = pj & ~dropj
+                    last_drop = torch.where(
+                        dropj, wire_w[:, pf.W_STATUS] | pf.PDS_INET_DROPPED,
+                        last_drop)
+                    drops = drops + dropj.to(I32)
                 wire_sent = wire_w.clone()
                 wire_sent[:, pf.W_STATUS] |= pf.PDS_INET_SENT
-                last_drop = torch.where(
-                    dropj, wire_w[:, pf.W_STATUS] | pf.PDS_INET_DROPPED,
-                    last_drop)
-                drops = drops + dropj.to(I32)
                 tx_wl = tx_wl + torch.where(pj, wlj, 0)
                 col = ob_count + emitted
                 okb = sendj & (col < M)
@@ -1450,7 +1473,7 @@ def make_tcp_bulk_fn(cfg: NetConfig, app_bulk: TcpAppBulk,
             #    _retransmit_one precedes the flush)
             if g_rt:
                 state = wire_one(state, retx_sent & fast_s, rt_len, rt_una,
-                                 rt_flags, stamps1, u_fast[:, 0],
+                                 rt_flags, stamps1, _col(u_fast, 0),
                                  retx_status)
             # 2) the flush burst: n_seg data segments + the FIN tail
             #    (packets past the longest burst are wired by no lane)
@@ -1463,7 +1486,7 @@ def make_tcp_bulk_fn(cfg: NetConfig, app_bulk: TcpAppBulk,
                 flagsj = torch.where(is_fin_j, pf.TCPF_FIN | pf.TCPF_ACK,
                                      pf.TCPF_ACK).to(I32)
                 state = wire_one(state, pj, lenj, seqj, flagsj, stamps1,
-                                 u_fast[:, 1 + j])
+                                 _col(u_fast, 1 + j))
             # 3) the pure ACK: a fired delayed ACK, or the immediate
             #    loss-signalling ACK
             if g_pure:
@@ -1471,7 +1494,7 @@ def make_tcp_bulk_fn(cfg: NetConfig, app_bulk: TcpAppBulk,
                                  gather_hs(tcp.snd_nxt, wslot),
                                  torch.full((H,), pf.TCPF_ACK, dtype=I32,
                                             device=dev),
-                                 stamps1, u_fast[:, FLUSH_SEGMENTS + 2])
+                                 stamps1, _col(u_fast, FLUSH_SEGMENTS + 2))
             # secondary FIN (dual close) after the whole primary burst —
             # fast lanes only; ring lanes enqueue it below
             if g_fin2f:
@@ -1498,7 +1521,7 @@ def make_tcp_bulk_fn(cfg: NetConfig, app_bulk: TcpAppBulk,
                 state = wire_one(state, fin2f, zi32, g2_nxt,
                                  torch.full((H,), pf.TCPF_FIN | pf.TCPF_ACK,
                                             dtype=I32, device=dev),
-                                 stamps2, u_fast[:, FLUSH_SEGMENTS + 3])
+                                 stamps2, _col(u_fast, FLUSH_SEGMENTS + 3))
                 bad = state[1]
                 fin2f = fin2f & ~bad
                 tcp = tcp.replace(dack_counter=set_hs(
@@ -1586,9 +1609,11 @@ def make_tcp_bulk_fn(cfg: NetConfig, app_bulk: TcpAppBulk,
             if g_drain:
                 big64 = torch.iinfo(net.out_priority.dtype).max
                 # the drain's draws sit at rngc + drawn, drawn < pass
-                dctr = torch.arange(cfg.nic_drain, dtype=I64, device=dev)
-                u_drain = rng.uniform_at(net.rng_keys,
-                                         (rngc[:, None] + dctr) & M32)
+                if not rel_dead:
+                    dctr = torch.arange(cfg.nic_drain, dtype=I64,
+                                        device=dev)
+                    u_drain = rng.uniform_at(net.rng_keys,
+                                             (rngc[:, None] + dctr) & M32)
                 for k in range(cfg.nic_drain):
                     can = (net.tb_send_tokens - tx_wl) >= pf.MTU
                     nonempty = net.out_count > 0
@@ -1631,21 +1656,26 @@ def make_tcp_bulk_fn(cfg: NetConfig, app_bulk: TcpAppBulk,
                     active = active & ~bad
                     known = active & (dsth >= 0)
                     d_nosock = d_nosock + (active & ~known).to(I32)
-                    u = torch.gather(u_drain, 1,
-                                     drawn.to(I64)[:, None])[:, 0]
+                    if rel_dead:
+                        sendk = known
+                    else:
+                        u = torch.gather(u_drain, 1,
+                                         drawn.to(I64)[:, None])[:, 0]
                     drawn = drawn + active.to(I32)
                     vdst_k = net.vertex_of_host[
                         dsth.clamp(0, GH - 1).to(I64)].to(I64)
                     latk = net.latency_ns[vsrc_h, vdst_k]
-                    relk = net.reliability[vsrc_h, vdst_k]
-                    dropk = known & (lenk > 0) & (u > relk)
-                    sendk = known & ~dropk
+                    if not rel_dead:
+                        relk = net.reliability[vsrc_h, vdst_k]
+                        dropk = known & (lenk > 0) & (u > relk)
+                        sendk = known & ~dropk
+                        last_drop = torch.where(
+                            dropk,
+                            wds[:, pf.W_STATUS] | pf.PDS_INET_DROPPED,
+                            last_drop)
+                        drops = drops + dropk.to(I32)
                     wire_sent = wds.clone()
                     wire_sent[:, pf.W_STATUS] |= pf.PDS_INET_SENT
-                    last_drop = torch.where(
-                        dropk, wds[:, pf.W_STATUS] | pf.PDS_INET_DROPPED,
-                        last_drop)
-                    drops = drops + dropk.to(I32)
                     tx_wl = tx_wl + torch.where(active, wlk, 0)
                     col = ob_count + emitted
                     okb = sendk & (col < M)

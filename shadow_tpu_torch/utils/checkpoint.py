@@ -269,7 +269,9 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     K = 1, called only when on_chunk is not given). `stats0` seeds the
     running totals (resume chains). The bundle's bulk pass
     (``bundle.app_bulk``, when set) rides every path, and so does its
-    installed fault plan unless an explicit `fault_fn` replaces it. The
+    installed fault plan unless an explicit `fault_fn` replaces it; a
+    specialized bundle (compile/specialize.py) runs its trimmed
+    program, and refuses an explicit `fault_fn`. The
     caller's sim is left as it was. `device` None is "cuda"
     (make_runner's rules).
 
@@ -283,7 +285,7 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     outgrows the lanes stalls with a RuntimeError naming the knob.
 
     `mesh` and `dispatch_wrap` (ROADMAP.md Queue 1 item 9), `warm_start`
-    and `compile_info` (item 11) are not ported yet and raise
+    and `compile_info` (item 11b) are not ported yet and raise
     NotImplementedError."""
     from shadow_tpu_torch.core import simtime
     from shadow_tpu_torch.core.engine import (
@@ -296,6 +298,7 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     from shadow_tpu_torch.net.build import (
         _check_sim_device,
         _resolve_bulk_fn,
+        _resolve_caps,
         _resolve_fault_fn,
         _runner_device,
         plan_times,
@@ -307,14 +310,16 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     from shadow_tpu_torch.telemetry.ring import make_telem_fn
 
     refuse_unported(mesh=(mesh, 9), dispatch_wrap=(dispatch_wrap, 9),
-                    warm_start=(warm_start, 11),
-                    compile_info=(compile_info, 11))
+                    warm_start=(warm_start, "11b"),
+                    compile_info=(compile_info, "11b"))
     dev = _runner_device(bundle, device)
     cfg = bundle.cfg
-    step = make_step_fn(cfg, app_handlers)
+    caps = _resolve_caps(bundle, fault_fn)
+    step = make_step_fn(cfg, app_handlers, caps=caps)
     end = int(end_time if end_time is not None else cfg.end_time)
     min_jump = max(int(bundle.min_jump), 1)
-    bulk_fn = _resolve_bulk_fn(bundle, getattr(bundle, "app_bulk", None))
+    bulk_fn = _resolve_bulk_fn(bundle, getattr(bundle, "app_bulk", None),
+                               caps=caps)
     fault_fn = _resolve_fault_fn(bundle, fault_fn)
     wpd = (int(windows_per_dispatch) if windows_per_dispatch is not None
            else max(1, int(getattr(cfg, "windows_per_dispatch", 1) or 1)))

@@ -159,3 +159,88 @@ def test_without_cuda_it_exits_non_zero():
         pytest.skip("checks the behavior without a CUDA device")
     r = _run(BENCH_HOSTS="16")
     assert r.returncode != 0 and "CUDA" in r.stderr and r.stdout == ""
+
+
+# ------------------------------------------- the knobs of compile/ and the
+# sparse shape, each row against bench.py's at 16 hosts on the CPU
+
+LIFTED = {
+    "specialize": {"BENCH_SPECIALIZE": "1"},
+    "bucketed": {"BENCH_BUCKETED": "1"},
+    "active": {"BENCH_ACTIVE": "8"},
+    "sparse_off": {"BENCH_SPARSE_LANES": "0"},
+}
+LIFTED_BASE = {"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16",
+               "BENCH_SIM_SECONDS": "1"}
+
+
+def _popen(cmd, **env):
+    full = {k: v for k, v in os.environ.items()
+            if not k.startswith("BENCH_")}
+    full.update(env)
+    full.setdefault("OMP_NUM_THREADS", "1")
+    return subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=full,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+@pytest.fixture(scope="module")
+def lifted_rows():
+    """bench.py's row and the port's for each lifted knob, the
+    subprocesses of each package run side by side."""
+    rows = {}
+    for pkg, cmd, extra in (("ref", ["bench.py"], {"JAX_PLATFORMS": "cpu"}),
+                            ("port", ["-m", "shadow_tpu_torch.bench"], {})):
+        procs = {name: _popen(cmd, **LIFTED_BASE, **env, **extra)
+                 for name, env in LIFTED.items()}
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            assert p.returncode == 0, (pkg, name, err[-2000:])
+            rows[pkg, name] = json.loads(out.strip().splitlines()[-1])
+    return rows
+
+
+@pytest.mark.parametrize("name", sorted(LIFTED))
+def test_lifted_knob_row_matches_bench_py(lifted_rows, name):
+    """Each knob bench.py had and the port refused until now gives
+    bench.py's metric name, counts and blocks (rates not compared)."""
+    want, got = lifted_rows["ref", name], lifted_rows["port", name]
+    assert got["metric"] == want["metric"]
+    ctr = want["manifest"]["counters"]
+    assert (got["events"], got["windows"], got["micro_steps"]) \
+        == (ctr["events_processed"], ctr["windows"], ctr["micro_steps"])
+    if name == "specialize":
+        assert got["metric"].endswith("_phold_load8_spec")
+        assert got["specialization"] == want["specialization"] == {
+            "dropped": ["loss", "timers"], "key_extra": "no_loss-no_timers"}
+        assert got["specialize_speedup"] > 0
+        assert got["events_per_sec_full_program"] > 0
+        # the row's own manifest block in bench.py: the guard never fired
+        assert want["manifest"]["specialization"]["guard"]["loss_trips"] \
+            == 0
+    if name == "bucketed":
+        assert got["compile"] == {"buckets": want["compile"]["buckets"]}
+        assert got["compile"]["buckets"]["event_capacity"] == {
+            "requested": 24, "bucketed": 32}
+    if name == "active":
+        assert got["metric"].endswith("_active8")
+
+
+@pytest.mark.parametrize("env,word", [
+    ({"BENCH_SPECIALIZE": "1", "BENCH_WORKLOAD": "pingpong"},
+     "BENCH_SPECIALIZE"),
+    ({"BENCH_SPECIALIZE": "1", "BENCH_SUPERVISE": "1"},
+     "BENCH_SPECIALIZE"),
+    ({"BENCH_SPECIALIZE": "1", "BENCH_INJECT_RATE": "100"},
+     "BENCH_SPECIALIZE"),
+    ({"BENCH_ACTIVE": "8", "BENCH_REPLICAS": "2"}, "BENCH_ACTIVE"),
+    ({"BENCH_ACTIVE": "8", "BENCH_SUPERVISE": "1"}, "BENCH_ACTIVE"),
+    ({"BENCH_SPARSE_LANES": "0", "BENCH_INJECT_RATE": "100"},
+     "BENCH_SPARSE_LANES"),
+    ({"BENCH_ACTIVE": "many"}, "BENCH_ACTIVE"),
+], ids=["spec_pingpong", "spec_supervise", "spec_inject",
+        "active_replicas", "active_supervise", "sparse_inject", "nan"])
+def test_lifted_knob_refusals_match_bench_py(env, word):
+    r = _run(**{"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16", **env})
+    assert r.returncode != 0
+    assert word in r.stderr and r.stdout == ""

@@ -119,11 +119,11 @@ def cli_runs(xml, tmp_path_factory):
 
 
 def _body(lines):
-    """Log lines without the wall-clock, build and specialization lines
-    (the report is compared separately)."""
+    """Log lines without the wall-clock, build and progress lines (the
+    report is compared separately)."""
     return [ln for ln in lines[:-1]
             if not any(s in ln for s in ("wall_seconds", "] built ",
-                                         "specialization", "progress"))]
+                                         "progress"))]
 
 
 def test_cli_report_matches_reference(cli_runs):
@@ -198,12 +198,10 @@ LIFTED = {
     "telemetry_capacity": ["--telemetry-capacity", "64"],
 }
 # report fields measured on the wall clock; manifest blocks of the
-# compile store and the specialization trim (ROADMAP.md Queue 1 item
-# 11: the port runs the untrimmed program) and the wall-clock ones
+# compile store (ROADMAP.md Queue 1 item 11b) and the wall-clock ones
 WALL = ("wall_seconds", "events_per_second",
         "simulated_seconds_per_wall_second")
-UNPORTED_MANIFEST = ("compile", "specialization", "wall_seconds",
-                     "wall_phases_s")
+UNPORTED_MANIFEST = ("compile", "wall_seconds", "wall_phases_s")
 
 
 def _lifted_run(mod, xml, tmp_path, name, trace):
@@ -217,7 +215,6 @@ def _lifted_run(mod, xml, tmp_path, name, trace):
     if (d / "run_manifest.json").exists():
         man = json.loads((d / "run_manifest.json").read_text())
         man = {k: v for k, v in man.items() if k not in UNPORTED_MANIFEST}
-        man["health"].pop("guard", None)   # the trim's guard latch
     return json.loads(lines[-1]), man, d
 
 

@@ -490,9 +490,35 @@ def test_gather_reads_a_ported_layer_like_the_reference(layer):
 
 @pytest.mark.parametrize("layer,item", [("guard", 11), ("sentinel", 9)])
 def test_gather_refuses_unported_layers(layer, item):
-    sim = _bundle("port").sim
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        thealth.gather(sim.replace(**{layer: object()}))
+    """The sentinel (item 9) is still refused by name. The guard (item
+    11a) is ported: gather on a guarded Sim with tripped counters reads
+    them into the reference's RunHealth, in the same single host read."""
+    if layer == "sentinel":
+        sim = _bundle("port").sim
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            thealth.gather(sim.replace(**{layer: object()}))
+        return
+    from shadow_tpu.compile import specialize as jspec
+    from shadow_tpu_torch.compile import specialize as tspec
+
+    health = {}
+    for pkg, spec in (("jax", jspec), ("port", tspec)):
+        b = spec.apply(_bundle(pkg), ((jphold if pkg == "jax"
+                                       else tphold).handler,))
+        g = b.sim.guard
+        sim = b.sim.replace(guard=g.replace(loss_trips=g.loss_trips + 3,
+                                            timer_trips=g.timer_trips + 1))
+        gather = jfaults.gather if pkg == "jax" else thealth.gather
+        health[pkg] = gather(sim, window_start=5)
+    want, got = health["jax"], health["port"]
+    assert got.guard_watched == ("loss", "timers")
+    assert (got.guard_loss_trips, got.guard_timer_trips) == (3, 1)
+    assert got.guard_tripped and got.fatal
+    assert got.diagnostics() == want.diagnostics()
+    assert got.failure_report() == want.failure_report()
+    assert got == thealth.RunHealth(**{f: getattr(want, f)
+                                       for f in vars(want)})
+    assert set(thealth._UNPORTED_LAYERS) == {"sentinel"}
 
 
 # ----------------------------------------------------------- conserve

@@ -63,7 +63,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.apps.ring",
                 "shadow_tpu_torch.utils.shadowlog",
                 "shadow_tpu_torch.utils.objcount",
-                "shadow_tpu_torch.utils.tracker", *INJECTION, *LANES):
+                "shadow_tpu_torch.utils.tracker", *INJECTION, *LANES,
+                *COMPILE):
         assert mod in out["modules"]
 
 
@@ -77,6 +78,11 @@ INJECTION = ("shadow_tpu_torch.inject", "shadow_tpu_torch.inject.trace",
 # the lane-isolation and recorder slice's modules
 LANES = ("shadow_tpu_torch.core.lanes", "shadow_tpu_torch.telemetry.flows",
          "shadow_tpu_torch.telemetry.causality")
+
+
+# the specialization and bucket slice's modules
+COMPILE = ("shadow_tpu_torch.compile", "shadow_tpu_torch.compile.buckets",
+           "shadow_tpu_torch.compile.specialize")
 
 
 def _imports_alone(mod):
@@ -97,6 +103,25 @@ def test_injection_module_imports_alone_without_jax(mod):
 @pytest.mark.parametrize("mod", LANES)
 def test_lane_module_imports_alone_without_jax(mod):
     _imports_alone(mod)
+
+
+@pytest.mark.parametrize("mod", COMPILE)
+def test_compile_module_imports_alone_without_jax(mod):
+    _imports_alone(mod)
+
+
+def test_program_key_hashes_torch_not_jax():
+    """The port's program key reads torch's version; computing it pulls
+    in no jax (the reference's imports jax inside program_key)."""
+    probe = ("import json, sys; from shadow_tpu_torch.compile import "
+             "buckets; k = buckets.program_key({'num_hosts': 4}); "
+             "print(json.dumps([buckets.is_program_key(k), sorted(m for m "
+             "in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+             "'flax', 'shadow_tpu'))]))")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == [True, []]
 
 
 @pytest.mark.parametrize("make", ["lanes", "admission", "flows",

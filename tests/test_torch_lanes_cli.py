@@ -84,7 +84,6 @@ def test_lane_and_recorder_flags_run_like_the_reference(cli_runs):
     for m in (wman, gman):
         for k in UNPORTED_MANIFEST:
             m.pop(k, None)
-        m["health"].pop("guard", None)
     assert gman == wman
     errors, _ = load_tool("telemetry_lint").lint_manifest_obj(gman)
     assert errors == []
