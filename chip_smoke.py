@@ -226,13 +226,41 @@ Phases, in order; any failure exits non-zero and prints no result:
    reports the trip fatal with the reference's diagnostics; (17d) 6s's
    relay bulk twin trimmed (loss dropped: relay declares no kinds) to
    6s's depth, equal to the untrimmed twin in every leaf but the guard.
+18. the netstack's observability settings and native/: the native
+   library built from shadow_tpu_torch/native/src into _build/ and
+   loaded, a 4,096-record log flush sorted by its logsort_argsort;
+   (18a) `python -m shadow_tpu_torch.cli` as a subprocess on a
+   reference-format config of PHOLD at 10,240 hosts, load 8, on
+   bench.py's MIX_VERTICES graph, every host logpcap="true", with
+   --track-paths --cpu-threshold 0 --cpu-precision 10 -l info, to 0.005
+   sim-s: the report, the nine path lines, the line count (one log
+   flush past 4,096 records, through the native argsort) and the
+   10,240 pcap files (sha256 over their bytes) equal to the reference
+   CLI's CPU run; (18b) the same bundle in-process to 0.01 sim-s through
+   utils/checkpoint.run_windows with a CaptureSession drain every
+   window: the reference's EngineStats, blocked events and their
+   delay, path matrix, app.rcvd and files, mailbox_gather launched on the run's
+   route and exact against its plain version there (and timed), the
+   drain timed (ms, records/s, bytes copied a window) and one steady
+   window profiled (launches, syncs, device busy); (18c) CUDA against
+   CPU: the program at 64 hosts with four CPU speeds (HostSpec
+   cpufrequency_khz) to 0.005 sim-s, and 14b's TCP example twin with
+   logpcap on the server — every leaf equal, the files byte-equal, the
+   reference's pinned counts. 18c runs while 18a's subprocess does.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
 (micro-steps timed one by one through a step_fn shim, then the first
 again under torch.profiler: launches and cudaStreamSynchronize per
-micro-step). The last log line before the results gives each
-phase's seconds.
+micro-step). The CPU halves of the CUDA-against-CPU comparisons
+(phases 5, 9, 13b, 14b-c, 15c, 16c, 18c) run in two spawned CPU worker
+processes, at the same time as their CUDA halves; phases 5 and 9, which
+read no launch counter, run their CUDA halves in three spawned card
+workers, all of a phase's runs at once. The CLI runs that only counts,
+logs and files check run beside untimed work (phase 14's three
+together, 15c's beside 15b, 16d's beside 16b-16c, 18a's beside 18c).
+Every worker and subprocess stops with the script. The last log line
+before the results gives each phase's seconds.
 
 `--profile` also profiles windows 0-2 of phase 4, windows 10-12 of
 phase 6 with the TCP bulk pass, and the hooks of phase 16's program
@@ -748,6 +776,77 @@ LANE_CLI_FLAGS = ["--lane-isolation", "4", "--resident", "--flow-sample",
 SPEC_NAME = f"events_per_sec_per_chip@{HOSTS}hosts_phold_load{LOAD}_spec"
 SPEC_TAMPER_S = 0.3
 
+# Phase 18: the netstack's observability settings (the pcap capture
+# ring, per-path counters, the virtual CPU) and native/. 18a/18b: a
+# reference-format config of PHOLD at 10,240 hosts, load 8, on bench.py's
+# MIX_VERTICES graph (3 vertices, 1.1-3 ms edges: ~1.1 ms windows, a
+# real 3 x 3 path matrix), every host logpcap="true", run with
+# --track-paths --cpu-threshold 0 --cpu-precision 10: a 30-us charge an
+# event (the default 200-us precision rounds it to 0), so any backlog
+# blocks. 18b runs in-process to 0.01 sim-s (10 windows); 18a, the CLI
+# as a subprocess, to 0.005 sim-s (its first 5 windows: 18b covers the
+# rest). The reference's counts on the CPU (the same XML and flags, seed
+# 1; its CLI for 18a, run_windows with a drain every window for 18b):
+# the report, EngineStats, the blocked events and their delay, the path
+# matrix and the pcap files (10,240, one per host; sha256 over their
+# bytes in name order).
+OBS_HOSTS = 10_240
+OBS_LOAD = 8
+OBS_STOP = "0.01"
+OBS_CLI_STOP = "0.005"
+OBS_FLAGS = ("--track-paths", "--cpu-threshold", "0", "--cpu-precision",
+             "10")
+OBS_OVERRIDES = {"track_paths": True, "cpu_threshold_ns": 0,
+                 "cpu_precision_ns": 10_000}
+OBS_CLI_REPORT = {"events": 258_374, "windows": 5, "sim_seconds": 0.005,
+                  "app_rcvd": 176_454, "overflow": 0}
+OBS_CLI_PATHS = [[17_543, 35_514, 17_979], [32_143, 64_096, 32_225],
+                 [14_638, 29_568, 14_668]]
+OBS_CLI_PCAP = {"files": 10_240, "bytes": 53_294_776,
+                "sha256": "79a16b4544b2d1c5dab364caf512ab32ee0e50da08a6f349"
+                "858fed3c43964d0d"}
+# app.rcvd summed at 0.01 sim-s (the reference CLI's report there)
+OBS_APP_RCVD = 385_716
+OBS_EXPECT = {"events_processed": 467_636, "micro_steps": 314,
+              "windows": 10, "fastpath_hit": 0, "fastpath_miss": 10}
+OBS_CPU = {"blocked": 135_511, "delay_ns": 3_737_880_000}
+OBS_PATHS = [[30_050, 60_887, 30_617], [58_254, 116_776, 59_404],
+             [27_815, 55_702, 28_131]]
+OBS_PCAP = {"records": 853_352, "dropped": 0, "files": 10_240,
+            "bytes": 104_354_704, "sha256": "8e8241edf2163569a6fc2027a61a4b9e"
+            "a33959cb76abeeac9b1a286926b361c3"}
+# the reference CLI's stdout at -l info, at 0.005 and at 0.01 sim-s:
+# 20,509 lines (the heartbeat's per-host lines), flushed in one batch:
+# past the 4,096 records from which the log writer sorts with the native
+# argsort
+OBS_LOG_LINES = 20_509
+# 18b profiles this window (a steady one: the first windows fill)
+OBS_PROFILE_WINDOW = 6
+# 18c: the same program at 64 hosts to 0.005 sim-s, built through
+# net.build with HostSpec.cpufrequency_khz cycling over OBS_CUT_FREQS
+# (the XML does not carry it): event costs 30, 60, 40 (37.5 rounded
+# half-up) and 150 us;
+# and 14b's TCP example twin (2 clients x 33 KiB, seed 3, 2.2 sim-s)
+# with logpcap="true" on the server. The reference's counts (its CPU
+# runs through run_windows, drained every window).
+OBS_CUT_HOSTS = 64
+OBS_CUT_STOP = 0.005
+OBS_CUT_FREQS = (3_000_000, 1_500_000, 2_400_000, 600_000)
+OBS_CUT_EXPECT = {
+    "stats": {"events_processed": 1_437, "micro_steps": 166, "windows": 5,
+              "fastpath_hit": 0, "fastpath_miss": 0},
+    "blocked": 1_054, "delay_ns": 93_980_000, "records": 2_362,
+    "files": 64, "bytes": 289_700,
+    "sha256": "e2ece62d0fcfe405a27175224beca541579f4616e44f1e28aff2a663a2740359",
+    "paths": [[53, 159, 91], [132, 336, 231], [78, 222, 135]],
+    "cost": [30_000, 40_000, 60_000, 150_000]}
+OBS_TCP_EXPECT = {
+    "stats": {"events_processed": 13, "micro_steps": 11, "windows": 5,
+              "fastpath_hit": 0, "fastpath_miss": 0},
+    "blocked": 0, "delay_ns": 0, "records": 18, "files": 3, "bytes": 7_068,
+    "sha256": "c5664400c9e3b73187b5631dce205bb5525837981f3d72784a16f36162cdb392",
+    "paths": [[0]], "cost": [0]}
+
 T0 = time.perf_counter()
 # simtime.INVALID: an empty event slot
 INVALID_TIME = 2**63 - 1
@@ -844,24 +943,13 @@ def main_runner(b, device, bulk=True):
 def assert_same_run(label, a, b, skip_stats=()):
     """EngineStats (apart from `skip_stats`) and every state leaf of two
     (stats, sim) results equal, tolerance zero."""
-    import numpy as np
-
     from shadow_tpu_torch import convert
 
     (sa, sim_a), (sb, sim_b) = a, b
     da = {k: v for k, v in sa.as_dict().items() if k not in skip_stats}
     db = {k: v for k, v in sb.as_dict().items() if k not in skip_stats}
-    if da != db:
-        raise AssertionError(f"{label}: EngineStats differ: {da} vs {db}")
-    la, lb = convert.sim_to_numpy(sim_a), convert.sim_to_numpy(sim_b)
-    if la.keys() != lb.keys():
-        raise AssertionError(f"{label}: leaf sets differ")
-    bad = [k for k in la if la[k].dtype != lb[k].dtype
-           or not np.array_equal(la[k], lb[k])]
-    if bad:
-        raise AssertionError(f"{label}: {len(bad)} leaves differ, first "
-                             f"{bad[:5]}")
-    return len(la)
+    return assert_same_leaves(label, (da, convert.sim_to_numpy(sim_a)),
+                              (db, convert.sim_to_numpy(sim_b)))
 
 
 def device_ms(fns, reps=200):
@@ -1501,42 +1589,214 @@ def assert_contract(label, a, b):
         f"serial")
 
 
-def compare_bundles_cuda_cpu(label, make):
-    """Phases 5 and 9: `make(device) -> (bundle, runner)` run on CUDA and
-    on the CPU inside the port: equal EngineStats and every leaf equal
-    (tolerance zero). Returns the CPU (stats, sim)."""
-    out = {}
-    for dev in ("cuda", "cpu"):
-        b, runner = make(dev)
-        t0 = time.perf_counter()
-        sim, stats = runner(b.sim)
-        out[dev] = (stats, sim)
-        log(f"  {label} {dev}: {stats.as_dict()} in "
-            f"{time.perf_counter() - t0:.2f} s")
-    n = assert_same_run(label, out["cuda"], out["cpu"])
+# The CPU halves of the CUDA-against-CPU comparisons run in spawned
+# worker processes (the CPU workers never touch the card) while this
+# process runs the CUDA half, so the card's run and the CPU's overlap in
+# wall time. Phases 5 and 9, which read no launch counter, also send
+# their CUDA halves to card workers, several at once. A job is a
+# picklable `run(device) -> (sim, stats)` (a module-level function or a
+# functools.partial of one) and an optional `extra(sim, stats)`; the
+# worker sends back EngineStats, every leaf (numpy) and extra's value.
+# Without the workers (main not started) a job runs here.
+_TWINS = None
+_CARDS = None
+CPU_WORKERS = 2
+CARD_WORKERS = 3
+
+
+def _pool(n):
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=n, mp_context=multiprocessing.get_context("spawn"))
+
+
+def start_twins():
+    """Start the CPU workers and load the port into them while phases
+    1-4 run."""
+    global _TWINS
+    _TWINS = _pool(CPU_WORKERS)
+    for _ in range(CPU_WORKERS):
+        _TWINS.submit(_twin_warm, "cpu")
+
+
+def start_cards():
+    """Start the card workers (after phase 2 has built the kernels)."""
+    global _CARDS
+    _CARDS = _pool(CARD_WORKERS)
+    for _ in range(CARD_WORKERS):
+        _CARDS.submit(_twin_warm, "cuda")
+
+
+def stop_twins():
+    global _TWINS, _CARDS
+    for pool in (_TWINS, _CARDS):
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+    _TWINS = _CARDS = None
+
+
+def _twin_warm(dev):
+    import torch
+
+    import shadow_tpu_torch.config.loader  # noqa: F401
+    import shadow_tpu_torch.net.build  # noqa: F401
+
+    if dev != "cpu":
+        from shadow_tpu_torch.core import insert_kernels
+
+        insert_kernels.build_library()
+        torch.zeros(1, device=dev).add_(1).item()
+
+
+def _twin_job(run, extra, dev="cpu"):
+    import torch
+
+    from shadow_tpu_torch import convert
+
+    t0 = time.perf_counter()
+    sim, stats = run(torch.device(dev))
+    got = None if extra is None else extra(sim, stats)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return stats.as_dict(), convert.sim_to_numpy(sim), got, wall
+
+
+def on_cpu(run, extra=None):
+    """A future of (EngineStats dict, leaves, extra(sim, stats), wall s)
+    of `run` on the CPU, in a CPU worker."""
+    return in_worker(_twin_job, run, extra)
+
+
+def on_card(run):
+    """on_cpu's future for `run` on the card, in a card worker."""
+    return _submit(_CARDS, _twin_job, run, None, "cuda")
+
+
+def in_worker(fn, *args):
+    """A future of fn(*args) in a CPU worker (here without one)."""
+    return _submit(_TWINS, fn, *args)
+
+
+def _submit(pool, fn, *args):
+    import concurrent.futures
+
+    if pool is not None:
+        return pool.submit(fn, *args)
+    fut = concurrent.futures.Future()
+    fut.set_result(fn(*args))
+    return fut
+
+
+def twin_start(label, make):
+    """Phases 5 and 9: `make(device) -> (bundle, runner)` (picklable)
+    started in a card worker and a CPU worker; twin_finish reads both."""
+    import functools
+
+    run = functools.partial(_made_run, make)
+    return label, on_card(run), on_cpu(run)
+
+
+def twin_finish(started):
+    """The card's and the CPU's run of twin_start's job: equal
+    EngineStats and every leaf equal (tolerance zero). Returns the
+    card's (EngineStats dict, leaves)."""
+    label, card, cpu = started
+    st, leaves, _, wall = card.result(timeout=900)
+    log(f"  {label} cuda: {st} in {wall:.2f} s")
+    cst, cleaves, _ = cpu_result(label, cpu)
+    n = assert_same_leaves(label, (st, leaves), (cst, cleaves))
     log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves equal")
-    return out["cpu"]
+    return st, leaves
 
 
-def compare_relay_cuda_cpu(label, hosts, hop, total, sim_s, loss=0.0,
-                           ring=True, tcp_bulk=False, lossless=False):
-    """Phase 5, TCP: the relay on CUDA equals the relay on the CPU, leaf
-    by leaf (tolerance zero), and every transfer completes by `sim_s`."""
+def cpu_result(label, fut):
+    """The worker's result, logged as the CPU half."""
+    st, leaves, extra, wall = fut.result(timeout=900)
+    log(f"  {label} cpu: {st} in {wall:.2f} s")
+    return st, leaves, extra
+
+
+def assert_same_leaves(label, a, b):
+    """Two (EngineStats dict, leaves) equal, tolerance zero. Returns the
+    number of leaves."""
+    import numpy as np
+
+    (da, la), (db, lb) = a, b
+    if da != db:
+        raise AssertionError(f"{label}: EngineStats differ: {da} vs {db}")
+    if la.keys() != lb.keys():
+        raise AssertionError(f"{label}: leaf sets differ")
+    bad = [k for k in la if la[k].dtype != lb[k].dtype
+           or not np.array_equal(la[k], lb[k])]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} leaves differ, first "
+                             f"{bad[:5]}")
+    return len(la)
+
+
+def _made_run(make, dev):
+    b, runner = make(dev)
+    return runner(b.sim)
+
+
+def compare_bundles_cuda_cpu(label, make):
+    """Phases 13b, 14 and 15: `make(device) -> (bundle, runner)`
+    (picklable: the CPU half runs in a CPU worker) run on CUDA here,
+    where the phase reads the launch counters, and on the CPU: equal
+    EngineStats and every leaf equal (tolerance zero). Returns the
+    card's (stats, sim)."""
+    import functools
+
+    from shadow_tpu_torch import convert
+
+    fut = on_cpu(functools.partial(_made_run, make))
+    b, runner = make("cuda")
+    t0 = time.perf_counter()
+    sim, stats = runner(b.sim)
+    log(f"  {label} cuda: {stats.as_dict()} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    st, leaves, _ = cpu_result(label, fut)
+    n = assert_same_leaves(label, (stats.as_dict(),
+                                   convert.sim_to_numpy(sim)), (st, leaves))
+    log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves equal")
+    return stats, sim
+
+
+def _relay_twin(hosts, hop, total, sim_s, loss, ring, tcp_bulk, lossless,
+                dev):
+    b, _ = build_relay(hosts, hop, total, sim_s, seed=6, device=dev,
+                       loss=loss, ring=ring)
+    return b, relay_runner(b, dev, tcp_bulk=tcp_bulk, lossless=lossless)
+
+
+def relay_twin(label, hosts, hop, total, sim_s, loss=0.0, ring=True,
+               tcp_bulk=False, lossless=False):
+    """Phase 5, TCP: the relay started on the card and on the CPU
+    (twin_start); check_relay_twin reads it."""
+    import functools
+
+    return twin_start(label, functools.partial(
+        _relay_twin, hosts, hop, total, sim_s, loss, ring, tcp_bulk,
+        lossless)), total
+
+
+def check_relay_twin(started):
+    """The relay on CUDA equals the relay on the CPU, leaf by leaf
+    (tolerance zero), and every transfer completes by its end time."""
     from shadow_tpu_torch.apps.relay import ROLE_SERVER
 
-    def make(dev):
-        b, _ = build_relay(hosts, hop, total, sim_s, seed=6, device=dev,
-                           loss=loss, ring=ring)
-        return b, relay_runner(b, dev, tcp_bulk=tcp_bulk, lossless=lossless)
-
-    _, sim = compare_bundles_cuda_cpu(label, make)
-    servers = sim.app.role == ROLE_SERVER
-    done = int((sim.app.rcvd[servers] == total).sum())
+    (label, *_), total = started
+    _, leaves = twin_finish(started[0])
+    servers = leaves[".app.role"] == ROLE_SERVER
+    done = int((leaves[".app.rcvd"][servers] == total).sum())
     if done != int(servers.sum()):
         raise AssertionError(f"{label}: {done} of {int(servers.sum())} "
                              f"transfers complete")
     log(f"  {label}: every transfer complete; retx_segs "
-        f"{int(sim.tcp.retx_segs.sum())}")
+        f"{int(leaves['.tcp.retx_segs'].sum())}")
 
 
 class _Span:
@@ -1759,17 +2019,23 @@ def profile_relay(device, first=10, n=3):
             f"{short[:150]}")
 
 
-def compare_cuda_cpu(label, hosts, load, sim_s, bulk=False, ring=False,
-                     sparse_lanes=0, active_hosts=None):
-    """Phase 5: PHOLD on CUDA equals PHOLD on the CPU, leaf by leaf
-    (tolerance zero)."""
-    def make(dev):
-        b = build_phold(hosts, load, sim_s, seed=5, device=dev,
-                        sparse_lanes=sparse_lanes, active_hosts=active_hosts,
-                        ring=ring)
-        return b, main_runner(b, dev, bulk=bulk)
+def phold_twin(label, hosts, load, sim_s, bulk=False, ring=False,
+               sparse_lanes=0, active_hosts=None):
+    """Phase 5: PHOLD started on the card and on the CPU (twin_start;
+    twin_finish holds them leaf by leaf, tolerance zero)."""
+    import functools
 
-    compare_bundles_cuda_cpu(label, make)
+    return twin_start(label, functools.partial(
+        _phold_twin, hosts, load, sim_s, bulk, ring, sparse_lanes,
+        active_hosts))
+
+
+def _phold_twin(hosts, load, sim_s, bulk, ring, sparse_lanes, active_hosts,
+                dev):
+    b = build_phold(hosts, load, sim_s, seed=5, device=dev,
+                    sparse_lanes=sparse_lanes, active_hosts=active_hosts,
+                    ring=ring)
+    return b, main_runner(b, dev, bulk=bulk)
 
 
 def build_gossip(H, sim_s, seed, device, tcp=False, cap=GOSSIP_CAP,
@@ -1903,7 +2169,11 @@ class StepShim:
     micro-step's handler call (the engine's host read of the popped
     summary comes just before it, so each mark follows a drained
     stream), and, with `prof`, torch.profiler running from the first
-    call to the second: one whole micro-step."""
+    call to the second: one whole micro-step, after which it raises
+    Done to leave the window (the rest is not read)."""
+
+    class Done(Exception):
+        pass
 
     def __init__(self, step, prof=None):
         self.step, self.prof, self.marks = step, prof, []
@@ -1914,6 +2184,7 @@ class StepShim:
             self.prof.start()
         elif self.prof is not None and len(self.marks) == 2:
             self.prof.stop()
+            raise StepShim.Done
         return self.step(sim, popped, buf, kinds=kinds)
 
 
@@ -1950,14 +2221,18 @@ def replay_window(label, b, handler, kept, app_tcp_bulk=None, min_steps=2):
         it0 = bulk.counters["iterations"] if bulk is not None else 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, stats, _ = step_window(
-            sim, EngineStats.create(device=sim.events.time.device), shim,
-            wend, cfg.emit_capacity, sim.net.lane_id, bulk_fn=bulk,
-            sparse_lanes=resolve_sparse_lanes(cfg))
+        try:
+            _, stats, _ = step_window(
+                sim, EngineStats.create(device=sim.events.time.device),
+                shim, wend, cfg.emit_capacity, sim.net.lane_id,
+                bulk_fn=bulk, sparse_lanes=resolve_sparse_lanes(cfg))
+        except StepShim.Done:
+            stats = None
         torch.cuda.synchronize()
         iters = (bulk.counters["iterations"] - it0 if bulk is not None
                  else 0)
-        return t0, time.perf_counter(), stats.as_dict(), iters
+        return (t0, time.perf_counter(),
+                None if stats is None else stats.as_dict(), iters)
 
     timed = StepShim(step)
     t0, end, st, iters = window(timed)
@@ -2139,60 +2414,64 @@ def gossip_tcp_cell(device):
     return launches, err
 
 
+def _mux_twin(bulk, sim_s, dev):
+    b, _ = build_mux_small(dev, sim_s)
+    return b, mux_runner(b, dev, tcp_bulk=bulk)
+
+
+def _gossip_twin(tcp, dev):
+    if tcp:
+        b = build_gossip(8, SMALL_GTCP_SIM_S, seed=3, device=dev, tcp=True,
+                         k=3, blocks=3, sockets=10, ring=False)
+    else:
+        b = build_gossip(64, 5.0, seed=1, device=dev)
+    return b, gossip_runner(b, dev, tcp=tcp)
+
+
 def compare_new_apps_cuda_cpu():
     """Phase 9: the reference tests' small shapes of the Tor model (with
     the TCP bulk pass to the test's 10 sim-s, every stream complete;
     serial cut to MUX_SERIAL_SIM_S and held under the reference's
     contract to a TCP bulk run on the card to the same depth) and of UDP
-    and TCP gossip."""
-    from shadow_tpu_torch import convert
+    and TCP gossip, started together on the workers (twin_start)."""
+    import functools
+
     from shadow_tpu_torch.apps import relay
 
-    def make(dev, bulk, sim_s):
-        b, _ = build_mux_small(dev, sim_s)
-        return b, mux_runner(b, dev, tcp_bulk=bulk)
-
     label = f"mux 10 hosts TCP bulk to {MUX_SIM_S} sim-s"
-    _, sim = compare_bundles_cuda_cpu(
-        label, lambda dev: make(dev, True, MUX_SIM_S))
-    live = sim.app.s_role == relay.ROLE_SERVER
-    streams = sim.app.rcvd[live].tolist()
-    if streams != [MUX_BYTES] * 4 or not bool(
-            (sim.app.done_at[live] >= 0).all()):
+    serial_label = f"mux 10 hosts serial to {MUX_SERIAL_SIM_S} sim-s"
+    gtcp = twin_start("gossip tcp 8 hosts",
+                      functools.partial(_gossip_twin, True))
+    mux = twin_start(label, functools.partial(_mux_twin, True, MUX_SIM_S))
+    serial = twin_start(serial_label, functools.partial(
+        _mux_twin, False, MUX_SERIAL_SIM_S))
+    bulk = on_card(functools.partial(_made_run, functools.partial(
+        _mux_twin, True, MUX_SERIAL_SIM_S)))
+    udp = twin_start("gossip 64 hosts", functools.partial(_gossip_twin, False))
+
+    _, leaves = twin_finish(mux)
+    live = leaves[".app.s_role"] == relay.ROLE_SERVER
+    streams = leaves[".app.rcvd"][live].tolist()
+    done_at = leaves[".app.done_at"][live].tolist()
+    if streams != [MUX_BYTES] * 4 or min(done_at) < 0:
         raise AssertionError(f"{label}: server streams {streams}, EOF "
-                             f"at {sim.app.done_at[live].tolist()}")
-    log(f"  {label}: the server's 4 streams complete, EOF at "
-        f"{sim.app.done_at[live].tolist()} ns")
+                             f"at {done_at}")
+    log(f"  {label}: the server's 4 streams complete, EOF at {done_at} ns")
 
-    stats, sim = compare_bundles_cuda_cpu(
-        f"mux 10 hosts serial to {MUX_SERIAL_SIM_S} sim-s",
-        lambda dev: make(dev, False, MUX_SERIAL_SIM_S))
-    serial = (convert.sim_to_numpy(sim), stats.as_dict())
-    b, runner = make("cuda", True, MUX_SERIAL_SIM_S)
-    t0 = time.perf_counter()
-    sim, stats = runner(b.sim)
-    live = sim.app.s_role == relay.ROLE_SERVER
-    log(f"  mux 10 hosts TCP bulk to {MUX_SERIAL_SIM_S} sim-s cuda: "
-        f"{stats.as_dict()} in {time.perf_counter() - t0:.2f} s; the "
-        f"server's streams at {sim.app.rcvd[live].tolist()} bytes")
-    assert_contract("mux bulk vs serial",
-                    (convert.sim_to_numpy(sim), stats.as_dict()), serial)
+    stats, leaves = twin_finish(serial)
+    st, bleaves, _, wall = bulk.result(timeout=900)
+    live = bleaves[".app.s_role"] == relay.ROLE_SERVER
+    log(f"  mux 10 hosts TCP bulk to {MUX_SERIAL_SIM_S} sim-s cuda: {st} in "
+        f"{wall:.2f} s; the server's streams at "
+        f"{bleaves['.app.rcvd'][live].tolist()} bytes")
+    assert_contract("mux bulk vs serial", (bleaves, st), (leaves, stats))
 
-    def make_udp(dev):
-        b = build_gossip(64, 5.0, seed=1, device=dev)
-        return b, gossip_runner(b, dev)
-
-    _, sim = compare_bundles_cuda_cpu("gossip 64 hosts", make_udp)
-    if not bool((sim.app.tip == GOSSIP_BLOCKS - 1).all()):
+    _, leaves = twin_finish(udp)
+    if not bool((leaves[".app.tip"] == GOSSIP_BLOCKS - 1).all()):
         raise AssertionError("gossip 64 hosts: a tip short of the last block")
 
-    def make_tcp(dev):
-        b = build_gossip(8, SMALL_GTCP_SIM_S, seed=3, device=dev, tcp=True,
-                         k=3, blocks=3, sockets=10, ring=False)
-        return b, gossip_runner(b, dev, tcp=True)
-
-    _, sim = compare_bundles_cuda_cpu("gossip tcp 8 hosts", make_tcp)
-    if not bool((sim.app.tip >= 0).all()):
+    _, leaves = twin_finish(gtcp)
+    if not bool((leaves[".app.tip"] >= 0).all()):
         raise AssertionError("gossip tcp 8 hosts: block 0 did not reach "
                              "every host")
 
@@ -2430,6 +2709,28 @@ def check_record_boundaries(label, ring, plan):
     return int(np.isin(we, t).sum())
 
 
+def _relay_crash_twin(dev):
+    """13b: a 3-host relay whose middle host crashes at 1.2 s and
+    restarts at 2 s."""
+    from shadow_tpu_torch import faults
+    from shadow_tpu_torch.apps import relay
+    from shadow_tpu_torch.net.build import HostSpec, build, make_runner
+    from shadow_tpu_torch.net.state import NetConfig
+
+    hosts = [HostSpec(name=f"n{i}", proc_start_time=10**9)
+             for i in range(3)]
+    rb = build(NetConfig(num_hosts=3, end_time=6 * 10**9,
+                         sockets_per_host=4), RELAY_CRASH_GRAPH, hosts,
+               device=dev)
+    rb.sim = relay.setup(rb.sim, circuits=[[0, 1, 2]], total_bytes=20_000)
+    faults.install(rb, [
+        faults.FaultRecord(t_ns=1_200_000_000,
+                           kind=faults.FaultKind.CRASH, a=1),
+        faults.FaultRecord(t_ns=2_000_000_000,
+                           kind=faults.FaultKind.RESTART, a=1)])
+    return rb, make_runner(rb, app_handlers=(relay.handler,), device=dev)
+
+
 def faults_cell(device):
     """Phase 13: fault plans, crash and restart, and escalation at full
     width (13a, 13b, 13c; the module docstring). Returns ({"launches_faults",
@@ -2443,12 +2744,10 @@ def faults_cell(device):
     import torch
 
     from shadow_tpu_torch import faults, telemetry
-    from shadow_tpu_torch.apps import phold, pingpong, relay
+    from shadow_tpu_torch.apps import phold, pingpong
     from shadow_tpu_torch.core.insert_kernels import mailbox_gather
     from shadow_tpu_torch.faults import conserve
-    from shadow_tpu_torch.net.build import (
-        HostSpec, build, make_chunked_runner, make_runner)
-    from shadow_tpu_torch.net.state import NetConfig
+    from shadow_tpu_torch.net.build import make_chunked_runner, make_runner
     from shadow_tpu_torch.utils import checkpoint
 
     out, secs = {}, {}
@@ -2646,23 +2945,8 @@ def faults_cell(device):
     del pb, sim
     lap("13b_pingpong")
 
-    def relay_crash(dev):
-        hosts = [HostSpec(name=f"n{i}", proc_start_time=10**9)
-                 for i in range(3)]
-        rb = build(NetConfig(num_hosts=3, end_time=6 * 10**9,
-                             sockets_per_host=4), RELAY_CRASH_GRAPH, hosts,
-                   device=dev)
-        rb.sim = relay.setup(rb.sim, circuits=[[0, 1, 2]],
-                             total_bytes=20_000)
-        faults.install(rb, [
-            faults.FaultRecord(t_ns=1_200_000_000,
-                               kind=faults.FaultKind.CRASH, a=1),
-            faults.FaultRecord(t_ns=2_000_000_000,
-                               kind=faults.FaultKind.RESTART, a=1)])
-        return rb, make_runner(rb, app_handlers=(relay.handler,),
-                               device=dev)
-
-    st, sim = compare_bundles_cuda_cpu("relay crash + restart", relay_crash)
+    st, sim = compare_bundles_cuda_cpu("relay crash + restart",
+                                       _relay_crash_twin)
     if not 0 < int(sim.app.rcvd[2]) < 20_000:
         raise AssertionError("relay crash: the transfer was not cut short")
     lap("13b_relay_cuda_cpu")
@@ -2738,28 +3022,63 @@ def small_config(body, stoptime):
             f'{EXAMPLE_GRAPHML}]]></topology>\n{body}\n</shadow>')
 
 
-def run_cli(label, text, tmp, *flags):
-    """`python -m shadow_tpu_torch.cli <config> --platform gpu -d <dir>
-    [flags]` as a subprocess from the repository root, the config
-    written to a file first: the entry point a user calls. Exit code 0
-    required. Returns (the report of its last line, wall s)."""
-    import os
+def start_proc(label, cmd):
+    """Start `cmd` from the repository root, its output captured; the
+    smoke goes on while it runs (finish_proc waits for it, stop_proc
+    kills it). Each CLI run that only its counts, logs and files check
+    starts so, while the card runs work that is not timed."""
     import subprocess
     from pathlib import Path
+
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return label, cmd, proc, time.perf_counter()
+
+
+def stop_proc(started):
+    """Kill a started process that is still running."""
+    proc = started[2]
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def finish_proc(started):
+    """(exit code, stdout, stderr, wall s from its start) of a started
+    process."""
+    proc, t0 = started[2], started[3]
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        stop_proc(started)
+    return proc.returncode, stdout, stderr, time.perf_counter() - t0
+
+
+def start_cli(label, text, tmp, *flags):
+    """Start `python -m shadow_tpu_torch.cli <config> --platform gpu -d
+    <dir> [flags]` as a subprocess from the repository root, the config
+    written to a file first: the entry point a user calls. finish_cli
+    waits for it; several may run at once."""
+    import os
 
     path = os.path.join(tmp, f"{label}.shadow.config.xml")
     with open(path, "w") as f:
         f.write(text)
-    cmd = [sys.executable, "-m", "shadow_tpu_torch.cli", path, "--platform",
-           "gpu", "-d", os.path.join(tmp, f"{label}.data"), *flags]
-    t0 = time.perf_counter()
-    done = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
-                          capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    lines = done.stdout.strip().splitlines()
-    if done.returncode != 0 or not lines:
-        raise AssertionError(f"{label}: the CLI exited {done.returncode}:\n"
-                             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    return start_proc(label, [
+        sys.executable, "-m", "shadow_tpu_torch.cli", path, "--platform",
+        "gpu", "-d", os.path.join(tmp, f"{label}.data"), *flags])
+
+
+def finish_cli(started):
+    """(report, wall s from its start, stdout lines) of a started CLI;
+    exit code 0 required."""
+    label, cmd = started[:2]
+    code, stdout, stderr, wall = finish_proc(started)
+    lines = stdout.strip().splitlines()
+    if code != 0 or not lines:
+        raise AssertionError(f"{label}: the CLI exited {code}:\n"
+                             f"{stdout[-3000:]}\n{stderr[-3000:]}")
     report = json.loads(lines[-1])
     log(f"  {label}: `python -m shadow_tpu_torch.cli {' '.join(cmd[4:])}` "
         f"exit 0 in {wall:.1f} s, {len(lines)} lines; report "
@@ -2767,7 +3086,7 @@ def run_cli(label, text, tmp, *flags):
     for ln in lines:
         if "ObjectCounter" in ln:
             log(f"  {label}: {ln}")
-    return report, wall
+    return report, wall, lines
 
 
 def check_report(label, report, expect):
@@ -2918,6 +3237,7 @@ def check_spec_manifest(label, data_dir, dropped):
 
 
 def _cli_cell(device, tmp):
+    import functools
     import os
 
     import torch
@@ -2927,12 +3247,24 @@ def _cli_cell(device, tmp):
     from shadow_tpu_torch.core.insert_kernels import mailbox_gather
 
     out = {}
-    # ---- 14a: the built-in --test example at full width ----------
+    # the three CLI runs (14a's and 14b's) start together and run side
+    # by side; their checks are counts, logs and manifests
     text = example_config(clients=CLI_1K_CLIENTS, stoptime=CLI_1K_STOP)
+    ex_label = f"cli-example-{CLI_EX_CLIENTS}"
+    ex = example_config(clients=CLI_EX_CLIENTS, kib=CLI_EX_KIB, stoptime=40)
+    clis = [start_cli("cli-1k-bulk", text, tmp),
+            start_cli(ex_label, ex, tmp, "-s", str(CLI_EX_SEED)),
+            start_cli("cli-phold-ref", REFERENCE_PHOLD_XML, tmp,
+                      "--telemetry-capacity", "64")]
+    try:
+        reports = [finish_cli(c)[0] for c in clis]
+    finally:
+        for c in clis:
+            stop_proc(c)
+    # ---- 14a: the built-in --test example at full width ----------
     log(f"[14a] the --test example at {CLI_1K_CLIENTS} clients cut to "
         f"{CLI_1K_STOP} sim-s")
-    report, _ = run_cli("cli-1k-bulk", text, tmp)
-    check_report("cli-1k-bulk", report, CLI_1K_EXPECT)
+    check_report("cli-1k-bulk", reports[0], CLI_1K_EXPECT)
     t0 = time.perf_counter()
     b, runner = load_config(text, seed=1, device=device)
     torch.cuda.synchronize()
@@ -2969,16 +3301,11 @@ def _cli_cell(device, tmp):
     del sim, b, runner
 
     # ---- 14b: reference-format configs through the CLI -----------
-    ex_label = f"cli-example-{CLI_EX_CLIENTS}"
     log(f"[14b] the example at {CLI_EX_CLIENTS} clients x "
         f"{CLI_EX_KIB} KiB to full depth and the reference PHOLD "
         f"config through the CLI, the example's CUDA/CPU twin")
-    ex = example_config(clients=CLI_EX_CLIENTS, kib=CLI_EX_KIB, stoptime=40)
-    report, _ = run_cli(ex_label, ex, tmp, "-s", str(CLI_EX_SEED))
-    check_report(ex_label, report, CLI_EX_EXPECT)
-    report, _ = run_cli("cli-phold-ref", REFERENCE_PHOLD_XML, tmp,
-                        "--telemetry-capacity", "64")
-    check_report("cli-phold-ref", report, PHOLD_REF_REPORT)
+    check_report(ex_label, reports[1], CLI_EX_EXPECT)
+    check_report("cli-phold-ref", reports[2], PHOLD_REF_REPORT)
     check_spec_manifest("cli-phold-ref",
                         os.path.join(tmp, "cli-phold-ref.data"),
                         ["loss", "timers"])
@@ -2988,7 +3315,7 @@ def _cli_cell(device, tmp):
     with KeepGatherInputs() as gathered:
         compare_bundles_cuda_cpu(
             f"{ex_label} cut to {CLI_TWIN_STOP} sim-s",
-            lambda dev: load_config(twin, CLI_EX_SEED, dev))
+            functools.partial(load_config, twin, CLI_EX_SEED))
     twin_launches = mailbox_gather.launches
     if twin_launches <= 0:
         raise AssertionError(f"{ex_label} twin: mailbox_gather was "
@@ -3008,18 +3335,19 @@ def _cli_cell(device, tmp):
                       ("ping --router-qdisc static",
                        {"router_qdisc": "static"})):
         _, sim = compare_bundles_cuda_cpu(
-            label, lambda dev, ov=ov: load_config(ping, 1, dev, dict(ov)))
+            label, functools.partial(load_config, ping, 1,
+                                     overrides=dict(ov)))
         if int(sim.app.rcvd[sim.app.role == 1].sum()) <= 0:
             raise AssertionError(f"{label}: no client got a reply")
     _, sim = compare_bundles_cuda_cpu(
-        "testtcp echo", lambda dev: load_config(
-            small_config(ECHO_BODY, SMALL_STOP["echo"]), 7, dev))
+        "testtcp echo", functools.partial(
+            load_config, small_config(ECHO_BODY, SMALL_STOP["echo"]), 7))
     if int(sim.app.s_rcvd.sum()) <= 0:
         raise AssertionError("testtcp echo: the server drained nothing")
     _, sim = compare_bundles_cuda_cpu(
-        "testdeterminism", lambda dev: load_config(
-            small_config(RANDDUMP_BODY, SMALL_STOP["randdump"]), 11,
-            dev))
+        "testdeterminism", functools.partial(
+            load_config, small_config(RANDDUMP_BODY, SMALL_STOP["randdump"]),
+            11))
     if not bool((sim.app.start_at >= 0).all()):
         raise AssertionError("testdeterminism: a host drew nothing")
     small_launches = mailbox_gather.launches
@@ -3253,7 +3581,6 @@ def _inject_cell(device, tmp):
     from shadow_tpu_torch import bench, convert, faults, telemetry
     from shadow_tpu_torch.apps import tgen
     from shadow_tpu_torch.core.insert_kernels import mailbox_gather
-    from shadow_tpu_torch.inject import Feeder, manifest_block
     from shadow_tpu_torch.utils import checkpoint
 
     out = {}
@@ -3400,6 +3727,37 @@ def _inject_cell(device, tmp):
         f"{max(f1.t_refill) * 1e3:.3f} ms max")
     del runs
 
+    # 15c's CLI run starts here and runs beside 15b (not timed)
+    cfg_path = str(root / TRAFFIC_CONFIG)
+    d = os.path.join(tmp, "traffic.data")
+    trace_out, metrics_out = (os.path.join(tmp, "traffic.trace.json"),
+                              os.path.join(tmp, "traffic.prom"))
+    traffic = start_proc("cli-tgen-traffic", [
+        sys.executable, "-m", "shadow_tpu_torch.cli", cfg_path,
+        "--platform", "gpu", "-d", d, "--trace-out", trace_out,
+        "--metrics-out", metrics_out])
+    try:
+        out, err = _inject_tail(device, tmp, out, err, b, sim0, sup, trace,
+                                supervised, traffic,
+                                (cfg_path, d, trace_out, metrics_out))
+    finally:
+        stop_proc(traffic)
+    return out, err
+
+
+def _inject_tail(device, tmp, out, err, b, sim0, sup, trace, supervised,
+                 traffic, paths):
+    """15b, then 15c (its CLI run started by _inject_cell; `paths`: its
+    config, data directory, trace and metrics files)."""
+    import functools
+    import os
+
+    from shadow_tpu_torch import faults
+    from shadow_tpu_torch.apps import tgen
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+    from shadow_tpu_torch.inject import Feeder, manifest_block
+    from shadow_tpu_torch.utils import checkpoint
+
     # ---- 15b: supervised stop at INJ_STOP_S, resume with a fresh feeder
     stop = {"v": False}
 
@@ -3433,21 +3791,12 @@ def _inject_cell(device, tmp):
     del first, rest, sup, b, sim0
 
     # ---- 15c: a <traffic> config through the CLI ----------------------
-    cfg_path = str(root / TRAFFIC_CONFIG)
-    d = os.path.join(tmp, "traffic.data")
-    trace_out, metrics_out = (os.path.join(tmp, "traffic.trace.json"),
-                              os.path.join(tmp, "traffic.prom"))
-    cmd = [sys.executable, "-m", "shadow_tpu_torch.cli", cfg_path,
-           "--platform", "gpu", "-d", d, "--trace-out", trace_out,
-           "--metrics-out", metrics_out]
-    t0 = time.perf_counter()
-    done = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                          timeout=600)
-    wall = time.perf_counter() - t0
-    lines = done.stdout.strip().splitlines()
-    if done.returncode != 0 or not lines:
-        raise AssertionError(f"traffic CLI exited {done.returncode}:\n"
-                             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    cfg_path, d, trace_out, metrics_out = paths
+    code, stdout, stderr, wall = finish_proc(traffic)
+    lines = stdout.strip().splitlines()
+    if code != 0 or not lines:
+        raise AssertionError(f"traffic CLI exited {code}:\n"
+                             f"{stdout[-3000:]}\n{stderr[-3000:]}")
     report = json.loads(lines[-1])
     check_report("cli-tgen-traffic", report, TRAFFIC_REPORT)
     with open(os.path.join(d, "run_manifest.json")) as fh:
@@ -3478,26 +3827,29 @@ def _inject_cell(device, tmp):
         f"trace {len(tr['traceEvents'])} events ({n_win} windows), "
         f"Prometheus text {len(prom)} lines parsed")
 
-    def make(dev):
-        from shadow_tpu_torch.config.loader import load
-        from shadow_tpu_torch.config.xmlconfig import parse_config
-        from shadow_tpu_torch.net.build import make_runner
-
-        with open(cfg_path) as fh:
-            loaded = load(parse_config(fh.read()), seed=1, device=dev)
-        tb = loaded.bundle
-        tb.sim = Feeder(list(loaded.inject_events)).fill_all(tb.sim)
-        return tb, make_runner(tb, app_handlers=loaded.handlers,
-                               device=dev)
-
     mailbox_gather.launches = 0
     with KeepGatherInputs() as gathered:
-        _, sim = compare_bundles_cuda_cpu("tgen traffic config", make)
+        _, sim = compare_bundles_cuda_cpu(
+            "tgen traffic config", functools.partial(_traffic_twin, cfg_path))
     if int(sim.app.rcvd.sum()) != TRAFFIC_INJECTION["injected"]:
         raise AssertionError("tgen traffic config: a datagram was lost")
     out["launches_traffic"] = mailbox_gather.launches
     err = max(err, gathered.check("tgen traffic config"))
     return out, err
+
+
+def _traffic_twin(cfg_path, dev):
+    """15c: the <traffic> config's bundle, its trace staged whole."""
+    from shadow_tpu_torch.config.loader import load
+    from shadow_tpu_torch.config.xmlconfig import parse_config
+    from shadow_tpu_torch.inject import Feeder
+    from shadow_tpu_torch.net.build import make_runner
+
+    with open(cfg_path) as fh:
+        loaded = load(parse_config(fh.read()), seed=1, device=dev)
+    tb = loaded.bundle
+    tb.sim = Feeder(list(loaded.inject_events)).fill_all(tb.sim)
+    return tb, make_runner(tb, app_handlers=loaded.handlers, device=dev)
 
 
 def build_lanes(device, hosts=HOSTS, sim_s=SIM_S, lanes=True, recorders=True,
@@ -3741,19 +4093,14 @@ def lanes_cell(device):
 
 
 def _lanes_cell(device, tmp):
-    import copy
     import os
     import subprocess
     from pathlib import Path
 
-    import numpy as np
     import torch
 
-    from shadow_tpu_torch import convert, faults
     from shadow_tpu_torch.apps import phold
-    from shadow_tpu_torch.core import lanes
     from shadow_tpu_torch.net.build import make_runner
-    from shadow_tpu_torch.utils import checkpoint
 
     out = {}
     root = Path(__file__).resolve().parent
@@ -3821,6 +4168,30 @@ def _lanes_cell(device, tmp):
     out["lanes_window"] = profile_lanes_window(b, device)
     del gathered, sim_a
 
+    # 16d's CLI run on the card starts here and runs beside 16b and 16c
+    # (neither is timed)
+    started = start_lanes_cli(root, tmp)
+    try:
+        return _lanes_tail(device, root, tmp, out, err, b, started)
+    finally:
+        stop_proc(started)
+
+
+def _lanes_tail(device, root, tmp, out, err, b, started):
+    """16b-16d (16d's card run started by _lanes_cell)."""
+    import copy
+    import os
+
+    import numpy as np
+    import torch
+
+    from shadow_tpu_torch import convert, faults
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.core import lanes
+    from shadow_tpu_torch.net.build import make_runner
+    from shadow_tpu_torch.utils import checkpoint
+
+    hosts = HOSTS
     # ---- 16b: the recorders off, R = 1, a flooded lane, the supervisor.
     # The variants are A's boot state with planes detached or attached,
     # run to LANE_SIDE_S through A's bundle (one build for all).
@@ -3918,7 +4289,7 @@ def _lanes_cell(device, tmp):
     err = max(err, lanes_cuts(device))
 
     # ---- 16d: the CLI's flags on the <traffic> config ------------------
-    out["lanes_cli_s"] = lanes_cli(device, root, tmp)
+    out["lanes_cli_s"] = lanes_cli(device, root, tmp, started)
     return out, err
 
 
@@ -3944,6 +4315,33 @@ def lane_counts(sim, stats):
     return got
 
 
+def _lanes_phold_cut(dev):
+    """16c: 16a's program at 4 x LANE_CUT_HOSTS hosts to LANE_CUT_S."""
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.net.build import make_runner
+
+    b = build_lanes(dev, LANE_CUT_HOSTS, sim_s=LANE_CUT_S)
+    return make_runner(b, app_handlers=(phold.handler,),
+                       app_bulk=phold.BULK, device=dev)(b.sim)
+
+
+def _lanes_inject_cut(dev):
+    """16c: 15a's 64-host cut with BENCH_CAUSALITY=INJ_CAUS_SAMPLE."""
+    from shadow_tpu_torch import bench, telemetry
+    from shadow_tpu_torch.apps import tgen
+    from shadow_tpu_torch.inject import Feeder
+    from shadow_tpu_torch.utils import checkpoint
+
+    H, rate, sim_s, nl = INJ_CUT
+    b = bench.build_inject(H, sim_s, 1, 64, nl, ONE_VERTEX, dev)
+    b.sim = telemetry.attach_causality(b.sim, sample_period=INJ_CAUS_SAMPLE)
+    sim, stats, _ = checkpoint.run_windows(
+        b, (tgen.handler,), feeder=Feeder(list(bench.rate_trace(
+            H, rate, sim_s))),
+        windows_per_dispatch=INJ_CHUNK, device=dev)
+    return sim, stats
+
+
 def lanes_cuts(device):
     """16c: the 4 x LANE_CUT_HOSTS cut of 16a's program (to LANE_CUT_S)
     and 15a's 64-host cut with BENCH_CAUSALITY=8, each on the card and
@@ -3954,52 +4352,31 @@ def lanes_cuts(device):
     import numpy as np
     import torch
 
-    from shadow_tpu_torch import bench, convert, telemetry
-    from shadow_tpu_torch.apps import phold, tgen
-    from shadow_tpu_torch.inject import Feeder
-    from shadow_tpu_torch.net.build import make_runner
-    from shadow_tpu_torch.utils import checkpoint
+    from shadow_tpu_torch import convert
 
-    H, rate, sim_s, nl = INJ_CUT
-    trace = bench.rate_trace(H, rate, sim_s)
-
-    def phold_cut(dev):
-        b = build_lanes(dev, LANE_CUT_HOSTS, sim_s=LANE_CUT_S)
-        return make_runner(b, app_handlers=(phold.handler,),
-                           app_bulk=phold.BULK, device=dev)(b.sim)
-
-    def inject_cut(dev):
-        b = bench.build_inject(H, sim_s, 1, 64, nl, ONE_VERTEX, dev)
-        b.sim = telemetry.attach_causality(b.sim,
-                                           sample_period=INJ_CAUS_SAMPLE)
-        sim, stats, _ = checkpoint.run_windows(
-            b, (tgen.handler,), feeder=Feeder(list(trace)),
-            windows_per_dispatch=INJ_CHUNK, device=dev)
-        return sim, stats
-
+    H = INJ_CUT[0]
     err = 0
     for label, run, expect in (
-            (f"{LANE_R} x {LANE_CUT_HOSTS}-host cut", phold_cut,
+            (f"{LANE_R} x {LANE_CUT_HOSTS}-host cut", _lanes_phold_cut,
              LANE_CUT_EXPECT),
             (f"injection {H}-host cut, BENCH_CAUSALITY={INJ_CAUS_SAMPLE}",
-             inject_cut, INJ_CAUS_EXPECT)):
-        leaves = []
-        for dev in (torch.device(device), torch.device("cpu")):
-            t0 = time.perf_counter()
-            if dev.type == "cuda":
-                with KeepGatherInputs() as gathered:
-                    sim, stats = run(dev)
-                err = max(err, gathered.check(label))
-            else:
-                sim, stats = run(dev)
-            got = lane_counts(sim, stats)
+             _lanes_inject_cut, INJ_CAUS_EXPECT)):
+        fut = on_cpu(run, extra=lane_counts)
+        t0 = time.perf_counter()
+        with KeepGatherInputs() as gathered:
+            sim, stats = run(torch.device(device))
+        err = max(err, gathered.check(label))
+        runs = [(lane_counts(sim, stats), convert.sim_to_numpy(sim),
+                 time.perf_counter() - t0)]
+        _, leaves, got, wall = fut.result(timeout=900)
+        runs.append((got, leaves, wall))
+        for dev, (got, _, wall) in zip(("cuda", "cpu"), runs):
             if got != expect:
-                raise AssertionError(f"{label} {dev.type}: {got} != the "
+                raise AssertionError(f"{label} {dev}: {got} != the "
                                      f"reference's {expect}")
-            leaves.append(convert.sim_to_numpy(sim))
-            log(f"  {label} {dev.type}: the reference's counts in "
-                f"{time.perf_counter() - t0:.2f} s: {json.dumps(got)}")
-        a, c = leaves
+            log(f"  {label} {dev}: the reference's counts in "
+                f"{wall:.2f} s: {json.dumps(got)}")
+        a, c = runs[0][1], runs[1][1]
         bad = [k for k in a if a[k].dtype != c[k].dtype
                or not np.array_equal(a[k], c[k])]
         if a.keys() != c.keys() or bad:
@@ -4008,13 +4385,32 @@ def lanes_cuts(device):
     return err
 
 
-def lanes_cli(device, root, tmp):
+def lanes_cli_argv(root, tmp, key):
+    """16d's CLI arguments and data directory for the `key` run."""
+    import os
+
+    d = os.path.join(tmp, f"lanes_cli_{key}")
+    return d, [str(root / TRAFFIC_CONFIG), "-d", d, "--trace-out",
+               os.path.join(d, "t.json"), "--metrics-out",
+               os.path.join(d, "m.prom"), *LANE_CLI_FLAGS]
+
+
+def start_lanes_cli(root, tmp):
+    """Start 16d's card run (a subprocess) while 16b and 16c run."""
+    _, argv = lanes_cli_argv(root, tmp, "card")
+    return start_proc("lanes CLI", [
+        sys.executable, "-m", "shadow_tpu_torch.cli", *argv, "--platform",
+        "gpu"])
+
+
+def lanes_cli(device, root, tmp, started):
     """16d: `python -m shadow_tpu_torch.cli <traffic config>
     --lane-isolation 4 --resident --flow-sample 8 --causality-sample 8
-    --trace-out --metrics-out` as a subprocess on `device` and in-process
-    on the CPU: equal reports (wall-clock fields aside) and manifest
-    lanes, admission, flows and causality blocks; the manifest passes
-    tools/telemetry_lint.py. Returns the subprocess's wall seconds."""
+    --trace-out --metrics-out` as a subprocess on `device` (`started` by
+    start_lanes_cli) and in-process on the CPU: equal reports
+    (wall-clock fields aside) and manifest lanes, admission, flows and
+    causality blocks; the manifest passes tools/telemetry_lint.py.
+    Returns the subprocess's wall seconds."""
     import contextlib
     import io
     import os
@@ -4022,27 +4418,20 @@ def lanes_cli(device, root, tmp):
 
     from shadow_tpu_torch import cli
 
-    cfg = str(root / TRAFFIC_CONFIG)
     runs = {}
-    for key in ("card", "cpu"):
-        d = os.path.join(tmp, f"lanes_cli_{key}")
-        argv = [cfg, "-d", d, "--trace-out", os.path.join(d, "t.json"),
-                "--metrics-out", os.path.join(d, "m.prom"), *LANE_CLI_FLAGS]
+    for key in ("cpu", "card"):
+        d, argv = lanes_cli_argv(root, tmp, key)
         t0 = time.perf_counter()
         if key == "card":
-            done = subprocess.run(
-                [sys.executable, "-m", "shadow_tpu_torch.cli", *argv,
-                 "--platform", "gpu"], cwd=root, capture_output=True,
-                text=True, timeout=600)
-            code, lines = done.returncode, done.stdout.strip().splitlines()
-            errs = done.stderr
+            code, stdout, errs, wall = finish_proc(started)
+            lines = stdout.strip().splitlines()
         else:
             so, se = io.StringIO(), io.StringIO()
             with contextlib.redirect_stdout(so), \
                     contextlib.redirect_stderr(se):
                 code = cli.main([*argv, "--platform", "cpu"])
             lines, errs = so.getvalue().strip().splitlines(), se.getvalue()
-        wall = time.perf_counter() - t0
+            wall = time.perf_counter() - t0
         if code != 0 or not lines:
             raise AssertionError(f"lanes CLI {key} exited {code}:\n"
                                  f"{errs[-3000:]}")
@@ -4260,6 +4649,334 @@ def spec_cell(device, main4, relay6s):
     return out, err, gather
 
 
+def obs_xml(hosts, stop):
+    """Phase 18's reference-format config: PHOLD at load OBS_LOAD on
+    bench.py's MIX_VERTICES graph, every host logpcap="true"."""
+    from shadow_tpu_torch.bench import MIX_VERTICES
+
+    return (f'<shadow stoptime="{stop}">\n  <topology><![CDATA['
+            f'{MIX_VERTICES}]]></topology>\n'
+            f'  <plugin id="phold" path="phold"/>\n'
+            f'  <host id="peer" quantity="{hosts}" logpcap="true">\n'
+            f'    <process plugin="phold" starttime="0" '
+            f'arguments="load={OBS_LOAD}"/>\n  </host>\n</shadow>')
+
+
+def pcap_digest(directory):
+    """The pcap files of a directory: their count, bytes and sha256 over
+    their bytes in name order."""
+    import hashlib
+    from pathlib import Path
+
+    h, n, files = hashlib.sha256(), 0, sorted(Path(directory).glob("*.pcap"))
+    for f in files:
+        data = f.read_bytes()
+        h.update(data)
+        n += len(data)
+    return {"files": len(files), "bytes": n, "sha256": h.hexdigest()}
+
+
+def obs_counts(sim, stats, cap, directory):
+    """What phase 18 pins of a run: EngineStats, the CPU counters, the
+    path matrix, the capture (records appended, overrun, files) and the
+    per-host event costs."""
+    net = sim.net
+    return {"stats": stats.as_dict(),
+            "blocked": int(net.ctr_cpu_blocked.sum()),
+            "delay_ns": int(net.ctr_cpu_delay_ns.sum()),
+            "records": int(net.cap_count.to(dtype=net.ctr_cpu_blocked.dtype)
+                           .sum()),
+            "dropped": cap.dropped, **pcap_digest(directory),
+            "paths": net.ctr_path_packets.tolist(),
+            "cost": sorted(set(net.cpu_cost.tolist())),
+            "overflow": int(sim.events.overflow) + int(sim.outbox.overflow)
+            + int(net.rq_overflow)}
+
+
+def check_obs(label, got, expect):
+    """`got` (obs_counts) against the reference's pinned counts."""
+    bad = {k: (got[k], v) for k, v in expect.items() if got[k] != v}
+    if bad or got["overflow"] != 0 or got["dropped"] != 0:
+        raise AssertionError(f"{label}: differs from the reference's "
+                             f"counts: {bad}; overflow {got['overflow']}, "
+                             f"dropped {got['dropped']}")
+    log(f"  {label}: the reference's counts: {json.dumps(got)}")
+
+
+def _obs_udp_cut(dev):
+    """18c: PHOLD at OBS_CUT_HOSTS hosts on MIX_VERTICES with the three
+    settings, the hosts' CPU speeds cycling over OBS_CUT_FREQS."""
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.bench import MIX_VERTICES
+    from shadow_tpu_torch.net.build import HostSpec, build
+    from shadow_tpu_torch.net.state import NetConfig
+
+    cfg = NetConfig(
+        num_hosts=OBS_CUT_HOSTS, tcp=False, seed=1,
+        end_time=int(OBS_CUT_STOP * 1e9), event_capacity=32,
+        outbox_capacity=32, router_ring=32, in_ring=16, pcap=True,
+        track_paths=True, cpu_threshold_ns=0, cpu_precision_ns=10_000)
+    hosts = [HostSpec(name=f"peer{i}", proc_start_time=0,
+                      cpufrequency_khz=OBS_CUT_FREQS[i % 4])
+             for i in range(OBS_CUT_HOSTS)]
+    cb = build(cfg, MIX_VERTICES, hosts, device=dev)
+    cb.sim = phold.setup(cb.sim, load=OBS_LOAD)
+    return cb, (phold.handler,)
+
+
+def _obs_tcp_twin(dev):
+    """18c: 14b's TCP example twin with logpcap on the server."""
+    from shadow_tpu_torch.config.examples import example_config
+    from shadow_tpu_torch.config.loader import load
+    from shadow_tpu_torch.config.xmlconfig import parse_config
+
+    text = example_config(clients=CLI_EX_CLIENTS, kib=CLI_EX_KIB,
+                          stoptime=CLI_TWIN_STOP).replace(
+        '<host id="server"', '<host id="server" logpcap="true"')
+    tl = load(parse_config(text), seed=CLI_EX_SEED, device=dev)
+    return tl.bundle, tl.handlers
+
+
+def _obs_twin(make, directory, dev):
+    """An 18c run: make(dev)'s bundle through run_windows with a pcap
+    drain every window into `directory`. Returns (EngineStats dict,
+    sim, obs_counts, wall s)."""
+    from shadow_tpu_torch.utils.checkpoint import run_windows
+    from shadow_tpu_torch.utils.pcap import CaptureSession
+
+    cb, handlers = make(dev)
+    c = CaptureSession(cb, directory)
+    t0 = time.perf_counter()
+    sim, stats, _ = run_windows(cb, app_handlers=handlers,
+                                on_window=lambda s, w: c.drain(s),
+                                device=dev)
+    c.drain(sim)
+    c.close()
+    return (stats.as_dict(), sim, obs_counts(sim, stats, c, directory),
+            time.perf_counter() - t0)
+
+
+def _obs_twin_cpu(make, directory):
+    """_obs_twin on the CPU, in the worker: the leaves as numpy."""
+    from shadow_tpu_torch import convert
+
+    st, sim, got, wall = _obs_twin(make, directory, "cpu")
+    return st, convert.sim_to_numpy(sim), got, wall
+
+
+def obs_cell(device):
+    """Phase 18: the netstack's observability settings at full width
+    and native/. Returns (row fields, max abs err of mailbox_gather on
+    18b's route)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="shadow_obs_") as tmp:
+        return _obs_cell(device, tmp)
+
+
+def _obs_cell(device, tmp):
+    import io
+    import os
+    from pathlib import Path
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shadow_tpu_torch import convert, native
+    from shadow_tpu_torch.compile import specialize
+    from shadow_tpu_torch.config.loader import load
+    from shadow_tpu_torch.config.xmlconfig import parse_config
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+    from shadow_tpu_torch.utils.checkpoint import run_windows
+    from shadow_tpu_torch.utils.pcap import CaptureSession
+    from shadow_tpu_torch.utils.shadowlog import LogLevel, SimLogger
+
+    out = {}
+    # ---- native/: built from this checkout's sources, and used -------
+    lib = native.require()
+    path = Path(native.library_path()).resolve()
+    build_dir = (Path(__file__).resolve().parent / "shadow_tpu_torch"
+                 / "_build")
+    if path.parent != build_dir or not path.name.startswith(
+            "libshadow_native-"):
+        raise AssertionError(f"18: native library loaded from {path}, not "
+                             f"built into {build_dir}")
+    lg = SimLogger(level=LogLevel.INFO, stream=io.StringIO(),
+                   require_native=True)
+    for i in range(4_096):
+        lg.info((i * 7919) % 1000, "h", "x")
+    lg.flush()
+    if lg.native_sorts != 1:
+        raise AssertionError("18: a 4,096-record flush did not go "
+                             "through logsort_argsort")
+    log(f"  18: native library {path.name} built from "
+        f"shadow_tpu_torch/native/src into _build/ and loaded ({lib}); a "
+        f"4,096-record log flush sorted by logsort_argsort")
+
+    # ---- 18a: the CLI as a user runs it, beside 18c ------------------
+    cli = start_cli("obs-cpu-10k", obs_xml(OBS_HOSTS, OBS_CLI_STOP), tmp,
+                    "-l", "info", *OBS_FLAGS)
+    try:
+        # ---- 18c: CUDA against CPU at the cuts (not timed) -----------
+        for label, make, expect in (
+                (f"18c PHOLD at {OBS_CUT_HOSTS} hosts, 4 CPU speeds, "
+                 f"{OBS_CUT_STOP} sim-s", _obs_udp_cut, OBS_CUT_EXPECT),
+                (f"18c the TCP example twin with logpcap, {CLI_TWIN_STOP} "
+                 f"sim-s", _obs_tcp_twin, OBS_TCP_EXPECT)):
+            d = os.path.join(tmp, f"{make.__name__}-")
+            fut = in_worker(_obs_twin_cpu, make, d + "cpu")
+            st, sim, got, wall = _obs_twin(make, d + "cuda", "cuda")
+            log(f"  {label} cuda: {st} in {wall:.2f} s")
+            cst, cleaves, cgot, cwall = fut.result(timeout=900)
+            log(f"  {label} cpu: {cst} in {cwall:.2f} s")
+            n = assert_same_leaves(label, (st, convert.sim_to_numpy(sim)),
+                                   (cst, cleaves))
+            if got != cgot:
+                raise AssertionError(f"{label}: cuda {got} != cpu {cgot}")
+            check_obs(label, got, expect)
+            log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves "
+                f"equal, pcap files byte-equal")
+        report, wall, lines = finish_cli(cli)
+    finally:
+        stop_proc(cli)
+    check_report("obs-cpu-10k", report, OBS_CLI_REPORT)
+    paths = [[0] * 3 for _ in range(3)]
+    for ln in lines:
+        if "] path " in ln:
+            a, c = ln.split("] path ")[1].split(":")[0].split("->")
+            paths[int(a)][int(c)] = int(ln.rsplit(" ", 2)[1])
+    if paths != OBS_CLI_PATHS:
+        raise AssertionError(f"obs-cpu-10k: path lines {paths} != the "
+                             f"reference's {OBS_CLI_PATHS}")
+    if any("pcap ring overran" in ln for ln in lines):
+        raise AssertionError("obs-cpu-10k: the capture ring overran")
+    if len(lines) != OBS_LOG_LINES:
+        raise AssertionError(f"obs-cpu-10k: {len(lines)} lines, the "
+                             f"reference's CLI prints {OBS_LOG_LINES}")
+    digest = pcap_digest(os.path.join(tmp, "obs-cpu-10k.data"))
+    if digest != OBS_CLI_PCAP:
+        raise AssertionError(f"obs-cpu-10k: pcap files {digest} != the "
+                             f"reference's {OBS_CLI_PCAP}")
+    log(f"  obs-cpu-10k: the reference's 9 path counts, {len(lines)} log "
+        f"lines (one flush past 4,096 records: the native argsort), pcap "
+        f"files as the reference's {digest}, in {wall:.1f} s")
+    out["obs_cli_wall_s"] = round(wall, 1)
+
+    # ---- 18b: the same bundle in-process ------------------------------
+    loaded = load(parse_config(obs_xml(OBS_HOSTS, OBS_STOP)), seed=1,
+                  overrides=dict(OBS_OVERRIDES), device=device)
+    b = loaded.bundle
+    b = specialize.apply(b, loaded.handlers, app_bulk=b.app_bulk)
+    cap = CaptureSession(b, os.path.join(tmp, "obs-18b"))
+    drain_s, drained, copied, marks, steps = [], [], [], [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def hook(s, wend):
+        k = len(marks) // 2      # this hook follows window k
+        if k == OBS_PROFILE_WINDOW:
+            prof.stop()
+        marks.append(time.perf_counter())
+        torch.cuda.synchronize()
+        c0, t0 = cap.bytes_copied, time.perf_counter()
+        drained.append(cap.drain(s))
+        drain_s.append(time.perf_counter() - t0)
+        copied.append(cap.bytes_copied - c0)
+        if k == OBS_PROFILE_WINDOW - 1:
+            prof.start()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    mailbox_gather.launches = 0
+    t0 = time.perf_counter()
+    with KeepGatherInputs() as gathered:
+        sim, stats, _ = run_windows(
+            b, app_handlers=loaded.handlers, on_window=hook,
+            on_round=lambda s, st, *_: steps.append(int(st.micro_steps)),
+            device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mailbox_gather.launches
+    tail = cap.drain(sim)
+    cap.close()
+    got = obs_counts(sim, stats, cap, cap.dir)
+    if sum(drained) + tail != got["records"]:
+        raise AssertionError(f"18b: drained {sum(drained)} + {tail} of "
+                             f"{got['records']} records")
+    check_obs("18b", got, {"stats": OBS_EXPECT, "blocked":
+                           OBS_CPU["blocked"], "delay_ns":
+                           OBS_CPU["delay_ns"], "paths": OBS_PATHS,
+                           **OBS_PCAP})
+    if int(sim.net.ctr_events_exec.sum()) != OBS_EXPECT["events_processed"]:
+        raise AssertionError("18b: ctr_events_exec does not sum to the "
+                             "executed events")
+    if int(sim.app.rcvd.sum()) != OBS_APP_RCVD:
+        raise AssertionError(f"18b: app.rcvd sums to "
+                             f"{int(sim.app.rcvd.sum())}, the reference's "
+                             f"to {OBS_APP_RCVD}")
+    windows = int(stats.as_dict()["windows"])
+    if not 0 < launches <= windows:
+        raise AssertionError(f"18b: mailbox_gather launched {launches} "
+                             f"times in {windows} windows")
+    err = gathered.check("18b")
+    gather = time_gather("18b", gathered.kept)
+    events = raw_events(prof)
+    busy_ms = device_busy_us(events) / 1e3
+    p_launch = host_launches(events)
+    p_sync = sum(1 for e in events if e.device_type == DeviceType.CPU
+                 and e.name == "cudaStreamSynchronize")
+    # a window's wall: from the end of one drain to the next hook (the
+    # drain excluded); with its drain: from one hook to the next
+    win_ms = [(marks[2 * k + 2] - marks[2 * k + 1]) * 1e3
+              for k in range(windows - 1)]
+    hook_ms = [(marks[2 * k + 2] - marks[2 * k]) * 1e3
+               for k in range(windows - 1)]
+    keep = [k for k in range(windows - 1)
+            if k > 0 and k != OBS_PROFILE_WINDOW - 1]
+    d_ms = [x * 1e3 for x in drain_s]
+    st = stats.as_dict()
+    obs = {"wall_s": round(wall, 3),
+           "ms_per_window": round(statistics.mean(
+               win_ms[k] for k in keep), 3),
+           "ms_per_window_with_drain": round(statistics.mean(
+               hook_ms[k] for k in keep), 3),
+           "micro_steps_per_window": round(
+               st["micro_steps"] / st["windows"], 2),
+           "drain_ms_per_window": round(statistics.mean(d_ms), 3),
+           "drain_share": round(sum(drain_s) / wall, 4),
+           "records_per_s_drained": round(sum(drained) / sum(drain_s), 1),
+           "bytes_copied_per_window": round(sum(copied) / windows, 1),
+           "profiled_window": {
+               "window": OBS_PROFILE_WINDOW,
+               "micro_steps": steps[OBS_PROFILE_WINDOW],
+               "ms": round(win_ms[OBS_PROFILE_WINDOW - 1], 3),
+               "launches": p_launch, "syncs": p_sync,
+               "busy_ms": round(busy_ms, 3)}}
+    log(f"  18b: run_windows with a drain every window: {wall:.2f} s, "
+        f"{obs['ms_per_window']:.1f} ms a window after window 0 (the "
+        f"profiled window excluded) and its drain on top, "
+        f"{obs['ms_per_window_with_drain']:.1f} ms hook to hook; "
+        f"{obs['micro_steps_per_window']} micro-steps a window; "
+        f"drain {obs['drain_ms_per_window']:.1f} ms a window "
+        f"({obs['drain_share'] * 100:.1f}% of 18b's whole run), "
+        f"{obs['records_per_s_drained']:.0f} records/s, "
+        f"{obs['bytes_copied_per_window']:.0f} bytes copied a window; "
+        f"window {OBS_PROFILE_WINDOW} ({steps[OBS_PROFILE_WINDOW]} "
+        f"micro-steps) profiled: {p_launch} launches, {p_sync} "
+        f"cudaStreamSynchronize, device busy {busy_ms:.2f} ms; "
+        f"micro-steps by window {steps}; "
+        f"mailbox_gather launched {launches} times in {windows} windows, "
+        f"exact on its route")
+    out["launches_obs"] = launches
+    out["obs"] = obs
+    out["obs_gather"] = {k: gather[k] for k in (
+        "n", "ms", "plain_ms", "bound_ms", "library_ms")}
+    del sim, b, loaded, prof, events
+
+    torch.cuda.synchronize()
+    return out, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4273,6 +4990,18 @@ def main(argv=None) -> int:
         return 2
     from shadow_tpu_torch import bench
     from shadow_tpu_torch.core import insert_kernels
+
+    start_twins()
+    try:
+        return run_phases(args, bench, insert_kernels)
+    finally:
+        stop_twins()
+
+
+def run_phases(args, bench, insert_kernels) -> int:
+    """Phases 1-18 and the result lines (main starts and stops the CPU
+    halves' worker around them)."""
+    import torch
 
     phase_s = {}
     mark = {"name": None, "t": time.perf_counter()}
@@ -4296,6 +5025,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     path, text = insert_kernels.build_library()
     log(f"  built {path.name} in {time.perf_counter() - t0:.2f} s")
+    start_cards()
     for line in text.strip().splitlines():
         log(f"  [nvcc] {line}")
 
@@ -4350,21 +5080,27 @@ def main(argv=None) -> int:
 
     phase("5")
     log("[5] CUDA against CPU inside the port")
-    compare_cuda_cpu("serial", 64, 4, 1.0)
-    compare_cuda_cpu("bulk + ring", 64, 4, 1.0, bulk=True, ring=True)
-    compare_cuda_cpu("sparse", 64, 2, 1.0, sparse_lanes=16, active_hosts=4)
     t0 = time.perf_counter()
-    compare_relay_cuda_cpu("relay 2x5 hops + ring", 10, 5,
-                           RELAY_SMALL_BYTES, RELAY_SMALL_SIM_S)
-    compare_relay_cuda_cpu("relay 2x2 hops 1% loss", 4, 2, 25_000,
-                           RELAY_SMALL_LOSSY_SIM_S, loss=0.01, ring=False)
-    compare_relay_cuda_cpu("relay 2x5 hops + ring, TCP bulk", 10, 5,
-                           RELAY_SMALL_BYTES, RELAY_SMALL_SIM_S,
-                           tcp_bulk=True)
-    compare_relay_cuda_cpu("relay 2x2 hops 1% loss, TCP bulk lossless", 4,
-                           2, 25_000, RELAY_SMALL_LOSSY_SIM_S, loss=0.01,
-                           tcp_bulk=True, lossless=True)
-    log(f"  the four relay configs took {time.perf_counter() - t0:.1f} s")
+    relays = [
+        relay_twin("relay 2x5 hops + ring", 10, 5, RELAY_SMALL_BYTES,
+                   RELAY_SMALL_SIM_S),
+        relay_twin("relay 2x2 hops 1% loss", 4, 2, 25_000,
+                   RELAY_SMALL_LOSSY_SIM_S, loss=0.01, ring=False),
+        relay_twin("relay 2x5 hops + ring, TCP bulk", 10, 5,
+                   RELAY_SMALL_BYTES, RELAY_SMALL_SIM_S, tcp_bulk=True),
+        relay_twin("relay 2x2 hops 1% loss, TCP bulk lossless", 4, 2,
+                   25_000, RELAY_SMALL_LOSSY_SIM_S, loss=0.01,
+                   tcp_bulk=True, lossless=True)]
+    started = [
+        phold_twin("serial", 64, 4, 1.0),
+        phold_twin("bulk + ring", 64, 4, 1.0, bulk=True, ring=True),
+        phold_twin("sparse", 64, 2, 1.0, sparse_lanes=16, active_hosts=4)]
+    for h in started:
+        twin_finish(h)
+    for h in relays:
+        check_relay_twin(h)
+    log(f"  the seven configs took {time.perf_counter() - t0:.1f} s "
+        f"({CARD_WORKERS} card and {CPU_WORKERS} CPU workers)")
 
     phase("6")
     log(f"[6] TCP relay as tools/scale_run.py runs it: {HOSTS} hosts, "
@@ -4526,6 +5262,23 @@ def main(argv=None) -> int:
     row["spec"] = {k: gather[k] for k in (
         "n", "ms", "plain_ms", "bound_ms", "library_ms")}
     row.update(got)
+
+    phase("18")
+    log(f"[18] the netstack's observability settings and native/: "
+        f"python -m shadow_tpu_torch.cli on PHOLD at {OBS_HOSTS} hosts on "
+        f"MIX_VERTICES, every host logpcap, {' '.join(OBS_FLAGS)}, to "
+        f"{OBS_CLI_STOP} sim-s; the same bundle in-process with a drain "
+        f"every window to {OBS_STOP} sim-s; CUDA against CPU at "
+        f"{OBS_CUT_HOSTS} hosts and on the TCP example twin")
+    got, err = obs_cell(device)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row.update(got)
+    obs = got["obs"]
+    log(f"  phase 18 profile on {smi}: {obs['ms_per_window']} ms a window "
+        f"and a drain of {obs['drain_ms_per_window']} ms on top "
+        f"({obs['ms_per_window_with_drain']} ms hook to hook), "
+        f"{obs['micro_steps_per_window']} micro-steps a window; the "
+        f"drains {obs['drain_share'] * 100:.1f}% of 18b's whole run")
 
     phase(None)
     log(f"  done; seconds per phase {json.dumps(phase_s)}")

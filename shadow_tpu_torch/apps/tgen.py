@@ -17,7 +17,7 @@ Determinism: a markov phase samples its on/off chain from
 the run's input, so dispatch chunking cannot perturb it.
 
 The reference's `tgen_main` (the dual-mode virtual-process twin) waits
-for the virtual processes (ROADMAP.md Queue 1 item 10).
+for the virtual processes (ROADMAP.md Queue 1 item 10b).
 """
 
 from __future__ import annotations

@@ -26,12 +26,19 @@ manifest blocks, and trace groups with `--trace-out`).
 health latches (core/lanes.py; the manifest's `lanes` block), and
 `--resident` adds the resident lease planes (its `admission` block).
 
+The netstack's observability settings run as in the reference: a
+config with <host logpcap="true"> drains the capture ring into one
+libpcap file per host in the data directory after every window
+(utils/pcap.py), `--track-paths` logs the per-path packet counts, and
+`--cpu-threshold N` (with `--cpu-precision`) turns on the virtual CPU.
+On the card the run requires the native library (native/, built with
+g++ at first use): its log writer sorts large batches with it.
+
 Flags whose mechanism the port does not have yet are refused by name
 (exit 2) with the ROADMAP.md Queue 1 item they wait for: `--workers` >
-1 (item 9); `--host-kernel`, `--host-time-scale`, `--track-paths`,
-`--cpu-threshold` and configs with logpcap (item 10); `--profile-dir`,
-which names jax.profiler. The
-`fleet` and `sweep` sub-commands wait for item 12.
+1 (item 9); `--host-kernel` and `--host-time-scale` (item 10b);
+`--profile-dir`, which names jax.profiler. The `fleet` and `sweep`
+sub-commands wait for item 12.
 
 `--specialize auto` (the default) runs the capability-trimmed program,
 as the reference does (compile/specialize.py: on a lossless topology
@@ -104,8 +111,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "0 = protocol default (ref: options.c:138)")
     p.add_argument("--cpu-threshold", type=int, default=-1,
                    help="virtual-CPU blocking threshold in microseconds, "
-                        "negative disables the CPU model (refused when "
-                        "set: ROADMAP.md Queue 1 item 10)")
+                        "negative disables the CPU model (ref: "
+                        "options.c:130)")
     p.add_argument("--cpu-precision", type=int, default=200,
                    help="round CPU delays to this many microseconds "
                         "(ref: options.c:129)")
@@ -137,8 +144,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "for the CPU explicitly")
     p.add_argument("--track-paths", action=argparse.BooleanOptionalAction,
                    default=None,
-                   help="per-path packet counters (refused: ROADMAP.md "
-                        "Queue 1 item 10)")
+                   help="per-path packet counters, logged at the end of "
+                        "the run (ref: topology.c:2053-2063)")
     p.add_argument("--event-capacity", type=int, default=None)
     p.add_argument("--outbox-capacity", type=int, default=None)
     p.add_argument("--router-ring", type=int, default=None)
@@ -197,9 +204,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="refused: names jax.profiler (chip_smoke.py "
                         "--profile profiles the port)")
     p.add_argument("--host-kernel", choices=("run", "diff"), default=None,
-                   help="refused: ROADMAP.md Queue 1 item 10")
+                   help="refused: ROADMAP.md Queue 1 item 10b")
     p.add_argument("--host-time-scale", type=float, default=0.05,
-                   help="refused when set: ROADMAP.md Queue 1 item 10")
+                   help="refused when set: ROADMAP.md Queue 1 item 10b")
     p.add_argument("--supervise", action="store_true",
                    help="host-driven window loop with health latches, "
                         "periodic checkpoints, and checkpoint-backed "
@@ -316,10 +323,8 @@ def refused_flags(args) -> list[str]:
     ROADMAP.md Queue 1 item."""
     checks = (
         ("--workers > 1", args.workers > 1, 9),
-        ("--host-kernel", args.host_kernel is not None, 10),
-        ("--host-time-scale", args.host_time_scale != 0.05, 10),
-        ("--track-paths", bool(args.track_paths), 10),
-        ("--cpu-threshold", args.cpu_threshold >= 0, 10),
+        ("--host-kernel", args.host_kernel is not None, "10b"),
+        ("--host-time-scale", args.host_time_scale != 0.05, "10b"),
     )
     out = [f"{flag} (ROADMAP.md Queue 1 item {item})"
            for flag, given, item in checks if given]
@@ -363,6 +368,15 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    if device.type == "cuda":
+        # no quiet move to list.sort on the card either
+        from shadow_tpu_torch import native
+
+        try:
+            native.require()
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
 
     from shadow_tpu_torch.config.examples import example_config
     from shadow_tpu_torch.utils.shadowlog import SimLogger, level_from_name
@@ -376,7 +390,8 @@ def main(argv=None) -> int:
         print("error: provide a config path or --test", file=sys.stderr)
         return 1
 
-    logger = SimLogger(level=level_from_name(args.log_level))
+    logger = SimLogger(level=level_from_name(args.log_level),
+                       require_native=device.type == "cuda")
     # flush on every exit path so a mid-run failure still surfaces the
     # buffered sim log (the reference flushes each round,
     # slave.c:446-450)
@@ -578,13 +593,42 @@ def _run(args, text, device, logger) -> int:
             + f" (program-key extra {b.caps.key_extra()!r}; guard latch "
               f"armed)")
 
+    cap = None
+    window_hook = progress_hook
+    if b.cfg.pcap:
+        # pcap capture needs a host-driven window loop to drain the
+        # ring (ref: per-interface PCapWriter, pcap_writer.c)
+        from shadow_tpu_torch.utils.pcap import CaptureSession
+
+        cap = CaptureSession(b, args.data_directory)
+
+        def window_hook(s, wend):
+            cap.drain(s)
+            progress_hook(s, wend)
+
     sup_result = None
     if args.supervise:
         code, sup_result = _supervise(args, b, loaded, device, logger,
-                                      progress_hook, resume_ckpt, tel)
+                                      window_hook, resume_ckpt, tel)
         if code is not None:
             return code
         sim, stats = sup_result.sim, sup_result.stats
+    elif cap is not None:
+        from shadow_tpu_torch.utils import checkpoint as ckpt
+
+        def pcap_hook(s, wend):
+            cap.drain(s)
+            if tel.harvester is not None:
+                # the host regains control every window here; draining
+                # per window keeps ring loss at zero
+                tel.harvester.drain(s)
+            progress_hook(s, wend)
+
+        with tel.phase("window-loop"):
+            sim, stats, _ = ckpt.run_windows(
+                b, app_handlers=loaded.handlers, on_window=pcap_hook,
+                feeder=tel.feeder, device=device)
+            _sync(device)
     else:
         from shadow_tpu_torch.net.build import make_chunked_runner, \
             make_runner
@@ -605,6 +649,13 @@ def _run(args, text, device, logger) -> int:
             sim, stats = runner(b.sim)
             _sync(device)
     _sync(device)
+    if cap is not None:
+        cap.drain(sim)
+        cap.close()
+        if cap.dropped:
+            logger.warning(b.cfg.end_time, "shadow-tpu",
+                           f"pcap ring overran: {cap.dropped} records "
+                           f"lost (raise NetConfig.pcap_ring)")
     wall = time.time() - t0
     return _report(args, b, sim, stats, wall, logger, sup_result, tel)
 
@@ -809,6 +860,12 @@ def _report(args, b, sim, stats, wall, logger, sup_result, tel) -> int:
         if exec_h[hi] > 0:
             logger.info(end, b.host_names[hi],
                         f"executed {int(exec_h[hi])} events")
+    # per-path packet counts (ref: topology.c:2053-2063)
+    if b.cfg.track_paths:
+        mat = sim.net.ctr_path_packets.cpu().numpy()
+        for a, c in zip(*np.nonzero(mat)):
+            logger.message(end, "shadow-tpu",
+                           f"path {a}->{c}: {int(mat[a, c])} packets")
 
     # health-latch enforcement: every run ends with an explicit verdict,
     # and a fatal latch means exit 3 with a structured failure report

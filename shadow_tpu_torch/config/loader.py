@@ -13,7 +13,7 @@ the tgen app on every host.
 
 Plugins the port cannot run yet are refused by name before the device
 build, each with the ROADMAP.md item it waits for: `.py` plugins and
-the reftests syscall plugins (virtual processes, Queue 1 item 10). The
+the reftests syscall plugins (virtual processes, Queue 1 item 10b). The
 reference registers `testrandom` twice and its second registration,
 the reftests syscall plugin, wins; so the port refuses it with the
 other reftests names, and the randdump model stays reachable as
@@ -46,7 +46,7 @@ _REGISTRY: dict[str, Callable] = {}
 _REFUSED: dict[str, str] = {}
 
 _VPROC_ITEM = ("virtual processes (process/vproc.py) are not ported "
-               "yet: ROADMAP.md Queue 1 item 10")
+               "yet: ROADMAP.md Queue 1 item 10b")
 
 
 def register_plugin(name: str, configure: Callable, hints: Callable = None):
@@ -437,8 +437,8 @@ def load(config: ShadowConfig, *, seed: int = 1,
 
     qdisc_name = overrides.get("interface_qdisc", "fifo")
     rq_name = overrides.get("router_qdisc", "codel")
-    # any <host logpcap="true"> turns the capture ring on (refused by
-    # net.build.check_supported until pcap is ported)
+    # any <host logpcap="true"> turns the capture ring on (the CLI
+    # drains it into per-host pcap files, utils/pcap.py)
     want_pcap = bool(overrides.get("pcap", False)) or any(
         he.logpcap for _, he in config.expanded_hosts())
     cfg = NetConfig(

@@ -141,6 +141,13 @@ def window_fixpoint(sim, stats: EngineStats, step_fn: StepFn, wend: int,
             (sim.events.num_hosts,), dtype=I32,
             device=sim.events.time.device))
     tracing = getattr(sim, "causality", None) is not None
+    # events_processed counts EXECUTED events: the pops the virtual-CPU
+    # gate re-queues (net/step.py _cpu_gate) come off through the
+    # blocked-counter delta, on the device (no host read), so a
+    # repeatedly deferred event counts once. Only a step_fn that carries
+    # the gate (make_step_fn sets .cpu_gate) pays for the delta.
+    gated = getattr(step_fn, "cpu_gate", False)
+    blocked0 = sim.net.ctr_cpu_blocked.sum() if gated else None
     n_ev = n_ms = 0
     while True:
         q, popped = pop_earliest(sim.events, wend)
@@ -160,7 +167,10 @@ def window_fixpoint(sim, stats: EngineStats, step_fn: StepFn, wend: int,
         sim = sim.replace(events=q, outbox=out)
         n_ev += n
         n_ms += 1
-    stats = stats.replace(events_processed=stats.events_processed + n_ev,
+    ev = stats.events_processed + n_ev
+    if gated:
+        ev = ev - (sim.net.ctr_cpu_blocked.sum() - blocked0)
+    stats = stats.replace(events_processed=ev,
                           micro_steps=stats.micro_steps + n_ms)
     return sim, stats
 

@@ -8,10 +8,13 @@ the seeded draws, derive the conservative window from the minimum path
 latency, initialize the struct-of-arrays state on the requested device
 and seed PROC_START / PROC_STOP events (ref: process.c:1326-1360).
 
-Settings of NetConfig that the port does not implement yet raise
-NotImplementedError here (the list is in ROADMAP.md). The apps the
-port runs through these entry points: PHOLD (apps/phold.py, with its
-UDP bulk pass), the disjoint and the shared-relay Tor models
+Every NetConfig setting is taken as the reference takes it, the
+observability ones included (the pcap capture ring, per-path counters,
+the virtual CPU), and so are its derived defaults (emit_capacity =
+nic_drain + 6 with TCP). Runner arguments the port does not implement
+yet raise NotImplementedError (refuse_unported). The apps the port
+runs through these entry points: PHOLD (apps/phold.py, with its UDP
+bulk pass), the disjoint and the shared-relay Tor models
 (apps/relay.py, each with its TCP bulk pass), UDP and TCP gossip
 (apps/gossip.py) — every workload of tools/scale_run.py — and the
 config loader's device apps (config/loader.py: pingpong, bulk, echo,
@@ -117,32 +120,11 @@ class SimBundle:
         return self.name_to_index[name]
 
 
-def check_supported(cfg: NetConfig) -> None:
-    """Raise NotImplementedError for settings off the port's path. Every
-    other NetConfig field is taken as the reference takes it, its
-    derived defaults included (emit_capacity = nic_drain + 6 with TCP,
-    e.g. 10; tools/scale_run.py's TCP shapes overflow it, counted in
-    events.overflow, in both packages alike)."""
-    off = []
-    if cfg.pcap:
-        off.append("pcap=True (ROADMAP.md Queue 1 item 10)")
-    if cfg.track_paths:
-        off.append("track_paths=True (ROADMAP.md Queue 1 item 10)")
-    if cfg.cpu_threshold_ns >= 0:
-        off.append(f"cpu_threshold_ns={cfg.cpu_threshold_ns} (virtual CPU, "
-                   "ROADMAP.md Queue 1 item 10)")
-    if off:
-        raise NotImplementedError(
-            "shadow_tpu_torch does not implement these settings yet: "
-            + ", ".join(off))
-
-
 def build(cfg: NetConfig, graphml_text: str, hosts: Sequence[HostSpec],
           app: Any = None, device=None) -> SimBundle:
     """The boot SimBundle on `device` (None -> "cuda"; raises when CUDA
     is missing)."""
     dev = resolve_device(device)
-    check_supported(cfg)
     if len(hosts) != cfg.num_hosts:
         raise ValueError(f"cfg.num_hosts={cfg.num_hosts} != {len(hosts)} specs")
     top = Topology(parse_graphml(graphml_text))
@@ -342,7 +324,6 @@ def _runner_device(bundle: SimBundle, device):
     if bundle.device is not None and not same_device(bundle.device, dev):
         raise ValueError(f"bundle was built on {bundle.device}, runner "
                          f"asked for {dev}")
-    check_supported(bundle.cfg)
     return dev
 
 

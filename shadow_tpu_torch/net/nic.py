@@ -102,6 +102,29 @@ def _empty_words(H, device):
     return torch.zeros((H, NWORDS), dtype=I32, device=device)
 
 
+def _capture(cfg: NetConfig, net: NetState, mask, src_host, words, now,
+             direction: int):
+    """Append packets to the per-host pcap capture ring (ref: the
+    sent/received pcap hooks, network_interface.c:337-373,414-415): a
+    masked store at slot cap_count % C of cap_time/cap_words/cap_meta
+    (meta = src host | direction << 24; 1 = received), and cap_count
+    advances. No-op (and no device cost) unless cfg.pcap. The host
+    drains the ring between windows (utils/pcap.py)."""
+    if not cfg.pcap:
+        return net
+    C = net.cap_time.shape[1]
+    pos = net.cap_count % C
+    meta = src_host.clamp(0, (1 << 24) - 1).to(I32) | (direction << 24)
+    now = torch.broadcast_to(torch.as_tensor(now, dtype=I64,
+                                             device=mask.device), mask.shape)
+    return net.replace(
+        cap_time=set_row(net.cap_time, mask, pos, now),
+        cap_words=set_row(net.cap_words, mask, pos, words),
+        cap_meta=set_row(net.cap_meta, mask, pos, meta),
+        cap_count=net.cap_count + mask.to(I32),
+    )
+
+
 def deliver_packet(cfg: NetConfig, sim, mask, src_host, words, now, buf):
     """Hand one arrived packet per masked lane to the bound socket
     (ref: _networkinterface_receivePacket, network_interface.c:375-419).
@@ -118,6 +141,7 @@ def deliver_packet(cfg: NetConfig, sim, mask, src_host, words, now, buf):
     # loopback packets keep their loopback src address
     src_ip = torch.where(dst_ip >> 24 == 127, dst_ip, src_ip)
 
+    net = _capture(cfg, net, mask, src_host, words, now, direction=1)
     slot = lookup_socket(net, mask, proto, dst_ip, dst_port, src_ip, src_port)
     found = mask & (slot >= 0)
     words = _set_col(words, pf.W_STATUS, torch.where(
@@ -520,6 +544,7 @@ def _drain_one(cfg: NetConfig, sim, buf, mask, now, bootstrap,
     words = _set_col(words, pf.W_STATUS, torch.where(
         active, words[:, pf.W_STATUS] | pf.PDS_SND_INTERFACE_SENT,
         words[:, pf.W_STATUS]))
+    net = _capture(cfg, net, active, net.lane_id, words, now, direction=0)
 
     # loopback: 1ns self delivery, no tokens (network_interface.c:546-554)
     buf = emit(buf, local, net.lane_id, now + 1, EventKind.PACKET_LOCAL,
@@ -547,6 +572,17 @@ def _drain_one(cfg: NetConfig, sim, buf, mask, now, bootstrap,
         send, words[:, pf.W_STATUS] | pf.PDS_INET_SENT,
         words[:, pf.W_STATUS]))
     buf = emit(buf, send, dsth, now + lat, EventKind.PACKET, words)
+
+    if cfg.track_paths:
+        # per-path packet counters (ref: topology.c:2053-2063 — every
+        # routing lookup of a send, dropped or not; loopback never
+        # reaches the topology). The reference's scatter-add drops
+        # out-of-range indices; so does the in-range mask here.
+        P = net.ctr_path_packets.shape
+        ok = known & (vsrc >= 0) & (vsrc < P[0]) & (vdst >= 0) & (vdst < P[1])
+        net = net.replace(ctr_path_packets=net.ctr_path_packets.index_put(
+            (vsrc.clamp(0, P[0] - 1), vdst.clamp(0, P[1] - 1)),
+            ok.to(I64), accumulate=True))
 
     is_retx = (words[:, pf.W_STATUS] & pf.PDS_SND_TCP_RETRANSMITTED) != 0
     if not lossless:

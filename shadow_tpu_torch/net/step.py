@@ -27,7 +27,7 @@ from typing import Callable, Sequence
 import torch
 
 from shadow_tpu_torch.compile.specialize import timers_trimmed
-from shadow_tpu_torch.core.events import EventKind, census_mask
+from shadow_tpu_torch.core.events import EventKind, census_mask, push_rows
 from shadow_tpu_torch.net import nic, tcp, timers
 from shadow_tpu_torch.net.state import NetConfig
 
@@ -46,6 +46,34 @@ _TCP_HANDLERS = (tcp.handle_tcp_rtx, tcp.handle_tcp_dack,
                  tcp.handle_tcp_flush, tcp.handle_tcp_close)
 
 
+def _cpu_gate(cfg: NetConfig, sim, popped, buf):
+    """Virtual-CPU admission check (ref: event_execute, event.c:71-89 +
+    cpu.c:56-110): a host whose accumulated processing delay exceeds
+    the threshold does not execute this event — it is re-queued at
+    now + delay with its identity kept (src, seq and words: the
+    reference re-schedules the same task). Executed events charge the
+    host's per-event cost against its CPU availability time. Returns
+    (sim, popped with the blocked lanes masked off, buf)."""
+    net = sim.net
+    # cpu_updateTime: availability never lags the present
+    avail = torch.maximum(net.cpu_avail, popped.time)
+    delay = avail - popped.time
+    blocked = popped.valid & (delay > cfg.cpu_threshold_ns)
+    sim = sim.replace(events=push_rows(
+        sim.events, blocked, avail, popped.kind, popped.src, popped.seq,
+        popped.words))
+    executed = popped.valid & ~blocked
+    net = net.replace(
+        cpu_avail=torch.where(executed, avail + net.cpu_cost,
+                              torch.where(popped.valid, avail,
+                                          net.cpu_avail)),
+        ctr_cpu_blocked=net.ctr_cpu_blocked + blocked.to(torch.int64),
+        ctr_cpu_delay_ns=net.ctr_cpu_delay_ns
+        + torch.where(blocked, delay, 0),
+    )
+    return sim.replace(net=net), popped._replace(valid=executed), buf
+
+
 def _handle_proc_stop(cfg: NetConfig, sim, popped, buf):
     """PROC_STOP enforcement (ref: process.c:1286-1324): latch the
     host's stopped flag; app handlers are masked off from then on."""
@@ -59,7 +87,9 @@ def make_step_fn(cfg: NetConfig, app_handlers: Sequence[AppHandler] = (),
                  caps=None):
     """Build the engine step_fn: netstack receive/timer handlers, then
     app handlers, then the send drain. The TCP timer handlers are
-    included only when cfg.tcp. ``step(sim, popped, buf, kinds=None)``:
+    included only when cfg.tcp. A non-negative cfg.cpu_threshold_ns
+    puts the virtual-CPU admission gate ahead of everything
+    (core/engine.py takes its re-queued pops out of events_processed). ``step(sim, popped, buf, kinds=None)``:
     ``kinds`` is the host-side bitmask of the kinds popped this
     micro-step (events.census_mask layout); None runs every family.
 
@@ -70,9 +100,7 @@ def make_step_fn(cfg: NetConfig, app_handlers: Sequence[AppHandler] = (),
     nic._drain_one). Bit-identical wherever the capabilities hold; the
     per-window guard latch (engine.step_window) turns a violation into
     a fatal health fault."""
-    if cfg.cpu_threshold_ns >= 0:
-        raise NotImplementedError(
-            "shadow_tpu_torch: the virtual-CPU gate is not ported yet")
+    cpu_on = cfg.cpu_threshold_ns >= 0
     pre = tuple((h, census_mask(k)) for h, k in _PRE_APP
                 if cfg.tcp or h not in _TCP_HANDLERS)
     if timers_trimmed(caps):
@@ -86,6 +114,8 @@ def make_step_fn(cfg: NetConfig, app_handlers: Sequence[AppHandler] = (),
         "kinds" in inspect.signature(h).parameters for h in app_handlers)
 
     def step(sim, popped, buf, kinds=None):
+        if cpu_on:
+            sim, popped, buf = _cpu_gate(cfg, sim, popped, buf)
         sim, buf = _handle_proc_stop(cfg, sim, popped, buf)
         for h, m in pre:
             if kinds is None or kinds & m:
@@ -99,10 +129,12 @@ def make_step_fn(cfg: NetConfig, app_handlers: Sequence[AppHandler] = (),
             else:
                 sim, buf = h(cfg, sim, app_popped, buf)
         sim, buf = nic.handle_nic_send(cfg, sim, popped, buf, caps=caps)
-        # per-host executed-event accounting (host.c:314-317)
+        # per-host executed-event accounting (host.c:314-317);
+        # popped.valid is post-gate, so a deferred event counts once
         sim = sim.replace(net=sim.net.replace(
             ctr_events_exec=sim.net.ctr_events_exec
             + popped.valid.to(torch.int64)))
         return sim, buf
 
+    step.cpu_gate = cpu_on
     return step

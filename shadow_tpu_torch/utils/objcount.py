@@ -9,7 +9,7 @@ processed. This module derives those counts from the device counters
 and reports them in the reference's "ObjectCounter: counter values:
 new=N free=F" shape. The reference's `runtime` branch (payload pools,
 channels and processes of virtual processes) waits for
-process/vproc.py (ROADMAP.md Queue 1 item 10).
+process/vproc.py (ROADMAP.md Queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ def gather(sim, runtime=None, stats=None) -> ObjectCounts:
     if runtime is not None:
         raise NotImplementedError(
             "shadow_tpu_torch: objcount of a virtual-process runtime "
-            "(ROADMAP.md Queue 1 item 10)")
+            "(ROADMAP.md Queue 1 item 10b)")
     net = sim.net
     i64 = torch.int64
     sk_new, sk_free, live_table, armed, ev_live = torch.stack([

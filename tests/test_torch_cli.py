@@ -9,7 +9,9 @@ reference's (shadow_tpu.cli), on the CPU:
   the same tracker heartbeat, object-count and executed-event lines;
 - `--supervise` (with snapshots), `--chunk-windows` and `--resume`
   give the plain run's report;
-- every refused flag exits 2 and names its ROADMAP.md item; the
+- every refused flag exits 2 and names its ROADMAP.md item;
+  `--track-paths`, `--cpu-threshold` and a logpcap config give the
+  reference's report, log and pcap files; the
   injection and telemetry flags (`--inject-trace`, `--inject-lanes`,
   `--trace-out`, `--metrics-out`, `--telemetry-capacity`) give the
   reference's report, manifest and files;
@@ -170,16 +172,60 @@ def test_resume_continues_to_the_plain_report(cli_runs, xml):
 
 REFUSED = {
     "workers": (["-w", "2"], "item 9"),
-    "host_kernel": (["--host-kernel", "run"], "item 10"),
-    "host_time_scale": (["--host-time-scale", "1.0"], "item 10"),
-    "track_paths": (["--track-paths"], "item 10"),
-    "cpu_threshold": (["--cpu-threshold", "100"], "item 10"),
+    "host_kernel": (["--host-kernel", "run"], "item 10b"),
+    "host_time_scale": (["--host-time-scale", "1.0"], "item 10b"),
     "profile_dir": (["--profile-dir", "prof"], "jax.profiler"),
 }
+# flags the port once refused: run against the reference's CLI on the
+# PHOLD XML with every host logpcap="true", cut to 1.2 sim-s (5
+# windows), at -l info; a 30-us event cost, so any backlog blocks
+OBSERVED = ["--track-paths", "--cpu-threshold", "0", "--cpu-precision", "10"]
+LIFTED_OBS = {"track_paths": "path 0->0: ", "cpu_threshold": None}
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_refused_flag_exits_and_names_its_item(xml, name):
+@pytest.fixture(scope="module")
+def observed_cli(tmp_path_factory):
+    """(lines, report, pcap files) of the reference's and the port's CLI
+    with OBSERVED on the logpcap XML, and of the port's with no flag."""
+    d = tmp_path_factory.mktemp("observed")
+    path = d / "pcap.xml"
+    path.write_text(REFERENCE_PHOLD_XML.replace(
+        '<kill time="3"/>', '<kill time="1.2"/>').replace(
+        '<node id="peer" quantity="10">',
+        '<node id="peer" quantity="10" logpcap="true">'))
+    out = {}
+    for name, mod, flags in (("ref", jcli, OBSERVED), ("port", tcli, OBSERVED),
+                             ("plain", tcli, [])):
+        dd = d / name
+        code, lines, err = _main(mod, [str(path), "--platform", "cpu", "-d",
+                                       str(dd), "-l", "info", *flags])
+        assert code == 0, err
+        files = {p.name: p.read_bytes() for p in sorted(dd.glob("*.pcap"))}
+        out[name] = (lines, json.loads(lines[-1]), files)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED) + sorted(LIFTED_OBS))
+def test_refused_flag_exits_and_names_its_item(xml, observed_cli, name):
+    """A flag still refused exits 2 naming its ROADMAP item. The flags
+    the port took over (LIFTED_OBS) give the reference CLI's report
+    and log: the per-path lines, and the events the gate defers."""
+    if name in LIFTED_OBS:
+        want, got = observed_cli["ref"], observed_cli["port"]
+        assert tcli.refused_flags(tcli.make_parser().parse_args(
+            [xml, *OBSERVED])) == []
+        for k in REPORT_KEYS:
+            assert got[1][k] == want[1][k], k
+        assert _body(got[0]) == _body(want[0])
+        if name == "track_paths":
+            paths = [ln for ln in got[0] if LIFTED_OBS[name] in ln]
+            assert len(paths) == 1
+            assert paths[0].endswith(f" {got[1]['events']} packets")
+        else:
+            # blocked events wait: fewer executed by the cut than
+            # without the gate
+            assert got[1]["events"] < observed_cli["plain"][1]["events"]
+        return
     flags, item = REFUSED[name]
     code, lines, err = _main(tcli, [xml, "--platform", "cpu", *flags])
     assert code == 2
@@ -293,14 +339,41 @@ def test_refused_subcommand(sub):
     assert code == 2 and "item 12" in err
 
 
-def test_logpcap_config_is_refused(tmp_path):
-    path = tmp_path / "pcap.xml"
-    path.write_text(REFERENCE_PHOLD_XML.replace(
+def test_logpcap_config_is_refused(observed_cli):
+    """Once refused, now run: a logpcap config writes the reference
+    CLI's pcap files, byte for byte, one per host, and warns of the
+    reference's ring overrun (load 25 fills a 64-slot ring within one
+    50-ms window)."""
+    want, got = observed_cli["ref"][2], observed_cli["port"][2]
+    assert len(got) == 10 and got == want
+    warn = [[ln for ln in observed_cli[k][0] if "pcap ring overran" in ln]
+            for k in ("ref", "port")]
+    assert warn[1] == warn[0] and len(warn[1]) == 1
+    # the files follow the run: the gate moves the captured times
+    assert observed_cli["plain"][2] != got
+
+
+def test_supervised_logpcap_drains_every_window(observed_cli, tmp_path):
+    """--supervise takes the supervised loop before the pcap loop, as in
+    the reference, and drains the ring after every window through the
+    supervisor's on_window: the files and the report are the reference
+    CLI's plain run's."""
+    d = tmp_path / "sup"
+    xml = tmp_path / "pcap.xml"
+    xml.write_text(REFERENCE_PHOLD_XML.replace(
+        '<kill time="3"/>', '<kill time="1.2"/>').replace(
         '<node id="peer" quantity="10">',
         '<node id="peer" quantity="10" logpcap="true">'))
-    code, lines, err = _main(tcli, [str(path), "--platform", "cpu",
-                                    "-d", str(tmp_path)])
-    assert code == 2 and "pcap" in err and "item 10" in err
+    code, lines, err = _main(tcli, [str(xml), "--platform", "cpu", "-d",
+                                    str(d), "-l", "info", "--supervise",
+                                    *OBSERVED])
+    assert code == 0, err
+    want = observed_cli["ref"]
+    got = json.loads(lines[-1])
+    for k in REPORT_KEYS:
+        assert got[k] == want[1][k], k
+    assert {p.name: p.read_bytes() for p in sorted(d.glob("*.pcap"))} \
+        == want[2]
 
 
 @pytest.mark.parametrize("platform", [None, "auto", "gpu"])
@@ -366,8 +439,8 @@ def test_logger_sorts_by_simtime():
 
 
 def test_flush_order_matches_reference_over_4096_records():
-    """The port sorts every batch in Python; the reference hands batches
-    of 4,096 and more to its native stable argsort. Same order."""
+    """Both packages hand batches of 4,096 records and more to their
+    native stable argsort. Same order."""
     rng = np.random.default_rng(5)
     times = rng.integers(0, 300, 6000) * 1_000_000
     texts = []

@@ -11,8 +11,9 @@ reference's, on the CPU:
   randdump and the faults config;
 - every plugin the port refuses raises NotImplementedError before the
   device build, naming the ROADMAP.md item it waits for; the tgen
-  plugin, <traffic> elements and inject_lanes load as the reference
-  loads them.
+  plugin, <traffic> elements, inject_lanes, a logpcap host and the
+  track_paths and virtual-CPU overrides load as the reference loads
+  them.
 
 One JAX TCP program: randdump's (testdeterminism has no hints, so the
 TCP machine stays on, as in the reference).
@@ -226,16 +227,17 @@ def test_registry_covers_the_reference():
 
 
 REFUSED = {
-    "py_plugin": ('<plugin id="p" path="client.py"/>', "item 10"),
+    "py_plugin": ('<plugin id="p" path="client.py"/>', "item 10b"),
     "reftests": ('<plugin id="p" path="libshadow-plugin-test-epoll.so"/>',
-                 "item 10"),
-    "testrandom": ('<plugin id="p" path="testrandom"/>', "item 10"),
-    "logpcap": ('<plugin id="p" path="phold"/>', "item 10"),
+                 "item 10b"),
+    "testrandom": ('<plugin id="p" path="testrandom"/>', "item 10b"),
 }
-# settings the CLI passes as loader overrides, refused by
-# net.build.check_supported before any state is made
-SETTINGS = {"track_paths": ({"track_paths": True}, "item 10"),
-            "cpu_threshold": ({"cpu_threshold_ns": 0}, "item 10")}
+# the observability settings the port once refused (a logpcap host, and
+# the overrides the CLI passes for --track-paths and --cpu-threshold):
+# each now loads as in the reference
+SETTINGS = {"logpcap": {},
+            "track_paths": {"track_paths": True},
+            "cpu_threshold": {"cpu_threshold_ns": 0}}
 
 _TRAFFIC = ('  <traffic id="t" host="h" dst="h3" start="0.5">'
             '<stream rate="10" count="5" size="80"/><pause duration="0.2"/>'
@@ -285,24 +287,36 @@ def test_lifted_setting_loads_like_the_reference(name):
 
 @pytest.mark.parametrize("name", sorted(REFUSED) + sorted(SETTINGS))
 def test_refused_before_the_build(name, monkeypatch):
+    """A plugin still refused raises before anything is built, naming
+    its item; a setting the port once refused (SETTINGS) loads the
+    reference's NetConfig, handlers and boot state."""
     plugin, item = REFUSED.get(name, ('<plugin id="p" path="phold"/>', ""))
-    overrides, item = SETTINGS.get(name, ({}, item))
     pcap = ' logpcap="true"' if name == "logpcap" else ""
-    text = _config(f'{plugin}\n  <host id="h"{pcap}><process plugin="p" '
-                   f'starttime="1"/></host>')
-    cfg = txml.parse_config(text)
-    if name in REFUSED and name != "logpcap":
-        # refused before anything is built
-        def no_build(*a, **k):
-            raise AssertionError("built a refused config")
-        monkeypatch.setattr(tloader, "build", no_build)
-    else:
-        # refused by check_supported, before any state is made
-        def no_state(*a, **k):
-            raise AssertionError("made state for a refused setting")
-        monkeypatch.setattr(tbuild, "make_net_state", no_state)
+    text = _config(f'{plugin}\n  <host id="h" quantity="4"{pcap}><process '
+                   f'plugin="p" starttime="1"/></host>')
+    if name in SETTINGS:
+        overrides = SETTINGS[name]
+        jl = jloader.load(jxml.parse_config(text), seed=3,
+                          overrides=dict(overrides))
+        tl = tloader.load(txml.parse_config(text), seed=3,
+                          overrides=dict(overrides), device="cpu")
+        jb, tb = jl.bundle, tl.bundle
+        assert dataclasses.asdict(tb.cfg) == dataclasses.asdict(jb.cfg)
+        assert (tb.cfg.pcap, tb.cfg.track_paths, tb.cfg.cpu_threshold_ns
+                >= 0) == (name == "logpcap", name == "track_paths",
+                          name == "cpu_threshold")
+        assert [h.__name__ for h in tl.handlers] == [
+            h.__name__ for h in jl.handlers]
+        _assert_leaves_equal(_jax_leaves(jb.sim),
+                             convert.sim_to_numpy(tb.sim))
+        return
+
+    # refused before anything is built
+    def no_build(*a, **k):
+        raise AssertionError("built a refused config")
+    monkeypatch.setattr(tloader, "build", no_build)
     with pytest.raises(NotImplementedError, match=item):
-        tloader.load(cfg, overrides=overrides, device="cpu")
+        tloader.load(txml.parse_config(text), device="cpu")
 
 
 def test_unknown_plugin_is_a_value_error():

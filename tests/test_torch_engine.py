@@ -1,6 +1,7 @@
 """Parity of the port's engine loop (shadow_tpu_torch/core/engine.py,
-net/step.py, net/build.py) with the reference at 16 hosts, and the
-port's refusal of settings it does not implement.
+net/step.py, net/build.py) with the reference at 16 hosts, with and
+without the observability settings (pcap, track_paths, the virtual
+CPU).
 
 The 16-host run uses two PHOLD replicas of 8 hosts (peer draws stay in
 the replica, so the peer base is non-zero for half the lanes), a
@@ -9,7 +10,8 @@ process starts, two hosts whose process stops mid-run (their sockets
 keep receiving unread datagrams), and a second app handler that sends
 one datagram to the host's own address at process start (loopback
 delivery as a PACKET_LOCAL event, and two packets in one NIC drain).
-One reference runner is compiled for the file. Tolerance: zero
+Two reference runners are compiled for the file (the plain program and
+the one with the observability settings). Tolerance: zero
 (integer state, bit-exact f32 draws).
 """
 
@@ -148,10 +150,15 @@ def test_window_by_window_equals_whole_run(runs):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+# The observability settings the port once refused, each with the
+# leaves it writes: the replica run with all three on (a 30-us event
+# cost, any positive backlog blocks) is held to the reference's.
+OBSERVED = dict(pcap=True, track_paths=True, cpu_threshold_ns=0,
+                cpu_precision_ns=10_000)
 UNSUPPORTED = {
-    "pcap": dict(pcap=True),
-    "track_paths": dict(track_paths=True),
-    "cpu_model": dict(cpu_threshold_ns=0),
+    "pcap": ".net.cap_count",
+    "track_paths": ".net.ctr_path_packets",
+    "cpu_model": ".net.ctr_cpu_blocked",
 }
 
 # The interface and router queue settings the port once refused
@@ -165,11 +172,37 @@ QUEUES = {
 }
 
 
+@pytest.fixture(scope="module")
+def observed():
+    """The replica run with pcap, track_paths and the virtual CPU on,
+    in both packages (the serial path: the bulk pass steps aside)."""
+    kw = {**KW, **OBSERVED}
+    jb = jbuild.build(JConfig(**kw), ONE_VERTEX, _hosts(jbuild))
+    jb.sim = jphold.setup(jb.sim, load=LOAD, replica_size=REPLICA)
+    jsim, jstats = jbuild.make_runner(jb, app_handlers=JAX_APPS)(jb.sim)
+    tb = tbuild.build(TConfig(**kw), ONE_VERTEX, _hosts(tbuild),
+                      device="cpu")
+    tb.sim = tphold.setup(tb.sim, load=LOAD, replica_size=REPLICA)
+    tsim, tstats = tbuild.run(tb, app_handlers=PORT_APPS, device="cpu")
+    return (jstats.as_dict(), _jax_leaves(jsim), tstats.as_dict(),
+            convert.sim_to_numpy(tsim))
+
+
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
-def test_settings_off_the_path_raise(name):
-    cfg = TConfig(**{**KW, **UNSUPPORTED[name]})
-    with pytest.raises(NotImplementedError):
-        tbuild.build(cfg, ONE_VERTEX, _hosts(tbuild), device="cpu")
+def test_settings_off_the_path_raise(observed, name):
+    """Once refused, now run: the setting writes its leaves (records
+    captured, paths counted, events blocked) and the run — EngineStats,
+    events_processed net of the blocked pops, and every leaf — is the
+    reference's."""
+    jstats, want, tstats, got = observed
+    assert int(got[UNSUPPORTED[name]].sum()) > 0
+    assert tstats == jstats
+    assert int(got[".net.ctr_events_exec"].sum()) == tstats[
+        "events_processed"]
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("name", sorted(QUEUES))
@@ -203,7 +236,6 @@ def test_default_sparse_budget_at_scale_must_be_disabled():
     to 0, the disabled fast path."""
     cfg = TConfig(num_hosts=300, tcp=False)
     assert tengine.resolve_sparse_lanes(cfg) == 256
-    tbuild.check_supported(cfg)
     for off in (0, 300, 512):
         assert tengine.resolve_sparse_lanes(
             dataclasses.replace(cfg, sparse_lanes=off)) == 0

@@ -64,7 +64,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.utils.shadowlog",
                 "shadow_tpu_torch.utils.objcount",
                 "shadow_tpu_torch.utils.tracker", *INJECTION, *LANES,
-                *COMPILE):
+                *COMPILE, *OBSERVE):
         assert mod in out["modules"]
 
 
@@ -83,6 +83,11 @@ LANES = ("shadow_tpu_torch.core.lanes", "shadow_tpu_torch.telemetry.flows",
 # the specialization and bucket slice's modules
 COMPILE = ("shadow_tpu_torch.compile", "shadow_tpu_torch.compile.buckets",
            "shadow_tpu_torch.compile.specialize")
+
+
+# the netstack observability slice's host modules
+OBSERVE = ("shadow_tpu_torch.native", "shadow_tpu_torch.native.tally",
+           "shadow_tpu_torch.native.pool", "shadow_tpu_torch.utils.pcap")
 
 
 def _imports_alone(mod):
@@ -108,6 +113,25 @@ def test_lane_module_imports_alone_without_jax(mod):
 @pytest.mark.parametrize("mod", COMPILE)
 def test_compile_module_imports_alone_without_jax(mod):
     _imports_alone(mod)
+
+
+@pytest.mark.parametrize("mod", OBSERVE)
+def test_observe_module_imports_alone_without_jax(mod):
+    _imports_alone(mod)
+
+
+def test_native_library_builds_without_the_reference():
+    """The port's native library loads from the port's own build, in a
+    process that never imports shadow_tpu."""
+    probe = ("import json, sys; from shadow_tpu_torch import native; "
+             "lib = native.require(); print(json.dumps([native."
+             "library_path(), sorted(m for m in sys.modules if m.split('.')"
+             "[0] in ('jax', 'jaxlib', 'flax', 'shadow_tpu'))]))")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    path, bad = json.loads(r.stdout.strip().splitlines()[-1])
+    assert bad == [] and "shadow_tpu_torch/_build/" in path
 
 
 def test_program_key_hashes_torch_not_jax():
