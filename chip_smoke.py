@@ -246,19 +246,47 @@ Phases, in order; any failure exits non-zero and prints no result:
    CPU: the program at 64 hosts with four CPU speeds (HostSpec
    cpufrequency_khz) to 0.005 sim-s, and 14b's TCP example twin with
    logpcap on the server — every leaf equal, the files byte-equal, the
-   reference's pinned counts. 18c runs while 18a's subprocess does.
+   reference's pinned counts. 18b runs first, alone; 18c runs while
+   18a's subprocess does, and phase 19's untimed work starts there.
+19. virtual processes (process/vproc.py ProcessRuntime): (19a) 1,000
+   coroutines, tests/test_vproc_scale.py's run at its full width and
+   depth (500 UDP pairs, 3 rounds of 64-B sendto/recvfrom, the
+   one-vertex 50 ms graph, 30 sim-s): the reference's counts (6,000
+   events, 12 windows, 12 micro-steps, 20,000 syscalls, 16 device
+   dispatches, 1,500 pongs, zero overflow) and the digest of every
+   final leaf, CUDA against CPU leaf by leaf, mailbox_gather launched
+   once for each non-empty window and exact against its plain version
+   on the run's own route (and timed there), with ms a window,
+   syscalls/s and dispatches a window; (19b) the same hosts as 500 TCP
+   pairs, each client sending 16 KiB of content that its server reads
+   to EOF: the reference's counts (17,500 events, 16 windows, 31
+   micro-steps, 16,000 syscalls, 1,011 dispatches) and leaf digest, all
+   500 streams sha256-equal, CUDA against CPU, the payload pool empty
+   after gc_pool; (19c) the reference's 13 reftests syscall plugins
+   from small configs and tests/test_py_plugins.py's .py plugin through
+   `python -m shadow_tpu_torch.cli --platform gpu`, each exit 0 with
+   the reference CLI's report; (19d) `--host-kernel diff` on hostrun's
+   tgen dual workload (tgen_main as a .py plugin) and the epoll
+   reftests config: exit 0, the traces agree, the manifest's
+   conformance block. 19c-19d's sixteen subprocesses (the two
+   stream-hinted configs first, the others at a lower CPU priority) and
+   19b's CPU half start beside 18a and 18c, and run on beside 19a and
+   19b's card half.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
 (micro-steps timed one by one through a step_fn shim, then the first
 again under torch.profiler: launches and cudaStreamSynchronize per
 micro-step). The CPU halves of the CUDA-against-CPU comparisons
-(phases 5, 9, 13b, 14b-c, 15c, 16c, 18c) run in two spawned CPU worker
-processes, at the same time as their CUDA halves; phases 5 and 9, which
-read no launch counter, run their CUDA halves in three spawned card
-workers, all of a phase's runs at once. The CLI runs that only counts,
-logs and files check run beside untimed work (phase 14's three
-together, 15c's beside 15b, 16d's beside 16b-16c, 18a's beside 18c).
+(phases 5, 9, 13b, 14b-c, 15c, 16c, 18c, 19a-b) run in two spawned
+CPU worker processes, at the same time as their CUDA halves; phases 5
+and 9, which read no launch counter, run their CUDA halves in three
+spawned card workers, all of a phase's runs at once, and 13a's
+chunked, supervised and stop-and-resume runs and 15's K = 16 run and
+15b go there too, beside the rest of their phases. The CLI runs that
+only counts, logs and files check run beside untimed work (phase 14's
+three together, 15c's beside 15b, 16d's beside 16b-16c, 18a's beside
+18c, 19c-19d's beside 18a-18c and 19a-19b).
 Every worker and subprocess stops with the script. The last log line
 before the results gives each phase's seconds.
 
@@ -846,6 +874,135 @@ OBS_TCP_EXPECT = {
     "blocked": 0, "delay_ns": 0, "records": 18, "files": 3, "bytes": 7_068,
     "sha256": "c5664400c9e3b73187b5631dce205bb5525837981f3d72784a16f36162cdb392",
     "paths": [[0]], "cost": [0]}
+
+# Phase 19: virtual processes (process/vproc.py). 19a is
+# tests/test_vproc_scale.py's run at its full width and depth: 1,000
+# hosts, 500 UDP client/server pairs, 3 rounds of 64-B sendto/recvfrom,
+# the one-vertex 50 ms graph, tcp=False, 2 sockets, capacities 8, 30
+# sim-s. 19b the same hosts as 500 TCP pairs: each client send_data's
+# 16 KiB of tests/test_payload.py's pattern, its server recv_data's to
+# EOF (4 sockets, capacities 64). The counts and the combined digest of
+# every final leaf (leaf_digest) are the reference's CPU run of the same
+# coroutines.
+VP_HOSTS = 1_000
+VP_PORT = 9000
+VP_ROUNDS = 3
+VP_SIM_S = 30
+VP_UDP_EXPECT = {"events_processed": 6_000, "micro_steps": 12,
+                 "windows": 12, "syscalls": 20_000, "dispatches": 16,
+                 "pongs": 1_500, "overflow": 0}
+VP_UDP_LEAVES = "4198a706c3d3473a"
+VP_TCP_BYTES = 16_384
+VP_TCP_EXPECT = {"events_processed": 17_500, "micro_steps": 31,
+                 "windows": 16, "syscalls": 16_000, "dispatches": 1_011,
+                 "streams_ok": 500, "overflow": 0}
+VP_TCP_LEAVES = "52dbe09c457dc11f"
+# 19c: the reference's 13 reftests syscall plugins, each from a small
+# config (tests/torch_vproc_parity.py REFTESTS) over the example's
+# one-vertex graph to 30 sim-s, and tests/test_py_plugins.py's .py
+# plugin echo config: the reference CLI's CPU reports
+_VP_ONE = '<host id="testnode"><process plugin="p" starttime="1"/></host>'
+VP_REFTESTS = {
+    "testbind": _VP_ONE,
+    "libshadow-plugin-test-epoll.so": _VP_ONE,
+    "test_epoll_writeable": (
+        '<host id="testnode"><process plugin="p" starttime="1" '
+        'arguments="server"/></host>\n  <host id="client"><process '
+        'plugin="p" starttime="2" arguments="client testnode"/></host>'),
+    "testpoll": _VP_ONE,
+    "libshadow-plugin-test-sockbuf.so": _VP_ONE,
+    "testtimerfd": _VP_ONE,
+    "libshadow-plugin-test-sleep.so": _VP_ONE,
+    "testshutdown": (
+        '<host id="testnode"><process plugin="p" starttime="1"/></host>\n'
+        '  <host id="other"><process plugin="p" starttime="2"/></host>'),
+    "libshadow-plugin-test-file.so": _VP_ONE,
+    "testrandom": _VP_ONE,
+    "testsignal": _VP_ONE,
+    "libshadow-plugin-test-pthreads.so": _VP_ONE,
+    "test-unistd": ('<host id="testnode"><process plugin="p" starttime="1" '
+                    'arguments="x testnode"/></host>'),
+}
+# (events, windows) of each config's report, overflow 0
+# the reftests configs whose CLI runs longest (the TCP stream ones),
+# started first
+VP_LONG = ("test_epoll_writeable", "testshutdown")
+# the short CLI runs yield the CPU to the long poles and 19b
+VP_NICE = 10
+VP_REFTESTS_REPORTS = {
+    "testbind": (1, 1),
+    "libshadow-plugin-test-epoll.so": (4, 4),
+    "test_epoll_writeable": (582, 29),
+    "testpoll": (2, 2),
+    "libshadow-plugin-test-sockbuf.so": (1, 1),
+    "testtimerfd": (4, 4),
+    "libshadow-plugin-test-sleep.so": (1, 1),
+    "testshutdown": (42, 11),
+    "libshadow-plugin-test-file.so": (1, 1),
+    "testrandom": (1, 1),
+    "testsignal": (1, 1),
+    "libshadow-plugin-test-pthreads.so": (1, 1),
+    "test-unistd": (1, 1),
+}
+VP_PY_REPORT = {"events": 14, "windows": 12, "sim_seconds": 20.0,
+                "overflow": 0}
+# tests/test_py_plugins.py's plugin, config and graph, for the port
+VP_PY_PLUGIN = """from shadow_tpu_torch.process import vproc
+from shadow_tpu_torch.net.state import SocketType
+
+PORT = 6161
+
+
+def main(env):
+    if env["args"][0] == "server":
+        fd = yield vproc.socket(SocketType.UDP)
+        yield vproc.bind(fd, PORT)
+        for _ in range(int(env["args"][1])):
+            ip, port, n = yield vproc.recvfrom(fd)
+            yield vproc.sendto(fd, ip, port, n)
+        yield vproc.close(fd)
+    else:
+        server_ip = env["resolve"](env["args"][1])
+        count = int(env["args"][2])
+        fd = yield vproc.socket(SocketType.UDP)
+        yield vproc.bind(fd, 0)
+        got = 0
+        for _ in range(count):
+            yield vproc.sendto(fd, server_ip, PORT, 64)
+            _ip, _port, n = yield vproc.recvfrom(fd)
+            got += 1
+        yield vproc.close(fd)
+        assert got == count, got
+"""
+VP_PY_CONFIG = """<shadow stoptime="20">
+  <topology path="one.graphml.xml"/>
+  <plugin id="echoapp" path="echo_plugin.py"/>
+  <host id="pclient">
+    <process plugin="echoapp" starttime="1"
+      arguments="client pserver 3"/>
+  </host>
+  <host id="pserver">
+    <process plugin="echoapp" starttime="1" arguments="server 3"/>
+  </host>
+</shadow>
+"""
+VP_PY_GRAPH = ONE_VERTEX.replace("102400", "10240")
+# 19d: --host-kernel diff on hostrun's tgen dual workload (apps/tgen.py
+# tgen_main as a .py plugin, hostrun/runner.py's placement and its
+# 2-host graph, 10 sim-s) and on the epoll reftests plugin (one of
+# FAST_DUAL_WORKLOADS) through the loader
+VP_TGEN_PLUGIN = "from shadow_tpu_torch.apps.tgen import tgen_main as main\n"
+VP_TGEN_CONFIG = """<shadow stoptime="10">
+  <topology path="two.graphml.xml"/>
+  <plugin id="tg" path="tgen_dual.py"/>
+  <host id="client" typehint="client">
+    <process plugin="tg" starttime="1" arguments="client server"/>
+  </host>
+  <host id="server" typehint="server">
+    <process plugin="tg" starttime="0" arguments="server"/>
+  </host>
+</shadow>
+"""
 
 T0 = time.perf_counter()
 # simtime.INVALID: an empty event slot
@@ -2731,23 +2888,161 @@ def _relay_crash_twin(dev):
     return rb, make_runner(rb, app_handlers=(relay.handler,), device=dev)
 
 
+def faults_bundle(device, H=HOSTS, sim_s=SIM_S, event_capacity=None,
+                  with_plan=True):
+    """Phase 13's PHOLD bundle: bench's program with the degraded plan
+    installed (`with_plan`) and the bulk pass."""
+    import pathlib
+
+    from shadow_tpu_torch import faults
+    from shadow_tpu_torch.apps import phold
+
+    b = build_phold(H, LOAD, sim_s, seed=1, device=device, cap=CAPACITY,
+                    sparse_lanes=None, ring=True,
+                    event_capacity=event_capacity)
+    if with_plan:
+        faults.install(b, faults.records_from_json(
+            (pathlib.Path(__file__).resolve().parent / FAULT_PLAN)
+            .read_text()))
+    b.app_bulk = phold.BULK
+    return b
+
+
+def _faults_supervised(b, ckdir, label, lines, processed0=0, stop_past=None,
+                       **kw):
+    """run_supervised on b with a conserve.sample at every barrier,
+    preempted at the first barrier whose window ends past `stop_past`.
+    Returns (result, samples); `lines` gains its log."""
+    import os
+
+    import torch
+
+    from shadow_tpu_torch import faults
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.faults import conserve
+
+    samples, total = [], [processed0]
+    if stop_past is not None:
+        kw["stop"] = lambda: samples[-1].wend > stop_past
+
+    def on_round(sim, wstats, wstart, wend, next_min):
+        total[0] += int(wstats.events_processed)
+        samples.append(conserve.sample(
+            sim, wstart=wstart, wend=wend, next_min=next_min,
+            processed_total=total[0]))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = faults.run_supervised(
+        b, (phold.handler,), checkpoint_path=os.path.join(ckdir, label),
+        checkpoint_every_windows=FAULT_CKPT_WINDOWS, on_round=on_round,
+        device=b.device, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    h = res.health
+    lines.append(f"  {label}: ok {res.ok} in {wall:.3f} s, {len(samples)} "
+                 f"barriers, {len(res.checkpoints)} snapshots, health "
+                 f"fatal {h.fatal} overflow {h.events_overflow}/"
+                 f"{h.outbox_overflow}/{h.rq_overflow}")
+    if h.fatal or h.events_overflow or h.outbox_overflow or h.rq_overflow:
+        raise AssertionError(f"{label}: {h.failure_report()}")
+    return res, samples
+
+
+def _faults_conserved(label, samples, lines):
+    from shadow_tpu_torch.faults import conserve
+
+    bad = conserve.check(samples)
+    if bad:
+        raise AssertionError(f"{label}: conservation: {bad[:3]}")
+    lines.append(f"  {label}: conserve.check([] over {len(samples)} "
+                 f"barriers)")
+
+
+def _faults_job(kind, ckdir, dev):
+    """One of 13a's runs that phase 13 holds to make_runner's, in a card
+    worker beside it: "chunked" (make_chunked_runner, K = FAULT_CHUNK),
+    "k1" and "k8" (run_supervised; K = 1 also times a snapshot's save
+    and load) or "stop_resume" (a supervised run stopped at the first
+    barrier past FAULT_STOP_NS and resumed from its snapshot). Returns
+    (label, EngineStats dict, leaves, log lines)."""
+    import os
+
+    import torch
+
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.faults import conserve
+    from shadow_tpu_torch.net.build import make_chunked_runner
+    from shadow_tpu_torch.utils import checkpoint
+
+    b = faults_bundle(dev)
+    lines = []
+    if kind == "chunked":
+        sim, stats = make_chunked_runner(
+            b, app_handlers=(phold.handler,), app_bulk=phold.BULK,
+            chunk_windows=FAULT_CHUNK, device=dev)(b.sim)
+        return (f"make_chunked_runner K={FAULT_CHUNK}", stats.as_dict(),
+                convert.sim_to_numpy(sim), lines)
+    if kind in ("k1", "k8"):
+        k = 1 if kind == "k1" else FAULT_CHUNK
+        label = f"run_supervised K={k}"
+        res, samples = _faults_supervised(b, ckdir, f"supervised_k{k}",
+                                          lines, windows_per_dispatch=k)
+        if not res.ok or not res.checkpoints:
+            raise AssertionError(f"{label}: ok {res.ok}, snapshots "
+                                 f"{res.checkpoints}")
+        _faults_conserved(label, samples, lines)
+        if k == 1:
+            path, t_ck = res.checkpoints[0]
+            nbytes = os.path.getsize(path)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save(os.path.join(ckdir, "again.npz"), res.sim,
+                            time_ns=t_ck)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            checkpoint.load(path, b.sim)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            lines.append(f"  faults snapshot at {t_ck} ns: {nbytes} bytes, "
+                         f"save {save_s:.3f} s, load {load_s:.3f} s")
+        return (label, res.stats.as_dict(), convert.sim_to_numpy(res.sim),
+                lines)
+    stopped, before = _faults_supervised(b, ckdir, "supervised_stop", lines,
+                                         stop_past=FAULT_STOP_NS)
+    if not stopped.preempted:
+        raise AssertionError("supervised stop: the run was not preempted")
+    t_stop = int(stopped.final_checkpoint.rsplit(".", 2)[1])
+    resumed, after = _faults_supervised(
+        b, ckdir, "supervised_resume", lines,
+        processed0=before[-1].processed,
+        resume_from=stopped.final_checkpoint)
+    _faults_conserved("stop + resume", conserve.stitch(before, after,
+                                                       t_stop), lines)
+    if resumed.resume_of != stopped.run_id or not resumed.ok:
+        raise AssertionError("resume: the chain was not continued")
+    lines.append(f"  stopped at {t_stop} ns (the spike is over [2.0, 2.5) "
+                 f"s), resumed")
+    return ("stop at 2.2 s + resume", resumed.stats.as_dict(),
+            convert.sim_to_numpy(resumed.sim), lines)
+
+
 def faults_cell(device):
     """Phase 13: fault plans, crash and restart, and escalation at full
     width (13a, 13b, 13c; the module docstring). Returns ({"launches_faults",
     "launches_crash", "launches_escalate", "max_abs_err"}, seconds per
     sub-phase)."""
     import os
-    import pathlib
     import shutil
     import tempfile
 
     import torch
 
-    from shadow_tpu_torch import faults, telemetry
+    from shadow_tpu_torch import convert, faults, telemetry
     from shadow_tpu_torch.apps import phold, pingpong
     from shadow_tpu_torch.core.insert_kernels import mailbox_gather
-    from shadow_tpu_torch.faults import conserve
-    from shadow_tpu_torch.net.build import make_chunked_runner, make_runner
+    from shadow_tpu_torch.net.build import make_runner
     from shadow_tpu_torch.utils import checkpoint
 
     out, secs = {}, {}
@@ -2758,17 +3053,17 @@ def faults_cell(device):
         secs[name] = round(now - mark[0], 1)
         mark[0] = now
 
-    plan = faults.records_from_json(
-        (pathlib.Path(__file__).resolve().parent / FAULT_PLAN).read_text())
-
     def bundle(H, sim_s=SIM_S, event_capacity=None, with_plan=True):
-        b = build_phold(H, LOAD, sim_s, seed=1, device=device, cap=CAPACITY,
-                        sparse_lanes=None, ring=True,
-                        event_capacity=event_capacity)
-        if with_plan:
-            faults.install(b, plan)
-        b.app_bulk = phold.BULK
-        return b
+        return faults_bundle(device, H, sim_s, event_capacity, with_plan)
+
+    # 13a's runs held to make_runner's: in the card workers, beside the
+    # rest of the phase
+    ckdir = tempfile.mkdtemp(prefix="shadow_faults_")
+    jobs = []
+    for kind in ("chunked", "k1", "k8", "stop_resume"):
+        d = os.path.join(ckdir, kind)
+        os.makedirs(d)
+        jobs.append(_submit(_CARDS, _faults_job, kind, d, "cuda"))
 
     # --- 13a: the degraded network -----------------------------------
     bs = bundle(FAULT_SMALL_HOSTS)
@@ -2792,7 +3087,7 @@ def faults_cell(device):
     del gathered
     out["launches_faults"] = launches["mailbox_gather"]
     check_phold("faults make_runner", sim0, HOSTS, LOAD, launches)
-    first = (stats0, sim0)
+    first = (stats0.as_dict(), convert.sim_to_numpy(sim0))
     drops = int(sim0.net.ctr_drop_reliability.sum())
     clamped = check_record_boundaries("faults make_runner", sim0.telem,
                                       b.fault_plan)
@@ -2801,99 +3096,6 @@ def faults_cell(device):
                              "nothing")
     log(f"  faults make_runner: {stats0.as_dict()['windows']} windows "
         f"({clamped} ending at a record time), reliability drops {drops}")
-    lap("13a_make_runner")
-
-    sim, stats, _, _ = drive(
-        f"faults make_chunked_runner K={FAULT_CHUNK}", b,
-        make_chunked_runner(b, app_handlers=(phold.handler,),
-                            app_bulk=phold.BULK, chunk_windows=FAULT_CHUNK,
-                            device=device), device)
-    assert_same_run("faults make_chunked_runner", first, (stats, sim))
-    del sim
-    lap("13a_chunked")
-
-    ckdir = tempfile.mkdtemp(prefix="shadow_faults_")
-
-    def supervised(label, processed0=0, stop_past=None, **kw):
-        """run_supervised on b with a conserve.sample at every barrier,
-        preempted at the first barrier whose window ends past
-        `stop_past`. Returns (result, samples)."""
-        samples, total = [], [processed0]
-        if stop_past is not None:
-            kw["stop"] = lambda: samples[-1].wend > stop_past
-
-        def on_round(sim, wstats, wstart, wend, next_min):
-            total[0] += int(wstats.events_processed)
-            samples.append(conserve.sample(
-                sim, wstart=wstart, wend=wend, next_min=next_min,
-                processed_total=total[0]))
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = faults.run_supervised(
-            b, (phold.handler,), checkpoint_path=os.path.join(ckdir, label),
-            checkpoint_every_windows=FAULT_CKPT_WINDOWS, on_round=on_round,
-            device=device, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        h = res.health
-        log(f"  {label}: ok {res.ok} in {wall:.3f} s, {len(samples)} "
-            f"barriers, {len(res.checkpoints)} snapshots, health fatal "
-            f"{h.fatal} overflow {h.events_overflow}/{h.outbox_overflow}/"
-            f"{h.rq_overflow}")
-        if h.fatal or h.events_overflow or h.outbox_overflow \
-                or h.rq_overflow:
-            raise AssertionError(f"{label}: {h.failure_report()}")
-        return res, samples
-
-    def conserved(label, samples):
-        bad = conserve.check(samples)
-        if bad:
-            raise AssertionError(f"{label}: conservation: {bad[:3]}")
-        log(f"  {label}: conserve.check([] over {len(samples)} barriers)")
-
-    for k in (1, FAULT_CHUNK):
-        label = f"run_supervised K={k}"
-        res, samples = supervised(f"supervised_k{k}",
-                                  windows_per_dispatch=k)
-        if not res.ok or not res.checkpoints:
-            raise AssertionError(f"{label}: ok {res.ok}, snapshots "
-                                 f"{res.checkpoints}")
-        conserved(label, samples)
-        assert_same_run(f"faults {label}", first, (res.stats, res.sim))
-        if k == 1:
-            path, t_ck = res.checkpoints[0]
-            nbytes = os.path.getsize(path)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            checkpoint.save(os.path.join(ckdir, "again.npz"), res.sim,
-                            time_ns=t_ck)
-            save_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            checkpoint.load(path, b.sim)
-            torch.cuda.synchronize()
-            load_s = time.perf_counter() - t0
-            log(f"  faults snapshot at {t_ck} ns: {nbytes} bytes, save "
-                f"{save_s:.3f} s, load {load_s:.3f} s")
-        del res
-        lap(f"13a_supervised_k{k}")
-
-    stopped, before = supervised("supervised_stop", stop_past=FAULT_STOP_NS)
-    if not stopped.preempted:
-        raise AssertionError("supervised stop: the run was not preempted")
-    t_stop = int(stopped.final_checkpoint.rsplit(".", 2)[1])
-    resumed, after = supervised(
-        "supervised_resume", processed0=before[-1].processed,
-        resume_from=stopped.final_checkpoint)
-    conserved("stop + resume", conserve.stitch(before, after, t_stop))
-    if resumed.resume_of != stopped.run_id or not resumed.ok:
-        raise AssertionError("resume: the chain was not continued")
-    assert_same_run("faults stop at 2.2 s + resume", first,
-                    (resumed.stats, resumed.sim))
-    log(f"  stopped at {t_stop} ns (the spike is over [2.0, 2.5) s), "
-        f"resumed: == make_runner, every leaf")
-    del stopped, resumed, first
-    lap("13a_stop_resume")
 
     fn = faults.fault_fn_for(b)
     t_rec = int(b.fault_plan.t_ns[0])
@@ -2901,6 +3103,7 @@ def faults_cell(device):
                       "record)", fn, b.sim,
                       [b.min_jump, t_rec, t_rec + b.min_jump])
     del b, sim0
+    lap("13a_make_runner")
 
     # --- 13b: crash and restart --------------------------------------
     pb = pingpong.build_bench(PING_HOSTS, end_time_s=PING_SIM_S,
@@ -3008,6 +3211,13 @@ def faults_cell(device):
     log(f"  escalation: == a from-scratch run at event_capacity "
         f"{caps['event_capacity']}: EngineStats and all {n} leaves")
     lap("13c_escalation")
+    for fut in jobs:
+        label, st, leaves, lines = fut.result(timeout=900)
+        for line in lines:
+            log(line)
+        assert_same_leaves(f"faults {label}", first, (st, leaves))
+        log(f"  faults {label} (a card worker): == make_runner, every leaf")
+    lap("13a_workers")
     shutil.rmtree(ckdir, ignore_errors=True)
     log(f"  phase 13 seconds per sub-phase {json.dumps(secs)}")
     return out
@@ -3022,14 +3232,20 @@ def small_config(body, stoptime):
             f'{EXAMPLE_GRAPHML}]]></topology>\n{body}\n</shadow>')
 
 
-def start_proc(label, cmd):
+def start_proc(label, cmd, nice=0):
     """Start `cmd` from the repository root, its output captured; the
     smoke goes on while it runs (finish_proc waits for it, stop_proc
     kills it). Each CLI run that only its counts, logs and files check
-    starts so, while the card runs work that is not timed."""
+    starts so, while the card runs work that is not timed. `nice` lowers
+    its CPU priority below the phase's own work."""
+    import shutil
     import subprocess
     from pathlib import Path
 
+    if nice and shutil.which("nice"):
+        # a prefix, not a preexec_fn: that would fork this process (its
+        # whole address space) instead of spawning the command
+        cmd = ["nice", "-n", str(nice), *cmd]
     proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -3055,7 +3271,7 @@ def finish_proc(started):
     return proc.returncode, stdout, stderr, time.perf_counter() - t0
 
 
-def start_cli(label, text, tmp, *flags):
+def start_cli(label, text, tmp, *flags, nice=0):
     """Start `python -m shadow_tpu_torch.cli <config> --platform gpu -d
     <dir> [flags]` as a subprocess from the repository root, the config
     written to a file first: the entry point a user calls. finish_cli
@@ -3067,7 +3283,7 @@ def start_cli(label, text, tmp, *flags):
         f.write(text)
     return start_proc(label, [
         sys.executable, "-m", "shadow_tpu_torch.cli", path, "--platform",
-        "gpu", "-d", os.path.join(tmp, f"{label}.data"), *flags])
+        "gpu", "-d", os.path.join(tmp, f"{label}.data"), *flags], nice=nice)
 
 
 def finish_cli(started):
@@ -3080,7 +3296,8 @@ def finish_cli(started):
         raise AssertionError(f"{label}: the CLI exited {code}:\n"
                              f"{stdout[-3000:]}\n{stderr[-3000:]}")
     report = json.loads(lines[-1])
-    log(f"  {label}: `python -m shadow_tpu_torch.cli {' '.join(cmd[4:])}` "
+    args = cmd[cmd.index("shadow_tpu_torch.cli") + 2:]
+    log(f"  {label}: `python -m shadow_tpu_torch.cli {' '.join(args)}` "
         f"exit 0 in {wall:.1f} s, {len(lines)} lines; report "
         f"{json.dumps(report)}")
     for ln in lines:
@@ -3484,13 +3701,15 @@ def check_inject(label, sim, stats, feeder, chunked=False):
 
 
 def inject_leaves_equal(label, a, b, exclude=()):
-    """Every leaf of two injection runs equal apart from `exclude`, and
-    their live event multisets equal. Returns the leaves compared."""
+    """Every leaf of two injection runs (sims or their leaves) equal
+    apart from `exclude`, and their live event multisets equal. Returns
+    the leaves compared."""
     import numpy as np
 
     from shadow_tpu_torch import convert
 
-    la, lb = convert.sim_to_numpy(a), convert.sim_to_numpy(b)
+    la, lb = (x if isinstance(x, dict) else convert.sim_to_numpy(x)
+              for x in (a, b))
     if la.keys() != lb.keys():
         raise AssertionError(f"{label}: leaf sets differ")
     bad = [k for k in la if k not in exclude and (
@@ -3520,13 +3739,84 @@ def log_run(label, stats, wall):
         f"{wall / st['micro_steps'] * 1e3:.2f} ms per micro-step")
 
 
-def chunk_cut(device):
-    """15a's cut of the cell (INJ_CUT) through run_windows at K =
-    INJ_CHUNK on the card and on the CPU: the reference's counts and
-    every leaf equal between the two."""
-    import numpy as np
+def _quiet(fn, *args):
+    """fn(*args) in a worker with its log captured: (result, the lines
+    it logged), for the main process to log."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = fn(*args)
+    return got, [ln.split("] ", 1)[-1] for ln in buf.getvalue().splitlines()]
+
+
+def _inject_k16(dev):
+    """15a's trace through run_windows at K = INJ_CHUNK (a card worker):
+    checked against the reference's counts and K = 16's pinned
+    partition; (EngineStats dict, leaves)."""
     import torch
 
+    from shadow_tpu_torch import bench, convert
+    from shadow_tpu_torch.apps import tgen
+    from shadow_tpu_torch.utils import checkpoint
+
+    b = build_inject(dev)
+    f = timed_feeder(bench.rate_trace(INJ_HOSTS, INJ_RATE, INJ_SIM_S))
+    t0 = time.perf_counter()
+    sim, stats, _ = checkpoint.run_windows(
+        b, (tgen.handler,), feeder=f, windows_per_dispatch=INJ_CHUNK,
+        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_inject(f"inject run_windows (K = {INJ_CHUNK})", sim, stats, f,
+                 chunked=True)
+    log_run(f"inject run_windows (K = {INJ_CHUNK})", stats, wall)
+    return stats.as_dict(), convert.sim_to_numpy(sim)
+
+
+def _inject_stop_resume(tmp, dev):
+    """15b in a card worker: 15a's program through run_supervised
+    stopped at the first barrier past INJ_STOP_S and resumed from its
+    snapshot with a fresh feeder. Returns (EngineStats dict, leaves,
+    the injection block, the stop time, the feeder's cursor)."""
+    import os
+
+    from shadow_tpu_torch import bench, convert, faults
+    from shadow_tpu_torch.apps import tgen
+    from shadow_tpu_torch.inject import Feeder, manifest_block
+    from shadow_tpu_torch.utils import checkpoint
+
+    os.makedirs(tmp, exist_ok=True)
+    b = build_inject(dev)
+    sim0 = b.sim
+    trace = bench.rate_trace(INJ_HOSTS, INJ_RATE, INJ_SIM_S)
+    stop = {"v": False}
+
+    def on_round(sim, ws, wstart, wend, nm):
+        stop["v"] = nm >= int(INJ_STOP_S * 1e9)
+    first = faults.run_supervised(
+        b, (tgen.handler,), checkpoint_path=os.path.join(tmp, "ck"),
+        checkpoint_every_windows=1 << 30, feeder=Feeder(list(trace)),
+        on_round=on_round, stop=lambda: stop["v"], device=dev)
+    if not first.preempted or not first.final_checkpoint:
+        raise AssertionError("inject 15b: the run did not stop")
+    t_stop = checkpoint.peek_meta(first.final_checkpoint)["time_ns"]
+    f2 = Feeder(list(trace))
+    b.sim = sim0
+    rest = faults.run_supervised(
+        b, (tgen.handler,), checkpoint_path=os.path.join(tmp, "ck2"),
+        resume_from=first.final_checkpoint, feeder=f2, device=dev)
+    if not rest.ok:
+        raise AssertionError(f"inject 15b resume: "
+                             f"{rest.failure_report()}")
+    return (rest.stats.as_dict(), convert.sim_to_numpy(rest.sim),
+            manifest_block(rest.sim, f2), t_stop, f2.cursor)
+
+
+def _inject_cut_run(dev):
+    """chunk_cut's run on `dev`: (EngineStats dict, injection block,
+    leaves, wall s, trace length)."""
     from shadow_tpu_torch import bench, convert
     from shadow_tpu_torch.apps import tgen
     from shadow_tpu_torch.inject import Feeder, manifest_block
@@ -3534,30 +3824,37 @@ def chunk_cut(device):
 
     H, rate, sim_s, lanes = INJ_CUT
     trace = bench.rate_trace(H, rate, sim_s)
+    b = bench.build_inject(H, sim_s, 1, 64, lanes, ONE_VERTEX, dev)
+    f = Feeder(list(trace))
+    t0 = time.perf_counter()
+    sim, stats, _ = checkpoint.run_windows(
+        b, (tgen.handler,), feeder=f, windows_per_dispatch=INJ_CHUNK,
+        device=dev)
+    return (stats.as_dict(), manifest_block(sim, f),
+            convert.sim_to_numpy(sim), time.perf_counter() - t0, len(trace))
+
+
+def chunk_cut(device):
+    """15a's cut of the cell (INJ_CUT) through run_windows at K =
+    INJ_CHUNK on the card and on the CPU (in a CPU worker): the
+    reference's counts and every leaf equal between the two."""
+    import torch
+
+    fut = in_worker(_inject_cut_run, "cpu")
     got = []
-    for dev in (device, torch.device("cpu")):
-        b = bench.build_inject(H, sim_s, 1, 64, lanes, ONE_VERTEX, dev)
-        f = Feeder(list(trace))
-        t0 = time.perf_counter()
-        sim, stats, _ = checkpoint.run_windows(
-            b, (tgen.handler,), feeder=f, windows_per_dispatch=INJ_CHUNK,
-            device=dev)
-        blk = manifest_block(sim, f)
-        st = stats.as_dict()
+    for dev, res in ((device, None), (torch.device("cpu"), fut)):
+        st, blk, leaves, wall, n = (_inject_cut_run(dev) if res is None
+                                    else res.result(timeout=900))
         if st != INJ_CUT_EXPECT or (blk["injected"], blk["dropped"],
                                     blk["late"], blk["deferred"]) != (
-                len(trace), 0, 0, 0):
+                n, 0, 0, 0):
             raise AssertionError(f"inject cut {dev.type}: {st} {blk} != "
                                  f"the reference's {INJ_CUT_EXPECT}")
-        got.append(convert.sim_to_numpy(sim))
-        log(f"  inject cut to {H} hosts, K = {INJ_CHUNK}, {dev.type}: the "
-            f"reference's counts {st} in {time.perf_counter() - t0:.2f} s")
-    a, c = got
-    bad = [k for k in a if a[k].dtype != c[k].dtype
-           or not np.array_equal(a[k], c[k])]
-    if a.keys() != c.keys() or bad:
-        raise AssertionError(f"inject cut: cuda != cpu, first {bad[:5]}")
-    log(f"  inject cut: cuda == cpu, all {len(a)} leaves equal")
+        got.append((st, leaves))
+        log(f"  inject cut to {INJ_CUT[0]} hosts, K = {INJ_CHUNK}, "
+            f"{dev.type}: the reference's counts {st} in {wall:.2f} s")
+    n = assert_same_leaves("inject cut", *got)
+    log(f"  inject cut: cuda == cpu, all {n} leaves equal")
 
 
 def inject_cell(device):
@@ -3662,37 +3959,39 @@ def _inject_cell(device, tmp):
     del gathered
 
     # the same trace through run_windows, one window a dispatch (the
-    # profiled window in it) and 16
-    runs = {}
-    for K in (1, INJ_CHUNK):
-        f = timed_feeder(list(trace))
-        probe = WindowProbe(INJ_PROFILE_WINDOW) if K == 1 else None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sim, stats, _ = checkpoint.run_windows(
-            b, (tgen.handler,), sim=sim0, feeder=f, windows_per_dispatch=K,
-            on_window=probe, device=device)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        runs[K] = (sim, stats, f, probe)
-        check_inject(f"inject run_windows (K = {K})", sim, stats, f,
-                     chunked=K > 1)
-        log_run(f"inject run_windows (K = {K})", stats, wall)
-    n = inject_leaves_equal("inject K = 1 vs supervised", runs[1][0],
-                            sup.sim)
+    # profiled window in it)
+    f1 = timed_feeder(list(trace))
+    probe = WindowProbe(INJ_PROFILE_WINDOW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim1, stats1, _ = checkpoint.run_windows(
+        b, (tgen.handler,), sim=sim0, feeder=f1, on_window=probe,
+        device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_inject("inject run_windows (K = 1)", sim1, stats1, f1)
+    log_run("inject run_windows (K = 1)", stats1, wall)
+    # not timed from here on: K = 16 and 15b in the card workers, the
+    # cut's CPU half in a CPU worker
+    k16 = _submit(_CARDS, _quiet, _inject_k16, "cuda")
+    stop_resume = _submit(_CARDS, _inject_stop_resume,
+                          os.path.join(tmp, "15b"), "cuda")
+    n = inject_leaves_equal("inject K = 1 vs supervised", sim1, sup.sim)
     log(f"  inject: run_windows (K = 1) == run_supervised: all {n} leaves")
-    n = inject_leaves_equal(
-        f"inject K = 1 vs K = {INJ_CHUNK}", runs[1][0], runs[INJ_CHUNK][0],
-        exclude=INJ_SCRATCH | INJ_SLOTS | INJ_PARTITION | {
-            k for k in convert.sim_tensors(runs[1][0])
-            if k.startswith(".telem.")})
-    log(f"  inject: K = 1 == K = {INJ_CHUNK}: {n} leaves and the live "
-        f"event multiset (staging scratch, heap slots, route marks and "
-        f"ring excluded); {runs[INJ_CHUNK][1].as_dict()}")
     chunk_cut(device)
+    (st16, leaves16), lines = k16.result(timeout=900)
+    for line in lines:
+        log(line)
+    n = inject_leaves_equal(
+        f"inject K = 1 vs K = {INJ_CHUNK}", sim1, leaves16,
+        exclude=INJ_SCRATCH | INJ_SLOTS | INJ_PARTITION | {
+            k for k in convert.sim_tensors(sim1) if k.startswith(".telem.")})
+    log(f"  inject: K = 1 == K = {INJ_CHUNK} (a card worker): {n} leaves "
+        f"and the live event multiset (staging scratch, heap slots, route "
+        f"marks and ring excluded); {st16}")
+    del sim1, leaves16
 
     # one window profiled: barrier refill, merge, drain and route
-    _, stats1, f1, probe = runs[1]
     k = INJ_PROFILE_WINDOW
     events = raw_events(probe.prof)
     marks = probe.marks
@@ -3725,7 +4024,6 @@ def _inject_cell(device, tmp):
         f"{mean_ms['t_stage']:.3f}, planes {mean_ms['t_planes']:.3f}, "
         f"copies {mean_ms['t_install'] - mean_ms['t_planes']:.3f}), "
         f"{max(f1.t_refill) * 1e3:.3f} ms max")
-    del runs
 
     # 15c's CLI run starts here and runs beside 15b (not timed)
     cfg_path = str(root / TRAFFIC_CONFIG)
@@ -3737,58 +4035,36 @@ def _inject_cell(device, tmp):
         "--platform", "gpu", "-d", d, "--trace-out", trace_out,
         "--metrics-out", metrics_out])
     try:
-        out, err = _inject_tail(device, tmp, out, err, b, sim0, sup, trace,
-                                supervised, traffic,
-                                (cfg_path, d, trace_out, metrics_out))
+        out, err = _inject_tail(device, out, err, sup, stop_resume,
+                                traffic, (cfg_path, d, trace_out,
+                                          metrics_out))
     finally:
         stop_proc(traffic)
     return out, err
 
 
-def _inject_tail(device, tmp, out, err, b, sim0, sup, trace, supervised,
-                 traffic, paths):
-    """15b, then 15c (its CLI run started by _inject_cell; `paths`: its
-    config, data directory, trace and metrics files)."""
+def _inject_tail(device, out, err, sup, stop_resume, traffic, paths):
+    """15b (its run in a card worker, started by _inject_cell), then 15c
+    (its CLI run started there too; `paths`: its config, data
+    directory, trace and metrics files)."""
     import functools
     import os
 
-    from shadow_tpu_torch import faults
-    from shadow_tpu_torch.apps import tgen
     from shadow_tpu_torch.core.insert_kernels import mailbox_gather
-    from shadow_tpu_torch.inject import Feeder, manifest_block
-    from shadow_tpu_torch.utils import checkpoint
 
     # ---- 15b: supervised stop at INJ_STOP_S, resume with a fresh feeder
-    stop = {"v": False}
-
-    def on_round(sim, ws, wstart, wend, nm):
-        stop["v"] = nm >= int(INJ_STOP_S * 1e9)
-    first, _ = supervised(Feeder(list(trace)), on_round=on_round,
-                          stop=lambda: stop["v"])
-    if not first.preempted or not first.final_checkpoint:
-        raise AssertionError("inject 15b: the run did not stop")
-    t_stop = checkpoint.peek_meta(first.final_checkpoint)["time_ns"]
-    f2 = Feeder(list(trace))
-    b.sim = sim0
-    rest = faults.run_supervised(
-        b, (tgen.handler,), checkpoint_path=os.path.join(tmp, "ck2"),
-        resume_from=first.final_checkpoint, feeder=f2, device=device)
-    if not rest.ok:
-        raise AssertionError(f"inject 15b resume: "
-                             f"{rest.failure_report()}")
-    n = inject_leaves_equal("inject 15b resumed vs straight", rest.sim,
+    st, leaves, blk, t_stop, cursor = stop_resume.result(timeout=900)
+    n = inject_leaves_equal("inject 15b resumed vs straight", leaves,
                             sup.sim, exclude=INJ_SCRATCH)
-    blk = manifest_block(rest.sim, f2)
     if (blk["injected"] + blk["dropped"] + blk["deferred"]
             != blk["trace_events"] or blk["late"]
-            or rest.stats.as_dict() != sup.stats.as_dict()):
-        raise AssertionError(f"inject 15b: block {blk} stats "
-                             f"{rest.stats.as_dict()}")
-    log(f"  inject 15b: stopped at t={t_stop}, resumed with a fresh feeder "
-        f"(cursor {f2.cursor} after the run): == the straight run "
-        f"({n} leaves, staging scratch excluded), injection block "
+            or st != sup.stats.as_dict()):
+        raise AssertionError(f"inject 15b: block {blk} stats {st}")
+    log(f"  inject 15b (a card worker): stopped at t={t_stop}, resumed with "
+        f"a fresh feeder (cursor {cursor} after the run): == the straight "
+        f"run ({n} leaves, staging scratch excluded), injection block "
         f"reconciles {json.dumps(blk)}")
-    del first, rest, sup, b, sim0
+    del sup, leaves
 
     # ---- 15c: a <traffic> config through the CLI ----------------------
     cfg_path, d, trace_out, metrics_out = paths
@@ -4764,17 +5040,18 @@ def _obs_twin_cpu(make, directory):
     return st, convert.sim_to_numpy(sim), got, wall
 
 
-def obs_cell(device):
+def obs_cell(device, untimed=None):
     """Phase 18: the netstack's observability settings at full width
-    and native/. Returns (row fields, max abs err of mailbox_gather on
-    18b's route)."""
+    and native/; 18b (timed) first, then 18a and 18c, which are not,
+    with `untimed()` called as they start. Returns (row fields, max abs
+    err of mailbox_gather on 18b's route)."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="shadow_obs_") as tmp:
-        return _obs_cell(device, tmp)
+        return _obs_cell(device, tmp, untimed)
 
 
-def _obs_cell(device, tmp):
+def _obs_cell(device, tmp, untimed):
     import io
     import os
     from pathlib import Path
@@ -4813,55 +5090,6 @@ def _obs_cell(device, tmp):
     log(f"  18: native library {path.name} built from "
         f"shadow_tpu_torch/native/src into _build/ and loaded ({lib}); a "
         f"4,096-record log flush sorted by logsort_argsort")
-
-    # ---- 18a: the CLI as a user runs it, beside 18c ------------------
-    cli = start_cli("obs-cpu-10k", obs_xml(OBS_HOSTS, OBS_CLI_STOP), tmp,
-                    "-l", "info", *OBS_FLAGS)
-    try:
-        # ---- 18c: CUDA against CPU at the cuts (not timed) -----------
-        for label, make, expect in (
-                (f"18c PHOLD at {OBS_CUT_HOSTS} hosts, 4 CPU speeds, "
-                 f"{OBS_CUT_STOP} sim-s", _obs_udp_cut, OBS_CUT_EXPECT),
-                (f"18c the TCP example twin with logpcap, {CLI_TWIN_STOP} "
-                 f"sim-s", _obs_tcp_twin, OBS_TCP_EXPECT)):
-            d = os.path.join(tmp, f"{make.__name__}-")
-            fut = in_worker(_obs_twin_cpu, make, d + "cpu")
-            st, sim, got, wall = _obs_twin(make, d + "cuda", "cuda")
-            log(f"  {label} cuda: {st} in {wall:.2f} s")
-            cst, cleaves, cgot, cwall = fut.result(timeout=900)
-            log(f"  {label} cpu: {cst} in {cwall:.2f} s")
-            n = assert_same_leaves(label, (st, convert.sim_to_numpy(sim)),
-                                   (cst, cleaves))
-            if got != cgot:
-                raise AssertionError(f"{label}: cuda {got} != cpu {cgot}")
-            check_obs(label, got, expect)
-            log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves "
-                f"equal, pcap files byte-equal")
-        report, wall, lines = finish_cli(cli)
-    finally:
-        stop_proc(cli)
-    check_report("obs-cpu-10k", report, OBS_CLI_REPORT)
-    paths = [[0] * 3 for _ in range(3)]
-    for ln in lines:
-        if "] path " in ln:
-            a, c = ln.split("] path ")[1].split(":")[0].split("->")
-            paths[int(a)][int(c)] = int(ln.rsplit(" ", 2)[1])
-    if paths != OBS_CLI_PATHS:
-        raise AssertionError(f"obs-cpu-10k: path lines {paths} != the "
-                             f"reference's {OBS_CLI_PATHS}")
-    if any("pcap ring overran" in ln for ln in lines):
-        raise AssertionError("obs-cpu-10k: the capture ring overran")
-    if len(lines) != OBS_LOG_LINES:
-        raise AssertionError(f"obs-cpu-10k: {len(lines)} lines, the "
-                             f"reference's CLI prints {OBS_LOG_LINES}")
-    digest = pcap_digest(os.path.join(tmp, "obs-cpu-10k.data"))
-    if digest != OBS_CLI_PCAP:
-        raise AssertionError(f"obs-cpu-10k: pcap files {digest} != the "
-                             f"reference's {OBS_CLI_PCAP}")
-    log(f"  obs-cpu-10k: the reference's 9 path counts, {len(lines)} log "
-        f"lines (one flush past 4,096 records: the native argsort), pcap "
-        f"files as the reference's {digest}, in {wall:.1f} s")
-    out["obs_cli_wall_s"] = round(wall, 1)
 
     # ---- 18b: the same bundle in-process ------------------------------
     loaded = load(parse_config(obs_xml(OBS_HOSTS, OBS_STOP)), seed=1,
@@ -4973,8 +5201,383 @@ def _obs_cell(device, tmp):
         "n", "ms", "plain_ms", "bound_ms", "library_ms")}
     del sim, b, loaded, prof, events
 
+    # ---- 18a: the CLI as a user runs it, beside 18c (not timed) -----
+    cli = start_cli("obs-cpu-10k", obs_xml(OBS_HOSTS, OBS_CLI_STOP), tmp,
+                    "-l", "info", *OBS_FLAGS)
+    if untimed is not None:
+        untimed()
+    try:
+        # ---- 18c: CUDA against CPU at the cuts (not timed) -----------
+        for label, make, expect in (
+                (f"18c PHOLD at {OBS_CUT_HOSTS} hosts, 4 CPU speeds, "
+                 f"{OBS_CUT_STOP} sim-s", _obs_udp_cut, OBS_CUT_EXPECT),
+                (f"18c the TCP example twin with logpcap, {CLI_TWIN_STOP} "
+                 f"sim-s", _obs_tcp_twin, OBS_TCP_EXPECT)):
+            d = os.path.join(tmp, f"{make.__name__}-")
+            fut = in_worker(_obs_twin_cpu, make, d + "cpu")
+            st, sim, got, wall = _obs_twin(make, d + "cuda", "cuda")
+            log(f"  {label} cuda: {st} in {wall:.2f} s")
+            cst, cleaves, cgot, cwall = fut.result(timeout=900)
+            log(f"  {label} cpu: {cst} in {cwall:.2f} s")
+            n = assert_same_leaves(label, (st, convert.sim_to_numpy(sim)),
+                                   (cst, cleaves))
+            if got != cgot:
+                raise AssertionError(f"{label}: cuda {got} != cpu {cgot}")
+            check_obs(label, got, expect)
+            log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves "
+                f"equal, pcap files byte-equal")
+        report, wall, lines = finish_cli(cli)
+    finally:
+        stop_proc(cli)
+    check_report("obs-cpu-10k", report, OBS_CLI_REPORT)
+    paths = [[0] * 3 for _ in range(3)]
+    for ln in lines:
+        if "] path " in ln:
+            a, c = ln.split("] path ")[1].split(":")[0].split("->")
+            paths[int(a)][int(c)] = int(ln.rsplit(" ", 2)[1])
+    if paths != OBS_CLI_PATHS:
+        raise AssertionError(f"obs-cpu-10k: path lines {paths} != the "
+                             f"reference's {OBS_CLI_PATHS}")
+    if any("pcap ring overran" in ln for ln in lines):
+        raise AssertionError("obs-cpu-10k: the capture ring overran")
+    if len(lines) != OBS_LOG_LINES:
+        raise AssertionError(f"obs-cpu-10k: {len(lines)} lines, the "
+                             f"reference's CLI prints {OBS_LOG_LINES}")
+    digest = pcap_digest(os.path.join(tmp, "obs-cpu-10k.data"))
+    if digest != OBS_CLI_PCAP:
+        raise AssertionError(f"obs-cpu-10k: pcap files {digest} != the "
+                             f"reference's {OBS_CLI_PCAP}")
+    log(f"  obs-cpu-10k: the reference's 9 path counts, {len(lines)} log "
+        f"lines (one flush past 4,096 records: the native argsort), pcap "
+        f"files as the reference's {digest}, in {wall:.1f} s")
+    out["obs_cli_wall_s"] = round(wall, 1)
+
     torch.cuda.synchronize()
     return out, err
+
+
+# --- phase 19: virtual processes -------------------------------------
+
+
+def leaf_digest(leaves):
+    """One digest of every leaf's bytes (a sha256 of "key=sha256-prefix"
+    lines in key order), the form the pinned reference digests take."""
+    import hashlib
+
+    import numpy as np
+
+    per = {k: hashlib.sha256(np.ascontiguousarray(v).tobytes())
+           .hexdigest()[:16] for k, v in leaves.items()}
+    return hashlib.sha256("\n".join(
+        f"{k}={per[k]}" for k in sorted(per)).encode()).hexdigest()[:16]
+
+
+def vproc_run(kind, dev):
+    """19a ("udp") or 19b ("tcp") on `dev` through ProcessRuntime:
+    (runtime, sim, stats, checks) with checks the phase's counts."""
+    import hashlib
+
+    import numpy as np
+
+    from shadow_tpu_torch.core import simtime
+    from shadow_tpu_torch.net.build import HostSpec, build
+    from shadow_tpu_torch.net.state import NetConfig, SocketType
+    from shadow_tpu_torch.process import vproc
+    from shadow_tpu_torch.process.vproc import ProcessRuntime
+
+    H = VP_HOSTS
+    if kind == "udp":
+        cfg = NetConfig(num_hosts=H, end_time=VP_SIM_S * simtime.ONE_SECOND,
+                        tcp=False, sockets_per_host=2, event_capacity=8,
+                        outbox_capacity=8, router_ring=8, in_ring=8)
+    else:
+        cfg = NetConfig(num_hosts=H, end_time=VP_SIM_S * simtime.ONE_SECOND,
+                        tcp=True, sockets_per_host=4, event_capacity=64,
+                        outbox_capacity=64, router_ring=64)
+    b = build(cfg, ONE_VERTEX, [HostSpec(name=f"n{i}") for i in range(H)],
+              device=dev)
+    pongs = np.zeros(H, np.int64)
+    data = (bytes(range(256)) * 64)[:VP_TCP_BYTES]
+    digests = {}
+
+    def udp_client(host):
+        peer = b.ip_of(f"n{host + 1}")
+        fd = yield vproc.socket(SocketType.UDP)
+        yield vproc.bind(fd, VP_PORT)
+        for _ in range(VP_ROUNDS):
+            yield vproc.sendto(fd, peer, VP_PORT, 64)
+            _sip, _spt, n = yield vproc.recvfrom(fd)
+            assert n == 64
+            pongs[host] += 1
+        yield vproc.close(fd)
+
+    def udp_server(host):
+        fd = yield vproc.socket(SocketType.UDP)
+        yield vproc.bind(fd, VP_PORT)
+        for _ in range(VP_ROUNDS):
+            sip, spt, n = yield vproc.recvfrom(fd)
+            yield vproc.sendto(fd, sip, spt, n)
+        yield vproc.close(fd)
+
+    def tcp_client(host):
+        peer = b.ip_of(f"n{host + 1}")
+        fd = yield vproc.socket(SocketType.TCP)
+        rc = yield vproc.connect(fd, peer, VP_PORT)
+        assert rc == 0
+        buf = data
+        while buf:
+            n = yield vproc.send_data(fd, buf)
+            buf = buf[n:]
+        yield vproc.close(fd)
+
+    def tcp_server(host):
+        ls = yield vproc.socket(SocketType.TCP)
+        yield vproc.bind(ls, VP_PORT)
+        yield vproc.listen(ls)
+        fd = yield vproc.accept(ls)
+        got = bytearray()
+        while True:
+            d = yield vproc.recv_data(fd)
+            if not d:
+                break
+            got += d
+        digests[host] = hashlib.sha256(bytes(got)).hexdigest()
+        yield vproc.close(fd)
+        yield vproc.close(ls)
+
+    client, server = ((udp_client, udp_server) if kind == "udp"
+                      else (tcp_client, tcp_server))
+    rt = ProcessRuntime(b, device=dev)
+    for i in range(0, H, 2):
+        rt.spawn(i, client)
+        rt.spawn(i + 1, server)
+    sim, stats = rt.run()
+    st = stats.as_dict()
+    checks = {k: st[k] for k in ("events_processed", "micro_steps",
+                                 "windows")}
+    checks.update(syscalls=rt.stat_syscalls,
+                  dispatches=rt.stat_device_dispatches,
+                  overflow=int(sim.events.overflow) + int(sim.outbox.overflow)
+                  + int(sim.net.rq_overflow))
+    if kind == "udp":
+        checks["pongs"] = int(pongs.sum())
+    else:
+        want = hashlib.sha256(data).hexdigest()
+        checks["streams_ok"] = sum(d == want for d in digests.values())
+    if not all(p.done for p in rt.procs):
+        raise AssertionError(f"vproc {kind}: a process did not finish")
+    return rt, sim, stats, checks
+
+
+def _vproc_job(kind, dev):
+    """The CPU half of 19a/19b in a worker: (EngineStats dict, leaves,
+    checks, wall s)."""
+    from shadow_tpu_torch import convert
+
+    t0 = time.perf_counter()
+    _, sim, stats, checks = vproc_run(kind, dev)
+    return (stats.as_dict(), convert.sim_to_numpy(sim), checks,
+            time.perf_counter() - t0)
+
+
+def vproc_card(label, kind, expect, leaves_want, device):
+    """19a/19b's card half, the launch counter set to 0 just before and
+    read just after, held to the reference's pinned counts and leaf
+    digest. Returns (launches, wall s, the checks, KeepGatherInputs,
+    runtime, (EngineStats dict, leaves))."""
+    import torch
+
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+
+    with KeepGatherInputs() as kept:
+        torch.cuda.synchronize()
+        mailbox_gather.launches = 0
+        t0 = time.perf_counter()
+        rt, sim, stats, checks = vproc_run(kind, device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = mailbox_gather.launches
+    if checks != expect:
+        raise AssertionError(f"{label}: {checks} != the reference's "
+                             f"{expect}")
+    leaves = convert.sim_to_numpy(sim)
+    dig = leaf_digest(leaves)
+    if dig != leaves_want:
+        raise AssertionError(f"{label}: leaf digest {dig} != the "
+                             f"reference's {leaves_want}")
+    log(f"  {label} cuda: the reference's counts {checks}, leaf digest "
+        f"{dig} (all {len(leaves)} leaves)")
+    # one launch per routed window: every route of these runs brings
+    # at most 32 arrivals to a row, so "sort2" sweeps with the kernel
+    routed = checks["windows"] - int(sim.outbox.route_elided)
+    if launches != routed or launches == 0:
+        raise AssertionError(f"{label}: mailbox_gather launched {launches} "
+                             f"times for {routed} non-empty windows")
+    w = checks["windows"]
+    log(f"  {label}: wall {wall:.3f} s on the card, {wall / w * 1e3:.1f} ms "
+        f"a window, {checks['syscalls'] / wall:.0f} syscalls/s, "
+        f"{checks['dispatches'] / w:.2f} device dispatches a window, "
+        f"{checks['micro_steps'] / w:.2f} micro-steps a window; "
+        f"mailbox_gather launched {launches} times = {routed} non-empty "
+        f"windows")
+    return launches, wall, checks, kept, rt, (stats.as_dict(), leaves)
+
+
+def vproc_cpu_equal(label, fut, card, checks):
+    """The CPU half (a worker's `_vproc_job` future) equal to the
+    card's (EngineStats dict, leaves) and checks."""
+    st, cleaves, cchecks, cwall = fut.result(timeout=900)
+    n = assert_same_leaves(label, card, (st, cleaves))
+    if cchecks != checks:
+        raise AssertionError(f"{label}: cpu {cchecks} != cuda {checks}")
+    log(f"  {label}: cuda == cpu ({cwall:.1f} s), EngineStats and all {n} "
+        f"leaves equal")
+
+
+def start_reftests_clis(tmp, names, nice=0):
+    """19c's reftests configs `names` as CLI subprocesses."""
+    started = {}
+    for i, name in enumerate(VP_REFTESTS):
+        if name in names:
+            body = f'  <plugin id="p" path="{name}"/>\n  {VP_REFTESTS[name]}'
+            started[f"reftests {name}"] = start_cli(f"vp{i}", small_config(
+                body, 30), tmp, nice=nice)
+    return started
+
+
+def start_vproc_clis(tmp):
+    """19c and 19d as subprocesses, but for the long reftests configs
+    (VP_LONG, started first): the other reftests configs and the .py
+    plugin echo config through `python -m shadow_tpu_torch.cli
+    --platform gpu`, and --host-kernel diff on the tgen dual workload
+    and the epoll reftests config."""
+    import os
+
+    from shadow_tpu_torch.hostrun.runner import GRAPH as TWO_HOSTS
+
+    started = start_reftests_clis(tmp, set(VP_REFTESTS) - set(VP_LONG),
+                                  nice=VP_NICE)
+    d = os.path.join(tmp, "py")
+    os.makedirs(d)
+    for fname, text in (("echo_plugin.py", VP_PY_PLUGIN),
+                        ("one.graphml.xml", VP_PY_GRAPH),
+                        ("shadow.config.xml", VP_PY_CONFIG),
+                        ("tgen_dual.py", VP_TGEN_PLUGIN),
+                        ("two.graphml.xml", TWO_HOSTS),
+                        ("tgen.config.xml", VP_TGEN_CONFIG)):
+        with open(os.path.join(d, fname), "w") as f:
+            f.write(text)
+    cli = [sys.executable, "-m", "shadow_tpu_torch.cli"]
+    started[".py plugin"] = start_proc(".py plugin", cli + [
+        os.path.join(d, "shadow.config.xml"), "--platform", "gpu", "-d",
+        os.path.join(d, "py.data")], nice=VP_NICE)
+    started["host-kernel diff tgen"] = start_proc("host-kernel diff tgen",
+                                                  cli + [
+        os.path.join(d, "tgen.config.xml"), "--platform", "gpu", "-d",
+        os.path.join(d, "tgen.data"), "--host-kernel", "diff"],
+                                                  nice=VP_NICE)
+    epoll = small_config('  <plugin id="p" path="libshadow-plugin-test-'
+                         f'epoll.so"/>\n  {_VP_ONE}', 30)
+    path = os.path.join(d, "epoll.config.xml")
+    with open(path, "w") as f:
+        f.write(epoll)
+    started["host-kernel diff epoll"] = start_proc("host-kernel diff epoll",
+                                                   cli + [
+        path, "--platform", "gpu", "-d", os.path.join(d, "epoll.data"),
+        "--host-kernel", "diff"], nice=VP_NICE)
+    return started
+
+
+def start_vproc_untimed(tmp, started):
+    """Phase 19's work that nothing times, started beside phase 18's
+    untimed runs: the 16 CLI subprocesses of 19c-19d (the two long
+    reftests configs first, the others at a lower priority) into
+    `started`, and 19b's CPU half in a CPU worker (its future)."""
+    started.update(start_reftests_clis(tmp, VP_LONG))
+    fut = in_worker(_vproc_job, "tcp", "cpu")
+    started.update(start_vproc_clis(tmp))
+    return fut
+
+
+def finish_vproc_clis(started):
+    """Every 19c run exits 0 with the reference CLI's report; both 19d
+    diffs exit 0 with "agree": true and a manifest conformance block."""
+    for label, st in started.items():
+        if label.startswith("host-kernel"):
+            code, stdout, stderr, wall = finish_proc(st)
+            # the CLI prints its JSON line before the log's flush
+            lines = [ln for ln in stdout.splitlines()
+                     if ln.startswith('{"mode"')]
+            if code != 0 or not lines:
+                raise AssertionError(f"{label}: exit {code}:\n"
+                                     f"{stdout[-3000:]}\n{stderr[-3000:]}")
+            rep = json.loads(lines[-1])
+            with open(rep["manifest"]) as f:
+                conf = json.load(f).get("conformance")
+            if not rep.get("agree") or not conf or conf["agree"] != 1:
+                raise AssertionError(f"{label}: {rep} conformance {conf}")
+            log(f"  {label}: exit 0 in {wall:.1f} s, agree, manifest "
+                f"conformance {json.dumps(conf)}")
+            continue
+        if label == ".py plugin":
+            code, stdout, stderr, wall = finish_proc(st)
+            lines = stdout.strip().splitlines()
+            if code != 0 or not lines:
+                raise AssertionError(f"{label}: exit {code}:\n"
+                                     f"{stdout[-3000:]}\n{stderr[-3000:]}")
+            report = json.loads(lines[-1])
+            log(f"  {label}: exit 0 in {wall:.1f} s")
+            check_report(label, report, VP_PY_REPORT)
+            continue
+        report, _, _ = finish_cli(st)
+        events, windows = VP_REFTESTS_REPORTS[label[9:]]
+        check_report(label, report, {"events": events, "windows": windows,
+                                     "overflow": 0})
+
+
+def vproc_cell(device, tmp, started, tcp_cpu):
+    """Phase 19, in the directory `tmp`; `started` holds 19c-19d's CLIs
+    and `tcp_cpu` is 19b's CPU half, all started beside phase 18's
+    untimed runs (start_vproc_untimed). Returns (kernel-row additions,
+    max abs error)."""
+    from shadow_tpu_torch import native
+
+    native.require()
+    log(f"[19a] vproc-1k-udp: {VP_HOSTS} processes, {VP_HOSTS // 2} UDP "
+        f"pairs, {VP_ROUNDS} rounds of 64 B, {VP_SIM_S} sim-s")
+    label = "19a vproc-1k-udp"
+    fut = in_worker(_vproc_job, "udp", "cpu")
+    launches, wall, checks, kept, _, card = vproc_card(
+        label, "udp", VP_UDP_EXPECT, VP_UDP_LEAVES, device)
+    vproc_cpu_equal(label, fut, card, checks)
+    err = kept.check("19a")
+    w = checks["windows"]
+    udp = {"ms_per_window": round(wall / w * 1e3, 3),
+           "syscalls_per_s": round(checks["syscalls"] / wall, 1),
+           "dispatches_per_window": round(checks["dispatches"] / w, 3)}
+    label = "19b vproc-1k-tcp"
+    log(f"[19b] vproc-1k-tcp: {VP_HOSTS // 2} TCP pairs, {VP_TCP_BYTES} B "
+        f"each, beside 19c-19d's CLIs")
+    tlaunch, _, tchecks, _, rt, card = vproc_card(
+        label, "tcp", VP_TCP_EXPECT, VP_TCP_LEAVES, device)
+    freed = rt.gc_pool()
+    if rt.pool.live_refs() or rt.pool.live_bytes():
+        raise AssertionError(f"19b: the pool holds {rt.pool.live_refs()} "
+                             f"refs after gc_pool")
+    log(f"  19b: all {tchecks['streams_ok']} streams sha256-equal, the "
+        f"pool empty after gc_pool ({freed} freed)")
+    vproc_cpu_equal(label, tcp_cpu, card, tchecks)
+    del rt, card
+    log("[19c-d] the reftests configs, the .py plugin and --host-kernel "
+        "diff through the CLI")
+    finish_vproc_clis(started)
+    # timed alone, once the subprocesses have ended
+    gather = time_gather("19a", kept.kept)
+    return {"launches_vproc": launches, "launches_vproc_tcp": tlaunch,
+            "vproc": {k: gather[k] for k in ("n", "ms", "plain_ms",
+                                             "bound_ms", "library_ms")},
+            "vproc_udp": udp}, err
 
 
 def main(argv=None) -> int:
@@ -4999,8 +5602,10 @@ def main(argv=None) -> int:
 
 
 def run_phases(args, bench, insert_kernels) -> int:
-    """Phases 1-18 and the result lines (main starts and stops the CPU
+    """Phases 1-19 and the result lines (main starts and stops the CPU
     halves' worker around them)."""
+    import tempfile
+
     import torch
 
     phase_s = {}
@@ -5270,15 +5875,33 @@ def run_phases(args, bench, insert_kernels) -> int:
         f"{OBS_CLI_STOP} sim-s; the same bundle in-process with a drain "
         f"every window to {OBS_STOP} sim-s; CUDA against CPU at "
         f"{OBS_CUT_HOSTS} hosts and on the TCP example twin")
-    got, err = obs_cell(device)
-    row["max_abs_err"] = max(row["max_abs_err"], err)
-    row.update(got)
-    obs = got["obs"]
-    log(f"  phase 18 profile on {smi}: {obs['ms_per_window']} ms a window "
-        f"and a drain of {obs['drain_ms_per_window']} ms on top "
-        f"({obs['ms_per_window_with_drain']} ms hook to hook), "
-        f"{obs['micro_steps_per_window']} micro-steps a window; the "
-        f"drains {obs['drain_share'] * 100:.1f}% of 18b's whole run")
+    # phase 19's untimed work starts beside 18's (18a, 18c)
+    vp_tmp = tempfile.TemporaryDirectory(prefix="shadow_vproc_")
+    vp_clis: dict = {}
+    tcp_cpu = []
+    try:
+        got, err = obs_cell(device, untimed=lambda: tcp_cpu.append(
+            start_vproc_untimed(vp_tmp.name, vp_clis)))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row.update(got)
+        obs = got["obs"]
+        log(f"  phase 18 profile on {smi}: {obs['ms_per_window']} ms a "
+            f"window and a drain of {obs['drain_ms_per_window']} ms on top "
+            f"({obs['ms_per_window_with_drain']} ms hook to hook), "
+            f"{obs['micro_steps_per_window']} micro-steps a window; the "
+            f"drains {obs['drain_share'] * 100:.1f}% of 18b's whole run")
+
+        phase("19")
+        log(f"[19] virtual processes: {VP_HOSTS} coroutines over UDP and "
+            f"TCP through ProcessRuntime; the reftests configs, a .py "
+            f"plugin and --host-kernel diff through the CLI")
+        got, err = vproc_cell(device, vp_tmp.name, vp_clis, tcp_cpu[0])
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row.update(got)
+    finally:
+        for st in vp_clis.values():
+            stop_proc(st)
+        vp_tmp.cleanup()
 
     phase(None)
     log(f"  done; seconds per phase {json.dumps(phase_s)}")

@@ -16,8 +16,8 @@ Determinism: a markov phase samples its on/off chain from
 `random.Random(seed)` at COMPILE time — the sampled trace is part of
 the run's input, so dispatch chunking cannot perturb it.
 
-The reference's `tgen_main` (the dual-mode virtual-process twin) waits
-for the virtual processes (ROADMAP.md Queue 1 item 10b).
+`tgen_main` is the dual-mode virtual-process twin: the same phase walk
+as real sleeps and sendtos (hostrun/runner.py catalogs it).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from dataclasses import dataclass
 
 import torch
 
+from shadow_tpu_torch.config.xmlconfig import TrafficPhase
 from shadow_tpu_torch.core.events import EventKind, _Replace, census_mask
 from shadow_tpu_torch.net import nic, udp
 from shadow_tpu_torch.net.rings import gather_hs
@@ -185,3 +186,45 @@ def handler(cfg: NetConfig, sim, popped, buf, kinds=None):
     return sim.replace(
         net=net,
         app=sim.app.replace(rcvd=sim.app.rcvd + got.to(I64))), buf
+
+
+# ------------------------------------------------- dual-mode twin
+
+# the conformance workload's FIXED schedule: a burst, a silence, an
+# on/off markov tail — every phase kind crosses the host-kernel diff
+DUAL_PORT = 9102
+DUAL_PHASES = (
+    TrafficPhase(kind="stream", rate=8.0, count=5, size=32),
+    TrafficPhase(kind="pause", duration_ns=500_000_000),
+    TrafficPhase(kind="markov", rate=16.0, duration_ns=1_000_000_000,
+                 size=32, p_on=0.6, p_off=0.4, seed=11),
+)
+
+
+def tgen_main(env):
+    """Dual-mode vproc program (cataloged in hostrun/runner.py and
+    re-exported from apps.reftests): the client walks DUAL_PHASES
+    with real sleeps + sendto, the server recvfroms exactly the
+    compiled slot count — both backends must produce one normalized
+    trace."""
+    from shadow_tpu_torch.process import vproc
+
+    args = env["args"]
+    role = args[0] if args else "server"
+    sched = list(phase_times(DUAL_PHASES))
+    fd = yield vproc.socket(SocketType.UDP)
+    if role == "server":
+        yield vproc.bind(fd, DUAL_PORT)
+        for _ in sched:
+            yield vproc.recvfrom(fd)
+        yield vproc.close(fd)
+        return
+    server = args[1] if len(args) > 1 else "server"
+    ip = yield vproc.gethostbyname(server)
+    now = 0
+    for t, size in sched:
+        if t > now:
+            yield vproc.sleep(t - now)
+            now = t
+        yield vproc.sendto(fd, ip, DUAL_PORT, size)
+    yield vproc.close(fd)

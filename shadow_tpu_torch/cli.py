@@ -34,11 +34,19 @@ libpcap file per host in the data directory after every window
 On the card the run requires the native library (native/, built with
 g++ at first use): its log writer sorts large batches with it.
 
+A config with `.py` plugins or the reftests syscall plugins runs its
+virtual processes (process/vproc.py ProcessRuntime: coroutines over the
+simulated syscalls, the device window between their rounds), on the
+full program and without injection, lane isolation or window telemetry,
+as in the reference. `--host-kernel run` executes the same processes on
+the real OS (hostrun/); `--host-kernel diff` runs both and diffs their
+normalized syscall traces (exit 4 on divergence, 2 when no localhost
+port binds; the manifest's `conformance` block).
+
 Flags whose mechanism the port does not have yet are refused by name
 (exit 2) with the ROADMAP.md Queue 1 item they wait for: `--workers` >
-1 (item 9); `--host-kernel` and `--host-time-scale` (item 10b);
-`--profile-dir`, which names jax.profiler. The `fleet` and `sweep`
-sub-commands wait for item 12.
+1 (item 9); `--profile-dir`, which names jax.profiler. The `fleet` and
+`sweep` sub-commands wait for item 12.
 
 `--specialize auto` (the default) runs the capability-trimmed program,
 as the reference does (compile/specialize.py: on a lossless topology
@@ -204,9 +212,15 @@ def make_parser() -> argparse.ArgumentParser:
                    help="refused: names jax.profiler (chip_smoke.py "
                         "--profile profiles the port)")
     p.add_argument("--host-kernel", choices=("run", "diff"), default=None,
-                   help="refused: ROADMAP.md Queue 1 item 10b")
+                   help="execute the config's .py-plugin processes on "
+                        "the REAL host kernel (hostrun backend): 'run' "
+                        "executes there only; 'diff' runs both backends "
+                        "and diffs normalized syscall traces, writing a "
+                        "conformance block into run_manifest.json "
+                        "(exit 4 on divergence)")
     p.add_argument("--host-time-scale", type=float, default=0.05,
-                   help="refused when set: ROADMAP.md Queue 1 item 10b")
+                   help="host-kernel backend: simulated seconds -> real "
+                        "seconds for sleeps/timers (default 0.05)")
     p.add_argument("--supervise", action="store_true",
                    help="host-driven window loop with health latches, "
                         "periodic checkpoints, and checkpoint-backed "
@@ -321,17 +335,75 @@ def overrides_from_args(args) -> dict:
 def refused_flags(args) -> list[str]:
     """The flags given whose mechanism is not ported, each with its
     ROADMAP.md Queue 1 item."""
-    checks = (
-        ("--workers > 1", args.workers > 1, 9),
-        ("--host-kernel", args.host_kernel is not None, "10b"),
-        ("--host-time-scale", args.host_time_scale != 0.05, "10b"),
-    )
-    out = [f"{flag} (ROADMAP.md Queue 1 item {item})"
-           for flag, given, item in checks if given]
+    out = []
+    if args.workers > 1:
+        out.append("--workers > 1 (ROADMAP.md Queue 1 item 9)")
     if args.profile_dir is not None:
         out.append("--profile-dir (it names jax.profiler; "
                    "chip_smoke.py --profile profiles the port)")
     return out
+
+
+def _host_kernel_mode(args, b, loaded, logger, device) -> int:
+    """--host-kernel: execute the config's virtual processes on the
+    real OS (hostrun backend). 'diff' additionally runs the simulation
+    on `device` and compares normalized syscall traces — the dual-mode
+    conformance check. Exit codes: 0 agree/ran, 2 no bindable localhost
+    ports, 4 divergence."""
+    from shadow_tpu_torch import hostrun
+    from shadow_tpu_torch.hostrun.trace import TraceRecorder
+
+    try:
+        hostrun.PortAllocator.preflight()
+    except hostrun.PortsUnavailable as e:
+        print(f"error: host-kernel backend unavailable: {e}",
+              file=sys.stderr)
+        return 2
+
+    ip_names = {int(b.ip_of(n)): n for n in b.host_names}
+    host_rec = TraceRecorder(ip_names=ip_names)
+    ex = hostrun.HostKernelExecutor(
+        b, time_scale=args.host_time_scale, trace=host_rec)
+    for hi, fn, st, sp in loaded.vprocs:
+        ex.spawn(hi, fn, start_time=st, stop_time=sp)
+    t0 = time.time()
+    ex.run()
+    wall = time.time() - t0
+    logger.message(0, "shadow-tpu",
+                   f"host-kernel run complete: {len(ex.procs)} "
+                   f"process(es), {wall:.2f}s wall")
+    if args.host_kernel == "run":
+        print(json.dumps({"mode": "host-kernel-run",
+                          "processes": len(ex.procs),
+                          "wall_seconds": round(wall, 3)}))
+        return 0
+
+    # diff: the same generators through the simulation, then compare
+    from shadow_tpu_torch import telemetry
+    from shadow_tpu_torch.process.vproc import ProcessRuntime
+
+    sim_rec = TraceRecorder(ip_names=ip_names)
+    rt = ProcessRuntime(b, app_handlers=loaded.handlers, device=device)
+    rt.trace = sim_rec
+    for hi, fn, st, sp in loaded.vprocs:
+        rt.spawn(hi, fn, start_time=st, stop_time=sp)
+    sim, stats = rt.run()
+    res = hostrun.diff_traces(sim_rec.normalized(), host_rec.normalized())
+    print(hostrun.render(res))
+    name = os.path.basename(args.config) if args.config else "config"
+    conf = {"workloads": {name: "agree" if res.agree else "diverge"},
+            "agree": int(res.agree), "diverge": int(not res.agree),
+            "total": 1}
+    man = telemetry.run_manifest(
+        cfg=b.cfg, seed=args.seed, shards=1, sim=sim, stats=stats,
+        fault_plan=b.fault_plan, conformance=conf)
+    os.makedirs(args.data_directory, exist_ok=True)
+    mpath = telemetry.write_manifest(
+        os.path.join(args.data_directory, "run_manifest.json"), man)
+    logger.message(0, "shadow-tpu", f"run manifest -> {mpath}")
+    print(json.dumps({"mode": "host-kernel-diff", "agree": res.agree,
+                      "manifest": mpath}))
+    return 0 if res.agree else 4
 
 
 def _resolve_resume(path: str) -> str | None:
@@ -481,6 +553,11 @@ def _run(args, text, device, logger) -> int:
     if args.inject_trace or loaded.inject_events:
         from shadow_tpu_torch.inject import Feeder
 
+        if loaded.vprocs:
+            print("error: event injection needs the on-device window "
+                  "loop; .py-plugin virtual processes cannot consume "
+                  "injected events", file=sys.stderr)
+            return 1
         if args.inject_trace and loaded.inject_events:
             logger.warning(0, "shadow-tpu",
                            "--inject-trace overrides the config's "
@@ -508,8 +585,13 @@ def _run(args, text, device, logger) -> int:
                     "wall_seconds": round(time.time() - t0, 3)}))
 
     # lane-isolated health: attach BEFORE the telemetry ring, which
-    # sizes its per-lane fan-out planes off sim.lanes
-    if args.lane_isolation:
+    # sizes its per-lane fan-out planes off sim.lanes. Single-program
+    # window loops only: the ProcessRuntime loop has no lane barrier
+    if args.lane_isolation and loaded.vprocs:
+        logger.warning(0, "shadow-tpu",
+                       "--lane-isolation is unavailable with .py plugins "
+                       "(ProcessRuntime window loop); ignored")
+    elif args.lane_isolation:
         from shadow_tpu_torch.core import lanes as lanes_mod
 
         try:
@@ -542,6 +624,13 @@ def _run(args, text, device, logger) -> int:
                     or args.telemetry_capacity)
     flows_on = bool(args.flow_sample and args.flow_sample > 0)
     caus_on = bool(args.causality_sample and args.causality_sample > 0)
+    if (telem_on or flows_on or caus_on) and loaded.vprocs:
+        logger.warning(0, "shadow-tpu",
+                       "window telemetry is unavailable with .py plugins "
+                       "(ProcessRuntime drives its own window loop); "
+                       "--trace-out/--metrics-out/--flow-sample/"
+                       "--causality-sample ignored")
+        telem_on = flows_on = caus_on = False
     if telem_on:
         b.sim = telemetry.attach(
             b.sim, capacity=args.telemetry_capacity
@@ -578,14 +667,16 @@ def _run(args, text, device, logger) -> int:
 
     # program specialization (compile/specialize.py): derive the
     # capability vector from the concrete build AFTER every attachment,
-    # so the analysis sees the final Sim. The reference runs the full
-    # program for .py-plugin runtimes and --host-kernel; the port
-    # refuses both (ROADMAP.md Queue 1 item 10b), which takes that
-    # branch over when it lands.
+    # so the analysis sees the final Sim. Virtual processes arm host
+    # timers outside the handlers' declarations, so .py-plugin runtimes
+    # and --host-kernel run the full program
     from shadow_tpu_torch.compile import specialize
 
-    b = specialize.apply(b, loaded.handlers, app_bulk=b.app_bulk,
-                         mode=args.specialize)
+    if loaded.vprocs or args.host_kernel:
+        b = specialize.apply(b, mode="off")
+    else:
+        b = specialize.apply(b, loaded.handlers, app_bulk=b.app_bulk,
+                             mode=args.specialize)
     if b.caps is not None and b.caps.dropped():
         logger.message(
             0, "shadow-tpu",
@@ -607,7 +698,30 @@ def _run(args, text, device, logger) -> int:
             progress_hook(s, wend)
 
     sup_result = None
-    if args.supervise:
+    if args.host_kernel:
+        if not loaded.vprocs:
+            print("error: --host-kernel needs a config with .py plugins "
+                  "(virtual processes)", file=sys.stderr)
+            return 1
+        return _host_kernel_mode(args, b, loaded, logger, device)
+    if loaded.vprocs:
+        # .py plugins: coroutine processes over the simulated syscall
+        # surface; the runtime's window loop drains the capture ring
+        from shadow_tpu_torch.process.vproc import ProcessRuntime
+
+        if b.app_bulk is not None:
+            # ProcessRuntime's window loop has no bulk-pass hook: a
+            # mixed .py-plugin + bulk-capable-app config falls back to
+            # per-event micro-steps
+            logger.warning(0, "shadow-tpu",
+                           "bulk window pass unavailable with .py "
+                           "plugins; using per-event micro-steps")
+        rt = ProcessRuntime(b, app_handlers=loaded.handlers, device=device)
+        for hi, fn, st, sp in loaded.vprocs:
+            rt.spawn(hi, fn, start_time=st, stop_time=sp)
+        sim, stats = rt.run(on_window=window_hook)
+        _sync(device)
+    elif args.supervise:
         code, sup_result = _supervise(args, b, loaded, device, logger,
                                       window_hook, resume_ckpt, tel)
         if code is not None:

@@ -607,6 +607,24 @@ def _drain_one(cfg: NetConfig, sim, buf, mask, now, bootstrap,
 
 def notify_wants_send(sim, buf, mask, now):
     """App enqueued data on a socket: flag the lane so the send drain
-    at the end of this micro-step's pipeline picks it up."""
+    at the end of this micro-step's pipeline picks it up. Host-side
+    syscall paths (vproc), which run outside the pipeline, follow up
+    with flush_wants_send()."""
     net = sim.net.replace(nic_send_now=sim.net.nic_send_now | mask)
+    return sim.replace(net=net), buf
+
+
+def flush_wants_send(sim, buf, now):
+    """Convert lingering nic_send_now bits into NIC_SEND events — used
+    by host-side syscall execution where no pipeline send drain will
+    run this 'micro-step' (ProcessRuntime._apply)."""
+    net = sim.net
+    H = net.rq_head.shape[0]
+    dev = net.rq_head.device
+    kick = net.nic_send_now & ~net.nic_send_pending
+    buf = emit(buf, kick, net.lane_id, now, EventKind.NIC_SEND,
+               _empty_words(H, dev))
+    net = net.replace(nic_send_pending=net.nic_send_pending | kick,
+                      nic_send_now=torch.zeros((H,), dtype=torch.bool,
+                                               device=dev))
     return sim.replace(net=net), buf

@@ -4,8 +4,8 @@ ref: descriptor/timer.c).
 Each host owns T timer slots with absolute next-expiry + interval. A
 TIMER event carries (slot, generation); stale events from earlier
 settings are ignored on fire, and periodic timers reschedule
-themselves. Arming timers (the reference's timer_set) comes with the
-first application that uses them.
+themselves. Virtual processes arm, disarm and read them through the
+timerfd syscalls (process/vproc.py).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from shadow_tpu_torch.core import simtime
-from shadow_tpu_torch.core.events import EventKind, emit
+from shadow_tpu_torch.core.events import NWORDS, EventKind, as_tensor, emit
 from shadow_tpu_torch.net.rings import gather_hs, set_hs
 from shadow_tpu_torch.net.state import NetConfig
 
@@ -23,6 +23,50 @@ I64 = torch.int64
 # timer event words
 TW_SLOT = 0
 TW_GEN = 1
+
+
+def timer_set(sim, buf, mask, slot, expire_time, interval=0):
+    """Arm timer `slot` per masked lane to fire at expire_time (abs),
+    then every `interval` ns if nonzero. Returns (sim, buf)."""
+    net = sim.net
+    H = net.tm_expire.shape[0]
+    dev = mask.device
+    gen = gather_hs(net.tm_gen, slot) + 1
+    expire = as_tensor(expire_time, simtime.DTYPE, dev)
+    net = net.replace(
+        tm_expire=set_hs(net.tm_expire, mask, slot, expire),
+        tm_interval=set_hs(net.tm_interval, mask, slot,
+                           as_tensor(interval, simtime.DTYPE, dev)),
+        tm_gen=set_hs(net.tm_gen, mask, slot, gen),
+    )
+    words = torch.zeros((H, NWORDS), dtype=I32, device=dev)
+    words[:, TW_SLOT] = as_tensor(slot, I32, dev)
+    words[:, TW_GEN] = gen.to(I32)
+    buf = emit(buf, mask, net.lane_id, expire.expand(H), EventKind.TIMER,
+               words)
+    return sim.replace(net=net), buf
+
+
+def timer_disarm(sim, mask, slot):
+    """Disarm: bump generation so in-flight events become stale."""
+    net = sim.net
+    gen = gather_hs(net.tm_gen, slot) + 1
+    net = net.replace(
+        tm_expire=set_hs(net.tm_expire, mask, slot, simtime.INVALID),
+        tm_gen=set_hs(net.tm_gen, mask, slot, gen),
+    )
+    return sim.replace(net=net)
+
+
+def timer_read(sim, mask, slot):
+    """timerfd read(): returns expirations since last read and clears
+    the count. Returns (sim, count[H])."""
+    net = sim.net
+    n = torch.where(mask, gather_hs(net.tm_expirations, slot), 0)
+    net = net.replace(
+        tm_expirations=set_hs(net.tm_expirations, mask, slot,
+                              torch.zeros_like(n)))
+    return sim.replace(net=net), n
 
 
 def handle_timer(cfg: NetConfig, sim, popped, buf):

@@ -7,9 +7,8 @@ The device state cannot leak memory (fixed-shape tensors), but it can
 leak logically: sockets never freed, timers left armed, events never
 processed. This module derives those counts from the device counters
 and reports them in the reference's "ObjectCounter: counter values:
-new=N free=F" shape. The reference's `runtime` branch (payload pools,
-channels and processes of virtual processes) waits for
-process/vproc.py (ROADMAP.md Queue 1 item 10b).
+new=N free=F" shape; with a ProcessRuntime it adds the virtual
+processes' payload pool, channel fds and processes.
 """
 
 from __future__ import annotations
@@ -45,14 +44,11 @@ class ObjectCounts:
 
 
 def gather(sim, runtime=None, stats=None) -> ObjectCounts:
-    """Collect counts from the device state (one host read). Socket
-    counts come from the ctr_sk_alloc/free counters; their diff is
-    cross-checked against the live socket table so a miscounted free
-    shows up as an inconsistency."""
-    if runtime is not None:
-        raise NotImplementedError(
-            "shadow_tpu_torch: objcount of a virtual-process runtime "
-            "(ROADMAP.md Queue 1 item 10b)")
+    """Collect counts from the device state (one host read) and
+    (optionally) a ProcessRuntime. Socket counts come from the
+    ctr_sk_alloc/free counters; their diff is cross-checked against the
+    live socket table so a miscounted free shows up as an
+    inconsistency."""
     net = sim.net
     i64 = torch.int64
     sk_new, sk_free, live_table, armed, ev_live = torch.stack([
@@ -67,4 +63,19 @@ def gather(sim, runtime=None, stats=None) -> ObjectCounts:
     counts["timer-armed"] = (armed, 0)
     processed = int(stats.events_processed) if stats is not None else 0
     counts["event"] = (processed + ev_live, processed)
+
+    if runtime is not None:
+        pool = runtime.pool
+        counts["payload"] = (pool.total_allocs(),
+                             pool.total_allocs() - pool.live_refs())
+        from shadow_tpu_torch.process.vproc import PIPE_FD_BASE
+
+        chans = runtime._channels
+        # channel fds: allocated minus still-registered
+        total_fds = sum(max(nf - PIPE_FD_BASE, 0)
+                        for nf in runtime._next_pipe_fd.values())
+        counts["channel-fd"] = (total_fds, total_fds - len(chans))
+        nproc = len(runtime.procs)
+        counts["process"] = (nproc,
+                             sum(1 for p in runtime.procs if p.done))
     return ObjectCounts(counts=counts)

@@ -10,6 +10,11 @@ reference's (shadow_tpu.cli), on the CPU:
 - `--supervise` (with snapshots), `--chunk-windows` and `--resume`
   give the plain run's report;
 - every refused flag exits 2 and names its ROADMAP.md item;
+  `--host-kernel run` (at the default and at `--host-time-scale 1.0`)
+  runs a `.py`-plugin config as the reference's CLI does, and the
+  port's `--host-kernel diff` agrees (the manifest's conformance
+  block; tests/test_torch_hostrun.py holds its simulated run to the
+  reference's);
   `--track-paths`, `--cpu-threshold` and a logpcap config give the
   reference's report, log and pcap files; the
   injection and telemetry flags (`--inject-trace`, `--inject-lanes`,
@@ -172,9 +177,14 @@ def test_resume_continues_to_the_plain_report(cli_runs, xml):
 
 REFUSED = {
     "workers": (["-w", "2"], "item 9"),
-    "host_kernel": (["--host-kernel", "run"], "item 10b"),
-    "host_time_scale": (["--host-time-scale", "1.0"], "item 10b"),
     "profile_dir": (["--profile-dir", "prof"], "jax.profiler"),
+}
+# the host-kernel flags the port once refused: run on
+# tests/test_py_plugins.py's .py-plugin echo config, rendered for each
+# package, against the reference's CLI
+LIFTED_HK = {
+    "host_kernel": ["--host-kernel", "run"],
+    "host_time_scale": ["--host-time-scale", "1.0", "--host-kernel", "run"],
 }
 # flags the port once refused: run against the reference's CLI on the
 # PHOLD XML with every host logpcap="true", cut to 1.2 sim-s (5
@@ -205,11 +215,67 @@ def observed_cli(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED) + sorted(LIFTED_OBS))
-def test_refused_flag_exits_and_names_its_item(xml, observed_cli, name):
+def _host_kernel_run(tmp_path, name):
+    """{"ref", "port"[, "diff"]: (exit code, the JSON line, manifest or
+    None, stderr)} of the reference's and the port's CLI with
+    LIFTED_HK[name], and for host_time_scale the port's with
+    `--host-kernel diff` at that scale."""
+    from shadow_tpu.hostrun.kernel import PortAllocator, PortsUnavailable
+    from test_py_plugins import CONFIG, GRAPH, PLUGIN
+
+    try:
+        PortAllocator.preflight()
+    except PortsUnavailable as e:
+        pytest.skip(f"no bindable localhost ports: {e}")
+    runs = [("ref", jcli, LIFTED_HK[name]), ("port", tcli, LIFTED_HK[name])]
+    if name == "host_time_scale":
+        runs.append(("diff", tcli, LIFTED_HK[name][:-1] + ["diff"]))
+    out = {}
+    for key, mod, flags in runs:
+        d = tmp_path / key
+        d.mkdir()
+        plugin = PLUGIN if key == "ref" else PLUGIN.replace(
+            "shadow_tpu.", "shadow_tpu_torch.")
+        (d / "echo_plugin.py").write_text(plugin)
+        (d / "one.graphml.xml").write_text(GRAPH)
+        (d / "shadow.config.xml").write_text(CONFIG)
+        code, lines, err = _main(mod, [str(d / "shadow.config.xml"),
+                                       "--platform", "cpu", "-l", "warning",
+                                       "-d", str(d / "data"), *flags])
+        man = d / "data" / "run_manifest.json"
+        out[key] = (code, json.loads(lines[-1]) if lines else None,
+                    json.loads(man.read_text()) if man.exists() else None,
+                    err)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED) + sorted(LIFTED_OBS)
+                         + sorted(LIFTED_HK))
+def test_refused_flag_exits_and_names_its_item(xml, observed_cli, name,
+                                               tmp_path):
     """A flag still refused exits 2 naming its ROADMAP item. The flags
     the port took over (LIFTED_OBS) give the reference CLI's report
-    and log: the per-path lines, and the events the gate defers."""
+    and log: the per-path lines, and the events the gate defers. The
+    host-kernel flags (LIFTED_HK) run the .py-plugin config as the
+    reference's CLI does: `run` exits 0 with the processes' count; at a
+    time scale of 1.0 the port's `diff` also agrees and writes the
+    conformance block."""
+    if name in LIFTED_HK:
+        runs = _host_kernel_run(tmp_path, name)
+        (rc, rrep, _, rerr), (pc, prep, _, perr) = (runs["ref"],
+                                                    runs["port"])
+        assert rc == 0, rerr
+        assert pc == 0, perr
+        assert prep["mode"] == rrep["mode"] == "host-kernel-run"
+        assert prep["processes"] == rrep["processes"] == 2
+        if name == "host_time_scale":
+            dc, drep, dman, derr = runs["diff"]
+            assert dc == 0, derr
+            assert drep["mode"] == "host-kernel-diff" and drep["agree"]
+            assert dman["conformance"] == {
+                "workloads": {"shadow.config.xml": "agree"}, "agree": 1,
+                "diverge": 0, "total": 1}
+        return
     if name in LIFTED_OBS:
         want, got = observed_cli["ref"], observed_cli["port"]
         assert tcli.refused_flags(tcli.make_parser().parse_args(

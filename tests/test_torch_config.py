@@ -9,11 +9,12 @@ reference's, on the CPU:
   config, equal capacity hints for every plugin, and equal runs
   (EngineStats and every leaf, tolerance zero) for phold, pingpong,
   randdump and the faults config;
-- every plugin the port refuses raises NotImplementedError before the
-  device build, naming the ROADMAP.md item it waits for; the tgen
-  plugin, <traffic> elements, inject_lanes, a logpcap host and the
-  track_paths and virtual-CPU overrides load as the reference loads
-  them.
+- the port refuses no plugin; the ones it once refused (a `.py`
+  plugin, the reftests syscall plugins, `testrandom`) load in both
+  packages with equal virtual processes (host, start, stop), NetConfig
+  and boot leaves; the tgen plugin, <traffic> elements, inject_lanes,
+  a logpcap host and the track_paths and virtual-CPU overrides load as
+  the reference loads them.
 
 One JAX TCP program: randdump's (testdeterminism has no hints, so the
 TCP machine stays on, as in the reference).
@@ -217,21 +218,32 @@ def test_plugin_hints_match_reference(name):
 
 
 def test_registry_covers_the_reference():
-    """Every name the reference registers is either a device plugin of
-    the port or refused with its ROADMAP item; none is both."""
+    """Every name the reference registers is a plugin of the port and
+    none is refused; testrandom is the reftests plugin (its second
+    registration wins, as in the reference)."""
     ported = set(tloader.plugin_names())
-    refused = set(tloader.refused_plugins())
-    assert not ported & refused
-    assert ported | refused == set(jloader.plugin_names())
-    assert "testrandom" in refused and "testdeterminism" in ported
+    assert tloader.refused_plugins() == {}
+    assert ported == set(jloader.plugin_names())
+    assert "testrandom" in ported and "testdeterminism" in ported
+    for name in ("testrandom", "testdeterminism"):
+        assert (tloader._REGISTRY[name].__qualname__
+                == jloader._REGISTRY[name].__qualname__)
 
 
+# the plugins the port once refused (virtual processes): each now
+# loads in both packages
 REFUSED = {
-    "py_plugin": ('<plugin id="p" path="client.py"/>', "item 10b"),
-    "reftests": ('<plugin id="p" path="libshadow-plugin-test-epoll.so"/>',
-                 "item 10b"),
-    "testrandom": ('<plugin id="p" path="testrandom"/>', "item 10b"),
+    "py_plugin": '<plugin id="p" path="client.py"/>',
+    "reftests": '<plugin id="p" path="libshadow-plugin-test-epoll.so"/>',
+    "testrandom": '<plugin id="p" path="testrandom"/>',
 }
+PY_PLUGIN = """from shadow_tpu.process import vproc
+
+
+def main(env):
+    t = yield vproc.gettime()
+    assert t >= 0
+"""
 # the observability settings the port once refused (a logpcap host, and
 # the overrides the CLI passes for --track-paths and --cpu-threshold):
 # each now loads as in the reference
@@ -286,14 +298,41 @@ def test_lifted_setting_loads_like_the_reference(name):
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED) + sorted(SETTINGS))
-def test_refused_before_the_build(name, monkeypatch):
-    """A plugin still refused raises before anything is built, naming
-    its item; a setting the port once refused (SETTINGS) loads the
-    reference's NetConfig, handlers and boot state."""
-    plugin, item = REFUSED.get(name, ('<plugin id="p" path="phold"/>', ""))
+def test_refused_before_the_build(name, tmp_path):
+    """A plugin or setting the port once refused loads as in the
+    reference: a plugin (REFUSED) gives equal NetConfig, handlers,
+    virtual processes (host, start, stop) and boot state — a `.py`
+    plugin rendered for each package, the port's importing
+    shadow_tpu_torch; a setting (SETTINGS) the reference's NetConfig,
+    handlers and boot state."""
+    plugin = REFUSED.get(name, '<plugin id="p" path="phold"/>')
     pcap = ' logpcap="true"' if name == "logpcap" else ""
     text = _config(f'{plugin}\n  <host id="h" quantity="4"{pcap}><process '
-                   f'plugin="p" starttime="1"/></host>')
+                   f'plugin="p" starttime="1" stoptime="2"/></host>')
+    if name in REFUSED:
+        dirs = {}
+        for pkg, src in (("jax", PY_PLUGIN), ("port", PY_PLUGIN.replace(
+                "shadow_tpu.", "shadow_tpu_torch."))):
+            dirs[pkg] = tmp_path / pkg
+            dirs[pkg].mkdir()
+            (dirs[pkg] / "client.py").write_text(src)
+        jl = jloader.load(jxml.parse_config(text), seed=3,
+                          base_dir=str(dirs["jax"]))
+        tl = tloader.load(txml.parse_config(text), seed=3,
+                          base_dir=str(dirs["port"]), device="cpu")
+        jb, tb = jl.bundle, tl.bundle
+        assert dataclasses.asdict(tb.cfg) == dataclasses.asdict(jb.cfg)
+        assert tl.handlers == () and jl.handlers == ()
+        assert [(h, st, sp) for h, _, st, sp in tl.vprocs] == [
+            (h, st, sp) for h, _, st, sp in jl.vprocs] == [
+            (i, 10**9, 2 * 10**9) for i in range(4)]
+        if name == "py_plugin":
+            gen = tl.vprocs[0][1](0)
+            assert type(next(gen)).__module__ == \
+                "shadow_tpu_torch.process.vproc"
+        _assert_leaves_equal(_jax_leaves(jb.sim),
+                             convert.sim_to_numpy(tb.sim))
+        return
     if name in SETTINGS:
         overrides = SETTINGS[name]
         jl = jloader.load(jxml.parse_config(text), seed=3,
@@ -310,13 +349,6 @@ def test_refused_before_the_build(name, monkeypatch):
         _assert_leaves_equal(_jax_leaves(jb.sim),
                              convert.sim_to_numpy(tb.sim))
         return
-
-    # refused before anything is built
-    def no_build(*a, **k):
-        raise AssertionError("built a refused config")
-    monkeypatch.setattr(tloader, "build", no_build)
-    with pytest.raises(NotImplementedError, match=item):
-        tloader.load(txml.parse_config(text), device="cpu")
 
 
 def test_unknown_plugin_is_a_value_error():

@@ -64,7 +64,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.utils.shadowlog",
                 "shadow_tpu_torch.utils.objcount",
                 "shadow_tpu_torch.utils.tracker", *INJECTION, *LANES,
-                *COMPILE, *OBSERVE):
+                *COMPILE, *OBSERVE, *VPROC):
         assert mod in out["modules"]
 
 
@@ -88,6 +88,14 @@ COMPILE = ("shadow_tpu_torch.compile", "shadow_tpu_torch.compile.buckets",
 # the netstack observability slice's host modules
 OBSERVE = ("shadow_tpu_torch.native", "shadow_tpu_torch.native.tally",
            "shadow_tpu_torch.native.pool", "shadow_tpu_torch.utils.pcap")
+
+
+# the virtual-process slice's modules
+VPROC = ("shadow_tpu_torch.process", "shadow_tpu_torch.process.vproc",
+         "shadow_tpu_torch.apps.reftests", "shadow_tpu_torch.hostrun",
+         "shadow_tpu_torch.hostrun.diff", "shadow_tpu_torch.hostrun.executor",
+         "shadow_tpu_torch.hostrun.kernel", "shadow_tpu_torch.hostrun.runner",
+         "shadow_tpu_torch.hostrun.trace")
 
 
 def _imports_alone(mod):
@@ -117,6 +125,11 @@ def test_compile_module_imports_alone_without_jax(mod):
 
 @pytest.mark.parametrize("mod", OBSERVE)
 def test_observe_module_imports_alone_without_jax(mod):
+    _imports_alone(mod)
+
+
+@pytest.mark.parametrize("mod", VPROC)
+def test_vproc_module_imports_alone_without_jax(mod):
     _imports_alone(mod)
 
 
@@ -276,3 +289,16 @@ def test_tcp_bulk_runner_needs_cuda_by_default():
         make_runner(b, app_tcp_bulk=TCP_BULK)
     with pytest.raises(RuntimeError, match="CUDA"):
         run(b, app_tcp_bulk=TCP_BULK, tcp_bulk_lossless=True)
+
+
+def test_process_runtime_needs_cuda_by_default():
+    """ProcessRuntime is a runner: without a device it is the card, and
+    without CUDA it raises rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behavior without a CUDA device")
+    from shadow_tpu_torch.process.vproc import ProcessRuntime
+
+    b = _tiny_build(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ProcessRuntime(b)
+    assert ProcessRuntime(b, device="cpu").device.type == "cpu"
