@@ -272,6 +272,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    stream-hinted configs first, the others at a lower CPU priority) and
    19b's CPU half start beside 18a and 18c, and run on beside 19a and
    19b's card half.
+20. the sharded window loop (parallel/shard.py) on the one card:
+   (20a) `BENCH_SHARDS=4 BENCH_SIM_SECONDS=1 python -m
+   shadow_tpu_torch.bench` — phase 4's program at 10,240 hosts as four
+   gloo ranks of the card, 2,560 rows each — with mailbox_gather's
+   inputs kept on rank 0: the row's EngineStats equal to the
+   single-shard run of the same input on the card (micro-steps summed
+   over the ranks, as the reference sums them) and the digest of every
+   final leaf but the per-shard-count ones equal, narrow hit + miss ==
+   windows, mailbox_gather launched once on every rank's non-empty
+   routes and exact against its plain version on rank 0's own receive
+   streams (and timed there), with the row's events/s, ms a window and
+   the collectives' ms a window; (20b) the CLI with `--workers 2` on
+   14b's cli-phold-ref: on one card the reference's rule narrows it to
+   1 with its warning, the report the reference's; (20c)
+   faults.run_supervised on a mesh of 2 ranks with the degraded plan on
+   13a's program cut to 1.2 sim-s: ok, its final state and EngineStats
+   equal to the serial supervised run's. 20b and 20c start beside
+   phases 14-19; their checks, 20c's serial run and 20a's single-shard
+   run go while 20a's ranks start up, before its timed call.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
@@ -1003,6 +1022,22 @@ VP_TGEN_CONFIG = """<shadow stoptime="10">
   </host>
 </shadow>
 """
+
+# Phase 20: the sharded window loop on the one card. 20a: the port's
+# bench entry point with BENCH_SHARDS (phase 4's program at full width
+# as gloo ranks of this card), cut to SHARD_SIM_S; 20c: run_supervised
+# on a mesh of SUP_MESH_RANKS ranks with the degraded plan, phase 13a's
+# program cut to SUP_MESH_SIM_S (past the first loss record at 1.0 s)
+SHARDS = 4
+SHARD_SIM_S = 1
+SUP_MESH_RANKS = 2
+SUP_MESH_SIM_S = 1.2
+# the leaves a shard count changes (the reference's narrow counters;
+# the ring's per-shard planes), left out of the state digests
+PER_SHARD_LEAVES = (".outbox.narrow_hit", ".outbox.narrow_miss",
+                    ".outbox.max_occupied", ".outbox.route_elided",
+                    ".telem.micro_steps", ".telem.routed_local",
+                    ".telem.routed_cross")
 
 T0 = time.perf_counter()
 # simtime.INVALID: an empty event slot
@@ -3232,7 +3267,7 @@ def small_config(body, stoptime):
             f'{EXAMPLE_GRAPHML}]]></topology>\n{body}\n</shadow>')
 
 
-def start_proc(label, cmd, nice=0):
+def start_proc(label, cmd, nice=0, env=None):
     """Start `cmd` from the repository root, its output captured; the
     smoke goes on while it runs (finish_proc waits for it, stop_proc
     kills it). Each CLI run that only its counts, logs and files check
@@ -3248,7 +3283,7 @@ def start_proc(label, cmd, nice=0):
         cmd = ["nice", "-n", str(nice), *cmd]
     proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+                            text=True, env=env)
     return label, cmd, proc, time.perf_counter()
 
 
@@ -5580,6 +5615,243 @@ def vproc_cell(device, tmp, started, tcp_cpu):
             "vproc_udp": udp}, err
 
 
+def shards_bench_rank0() -> int:
+    """20a's bench process: `python -m shadow_tpu_torch.bench`'s main
+    as rank 0 of BENCH_SHARDS ranks (it starts the others), with
+    mailbox_gather's inputs kept on this rank; after its row, the
+    kernel against its plain version on this rank's own kept streams
+    (the exchange's receive side) and timed on the narrowest. Prints
+    the row, then one {"gather_err", "gather"} line. Run as
+    `python3 -c "import chip_smoke; chip_smoke.shards_bench_rank0()"`
+    with BENCH_SHARDS in the environment."""
+    from shadow_tpu_torch import bench
+
+    with KeepGatherInputs() as kept:
+        code = bench.main([])
+    if code:
+        return code
+    err = kept.check("20a rank 0")
+    gather = time_gather("20a rank 0", kept.kept)
+    print(json.dumps({"gather_err": err, "gather": gather}), flush=True)
+    return 0
+
+
+def supervised_mesh_rank(rank, size, init, ckdir):
+    """20c's rank: run_supervised on phase 13a's program (the degraded
+    plan, the bulk pass, the ring) cut to SUP_MESH_SIM_S, on a mesh of
+    `size` ranks of this machine's card(s), K = 8, a snapshot every 8
+    windows into `ckdir` (rank 0 writes). Rank 0 returns the result's
+    ok, stats, state digest, snapshots and the mesh's backend."""
+    from shadow_tpu_torch import bench, faults
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.parallel import Mesh
+
+    mesh = Mesh(size, rank, init_method=init)
+    b = faults_bundle(mesh.device, HOSTS, SUP_MESH_SIM_S)
+    res = faults.run_supervised(
+        b, (phold.handler,), mesh=mesh, windows_per_dispatch=8,
+        checkpoint_path=f"{ckdir}/sup", checkpoint_every_windows=8)
+    out = {"ok": res.ok, "stats": res.stats.as_dict(),
+           "digest": bench.state_digest(res.sim),
+           "snapshots": len(res.checkpoints), "backend": mesh.backend}
+    mesh.close()
+    return out if rank == 0 else None
+
+
+def supervised_mesh_main() -> int:
+    """20c's process: SUP_MESH_RANKS spawned ranks of
+    supervised_mesh_rank (joined within 600 s); prints rank 0's JSON.
+    Run as `python3 -c "import chip_smoke;
+    chip_smoke.supervised_mesh_main()"`."""
+    import shutil
+    import tempfile
+
+    from shadow_tpu_torch.parallel import spawn
+
+    ckdir = tempfile.mkdtemp(prefix="shadow_sup_mesh_")
+    try:
+        out = spawn(supervised_mesh_rank, SUP_MESH_RANKS, ckdir,
+                    deadline_s=600)[0]
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def start_shards_side(tmp):
+    """Phase 20's runs that only counts and digests check, started
+    beside untimed work: 20b (the CLI with --workers 2 on 14b's
+    cli-phold-ref) and 20c (the supervised mesh run)."""
+    return {"20b": start_cli("cli-phold-ref-w2", REFERENCE_PHOLD_XML, tmp,
+                             "--workers", "2"),
+            "20c": start_proc("20c supervised mesh", [
+                sys.executable, "-c", "import sys, chip_smoke; "
+                "sys.exit(chip_smoke.supervised_mesh_main())"])}
+
+
+def _json_line(stdout, prefix):
+    """The last line of `stdout` that starts with `prefix`, parsed."""
+    lines = [ln for ln in stdout.splitlines() if ln.startswith(prefix)]
+    if not lines:
+        raise AssertionError(f"no line starting {prefix!r} in:\n"
+                             f"{stdout[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def single_shard_twin(device, seed, cap):
+    """20a's single-shard run: bench's PHOLD input (`seed`, capacity
+    `cap`) at full width to SHARD_SIM_S on the card through make_runner
+    with the bulk pass. Returns (EngineStats dict, state digest,
+    overflow)."""
+    from shadow_tpu_torch import bench
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.net.build import make_runner
+
+    b = bench.build_phold(HOSTS, LOAD, SHARD_SIM_S, seed, cap,
+                          bench.ONE_VERTEX, device)
+    sim, stats = make_runner(b, app_handlers=(phold.handler,),
+                             app_bulk=phold.BULK, device=device)(b.sim)
+    return (stats.as_dict(), bench.state_digest(sim),
+            int(sim.events.overflow) + int(sim.outbox.overflow))
+
+
+def shards_cell(device, side):
+    """Phase 20 (the module docstring): 20a's sharded bench row against
+    the single-shard run of the same input, and the checks of 20b and
+    20c (started beside earlier work by start_shards_side). The
+    in-process work (20b's and 20c's checks, 20c's serial twin, 20a's
+    single-shard twin at the input bench settles on at this width: seed
+    1, capacity 48) runs while 20a's ranks start; 20a's timed call
+    comes after it. Returns ({"launches_shards", "shards", ...}, max
+    abs err)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from shadow_tpu_torch import bench, faults
+    from shadow_tpu_torch.apps import phold
+
+    env = dict(os.environ, BENCH_SHARDS=str(SHARDS),
+               BENCH_SIM_SECONDS=str(SHARD_SIM_S))
+    env = {k: v for k, v in env.items()
+           if not k.startswith("BENCH_") or k in ("BENCH_SHARDS",
+                                                  "BENCH_SIM_SECONDS")}
+    started = start_proc("20a bench BENCH_SHARDS", [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "sys.exit(chip_smoke.shards_bench_rank0())"], env=env)
+
+    # --- 20b: the CLI's --workers 2 -----------------------------------
+    report, _, lines = finish_cli(side["20b"])
+    check_report("cli-phold-ref-w2", report, PHOLD_REF_REPORT)
+    cards = torch.cuda.device_count()
+    want = ("--workers 2: 2 ranks" if cards >= 2 else
+            "--workers 2 does not divide 10 hosts (or exceeds the device "
+            "count); using 1")
+    if not any(want in ln for ln in lines):
+        raise AssertionError(f"20b: no line {want!r} in the CLI's log")
+    log(f"  20b: {cards} card(s): the log says {want!r}; the report equals "
+        f"the serial CLI's (14b)")
+
+    # --- 20c: run_supervised on a mesh ---------------------------------
+    code, stdout, stderr, wall = finish_proc(side["20c"])
+    if code != 0:
+        raise AssertionError(f"20c: exited {code}:\n{stdout[-3000:]}\n"
+                             f"{stderr[-3000:]}")
+    got = _json_line(stdout, "{")
+    with tempfile.TemporaryDirectory(prefix="shadow_sup_one_") as d:
+        b = faults_bundle(device, HOSTS, SUP_MESH_SIM_S)
+        res = faults.run_supervised(
+            b, (phold.handler,), windows_per_dispatch=8, device=device,
+            checkpoint_path=f"{d}/sup", checkpoint_every_windows=8)
+    one = res.stats.as_dict()
+    if not (got["ok"] and res.ok):
+        raise AssertionError(f"20c: not ok: {got}")
+    if got["digest"] != bench.state_digest(res.sim):
+        raise AssertionError("20c: the supervised mesh run's state differs "
+                             "from the serial supervised run's")
+    for k in ("events_processed", "windows", "fastpath_hit",
+              "fastpath_miss"):
+        if got["stats"][k] != one[k]:
+            raise AssertionError(f"20c: {k} {got['stats'][k]} != {one[k]}")
+    if got["snapshots"] != len(res.checkpoints):
+        raise AssertionError(f"20c: {got['snapshots']} snapshots, serial "
+                             f"{len(res.checkpoints)}")
+    log(f"  20c: run_supervised on {SUP_MESH_RANKS} ranks "
+        f"({got['backend']}) to {SUP_MESH_SIM_S} sim-s: ok, "
+        f"{got['snapshots']} snapshots, the final state and EngineStats "
+        f"equal to the serial supervised run's ({one})")
+    del b, res
+    twins = {(1, CAPACITY): single_shard_twin(device, 1, CAPACITY)}
+    torch.cuda.empty_cache()
+
+    # --- 20a: its timed call alone on the card ------------------------
+    code, stdout, stderr, wall = finish_proc(started)
+    if code != 0:
+        raise AssertionError(f"20a: the sharded bench exited {code}:\n"
+                             f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    for ln in stderr.splitlines():
+        if "shadow_tpu_torch" in ln:
+            log(f"  20a: {ln.strip()}")
+    row = _json_line(stdout, '{"metric"')
+    gk = _json_line(stdout, '{"gather_err"')
+    sh = row["shards"]
+    log(f"  20a: `BENCH_SHARDS={SHARDS} BENCH_SIM_SECONDS={SHARD_SIM_S} "
+        f"python -m shadow_tpu_torch.bench` exit 0 in {wall:.1f} s: "
+        f"{json.dumps(row)}")
+    if row["metric"] != (f"events_per_sec_per_chip@{HOSTS}hosts_phold_"
+                         f"load{LOAD}_{SHARDS}shards"):
+        raise AssertionError(f"20a: metric {row['metric']}")
+    st = sh["stats"]
+    if sh["narrow_hit"] + sh["narrow_miss"] != st["windows"]:
+        raise AssertionError(f"20a: narrow hit + miss != windows: {sh}")
+    routed = st["windows"] - sh["route_elided"]
+    if sh["mailbox_gather_launches"] != [routed] * SHARDS:
+        raise AssertionError(
+            f"20a: mailbox_gather launches {sh['mailbox_gather_launches']}"
+            f" on the ranks, not one a non-empty route ({routed})")
+    # the single-shard run of the same input (bench's seed and capacity
+    # of the timed call) on this card
+    key = (sh["seed"], sh["capacity"])
+    if key not in twins:
+        twins[key] = single_shard_twin(device, *key)
+    one, digest, overflow = twins[key]
+    for k in ("events_processed", "windows", "fastpath_hit",
+              "fastpath_miss"):
+        if st[k] != one[k]:
+            raise AssertionError(f"20a: {k} {st[k]} on {SHARDS} ranks, "
+                                 f"{one[k]} on one")
+    if st["micro_steps"] < one["micro_steps"]:
+        raise AssertionError("20a: fewer micro-steps summed over the "
+                             "ranks than on one")
+    if sh["state_digest"] != digest:
+        raise AssertionError("20a: the final state differs from the "
+                             "single-shard run's")
+    if overflow:
+        raise AssertionError("20a: overflow")
+    log(f"  20a: {SHARDS} ranks ({sh['backend']}) equal to one shard: "
+        f"EngineStats {st} (one shard {one}: micro-steps are summed over "
+        f"the ranks, as the reference sums them), digest {digest[:16]}; "
+        f"{row['value']} events/s, {sh['wall_ms_per_window']} ms a "
+        f"window, collectives {sh['collective_ms_per_window']} ms "
+        f"({sh['collective_calls_per_window']} calls, "
+        f"{sh['collective_bytes_per_window']} B) a window on rank 0, the "
+        f"final gather of the global state {sh['gather_ms']} ms "
+        f"({sh['gather_bytes']} B); "
+        f"mailbox_gather {sh['mailbox_gather_launches']} launches on the "
+        f"ranks' {routed} non-empty routes, exact on rank 0's own stream")
+    out = {"launches_shards": sh["mailbox_gather_launches"],
+           "shards_row": {k: row[k] for k in ("metric", "value", "events",
+                                               "windows")},
+           "shards": {k: gk["gather"][k] for k in (
+               "n", "ms", "plain_ms", "bound_ms", "library_ms")}}
+    out["shards_row"].update({k: sh[k] for k in (
+        "wall_ms_per_window", "collective_ms_per_window",
+        "collective_calls_per_window", "collective_bytes_per_window",
+        "gather_ms", "gather_bytes")})
+    return out, gk["gather_err"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5602,7 +5874,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args, bench, insert_kernels) -> int:
-    """Phases 1-19 and the result lines (main starts and stops the CPU
+    """Phases 1-20 and the result lines (main starts and stops the CPU
     halves' worker around them)."""
     import tempfile
 
@@ -5823,6 +6095,32 @@ def run_phases(args, bench, insert_kernels) -> int:
     log("[14] the CLI and reference-format configs: python -m "
         "shadow_tpu_torch.cli on the --test example and the reference's "
         "configs")
+    # phase 20's untimed runs (20b, 20c) start here, beside 14-19
+    shards_tmp = tempfile.TemporaryDirectory(prefix="shadow_shards_")
+    shards_side = start_shards_side(shards_tmp.name)
+    # phase 17 frees these: no reference stays here
+    carried = [main4, relay6s]
+    del main4, relay6s
+    try:
+        return _phases_14_on(args, row, device, smi, kind, phase, phase_s,
+                             shards_side, carried)
+    finally:
+        for st in shards_side.values():
+            stop_proc(st)
+        shards_tmp.cleanup()
+
+
+def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
+                  shards_side, carried) -> int:
+    """Phases 14-20 and the result lines (run_phases' tail; 20b and 20c
+    already running; `carried` holds phases 4's and 6s's runs for 17)."""
+    import tempfile
+
+    import torch
+
+    main4, relay6s = carried
+    carried.clear()
+
     got, err = cli_cell(device)
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update(got)
@@ -5902,6 +6200,17 @@ def run_phases(args, bench, insert_kernels) -> int:
         for st in vp_clis.values():
             stop_proc(st)
         vp_tmp.cleanup()
+
+    phase("20")
+    log(f"[20] the sharded window loop on this card: `BENCH_SHARDS="
+        f"{SHARDS} python -m shadow_tpu_torch.bench` ({HOSTS} hosts as "
+        f"{SHARDS} ranks, {SHARD_SIM_S} sim-s) against one shard; the CLI "
+        f"with --workers 2; run_supervised on {SUP_MESH_RANKS} ranks with "
+        f"the degraded plan to {SUP_MESH_SIM_S} sim-s")
+    got, err = shards_cell(device, shards_side)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["shards"] = got.pop("shards")
+    row.update(got)
 
     phase(None)
     log(f"  done; seconds per phase {json.dumps(phase_s)}")

@@ -99,11 +99,31 @@ Env knobs (bench.py's, for what the port runs):
                                  "compile": {"buckets": ...}); unset is
                                  off (bench.py's default follows warm
                                  serving, ROADMAP.md Queue 1 item 11b)
+  BENCH_SHARDS=N                 plain PHOLD runner: the hosts sharded
+                                 over N ranks (parallel/shard.py
+                                 run_sharded), one process each — this
+                                 command runs as rank 0 and starts the
+                                 others; NCCL across cards, gloo on the
+                                 CPU, and where the machine has fewer
+                                 cards than N (bench.py falls back to a
+                                 virtual-CPU mesh there) all N ranks on
+                                 the one card over gloo, which the log
+                                 says; name gains _{N}shards; the row
+                                 gains a "shards" block (ranks, backend,
+                                 the collectives' calls, ms and bytes a
+                                 window, narrow counters, each rank's
+                                 mailbox_gather launches, and a digest
+                                 of the final state's shard-count-
+                                 invariant leaves). Not with
+                                 BENCH_SUPERVISE, injection, pingpong,
+                                 BENCH_REPLICAS, BENCH_CHUNK_WINDOWS,
+                                 BENCH_SPECIALIZE or the *_OVERHEAD A/Bs
   BENCH_PLATFORM=cpu             run on the CPU
 
 Every other BENCH_* knob of bench.py is refused (SystemExit naming it;
-BENCH_RESIDENT waits for ROADMAP.md Queue 1 item 12, BENCH_SHARDS for
-item 9), and so are bench.py's own refusals: --faults, BENCH_SUPERVISE
+BENCH_RESIDENT waits for ROADMAP.md Queue 1 item 12,
+BENCH_SENTINEL(_OVERHEAD) for item 9b), and so are bench.py's own
+refusals: --faults, BENCH_SUPERVISE
 and BENCH_MIN_JUMP_MS with pingpong (bench.py ignores the last there),
 BENCH_REPLICAS, BENCH_FLOW_SAMPLE and BENCH_CAUSALITY with pingpong,
 BENCH_REPLICAS with BENCH_SUPERVISE or an injection scenario,
@@ -188,9 +208,18 @@ KNOBS = frozenset({"BENCH_WORKLOAD", "BENCH_TOPO", "BENCH_HOSTS",
                    "BENCH_FLOW_SAMPLE", "BENCH_FLOW_OVERHEAD",
                    "BENCH_CAUSALITY", "BENCH_CAUSALITY_OVERHEAD",
                    "BENCH_SPECIALIZE", "BENCH_BUCKETED", "BENCH_ACTIVE",
-                   "BENCH_SPARSE_LANES"})
+                   "BENCH_SPARSE_LANES", "BENCH_SHARDS"})
 # bench.py knobs whose mechanism waits for a ROADMAP.md Queue 1 item
-UNPORTED = {"BENCH_RESIDENT": 12, "BENCH_SHARDS": 9}
+UNPORTED = {"BENCH_RESIDENT": 12, "BENCH_SENTINEL": "9b",
+            "BENCH_SENTINEL_OVERHEAD": "9b"}
+# the leaves the reference gives per shard count (parallel/shard.py),
+# and the ring planes whose meaning is per shard (micro-steps are the
+# slowest rank's, routed_local/cross split by rank): left out of the
+# sharded row's state digest
+PER_SHARD_LEAVES = (".outbox.narrow_hit", ".outbox.narrow_miss",
+                    ".outbox.max_occupied", ".outbox.route_elided",
+                    ".telem.micro_steps", ".telem.routed_local",
+                    ".telem.routed_cross")
 
 PINGPONG_COUNT = 20
 ONE_MILLISECOND = 1_000_000   # core.simtime's, without importing torch
@@ -282,9 +311,14 @@ def attach_recorders(sim, flow_sample=0, causality_sample=0):
     return sim
 
 
-def _runner(b, handler, device, chunk_windows, app_bulk=None):
+def _runner(b, handler, device, chunk_windows, app_bulk=None, mesh=None):
     from shadow_tpu_torch.net.build import make_chunked_runner, make_runner
 
+    if mesh is not None:
+        from shadow_tpu_torch.parallel import make_sharded_runner
+
+        return make_sharded_runner(b, mesh, app_handlers=(handler,),
+                                   app_bulk=app_bulk)
     if chunk_windows:
         return make_chunked_runner(b, app_handlers=(handler,),
                                    app_bulk=app_bulk,
@@ -305,7 +339,7 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
                  chunk_windows=None, fault_records=None, min_jump_ns=None,
                  replica_size=None, lanes=False, flow_sample=0,
                  causality_sample=0, active_hosts=None, sparse_lanes=None,
-                 bucketed=False, specialize=False):
+                 bucketed=False, specialize=False, mesh=None):
     """bench.py's _phold_runner: a zero-argument callable that runs the
     workload once and returns its events; each call takes the next of
     three inputs (seeds 1, 2, 3), each with its own seeded fault
@@ -318,7 +352,9 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
     off, as bench.py does: it would consume whole windows before the
     sparse fast path the shape exists to exercise), `sparse_lanes` and
     `bucketed` are build_phold's; `specialize` times the
-    capability-trimmed program (specialize_inputs)."""
+    capability-trimmed program (specialize_inputs). `mesh` (this
+    rank's parallel.shard.Mesh) runs it sharded on every rank, global
+    state in and out (run_sharded)."""
     from shadow_tpu_torch.apps import phold
 
     state = {"n": 0}
@@ -338,7 +374,7 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
             b, sims = specialize_inputs(b, sims, app_bulk)
         state.update(cap=cap, bundle=b, sims=sims, plan=plan,
                      fn=_runner(b, phold.handler, device, chunk_windows,
-                                app_bulk=app_bulk))
+                                app_bulk=app_bulk, mesh=mesh))
 
     build_at(max(16, 3 * load))
 
@@ -347,6 +383,13 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
         while True:
             sim0 = state["sims"][state["n"] % len(state["sims"])]
             state["n"] += 1
+            if mesh is not None:
+                # the shards block counts the last (clean) run alone
+                from shadow_tpu_torch.core.insert_kernels import \
+                    mailbox_gather
+
+                mesh.reset_counters()
+                mailbox_gather.launches = 0
             sim, stats = state["fn"](sim0)
             if int(sim.events.overflow) + int(sim.outbox.overflow):
                 build_at(state["cap"] * 2)   # rebuild, run again clean
@@ -776,6 +819,19 @@ def main(argv=None) -> int:
             "BENCH_SPECIALIZE=1 is only wired for the plain PHOLD "
             "runner (the supervised/injection loops build their own "
             "bundles)")
+    shards = _env_int("BENCH_SHARDS", 0)
+    if shards > 1:
+        for flag, on in (("BENCH_SUPERVISE=1", supervise),
+                         ("BENCH_INJECT_*", inject_on),
+                         ("BENCH_WORKLOAD=pingpong", workload != "phold"),
+                         ("BENCH_REPLICAS", replicas > 1),
+                         ("BENCH_CHUNK_WINDOWS", chunk),
+                         ("BENCH_SPECIALIZE=1", spec_on),
+                         ("BENCH_FLOW_OVERHEAD=1", flow_ab),
+                         ("BENCH_CAUSALITY_OVERHEAD=1", caus_ab)):
+            if on:
+                raise SystemExit(f"BENCH_SHARDS is wired for the plain "
+                                 f"PHOLD runner; not with {flag}")
     if workload != "phold":
         for flag, on in (("--faults", args.faults),
                          ("BENCH_SUPERVISE=1", supervise),
@@ -787,12 +843,20 @@ def main(argv=None) -> int:
                 raise SystemExit(f"{flag} is only wired for "
                                  f"BENCH_WORKLOAD=phold")
     # every knob is checked before torch loads and the device resolves
-    from shadow_tpu_torch.device import resolve_device
+    from shadow_tpu_torch.device import rank_device, resolve_device
+    from shadow_tpu_torch.parallel.shard import rank_env
 
+    rank, world, init = rank_env()
     try:
         device = resolve_device(platform)
+        if shards > 1:
+            # a started rank runs on its own card where there is one
+            device = rank_device(rank, device)
     except RuntimeError as e:
         raise SystemExit(f"shadow_tpu_torch.bench: {e}") from None
+    mesh = ranks = None
+    if shards > 1:
+        mesh, ranks = _shard_mesh(shards, rank, world, init, device, argv)
     fault_records = None
     if args.faults:
         from shadow_tpu_torch import faults
@@ -824,7 +888,7 @@ def main(argv=None) -> int:
                 min_jump_ns=min_jump_ns,
                 replica_size=H if replicas > 1 else None, lanes=lanes,
                 active_hosts=active, sparse_lanes=sparse,
-                specialize=specialize, **rec)
+                specialize=specialize, mesh=mesh, **rec)
         return pingpong_runner(
             H, sim_s, device, graph=MIX_VERTICES if topo == "mix" else None,
             chunk_windows=chunk)
@@ -864,6 +928,8 @@ def main(argv=None) -> int:
         name += "_spec"
     if caus_n > 0:
         name += f"_caus{caus_n}"
+    if mesh is not None:
+        name += f"_{mesh.size}shards"
 
     _sync(device)
     t0 = time.perf_counter()
@@ -872,6 +938,8 @@ def main(argv=None) -> int:
     warmup_s = time.perf_counter() - t0
     m = timed(runner, device)
     row = make_row(name, H, m, runner.last_stats, device, warmup_s)
+    if mesh is not None:
+        row["shards"] = shards_block(mesh, runner, m)
     plan = runner.state.get("plan")
     if plan is not None:
         row["compile"] = {"buckets": plan.as_dict()}
@@ -903,8 +971,96 @@ def main(argv=None) -> int:
         if caps is not None:
             row["specialization"] = {"dropped": list(caps.dropped()),
                                      "key_extra": caps.key_extra()}
+    if mesh is not None:
+        mesh.close()
+        if mesh.rank != 0:
+            return 0
+    code = 0 if ranks is None else ranks.join()
     print(json.dumps(row))
-    return 0
+    return code
+
+
+def _shard_mesh(shards, rank, world, init, device, argv):
+    """BENCH_SHARDS: (this rank's Mesh, the RankProcesses this command
+    started, or None in a started rank). Rank 0 starts ranks 1..N-1 as
+    `python -m shadow_tpu_torch.bench` with the same arguments (killed
+    at exit if still running) and logs where the ranks run when the
+    machine has fewer cards than ranks."""
+    import atexit
+
+    import torch
+
+    from shadow_tpu_torch.parallel import Mesh
+    from shadow_tpu_torch.parallel.shard import RankProcesses
+
+    ranks = None
+    if world is None:
+        ranks = RankProcesses("shadow_tpu_torch.bench",
+                              list(sys.argv[1:] if argv is None else argv),
+                              shards)
+        atexit.register(ranks.kill)
+        init = ranks.init
+    if rank == 0 and device.type == "cuda" \
+            and torch.cuda.device_count() < shards:
+        print(f"shadow_tpu_torch.bench: BENCH_SHARDS={shards} on "
+              f"{torch.cuda.device_count()} card(s): all {shards} ranks "
+              f"run on {device} over gloo (bench.py falls back to a "
+              f"virtual-CPU mesh here)", file=sys.stderr, flush=True)
+    return Mesh(shards, rank, init_method=init, device=device), ranks
+
+
+def state_digest(sim) -> str:
+    """sha256 over the final state's leaves (flax field path order) but
+    PER_SHARD_LEAVES: equal for any shard count."""
+    import hashlib
+
+    import numpy as np
+
+    from shadow_tpu_torch import convert
+
+    h = hashlib.sha256()
+    for k, v in sorted(convert.sim_to_numpy(sim).items()):
+        if k not in PER_SHARD_LEAVES:
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def shards_block(mesh, runner, m) -> dict:
+    """The sharded row's "shards" block, from the timed call's clean
+    run: the mesh, the collectives' calls, host-clock ms and bytes a
+    window on this rank (the exchange and every reduction; the final
+    reassembly of the global state apart, as gather_*), the narrow
+    counters, every rank's mailbox_gather launches and the state
+    digest."""
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+
+    st = runner.last_stats.as_dict()
+    sim = runner.last_sim
+    w = max(st["windows"], 1)
+    calls, nbytes, secs = (mesh.calls, mesh.bytes, mesh.seconds)
+    gather = (mesh.gather_calls, mesh.gather_bytes, mesh.gather_seconds)
+    launches = [r[0] for r in
+                mesh.all_gather_ints([mailbox_gather.launches])]
+    return {
+        "ranks": mesh.size, "backend": mesh.backend,
+        "collective_calls_per_window": round((calls - gather[0]) / w, 2),
+        "collective_ms_per_window": round((secs - gather[2]) * 1e3 / w,
+                                          4),
+        "collective_bytes_per_window": round((nbytes - gather[1]) / w, 1),
+        "gather_calls": gather[0], "gather_bytes": gather[1],
+        "gather_ms": round(gather[2] * 1e3, 3),
+        "wall_ms_per_window": round(m["wall_s"] * 1e3 / w, 4),
+        "narrow_hit": int(sim.outbox.narrow_hit),
+        "narrow_miss": int(sim.outbox.narrow_miss),
+        "route_elided": int(sim.outbox.route_elided),
+        "mailbox_gather_launches": launches,
+        # the timed call's input (seeds 1-3 in turn) and capacity
+        "seed": (runner.state["n"] - 1) % len(runner.state["sims"]) + 1,
+        "capacity": runner.state["cap"],
+        "stats": st,
+        "state_digest": state_digest(sim),
+    }
 
 
 def recorder_blocks(runner, flow_n, caus_n) -> dict:

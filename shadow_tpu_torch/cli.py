@@ -43,10 +43,21 @@ the real OS (hostrun/); `--host-kernel diff` runs both and diffs their
 normalized syscall traces (exit 4 on divergence, 2 when no localhost
 port binds; the manifest's `conformance` block).
 
+`--workers N` shards the hosts over N ranks (parallel/shard.py), one
+process each: the command starts ranks 1..N-1 itself (this module,
+re-run with the rank in SHADOW_TORCH_RANK, the width in
+SHADOW_TORCH_WORLD and the rendezvous in SHADOW_TORCH_INIT) and runs as
+rank 0, which alone writes the report, the log, the manifest and the
+telemetry files. The width follows the reference's rule: the largest
+divisor of the host count within the request, the device count (the
+cards; on `--platform cpu`, the ranks asked for) and the host count,
+with its warning when it narrows; a logpcap config runs serially with
+the reference's warning. A config with `.py` plugins and `--workers` >
+1 is refused (ProcessRuntime on a mesh, ROADMAP.md Queue 1 item 9b).
+
 Flags whose mechanism the port does not have yet are refused by name
-(exit 2) with the ROADMAP.md Queue 1 item they wait for: `--workers` >
-1 (item 9); `--profile-dir`, which names jax.profiler. The `fleet` and
-`sweep` sub-commands wait for item 12.
+(exit 2): `--profile-dir`, which names jax.profiler. The `fleet` and
+`sweep` sub-commands wait for ROADMAP.md Queue 1 item 12.
 
 `--specialize auto` (the default) runs the capability-trimmed program,
 as the reference does (compile/specialize.py: on a lossless topology
@@ -88,8 +99,8 @@ def make_parser() -> argparse.ArgumentParser:
                    help="clients in the built-in --test config; the "
                         "reference bakes in 1000 (examples.c:10-12)")
     p.add_argument("-w", "--workers", type=int, default=1,
-                   help="device shards (refused above 1: ROADMAP.md "
-                        "Queue 1 item 9)")
+                   help="host shards, one rank process each (ref: "
+                        "worker threads)")
     p.add_argument("-s", "--seed", type=int, default=1)
     p.add_argument("--scheduler-policy", default="device",
                    choices=["device", "host", "steal", "thread",
@@ -336,8 +347,6 @@ def refused_flags(args) -> list[str]:
     """The flags given whose mechanism is not ported, each with its
     ROADMAP.md Queue 1 item."""
     out = []
-    if args.workers > 1:
-        out.append("--workers > 1 (ROADMAP.md Queue 1 item 9)")
     if args.profile_dir is not None:
         out.append("--profile-dir (it names jax.profiler; "
                    "chip_smoke.py --profile profiles the port)")
@@ -432,14 +441,19 @@ def main(argv=None) -> int:
               "yet: " + ", ".join(refused), file=sys.stderr)
         return 2
 
-    from shadow_tpu_torch.device import resolve_device
+    from shadow_tpu_torch.device import rank_device, resolve_device
+    from shadow_tpu_torch.parallel.shard import rank_env
 
     # no quiet move to the CPU: 'auto' and 'gpu' are the card
     try:
         device = resolve_device("cpu" if args.platform == "cpu" else "cuda")
+        # a rank this command started (--workers) runs on its own card
+        # where the machine has one per rank
+        device = rank_device(rank_env()[0], device)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    args.argv = list(argv)
     if device.type == "cuda":
         # no quiet move to list.sort on the card either
         from shadow_tpu_torch import native
@@ -474,6 +488,39 @@ def main(argv=None) -> int:
         return 2
     finally:
         logger.flush()
+
+
+def _writer(args) -> bool:
+    """Rank 0 (or a serial run) writes the report and the files."""
+    return getattr(args, "mesh_rank", 0) == 0
+
+
+def mesh_width(args, b, device, logger) -> int:
+    """The reference's --workers rule (cli.py): a logpcap config forces
+    the serial loop; otherwise the largest divisor of the host count
+    within the request, the device count and the host count, with a
+    warning when it differs from the request. The device count is the
+    number of cards, or on the CPU the number of ranks asked for."""
+    if args.workers <= 1:
+        return 1
+    if b.cfg.pcap:
+        logger.warning(0, "shadow-tpu",
+                       f"logpcap forces the serial window loop; "
+                       f"--workers {args.workers} ignored")
+        return 1
+    import torch
+
+    ndev = (torch.cuda.device_count() if device.type == "cuda"
+            else args.workers)
+    H = b.cfg.num_hosts
+    wmax = min(args.workers, ndev, H)
+    w = max(d for d in range(1, wmax + 1) if H % d == 0)
+    if w != args.workers:
+        logger.warning(
+            0, "shadow-tpu",
+            f"--workers {args.workers} does not divide {H} hosts (or "
+            f"exceeds the device count); using {w}")
+    return w
 
 
 class _Telemetry:
@@ -591,6 +638,11 @@ def _run(args, text, device, logger) -> int:
         logger.warning(0, "shadow-tpu",
                        "--lane-isolation is unavailable with .py plugins "
                        "(ProcessRuntime window loop); ignored")
+    elif args.lane_isolation and args.workers > 1:
+        logger.warning(0, "shadow-tpu",
+                       "--lane-isolation is single-shard only; "
+                       f"--workers {args.workers} wins, lane isolation "
+                       "disabled")
     elif args.lane_isolation:
         from shadow_tpu_torch.core import lanes as lanes_mod
 
@@ -697,6 +749,18 @@ def _run(args, text, device, logger) -> int:
             cap.drain(s)
             progress_hook(s, wend)
 
+    # --workers: the mesh, after every attachment (the ranks shard the
+    # final Sim)
+    width = mesh_width(args, b, device, logger)
+    if width > 1 and loaded.vprocs:
+        print("error: --workers with .py plugins needs ProcessRuntime on "
+              "a mesh, not ported yet (ROADMAP.md Queue 1 item 9b)",
+              file=sys.stderr)
+        return 2
+    if width > 1:
+        return _run_ranks(args, b, loaded, device, logger, width,
+                          window_hook, resume_ckpt, tel, t0)
+
     sup_result = None
     if args.host_kernel:
         if not loaded.vprocs:
@@ -774,6 +838,65 @@ def _run(args, text, device, logger) -> int:
     return _report(args, b, sim, stats, wall, logger, sup_result, tel)
 
 
+def _run_ranks(args, b, loaded, device, logger, width, window_hook,
+               resume_ckpt, tel, t0) -> int:
+    """The sharded run of --workers: this process is rank 0 and starts
+    the others (or is one of them), joins the mesh, runs the supervised
+    loop or the whole run on it, and rank 0 reports."""
+    from shadow_tpu_torch.parallel import Mesh
+    from shadow_tpu_torch.parallel.shard import RankProcesses, rank_env
+
+    rank, world, init = rank_env()
+    ranks = None
+    if world is None:
+        ranks = RankProcesses("shadow_tpu_torch.cli", args.argv, width)
+        init = ranks.init
+    elif world != width:
+        print(f"error: rank {rank} computed width {width}, the command "
+              f"{world}", file=sys.stderr)
+        return 1
+    args.mesh_rank, args.mesh_shards = rank, width
+    mesh = None
+    try:
+        mesh = Mesh(width, rank, init_method=init, device=device)
+        logger.message(0, "shadow-tpu",
+                       f"--workers {width}: {width} ranks, backend "
+                       f"{mesh.backend}, {b.cfg.num_hosts // width} hosts "
+                       f"a rank")
+        code = sup_result = None
+        if args.supervise:
+            code, sup_result = _supervise(args, b, loaded, device, logger,
+                                          window_hook, resume_ckpt, tel,
+                                          mesh=mesh)
+            if code is None:
+                sim, stats = sup_result.sim, sup_result.stats
+        else:
+            from shadow_tpu_torch.parallel import run_sharded
+
+            if tel.feeder is not None:
+                # whole-run path: the entire trace must fit the lanes
+                b.sim = tel.feeder.fill_all(b.sim)
+            with tel.phase("device-execute"):
+                sim, stats = run_sharded(b, mesh,
+                                         app_handlers=loaded.handlers,
+                                         app_bulk=b.app_bulk)
+                _sync(device)
+        # every rank leaves the group before rank 0 waits for the
+        # others (NCCL's teardown waits for the peers)
+        mesh.close()
+        if code is None:
+            if not _writer(args):
+                return 0
+            code = _report(args, b, sim, stats, time.time() - t0, logger,
+                           sup_result, tel)
+        return code if ranks is None else max(code, ranks.join())
+    finally:
+        if mesh is not None:
+            mesh.close()
+        if ranks is not None:
+            ranks.kill()
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         import torch
@@ -782,7 +905,7 @@ def _sync(device) -> None:
 
 
 def _supervise(args, b, loaded, device, logger, progress_hook, resume_ckpt,
-               tel):
+               tel, mesh=None):
     """The --supervise branch: (exit code or None, SupervisorResult)."""
     import signal
 
@@ -827,12 +950,14 @@ def _supervise(args, b, loaded, device, logger, progress_hook, resume_ckpt,
                 config_digest=config_hash(b.cfg),
                 log=lambda m: logger.message(0, "shadow-tpu", m),
                 on_window=progress_hook, harvester=tel.harvester,
-                feeder=tel.feeder, device=device)
+                feeder=tel.feeder, device=device, mesh=mesh)
     finally:
         for sg, h in prev_handlers.items():
             with contextlib.suppress(ValueError, TypeError):
                 signal.signal(sg, h)
 
+    if not _writer(args) and (result.preempted or not result.ok):
+        return (5 if result.preempted else 3), result
     if result.preempted:
         # interrupted, not failed: the final snapshot is on disk and
         # `--resume <data-directory>` continues the run
@@ -914,11 +1039,12 @@ def _export(args, b, sim, stats, health, tel, sup_result=None, *,
     from shadow_tpu_torch.telemetry.flows import flows_manifest_block
 
     h = tel.harvester
+    shards = getattr(args, "mesh_shards", 1)
     caus_blk = causality_manifest_block(
-        h, num_hosts=b.cfg.num_hosts, shards=1,
+        h, num_hosts=b.cfg.num_hosts, shards=shards,
         sample_period=args.causality_sample or None)
     man = telemetry.run_manifest(
-        cfg=b.cfg, seed=args.seed, shards=1, sim=sim, stats=stats,
+        cfg=b.cfg, seed=args.seed, shards=shards, sim=sim, stats=stats,
         health=health, fault_plan=b.fault_plan, harvester=h,
         timers=tel.timers, wall_seconds=wall, preempted=preempted,
         injection=tel.injection(sim),
@@ -926,7 +1052,7 @@ def _export(args, b, sim, stats, health, tel, sup_result=None, *,
             health, sup_result.lane_incidents
             if sup_result is not None else ()),
         flows=flows_manifest_block(
-            h, num_hosts=b.cfg.num_hosts, shards=1,
+            h, num_hosts=b.cfg.num_hosts, shards=shards,
             sample_period=args.flow_sample or None),
         admission=admission_manifest_block(health),
         causality=caus_blk,
@@ -937,7 +1063,7 @@ def _export(args, b, sim, stats, health, tel, sup_result=None, *,
     telemetry.write_manifest(
         os.path.join(args.data_directory, "run_manifest.json"), man)
     if args.trace_out:
-        telemetry.write_trace(args.trace_out, h.records, tel.timers, 1,
+        telemetry.write_trace(args.trace_out, h.records, tel.timers, shards,
                               flow_records=h.flow_records,
                               adv_records=h.adv_records or None,
                               chains=(caus_blk or {}).get("chains"))

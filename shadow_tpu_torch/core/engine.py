@@ -175,11 +175,18 @@ def window_fixpoint(sim, stats: EngineStats, step_fn: StepFn, wend: int,
     return sim, stats
 
 
+def _default_route(sim):
+    """The single-shard route: staged outbox entries into their rows."""
+    q, out = route_outbox(sim.events, sim.outbox)
+    return sim.replace(events=q, outbox=out)
+
+
 def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
                 emit_capacity: int = 4, lane_id=None, bulk_fn=None,
                 telem_fn=None, wstart: int | None = None,
                 sparse_lanes: int = 0, fault_fn=None, flow_fn=None,
-                adv_attr=None):
+                adv_attr=None, route_fn=None, min_fn=None,
+                census_fn=None):
     """One full round: drain the window, then route cross-host events
     staged in the outbox into destination queues. Returns (sim, stats,
     next window start as a host int: the global minimum pending time,
@@ -225,7 +232,14 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
     window's active-row census; None, and always without causality,
     latches nothing. A lane-isolated Sim (core/lanes.py) runs the lane
     barrier after the route: its deliveries are attributed, and a
-    frozen lane stops holding the next window start back."""
+    frozen lane stops holding the next window start back.
+
+    The mesh hooks (parallel/shard.py) are the reference's:
+    `route_fn(sim) -> sim` replaces the single-shard route (the
+    cross-shard exchange), `min_fn(int) -> int` reduces the next window
+    start and `census_fn(int) -> int` the active-row count of the sparse
+    fast path and the advance latch, over the ranks. Left None, the
+    single-shard program runs unchanged."""
     ev0, ms0 = stats.events_processed, stats.micro_steps
     inject_deltas = None
     if getattr(sim, "inject", None) is not None:
@@ -255,12 +269,17 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
     recording = telem_fn is not None and getattr(sim, "telem", None) \
         is not None
     n_active = None
+    n_global = None
     if S > 0 or recording or adv_attr is not None:
         active = sim.events.min_time() < wend
         n_active = active.sum(dtype=I32)
+        if census_fn is not None and (S > 0 or adv_attr is not None):
+            # the GLOBAL live-row count: every rank takes the same
+            # branch and latches the same census
+            n_global = census_fn(int(n_active))
     fastpath = False
     if S > 0:
-        n = int(n_active)
+        n = int(n_active) if n_global is None else n_global
         fastpath = 0 < n <= S
         if fastpath and S < sim.events.num_hosts:
             idx = active_indices(active, S)
@@ -289,15 +308,16 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
     if adv_attr is not None:
         from shadow_tpu_torch.telemetry.causality import advance_latch
 
-        sim = advance_latch(sim, w0, wend, *adv_attr, n_active)
-    q, out = route_outbox(sim.events, sim.outbox)
-    sim = sim.replace(events=q, outbox=out)
+        sim = advance_latch(sim, w0, wend, *adv_attr,
+                            n_active if n_global is None else n_global)
+    sim = (route_fn or _default_route)(sim)
     if getattr(sim, "lanes", None) is not None:
         from shadow_tpu_torch.core.lanes import window_update
 
         sim = window_update(sim, wend)
     stats = stats.replace(windows=stats.windows + 1)
-    return sim, stats, int(global_min_time(sim))
+    next_min = int(global_min_time(sim))
+    return sim, stats, next_min if min_fn is None else min_fn(next_min)
 
 
 def global_min_time(sim) -> torch.Tensor:
@@ -434,7 +454,8 @@ def make_wend_fn(*, min_jump: int, end_time: int,
 def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
                     chunk_windows: int, emit_capacity: int = 4,
                     lane_fn=None, bulk_fn=None, telem_fn=None,
-                    sparse_lanes: int = 0, fault_fn=None, flow_fn=None):
+                    sparse_lanes: int = 0, fault_fn=None, flow_fn=None,
+                    route_fn=None, min_fn=None, census_fn=None):
     """Build ``chunk(sim, stats, wstart) -> (sim, stats, wstart')``: up
     to `chunk_windows` step_window rounds while ``wstart <= end_time``,
     each ending at ``wend_fn(sim, wstart)`` (make_wend_fn) — the
@@ -458,7 +479,8 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
 
     A Sim carrying `causality` takes each window's end from
     ``wend_fn.explain`` (the same wend, the horizon clamp included) and
-    latches its attribution. `flow_fn` is step_window's."""
+    latches its attribution. `flow_fn` and the mesh hooks `route_fn`,
+    `min_fn` and `census_fn` are step_window's."""
     if int(chunk_windows) < 1:
         raise ValueError(
             f"chunk_windows must be >= 1, got {chunk_windows}")
@@ -487,7 +509,8 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
                 sim, stats, step_fn, wend, emit_capacity,
                 lane, bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,
                 sparse_lanes=sparse_lanes, fault_fn=fault_fn,
-                flow_fn=flow_fn, adv_attr=adv)
+                flow_fn=flow_fn, adv_attr=adv, route_fn=route_fn,
+                min_fn=min_fn, census_fn=census_fn)
             i += 1
         return sim, stats, wstart
 
@@ -497,7 +520,8 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
 def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
         start_time: int = 0, emit_capacity: int = 4, lane_id=None,
         bulk_fn=None, telem_fn=None, sparse_lanes: int = 0,
-        fault_times=None, fault_fn=None, flow_fn=None):
+        fault_times=None, fault_fn=None, flow_fn=None, route_fn=None,
+        min_fn=None, census_fn=None):
     """Run the whole simulation. Window advance rule is the
     reference's: newStart = minNextEventTime, newEnd = newStart +
     minJump, clamped to end_time + 1 (ref: master.c:450-480). The first
@@ -513,7 +537,9 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
     A Sim carrying `causality` latches every window's attribution by
     the static rule of make_wend_fn's explain (floor, record, end; the
     raw jump is the floored min_jump), as the reference's whole-run
-    program does. `flow_fn` is step_window's."""
+    program does. `flow_fn` and the mesh hooks `route_fn`, `min_fn`
+    (which also reduces the first window start) and `census_fn` are
+    step_window's."""
     from shadow_tpu_torch.telemetry.causality import (
         CAUSE_END_TIME,
         CAUSE_FAULT_RECORD,
@@ -525,7 +551,9 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
     jump = max(int(min_jump), 1)
     ft = _record_times(fault_times)
     stats = EngineStats.create(device=sim.events.time.device)
-    wstart = max(int(global_min_time(sim)), int(start_time))
+    first = int(global_min_time(sim))
+    wstart = max(first if min_fn is None else min_fn(first),
+                 int(start_time))
     while wstart <= end_time:
         wend, cause = wstart + jump, CAUSE_MIN_JUMP
         nxt = _next_record(ft, wstart)
@@ -537,5 +565,6 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
             sim, stats, step_fn, wend, emit_capacity, lane_id,
             bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,
             sparse_lanes=sparse_lanes, fault_fn=fault_fn,
-            flow_fn=flow_fn, adv_attr=(cause, -1, -1, jump))
+            flow_fn=flow_fn, adv_attr=(cause, -1, -1, jump),
+            route_fn=route_fn, min_fn=min_fn, census_fn=census_fn)
     return sim, stats

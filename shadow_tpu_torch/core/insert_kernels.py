@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from shadow_tpu_torch.device import build_lock
+
 I32 = torch.int32
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "mailbox_gather.cu"
@@ -59,14 +61,18 @@ def build_library() -> tuple[Path, str]:
     out = BUILD_DIR / f"libmailbox_gather-{digest}.so"
     if out.exists():
         return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libmailbox_gather-{digest}.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE} (exit "
-                           f"{r.returncode}):\n{r.stdout}{r.stderr}")
-    os.replace(tmp, out)
+    # ranks starting together build once: the others wait on the lock
+    # and find the library
+    with build_lock(BUILD_DIR):
+        if out.exists():
+            return out, ""
+        tmp = BUILD_DIR / f".libmailbox_gather-{digest}.{os.getpid()}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {SOURCE} (exit "
+                               f"{r.returncode}):\n{r.stdout}{r.stderr}")
+        os.replace(tmp, out)
     return out, r.stdout + r.stderr
 
 

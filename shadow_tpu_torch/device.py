@@ -8,6 +8,10 @@ hand-written kernel's wrapper runs its plain PyTorch version.
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
+import os
+
 import torch
 
 
@@ -32,3 +36,30 @@ def same_device(a, b) -> bool:
     if a.type == "cpu" or a.index is None or b.index is None:
         return True
     return a.index == b.index
+
+
+def rank_device(local_rank: int, device=None) -> torch.device:
+    """A mesh rank's device: ``cuda:{local_rank}`` on a machine with a
+    card per rank, the one card for every rank on a machine with fewer
+    (``cuda:{local_rank % cards}``), the CPU when `device` says so. None
+    is "cuda" and raises without CUDA."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(local_rank) % torch.cuda.device_count())
+    return dev
+
+
+@contextlib.contextmanager
+def build_lock(build_dir):
+    """An exclusive file lock in `build_dir` around a first-use build
+    (the CUDA kernels, the native library): ranks that start together
+    build once, and the others wait and load the result."""
+    os.makedirs(build_dir, exist_ok=True)
+    fd = os.open(os.path.join(build_dir, ".build.lock"),
+                 os.O_CREAT | os.O_RDWR, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        fcntl.flock(fd, fcntl.LOCK_UN)
+        os.close(fd)

@@ -200,10 +200,10 @@ def make_fault_fn(plan: FaultPlan, boot_sim):
 
     if has_crash:
         # Boot captures for the crash reset. The port never writes a
-        # tensor in place, so the boot sim's own tensors serve. The
-        # reference gathers a shard's rows through lane_id; on the
-        # port's serial sim that is the identity (sharding is ROADMAP.md
-        # Queue 1 item 9).
+        # tensor in place, so the boot sim's own tensors serve. A
+        # rank's shard (parallel/shard.py) gathers its rows through
+        # lane_id, as the reference does; on the whole Sim that gather
+        # is the identity and is skipped.
         boot_net = {
             f.name: getattr(boot_sim.net, f.name)
             for f in dataclasses.fields(NetState)
@@ -220,21 +220,40 @@ def make_fault_fn(plan: FaultPlan, boot_sim):
                                        if d.any() else None)
             return uploaded["down", n]
 
-        def reset_tree(cur, boot, down):
+        local_rows = {}
+
+        def rows(boot, lane):
+            """The shard's boot rows (the boot capture itself on the
+            whole Sim), gathered once per leaf."""
+            if lane is None:
+                return boot
+            ids, key = lane
+            key = (id(boot),) + key
+            if key not in local_rows:
+                local_rows[key] = boot[ids]
+            return local_rows[key]
+
+        def reset_tree(cur, boot, down, lane):
             if cur is None:
                 return None
             upd = {}
             for f in dataclasses.fields(cur):
                 c, b = getattr(cur, f.name), getattr(boot, f.name)
                 if dataclasses.is_dataclass(c):
-                    upd[f.name] = reset_tree(c, b, down)
+                    upd[f.name] = reset_tree(c, b, down, lane)
                 elif (isinstance(c, torch.Tensor) and c.ndim
                       and b.shape[0] == GH):
-                    upd[f.name] = torch.where(_down_mask(c, down), b, c)
+                    upd[f.name] = torch.where(_down_mask(c, down),
+                                              rows(b, lane), c)
             return dataclasses.replace(cur, **upd)
 
         def crash_reset(sim, down):
             q = sim.events
+            lane = None
+            if q.time.shape[0] != GH:
+                ids = sim.net.lane_id
+                lane = (ids.long(), (ids.data_ptr(), ids.shape[0]))
+                down = down[lane[0]]
             adm = getattr(sim, "admission", None)
             if adm is not None:
                 # resident program: a crash or restart in a FREE lane
@@ -255,14 +274,15 @@ def make_fault_fn(plan: FaultPlan, boot_sim):
                 words=torch.where(keep[:, :, None], q.words, 0),
             )
             net_upd = {
-                name: torch.where(_down_mask(cur, down), boot, cur)
+                name: torch.where(_down_mask(cur, down),
+                                  rows(boot, lane), cur)
                 for name, boot in boot_net.items()
                 for cur in (getattr(sim.net, name),)
             }
             return sim.replace(
                 events=q, net=sim.net.replace(**net_upd),
-                app=reset_tree(sim.app, boot_app, down),
-                tcp=reset_tree(sim.tcp, boot_tcp, down))
+                app=reset_tree(sim.app, boot_app, down, lane),
+                tcp=reset_tree(sim.tcp, boot_tcp, down, lane))
 
     def fault_fn(sim, wend):
         n = replay.count(wend)

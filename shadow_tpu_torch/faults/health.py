@@ -318,7 +318,7 @@ class RunHealth:
 
 # Sim layers whose health reports the port does not read yet, and the
 # ROADMAP.md Queue 1 item that ports each.
-_UNPORTED_LAYERS = {"sentinel": 9}
+_UNPORTED_LAYERS = {"sentinel": "9b"}
 
 
 def gather(sim, *, window_start=None, stalled_windows=0, stall_limit=0,

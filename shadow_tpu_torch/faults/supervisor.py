@@ -39,9 +39,16 @@ of the last clean snapshot (faults/escalate.py extract_lane) becomes a
 salvage artifact beside the checkpoints, and `on_lane_quarantine`
 (called with one LaneIncident) fires once per lane, chain-wide.
 
+On a mesh (`mesh`, parallel.shard.Mesh) every rank runs the same
+supervisor over the sharded loop of checkpoint.run_windows: the
+barrier's health read, the cadences and the recovery decisions see the
+global Sim, so the ranks decide alike; rank 0 alone writes each
+snapshot and every rank waits for it, so a retry or a heal reads the
+same file everywhere.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-Queue 1 item): `mesh`, `exchange_capacity`, `elastic`, `dispatch_wrap`
-and `on_mesh_change` (item 9), `warm_start` (item 11b).
+Queue 1 item): `elastic`, `dispatch_wrap` and `on_mesh_change` (item
+9b), `warm_start` (item 11b).
 """
 
 from __future__ import annotations
@@ -217,9 +224,9 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
     from shadow_tpu_torch.core.engine import EngineStats
     from shadow_tpu_torch.net.build import refuse_unported
 
-    refuse_unported(mesh=(mesh, 9), exchange_capacity=(exchange_capacity, 9),
-                    elastic=(elastic, 9), dispatch_wrap=(dispatch_wrap, 9),
-                    on_mesh_change=(on_mesh_change, 9),
+    refuse_unported(elastic=(elastic, "9b"),
+                    dispatch_wrap=(dispatch_wrap, "9b"),
+                    on_mesh_change=(on_mesh_change, "9b"),
                     warm_start=(warm_start, "11b"))
 
     def say(msg):
@@ -321,8 +328,13 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                 on_lane_quarantine(inc)
 
     def _save(sim, t, acc):
-        p = ckpt.save(f"{checkpoint_path}.{t}", sim, time_ns=t,
-                      config_digest=config_digest, extra=_ckpt_extra(acc))
+        p = f"{checkpoint_path}.{t}.npz"
+        if mesh is None or mesh.rank == 0:
+            ckpt.save(p, sim, time_ns=t, config_digest=config_digest,
+                      extra=_ckpt_extra(acc),
+                      shards=1 if mesh is None else mesh.size)
+        if mesh is not None:
+            mesh.barrier()
         total_saved.append((p, t))
         return p
 
@@ -425,7 +437,9 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                     base_stats, device=bundle.sim.events.time.device)
                     if base_stats else None),
                 windows_per_dispatch=windows_per_dispatch,
-                adaptive_jump=adaptive_jump, feeder=feeder, device=device)
+                adaptive_jump=adaptive_jump, feeder=feeder, device=device,
+                mesh=mesh, mesh_axis=mesh_axis,
+                exchange_capacity=exchange_capacity)
             if harvester is not None:
                 harvester.drain(sim)
             h = _gather(sim)

@@ -51,17 +51,24 @@ def build_library() -> Path:
     out = BUILD_DIR / f"libshadow_native-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}")
-    cmd = [CXX, *CXXFLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    except OSError as e:
-        raise RuntimeError(f"cannot run {CXX}: {e}") from e
-    if r.returncode != 0:
-        raise RuntimeError(f"{CXX} failed to build {out.name} (exit "
-                           f"{r.returncode}):\n{r.stdout}{r.stderr}")
-    os.replace(tmp, out)
+    from shadow_tpu_torch.device import build_lock
+
+    # ranks starting together build once: the others wait on the lock
+    # and find the library
+    with build_lock(BUILD_DIR):
+        if out.exists():
+            return out
+        tmp = out.with_name(f".{out.name}.{os.getpid()}")
+        cmd = [CXX, *CXXFLAGS, "-o", str(tmp), *map(str, SOURCES)]
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=300)
+        except OSError as e:
+            raise RuntimeError(f"cannot run {CXX}: {e}") from e
+        if r.returncode != 0:
+            raise RuntimeError(f"{CXX} failed to build {out.name} (exit "
+                               f"{r.returncode}):\n{r.stdout}{r.stderr}")
+        os.replace(tmp, out)
     return out
 
 

@@ -401,7 +401,7 @@ class Sim(_Replace):
     # attach_causality) and the specialization guard latch
     # (compile/specialize.py GuardState, attached by specialize.apply
     # when a capability was trimmed). Not yet (ROADMAP.md): sentinel
-    # (item 9), which stays None.
+    # (item 9b), which stays None.
     tcp: Any = None
     telem: Any = None
     inject: Any = None

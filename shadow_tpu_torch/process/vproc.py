@@ -861,7 +861,8 @@ class ProcessRuntime:
         """Runs on `device` (None -> "cuda"; raises when CUDA is
         missing or the bundle was built on another device), as every
         runner of the port does. `mesh` (the reference's sharded window
-        loop) is not ported yet: ROADMAP.md Queue 1 item 9."""
+        loop, where each rank owns its hosts' coroutines) is not ported
+        yet: ROADMAP.md Queue 1 item 9b."""
         from shadow_tpu_torch.net.build import (
             _check_sim_device,
             _runner_device,
@@ -869,9 +870,10 @@ class ProcessRuntime:
 
         if mesh is not None:
             raise NotImplementedError(
-                "shadow_tpu_torch: ProcessRuntime(mesh=...) needs the "
-                "sharded window loop (parallel/shard.py), not ported "
-                "yet: ROADMAP.md Queue 1 item 9")
+                "shadow_tpu_torch: ProcessRuntime(mesh=...) needs "
+                "each rank to own its hosts' coroutines over the "
+                "sharded window loop, not ported yet: ROADMAP.md "
+                "Queue 1 item 9b")
         self.device = _runner_device(bundle, device)
         _check_sim_device(bundle.sim, self.device)
         self.bundle = bundle

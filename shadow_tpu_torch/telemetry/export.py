@@ -17,7 +17,7 @@ Three host-side views over the harvested ring + phase timers:
   and causality blocks of the runs that carry them. The CLI writes it
   next to the trace.
 
-The elastic mesh transitions (ROADMAP.md Queue 1 item 9) are not
+The elastic mesh transitions (ROADMAP.md Queue 1 item 9b) are not
 ported: chrome_trace refuses them by name.
 """
 
@@ -50,11 +50,11 @@ def chrome_trace(records, timers=None, num_shards: int = 1,
     dicts) add pid 3, the critical-path group: one thread per chain
     drawing its events, plus "C" counter events of the window binding
     cause and jump utilization. The mesh-transition markers
-    (`elastic`, ROADMAP.md Queue 1 item 9) raise when given."""
+    (`elastic`, ROADMAP.md Queue 1 item 9b) raise when given."""
     if elastic:
         raise NotImplementedError(
             "shadow_tpu_torch: telemetry export of elastic mesh "
-            "transitions is not ported yet (ROADMAP.md Queue 1 item 9)")
+            "transitions is not ported yet (ROADMAP.md Queue 1 item 9b)")
     events = [{"ph": "M", "name": "process_name", "pid": 0, "tid": 0,
                "args": {"name": "sim-time (simulated µs)"}},
               {"ph": "M", "name": "thread_name", "pid": 0, "tid": 0,

@@ -1,5 +1,5 @@
 """Device-resident flow flight-recorder: per-packet latency sampling
-(PyTorch port of shadow_tpu/telemetry/flows.py, single shard).
+(PyTorch port of shadow_tpu/telemetry/flows.py).
 
 A FlowRing is a fixed-capacity ring of per-packet records appended at
 the window barrier from the staged outbox (every cross-host send passes
@@ -24,9 +24,11 @@ is scatter-free: each ring slot has at most one writing rank, found by
 a searchsorted over the keep-cumsum. Per-window appends are clamped to
 the capacity; `count` is the monotonic stored-record counter (slot =
 count % F), and `sampled` / `lost` keep count + lost == sampled.
-The reference's sharded merge (an all_gather of the per-shard counts
-and a psum of the plane deltas) waits for the mesh (ROADMAP.md Queue 1
-item 9): make_flow_fn refuses an axis.
+On a mesh (make_flow_fn(axis), parallel/shard.py) each rank appends
+its rows' kept entries at an offset, the kept counts of the ranks
+before it (one all_gather of the per-rank counts), and the ring planes
+merge by a sum of the plane deltas: each slot has exactly one writing
+rank, so the merged ring is the single-shard one.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ FLOW_PLANES = (
     ("t_route", I64),
     ("t_deliver", I64),
 )
+_I32_PLANES = tuple(n for n, dt in FLOW_PLANES if dt == I32)
+_I64_PLANES = tuple(n for n, dt in FLOW_PLANES if dt == I64)
 
 DEFAULT_CAPACITY = 4096
 DEFAULT_SAMPLE_PERIOD = 64
@@ -167,12 +171,15 @@ def make_flow_fn(axis: str | None = None):
     window's staged sends. When sim.flows is None it returns `sim`
     untouched. Reads nothing back to the host.
 
-    `axis` (the reference's shard_map mesh axis) is refused: the
-    sharded merge waits for the mesh (ROADMAP.md Queue 1 item 9)."""
-    if axis is not None:
-        raise NotImplementedError(
-            "shadow_tpu_torch: the sharded flow merge (axis=...) is not "
-            "ported yet (ROADMAP.md Queue 1 item 9)")
+    `axis` is the rank's mesh (parallel.shard.Mesh, the port's handle
+    of the reference's mesh axis): the per-rank kept counts are
+    gathered (one host read of the local count), each rank appends at
+    the offset of the ranks before it, and the plane deltas are summed
+    over the ranks (two collectives, i32 and i64)."""
+    if axis is not None and not hasattr(axis, "all_reduce"):
+        raise TypeError(
+            "make_flow_fn(axis=...) takes the rank's parallel.shard.Mesh")
+    mesh = axis if axis is not None and axis.size > 1 else None
 
     def flow_fn(sim, wstart, wend):
         ring = getattr(sim, "flows", None)
@@ -189,15 +196,22 @@ def make_flow_fn(axis: str | None = None):
         # flattened in (row, slot) order: ascending global host ids
         csum = torch.cumsum(keep.reshape(-1).to(I64), dim=0)
         cnt = csum[-1]
+        if mesh is None:
+            offset, total = 0, cnt
+        else:
+            # rank order is the global (source host, slot) order
+            counts = mesh.all_gather_ints([int(cnt)])
+            offset = sum(c[0] for c in counts[:mesh.rank])
+            total = sum(c[0] for c in counts)
 
         # Scatter-free append: ring slot s takes the rank
-        # r = (s - count) mod F kept entry when r < cnt (r < F is the
-        # capacity clamp, true by construction on one shard); that
-        # entry's flattened outbox index is the first position whose
-        # keep-cumsum reaches r + 1
+        # r = (s - count - offset) mod F kept entry when r < cnt and
+        # offset + r < F (the capacity clamp; the excess is counted as
+        # lost); that entry's flattened outbox index is the first
+        # position whose keep-cumsum reaches r + 1
         s = torch.arange(F, dtype=I64, device=dev)
-        r = torch.remainder(s - ring.count, F)
-        valid = r < cnt
+        r = torch.remainder(s - ring.count - offset, F)
+        valid = (r < cnt) & ((offset + r) < F)
         i = torch.searchsorted(csum, r + 1).clamp(0, Hl * M - 1)
 
         src = out.src.reshape(-1)[i]
@@ -232,11 +246,20 @@ def make_flow_fn(axis: str | None = None):
             old = getattr(ring, n)
             v = v.to(old.dtype) if isinstance(v, torch.Tensor) else v
             new[n] = torch.where(valid, v, old)
-        appended = torch.clamp(cnt, max=F)
+        if mesh is not None:
+            # each slot has exactly one writing rank: merge by summing
+            # the plane deltas (zeros where this rank did not write)
+            for names in (_I32_PLANES, _I64_PLANES):
+                d = mesh.all_reduce(torch.stack(
+                    [new[n] - getattr(ring, n) for n in names]), "sum")
+                new.update({n: getattr(ring, n) + d[i]
+                            for i, n in enumerate(names)})
+        appended = (torch.clamp(cnt, max=F) if mesh is None
+                    else min(total, F))
         ring = ring.replace(
             count=ring.count + appended,
-            sampled=ring.sampled + cnt,
-            lost=ring.lost + (cnt - appended),
+            sampled=ring.sampled + total,
+            lost=ring.lost + (total - appended),
             **new)
         return sim.replace(flows=ring)
 

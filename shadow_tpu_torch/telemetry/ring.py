@@ -1,5 +1,6 @@
 """Device-resident per-window telemetry ring (PyTorch port of
-shadow_tpu/telemetry/ring.py, single shard).
+shadow_tpu/telemetry/ring.py; on a mesh the record is reduced over the
+ranks, make_telem_fn(axis)).
 
 A fixed-capacity ring of per-window records — one record per window
 barrier, written on the device as masked one-hot stores — that the
@@ -14,7 +15,7 @@ Record fields (one [W] plane each, PLANES order):
 - micro_steps        fixpoint iterations
 - routed_local       outbox entries whose destination is on this
                      shard (all of them on one shard)
-- routed_cross       outbox entries bound for another shard (0 here)
+- routed_cross       outbox entries bound for another shard (0 on one)
 - drops              packets dropped this window (net.state.drop_total
                      delta)
 - retx               TCP segments retransmitted (sum of tcp.retx_segs
@@ -155,7 +156,7 @@ def _record(ring: TelemetryRing, vals: dict) -> TelemetryRing:
     return ring.replace(count=ring.count + 1, **new)
 
 
-def make_telem_fn():
+def make_telem_fn(axis=None):
     """Build the engine's telem hook ``telem_fn(sim, wstart, wend,
     ev_delta, ms_delta, active_lanes=None, fastpath=None,
     inject_deltas=None) -> sim``. It runs inside step_window after the
@@ -167,7 +168,19 @@ def make_telem_fn():
     census-branch indicator (tensors, bools or None = 0).
     `inject_deltas` is the window's (injected, dropped, deferred) from
     inject.merge_staged (None, without a staging buffer, records
-    zeros)."""
+    zeros).
+
+    `axis` is the rank's mesh (parallel.shard.Mesh, the port's handle of
+    the reference's mesh axis); None records the single-shard values.
+    With a mesh every cross-rank reduction rides one sum of a stacked
+    i64 vector, one max and one min, as the reference's psum/pmax/pmin:
+    events, routed counts, the cumulative drops and retransmits, the
+    occupancy sum, the active rows and the injection partials are
+    summed; micro-steps and the occupancy maximum are maxed."""
+    if axis is not None and not hasattr(axis, "all_reduce"):
+        raise TypeError(
+            "make_telem_fn(axis=...) takes the rank's parallel.shard.Mesh")
+    mesh = axis if axis is not None and axis.size > 1 else None
 
     def telem_fn(sim, wstart, wend, ev_delta, ms_delta,
                  active_lanes=None, fastpath=None, inject_deltas=None):
@@ -196,6 +209,23 @@ def make_telem_fn():
         inj, inj_drop, inj_def = ((zero, zero, zero)
                                   if inject_deltas is None
                                   else inject_deltas)
+        active = zero if active_lanes is None else active_lanes
+        if mesh is not None:
+            dev = n_local.device
+
+            def i64(v):
+                return torch.as_tensor(v, device=dev).to(I64).reshape(())
+
+            sums = mesh.all_reduce(torch.stack([
+                i64(ev_delta), n_local, n_cross, i64(drops_cum),
+                i64(retx_cum), i64(qsum), i64(active), i64(inj),
+                i64(inj_drop)]), "sum")
+            maxes = mesh.all_reduce(
+                torch.stack([i64(ms_delta), i64(qmax)]), "max")
+            qmin = mesh.all_reduce(i64(qmin), "min")
+            (ev_delta, n_local, n_cross, drops_cum, retx_cum, qsum,
+             active, inj, inj_drop) = sums.unbind(0)
+            ms_delta, qmax = maxes.unbind(0)
         ring = _record(ring, dict(
             wstart=wstart,
             wend=wend,
@@ -208,7 +238,7 @@ def make_telem_fn():
             qocc_sum=qsum,
             qocc_min=qmin,
             qocc_max=qmax,
-            active_lanes=zero if active_lanes is None else active_lanes,
+            active_lanes=active,
             fastpath=zero if fastpath is None else fastpath,
             injected=inj,
             inj_dropped=inj_drop,

@@ -28,10 +28,14 @@ save_salvage writes the supervisor's lane-surgery artifact (a packed
 snapshot's lane slice, faults/escalate.py extract_lane) in the same
 atomic, checksummed layout; load_leaves reads it back.
 
-Not ported yet (ROADMAP.md): elastic_meta (the sentinel, item 9),
-replan_shards (parallel/, item 9), prewarm_dispatch (compile/, item
-11), and run_windows' mesh, warm_start, compile_info and dispatch_wrap
-arguments, which raise NotImplementedError.
+run_windows(mesh=...) runs the loop over a mesh of ranks
+(parallel/shard.py); its snapshots hold the global layout, so they
+resume on any shard count, in either package.
+
+Not ported yet (ROADMAP.md): elastic_meta and replan_shards (the
+sentinel and parallel/elastic.py, item 9b), prewarm_dispatch
+(compile/, item 11b), and run_windows' warm_start, compile_info and
+dispatch_wrap arguments, which raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -247,7 +251,9 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                 stats0=None, windows_per_dispatch: int | None = None,
                 adaptive_jump: bool | None = None, device=None,
                 mesh=None, feeder=None, warm_start=None,
-                compile_info=None, dispatch_wrap=None, fault_fn=None):
+                compile_info=None, dispatch_wrap=None, fault_fn=None,
+                mesh_axis: str = "hosts",
+                exchange_capacity: int | None = None):
     """Host-driven window loop with optional periodic snapshots — the
     checkpointing twin of engine.run (same advance rule,
     master.c:450-480). Returns (sim, stats, checkpoints), checkpoints
@@ -284,8 +290,18 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     equal fully-staged ones. A trace whose same-timestamp burst
     outgrows the lanes stalls with a RuntimeError naming the knob.
 
-    `mesh` and `dispatch_wrap` (ROADMAP.md Queue 1 item 9), `warm_start`
-    and `compile_info` (item 11b) are not ported yet and raise
+    `mesh` (parallel.shard.Mesh, this rank's) runs the same loop on
+    every rank over the mesh (parallel.shard.make_sharded_window /
+    make_sharded_chunk over `mesh_axis`, `exchange_capacity` per peer):
+    the state stays sharded between dispatches, and the hooks, the
+    snapshots and the result see the global Sim, gathered at the
+    boundary when one of them needs it. Snapshots hold the global
+    layout (meta `shards` records the width), so one taken on S ranks
+    resumes on any other count; rank 0 alone writes them, and every
+    rank waits for the write. `device` must then be None or the mesh's.
+
+    `dispatch_wrap` (ROADMAP.md Queue 1 item 9b), `warm_start` and
+    `compile_info` (item 11b) are not ported yet and raise
     NotImplementedError."""
     from shadow_tpu_torch.core import simtime
     from shadow_tpu_torch.core.engine import (
@@ -309,10 +325,14 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     from shadow_tpu_torch.telemetry.flows import make_flow_fn
     from shadow_tpu_torch.telemetry.ring import make_telem_fn
 
-    refuse_unported(mesh=(mesh, 9), dispatch_wrap=(dispatch_wrap, 9),
+    refuse_unported(dispatch_wrap=(dispatch_wrap, "9b"),
                     warm_start=(warm_start, "11b"),
                     compile_info=(compile_info, "11b"))
-    dev = _runner_device(bundle, device)
+    if mesh is not None and device is not None \
+            and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh rank's "
+                         f"{mesh.device}")
+    dev = _runner_device(bundle, mesh.device if mesh is not None else device)
     cfg = bundle.cfg
     caps = _resolve_caps(bundle, fault_fn)
     step = make_step_fn(cfg, app_handlers, caps=caps)
@@ -337,6 +357,27 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     hook = on_chunk if on_chunk is not None else on_round
     total = stats0 if stats0 is not None else EngineStats.create(device=dev)
     saved = []
+    shards = 1 if mesh is None else mesh.size
+    watched = (on_window is not None or hook is not None)
+
+    def view(s, snapshot_due=False):
+        """The global Sim the hooks and snapshots see (gathered over the
+        mesh only when one of them runs)."""
+        if mesh is None or not (watched or snapshot_due):
+            return s
+        from shadow_tpu_torch.parallel.shard import unshard_sim
+
+        return unshard_sim(s, mesh)
+
+    def snapshot(g, t):
+        """Write `g` (global) as the snapshot at t: rank 0 writes, every
+        rank waits for the file."""
+        path = f"{checkpoint_path}.{t}.npz"
+        if mesh is None or mesh.rank == 0:
+            save(path, g, time_ns=t, shards=shards)
+        if mesh is not None:
+            mesh.barrier()
+        saved.append((path, t))
     next_ckpt = (start_time + checkpoint_every_ns
                  if checkpoint_every_ns else None)
     wstart = max(int(sim.events.min_time().amin()), start_time)
@@ -361,14 +402,30 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                 f"NetConfig.inject_lanes) past the largest "
                 f"same-timestamp burst")
 
+    if mesh is not None:
+        from shadow_tpu_torch.parallel.shard import (
+            make_sharded_chunk,
+            make_sharded_window,
+            shard_sim,
+        )
+        # the rank's shard; the input stays as it was
+        sim = shard_sim(sim, mesh)
+
     if wpd > 1 or adaptive or getattr(sim, "causality", None) is not None:
-        chunk = make_chunk_body(
-            step, end_time=end,
-            wend_fn=resolve_wend_fn(bundle, end, adaptive, fault_fn),
-            chunk_windows=wpd, emit_capacity=cfg.emit_capacity,
-            lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
-            telem_fn=telem_fn, sparse_lanes=sparse, fault_fn=fault_fn,
-            flow_fn=flow_fn)
+        wend_fn = resolve_wend_fn(bundle, end, adaptive, fault_fn)
+        if mesh is None:
+            chunk = make_chunk_body(
+                step, end_time=end, wend_fn=wend_fn,
+                chunk_windows=wpd, emit_capacity=cfg.emit_capacity,
+                lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
+                telem_fn=telem_fn, sparse_lanes=sparse, fault_fn=fault_fn,
+                flow_fn=flow_fn)
+        else:
+            chunk = make_sharded_chunk(
+                mesh, mesh_axis, bundle.sim, cfg, step, end_time=end,
+                wend_fn=wend_fn, chunk_windows=wpd,
+                exchange_capacity=exchange_capacity, bulk_fn=bulk_fn,
+                fault_fn=fault_fn)
         if feeder is not None and wstart <= end:
             # streaming: each refill must land in the staging planes
             # before the next chunk reads them; the plain loop below
@@ -385,23 +442,23 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                 nm = min(int(cnext), feeder.horizon)
                 total = total.add(cstats)
                 wend_c = min(nm, end + 1)
-                if (next_ckpt is not None and checkpoint_path is not None
-                        and next_ckpt <= nm <= end):
-                    p = save(f"{checkpoint_path}.{nm}.npz", sim,
-                             time_ns=nm)
-                    saved.append((p, nm))
+                due = (next_ckpt is not None and checkpoint_path is not None
+                       and next_ckpt <= nm <= end)
+                g = view(sim, due)
+                if due:
+                    snapshot(g, nm)
                     while next_ckpt <= nm:
                         next_ckpt += checkpoint_every_ns
                 if on_window is not None:
-                    on_window(sim, wend_c)
+                    on_window(g, wend_c)
                 if hook is not None:
-                    hook(sim, cstats, wstart, wend_c, nm)
+                    hook(g, cstats, wstart, wend_c, nm)
                 sim = feeder.refill(sim, nm)
                 if nm >= simtime.INVALID:
                     # quiet queue: jump to the next staged event
                     nm = feeder.pending_min()
                 if nm > end or nm >= simtime.INVALID:
-                    return sim, total, saved
+                    return view(sim, True), total, saved
                 if not feeder.done and feeder.horizon <= nm:
                     raise RuntimeError(_stall_msg(nm))
                 if (nm, feeder.cursor) == prev_state:
@@ -413,24 +470,37 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                                     wstart)
             total = total.add(cstats)
             wend_c = min(nm, end + 1)
-            if (next_ckpt is not None and checkpoint_path is not None
-                    and next_ckpt <= nm <= end):
-                p = save(f"{checkpoint_path}.{nm}.npz", sim, time_ns=nm)
-                saved.append((p, nm))
+            due = (next_ckpt is not None and checkpoint_path is not None
+                   and next_ckpt <= nm <= end)
+            g = view(sim, due)
+            if due:
+                snapshot(g, nm)
                 while next_ckpt <= nm:
                     next_ckpt += checkpoint_every_ns
             if on_window is not None:
-                on_window(sim, wend_c)
+                on_window(g, wend_c)
             if hook is not None:
-                hook(sim, cstats, wstart, wend_c, nm)
+                hook(g, cstats, wstart, wend_c, nm)
             wstart = nm
-        return sim, total, saved
+        return view(sim, True), total, saved
+
+    if mesh is not None:
+        one_window = make_sharded_window(
+            mesh, mesh_axis, bundle.sim, cfg, step,
+            exchange_capacity=exchange_capacity, bulk_fn=bulk_fn,
+            fault_fn=fault_fn)
+    else:
+        def one_window(s, wstart, wend):
+            return step_window(
+                s, EngineStats.create(device=dev), step, wend,
+                cfg.emit_capacity, s.net.lane_id, bulk_fn=bulk_fn,
+                telem_fn=telem_fn, wstart=wstart, sparse_lanes=sparse,
+                fault_fn=fault_fn, flow_fn=flow_fn)
 
     while wstart <= end:
         if (next_ckpt is not None and wstart >= next_ckpt
                 and checkpoint_path is not None):
-            p = save(f"{checkpoint_path}.{wstart}.npz", sim, time_ns=wstart)
-            saved.append((p, wstart))
+            snapshot(view(sim, True), wstart)
             next_ckpt += checkpoint_every_ns
         wend = min(wstart + min_jump, end + 1,
                    _next_record(records, wstart))
@@ -441,20 +511,17 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
             wend = min(wend, feeder.horizon)
             if wend <= wstart:
                 raise RuntimeError(_stall_msg(wstart))
-        sim, stats, nm = step_window(
-            sim, EngineStats.create(device=dev), step, wend,
-            cfg.emit_capacity, sim.net.lane_id, bulk_fn=bulk_fn,
-            telem_fn=telem_fn, wstart=wstart, sparse_lanes=sparse,
-            fault_fn=fault_fn, flow_fn=flow_fn)
+        sim, stats, nm = one_window(sim, wstart, wend)
         total = total.add(stats)
         if feeder is not None:
             # the chunked loop's horizon rule: the first unstaged trace
             # event bounds the next window start
             nm = min(nm, feeder.horizon)
+        g = view(sim)
         if on_window is not None:
-            on_window(sim, wend)
+            on_window(g, wend)
         if hook is not None:
-            hook(sim, stats, wstart, wend, nm)
+            hook(g, stats, wstart, wend, nm)
         if nm >= simtime.INVALID:
             if feeder is not None and not feeder.done:
                 # queue and staging both drained, but the trace still
@@ -466,4 +533,4 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                     continue
             break
         wstart = nm
-    return sim, total, saved
+    return view(sim, True), total, saved

@@ -20,28 +20,80 @@ ROW_KEYS = {"metric", "value", "unit", "vs_baseline", "backend", "device",
             "warmup_s", "wall_s", "windows", "micro_steps", "events"}
 
 
-def _run(**env):
+def _start(**env):
     full = {k: v for k, v in os.environ.items()
             if not k.startswith("BENCH_")}
     full.update(env)
     full.setdefault("OMP_NUM_THREADS", "1")
-    return subprocess.run([sys.executable, "-m", "shadow_tpu_torch.bench"],
-                          cwd=ROOT, env=full, capture_output=True, text=True,
-                          timeout=300)
+    return subprocess.Popen([sys.executable, "-m", "shadow_tpu_torch.bench"],
+                            cwd=ROOT, env=full, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
 
 
-@pytest.mark.parametrize("workload,topo,name", [
+def _finish(p):
+    out, err = p.communicate(timeout=300)
+    return subprocess.CompletedProcess(p.args, p.returncode, out, err)
+
+
+def _run(**env):
+    return _finish(_start(**env))
+
+
+WORKLOADS = [
     ("phold", "one", "events_per_sec_per_chip@16hosts_phold_load8"),
     ("phold", "mix", "events_per_sec_per_chip@16hosts_phold_load8_mixtopo"),
     ("pingpong", "one", "events_per_sec_per_chip@16hosts_udp_pingpong"),
     ("pingpong", "mix",
      "events_per_sec_per_chip@16hosts_udp_pingpong_mixtopo"),
-])
-def test_one_json_row_per_workload_and_topology(workload, topo, name):
-    # the pings start at 1 s and take 20 round trips of up to 100 ms
-    sim_s = "4" if workload == "pingpong" else "1"
-    r = _run(BENCH_PLATFORM="cpu", BENCH_HOSTS="16", BENCH_SIM_SECONDS=sim_s,
-             BENCH_WORKLOAD=workload, BENCH_TOPO=topo)
+]
+INJECTION = [
+    ({}, "events_per_sec_per_chip@16hosts_inject_rate160_chunk1"),
+    ({"BENCH_CHUNK_WINDOWS": "4", "BENCH_CHECKPOINT_WINDOWS": "8"},
+     "events_per_sec_per_chip@16hosts_inject_rate160_chunk4"),
+    ({"BENCH_INJECT_RATE": "", "BENCH_INJECT_TRACE": "{trace}"},
+     "events_per_sec_per_chip@16hosts_inject_trace_chunk1"),
+]
+# rows run at once by the rows fixture
+AT_ONCE = 4
+
+
+@pytest.fixture(scope="module")
+def rows(tmp_path_factory):
+    """The processes of the file's running rows — the workloads and
+    topologies, the chunked row, the injection rows (the trace written
+    first) — AT_ONCE at a time: {key: CompletedProcess}."""
+    from shadow_tpu_torch.inject import write_trace
+
+    trace = str(tmp_path_factory.mktemp("bench") / "rate.trace")
+    write_trace(trace, tbench.rate_trace(16, 160, 2), binary=True)
+    envs = {}
+    for workload, topo, name in WORKLOADS:
+        # the pings start at 1 s and take 20 round trips of up to 100 ms
+        sim_s = "4" if workload == "pingpong" else "1"
+        envs[name] = dict(BENCH_PLATFORM="cpu", BENCH_HOSTS="16",
+                          BENCH_SIM_SECONDS=sim_s, BENCH_WORKLOAD=workload,
+                          BENCH_TOPO=topo)
+    envs["chunk4"] = dict(BENCH_PLATFORM="cpu", BENCH_HOSTS="16",
+                          BENCH_SIM_SECONDS="1", BENCH_CHUNK_WINDOWS="4",
+                          BENCH_TELEMETRY="0")
+    for env, name in INJECTION:
+        full = {"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16",
+                "BENCH_SIM_SECONDS": "2", "BENCH_INJECT_RATE": "160",
+                **{k: v.format(trace=trace) for k, v in env.items()}}
+        envs[name] = {k: v for k, v in full.items() if v}
+    out, todo, live = {}, list(envs.items()), []
+    while todo or live:
+        while todo and len(live) < AT_ONCE:
+            key, env = todo.pop(0)
+            live.append((key, _start(**env)))
+        key, p = live.pop(0)
+        out[key] = _finish(p)
+    return out
+
+
+@pytest.mark.parametrize("workload,topo,name", WORKLOADS)
+def test_one_json_row_per_workload_and_topology(rows, workload, topo, name):
+    r = rows[name]
     assert r.returncode == 0, r.stderr
     lines = r.stdout.strip().splitlines()
     assert len(lines) == 1
@@ -62,9 +114,8 @@ def test_one_json_row_per_workload_and_topology(workload, topo, name):
         assert row["events"] == 8 * 41
 
 
-def test_chunked_row_names_its_chunk():
-    r = _run(BENCH_PLATFORM="cpu", BENCH_HOSTS="16", BENCH_SIM_SECONDS="1",
-             BENCH_CHUNK_WINDOWS="4", BENCH_TELEMETRY="0")
+def test_chunked_row_names_its_chunk(rows):
+    r = rows["chunk4"]
     assert r.returncode == 0, r.stderr
     row = json.loads(r.stdout)
     assert row["metric"].endswith("_phold_load8_chunk4")
@@ -78,7 +129,9 @@ def test_baseline_rule_by_scale():
 
 
 @pytest.mark.parametrize("env,word", [
-    ({"BENCH_SHARDS": "2"}, "BENCH_SHARDS"),
+    # BENCH_SHARDS runs (tests/test_torch_lanes_cli.py holds its row to
+    # bench.py's); it is refused beside the runners it is not wired for
+    ({"BENCH_SHARDS": "2", "BENCH_SUPERVISE": "1"}, "BENCH_SHARDS"),
     ({"BENCH_SUPERVISE": "1", "BENCH_WORKLOAD": "pingpong"},
      "BENCH_SUPERVISE"),
     ({"BENCH_TOPO": "ref"}, "BENCH_TOPO"),
@@ -92,26 +145,13 @@ def test_refused_knob_exits_non_zero(env, word):
     assert word in r.stderr and r.stdout == ""
 
 
-@pytest.mark.parametrize("env,name", [
-    ({}, "events_per_sec_per_chip@16hosts_inject_rate160_chunk1"),
-    ({"BENCH_CHUNK_WINDOWS": "4", "BENCH_CHECKPOINT_WINDOWS": "8"},
-     "events_per_sec_per_chip@16hosts_inject_rate160_chunk4"),
-    ({"BENCH_INJECT_RATE": "", "BENCH_INJECT_TRACE": "{trace}"},
-     "events_per_sec_per_chip@16hosts_inject_trace_chunk1"),
-], ids=["rate", "rate_chunk4", "trace"])
-def test_injection_rows_are_named_as_bench_py_names_them(env, name,
-                                                          tmp_path):
+@pytest.mark.parametrize("env,name", INJECTION,
+                         ids=["rate", "rate_chunk4", "trace"])
+def test_injection_rows_are_named_as_bench_py_names_them(rows, env, name):
     """bench.py's BENCH_INJECT_* scenario: the tgen app fed 320 events
     (160/s for 2 sim-s, round-robin sources) through the supervised
     loop; the same trace from a file gives the same events."""
-    from shadow_tpu_torch.inject import write_trace
-
-    trace = str(tmp_path / "rate.trace")
-    write_trace(trace, tbench.rate_trace(16, 160, 2), binary=True)
-    full = {"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16",
-            "BENCH_SIM_SECONDS": "2", "BENCH_INJECT_RATE": "160",
-            **{k: v.format(trace=trace) for k, v in env.items()}}
-    r = _run(**{k: v for k, v in full.items() if v})
+    r = rows[name]
     assert r.returncode == 0, r.stderr
     row = json.loads(r.stdout)
     assert set(row) == ROW_KEYS and row["metric"] == name

@@ -25,6 +25,7 @@ from shadow_tpu_torch.config import examples
 from shadow_tpu_torch.config import loader as tloader
 from shadow_tpu_torch.config import xmlconfig as txml
 from shadow_tpu_torch.net import build as tbuild
+from torch_parity import side_by_side
 
 torch.set_num_threads(1)
 
@@ -54,22 +55,31 @@ def runs():
         b = jruns[s].bundle
         assert b.min_jump == first.min_jump
         assert dataclasses.replace(b.cfg, seed=first.cfg.seed) == first.cfg
-    runner = jbuild.make_runner(first, app_handlers=jruns[SEEDS[0]].handlers,
-                                app_bulk=first.app_bulk)
+    tls = {s: tloader.load(txml.parse_config(TEXT), seed=s, device="cpu")
+           for s in SEEDS}
+    boots = {s: (_jax_leaves(jruns[s].bundle.sim),
+                 convert.sim_to_numpy(tls[s].bundle.sim)) for s in SEEDS}
+
+    def ref():
+        runner = jbuild.make_runner(
+            first, app_handlers=jruns[SEEDS[0]].handlers,
+            app_bulk=first.app_bulk)
+        return {s: runner(jruns[s].bundle.sim) for s in SEEDS}
+
+    def port():
+        return {s: tbuild.run(tl.bundle, app_handlers=tl.handlers,
+                              app_bulk=tl.bundle.app_bulk, device="cpu")
+                for s, tl in tls.items()}
+
+    # the reference's runs and the port's side by side
+    refs, ports = side_by_side([ref, port])
     out = {}
     for s in SEEDS:
-        jb = jruns[s].bundle
-        boot = _jax_leaves(jb.sim)
-        jsim, jstats = runner(jb.sim)
-        tl = tloader.load(txml.parse_config(TEXT), seed=s, device="cpu")
-        tb = tl.bundle
-        tboot = convert.sim_to_numpy(tb.sim)
-        tsim, tstats = tbuild.run(tb, app_handlers=tl.handlers,
-                                  app_bulk=tb.app_bulk, device="cpu")
-        out[s] = {"boot": (boot, tboot),
+        (jsim, jstats), (tsim, tstats) = refs[s], ports[s]
+        out[s] = {"boot": boots[s],
                   "stats": (jstats.as_dict(), tstats.as_dict()),
                   "final": (_jax_leaves(jsim), convert.sim_to_numpy(tsim)),
-                  "handlers": tl.handlers}
+                  "handlers": tls[s].handlers}
     return out
 
 

@@ -10,6 +10,7 @@ reference, on the CPU:
 - net.build.make_chunked_runner at K = 1, 3 and 8 leaf-equal to
   make_runner and to the reference's make_runner and
   make_chunked_runner (PHOLD with the bulk pass and the ring);
+- utils.checkpoint.run_windows on a one-rank mesh at K = 1 and 8;
 - utils.checkpoint.run_windows at K = 1 and K = 8, and the adaptive
   rule on a uniform graph equal to the static partition
   (tests/test_chunked.py's contract); on_chunk window counts summing to
@@ -313,6 +314,33 @@ def test_run_windows_matches_reference(ref_runs, kw):
     _assert_leaves_equal(ref_runs["whole"][0], leaves)
 
 
+# the leaves the reference gives per shard count (parallel/shard.py)
+PER_SHARD_COUNT = (".outbox.narrow_hit", ".outbox.narrow_miss",
+                   ".outbox.max_occupied", ".outbox.route_elided")
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_run_windows_on_a_mesh(ref_runs, k):
+    """run_windows(mesh=...), once refused, on a one-rank mesh (no
+    process group: the sharded route and the scalar replication at one
+    shard) at K = 1 and 8: every leaf but the four the reference gives
+    per shard count equals the reference's run. The two-rank loop is
+    held to the reference's sharded one in
+    tests/test_torch_parallel_dispatch.py."""
+    from shadow_tpu_torch.parallel import Mesh
+
+    leaves, stats = _run_windows(mesh=Mesh(1, device="cpu"),
+                                 windows_per_dispatch=k)
+    want, want_stats = ref_runs["whole"]
+    assert stats == want_stats
+    _assert_leaves_equal({k_: v for k_, v in want.items()
+                          if k_ not in PER_SHARD_COUNT},
+                         {k_: v for k_, v in leaves.items()
+                          if k_ not in PER_SHARD_COUNT})
+    hit, miss = (int(leaves[f".outbox.narrow_{x}"]) for x in ("hit", "miss"))
+    assert hit + miss == stats["windows"]
+
+
 def test_on_chunk_window_counts_sum_to_total():
     per_dispatch, spans = [], []
 
@@ -389,8 +417,7 @@ def test_chunked_runner_refusals():
 
 def test_run_windows_refusals():
     tb = _bundle("port")
-    for kw, item in (({"mesh": object()}, "item 9"),
-                     ({"dispatch_wrap": lambda f: f}, "item 9"),
+    for kw, item in (({"dispatch_wrap": lambda f: f}, "item 9b"),
                      ({"warm_start": True}, "item 11"),
                      ({"compile_info": {}}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):

@@ -10,6 +10,8 @@ reference's (shadow_tpu.cli), on the CPU:
 - `--supervise` (with snapshots), `--chunk-windows` and `--resume`
   give the plain run's report;
 - every refused flag exits 2 and names its ROADMAP.md item;
+  `--workers 2` shards the run over 2 gloo ranks and reports the
+  reference CLI's `--workers 2` numbers;
   `--host-kernel run` (at the default and at `--host-time-scale 1.0`)
   runs a `.py`-plugin config as the reference's CLI does, and the
   port's `--host-kernel diff` agrees (the manifest's conformance
@@ -176,9 +178,12 @@ def test_resume_continues_to_the_plain_report(cli_runs, xml):
 
 
 REFUSED = {
-    "workers": (["-w", "2"], "item 9"),
     "profile_dir": (["--profile-dir", "prof"], "jax.profiler"),
 }
+# flags the port once refused, run against the reference's CLI on the
+# PHOLD XML: --workers 2 shards its 10 hosts over 2 gloo ranks (the
+# reference over 2 of the conftest's 8 CPU devices)
+LIFTED_MESH = {"workers": ["-w", "2"]}
 # the host-kernel flags the port once refused: run on
 # tests/test_py_plugins.py's .py-plugin echo config, rendered for each
 # package, against the reference's CLI
@@ -250,16 +255,32 @@ def _host_kernel_run(tmp_path, name):
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED) + sorted(LIFTED_OBS)
-                         + sorted(LIFTED_HK))
+                         + sorted(LIFTED_HK) + sorted(LIFTED_MESH))
 def test_refused_flag_exits_and_names_its_item(xml, observed_cli, name,
-                                               tmp_path):
+                                               tmp_path, cli_runs):
     """A flag still refused exits 2 naming its ROADMAP item. The flags
     the port took over (LIFTED_OBS) give the reference CLI's report
     and log: the per-path lines, and the events the gate defers. The
     host-kernel flags (LIFTED_HK) run the .py-plugin config as the
     reference's CLI does: `run` exits 0 with the processes' count; at a
     time scale of 1.0 the port's `diff` also agrees and writes the
-    conformance block."""
+    conformance block. `--workers 2` (LIFTED_MESH) gives the reference
+    CLI's sharded report and the port's serial one, and names the
+    ranks' backend in the log."""
+    if name in LIFTED_MESH:
+        runs = {}
+        for key, mod in (("ref", jcli), ("port", tcli)):
+            d = tmp_path / key
+            code, lines, err = _main(mod, [xml, "--platform", "cpu", "-d",
+                                           str(d), *LIFTED_MESH[name]])
+            assert code == 0, err
+            runs[key] = (lines, json.loads(lines[-1]))
+        want, got = runs["ref"][1], runs["port"][1]
+        for k in REPORT_KEYS:
+            assert got[k] == want[k] == cli_runs["port"][1][k], k
+        assert any("--workers 2: 2 ranks, backend gloo" in ln
+                   for ln in runs["port"][0])
+        return
     if name in LIFTED_HK:
         runs = _host_kernel_run(tmp_path, name)
         (rc, rrep, _, rerr), (pc, prep, _, perr) = (runs["ref"],

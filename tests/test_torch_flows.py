@@ -8,6 +8,8 @@ the reference's, on the CPU, tolerance zero:
 - the serial path: every window's flow_fn call of a port run held to
   the reference's flow_fn on the same state, through a saturated ring
   (capacity 8, period 1: wraps and window clamps);
+- the sharded merge (make_flow_fn(axis), two gloo ranks) against the
+  reference's under shard_map on 2 devices;
 - recorders off byte-identical to no recorders;
 - the harvested records, histograms, per-lane latency, traffic matrix
   and manifest block equal to the reference's.
@@ -148,7 +150,41 @@ def test_serial_windows_match_reference_flow_fn():
 
 
 def test_sharded_merge_is_refused():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """The sharded merge, once refused (make_flow_fn(axis)): two ranks
+    (gloo) recording a seeded outbox of the 16-host program twice —
+    per-rank offsets, the capacity clamp and a wrap — hold the ring to
+    the reference's make_flow_fn("hosts") under shard_map on 2
+    devices."""
+    import jax
+    from jax.sharding import Mesh as JMesh
+
+    import torch_shard_ranks as R
+    from shadow_tpu.parallel.shard import _shard_map, sim_specs
+    from shadow_tpu_torch.parallel import spawn
+
+    got = spawn(R.flow_merge_case, 2, deadline_s=120)[0]
+    jb = packed("jax", lanes=False, ring=False, replicas=False,
+                flows=R.FLOW_RING)
+    planes = R.seeded_outbox(11, 16, jb.sim.outbox.dst.shape[1],
+                             jb.sim.outbox.words.shape[-1], 2)
+    jsim = jb.sim.replace(outbox=jb.sim.outbox.replace(
+        **{k: jnp.asarray(v) for k, v in planes.items()}))
+    fn = jflows.make_flow_fn("hosts")
+
+    def body(s):
+        for w0, w1 in R.FLOW_WINDOWS:
+            s = fn(s, w0, w1)
+        return s
+
+    specs = sim_specs(jsim, "hosts")
+    mesh = JMesh(np.array(jax.devices()[:2]), ("hosts",))
+    out = jax.jit(_shard_map(body, mesh=mesh, in_specs=(specs,),
+                             out_specs=specs, check_vma=False))(jsim)
+    want = {".flows" + k: v for k, v in jax_leaves(out.flows).items()}
+    assert int(want[".flows.lost"]) > 0
+    assert int(want[".flows.count"]) > R.FLOW_RING[1]
+    assert_leaves_equal(want, got)
+    with pytest.raises(TypeError, match="Mesh"):
         tflows.make_flow_fn(axis="hosts")
 
 

@@ -27,6 +27,7 @@ from shadow_tpu_torch.apps import gossip as tgossip
 from shadow_tpu_torch.net import build as tbuild
 from shadow_tpu_torch.net.state import NetConfig as TConfig
 from tests.test_torch_tcp_bulk import _assert_leaves_equal, _jax_leaves
+from torch_parity import side_by_side
 
 torch.set_num_threads(1)
 
@@ -62,11 +63,13 @@ def _bundle(mod, cfg_cls, gossip, **kw):
 @pytest.fixture(scope="module")
 def runs():
     jb = _bundle(jbuild, JConfig, jgossip)
-    jsim, jstats = jbuild.make_runner(
-        jb, app_handlers=(jgossip.tcp_handler,))(jb.sim)
     tb = _bundle(tbuild, TConfig, tgossip, device="cpu")
-    tsim, tstats = tbuild.make_runner(
-        tb, app_handlers=(tgossip.tcp_handler,), device="cpu")(tb.sim)
+    # the reference's run and the port's side by side
+    (jsim, jstats), (tsim, tstats) = side_by_side([
+        lambda: jbuild.make_runner(
+            jb, app_handlers=(jgossip.tcp_handler,))(jb.sim),
+        lambda: tbuild.make_runner(
+            tb, app_handlers=(tgossip.tcp_handler,), device="cpu")(tb.sim)])
     return {"boot": _jax_leaves(jb.sim),
             "port_boot": convert.sim_to_numpy(tb.sim),
             "jax_stats": jstats.as_dict(), "jax_final": _jax_leaves(jsim),

@@ -64,7 +64,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.utils.shadowlog",
                 "shadow_tpu_torch.utils.objcount",
                 "shadow_tpu_torch.utils.tracker", *INJECTION, *LANES,
-                *COMPILE, *OBSERVE, *VPROC):
+                *COMPILE, *OBSERVE, *VPROC, *PARALLEL):
         assert mod in out["modules"]
 
 
@@ -98,14 +98,44 @@ VPROC = ("shadow_tpu_torch.process", "shadow_tpu_torch.process.vproc",
          "shadow_tpu_torch.hostrun.trace")
 
 
+# the sharded window loop's modules
+PARALLEL = ("shadow_tpu_torch.parallel", "shadow_tpu_torch.parallel.shard")
+
+
+# {module: (exit code, stdout, stderr)} of each module's fresh
+# interpreter, filled for every module at the first use
+_ALONE: dict = {}
+# fresh interpreters run at once (each imports torch)
+_ALONE_AT_ONCE = 6
+
+
+def _probe_alone(mods) -> dict:
+    """Import each module alone in a fresh interpreter, _ALONE_AT_ONCE
+    at a time; {module: (exit code, stdout, stderr)}."""
+    out, todo, live = {}, list(mods), []
+    while todo or live:
+        while todo and len(live) < _ALONE_AT_ONCE:
+            mod = todo.pop(0)
+            probe = (f"import importlib, json, sys; "
+                     f"importlib.import_module({mod!r}); print(json.dumps("
+                     "sorted(m for m in sys.modules if m.split('.')[0] in "
+                     "('jax', 'jaxlib', 'flax', 'shadow_tpu'))))")
+            live.append((mod, subprocess.Popen(
+                [sys.executable, "-c", probe], cwd=ROOT, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+        mod, p = live.pop(0)
+        stdout, stderr = p.communicate(timeout=300)
+        out[mod] = (p.returncode, stdout, stderr)
+    return out
+
+
 def _imports_alone(mod):
-    probe = (f"import importlib, json, sys; importlib.import_module({mod!r});"
-             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')"
-             "[0] in ('jax', 'jaxlib', 'flax', 'shadow_tpu'))))")
-    r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr
-    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+    if not _ALONE:
+        _ALONE.update(_probe_alone(INJECTION + LANES + COMPILE + OBSERVE
+                                   + VPROC + PARALLEL))
+    code, stdout, stderr = _ALONE[mod]
+    assert code == 0, stderr
+    assert json.loads(stdout.strip().splitlines()[-1]) == []
 
 
 @pytest.mark.parametrize("mod", INJECTION)
@@ -131,6 +161,31 @@ def test_observe_module_imports_alone_without_jax(mod):
 @pytest.mark.parametrize("mod", VPROC)
 def test_vproc_module_imports_alone_without_jax(mod):
     _imports_alone(mod)
+
+
+@pytest.mark.parametrize("mod", PARALLEL)
+def test_parallel_module_imports_alone_without_jax(mod):
+    _imports_alone(mod)
+
+
+def test_mesh_needs_cuda_by_default():
+    """A Mesh's rank device is the card unless the caller asks for the
+    CPU: without CUDA the default raises (no quiet gloo-on-CPU mesh),
+    and a wider mesh needs its rendezvous."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behavior without a CUDA device")
+    from shadow_tpu_torch.parallel import Mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Mesh(2, 0, init_method="tcp://127.0.0.1:1")
+    m = Mesh(device="cpu")
+    assert (m.size, m.rank, m.device.type, m.backend) == (1, 0, "cpu", None)
+    with pytest.raises(ValueError, match="init_method"):
+        Mesh(2, 0, device="cpu")
+    with pytest.raises(ValueError, match="timeout"):
+        Mesh(device="cpu", timeout_s=600)
 
 
 def test_native_library_builds_without_the_reference():

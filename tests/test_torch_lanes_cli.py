@@ -12,7 +12,8 @@ snapshots against the reference's, on the CPU:
   BENCH_CAUSALITY=8` at 4 x 16 hosts: the row's name, counts and flows
   and causality blocks equal to bench.py's; the A/B knobs' fields; the
   combinations bench.py refuses refused, BENCH_RESIDENT and
-  BENCH_SHARDS by their ROADMAP.md items;
+  BENCH_SENTINEL by their ROADMAP.md items; BENCH_SHARDS=2's row
+  against bench.py's;
 - a snapshot carrying every new leaf (lane, admission, ring fan-out,
   flow ring, lineage and advance planes) read by the other package,
   both ways.
@@ -124,21 +125,53 @@ BENCH_ENV = {"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16",
              "BENCH_CAUSALITY": "8"}
 
 
-def _bench(cmd, **env):
+def _bench_start(cmd, **env):
     full = {k: v for k, v in os.environ.items()
             if not k.startswith("BENCH_")}
     full.update(env)
     full.setdefault("OMP_NUM_THREADS", "1")
-    return subprocess.run([sys.executable, *cmd], cwd=ROOT, env=full,
-                          capture_output=True, text=True, timeout=600)
+    return subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=full,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
 
 
-def test_bench_row_matches_bench_py():
-    r = _bench(["bench.py"], **BENCH_ENV, JAX_PLATFORMS="cpu")
+def _bench_finish(p):
+    out, err = p.communicate(timeout=600)
+    return subprocess.CompletedProcess(p.args, p.returncode, out, err)
+
+
+def _bench(cmd, **env):
+    return _bench_finish(_bench_start(cmd, **env))
+
+
+# BENCH_SHARDS=2 at 16 hosts: bench.py's row (shard_map over 2 virtual
+# CPU devices) and the port's (2 gloo ranks)
+SHARDS_ENV = dict(BENCH_PLATFORM="cpu", BENCH_HOSTS="16",
+                  BENCH_SIM_SECONDS="1", BENCH_SHARDS="2")
+
+
+@pytest.fixture(scope="module")
+def bench_rows():
+    """bench.py's and the port's processes of the file's running rows,
+    side by side: {(pkg, "lanes" | "shards"): CompletedProcess}."""
+    procs = {
+        ("ref", "lanes"): _bench_start(["bench.py"], **BENCH_ENV,
+                                       JAX_PLATFORMS="cpu"),
+        ("port", "lanes"): _bench_start(["-m", "shadow_tpu_torch.bench"],
+                                        **BENCH_ENV,
+                                        BENCH_FLOW_OVERHEAD="1"),
+        ("ref", "shards"): _bench_start(["bench.py"], **SHARDS_ENV,
+                                        JAX_PLATFORMS="cpu"),
+        ("port", "shards"): _bench_start(["-m", "shadow_tpu_torch.bench"],
+                                         **SHARDS_ENV)}
+    return {k: _bench_finish(p) for k, p in procs.items()}
+
+
+def test_bench_row_matches_bench_py(bench_rows):
+    r = bench_rows["ref", "lanes"]
     assert r.returncode == 0, r.stderr
     want = json.loads(r.stdout.strip().splitlines()[-1])
-    r = _bench(["-m", "shadow_tpu_torch.bench"], **BENCH_ENV,
-               BENCH_FLOW_OVERHEAD="1")
+    r = bench_rows["port", "lanes"]
     assert r.returncode == 0, r.stderr
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got["metric"] == want["metric"] == (
@@ -168,11 +201,36 @@ def test_bench_row_matches_bench_py():
     ({"BENCH_FLOW_OVERHEAD": "1"}, "BENCH_FLOW_SAMPLE"),
     ({"BENCH_CAUSALITY_OVERHEAD": "1"}, "BENCH_CAUSALITY=N"),
     ({"BENCH_RESIDENT": "4"}, "item 12"),
-    ({"BENCH_SHARDS": "4"}, "item 9"),
+    ({"BENCH_SHARDS": "2"}, None),
+    ({"BENCH_SENTINEL": "1"}, "item 9b"),
 ], ids=["supervise", "inject", "pingpong", "flows_pingpong",
         "causality_pingpong", "flow_ab", "causality_ab", "resident",
-        "shards"])
-def test_bench_refuses_what_bench_py_refuses(env, word):
+        "shards", "sentinel"])
+def test_bench_refuses_what_bench_py_refuses(env, word, bench_rows):
+    """A refused combination exits non-zero naming it. BENCH_SHARDS,
+    once refused (word None), runs: the port's row at 2 gloo ranks
+    has bench.py's name and counts (its run under shard_map on 2
+    virtual CPU devices)."""
+    if word is None:
+        assert env.items() <= SHARDS_ENV.items()
+        rows = {}
+        for key in ("ref", "port"):
+            r = bench_rows[key, "shards"]
+            assert r.returncode == 0, r.stderr
+            rows[key] = json.loads(r.stdout.strip().splitlines()[-1])
+        want, got = rows["ref"], rows["port"]
+        assert got["metric"] == want["metric"] == (
+            "events_per_sec_per_chip@16hosts_phold_load8_2shards")
+        ctr = want["manifest"]["counters"]
+        assert want["shards"] == 2
+        assert (got["events"], got["windows"], got["micro_steps"]) == (
+            ctr["events_processed"], ctr["windows"], ctr["micro_steps"])
+        sh = got["shards"]
+        assert sh["stats"]["fastpath_hit"] == ctr["fastpath_hit"]
+        assert sh["stats"]["fastpath_miss"] == ctr["fastpath_miss"]
+        assert sh["ranks"] == 2 and sh["backend"] == "gloo"
+        assert sh["narrow_hit"] + sh["narrow_miss"] == got["windows"]
+        return
     r = _bench(["-m", "shadow_tpu_torch.bench"], BENCH_PLATFORM="cpu",
                BENCH_HOSTS="16", **env)
     assert r.returncode != 0

@@ -37,6 +37,7 @@ from shadow_tpu_torch.net import build as tbuild
 from shadow_tpu_torch.net.state import NetConfig as TConfig
 from shadow_tpu_torch.net.state import QDisc, RouterQ
 from test_router_qdisc import GRAPH, PORT
+from torch_parity import side_by_side
 
 torch.set_num_threads(1)
 
@@ -91,25 +92,38 @@ RR_TEXT = examples.example_config(clients=3, kib=40, stoptime=4)
 
 @pytest.fixture(scope="module")
 def runs():
-    out = {}
-    for name, rq in MANAGERS.items():
-        jb, tb = _blast("jax", rq), _blast("port", rq)
-        jsim, jstats = jbuild.run(jb, app_handlers=(jping.handler,))
-        tsim, tstats = tbuild.run(tb, app_handlers=(tping.handler,),
-                                  device="cpu")
-        out[name] = (jstats.as_dict(), _jax_leaves(jsim), tstats.as_dict(),
-                     convert.sim_to_numpy(tsim))
+    """{name: (reference stats, leaves, port stats, leaves)}; the four
+    reference programs run side by side."""
     ov = {"interface_qdisc": "rr"}
     jl = jloader.load(jxml.parse_config(RR_TEXT), seed=2, overrides=dict(ov))
     tl = tloader.load(txml.parse_config(RR_TEXT), seed=2, overrides=dict(ov),
                       device="cpu")
     assert tl.bundle.cfg.qdisc == QDisc.RR == jl.bundle.cfg.qdisc
-    jsim, jstats = jbuild.run(jl.bundle, app_handlers=jl.handlers)
-    tsim, tstats = tbuild.run(tl.bundle, app_handlers=tl.handlers,
-                              device="cpu")
-    out["rr"] = (jstats.as_dict(), _jax_leaves(jsim), tstats.as_dict(),
-                 convert.sim_to_numpy(tsim))
-    return out
+
+    def ref(b, handlers):
+        def go():
+            jsim, jstats = jbuild.run(b, app_handlers=handlers)
+            return jstats.as_dict(), _jax_leaves(jsim)
+        return go
+
+    def port():
+        got = {}
+        for name, rq in MANAGERS.items():
+            tsim, tstats = tbuild.run(_blast("port", rq),
+                                      app_handlers=(tping.handler,),
+                                      device="cpu")
+            got[name] = (tstats.as_dict(), convert.sim_to_numpy(tsim))
+        tsim, tstats = tbuild.run(tl.bundle, app_handlers=tl.handlers,
+                                  device="cpu")
+        got["rr"] = (tstats.as_dict(), convert.sim_to_numpy(tsim))
+        return got
+
+    cases = {name: (_blast("jax", rq), (jping.handler,))
+             for name, rq in MANAGERS.items()}
+    cases["rr"] = (jl.bundle, jl.handlers)
+    *refs, got = side_by_side([ref(b, h) for b, h in cases.values()]
+                              + [port])
+    return {name: (*r, *got[name]) for name, r in zip(cases, refs)}
 
 
 @pytest.mark.parametrize("name", [*MANAGERS, "rr"])

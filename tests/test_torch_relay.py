@@ -44,6 +44,7 @@ from shadow_tpu_torch.net import build as tbuild
 from shadow_tpu_torch.net import tcp as ttcp
 from shadow_tpu_torch.net.state import NetConfig as TConfig
 from shadow_tpu_torch.net.state import SocketType
+from torch_parity import side_by_side
 
 torch.set_num_threads(1)
 
@@ -124,23 +125,42 @@ def _assert_leaves_equal(want, got):
 
 @pytest.fixture(scope="module")
 def runs():
-    out = {}
-    runner = None
+    """Each case's reference run and the port's, the reference's runs
+    and the port's side by side."""
+    jbs, out = {}, {}
     for name in CASES:
         jb = _jax_bundle(name)
-        if runner is None:
-            runner = jbuild.make_runner(jb, app_handlers=(jrelay.handler,))
-        jsim, jstats = runner(jb.sim)
         tb = _port_bundle(name)
         boot = _jax_leaves(jb.sim)
         sim0 = (convert.sim_from_numpy(boot, device="cpu")
                 if name == "lossy" else tb.sim)
-        tsim, tstats = tbuild.make_runner(
-            tb, app_handlers=(trelay.handler,), device="cpu")(sim0)
+        jbs[name] = jb
         out[name] = {"boot": boot, "port_boot": convert.sim_to_numpy(tb.sim),
-                     "jax_stats": jstats.as_dict(),
-                     "jax_final": _jax_leaves(jsim),
-                     "port_stats": tstats.as_dict(), "port_sim": tsim}
+                     "tb": tb, "sim0": sim0}
+
+    def ref():
+        runner = jbuild.make_runner(next(iter(jbs.values())),
+                                    app_handlers=(jrelay.handler,))
+        got = {}
+        for name, jb in jbs.items():
+            jsim, jstats = runner(jb.sim)
+            got[name] = {"jax_stats": jstats.as_dict(),
+                         "jax_final": _jax_leaves(jsim)}
+        return got
+
+    def port():
+        got = {}
+        for name, r in out.items():
+            tsim, tstats = tbuild.make_runner(
+                r["tb"], app_handlers=(trelay.handler,),
+                device="cpu")(r["sim0"])
+            got[name] = {"port_stats": tstats.as_dict(), "port_sim": tsim}
+        return got
+
+    refs, ports = side_by_side([ref, port])
+    for name, r in out.items():
+        del r["tb"], r["sim0"]
+        r.update(refs[name], **ports[name])
     return out
 
 

@@ -13,7 +13,8 @@ the TCP bulk pass in both packages (EngineStats and every state leaf
 equal), and serial in the port (equal to the reference's bulk run
 under the reference's bulk-vs-serial contract, with the same events
 and windows). One reference runner is compiled for the file: the loss
-is topology data, so the cases differ only in state. Tolerance: zero.
+is topology data, so the cases differ only in state; the reference's
+runs and the port's go side by side. Tolerance: zero.
 """
 
 import dataclasses
@@ -34,6 +35,7 @@ from shadow_tpu_torch.net import build as tbuild
 from shadow_tpu_torch.net.state import NetConfig as TConfig
 from tests.test_torch_tcp_bulk import (
     GRAPH, _assert_contract, _assert_leaves_equal, _jax_leaves)
+from torch_parity import side_by_side
 
 torch.set_num_threads(1)
 
@@ -75,24 +77,36 @@ def _port_run(tb, **kw):
 
 @pytest.fixture(scope="module")
 def runs():
-    out = {}
-    runner = None
-    for name in CASES:
-        jb = _bundle(jbuild, JConfig, jrelay, name)
-        if runner is None:
-            runner = jbuild.make_runner(jb, app_handlers=(jrelay.mux_handler,),
-                                        app_tcp_bulk=jrelay.MUX_TCP_BULK)
-        jsim, jstats = runner(jb.sim)
-        tb = _bundle(tbuild, TConfig, trelay, name, device="cpu")
-        r = {"boot": _jax_leaves(jb.sim),
-             "port_boot": convert.sim_to_numpy(tb.sim),
-             "jax_stats": jstats.as_dict(), "jax_final": _jax_leaves(jsim)}
-        bsim, bstats = _port_run(tb, app_tcp_bulk=trelay.MUX_TCP_BULK)
-        r["bulk"] = (bsim, bstats.as_dict())
-        ssim, sstats = _port_run(tb)
-        r["serial"] = (ssim, sstats.as_dict())
-        out[name] = r
-    return out
+    """Each case's reference run and the port's bulk and serial runs;
+    the reference's runs and the port's go side by side."""
+    jbs = {name: _bundle(jbuild, JConfig, jrelay, name) for name in CASES}
+    tbs = {name: _bundle(tbuild, TConfig, trelay, name, device="cpu")
+           for name in CASES}
+
+    def ref():
+        runner = jbuild.make_runner(next(iter(jbs.values())),
+                                    app_handlers=(jrelay.mux_handler,),
+                                    app_tcp_bulk=jrelay.MUX_TCP_BULK)
+        out = {}
+        for name, jb in jbs.items():
+            jsim, jstats = runner(jb.sim)
+            out[name] = {"jax_stats": jstats.as_dict(),
+                         "jax_final": _jax_leaves(jsim)}
+        return out
+
+    def port():
+        out = {}
+        for name, tb in tbs.items():
+            bsim, bstats = _port_run(tb, app_tcp_bulk=trelay.MUX_TCP_BULK)
+            ssim, sstats = _port_run(tb)
+            out[name] = {"bulk": (bsim, bstats.as_dict()),
+                         "serial": (ssim, sstats.as_dict())}
+        return out
+
+    refs, ports = side_by_side([ref, port])
+    return {name: {"boot": _jax_leaves(jbs[name].sim),
+                   "port_boot": convert.sim_to_numpy(tbs[name].sim),
+                   **refs[name], **ports[name]} for name in CASES}
 
 
 def test_chains_share_relays():

@@ -312,7 +312,36 @@ def test_stall_and_regression_latches_trip(case, monkeypatch):
 @pytest.mark.parametrize("arg,item", [
     ("mesh", 9), ("exchange_capacity", 9), ("elastic", 9),
     ("dispatch_wrap", 9), ("on_mesh_change", 9), ("warm_start", 11)])
-def test_unported_arguments_are_refused(arg, item):
+def test_unported_arguments_are_refused(arg, item, tmp_path):
+    """What is not ported raises naming its ROADMAP.md item. `mesh` and
+    `exchange_capacity`, once refused, run: on a one-rank mesh (the
+    sharded route at one shard, an exchange buffer past the outbox) the
+    supervised run equals the serial one but for the outbox's narrow
+    counters, which count per shard count (the reference's rule;
+    tests/test_torch_parallel_dispatch.py holds two ranks to the
+    reference's sharded run)."""
+    if arg in ("mesh", "exchange_capacity"):
+        from shadow_tpu_torch.parallel import Mesh
+
+        runs = []
+        for i, kw in enumerate(({}, {"mesh": Mesh(1, device="cpu")})):
+            if kw and arg == "exchange_capacity":
+                kw["exchange_capacity"] = 1 << 20
+            res = tfaults.run_supervised(
+                _bundle("port", plan=False), (tphold.handler,),
+                checkpoint_path=str(tmp_path / f"ck{i}"),
+                checkpoint_every_windows=8, device="cpu", **kw)
+            assert res.ok
+            runs.append((convert.sim_to_numpy(res.sim),
+                         res.stats.as_dict(), len(res.checkpoints)))
+        (want, wst, wn), (got, gst, gn) = runs
+        narrow = {".outbox.narrow_hit", ".outbox.narrow_miss",
+                  ".outbox.max_occupied", ".outbox.route_elided"}
+        assert sorted(want) == sorted(got)
+        for k in sorted(set(want) - narrow):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert gst == wst and gn == wn > 0
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tfaults.run_supervised(_bundle("port", plan=False),
                                checkpoint_path="/nonexistent/ck",
@@ -517,36 +546,28 @@ def test_router_ring_rotation_and_lane_surgery_match_reference():
 # ----------------------------------------------------------- bench rows
 
 
-def _bench(*argv, **env):
+def _bench_start(*argv, **env):
     full = {k: v for k, v in os.environ.items()
             if not k.startswith("BENCH_")}
     full.update({"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16",
                  "OMP_NUM_THREADS": "1"}, **env)
-    return subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-m", "shadow_tpu_torch.bench", *argv], cwd=ROOT,
-        env=full, capture_output=True, text=True, timeout=300)
+        env=full, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _bench_finish(p):
+    out, err = p.communicate(timeout=300)
+    return subprocess.CompletedProcess(p.args, p.returncode, out, err)
+
+
+def _bench(*argv, **env):
+    return _bench_finish(_bench_start(*argv, **env))
 
 
 PLAN_JSON = "examples/faultplan_degraded.json"
 
-
-@pytest.fixture(scope="module")
-def faulted_row():
-    r = _bench("--faults", PLAN_JSON, BENCH_SIM_SECONDS="3")
-    assert r.returncode == 0, r.stderr
-    return json.loads(r.stdout)
-
-
-def test_faults_row_is_named_and_degraded(faulted_row):
-    assert faulted_row["metric"] == \
-        "events_per_sec_per_chip@16hosts_phold_load8_faults"
-    plain = _bench(BENCH_SIM_SECONDS="3")
-    assert plain.returncode == 0, plain.stderr
-    # the plan's loss flaps drain PHOLD's circulating messages
-    assert json.loads(plain.stdout)["events"] > faulted_row["events"] > 0
-
-
-@pytest.mark.parametrize("env,suffix", [
+SUPERVISED = [
     (dict(BENCH_SUPERVISE="1"), "_supervised_chunk1_faults"),
     (dict(BENCH_SUPERVISE="1", BENCH_CHUNK_WINDOWS="8",
           BENCH_CHECKPOINT_WINDOWS="16", BENCH_FAULTS=PLAN_JSON),
@@ -554,11 +575,44 @@ def test_faults_row_is_named_and_degraded(faulted_row):
     (dict(BENCH_SUPERVISE="1", BENCH_CHUNK_WINDOWS="4",
           BENCH_ADAPTIVE_JUMP="1", BENCH_MIN_JUMP_MS="20"),
      "_supervised_chunk4_adaptive_mj20ms_faults"),
-], ids=["chunk1", "chunk8_checkpoints", "chunk4_adaptive_mj"])
+]
+
+
+@pytest.fixture(scope="module")
+def bench_rows():
+    """The faulted, the plain and the supervised rows' processes, run
+    side by side: {"faulted", "plain", suffix: CompletedProcess}."""
+    procs = {"faulted": _bench_start("--faults", PLAN_JSON,
+                                     BENCH_SIM_SECONDS="3"),
+             "plain": _bench_start(BENCH_SIM_SECONDS="3")}
+    for env, suffix in SUPERVISED:
+        argv = () if "BENCH_FAULTS" in env else ("--faults", PLAN_JSON)
+        procs[suffix] = _bench_start(*argv, BENCH_SIM_SECONDS="3", **env)
+    return {k: _bench_finish(p) for k, p in procs.items()}
+
+
+@pytest.fixture(scope="module")
+def faulted_row(bench_rows):
+    r = bench_rows["faulted"]
+    assert r.returncode == 0, r.stderr
+    return json.loads(r.stdout)
+
+
+def test_faults_row_is_named_and_degraded(faulted_row, bench_rows):
+    assert faulted_row["metric"] == \
+        "events_per_sec_per_chip@16hosts_phold_load8_faults"
+    plain = bench_rows["plain"]
+    assert plain.returncode == 0, plain.stderr
+    # the plan's loss flaps drain PHOLD's circulating messages
+    assert json.loads(plain.stdout)["events"] > faulted_row["events"] > 0
+
+
+@pytest.mark.parametrize("env,suffix", SUPERVISED,
+                         ids=["chunk1", "chunk8_checkpoints",
+                              "chunk4_adaptive_mj"])
 def test_supervised_rows_are_named_as_bench_py_names_them(
-        faulted_row, env, suffix):
-    argv = () if "BENCH_FAULTS" in env else ("--faults", PLAN_JSON)
-    r = _bench(*argv, BENCH_SIM_SECONDS="3", **env)
+        faulted_row, bench_rows, env, suffix):
+    r = bench_rows[suffix]
     assert r.returncode == 0, r.stderr
     lines = r.stdout.strip().splitlines()
     assert len(lines) == 1

@@ -52,6 +52,7 @@ from shadow_tpu_torch.net.state import QDisc as TQDisc
 from shadow_tpu_torch.net.state import RouterQ as TRouterQ
 from shadow_tpu_torch.net.step import make_step_fn
 from shadow_tpu_torch.telemetry import make_telem_fn
+from torch_parity import side_by_side
 
 torch.set_num_threads(1)
 
@@ -180,33 +181,52 @@ def _port_run(tb, sim0, **kw):
 
 @pytest.fixture(scope="module")
 def runs():
-    out = {}
-    runner = None
+    """Each case's reference run and the port's runs (the bulk pass;
+    the narrow pass and serial for CONTRACT_CASES), the reference's and
+    the port's side by side."""
+    jbs, out = {}, {}
     for name in CASES:
         jb = _bundle(jbuild, JConfig, jrelay, jtel, name)
         if name == CARRIED:
             jb.sim = jb.sim.replace(net=jb.sim.net.replace(
                 rng_ctr=jnp.asarray(_near_wrap())))
-        if runner is None:
-            runner = jbuild.make_runner(jb, app_handlers=(jrelay.handler,),
-                                        app_tcp_bulk=jrelay.TCP_BULK)
-        jsim, jstats = runner(jb.sim)
         tb = _port_bundle(name)
         boot = _jax_leaves(jb.sim)
         sim0 = (convert.sim_from_numpy(boot, device="cpu")
                 if name == CARRIED else tb.sim)
-        tsim, tstats = _port_run(tb, sim0, app_tcp_bulk=trelay.TCP_BULK)
-        r = {"boot": boot, "port_boot": convert.sim_to_numpy(tb.sim),
-             "jax_stats": jstats.as_dict(), "jax_final": _jax_leaves(jsim),
-             "port_stats": tstats.as_dict(), "port_sim": tsim,
-             "bundle": tb, "sim0": sim0}
-        if name in CONTRACT_CASES:
-            for mode, kw in (("narrow", {"app_tcp_bulk": trelay.TCP_BULK,
-                                         "tcp_bulk_lossless": True}),
-                             ("serial", {})):
-                s, st = _port_run(tb, sim0, **kw)
-                r[mode] = (convert.sim_to_numpy(s), st.as_dict())
-        out[name] = r
+        jbs[name] = jb
+        out[name] = {"boot": boot, "port_boot": convert.sim_to_numpy(tb.sim),
+                     "bundle": tb, "sim0": sim0}
+
+    def ref():
+        runner = jbuild.make_runner(next(iter(jbs.values())),
+                                    app_handlers=(jrelay.handler,),
+                                    app_tcp_bulk=jrelay.TCP_BULK)
+        got = {}
+        for name, jb in jbs.items():
+            jsim, jstats = runner(jb.sim)
+            got[name] = {"jax_stats": jstats.as_dict(),
+                         "jax_final": _jax_leaves(jsim)}
+        return got
+
+    def port():
+        got = {}
+        for name, r in out.items():
+            tb, sim0 = r["bundle"], r["sim0"]
+            tsim, tstats = _port_run(tb, sim0, app_tcp_bulk=trelay.TCP_BULK)
+            g = {"port_stats": tstats.as_dict(), "port_sim": tsim}
+            if name in CONTRACT_CASES:
+                for mode, kw in (("narrow", {"app_tcp_bulk": trelay.TCP_BULK,
+                                             "tcp_bulk_lossless": True}),
+                                 ("serial", {})):
+                    s, st = _port_run(tb, sim0, **kw)
+                    g[mode] = (convert.sim_to_numpy(s), st.as_dict())
+            got[name] = g
+        return got
+
+    refs, ports = side_by_side([ref, port])
+    for name, r in out.items():
+        r.update(refs[name], **ports[name])
     return out
 
 

@@ -89,7 +89,7 @@ def test_a_reference_sys_is_refused_by_name():
 def test_mesh_names_its_roadmap_item():
     from shadow_tpu_torch.process.vproc import ProcessRuntime
 
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         ProcessRuntime(_tiny_build(), mesh=object(), device="cpu")
 
 

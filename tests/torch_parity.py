@@ -1,7 +1,9 @@
 """Helpers shared by the lane-isolation and recorder parity tests
 (tests/test_torch_lanes.py, _flows.py, _causality.py, _lanes_cli.py):
 one packed PHOLD program built the same way in both packages, and the
-leaf maps that hold one package's state against the other's."""
+leaf maps that hold one package's state against the other's; and
+side_by_side, which runs a fixture's independent reference runs at
+once (tests/test_torch_qdisc.py, _parallel.py)."""
 
 import jax
 import numpy as np
@@ -86,3 +88,15 @@ def assert_leaves_equal(want: dict, got: dict, keys=None):
         assert want[k].dtype == got[k].dtype, (k, want[k].dtype,
                                                got[k].dtype)
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def side_by_side(fns):
+    """The results of the zero-argument callables `fns`, run in threads
+    at once: a fixture's independent reference programs compile side by
+    side (XLA compiles with the interpreter lock released). Raises the
+    first exception a call raised."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(fns)) as pool:
+        futures = [pool.submit(f) for f in fns]
+        return [f.result() for f in futures]
