@@ -273,24 +273,48 @@ Phases, in order; any failure exits non-zero and prints no result:
    19b's CPU half start beside 18a and 18c, and run on beside 19a and
    19b's card half.
 20. the sharded window loop (parallel/shard.py) on the one card:
-   (20a) `BENCH_SHARDS=4 BENCH_SIM_SECONDS=1 python -m
-   shadow_tpu_torch.bench` — phase 4's program at 10,240 hosts as four
-   gloo ranks of the card, 2,560 rows each — with mailbox_gather's
-   inputs kept on rank 0: the row's EngineStats equal to the
-   single-shard run of the same input on the card (micro-steps summed
-   over the ranks, as the reference sums them) and the digest of every
-   final leaf but the per-shard-count ones equal, narrow hit + miss ==
-   windows, mailbox_gather launched once on every rank's non-empty
-   routes and exact against its plain version on rank 0's own receive
-   streams (and timed there), with the row's events/s, ms a window and
-   the collectives' ms a window; (20b) the CLI with `--workers 2` on
-   14b's cli-phold-ref: on one card the reference's rule narrows it to
-   1 with its warning, the report the reference's; (20c)
-   faults.run_supervised on a mesh of 2 ranks with the degraded plan on
-   13a's program cut to 1.2 sim-s: ok, its final state and EngineStats
-   equal to the serial supervised run's. 20b and 20c start beside
-   phases 14-19; their checks, 20c's serial run and 20a's single-shard
-   run go while 20a's ranks start up, before its timed call.
+   (20a) `BENCH_SHARDS=4 BENCH_SIM_SECONDS=1 BENCH_SENTINEL=1
+   BENCH_SENTINEL_OVERHEAD=1 python -m shadow_tpu_torch.bench` — phase
+   4's program at 10,240 hosts as four gloo ranks of the card, 2,560
+   rows each — with mailbox_gather's inputs kept on rank 0; its A/B
+   twin without the sentinel is BENCH_SHARDS's own run, 20a: the
+   EngineStats equal to the single-shard run of the same input on the
+   card (micro-steps summed over the ranks, as the reference sums them)
+   and the digest of every final leaf but the per-shard-count ones
+   equal, narrow hit + miss == windows, mailbox_gather launched once on
+   every rank's non-empty routes and exact against its plain version
+   on rank 0's own receive streams (and timed there, five times against
+   index_select), with the events/s, ms a window and the collectives'
+   ms a window; (20b) the CLI with `--workers 2` on 14b's
+   cli-phold-ref: on one card the reference's rule narrows it to 1 with
+   its warning, the report the reference's; (20c) faults.run_supervised
+   on a mesh of 2 ranks with the degraded plan on 13a's program cut to
+   1.2 sim-s: ok, its final state and EngineStats equal to the serial
+   supervised run's. 20b and 20c start beside phases 14-19; their
+   checks, 20c's serial run and 20a's single-shard run go while the
+   bench's ranks start up, before its timed calls.
+21. elastic degraded-mesh recovery (parallel/elastic.py and the
+   supervisor's ladder) on the one card: (21a) the timed run of 20's
+   bench row, with the integrity sentinel: the state equal to the
+   single-shard run (the sentinel's leaves aside), the sentinel's 21
+   checks, no trip, verified through the run's last window end, one
+   more collective a window than 20a, sentinel_overhead_pct reported;
+   (21b) run_supervised(elastic=ElasticPolicy()) on 4 ranks on 13a's
+   program with the sentinel, cut to 1.2 sim-s, two consecutive
+   dispatches poisoned (make_poisoned_dispatch): the ladder retry then
+   shrink to 2, resumed from the last verified snapshot replanned by
+   replan_shards; (21c) on 2 ranks, rank 1's replica of the latency
+   table diverging from 0.6 s (make_divergence_fault_fn): the sentinel
+   latches shard 1 at the first window end past it, the ladder retry
+   then the serial rung on the card; (21d) on 4 ranks, rank 3 SIGKILLs
+   its own process at a dispatch: the survivors classify the loss
+   (the seconds from the kill reported), meet again and shrink to 2 —
+   21b-21d each ending with the final state and EngineStats (but
+   micro-steps) of 20c's serial run, each elastic block and run
+   manifest accepted by tools/telemetry_lint.py; (21e) 19a's 1,000
+   processes through ProcessRuntime on 2 ranks: its counts and net-leaf
+   digest, mailbox_gather on each rank's non-empty routes. 21b-21e run
+   in one spawn of 4 ranks started beside phases 14-19.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
@@ -1032,6 +1056,19 @@ SHARDS = 4
 SHARD_SIM_S = 1
 SUP_MESH_RANKS = 2
 SUP_MESH_SIM_S = 1.2
+# phase 21: EL_RANKS ranks; EL_K windows a dispatch and a snapshot every
+# 2 EL_K windows (EL_K for 21c); 21b poisons dispatches EL_POISON, 21c
+# corrupts rank
+# EL_VICTIM's replica from EL_DIVERGE_NS, 21d kills rank 3 at dispatch
+# EL_KILL_AT; the elastic meshes' group timeout; 21a's kernel readings
+EL_RANKS = 4
+EL_K = 8
+EL_POISON = (2, 3)
+EL_VICTIM = 1
+EL_DIVERGE_NS = 600_000_000
+EL_KILL_AT = 2
+EL_TIMEOUT_S = 20.0
+EL_READINGS = 5
 # the leaves a shard count changes (the reference's narrow counters;
 # the ring's per-shard planes), left out of the state digests
 PER_SHARD_LEAVES = (".outbox.narrow_hit", ".outbox.narrow_miss",
@@ -3281,17 +3318,28 @@ def start_proc(label, cmd, nice=0, env=None):
         # a prefix, not a preexec_fn: that would fork this process (its
         # whole address space) instead of spawning the command
         cmd = ["nice", "-n", str(nice), *cmd]
+    # a session of its own, so stop_proc also ends the processes it
+    # starts (a command's ranks)
     proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=env)
+                            text=True, env=env, start_new_session=True)
     return label, cmd, proc, time.perf_counter()
 
 
 def stop_proc(started):
-    """Kill a started process that is still running."""
+    """Kill a started process that is still running, and every process
+    left in its group."""
+    import os
+    import signal
+
     proc = started[2]
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
     if proc.poll() is None:
         proc.kill()
+    if proc.returncode is None or proc.stdout and not proc.stdout.closed:
         proc.communicate()
 
 
@@ -5307,9 +5355,17 @@ def leaf_digest(leaves):
         f"{k}={per[k]}" for k in sorted(per)).encode()).hexdigest()[:16]
 
 
-def vproc_run(kind, dev):
+def net_digest(leaves):
+    """leaf_digest of the `.net.*` leaves alone."""
+    return leaf_digest({k: v for k, v in leaves.items()
+                        if k.startswith(".net.")})
+
+
+def vproc_run(kind, dev, mesh=None):
     """19a ("udp") or 19b ("tcp") on `dev` through ProcessRuntime:
-    (runtime, sim, stats, checks) with checks the phase's counts."""
+    (runtime, sim, stats, checks) with checks the phase's counts. On a
+    `mesh` (21e) each rank runs its own hosts' coroutines and `pongs`
+    counts this rank's clients."""
     import hashlib
 
     import numpy as np
@@ -5382,7 +5438,8 @@ def vproc_run(kind, dev):
 
     client, server = ((udp_client, udp_server) if kind == "udp"
                       else (tcp_client, tcp_server))
-    rt = ProcessRuntime(b, device=dev)
+    rt = (ProcessRuntime(b, device=dev) if mesh is None
+          else ProcessRuntime(b, mesh=mesh))
     for i in range(0, H, 2):
         rt.spawn(i, client)
         rt.spawn(i + 1, server)
@@ -5587,6 +5644,8 @@ def vproc_cell(device, tmp, started, tcp_cpu):
         label, "udp", VP_UDP_EXPECT, VP_UDP_LEAVES, device)
     vproc_cpu_equal(label, fut, card, checks)
     err = kept.check("19a")
+    # 21e's oracle: the digest of 19a's net leaves and its counts
+    udp_oracle = {"net_digest": net_digest(card[1]), "checks": checks}
     w = checks["windows"]
     udp = {"ms_per_window": round(wall / w * 1e3, 3),
            "syscalls_per_s": round(checks["syscalls"] / wall, 1),
@@ -5612,18 +5671,20 @@ def vproc_cell(device, tmp, started, tcp_cpu):
     return {"launches_vproc": launches, "launches_vproc_tcp": tlaunch,
             "vproc": {k: gather[k] for k in ("n", "ms", "plain_ms",
                                              "bound_ms", "library_ms")},
-            "vproc_udp": udp}, err
+            "vproc_udp": udp, "udp_oracle": udp_oracle}, err
 
 
 def shards_bench_rank0() -> int:
-    """20a's bench process: `python -m shadow_tpu_torch.bench`'s main
-    as rank 0 of BENCH_SHARDS ranks (it starts the others), with
-    mailbox_gather's inputs kept on this rank; after its row, the
-    kernel against its plain version on this rank's own kept streams
-    (the exchange's receive side) and timed on the narrowest. Prints
-    the row, then one {"gather_err", "gather"} line. Run as
-    `python3 -c "import chip_smoke; chip_smoke.shards_bench_rank0()"`
-    with BENCH_SHARDS in the environment."""
+    """20a's and 21a's bench process: `python -m shadow_tpu_torch.bench`'s
+    main as rank 0 of BENCH_SHARDS ranks (it starts the others), with
+    BENCH_SENTINEL and its A/B in the environment: the timed run with
+    the sentinel (21a) and, its twin without, the plain sharded row
+    (20a). mailbox_gather's inputs are kept on this rank; after the
+    row, the kernel against its plain version on this rank's own kept
+    streams (the exchange's receive side) and EL_READINGS timings on
+    the narrowest against index_select. Prints the row, then one
+    {"gather_err", "readings"} line. Run as `python3 -c "import
+    chip_smoke; chip_smoke.shards_bench_rank0()"`."""
     from shadow_tpu_torch import bench
 
     with KeepGatherInputs() as kept:
@@ -5631,8 +5692,10 @@ def shards_bench_rank0() -> int:
     if code:
         return code
     err = kept.check("20a rank 0")
-    gather = time_gather("20a rank 0", kept.kept)
-    print(json.dumps({"gather_err": err, "gather": gather}), flush=True)
+    readings = [time_gather(f"20a rank 0 reading {i + 1}", kept.kept)
+                for i in range(EL_READINGS)]
+    print(json.dumps({"gather_err": err, "readings": readings}),
+          flush=True)
     return 0
 
 
@@ -5689,6 +5752,13 @@ def start_shards_side(tmp):
                 "sys.exit(chip_smoke.supervised_mesh_main())"])}
 
 
+def start_elastic_side():
+    """21b-21e's process (elastic_main), started beside phases 14-19."""
+    return start_proc("21b-e elastic ranks", [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "sys.exit(chip_smoke.elastic_main())"])
+
+
 def _json_line(stdout, prefix):
     """The last line of `stdout` that starts with `prefix`, parsed."""
     lines = [ln for ln in stdout.splitlines() if ln.startswith(prefix)]
@@ -5732,14 +5802,7 @@ def shards_cell(device, side):
     from shadow_tpu_torch import bench, faults
     from shadow_tpu_torch.apps import phold
 
-    env = dict(os.environ, BENCH_SHARDS=str(SHARDS),
-               BENCH_SIM_SECONDS=str(SHARD_SIM_S))
-    env = {k: v for k, v in env.items()
-           if not k.startswith("BENCH_") or k in ("BENCH_SHARDS",
-                                                  "BENCH_SIM_SECONDS")}
-    started = start_proc("20a bench BENCH_SHARDS", [
-        sys.executable, "-c", "import sys, chip_smoke; "
-        "sys.exit(chip_smoke.shards_bench_rank0())"], env=env)
+    started = start_sharded_bench()
 
     # --- 20b: the CLI's --workers 2 -----------------------------------
     report, _, lines = finish_cli(side["20b"])
@@ -5781,11 +5844,13 @@ def shards_cell(device, side):
         f"({got['backend']}) to {SUP_MESH_SIM_S} sim-s: ok, "
         f"{got['snapshots']} snapshots, the final state and EngineStats "
         f"equal to the serial supervised run's ({one})")
+    # 21b-21d's oracle: this serial supervised run
+    sup_oracle = {"digest": bench.state_digest(res.sim), "stats": one}
     del b, res
     twins = {(1, CAPACITY): single_shard_twin(device, 1, CAPACITY)}
     torch.cuda.empty_cache()
 
-    # --- 20a: its timed call alone on the card ------------------------
+    # --- 20a: its timed calls alone on the card -----------------------
     code, stdout, stderr, wall = finish_proc(started)
     if code != 0:
         raise AssertionError(f"20a: the sharded bench exited {code}:\n"
@@ -5795,13 +5860,16 @@ def shards_cell(device, side):
             log(f"  20a: {ln.strip()}")
     row = _json_line(stdout, '{"metric"')
     gk = _json_line(stdout, '{"gather_err"')
-    sh = row["shards"]
-    log(f"  20a: `BENCH_SHARDS={SHARDS} BENCH_SIM_SECONDS={SHARD_SIM_S} "
-        f"python -m shadow_tpu_torch.bench` exit 0 in {wall:.1f} s: "
+    log(f"  20a, 21a: `BENCH_SHARDS={SHARDS} BENCH_SIM_SECONDS="
+        f"{SHARD_SIM_S} BENCH_SENTINEL=1 BENCH_SENTINEL_OVERHEAD=1 python -m"
+        f" shadow_tpu_torch.bench` exit 0 in {wall:.1f} s: "
         f"{json.dumps(row)}")
     if row["metric"] != (f"events_per_sec_per_chip@{HOSTS}hosts_phold_"
-                         f"load{LOAD}_{SHARDS}shards"):
+                         f"load{LOAD}_sentinel_{SHARDS}shards"):
         raise AssertionError(f"20a: metric {row['metric']}")
+    # 20a is the A/B's twin without the sentinel: BENCH_SHARDS's own run
+    sh = row["sentinel"]["shards_off"]
+    value = row["events_per_sec_sentinel_off"]
     st = sh["stats"]
     if sh["narrow_hit"] + sh["narrow_miss"] != st["windows"]:
         raise AssertionError(f"20a: narrow hit + miss != windows: {sh}")
@@ -5832,7 +5900,7 @@ def shards_cell(device, side):
     log(f"  20a: {SHARDS} ranks ({sh['backend']}) equal to one shard: "
         f"EngineStats {st} (one shard {one}: micro-steps are summed over "
         f"the ranks, as the reference sums them), digest {digest[:16]}; "
-        f"{row['value']} events/s, {sh['wall_ms_per_window']} ms a "
+        f"{value} events/s, {sh['wall_ms_per_window']} ms a "
         f"window, collectives {sh['collective_ms_per_window']} ms "
         f"({sh['collective_calls_per_window']} calls, "
         f"{sh['collective_bytes_per_window']} B) a window on rank 0, the "
@@ -5841,14 +5909,403 @@ def shards_cell(device, side):
         f"mailbox_gather {sh['mailbox_gather_launches']} launches on the "
         f"ranks' {routed} non-empty routes, exact on rank 0's own stream")
     out = {"launches_shards": sh["mailbox_gather_launches"],
-           "shards_row": {k: row[k] for k in ("metric", "value", "events",
-                                               "windows")},
-           "shards": {k: gk["gather"][k] for k in (
+           "shards_row": {"metric": row["metric"].replace("_sentinel_",
+                                                          "_"),
+                          "value": value,
+                          "events": row["events"],
+                          "windows": row["windows"]},
+           "shards": {k: gk["readings"][0][k] for k in (
                "n", "ms", "plain_ms", "bound_ms", "library_ms")}}
     out["shards_row"].update({k: sh[k] for k in (
         "wall_ms_per_window", "collective_ms_per_window",
         "collective_calls_per_window", "collective_bytes_per_window",
         "gather_ms", "gather_bytes")})
+    out["oracles"] = {"sup": sup_oracle, "twins": twins,
+                      "bench": (row, gk)}
+    return out, gk["gather_err"]
+
+
+def start_sharded_bench():
+    """20a's and 21a's bench process (shards_bench_rank0)."""
+    import os
+
+    keep = ("BENCH_SHARDS", "BENCH_SIM_SECONDS", "BENCH_SENTINEL",
+            "BENCH_SENTINEL_OVERHEAD")
+    env = dict(os.environ, BENCH_SHARDS=str(SHARDS),
+               BENCH_SIM_SECONDS=str(SHARD_SIM_S), BENCH_SENTINEL="1",
+               BENCH_SENTINEL_OVERHEAD="1")
+    env = {k: v for k, v in env.items()
+           if not k.startswith("BENCH_") or k in keep}
+    return start_proc("20a-21a bench BENCH_SHARDS BENCH_SENTINEL", [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "sys.exit(chip_smoke.shards_bench_rank0())"], env=env)
+
+# --- phase 21: elastic degraded-mesh recovery --------------------------
+
+
+def load_lint():
+    """tools/telemetry_lint.py as the port tests load it (by path; it
+    imports no JAX)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "tools" / \
+        "telemetry_lint.py"
+    spec = importlib.util.spec_from_file_location("telemetry_lint", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _elastic_supervised(tag, mesh, ckdir, fault=None, every=2 * EL_K,
+                        **kw):
+    """run_supervised under ElasticPolicy() on phase 13a's program with
+    the integrity sentinel, cut to SUP_MESH_SIM_S, EL_K windows a
+    dispatch and a snapshot every `every` windows; `fault(bundle)` gives
+    a fault_fn. Returns a host-side summary (the reporting rank's carries
+    the state digest, EngineStats, the sentinel report and the run
+    manifest; every rank the time it classified a loss)."""
+    from shadow_tpu_torch import bench, faults
+    from shadow_tpu_torch.apps import phold
+    from shadow_tpu_torch.parallel import elastic
+    from shadow_tpu_torch.telemetry import export
+
+    lines = []
+    b = faults_bundle(mesh.device, HOSTS, SUP_MESH_SIM_S)
+    b.sim = elastic.attach_sentinel(b.sim)
+    res = faults.run_supervised(
+        b, (phold.handler,), mesh=mesh, elastic=elastic.ElasticPolicy(),
+        windows_per_dispatch=EL_K, checkpoint_path=f"{ckdir}/{tag}",
+        checkpoint_every_windows=every, sleep=lambda s: None,
+        log=lambda m: lines.append((time.time(), m)),
+        fault_fn=None if fault is None else fault(b), **kw)
+    out = {"retired": res.retired, "reports": res.reports, "ok": res.ok,
+           "elastic": res.elastic, "retries_used": res.retries_used,
+           "resumed_from": res.resumed_from,
+           "detected": [t for t, m in lines if "device loss" in m],
+           "log": [m for _, m in lines]}
+    if res.reports and res.sim is not None:
+        out.update(
+            digest=bench.state_digest(res.sim), stats=res.stats.as_dict(),
+            sentinel=elastic.sentinel_report(res.sim),
+            manifest=json.loads(json.dumps(export.run_manifest(
+                cfg=b.cfg, seed=int(b.cfg.seed),
+                shards=res.elastic["final_shards"], sim=res.sim,
+                stats=res.stats, health=res.health,
+                fault_plan=b.fault_plan, run_id=res.run_id,
+                elastic=res.elastic))))
+    return out
+
+
+def _wait_files(paths, timeout_s):
+    deadline = time.monotonic() + timeout_s
+    import os
+
+    while not all(os.path.exists(p) for p in paths):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"waited {timeout_s} s for {paths}")
+        time.sleep(0.2)
+
+
+def elastic_rank(rank, size, init, ckdir):
+    """21b-21e on one set of EL_RANKS ranks of this machine's card(s):
+    (21b) two poisoned dispatches on all ranks; (21c) ranks 0 and 1 as a
+    mesh of 2, rank EL_VICTIM's replica diverging from EL_DIVERGE_NS;
+    (21e) ranks 0 and 1 running 19a's 1,000 processes; (21d) all ranks
+    again, rank 3 killing its own process at dispatch EL_KILL_AT. Each
+    rank returns {case: summary}; rank 3 never returns."""
+    import os
+    import signal
+
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+    from shadow_tpu_torch.net.build import _resolve_fault_fn
+    from shadow_tpu_torch.parallel import Mesh, elastic
+
+    out = {}
+    mesh = Mesh(size, rank, init_method=init, timeout_s=EL_TIMEOUT_S)
+    out["backend"] = mesh.backend
+    out["21b"] = _elastic_supervised(
+        "21b", mesh, ckdir,
+        dispatch_wrap=elastic.make_poisoned_dispatch(list(EL_POISON)))
+    mesh.close()
+    if rank < 2:
+        two = Mesh(2, rank, init_method=f"file://{ckdir}/21c.group",
+                   timeout_s=EL_TIMEOUT_S)
+        # a snapshot every dispatch: one lies before the divergence
+        out["21c"] = _elastic_supervised(
+            "21c", two, ckdir, every=EL_K, fault=lambda b: elastic.
+            make_divergence_fault_fn(two, shard=EL_VICTIM,
+                                     at_ns=EL_DIVERGE_NS,
+                                     inner=_resolve_fault_fn(b, None)))
+        two.close()
+        vm = Mesh(2, rank, init_method=f"file://{ckdir}/21e.group")
+        mailbox_gather.launches = 0
+        t0 = time.perf_counter()
+        rt, sim, stats, checks = vproc_run("udp", vm.device, mesh=vm)
+        wall = time.perf_counter() - t0
+        from shadow_tpu_torch import convert
+
+        leaves = convert.sim_to_numpy(sim)
+        out["21e"] = {
+            "checks": checks, "wall": wall,
+            "pongs": [r[0] for r in vm.all_gather_ints([checks["pongs"]])],
+            "syscalls": [r[0] for r in
+                         vm.all_gather_ints([checks["syscalls"]])],
+            "net_digest": net_digest(leaves),
+            "launches": mailbox_gather.launches,
+            "routed": checks["windows"] - int(sim.outbox.route_elided),
+            "collectives": vm.calls}
+        del rt, sim, stats
+        vm.close()
+        open(f"{ckdir}/ready.{rank}", "w").close()
+    else:
+        _wait_files([f"{ckdir}/ready.0", f"{ckdir}/ready.1"], 900)
+    four = Mesh(size, rank, init_method=f"file://{ckdir}/21d.group",
+                timeout_s=EL_TIMEOUT_S)
+    wrap = None
+    if rank == 3:
+        state = {"n": 0}
+
+        def wrap(fn):
+            def dispatch(*a, **k):
+                state["n"] += 1
+                if state["n"] - 1 == EL_KILL_AT:
+                    with open(f"{ckdir}/21d.kill", "w") as f:
+                        f.write(repr(time.time()))
+                    os.kill(os.getpid(), signal.SIGKILL)
+                return fn(*a, **k)
+            return dispatch
+    out["21d"] = _elastic_supervised("21d", four, ckdir, dispatch_wrap=wrap)
+    four.close()
+    return out
+
+
+def elastic_main() -> int:
+    """21b-21e's process: EL_RANKS spawned elastic_rank ranks (rank 3
+    may die: 21d kills it), joined within 900 s; prints every rank's
+    JSON summaries and 21d's kill time. Run as `python3 -c "import sys,
+    chip_smoke; sys.exit(chip_smoke.elastic_main())"`."""
+    import shutil
+    import tempfile
+
+    from shadow_tpu_torch.parallel import spawn
+
+    ckdir = tempfile.mkdtemp(prefix="shadow_elastic_")
+    try:
+        out = spawn(elastic_rank, EL_RANKS, ckdir, deadline_s=900,
+                    may_die=(3,))
+        with open(f"{ckdir}/21d.kill") as f:
+            killed = float(f.read())
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print(json.dumps({"ranks": out, "killed": killed}), flush=True)
+    return 0
+
+
+def _check_ladder(case, ranks, ladder, final, oracle, lint):
+    """The reporting rank's summary of `case`: ok, the ladder steps, the
+    final width, no failure retry spent, the final state's digest (the
+    sentinel's leaves aside) and EngineStats (micro-steps aside) equal
+    to 20c's serial run, and the elastic block and the manifest
+    accepted by tools/telemetry_lint.py. Returns the summary."""
+    got = [r[case] for r in ranks if r is not None and case in r]
+    writers = [g for g in got if g["reports"]]
+    if len(writers) != 1:
+        raise AssertionError(f"{case}: {len(writers)} reporting ranks")
+    res = writers[0]
+    el = res["elastic"]
+    steps = [s["action"] for s in el["ladder_steps"]]
+    if not res["ok"] or steps != ladder or el["final_shards"] != final \
+            or res["retries_used"]:
+        raise AssertionError(f"{case}: ok {res['ok']}, ladder {steps}, "
+                             f"final {el['final_shards']}, retries "
+                             f"{res['retries_used']}: {res['log']}")
+    if res["digest"] != oracle["digest"]:
+        raise AssertionError(f"{case}: the final state differs from 20c's "
+                             f"serial run")
+    for k in ("events_processed", "windows", "fastpath_hit",
+              "fastpath_miss"):
+        if res["stats"][k] != oracle["stats"][k]:
+            raise AssertionError(f"{case}: {k} {res['stats'][k]} != "
+                                 f"{oracle['stats'][k]}")
+    errs, warns = lint._lint_elastic(el, res["manifest"].get("health"))
+    merrs, _ = lint.lint_manifest_obj(res["manifest"])
+    if errs or warns or merrs:
+        raise AssertionError(f"{case}: telemetry_lint: {errs} {warns} "
+                             f"{merrs}")
+    if res["sentinel"]["trips"]:
+        raise AssertionError(f"{case}: the final sentinel tripped: "
+                             f"{res['sentinel']}")
+    return res
+
+
+def sentinel_hook_ms(device, calls=50):
+    """The sentinel hook's own cost at 20a's width, on one rank's whole
+    table (the serial identity: the digest and the latch, no gather):
+    host ms a call around `calls` calls with a synchronize at each end,
+    and the digest's device ms (device_ms)."""
+    import torch
+
+    from shadow_tpu_torch import bench
+    from shadow_tpu_torch.parallel import elastic
+
+    b = bench.build_phold(HOSTS, LOAD, SHARD_SIM_S, 1, CAPACITY,
+                          bench.ONE_VERTEX, device)
+    sim = elastic.attach_sentinel(b.sim)
+    fn = elastic.make_sentinel_fn(None)
+    w0 = 50_000_000
+    for i in range(3):
+        sim = fn(sim, w0 + i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        sim = fn(sim, w0 + i)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / calls
+    dev, _ = device_ms([lambda: elastic.digest_replicated(sim, w0)])
+    return {"hook_ms": round(host, 4), "digest_device_ms": round(dev, 5)}
+
+
+def elastic_cell(device, side, oracles, udp_oracle):
+    """Phase 21 (the module docstring): 21b-21e's checks (their process
+    started beside phases 14-19 by start_elastic_side), and 21a's from
+    the sentinel row phase 20's bench timed (oracles["bench"]). Returns
+    ({"launches_sentinel", "sentinel_row", ...}, max abs err)."""
+    import os
+
+    lint = load_lint()
+    code, stdout, stderr, wall = finish_proc(side["21"])
+    if code != 0:
+        raise AssertionError(f"21b-e: exited {code}:\n{stdout[-3000:]}\n"
+                             f"{stderr[-3000:]}")
+    got = _json_line(stdout, '{"ranks"')
+    ranks = got["ranks"]
+    backend = ranks[0]["backend"]
+    sup = oracles["sup"]
+    # --- 21b: retry then shrink -----------------------------------------
+    res = _check_ladder("21b", ranks, ["retry", "shrink"], 2, sup, lint)
+    log(f"  21b: {EL_RANKS} ranks ({backend}), dispatches {list(EL_POISON)}"
+        f" poisoned: ladder retry, shrink {EL_RANKS} -> 2, resumed from "
+        f"{os.path.basename(res['resumed_from'] or '-')} replanned "
+        f"({res['elastic']['ladder_steps'][-1]['resume_time_ns']} ns); "
+        f"the final state and EngineStats equal to 20c's serial run; "
+        f"lint clean")
+    # --- 21c: a divergence ----------------------------------------------
+    res = _check_ladder("21c", ranks, ["retry", "serial"], 1, sup, lint)
+    div = res["elastic"]["divergences"]
+    if [d["shard"] for d in div] != [EL_VICTIM] * 2:
+        raise AssertionError(f"21c: divergences {div}")
+    if not all(d["tripped_at_ns"] >= EL_DIVERGE_NS
+               > d["verified_through_ns"] for d in div):
+        raise AssertionError(f"21c: the trip is not at the first window "
+                             f"end past {EL_DIVERGE_NS}: {div}")
+    for st in res["elastic"]["ladder_steps"]:
+        if st["resume_time_ns"] > div[0]["verified_through_ns"]:
+            raise AssertionError(f"21c: resumed past the verified "
+                                 f"frontier: {st}")
+    log(f"  21c: rank {EL_VICTIM} of 2 diverging from {EL_DIVERGE_NS} ns:"
+        f" the sentinel latched shard {div[0]['shard']} at "
+        f"{div[0]['tripped_at_ns']} ns (verified through "
+        f"{div[0]['verified_through_ns']}); ladder retry, serial on the "
+        f"card; equal to 20c's serial run; lint clean")
+    # --- 21d: a real loss -----------------------------------------------
+    res = _check_ladder("21d", ranks, ["shrink"], 2, sup, lint)
+    detected = [t for r in ranks[:3] for t in r["21d"]["detected"]]
+    if len(detected) != 3:
+        raise AssertionError(f"21d: {len(detected)} survivors classified "
+                             f"the loss")
+    lag = [round(t - got["killed"], 3) for t in detected]
+    retired = [r for r in range(3) if ranks[r]["21d"]["retired"]]
+    log(f"  21d: rank 3 SIGKILLed at dispatch {EL_KILL_AT}: the "
+        f"survivors classified it {lag} s after the kill "
+        f"({res['elastic']['losses'][0]['cause']}), met again and shrank "
+        f"to 2 (rank(s) {retired} retired); equal to 20c's serial run; "
+        f"lint clean")
+    # --- 21e: ProcessRuntime on a mesh ----------------------------------
+    e = ranks[0]["21e"]
+    want = udp_oracle["checks"]
+    if e["net_digest"] != udp_oracle["net_digest"]:
+        raise AssertionError("21e: the net leaves differ from 19a's")
+    if sum(e["pongs"]) != want["pongs"] or sum(e["syscalls"]) \
+            != want["syscalls"]:
+        raise AssertionError(f"21e: pongs {e['pongs']}, syscalls "
+                             f"{e['syscalls']} on the ranks; 19a {want}")
+    for k in ("events_processed", "windows", "overflow"):
+        if e["checks"][k] != want[k]:
+            raise AssertionError(f"21e: {k} {e['checks'][k]} != {want[k]}")
+    launches = [ranks[r]["21e"]["launches"] for r in range(2)]
+    routed = [ranks[r]["21e"]["routed"] for r in range(2)]
+    if launches != routed or not all(launches):
+        raise AssertionError(f"21e: mailbox_gather {launches} on the "
+                             f"ranks' {routed} non-empty routes")
+    log(f"  21e: {VP_HOSTS} processes on 2 ranks: pongs {e['pongs']}, "
+        f"syscalls {e['syscalls']}, events and windows and the net-leaf "
+        f"digest {e['net_digest']} equal to 19a's; mailbox_gather "
+        f"{launches} on the ranks' non-empty routes; {e['wall']:.2f} s, "
+        f"{e['collectives']} collectives on rank 0")
+
+    # --- 21a: the sentinel's cost (phase 20's bench row) ------------------
+    row, gk = oracles["bench"]
+    sh, sn = row["shards"], row["sentinel"]
+    off = sn["shards_off"]
+    st = sh["stats"]
+    key = (sh["seed"], sh["capacity"])
+    twins = oracles["twins"]
+    if key not in twins:
+        twins[key] = single_shard_twin(device, *key)
+    one, digest, _ = twins[key]
+    for k in ("events_processed", "windows", "fastpath_hit",
+              "fastpath_miss"):
+        if st[k] != one[k]:
+            raise AssertionError(f"21a: {k} {st[k]} != {one[k]} (one shard)")
+    if sh["state_digest"] != digest:
+        raise AssertionError("21a: the final state (sentinel leaves "
+                             "aside) differs from 20a's single-shard run")
+    end = int(SHARD_SIM_S * 1_000_000_000) + 1
+    if (sn["checks"], sn["trips"], sn["verified_through_ns"]) != (
+            st["windows"], 0, end):
+        raise AssertionError(f"21a: sentinel {sn}")
+    routed = st["windows"] - sh["route_elided"]
+    if sh["mailbox_gather_launches"] != [routed] * SHARDS:
+        raise AssertionError(f"21a: mailbox_gather launches "
+                             f"{sh['mailbox_gather_launches']}")
+    extra = round(sh["collective_calls_per_window"]
+                  - off["collective_calls_per_window"], 2)
+    hook = sentinel_hook_ms(device)
+    readings = gk["readings"]
+    log(f"  21a: equal to one shard (sentinel leaves aside); sentinel "
+        f"checks {sn['checks']} trips 0 verified through "
+        f"{sn['verified_through_ns']}; sentinel_overhead_pct "
+        f"{row['sentinel_overhead_pct']} ({row['value']} events/s on, "
+        f"{row['events_per_sec_sentinel_off']} off); "
+        f"{sh['wall_ms_per_window']} ms a window on, "
+        f"{off['wall_ms_per_window']} off; the digest's collectives "
+        f"{extra} a window (+{round(sh['collective_ms_per_window'] - off['collective_ms_per_window'], 4)} ms); "
+        f"the serial hook alone {hook['hook_ms']} ms a call on the host "
+        f"clock (synchronized), the digest {hook['digest_device_ms']} "
+        f"ms on the device")
+    log(f"  21a: mailbox_gather at the sharded route on rank 0, "
+        f"{EL_READINGS} readings: kernel "
+        f"{[r['ms'] for r in readings]} ms, index_select "
+        f"{[r['library_ms'] for r in readings]} ms, bound "
+        f"{readings[0]['bound_ms']} ms")
+    out = {"launches_sentinel": sh["mailbox_gather_launches"],
+           "launches_vproc_mesh": launches,
+           "sentinel_row": {
+               "overhead_pct": row["sentinel_overhead_pct"],
+               "value": row["value"],
+               "value_off": row["events_per_sec_sentinel_off"],
+               "wall_ms_per_window": sh["wall_ms_per_window"],
+               "wall_ms_per_window_off": off["wall_ms_per_window"],
+               "collective_calls_per_window_extra": extra,
+               "detect_s": lag, **hook},
+           "sentinel_route": {k: min(r[k] for r in readings)
+                              for k in ("ms", "plain_ms", "library_ms")}}
+    out["sentinel_route"].update(n=readings[0]["n"],
+                                 bound_ms=readings[0]["bound_ms"],
+                                 readings=[{k: r[k] for k in (
+                                     "ms", "library_ms")}
+                                     for r in readings])
     return out, gk["gather_err"]
 
 
@@ -5874,7 +6331,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args, bench, insert_kernels) -> int:
-    """Phases 1-20 and the result lines (main starts and stops the CPU
+    """Phases 1-21 and the result lines (main starts and stops the CPU
     halves' worker around them)."""
     import tempfile
 
@@ -6095,9 +6552,11 @@ def run_phases(args, bench, insert_kernels) -> int:
     log("[14] the CLI and reference-format configs: python -m "
         "shadow_tpu_torch.cli on the --test example and the reference's "
         "configs")
-    # phase 20's untimed runs (20b, 20c) start here, beside 14-19
+    # phase 20's and 21's untimed runs (20b, 20c, 21b-21e) start here,
+    # beside 14-19
     shards_tmp = tempfile.TemporaryDirectory(prefix="shadow_shards_")
     shards_side = start_shards_side(shards_tmp.name)
+    shards_side["21"] = start_elastic_side()
     # phase 17 frees these: no reference stays here
     carried = [main4, relay6s]
     del main4, relay6s
@@ -6112,8 +6571,9 @@ def run_phases(args, bench, insert_kernels) -> int:
 
 def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
                   shards_side, carried) -> int:
-    """Phases 14-20 and the result lines (run_phases' tail; 20b and 20c
-    already running; `carried` holds phases 4's and 6s's runs for 17)."""
+    """Phases 14-21 and the result lines (run_phases' tail; 20b, 20c and
+    21b-21e already running; `carried` holds phases 4's and 6s's runs
+    for 17)."""
     import tempfile
 
     import torch
@@ -6195,6 +6655,7 @@ def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
             f"plugin and --host-kernel diff through the CLI")
         got, err = vproc_cell(device, vp_tmp.name, vp_clis, tcp_cpu[0])
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        udp_oracle = got.pop("udp_oracle")
         row.update(got)
     finally:
         for st in vp_clis.values():
@@ -6203,13 +6664,25 @@ def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
 
     phase("20")
     log(f"[20] the sharded window loop on this card: `BENCH_SHARDS="
-        f"{SHARDS} python -m shadow_tpu_torch.bench` ({HOSTS} hosts as "
-        f"{SHARDS} ranks, {SHARD_SIM_S} sim-s) against one shard; the CLI "
+        f"{SHARDS} BENCH_SENTINEL=1 BENCH_SENTINEL_OVERHEAD=1 python -m "
+        f"shadow_tpu_torch.bench` ({HOSTS} hosts as {SHARDS} ranks, "
+        f"{SHARD_SIM_S} sim-s; 20a its twin without the sentinel, 21a the "
+        f"run with it) against one shard; the CLI "
         f"with --workers 2; run_supervised on {SUP_MESH_RANKS} ranks with "
         f"the degraded plan to {SUP_MESH_SIM_S} sim-s")
     got, err = shards_cell(device, shards_side)
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row["shards"] = got.pop("shards")
+    oracles = got.pop("oracles")
+    row.update(got)
+
+    phase("21")
+    log(f"[21] elastic degraded-mesh recovery: the sentinel's cost in "
+        f"20's row; run_supervised on {EL_RANKS} ranks with two poisoned "
+        f"dispatches, on 2 with a diverging replica, on {EL_RANKS} with a "
+        f"rank killed; ProcessRuntime on 2 ranks")
+    got, err = elastic_cell(device, shards_side, oracles, udp_oracle)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update(got)
 
     phase(None)

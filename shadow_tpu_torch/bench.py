@@ -117,20 +117,35 @@ Env knobs (bench.py's, for what the port runs):
                                  invariant leaves). Not with
                                  BENCH_SUPERVISE, injection, pingpong,
                                  BENCH_REPLICAS, BENCH_CHUNK_WINDOWS,
-                                 BENCH_SPECIALIZE or the *_OVERHEAD A/Bs
+                                 BENCH_SPECIALIZE or the flow and
+                                 causality A/Bs
+  BENCH_SENTINEL=1               attach the integrity sentinel
+                                 (parallel/elastic.py) to the timed
+                                 inputs of the PHOLD, supervised PHOLD
+                                 and injection runners (with
+                                 BENCH_SHARDS, the digest and its one
+                                 all_gather a window); name gains
+                                 _sentinel, the row a "sentinel" block
+                                 (the timed run's latch report)
+  BENCH_SENTINEL_OVERHEAD=1      bench.py's A/B: the same workload
+                                 without the sentinel (from the
+                                 capacity the timed run settled on),
+                                 timed the same way;
+                                 sentinel_overhead_pct = (off-on)/off
+                                 (needs BENCH_SENTINEL=1)
   BENCH_PLATFORM=cpu             run on the CPU
 
 Every other BENCH_* knob of bench.py is refused (SystemExit naming it;
-BENCH_RESIDENT waits for ROADMAP.md Queue 1 item 12,
-BENCH_SENTINEL(_OVERHEAD) for item 9b), and so are bench.py's own
-refusals: --faults, BENCH_SUPERVISE
+BENCH_RESIDENT waits for ROADMAP.md Queue 1 item 12), and so are
+bench.py's own refusals: --faults, BENCH_SUPERVISE
 and BENCH_MIN_JUMP_MS with pingpong (bench.py ignores the last there),
 BENCH_REPLICAS, BENCH_FLOW_SAMPLE and BENCH_CAUSALITY with pingpong,
 BENCH_REPLICAS with BENCH_SUPERVISE or an injection scenario,
 BENCH_ACTIVE with BENCH_REPLICAS or BENCH_SUPERVISE, BENCH_ACTIVE and
 BENCH_SPARSE_LANES with an injection scenario, BENCH_SPECIALIZE outside
-the plain PHOLD runner, BENCH_FLOW_OVERHEAD / BENCH_CAUSALITY_OVERHEAD
-without their sample knob, BENCH_ADAPTIVE_JUMP and
+the plain PHOLD runner, BENCH_SENTINEL outside the PHOLD and injection
+runners, BENCH_FLOW_OVERHEAD / BENCH_CAUSALITY_OVERHEAD /
+BENCH_SENTINEL_OVERHEAD without their knob, BENCH_ADAPTIVE_JUMP and
 BENCH_CHECKPOINT_WINDOWS without BENCH_SUPERVISE=1 or an injection
 scenario, and BENCH_INJECT_* with BENCH_WORKLOAD or BENCH_SUPERVISE.
 
@@ -208,10 +223,10 @@ KNOBS = frozenset({"BENCH_WORKLOAD", "BENCH_TOPO", "BENCH_HOSTS",
                    "BENCH_FLOW_SAMPLE", "BENCH_FLOW_OVERHEAD",
                    "BENCH_CAUSALITY", "BENCH_CAUSALITY_OVERHEAD",
                    "BENCH_SPECIALIZE", "BENCH_BUCKETED", "BENCH_ACTIVE",
-                   "BENCH_SPARSE_LANES", "BENCH_SHARDS"})
+                   "BENCH_SPARSE_LANES", "BENCH_SHARDS", "BENCH_SENTINEL",
+                   "BENCH_SENTINEL_OVERHEAD"})
 # bench.py knobs whose mechanism waits for a ROADMAP.md Queue 1 item
-UNPORTED = {"BENCH_RESIDENT": 12, "BENCH_SENTINEL": "9b",
-            "BENCH_SENTINEL_OVERHEAD": "9b"}
+UNPORTED = {"BENCH_RESIDENT": 12}
 # the leaves the reference gives per shard count (parallel/shard.py),
 # and the ring planes whose meaning is per shard (micro-steps are the
 # slowest rank's, routed_local/cross split by rank): left out of the
@@ -228,7 +243,8 @@ ONE_MILLISECOND = 1_000_000   # core.simtime's, without importing torch
 def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True,
                 fault_records=None, ring_capacity=None, replica_size=None,
                 lanes=False, flow_sample=0, causality_sample=0,
-                active_hosts=None, sparse_lanes=None, bucketed=False):
+                active_hosts=None, sparse_lanes=None, bucketed=False,
+                sentinel=False):
     """bench.py's _build_phold: capacities `cap`, in_ring max(16,
     2*load), the sparse budget `sparse_lanes` (None = the default),
     only the first `active_hosts` hosts loaded when given; the capacity
@@ -239,7 +255,7 @@ def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True,
     the fault plan `fault_records` installed when given; the telemetry
     ring (of `ring_capacity` records, default the ring's) when `ring`;
     the flow and causality recorders at 1-in-N when `flow_sample` /
-    `causality_sample` > 0."""
+    `causality_sample` > 0; the integrity sentinel when `sentinel`."""
     from shadow_tpu_torch import telemetry
     from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.core import simtime
@@ -269,6 +285,17 @@ def build_phold(H, load, sim_s, seed, cap, graph, device, ring=True,
         b.sim = (telemetry.attach(b.sim) if ring_capacity is None
                  else telemetry.attach(b.sim, capacity=ring_capacity))
     b.sim = attach_recorders(b.sim, flow_sample, causality_sample)
+    return attach_sentinel(b, sentinel)
+
+
+def attach_sentinel(b, on):
+    """bench.py's _attach_sentinel: the integrity sentinel on the timed
+    inputs (after the recorders, before a specialization), so on-vs-off
+    is the real cost of the screen."""
+    if on:
+        from shadow_tpu_torch.parallel import elastic
+
+        b.sim = elastic.attach_sentinel(b.sim)
     return b
 
 
@@ -339,7 +366,8 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
                  chunk_windows=None, fault_records=None, min_jump_ns=None,
                  replica_size=None, lanes=False, flow_sample=0,
                  causality_sample=0, active_hosts=None, sparse_lanes=None,
-                 bucketed=False, specialize=False, mesh=None):
+                 bucketed=False, specialize=False, mesh=None,
+                 sentinel=False, cap=None):
     """bench.py's _phold_runner: a zero-argument callable that runs the
     workload once and returns its events; each call takes the next of
     three inputs (seeds 1, 2, 3), each with its own seeded fault
@@ -354,7 +382,9 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
     `bucketed` are build_phold's; `specialize` times the
     capability-trimmed program (specialize_inputs). `mesh` (this
     rank's parallel.shard.Mesh) runs it sharded on every rank, global
-    state in and out (run_sharded)."""
+    state in and out (run_sharded). `cap` starts the capacities
+    elsewhere than bench.py's max(16, 3*load) (an A/B twin starts at
+    the capacity its timed run settled on)."""
     from shadow_tpu_torch.apps import phold
 
     state = {"n": 0}
@@ -366,7 +396,8 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
             fault_records=fault_records, replica_size=replica_size,
             lanes=lanes, flow_sample=flow_sample,
             causality_sample=causality_sample, active_hosts=active_hosts,
-            sparse_lanes=sparse_lanes, bucketed=bucketed), min_jump_ns)
+            sparse_lanes=sparse_lanes, bucketed=bucketed,
+            sentinel=sentinel), min_jump_ns)
             for seed in (1, 2, 3)]
         b, sims = bundles[0], [x.sim for x in bundles]
         plan = b.bucket_plan
@@ -376,7 +407,7 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
                      fn=_runner(b, phold.handler, device, chunk_windows,
                                 app_bulk=app_bulk, mesh=mesh))
 
-    build_at(max(16, 3 * load))
+    build_at(cap or max(16, 3 * load))
 
     def go():
         go.escalated = False
@@ -485,10 +516,10 @@ def phold_supervised_runner(H, load, sim_s, device, graph=ONE_VERTEX,
                             chunk_windows=None, adaptive_jump=False,
                             min_jump_ns=None, checkpoint_windows=None,
                             flow_sample=0, causality_sample=0,
-                            bucketed=False):
+                            bucketed=False, sentinel=False, cap=None):
     """bench.py's _phold_supervised_runner: PHOLD through
-    _supervised_runner with the bulk pass (bundle.app_bulk). Inputs and
-    escalation as phold_runner."""
+    _supervised_runner with the bulk pass (bundle.app_bulk). Inputs,
+    escalation and `cap` as phold_runner."""
     from shadow_tpu_torch.apps import phold
 
     def make_bundles(cap, W):
@@ -496,12 +527,13 @@ def phold_supervised_runner(H, load, sim_s, device, graph=ONE_VERTEX,
             H, load, sim_s, seed, cap, graph, device, ring=ring,
             fault_records=fault_records, ring_capacity=W,
             flow_sample=flow_sample, causality_sample=causality_sample,
-            bucketed=bucketed), min_jump_ns)
+            bucketed=bucketed, sentinel=sentinel), min_jump_ns)
             for seed in (1, 2, 3)]
         bundles[0].app_bulk = phold.BULK
         return bundles
 
-    return _supervised_runner("PHOLD", make_bundles, max(16, 3 * load),
+    return _supervised_runner("PHOLD", make_bundles,
+                              cap or max(16, 3 * load),
                               phold.handler, device, chunk_windows,
                               adaptive_jump, checkpoint_windows)
 
@@ -559,14 +591,15 @@ def inject_runner(H, sim_s, device, seed=1, graph=ONE_VERTEX,
                   fault_records=None, chunk_windows=None,
                   adaptive_jump=False, min_jump_ns=None,
                   checkpoint_windows=None, flow_sample=0,
-                  causality_sample=0, bucketed=False):
+                  causality_sample=0, bucketed=False, sentinel=False,
+                  cap=None):
     """bench.py's _inject_runner: the tgen app driven by a streamed trace
     (`trace_path`, or rate_trace(H, `rate`, sim_s)) through
     _supervised_runner — the feeder refills the staging lanes at every
     dispatch barrier, so the rate covers the whole on-ramp. A fresh
     Feeder per call replays the trace from position 0 against the next
     of three inputs (seeds `seed`..`seed`+2). Staging lanes
-    tgen.lanes_for(trace length); capacities start at 64."""
+    tgen.lanes_for(trace length); capacities start at 64 (or `cap`)."""
     from shadow_tpu_torch import telemetry
     from shadow_tpu_torch.apps import tgen
     from shadow_tpu_torch.inject import Feeder, read_trace
@@ -588,13 +621,15 @@ def inject_runner(H, sim_s, device, seed=1, graph=ONE_VERTEX,
             if ring:
                 x.sim = telemetry.attach(x.sim, capacity=W)
             x.sim = attach_recorders(x.sim, flow_sample, causality_sample)
+            attach_sentinel(x, sentinel)
         return bundles
 
     def feeder():
         return Feeder(trace_path if trace_path is not None
                       else list(mem_events))
 
-    return _supervised_runner("injection", make_bundles, 64, tgen.handler,
+    return _supervised_runner("injection", make_bundles, cap or 64,
+                              tgen.handler,
                               device, chunk_windows, adaptive_jump,
                               checkpoint_windows, feeder=feeder)
 
@@ -789,6 +824,14 @@ def main(argv=None) -> int:
     if caus_ab and caus_n <= 0:
         raise SystemExit("BENCH_CAUSALITY_OVERHEAD=1 needs "
                          "BENCH_CAUSALITY=N (what would it A/B?)")
+    sent_on = os.environ.get("BENCH_SENTINEL", "0") == "1"
+    sent_ab = os.environ.get("BENCH_SENTINEL_OVERHEAD") == "1"
+    if sent_on and workload != "phold" and not inject_on:
+        raise SystemExit("BENCH_SENTINEL=1 is only wired for the "
+                         "phold/injection runners")
+    if sent_ab and not sent_on:
+        raise SystemExit("BENCH_SENTINEL_OVERHEAD=1 needs "
+                         "BENCH_SENTINEL=1 (what would it A/B?)")
     if inj_trace and inj_rate:
         raise SystemExit("BENCH_INJECT_TRACE and BENCH_INJECT_RATE are "
                          "mutually exclusive (replay xor synthesize)")
@@ -866,9 +909,11 @@ def main(argv=None) -> int:
 
     graph = MIX_VERTICES if topo == "mix" else ONE_VERTEX
 
-    def make_runner(flow_sample, causality_sample, specialize=spec_on):
+    def make_runner(flow_sample, causality_sample, specialize=spec_on,
+                    sentinel=sent_on, cap=None):
         rec = dict(flow_sample=flow_sample,
-                   causality_sample=causality_sample, bucketed=bucketed)
+                   causality_sample=causality_sample, bucketed=bucketed,
+                   sentinel=sentinel, cap=cap)
         if inject_on:
             return inject_runner(
                 H, sim_s, device, graph=graph, trace_path=inj_trace,
@@ -928,6 +973,8 @@ def main(argv=None) -> int:
         name += "_spec"
     if caus_n > 0:
         name += f"_caus{caus_n}"
+    if sent_on:
+        name += "_sentinel"
     if mesh is not None:
         name += f"_{mesh.size}shards"
 
@@ -958,6 +1005,26 @@ def main(argv=None) -> int:
             row[f"{key}_overhead_pct"] = round(
                 (off - row["value"]) / off * 100.0, 2)
             row[f"events_per_sec_{key}_off"] = round(off, 1)
+    if sent_on:
+        # the timed run's latch report (bench.py's "sentinel" block)
+        from shadow_tpu_torch.parallel import elastic
+
+        row["sentinel"] = elastic.sentinel_report(runner.last_sim)
+    if sent_ab:
+        # bench.py's A/B: the same workload without the sentinel,
+        # started at the capacity the timed run settled on (its warm-up
+        # then escalates no more); on a mesh the off run's collectives a
+        # window ride the block too
+        base = make_runner(flow_n, caus_n, sentinel=False,
+                           cap=runner.state["cap"])
+        base()                    # warm-up
+        m_off = timed(base, device)
+        off = m_off["events"] / m_off["wall_s"]
+        on = m["events"] / m["wall_s"]
+        row["sentinel_overhead_pct"] = round((off - on) / off * 100.0, 2)
+        row["events_per_sec_sentinel_off"] = round(off, 1)
+        if mesh is not None:
+            row["sentinel"]["shards_off"] = shards_block(mesh, base, m_off)
     if spec_on:
         # bench.py's A/B: the unspecialized twin of the same workload,
         # timed the same way; specialize_speedup = trimmed / full
@@ -1011,7 +1078,9 @@ def _shard_mesh(shards, rank, world, init, device, argv):
 
 def state_digest(sim) -> str:
     """sha256 over the final state's leaves (flax field path order) but
-    PER_SHARD_LEAVES: equal for any shard count."""
+    PER_SHARD_LEAVES and the integrity sentinel's (the row's "sentinel"
+    block reports those): equal for any shard count, with the sentinel
+    on or off."""
     import hashlib
 
     import numpy as np
@@ -1020,7 +1089,7 @@ def state_digest(sim) -> str:
 
     h = hashlib.sha256()
     for k, v in sorted(convert.sim_to_numpy(sim).items()):
-        if k not in PER_SHARD_LEAVES:
+        if k not in PER_SHARD_LEAVES and not k.startswith(".sentinel."):
             h.update(k.encode())
             h.update(np.ascontiguousarray(v).tobytes())
     return h.hexdigest()

@@ -52,8 +52,9 @@ telemetry files. The width follows the reference's rule: the largest
 divisor of the host count within the request, the device count (the
 cards; on `--platform cpu`, the ranks asked for) and the host count,
 with its warning when it narrows; a logpcap config runs serially with
-the reference's warning. A config with `.py` plugins and `--workers` >
-1 is refused (ProcessRuntime on a mesh, ROADMAP.md Queue 1 item 9b).
+the reference's warning. A config with `.py` plugins runs its virtual
+processes on the mesh (ProcessRuntime(mesh=...)): each rank runs the
+coroutines of its own hosts.
 
 Flags whose mechanism the port does not have yet are refused by name
 (exit 2): `--profile-dir`, which names jax.profiler. The `fleet` and
@@ -752,12 +753,7 @@ def _run(args, text, device, logger) -> int:
     # --workers: the mesh, after every attachment (the ranks shard the
     # final Sim)
     width = mesh_width(args, b, device, logger)
-    if width > 1 and loaded.vprocs:
-        print("error: --workers with .py plugins needs ProcessRuntime on "
-              "a mesh, not ported yet (ROADMAP.md Queue 1 item 9b)",
-              file=sys.stderr)
-        return 2
-    if width > 1:
+    if width > 1 and not args.host_kernel:
         return _run_ranks(args, b, loaded, device, logger, width,
                           window_hook, resume_ckpt, tel, t0)
 
@@ -870,6 +866,21 @@ def _run_ranks(args, b, loaded, device, logger, width, window_hook,
                                           mesh=mesh)
             if code is None:
                 sim, stats = sup_result.sim, sup_result.stats
+        elif loaded.vprocs:
+            # .py plugins: each rank runs its own hosts' coroutines over
+            # the sharded window loop
+            from shadow_tpu_torch.process.vproc import ProcessRuntime
+
+            if b.app_bulk is not None:
+                logger.warning(0, "shadow-tpu",
+                               "bulk window pass unavailable with .py "
+                               "plugins; using per-event micro-steps")
+            rt = ProcessRuntime(b, app_handlers=loaded.handlers, mesh=mesh)
+            for hi, fn, st, sp in loaded.vprocs:
+                rt.spawn(hi, fn, start_time=st, stop_time=sp)
+            with tel.phase("device-execute"):
+                sim, stats = rt.run(on_window=window_hook)
+                _sync(device)
         else:
             from shadow_tpu_torch.parallel import run_sharded
 

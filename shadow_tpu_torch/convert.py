@@ -35,6 +35,7 @@ from shadow_tpu_torch.device import resolve_device
 from shadow_tpu_torch.inject.staging import InjectStaging
 from shadow_tpu_torch.net.state import U32_FIELDS, NetState, Sim
 from shadow_tpu_torch.net.tcp import TcpState
+from shadow_tpu_torch.parallel.elastic import SentinelState
 from shadow_tpu_torch.telemetry.causality import CausalityState, U64_PLANES
 from shadow_tpu_torch.telemetry.flows import FlowRing
 from shadow_tpu_torch.telemetry.ring import TelemetryRing
@@ -50,15 +51,22 @@ _SIM_FIELDS = {"events": (EventQueue,), "outbox": (Outbox,),
                "tcp": (TcpState,), "telem": (TelemetryRing,),
                "inject": (InjectStaging,), "lanes": (LaneHealth,),
                "admission": (LaneAdmission,), "flows": (FlowRing,),
-               "causality": (CausalityState,), "guard": (GuardState,)}
+               "causality": (CausalityState,), "guard": (GuardState,),
+               "sentinel": (SentinelState,)}
 
 # the leaves that are uint64 in the reference
 U64_PATHS = frozenset(f".causality.{n}" for n in U64_PLANES)
+# the uint32 leaves outside net.state.U32_FIELDS (int64 in the port)
+U32_PATHS = frozenset({".sentinel.digest"})
+
+
+def _is_u32(path: str) -> bool:
+    return path.rsplit(".", 1)[-1] in U32_FIELDS or path in U32_PATHS
 
 
 def _to_numpy(path: str, t: torch.Tensor) -> np.ndarray:
     a = t.detach().cpu().numpy()
-    if path.rsplit(".", 1)[-1] in U32_FIELDS:
+    if _is_u32(path):
         a = a.astype(np.uint32)
     elif path in U64_PATHS:
         a = a.view(np.uint64)
@@ -87,7 +95,7 @@ def sim_tensors(sim: Sim) -> dict[str, torch.Tensor]:
 def numpy_dtype(path: str, t: torch.Tensor) -> np.dtype:
     """The dtype `path`'s leaf has in the reference (and in
     sim_to_numpy)."""
-    if path.rsplit(".", 1)[-1] in U32_FIELDS:
+    if _is_u32(path):
         return np.dtype(np.uint32)
     if path in U64_PATHS:
         return np.dtype(np.uint64)

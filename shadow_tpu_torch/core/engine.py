@@ -186,7 +186,7 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
                 telem_fn=None, wstart: int | None = None,
                 sparse_lanes: int = 0, fault_fn=None, flow_fn=None,
                 adv_attr=None, route_fn=None, min_fn=None,
-                census_fn=None):
+                census_fn=None, sentinel_fn=None):
     """One full round: drain the window, then route cross-host events
     staged in the outbox into destination queues. Returns (sim, stats,
     next window start as a host int: the global minimum pending time,
@@ -239,7 +239,12 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
     cross-shard exchange), `min_fn(int) -> int` reduces the next window
     start and `census_fn(int) -> int` the active-row count of the sparse
     fast path and the advance latch, over the ranks. Left None, the
-    single-shard program runs unchanged."""
+    single-shard program runs unchanged.
+
+    `sentinel_fn` (parallel.elastic.make_sentinel_fn) digests the
+    replicated leaves after the route and the lane barrier, when the
+    replication invariant holds again, and latches a divergence; it
+    does nothing on a Sim without a sentinel."""
     ev0, ms0 = stats.events_processed, stats.micro_steps
     inject_deltas = None
     if getattr(sim, "inject", None) is not None:
@@ -315,6 +320,8 @@ def step_window(sim, stats: EngineStats, step_fn: StepFn, wend: int,
         from shadow_tpu_torch.core.lanes import window_update
 
         sim = window_update(sim, wend)
+    if sentinel_fn is not None:
+        sim = sentinel_fn(sim, wend)
     stats = stats.replace(windows=stats.windows + 1)
     next_min = int(global_min_time(sim))
     return sim, stats, next_min if min_fn is None else min_fn(next_min)
@@ -455,7 +462,8 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
                     chunk_windows: int, emit_capacity: int = 4,
                     lane_fn=None, bulk_fn=None, telem_fn=None,
                     sparse_lanes: int = 0, fault_fn=None, flow_fn=None,
-                    route_fn=None, min_fn=None, census_fn=None):
+                    route_fn=None, min_fn=None, census_fn=None,
+                    sentinel_fn=None):
     """Build ``chunk(sim, stats, wstart) -> (sim, stats, wstart')``: up
     to `chunk_windows` step_window rounds while ``wstart <= end_time``,
     each ending at ``wend_fn(sim, wstart)`` (make_wend_fn) — the
@@ -479,8 +487,8 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
 
     A Sim carrying `causality` takes each window's end from
     ``wend_fn.explain`` (the same wend, the horizon clamp included) and
-    latches its attribution. `flow_fn` and the mesh hooks `route_fn`,
-    `min_fn` and `census_fn` are step_window's."""
+    latches its attribution. `flow_fn`, `sentinel_fn` and the mesh
+    hooks `route_fn`, `min_fn` and `census_fn` are step_window's."""
     if int(chunk_windows) < 1:
         raise ValueError(
             f"chunk_windows must be >= 1, got {chunk_windows}")
@@ -510,7 +518,8 @@ def make_chunk_body(step_fn: StepFn, *, end_time: int, wend_fn,
                 lane, bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,
                 sparse_lanes=sparse_lanes, fault_fn=fault_fn,
                 flow_fn=flow_fn, adv_attr=adv, route_fn=route_fn,
-                min_fn=min_fn, census_fn=census_fn)
+                min_fn=min_fn, census_fn=census_fn,
+                sentinel_fn=sentinel_fn)
             i += 1
         return sim, stats, wstart
 
@@ -521,7 +530,7 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
         start_time: int = 0, emit_capacity: int = 4, lane_id=None,
         bulk_fn=None, telem_fn=None, sparse_lanes: int = 0,
         fault_times=None, fault_fn=None, flow_fn=None, route_fn=None,
-        min_fn=None, census_fn=None):
+        min_fn=None, census_fn=None, sentinel_fn=None):
     """Run the whole simulation. Window advance rule is the
     reference's: newStart = minNextEventTime, newEnd = newStart +
     minJump, clamped to end_time + 1 (ref: master.c:450-480). The first
@@ -537,9 +546,9 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
     A Sim carrying `causality` latches every window's attribution by
     the static rule of make_wend_fn's explain (floor, record, end; the
     raw jump is the floored min_jump), as the reference's whole-run
-    program does. `flow_fn` and the mesh hooks `route_fn`, `min_fn`
-    (which also reduces the first window start) and `census_fn` are
-    step_window's."""
+    program does. `flow_fn`, `sentinel_fn` and the mesh hooks
+    `route_fn`, `min_fn` (which also reduces the first window start)
+    and `census_fn` are step_window's."""
     from shadow_tpu_torch.telemetry.causality import (
         CAUSE_END_TIME,
         CAUSE_FAULT_RECORD,
@@ -566,5 +575,6 @@ def run(sim, step_fn: StepFn, *, end_time: int, min_jump: int,
             bulk_fn=bulk_fn, telem_fn=telem_fn, wstart=wstart,
             sparse_lanes=sparse_lanes, fault_fn=fault_fn,
             flow_fn=flow_fn, adv_attr=(cause, -1, -1, jump),
-            route_fn=route_fn, min_fn=min_fn, census_fn=census_fn)
+            route_fn=route_fn, min_fn=min_fn, census_fn=census_fn,
+            sentinel_fn=sentinel_fn)
     return sim, stats

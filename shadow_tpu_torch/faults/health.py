@@ -16,8 +16,9 @@ diagnostics name the knob to grow. Outbox.narrow_miss is a warning
 failure report reads the same from either package. gather() reads the
 lane and admission planes (core/lanes.py): a capacity trip attributed to
 quarantined lanes only is CONTAINED — a warning, not fatal, while a
-healthy lane remains. The guard and sentinel parts stay zero or empty
-here, and gather() refuses a Sim that carries one of those layers.
+healthy lane remains. A specialization guard's trips and the integrity
+sentinel's SHARD_DIVERGENCE latch (parallel/elastic.py) are fatal; the
+DEVICE_LOST fields are set host-side by the supervisor's elastic ladder.
 """
 
 from __future__ import annotations
@@ -316,41 +317,40 @@ class RunHealth:
         }
 
 
-# Sim layers whose health reports the port does not read yet, and the
-# ROADMAP.md Queue 1 item that ports each.
-_UNPORTED_LAYERS = {"sentinel": "9b"}
-
-
 def gather(sim, *, window_start=None, stalled_windows=0, stall_limit=0,
            time_regression=False, telemetry_lost=0,
            trace_warnings=(), max_suspects=8) -> RunHealth:
     """Pull the device latches into a RunHealth: one host read of the
     four scalars (six with an injection staging buffer: its dropped and
     late counters; two more with a specialization guard: its loss and
-    timer trips), plus the queue's fill counts only when it
-    overflowed, and the lane and admission reports when the Sim
-    carries them. Raises NotImplementedError for a Sim carrying a
-    sentinel."""
-    for name, item in _UNPORTED_LAYERS.items():
-        if getattr(sim, name, None) is not None:
-            raise NotImplementedError(
-                f"shadow_tpu_torch: health.gather on a Sim carrying "
-                f"{name!r} (ROADMAP.md Queue 1 item {item})")
+    timer trips; five more with the integrity sentinel: its checks,
+    trips, suspect shard, trip time and verified frontier), plus the
+    queue's fill counts only when it overflowed, and the lane and
+    admission reports when the Sim carries them."""
     inj = getattr(sim, "inject", None)
     guard = getattr(sim, "guard", None)
+    sent = getattr(sim, "sentinel", None)
     latches = [sim.events.overflow, sim.outbox.overflow,
                sim.net.rq_overflow, sim.outbox.narrow_miss]
     if inj is not None:
         latches += [inj.dropped, inj.late]
     if guard is not None:
         latches += [guard.loss_trips, guard.timer_trips]
+    if sent is not None:
+        latches += [sent.checks, sent.trip, sent.shard, sent.tripped_at,
+                    sent.verified_through]
     vals = torch.stack([v.to(torch.int64) for v in latches]).tolist()
     ev, ob, rq, nm = vals[:4]
     inj_dropped, inj_late = vals[4:6] if inj is not None else (0, 0)
+    at = 6 if inj is not None else 4
     g_watched, g_loss, g_timer = (), 0, 0
     if guard is not None:
         g_watched = guard.watched()
-        g_loss, g_timer = vals[-2:]
+        g_loss, g_timer = vals[at:at + 2]
+        at += 2
+    s_checks, s_trips, s_shard, s_at, s_ver = 0, 0, -1, 0, 0
+    if sent is not None:
+        s_checks, s_trips, s_shard, s_at, s_ver = vals[at:at + 5]
     suspects = ()
     if ev:
         fill = sim.events.fill_count()
@@ -376,6 +376,11 @@ def gather(sim, *, window_start=None, stalled_windows=0, stall_limit=0,
         resident = True
         adm_rep = tuple(admission_report(sim))
     return RunHealth(
+        sentinel_checks=int(s_checks),
+        shard_divergence_trips=int(s_trips),
+        divergent_shard=int(s_shard),
+        sentinel_tripped_at=int(s_at),
+        sentinel_verified_through=int(s_ver),
         guard_watched=g_watched,
         guard_loss_trips=int(g_loss),
         guard_timer_trips=int(g_timer),

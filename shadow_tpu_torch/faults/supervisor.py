@@ -46,9 +46,22 @@ global Sim, so the ranks decide alike; rank 0 alone writes each
 snapshot and every rank waits for it, so a retry or a heal reads the
 same file everywhere.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-Queue 1 item): `elastic`, `dispatch_wrap` and `on_mesh_change` (item
-9b), `warm_start` (item 11b).
+Elastic degraded-mesh recovery (`elastic`, parallel/elastic.py): a
+DEVICE_LOST (a classified dispatch or collective error) or a
+SHARD_DIVERGENCE latch steps the ladder — retry the same width, shrink
+to the next-pow2-down survivors, fall back to serial on the rank's own
+card — resuming from the last VERIFIED snapshot. A process group cannot
+drop a member in place, so every rank tears its group down
+(Mesh.abort, bounded) and the live ranks meet again at a file-store
+rendezvous beside the checkpoints (elastic.Rendezvous); the first
+next_pow2_down(live) of them, in old-rank order, form the new group,
+and the rest retire (`SupervisorResult.retired`). Every rung is a
+function of replicated state and of the sealed membership, so the
+ranks take the same one. A retry needs every rank: when the rendezvous
+finds one missing, the ladder takes the next rung. The new rank 0
+replans and writes the snapshots and the result; `on_mesh_change` fires
+there once. `warm_start` (ROADMAP.md Queue 1 item 11b) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -61,6 +74,7 @@ from typing import Optional
 from shadow_tpu_torch.core import simtime
 from shadow_tpu_torch.faults import escalate as escalate_mod
 from shadow_tpu_torch.faults import health as health_mod
+from shadow_tpu_torch.parallel import elastic as elastic_mod
 from shadow_tpu_torch.utils import checkpoint as ckpt
 
 _STAT_KEYS = ("events_processed", "micro_steps", "windows",
@@ -152,6 +166,16 @@ class SupervisorResult:
     # lane-isolated runs: every lane quarantined across the chain, with
     # salvage pointers
     lane_incidents: tuple = ()
+    # elastic degraded-mesh recovery: losses, divergences, the ladder
+    # steps and the mesh transitions — the manifest's `elastic` block;
+    # None when no ElasticPolicy was installed and nothing tripped
+    elastic: Optional[dict] = None
+    # a rank the ladder left out of the shrunk mesh (or the serial
+    # rung): it stopped cleanly and holds no result (sim, stats None)
+    retired: bool = False
+    # this rank writes the run's report: rank 0 of the final mesh, the
+    # rank that carries the serial rung, or a serial run
+    reports: bool = True
 
     def failure_report(self) -> dict:
         rep = self.health.failure_report() if self.health is not None \
@@ -171,6 +195,8 @@ class SupervisorResult:
         if self.deadline_exceeded:
             rep["verdict"] = "deadline"
             rep["final_checkpoint"] = self.final_checkpoint
+        if self.elastic is not None:
+            rep["elastic"] = dict(self.elastic)
         return rep
 
 
@@ -192,7 +218,8 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                    adaptive_jump: bool | None = None,
                    feeder=None, on_lane_quarantine=None,
                    warm_start: bool | None = None,
-                   elastic=None, dispatch_wrap=None, on_mesh_change=None,
+                   elastic: elastic_mod.ElasticPolicy | None = None,
+                   dispatch_wrap=None, on_mesh_change=None,
                    device=None) -> SupervisorResult:
     """Run `bundle` to end_time under supervision (the host-driven
     window loop of checkpoint.run_windows on `device`, None -> "cuda").
@@ -220,14 +247,23 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
     once per chunk on its aggregate stats. Streak and checkpoint
     cadences count executed windows, quantized up to a chunk boundary.
     `on_lane_quarantine(incident)` is the lane-surgery hook (module
-    doc)."""
+    doc).
+
+    `elastic` (parallel/elastic.ElasticPolicy) arms degraded-mesh
+    recovery (module doc): every dispatch is wrapped in guard_dispatch,
+    so a lost device or rank surfaces as a typed DeviceLossError and
+    steps the ladder; a SHARD_DIVERGENCE latch (attach_sentinel) steps
+    the same ladder, resuming no later than its verified frontier.
+    Ladder steps consume no failure retries and are bounded by
+    `max_losses`; a DEVICE_LOST without a policy re-raises.
+    `dispatch_wrap` composes INSIDE the guard (chaos poison sees the
+    dispatch first, the classifier its error); `on_mesh_change(
+    old_shards, new_shards, cause)` fires on every width change, on
+    the rank that reports."""
     from shadow_tpu_torch.core.engine import EngineStats
     from shadow_tpu_torch.net.build import refuse_unported
 
-    refuse_unported(elastic=(elastic, "9b"),
-                    dispatch_wrap=(dispatch_wrap, "9b"),
-                    on_mesh_change=(on_mesh_change, "9b"),
-                    warm_start=(warm_start, "11b"))
+    refuse_unported(warm_start=(warm_start, "11b"))
 
     def say(msg):
         if log is not None:
@@ -237,6 +273,32 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
         else getattr(bundle, "rebuild", None)
     run_id = run_id or uuid.uuid4().hex[:12]
     t_chain0 = _time.monotonic()   # max_run_wallclock origin
+    # elastic recovery makes the mesh MUTABLE chain state: a ladder step
+    # may re-form it narrower (or drop to serial) between attempts
+    cur_mesh = mesh if mesh is not None and mesh.size > 1 else None
+    cur_shards = mesh.size if mesh is not None else 1
+    plain_mesh = mesh if cur_mesh is None else None   # a one-rank mesh
+    shards0 = cur_shards
+    losses: list = []              # DeviceLossError records, chain-wide
+    divergences: list = []         # sentinel trips, chain-wide
+    ladder_steps: list = []        # one per loss/divergence handled
+    same_mesh_used: dict = {}      # mesh width -> same-mesh retries spent
+    owned_mesh = None              # a mesh the ladder formed (closed here)
+    generation = 0
+    rdv_prefix = None
+    # a serial rung runs on the rank's own device
+    run_device = device if device is not None else (
+        mesh.device if mesh is not None else None)
+    if elastic is not None and cur_mesh is not None:
+        # one id for the whole mesh (rank 0's), so the rendezvous files
+        # of every generation have one name on every rank; rank 0 clears
+        # a former run's files of that name before the gather (a barrier)
+        run_id = cur_mesh.all_gather_object(run_id)[0]
+        rdv_prefix = f"{checkpoint_path}.{run_id}.mesh"
+        if cur_mesh.rank == 0:
+            elastic_mod.Rendezvous.clear(rdv_prefix)
+        cur_mesh.barrier()
+        elastic_mod.Rendezvous.publish_pids(rdv_prefix, cur_mesh.rank)
 
     total_saved = []
     attempt = 0
@@ -329,14 +391,211 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
 
     def _save(sim, t, acc):
         p = f"{checkpoint_path}.{t}.npz"
-        if mesh is None or mesh.rank == 0:
+        if cur_mesh is None or cur_mesh.rank == 0:
             ckpt.save(p, sim, time_ns=t, config_digest=config_digest,
-                      extra=_ckpt_extra(acc),
-                      shards=1 if mesh is None else mesh.size)
-        if mesh is not None:
-            mesh.barrier()
+                      extra=_ckpt_extra(acc), shards=cur_shards)
+        if cur_mesh is not None:
+            cur_mesh.barrier()
         total_saved.append((p, t))
         return p
+
+    def _verified_snapshot(limit_ns: int | None = None):
+        """Newest checkpoint the elastic ladder may resume from: its
+        elastic stamp (checkpoint.elastic_meta) shows zero sentinel
+        trips — or it carries none, and the health check that preceded
+        the save is the verifier. `limit_ns` (a divergence's
+        verified_through) additionally caps the resume time. Returns
+        (path, time_ns, meta) or None."""
+        for path, t in reversed(total_saved):
+            if limit_ns is not None and t > limit_ns:
+                continue
+            try:
+                _, meta = ckpt.load_leaves(path)
+            except (OSError, ValueError, KeyError) as e:
+                say(f"supervisor: skipping unreadable snapshot "
+                    f"{path}: {e}")
+                continue
+            el = meta.get("elastic")
+            rep = el.get("sentinel") if isinstance(el, dict) else None
+            if rep and rep.get("trips"):
+                continue
+            return path, t, meta
+        return None
+
+    def _elastic_block():
+        if elastic is None and not losses and not divergences:
+            return None
+        return {
+            "policy": elastic.as_dict() if elastic is not None else None,
+            "initial_shards": shards0,
+            "final_shards": cur_shards,
+            "losses": [dict(d) for d in losses],
+            "divergences": [dict(d) for d in divergences],
+            "ladder_steps": [dict(s) for s in ladder_steps],
+            "mesh_transitions": [dict(s) for s in ladder_steps
+                                 if s["from"] != s["to"]],
+        }
+
+    def _decide_rung():
+        """retry / shrink / serial from replicated chain state (the
+        reference's order), or None when the ladder is exhausted."""
+        if same_mesh_used.get(cur_shards, 0) < elastic.same_mesh_retries:
+            same_mesh_used[cur_shards] = \
+                same_mesh_used.get(cur_shards, 0) + 1
+            return "retry"
+        if (elastic.allow_shrink and cur_mesh is not None
+                and cur_shards > max(elastic.min_shards, 1)):
+            return "shrink"
+        if elastic.allow_serial and cur_mesh is not None:
+            return "serial"
+        return None
+
+    def _reform(action: str, shard: int):
+        """Tear the group down and meet the live ranks again; returns
+        (action, new_mesh, new_shards), with new_shards 0 when this rank
+        retires and None when the ladder cannot go on."""
+        nonlocal generation
+        old = cur_mesh
+        if not old.abort():
+            raise RuntimeError(
+                "supervisor: the process group did not tear down within "
+                "its bound after the loss; a new group cannot start in "
+                "this process")
+        generation += 1
+        rdv = elastic_mod.Rendezvous(rdv_prefix, generation, old.size,
+                                     deadline_s=old.timeout_s + 5.0)
+        named = 0 <= shard < old.size
+        out = action != "retry" and named and shard == old.rank
+        live = rdv.meet(old.rank, join=not out)
+        say(f"supervisor: rendezvous {generation}: live ranks {live} of "
+            f"{old.size}")
+        if out or old.rank not in live:
+            return action, None, 0
+        if action == "retry" and len(live) < old.size:
+            # a retry needs every rank: take the next rung
+            action = ("shrink" if elastic.allow_shrink
+                      and old.size > max(elastic.min_shards, 1)
+                      else "serial" if elastic.allow_serial else None)
+            if action is None:
+                return None, None, None
+        if action == "retry":
+            from shadow_tpu_torch.parallel.shard import Mesh
+
+            new = Mesh(old.size, live.index(old.rank),
+                       init_method=rdv.group_init(), device=old.device,
+                       axis=old.axis, timeout_s=old.timeout_s)
+            return action, new, old.size
+        ranks = elastic_mod.survivor_ranks(old.size, shard, live)
+        if action == "shrink" and (len(ranks) < 2
+                                   or len(ranks) < elastic.min_shards):
+            if not elastic.allow_serial:
+                say("supervisor: survivors cannot carry a mesh and "
+                    "serial fallback is disabled")
+                return None, None, None
+            action = "serial"
+        if action == "serial":
+            return action, None, (1 if ranks[:1] == [old.rank] else 0)
+        new, n = elastic_mod.survivor_mesh(old, old.axis, shard, live=live,
+                                           rendezvous=rdv)
+        return action, new, n
+
+    def _elastic_step(cause: str, shard: int, limit_ns=None):
+        """One rung of the degradation ladder: decides retry / shrink /
+        serial, re-forms the mesh, finds the verified resume point
+        (replanning its shard stamp when the width changes) and mutates
+        the chain's mesh state. Returns "continue", "retired" or
+        "exhausted"."""
+        nonlocal cur_mesh, cur_shards, resume_sim, resume_time
+        nonlocal resumed_from, base_stats, owned_mesh
+        if len(losses) + len(divergences) > elastic.max_losses:
+            say(f"supervisor: elastic budget exhausted "
+                f"({elastic.max_losses} losses)")
+            return "exhausted"
+        action = _decide_rung()
+        if action is None:
+            say(f"supervisor: ladder exhausted at {cur_shards} "
+                f"shard(s) ({cause})")
+            return "exhausted"
+        new_mesh, new_shards = cur_mesh, cur_shards
+        if cur_mesh is not None:
+            action, new_mesh, new_shards = _reform(action, shard)
+            if action is None:
+                say(f"supervisor: ladder exhausted at {cur_shards} "
+                    f"shard(s) ({cause})")
+                return "exhausted"
+        step = {"action": action, "cause": cause, "shard": int(shard),
+                "from": cur_shards, "to": max(new_shards, 1),
+                "resume_time_ns": 0, "attempt": attempt}
+        if new_shards == 0:
+            say(f"supervisor: elastic {action} ({cause}, shard {shard}): "
+                f"this rank retires")
+            if owned_mesh is not None and owned_mesh is not new_mesh:
+                owned_mesh.close()
+            ladder_steps.append(step)
+            cur_mesh, cur_shards = None, max(step["to"], 1)
+            return "retired"
+        if owned_mesh is not None and owned_mesh is not new_mesh:
+            owned_mesh.close()
+        owned_mesh = new_mesh
+        writer = new_mesh is None or new_mesh.rank == 0
+        # --- verified resume point ---------------------------------
+        found = _verified_snapshot(limit_ns)
+        t = 0
+        if found is not None:
+            path, t, _meta = found
+            if new_shards != cur_shards:
+                err = None
+                if writer:
+                    try:
+                        # digest-verified restamp: the per-shard sha256
+                        # ledger checked at the OLD width, restamped at
+                        # the NEW one
+                        ckpt.replan_shards(path, new_shards,
+                                           template_sim=bundle.sim)
+                    except (ValueError, OSError, KeyError) as e:
+                        err = str(e)
+                if new_mesh is not None:
+                    err = new_mesh.all_gather_object(err)[0]
+                if err is not None:
+                    say(f"supervisor: replan of {path} failed ({err}); "
+                        f"rebooting at {new_shards} shard(s)")
+                    path = None
+            if path is not None:
+                resume_sim, resume_time, extra = ckpt.load(path,
+                                                           bundle.sim)
+                base_stats = dict(extra.get("stats", {}))
+                resumed_from = path
+            else:
+                resume_sim, resume_time, base_stats = None, 0, {}
+                t = 0
+        else:
+            say("supervisor: no verified snapshot, rebooting from t=0")
+            resume_sim, resume_time, base_stats = None, 0, {}
+        ladder_steps.append(dict(step, resume_time_ns=int(t)))
+        say(f"supervisor: elastic {action} ({cause}, shard {shard}): "
+            f"{cur_shards} -> {new_shards} shard(s), resuming at "
+            f"t={int(t)}")
+        if new_shards != cur_shards and on_mesh_change is not None \
+                and writer:
+            on_mesh_change(cur_shards, new_shards, cause)
+        cur_mesh, cur_shards = new_mesh, new_shards
+        return "continue"
+
+    def _wrap_dispatch(fn):
+        """Compose the caller's dispatch_wrap (chaos poison — it must
+        see the dispatch first so its injected error reaches the
+        classifier) inside the device-loss guard."""
+        if dispatch_wrap is not None:
+            fn = dispatch_wrap(fn)
+        if elastic is not None:
+            fn = elastic_mod.guard_dispatch(
+                fn, shards=cur_shards,
+                deadline_s=elastic.dispatch_deadline_s)
+        return fn
+
+    def _close_owned():
+        if owned_mesh is not None:
+            owned_mesh.close()
 
     while True:
         attempt += 1
@@ -422,7 +681,12 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                 run_id=run_id, resume_of=resume_of,
                 dispatches=len(tele["dispatch_windows"]),
                 dispatch_windows=tuple(tele["dispatch_windows"]),
-                lane_incidents=tuple(lane_incidents), **kw)
+                lane_incidents=tuple(lane_incidents),
+                elastic=_elastic_block(),
+                reports=(not kw.get("retired") and (
+                    cur_mesh.rank == 0 if cur_mesh is not None
+                    else mesh is None or mesh.size == 1
+                    or bool(ladder_steps))), **kw)
 
         def _chain_stats(sim):
             return EngineStats.from_dict(_ckpt_extra(tele["acc"])["stats"],
@@ -437,31 +701,62 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                     base_stats, device=bundle.sim.events.time.device)
                     if base_stats else None),
                 windows_per_dispatch=windows_per_dispatch,
-                adaptive_jump=adaptive_jump, feeder=feeder, device=device,
-                mesh=mesh, mesh_axis=mesh_axis,
-                exchange_capacity=exchange_capacity)
+                adaptive_jump=adaptive_jump, feeder=feeder,
+                device=run_device if cur_mesh is None else None,
+                mesh=cur_mesh if cur_mesh is not None else plain_mesh,
+                mesh_axis=mesh_axis,
+                exchange_capacity=exchange_capacity,
+                dispatch_wrap=(_wrap_dispatch
+                               if (dispatch_wrap is not None
+                                   or elastic is not None) else None))
             if harvester is not None:
                 harvester.drain(sim)
             h = _gather(sim)
             _lane_surgery(h, tele["wstart"] or 0)
             if h.fatal:
                 raise LatchTrip(h, sim)
+            _close_owned()
             return _result(True, sim, h, stats=stats)
         except DeadlineExceeded as d:
             say(f"supervisor: wallclock deadline after "
                 f"{d.elapsed_s:.1f}s: {d}")
             h = dataclasses.replace(_gather(d.sim), deadline_exceeded=True)
+            _close_owned()
             return _result(False, d.sim, h, stats=_chain_stats(d.sim),
                            deadline_exceeded=True, final_checkpoint=d.path)
         except Preempted as p:
             say(f"supervisor: {p}")
             # the preempting round passed its health check before the
             # final save — report that healthy snapshot
+            _close_owned()
             return _result(False, p.sim, _gather(p.sim),
                            stats=_chain_stats(p.sim), preempted=True,
                            final_checkpoint=p.path)
         except LatchTrip as trip:
             say(f"supervisor: latch trip on attempt {attempt}: {trip}")
+            if elastic is not None and trip.health.shard_divergence:
+                # the sentinel's SDC screen: a shard whose replica of
+                # the replicated state diverged is a failing device —
+                # the SAME ladder, resuming no later than the trip's
+                # verified frontier (nothing after it is trusted)
+                divergences.append({
+                    "fault": "SHARD_DIVERGENCE",
+                    "shard": int(trip.health.divergent_shard),
+                    "tripped_at_ns": int(trip.health.sentinel_tripped_at),
+                    "verified_through_ns":
+                        int(trip.health.sentinel_verified_through),
+                    "attempt": attempt, "mesh": cur_shards,
+                })
+                verdict = _elastic_step(
+                    "shard_divergence", trip.health.divergent_shard,
+                    limit_ns=trip.health.sentinel_verified_through)
+                if verdict == "continue":
+                    continue
+                if verdict == "retired":
+                    return _result(True, None, None, stats=None,
+                                   retired=True)
+                _close_owned()
+                return _result(False, trip.sim, trip.health, stats=None)
             healed = False
             if escalation is not None and rebuild_fn is not None:
                 try:
@@ -546,6 +841,7 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                 continue  # a heal consumes no retry and sleeps never
             if retries_used >= max_retries:
                 # carry the tripped sim so the caller can still report
+                _close_owned()
                 return _result(False, trip.sim, trip.health, stats=None)
             retries_used += 1
             if total_saved:
@@ -561,3 +857,37 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                 resumed_from = None
                 base_stats = {}
             sleep(backoff_s * (2 ** (retries_used - 1)))
+        except Exception as exc:         # noqa: BLE001 — classify-all
+            # a guarded dispatch raises DeviceLossError; with one process
+            # a rank, a lost rank may also surface in a collective
+            # outside one (a gather for the hooks, a snapshot barrier)
+            loss = exc if isinstance(exc, elastic_mod.DeviceLossError) \
+                else (elastic_mod.classify(exc, shards=cur_shards)
+                      if elastic is not None and cur_mesh is not None
+                      else None)
+            if loss is None:
+                raise
+            say(f"supervisor: device loss on attempt {attempt}: {loss}")
+            if elastic is None:
+                raise
+            losses.append(dict(loss.as_dict(), attempt=attempt,
+                               mesh=cur_shards))
+            # the failed attempt's frames hold the old group's pending
+            # work: drop them, so tearing the group down closes its
+            # connections and a peer still waiting on this rank fails at
+            # once instead of at its timeout
+            for e in (exc, loss, loss.__cause__):
+                if e is not None:
+                    e.__traceback__ = None
+            del exc
+            verdict = _elastic_step("device_lost", loss.shard)
+            if verdict == "continue":
+                continue  # a ladder step: no retry, no backoff
+            if verdict == "retired":
+                return _result(True, None, None, stats=None, retired=True)
+            _close_owned()
+            h = health_mod.RunHealth(
+                device_lost=len(losses),
+                lost_shard=loss.shard,
+                device_lost_cause=loss.cause)
+            return _result(False, None, h, stats=None)

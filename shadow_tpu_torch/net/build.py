@@ -52,6 +52,7 @@ from shadow_tpu_torch.net.tcp_bulk import make_tcp_bulk_fn
 from shadow_tpu_torch.routing.dns import DNS
 from shadow_tpu_torch.routing.graphml import parse_graphml
 from shadow_tpu_torch.routing.topology import Topology
+from shadow_tpu_torch.parallel.elastic import make_sentinel_fn
 from shadow_tpu_torch.telemetry.flows import make_flow_fn
 from shadow_tpu_torch.telemetry.ring import make_telem_fn
 
@@ -379,7 +380,10 @@ def make_runner(bundle: SimBundle, app_handlers=(),
             emit_capacity=bundle.cfg.emit_capacity,
             lane_id=sim.net.lane_id, bulk_fn=go.bulk_fn, telem_fn=telem_fn,
             sparse_lanes=sparse, fault_times=plan_times(bundle),
-            fault_fn=fault_fn, flow_fn=flow_fn)
+            fault_fn=fault_fn, flow_fn=flow_fn,
+            # the serial identity sentinel: never trips, but advances
+            # the verified-through ledger (nothing without a sentinel)
+            sentinel_fn=make_sentinel_fn(None))
 
     go.bulk_fn = bulk_fn
     return go
@@ -424,7 +428,7 @@ def make_chunked_runner(bundle: SimBundle, app_handlers=(),
         lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
         telem_fn=make_telem_fn(),
         sparse_lanes=resolve_sparse_lanes(bundle.cfg), fault_fn=fault_fn,
-        flow_fn=make_flow_fn())
+        flow_fn=make_flow_fn(), sentinel_fn=make_sentinel_fn(None))
 
     def go(sim):
         _check_sim_device(sim, dev)

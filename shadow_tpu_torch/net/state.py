@@ -398,10 +398,10 @@ class Sim(_Replace):
     # the resident lease planes (core/lanes.py attach,
     # attach_admission), the flow ring (telemetry/flows.py
     # attach_flows), the causality planes (telemetry/causality.py
-    # attach_causality) and the specialization guard latch
+    # attach_causality), the specialization guard latch
     # (compile/specialize.py GuardState, attached by specialize.apply
-    # when a capability was trimmed). Not yet (ROADMAP.md): sentinel
-    # (item 9b), which stays None.
+    # when a capability was trimmed) and the integrity sentinel
+    # (parallel/elastic.py SentinelState, attach_sentinel).
     tcp: Any = None
     telem: Any = None
     inject: Any = None

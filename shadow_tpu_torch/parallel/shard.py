@@ -44,8 +44,10 @@ dtype). make_sharded_window and make_sharded_chunk, the building
 blocks of host-driven loops, keep the rank's LOCAL Sim between
 dispatches: shard_sim / unshard_sim convert at the loop's boundary.
 
-Not ported yet (ROADMAP.md Queue 1 item 9b): the integrity sentinel
-(parallel/elastic.py) — a Sim carrying one is refused.
+A Sim carrying the integrity sentinel (parallel/elastic.py) runs it at
+every window barrier, after the route: one all_gather of the ranks'
+digests. Mesh.abort tears a group down without waiting on a dead peer,
+so the supervisor's elastic ladder can meet again on fewer ranks.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ import os
 import queue as queue_mod
 import socket
 import sys
+import threading
 import time
 import traceback
 
@@ -90,6 +93,25 @@ AXIS = "hosts"
 # gloo's default collective timeout is 30 minutes; a deadlocked window
 # must fail well before a run's time limit
 MAX_TIMEOUT_S = 60.0
+# how long each step of tearing a failed group down may take
+ABORT_TIMEOUT_S = 10.0
+
+
+def _bounded(fn, timeout_s: float) -> bool:
+    """Run fn in a daemon thread; True when it returned within
+    `timeout_s` (a teardown that hangs on a dead peer is left behind,
+    never waited on forever)."""
+    box = {}
+
+    def run():
+        try:
+            fn()
+        finally:
+            box["done"] = True
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout_s)
+    return bool(box.get("done"))
 
 
 def _choose_backend(device: torch.device, size: int) -> str:
@@ -130,6 +152,7 @@ class Mesh:
         dev = rank_device(rank, device)
         self.size, self.rank, self.axis, self.device = size, rank, axis, dev
         self.shape = {axis: size}
+        self.timeout_s = float(timeout_s)
         self.backend = None
         self.group = None
         self.reset_counters()
@@ -143,6 +166,11 @@ class Mesh:
         self.backend = _choose_backend(dev, size)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
+        if self.backend == "nccl":
+            # a failed or timed-out collective aborts the communicators
+            # and raises in this process (torch's default tears the
+            # process down), so the elastic ladder can classify it
+            os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")
         dist.init_process_group(
             self.backend, init_method=init_method, world_size=size,
             rank=rank, timeout=datetime.timedelta(seconds=float(timeout_s)))
@@ -161,13 +189,41 @@ class Mesh:
         self.seconds = self.gather_seconds = 0.0
 
     def close(self) -> None:
-        """Leave the process group (a one-rank mesh has none)."""
+        """Leave the process group (a one-rank mesh has none, and a
+        mesh torn down by abort() has left it already)."""
         if self.group is not None:
             import torch.distributed as dist
 
-            dist.destroy_process_group()
             self.group = None
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
+    def abort(self) -> bool:
+        """Tear the process group down after a failure without waiting
+        on a dead peer: NCCL's communicators are aborted first, and
+        each step waits at most ABORT_TIMEOUT_S. True when the group is
+        gone; False when a step hung (its thread is left behind and the
+        group may still hold resources — the caller must not start
+        another group in this process then)."""
+        if self.group is None:
+            return True
+        import torch.distributed as dist
+
+        group, self.group = self.group, None
+        ok = True
+        if self.backend == "nccl":
+            abort = getattr(dist.distributed_c10d, "_abort_process_group",
+                            None)
+            if abort is not None:
+                ok = _bounded(lambda: abort(group), ABORT_TIMEOUT_S)
+        if ok and dist.is_initialized():
+            ok = _bounded(dist.destroy_process_group, ABORT_TIMEOUT_S)
+        # free the group now: its connections close with it
+        del group
+        import gc
+
+        gc.collect()
+        return ok
     # -- collectives -------------------------------------------------
     def _comm_device(self) -> torch.device:
         return (torch.device("cpu") if self.backend == "gloo"
@@ -252,6 +308,17 @@ class Mesh:
         if self.size > 1:
             self.all_reduce_ints([0])
 
+    def all_gather_object(self, obj) -> list:
+        """Every rank's picklable `obj`, in rank order."""
+        if self.size == 1:
+            return [obj]
+        import torch.distributed as dist
+
+        out = [None] * self.size
+        self._timed(0, lambda: dist.all_gather_object(out, obj,
+                                                      group=self.group))
+        return out
+
 
 # --- the Sim's layout over the ranks ---------------------------------
 
@@ -305,10 +372,6 @@ def _map_leaves(obj, fn, prefix: str = ""):
 
 def _check_mesh_sim(sim, mesh: Mesh) -> int:
     """Refusals and the divisibility rule; returns the local rows Hl."""
-    if getattr(sim, "sentinel", None) is not None:
-        raise NotImplementedError(
-            "shadow_tpu_torch: the integrity sentinel (parallel/elastic.py)"
-            " is not ported yet (ROADMAP.md Queue 1 item 9b)")
     if getattr(sim, "lanes", None) is not None and mesh.size > 1:
         raise ValueError("lane isolation (core/lanes.py) is a single-shard "
                          "feature, as in the reference")
@@ -473,10 +536,11 @@ def route_outbox_sharded(q, out, mesh: Mesh, base: int,
 _PINNED_MAX = (".outbox.narrow_hit", ".outbox.narrow_miss",
                ".outbox.max_occupied", ".outbox.route_elided")
 # replicated scalars kept as they are: the telemetry and flow rings
-# (globally reduced at the barrier), the injection floor and horizon
+# (globally reduced at the barrier), the integrity sentinel (a pure
+# function of the gathered digests), the injection floor and horizon
 # (a pure function of replicated planes) and the causality advance
 # count (every rank latches the same windows)
-_PINNED_PREFIXES = (".telem.", ".flows.")
+_PINNED_PREFIXES = (".telem.", ".flows.", ".sentinel.")
 _PINNED_KEEP = (".inject.seq_floor", ".inject.horizon",
                 ".causality.adv_count")
 
@@ -488,14 +552,13 @@ def _replicate_scalars(sim, initial_sim, stats: EngineStats, mesh: Mesh,
     instead of returning one rank's share; the delta, because the
     initial value is already replicated. The pins: the four narrow
     counters (maxed), the rings, the injection floor and horizon and
-    the causality advance count (kept). ctr_path_packets' [V,V] delta
+    the causality advance count and the sentinel (kept).
+    ctr_path_packets' [V,V] delta
     is summed when track_paths is on. EngineStats: events_processed
     and micro_steps summed (their delta since `stats0`), windows and
     the fast-path counts maxed. One sum and one max collective."""
     if mesh.size == 1:
         return sim, stats
-    if getattr(sim, "sentinel", None) is not None:
-        _check_mesh_sim(sim, mesh)
     leaves, init = sim_tensors(sim), sim_tensors(initial_sim)
     summed, maxed = [], list(_PINNED_MAX)
     for p, t in leaves.items():
@@ -545,7 +608,9 @@ def _check_axis(mesh: Mesh, axis: str) -> None:
 
 def mesh_hooks(mesh: Mesh, local_sim, exchange_capacity=None, narrow=None):
     """The engine's mesh hooks for this rank: {route_fn, min_fn,
-    census_fn, telem_fn, flow_fn}."""
+    census_fn, telem_fn, flow_fn, sentinel_fn}."""
+    from shadow_tpu_torch.parallel.elastic import make_sentinel_fn
+
     base = mesh.rank * local_sim.events.num_hosts
 
     def route_fn(s):
@@ -557,7 +622,8 @@ def mesh_hooks(mesh: Mesh, local_sim, exchange_capacity=None, narrow=None):
         route_fn=route_fn,
         min_fn=lambda x: mesh.all_reduce_ints([x], "min")[0],
         census_fn=lambda x: mesh.all_reduce_ints([x], "sum")[0],
-        telem_fn=make_telem_fn(mesh), flow_fn=make_flow_fn(mesh))
+        telem_fn=make_telem_fn(mesh), flow_fn=make_flow_fn(mesh),
+        sentinel_fn=make_sentinel_fn(mesh))
 
 
 def sharded_engine_run(mesh: Mesh, axis: str, sim, step_fn, *,
@@ -804,14 +870,18 @@ def _rank_main(fn, rank, size, init_method, args, results):
         raise
 
 
-def spawn(fn, size: int, *args, deadline_s: float = 300.0):
+def spawn(fn, size: int, *args, deadline_s: float = 300.0,
+          may_die=()):
     """Run ``fn(rank, size, init_method, *args)`` in `size` fresh
     processes (multiprocessing "spawn": each imports only what `fn`'s
     module imports) and return their results in rank order. `fn` must
     be a module-level function. Every rank is joined within
     `deadline_s`; a rank that raises, dies or overruns makes spawn kill
-    the rest and raise RuntimeError with its traceback. torch runs one
-    intra-op thread a rank."""
+    the rest and raise RuntimeError with its traceback — except that a
+    rank in `may_die` (a rank a device-loss drill kills on purpose) may
+    die without a result: its entry is None. torch runs one intra-op
+    thread a rank."""
+    may_die = {int(r) for r in may_die}
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     init = free_port_init()
@@ -822,8 +892,9 @@ def spawn(fn, size: int, *args, deadline_s: float = 300.0):
         p.start()
     out, err = {}, None
     t_end = time.monotonic() + float(deadline_s)
+    died = set()
     try:
-        while len(out) < size and err is None:
+        while len(out) + len(died) < size and err is None:
             left = t_end - time.monotonic()
             if left <= 0:
                 err = f"ranks {sorted(set(range(size)) - set(out))} " \
@@ -833,7 +904,10 @@ def spawn(fn, size: int, *args, deadline_s: float = 300.0):
                 rank, ok, val = results.get(timeout=min(left, 1.0))
             except queue_mod.Empty:
                 dead = [r for r, p in enumerate(procs)
-                        if r not in out and p.exitcode not in (None, 0)]
+                        if r not in out and r not in died
+                        and p.exitcode not in (None, 0)]
+                died.update(r for r in dead if r in may_die)
+                dead = [r for r in dead if r not in may_die]
                 if dead:
                     err = f"rank {dead[0]} died (exit " \
                           f"{procs[dead[0]].exitcode})"
@@ -851,4 +925,4 @@ def spawn(fn, size: int, *args, deadline_s: float = 300.0):
                 p.join(timeout=10)
     if err is not None:
         raise RuntimeError(f"parallel.spawn: {err}")
-    return [out[r] for r in range(size)]
+    return [out.get(r) for r in range(size)]

@@ -860,20 +860,32 @@ class ProcessRuntime:
     def __init__(self, bundle, app_handlers=(), mesh=None, device=None):
         """Runs on `device` (None -> "cuda"; raises when CUDA is
         missing or the bundle was built on another device), as every
-        runner of the port does. `mesh` (the reference's sharded window
-        loop, where each rank owns its hosts' coroutines) is not ported
-        yet: ROADMAP.md Queue 1 item 9b."""
+        runner of the port does.
+
+        `mesh` (this rank's parallel.shard.Mesh) runs the window loop
+        sharded over the ranks (make_sharded_window: the exchange and
+        the min barrier), every rank holding the GLOBAL Sim between
+        windows. Each rank owns the coroutines of its own hosts
+        (spawn() on another rank's host only reserves the pid) and
+        applies their syscalls to its own rows; a window cuts each
+        rank's rows from its Sim, sums the scalar counters' deltas, and
+        reassembles the global state after it. What the hosts share
+        crosses the ranks in lockstep rounds: the payload pool's puts
+        and unrefs in the single-device order (so pool ids, which ride
+        packet words, are allocated exactly as there), the TCP stream
+        FIFOs' appends, thread pids, and the decisions to go on."""
         from shadow_tpu_torch.net.build import (
             _check_sim_device,
             _runner_device,
         )
 
+        if mesh is not None and device is not None \
+                and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh rank's "
+                             f"{mesh.device}")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "shadow_tpu_torch: ProcessRuntime(mesh=...) needs "
-                "each rank to own its hosts' coroutines over the "
-                "sharded window loop, not ported yet: ROADMAP.md "
-                "Queue 1 item 9b")
+            device = mesh.device
         self.device = _runner_device(bundle, device)
         _check_sim_device(bundle.sim, self.device)
         self.bundle = bundle
@@ -955,6 +967,31 @@ class ProcessRuntime:
         # ~per-window-per-op-kind, not per syscall.
         self.stat_device_dispatches = 0
         self.stat_syscalls = 0
+        self._sharded_window = None
+        self._own = range(self.cfg.num_hosts)
+        if mesh is not None:
+            from shadow_tpu_torch.parallel.shard import (
+                _check_mesh_sim,
+                make_sharded_window,
+            )
+
+            Hl = _check_mesh_sim(bundle.sim, mesh)
+            self._own = range(mesh.rank * Hl, (mesh.rank + 1) * Hl)
+            self._sharded_window = make_sharded_window(
+                mesh, mesh.axis, bundle.sim, self.cfg, self._step)
+            # the last state every rank holds alike: the scalar
+            # counters' deltas since it are summed before each window
+            self._synced = bundle.sim
+        # thread pids planned for this round's creators (a mesh)
+        self._thread_pids: dict = {}
+
+    @property
+    def _multi(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _gather(self, obj) -> list:
+        """Every rank's `obj` in rank order ([obj] without a mesh)."""
+        return self.mesh.all_gather_object(obj) if self._multi else [obj]
 
     @property
     def data_dir(self):
@@ -978,6 +1015,15 @@ class ProcessRuntime:
         process_stop aborting the plugin main thread,
         process.c:1286-1324; use try/finally in the coroutine for
         cleanup)."""
+        if host not in self._own:
+            # another rank's host: it runs the coroutine; the pid is
+            # reserved here so pids stay the single-device ones
+            self.procs.append(_Proc(host=host, gen=None,
+                                    start_time=start_time,
+                                    stop_time=stop_time, started=True,
+                                    done=True, pid=self._next_pid))
+            self._next_pid += 1
+            return
         gen = proc_fn(host)
         # fail loudly here, not as an opaque AttributeError deep in the
         # window loop: the contract is a generator yielding syscalls
@@ -996,6 +1042,8 @@ class ProcessRuntime:
     # -- device side ----------------------------------------------------
 
     def _window(self, sim, wstart, wend):
+        if self.mesh is not None:
+            return self._mesh_window(sim, wstart, wend)
         stats = EngineStats.create(device=self.device)
         sim, stats, next_min = step_window(
             sim, stats, self._step, wend,
@@ -1003,6 +1051,66 @@ class ProcessRuntime:
             lane_id=sim.net.lane_id,
         )
         return sim, stats, next_min
+
+    def _sync_global(self, sim):
+        """The rank's rows of `sim` with the scalar counters' deltas
+        since the last global state summed over the ranks (a syscall
+        may have bumped one on its own rank)."""
+        from shadow_tpu_torch.parallel.shard import (
+            _replicate_scalars,
+            shard_sim,
+        )
+
+        local = shard_sim(sim, self.mesh)
+        local, _ = _replicate_scalars(
+            local, shard_sim(self._synced, self.mesh),
+            EngineStats.create(device=self.device), self.mesh)
+        return local
+
+    def _mesh_window(self, sim, wstart, wend):
+        from shadow_tpu_torch.parallel.shard import unshard_sim
+
+        out, stats, next_min = self._sharded_window(
+            self._sync_global(sim), wstart, wend)
+        self._synced = unshard_sim(out, self.mesh)
+        return self._synced, stats, next_min
+
+    # -- state the hosts share, across the ranks of a mesh ---------------
+
+    def _pool_put_all(self, items) -> dict:
+        """Put (host, bytes) items, this rank's in batch order, into the
+        payload pool: on a mesh every rank puts every rank's items in
+        rank order (the single-device host order), so every pool holds
+        the same ids. Returns {host: pool id}."""
+        out = {}
+        for part in self._gather(list(items)):
+            for h, data in part:
+                out[h] = self.pool.put(data)
+        return out
+
+    def _pool_unref_all(self, ids) -> None:
+        """Unref pool ids, this rank's in batch order; on a mesh every
+        rank unrefs every rank's, in rank order."""
+        for part in self._gather(list(ids)):
+            for pid in part:
+                self.pool.unref(pid)
+
+    def _stream_share(self, appends) -> None:
+        """On a mesh, the TCP stream bytes this rank's senders appended
+        (already in its own FIFOs) reach the rank that owns each
+        stream's receiving host; a FIFO this rank never reads is
+        dropped."""
+        if not self._multi:
+            return
+        for r, part in enumerate(self._gather(list(appends))):
+            if r == self.mesh.rank:
+                continue
+            for key, data in part:
+                if key[2] in self._own:
+                    self._streams.setdefault(key, bytearray()).extend(data)
+        for key, _ in appends:
+            if key[2] not in self._own:
+                self._streams.pop(key, None)
 
     # -- syscall execution ---------------------------------------------
 
@@ -1332,9 +1440,11 @@ class ProcessRuntime:
             return SHARED_OPS[op](self.host_state, self, p, a)
         if op == "thread_create":
             gen = a[0](h)
-            t = _Proc(host=h, gen=gen, start_time=now,
-                      pid=self._next_pid)
-            self._next_pid += 1
+            pid = self._thread_pids.pop(p.pid, None)
+            if pid is None:
+                pid = self._next_pid
+                self._next_pid += 1
+            t = _Proc(host=h, gen=gen, start_time=now, pid=pid)
             self.procs.append(t)
             return True, t.pid
         if op == "thread_join":
@@ -1580,6 +1690,11 @@ class ProcessRuntime:
         "recv", "recv_data", "send", "send_data",
         "socket", "bind", "close",
     ))
+    # batches whose host-side work crosses the ranks of a mesh (the
+    # payload pool, the stream FIFOs): every rank runs them, with or
+    # without a process of its own in them
+    SHARED_BATCH_OPS = frozenset((
+        "sendto_data", "recvfrom", "recvfrom_data", "recv", "send_data"))
 
     def _batch_arrays(self, group, cols, dtypes=None):
         """mask + [H] arg arrays from a {host: args-tuple} group.
@@ -1609,39 +1724,48 @@ class ProcessRuntime:
         host-sorted rather than global spawn order. Deterministic
         either way; per-host state is bitwise unaffected."""
         res: dict = {}
+        if not procs and op not in self.SHARED_BATCH_OPS:
+            return res   # a mesh rank with no process in this batch
 
         if op in ("sendto", "sendto_data"):
             # non-blocking datagram sends; pool puts first (spawn order)
             group = {}
             prefs = {}
+            if op == "sendto_data":
+                prefs = self._pool_put_all(
+                    (p.host, bytes(p.pending.args[3])) for p in procs)
             for p in procs:
                 fd, ip, port, last = p.pending.args
                 if op == "sendto_data":
-                    prefs[p.host] = self.pool.put(bytes(last))
                     group[p.host] = (fd, ip, port, len(last),
                                      prefs[p.host])
                 else:
                     group[p.host] = (fd, ip, port, last, -1)
-            mask, fd, ip, port, n, pref = self._batch_arrays(
-                group, (0, 1, 2, 3, 4),
-                dtypes=(np.int32, np.int64, np.int32, np.int32, np.int32))
-            ok = None
+            drop = []
+            if group:
+                mask, fd, ip, port, n, pref = self._batch_arrays(
+                    group, (0, 1, 2, 3, 4),
+                    dtypes=(np.int32, np.int64, np.int32, np.int32,
+                            np.int32))
+                ok = None
 
-            def do(sim, buf):
-                nonlocal ok
-                net, okk = udpmod.udp_enqueue_send(
-                    sim.net, mask, fd, ip, port, n, pref)
-                ok = okk
-                return nic.notify_wants_send(
-                    sim.replace(net=net), buf, okk, now)
+                def do(sim, buf):
+                    nonlocal ok
+                    net, okk = udpmod.udp_enqueue_send(
+                        sim.net, mask, fd, ip, port, n, pref)
+                    ok = okk
+                    return nic.notify_wants_send(
+                        sim.replace(net=net), buf, okk, now)
 
-            self._apply(do, now)
-            ok = _np(ok)
-            for p in procs:
-                queued = bool(ok[p.host])
-                if op == "sendto_data" and not queued:
-                    self.pool.unref(prefs[p.host])  # EWOULDBLOCK
-                res[p.host] = (True, queued)
+                self._apply(do, now)
+                ok = _np(ok)
+                for p in procs:
+                    queued = bool(ok[p.host])
+                    if op == "sendto_data" and not queued:
+                        drop.append(prefs[p.host])  # EWOULDBLOCK
+                    res[p.host] = (True, queued)
+            if op == "sendto_data":
+                self._pool_unref_all(drop)
             return res
 
         if op in ("recvfrom", "recvfrom_data", "recv", "recv_data"):
@@ -1709,6 +1833,7 @@ class ProcessRuntime:
                     else:
                         res[h] = (False, None)
 
+            drop = []       # pool ids to unref, in host order
             if udp_grp:
                 group = {p.host: (p.pending.args[0],) for p in udp_grp}
                 mask, fd = self._batch_arrays(group, (0,))
@@ -1732,22 +1857,25 @@ class ProcessRuntime:
                     if op == "recvfrom_data":
                         if pref >= 0:
                             data = self.pool.get(pref)
-                            self.pool.unref(pref)
+                            drop.append(pref)
                         else:
                             data = b"\x00" * int(ln[h])
                         res[h] = (True, (int(sip[h]), int(spt[h]), data))
                     else:
                         if pref >= 0:
-                            self.pool.unref(pref)  # length-only API
+                            drop.append(pref)  # length-only API
                         if op == "recvfrom":
                             res[h] = (True, (int(sip[h]), int(spt[h]),
                                              int(ln[h])))
                         else:          # "recv" on a UDP fd
                             res[h] = (True, int(ln[h]))
+            if op != "recv_data":
+                self._pool_unref_all(drop)
             return res
 
         if op in ("send", "send_data"):
             ready_procs = []
+            appends = []
             for p in procs:
                 fd = p.pending.args[0]
                 if self._sk_flag(p.host, fd, SocketFlags.WRITABLE):
@@ -1778,12 +1906,15 @@ class ProcessRuntime:
                         if op == "send_data":
                             key = self._stream_key(
                                 p, p.pending.args[0], sending=True)
+                            data = p.pending.args[1][:a]
                             self._streams.setdefault(
-                                key, bytearray()).extend(
-                                    p.pending.args[1][:a])
+                                key, bytearray()).extend(data)
+                            appends.append((key, bytes(data)))
                         res[h] = (True, a)
                     else:
                         res[h] = (False, None)
+            if op == "send_data":
+                self._stream_share(appends)
             return res
 
         if op == "socket":
@@ -2013,6 +2144,7 @@ class ProcessRuntime:
         while True:
             advance.chan_activity = False
             parked: set = set()           # proc indices blocked this sweep
+            went_on = True                # the last round progressed
             while True:                   # rounds
                 claimed: dict = {}        # host -> (idx, proc)
                 for idx, p in enumerate(self.procs):
@@ -2024,7 +2156,14 @@ class ProcessRuntime:
                     if p.host in claimed:
                         continue
                     claimed[p.host] = (idx, p)
-                if not claimed:
+                if self._multi:
+                    # lockstep: a round runs while any rank claims a
+                    # process and the last one went on somewhere
+                    votes = self._gather((bool(claimed), went_on))
+                    if not any(c for c, _ in votes) \
+                            or not any(w for _, w in votes):
+                        break
+                elif not claimed:
                     break
                 progress = False
                 parked_before = len(parked)
@@ -2059,12 +2198,17 @@ class ProcessRuntime:
                         batches.setdefault(p.pending.op, []).append((idx, p))
                     else:
                         serial.append((idx, p))
+                ops = sorted(batches)
+                if self._multi:
+                    ops, tail = self._plan_round(batches, serial)
                 for idx, p in sorted(serial):
                     ready, result = self._exec(p, p.pending, now)
                     self.stat_syscalls += 1
                     progress |= advance(p, idx, ready, result, parked)
-                for op in sorted(batches):
-                    lst = batches[op]
+                if self._multi:
+                    self._place_threads(*tail)
+                for op in ops:
+                    lst = batches.get(op, [])
                     results = self._exec_batch(op, [p for _, p in lst], now)
                     self.stat_syscalls += len(lst)
                     for idx, p in lst:
@@ -2073,7 +2217,8 @@ class ProcessRuntime:
                 # a newly-parked process changes the next round's
                 # claims (a same-host successor becomes claimable), so
                 # parking counts as progress for loop continuation
-                if not progress and len(parked) == parked_before:
+                went_on = progress or len(parked) != parked_before
+                if not went_on and not self._multi:
                     break
             sweep += 1
             # cond_wait's first entry releases its mutex but itself
@@ -2082,8 +2227,40 @@ class ProcessRuntime:
             if self._chan_kick:
                 advance.chan_activity = True
                 self._chan_kick = False
+            if self._multi:
+                advance.chan_activity = any(
+                    self._gather(bool(advance.chan_activity)))
             if not advance.chan_activity:
                 break
+
+    def _plan_round(self, batches, serial):
+        """A mesh round's plan, one gather: the batch kinds any rank
+        runs (every rank runs each, for the shared host-side work) and
+        the thread pids of the round's thread_create calls, numbered
+        in the single-device order (by process index over all ranks).
+        Returns (ops, (first index, global creators, own creators))."""
+        mine = sorted(idx for idx, p in serial
+                      if p.pending.op == "thread_create")
+        votes = self._gather((sorted(batches), mine))
+        ops = sorted({op for b, _ in votes for op in b})
+        creators = sorted(idx for _, m in votes for idx in m)
+        base, own = self._next_pid, set(mine)
+        self._thread_pids = {self.procs[idx].pid: base + k
+                             for k, idx in enumerate(creators)
+                             if idx in own}
+        self._next_pid = base + len(creators)
+        return ops, (len(self.procs), creators, set(mine))
+
+    def _place_threads(self, n0, creators, mine):
+        """Put the threads this round created at their single-device
+        indices, with a placeholder for each another rank created."""
+        new = iter(self.procs[n0:])
+        base = self._next_pid - len(creators)
+        self.procs[n0:] = [
+            next(new) if idx in mine else
+            _Proc(host=-1, gen=None, started=True, done=True, pid=base + k)
+            for k, idx in enumerate(creators)]
+        self._thread_pids = {}
 
     def gc_pool(self) -> int:
         """Mark-sweep the payload pool against the device state: a
@@ -2159,8 +2336,13 @@ class ProcessRuntime:
             # next window start: earliest of device events, sleep
             # deadlines, not-yet-started process start times, and
             # pending stop deadlines
-            if self._next_min is None:
-                self._next_min = int(self.sim.events.min_time().amin())
+            if self._next_min is None or self._multi:
+                # the rows this rank owns (on a mesh another rank's rows
+                # here are as the last window left them, and another
+                # rank's syscalls may have changed its own since)
+                own = self.sim.events.min_time()[
+                    self._own.start:self._own.stop]
+                self._next_min = int(own.amin())
             cands = [self._next_min]
             cands += [p.wake_time for p in self.procs
                       if not p.done and p.block is not None
@@ -2175,7 +2357,10 @@ class ProcessRuntime:
             # timestamped before `now` must not rewind the clock —
             # the engine's own advance rule clamps the same way
             # (engine.run: first = max(min, start_time))
-            wstart = max(min(c for c in cands if c >= 0), now)
+            wstart = min(c for c in cands if c >= 0)
+            if self._multi:
+                wstart = self.mesh.all_reduce_ints([wstart], "min")[0]
+            wstart = max(wstart, now)
             if wstart > end or wstart >= simtime.INVALID:
                 break
             if wstart > now:
@@ -2214,6 +2399,13 @@ class ProcessRuntime:
                 fastpath_miss=total.fastpath_miss + stats.fastpath_miss,
             )
             now = int(wend)
+        if self.mesh is not None:
+            # the syscalls since the last window changed only their own
+            # rows: reassemble the global state on every rank
+            from shadow_tpu_torch.parallel.shard import unshard_sim
+
+            self.sim = self._synced = unshard_sim(
+                self._sync_global(self.sim), self.mesh)
         # collect payload-pool entries whose packets died on device
         # (drops destroy packets where the host cannot unref —
         # the packet_unref analog, packet.c)

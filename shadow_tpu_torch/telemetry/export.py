@@ -17,8 +17,9 @@ Three host-side views over the harvested ring + phase timers:
   and causality blocks of the runs that carry them. The CLI writes it
   next to the trace.
 
-The elastic mesh transitions (ROADMAP.md Queue 1 item 9b) are not
-ported: chrome_trace refuses them by name.
+The elastic mesh transitions (faults/supervisor.py's elastic block)
+are instant markers on the sim-time track, the manifest carries the
+block and the metrics its counters.
 """
 
 from __future__ import annotations
@@ -49,16 +50,27 @@ def chrome_trace(records, timers=None, num_shards: int = 1,
     (harvested causality.AdvanceRecord list and critical_chains()
     dicts) add pid 3, the critical-path group: one thread per chain
     drawing its events, plus "C" counter events of the window binding
-    cause and jump utilization. The mesh-transition markers
-    (`elastic`, ROADMAP.md Queue 1 item 9b) raise when given."""
+    cause and jump utilization. `elastic` (the supervisor's elastic
+    block) adds one instant event per mesh transition on the sim-time
+    track, pinned at the verified resume point."""
+    events = []
     if elastic:
-        raise NotImplementedError(
-            "shadow_tpu_torch: telemetry export of elastic mesh "
-            "transitions is not ported yet (ROADMAP.md Queue 1 item 9b)")
-    events = [{"ph": "M", "name": "process_name", "pid": 0, "tid": 0,
-               "args": {"name": "sim-time (simulated µs)"}},
-              {"ph": "M", "name": "thread_name", "pid": 0, "tid": 0,
-               "args": {"name": "windows"}}]
+        for step in elastic.get("mesh_transitions") or ():
+            events.append({
+                "ph": "i", "pid": 0, "tid": 0, "s": "g",
+                "name": (f"mesh {step.get('from')}->{step.get('to')} "
+                         f"({step.get('cause')})"),
+                "ts": _us(int(step.get("resume_time_ns", 0) or 0)),
+                "args": {"action": step.get("action"),
+                         "cause": step.get("cause"),
+                         "shard": step.get("shard"),
+                         "from_shards": step.get("from"),
+                         "to_shards": step.get("to")},
+            })
+    events += [{"ph": "M", "name": "process_name", "pid": 0, "tid": 0,
+                "args": {"name": "sim-time (simulated µs)"}},
+               {"ph": "M", "name": "thread_name", "pid": 0, "tid": 0,
+                "args": {"name": "windows"}}]
     for r in records:
         events.append({
             "ph": "X", "pid": 0, "tid": 0,

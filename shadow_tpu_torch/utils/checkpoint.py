@@ -32,10 +32,15 @@ run_windows(mesh=...) runs the loop over a mesh of ranks
 (parallel/shard.py); its snapshots hold the global layout, so they
 resume on any shard count, in either package.
 
-Not ported yet (ROADMAP.md): elastic_meta and replan_shards (the
-sentinel and parallel/elastic.py, item 9b), prewarm_dispatch
-(compile/, item 11b), and run_windows' warm_start, compile_info and
-dispatch_wrap arguments, which raise NotImplementedError.
+The verified-state ledger (parallel/elastic.py): a run carrying the
+integrity sentinel stamps each snapshot with elastic_meta (per-shard
+sha256 digests and the last window proven divergence-free), and
+replan_shards re-partitions a snapshot onto another mesh width as a
+digest-verified restamp — the layout is global, so no data moves.
+
+Not ported yet (ROADMAP.md Queue 1 item 11b): prewarm_dispatch
+(compile/), and run_windows' warm_start and compile_info arguments,
+which raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -75,6 +80,29 @@ def capacities_of_sim(sim) -> dict:
     }
 
 
+def elastic_meta(sim, shards: int = 1) -> dict:
+    """The verified-state ledger stamp a snapshot carries for elastic
+    resume (parallel/elastic.py): per-shard sha256 digests over the
+    leaves as sim_specs shards them (replicated leaves fold into every
+    shard's digest, so digest s survives re-partitioning onto any mesh
+    that still owns those rows), plus the sentinel's
+    `last_verified_window` — the last window barrier proven
+    divergence-free (None when no sentinel is attached: the snapshot
+    is then trusted as-saved, verified == time_ns)."""
+    from shadow_tpu_torch.parallel.elastic import (
+        sentinel_report,
+        shard_digests,
+    )
+
+    rep = sentinel_report(sim)
+    return {
+        "shard_digests": shard_digests(sim, shards),
+        "last_verified_window": (None if rep is None
+                                 else rep["verified_through_ns"]),
+        "sentinel": rep,
+    }
+
+
 def _npz_path(path: str) -> str:
     # np.savez appends ".npz" to paths but not to file objects, and the
     # atomic write goes through a file object
@@ -82,11 +110,13 @@ def _npz_path(path: str) -> str:
 
 
 def save(path: str, sim, *, time_ns: int, extra: dict | None = None,
-         shards: int = 1, config_digest: str | None = None) -> str:
+         shards: int = 1, config_digest: str | None = None,
+         elastic: dict | None = None) -> str:
     """Snapshot a Sim at a window boundary; `time_ns` is the next window
     start (the resume point). Atomic: the snapshot appears at `path`
     complete or not at all. `shards` and `config_digest` are
-    diagnostic metadata. Returns the path written."""
+    diagnostic metadata; `elastic` (elastic_meta) stamps the
+    verified-state ledger block. Returns the path written."""
     leaves = convert.sim_to_numpy(sim)
     meta = {"time_ns": int(time_ns), "extra": extra or {},
             "layout": LAYOUT_VERSION, "keys": sorted(leaves),
@@ -95,6 +125,8 @@ def save(path: str, sim, *, time_ns: int, extra: dict | None = None,
             "shards": int(shards),
             "config_digest": config_digest,
             "torch_version": torch.__version__}
+    if elastic is not None:
+        meta["elastic"] = elastic
     return _write_npz(_npz_path(path), leaves, meta, ".ckpt.")
 
 
@@ -243,6 +275,64 @@ def load(path: str, template_sim):
     return sim, meta["time_ns"], meta["extra"]
 
 
+def replan_shards(path: str, new_shards: int, *,
+                  template_sim=None, out_path: str | None = None) -> str:
+    """Re-partition a snapshot onto a `new_shards`-wide mesh. State
+    arrays are saved in GLOBAL layout, so the re-partition is a
+    verified metadata restamp, not a data shuffle:
+
+    1. validate: new_shards is a power of two >= 1 that divides the
+       snapshot's host count;
+    2. verify: every leaf's CRC32 (load_leaves), and — when the
+       snapshot carries a verified-state ledger and the caller gives
+       the template to rebuild the Sim — the per-shard digests
+       recomputed at the OLD width must match the stamped ones (a
+       corrupt snapshot must not silently become the resume point of a
+       degraded run);
+    3. restamp: meta.shards = new_shards, the replan recorded in
+       meta.elastic.replans (old -> new), and the per-shard digests
+       recomputed at the NEW width when the template is given.
+
+    Returns the written path (out_path, default: in place). The file
+    is the reference's, byte for byte in its leaves and meta keys."""
+    path = _npz_path(path)
+    new_shards = int(new_shards)
+    if new_shards < 1 or (new_shards & (new_shards - 1)):
+        raise ValueError(
+            f"replan_shards: new_shards={new_shards} must be a power "
+            f"of two >= 1 (the bucket lattice and AOT program keys "
+            f"are pow2)")
+    leaves, meta = load_leaves(path)
+    hosts = int(meta.get("capacities", {}).get("num_hosts", 0))
+    if hosts and hosts % new_shards:
+        raise ValueError(
+            f"replan_shards: num_hosts={hosts} not divisible by "
+            f"{new_shards} shards")
+    old_shards = int(meta.get("shards", 1))
+    el = dict(meta.get("elastic") or {})
+    if template_sim is not None:
+        from shadow_tpu_torch.parallel.elastic import shard_digests
+
+        sim, _, _ = load(path, template_sim)
+        stamped = el.get("shard_digests")
+        if stamped:
+            fresh = shard_digests(sim, old_shards)
+            if fresh != list(stamped):
+                bad = [s for s, (a, b) in
+                       enumerate(zip(fresh, stamped)) if a != b]
+                raise ValueError(
+                    f"replan_shards: per-shard digest mismatch at "
+                    f"shard(s) {bad} — snapshot state disagrees with "
+                    f"its verified-state ledger, refuse to replan")
+        el["shard_digests"] = shard_digests(sim, new_shards)
+    el.setdefault("replans", []).append(
+        {"from": old_shards, "to": new_shards})
+    meta["shards"] = new_shards
+    meta["elastic"] = el
+    return _write_npz(_npz_path(out_path or path), leaves, meta,
+                      ".replan.")
+
+
 def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                 start_time: int = 0, sim=None,
                 checkpoint_every_ns: int | None = None,
@@ -300,9 +390,17 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     resumes on any other count; rank 0 alone writes them, and every
     rank waits for the write. `device` must then be None or the mesh's.
 
-    `dispatch_wrap` (ROADMAP.md Queue 1 item 9b), `warm_start` and
-    `compile_info` (item 11b) are not ported yet and raise
-    NotImplementedError."""
+    A Sim carrying the integrity sentinel (parallel/elastic.py) runs it
+    at every window barrier (the identity digest serially, the gathered
+    comparison on a mesh), and each snapshot then carries the
+    verified-state ledger stamp (elastic_meta at the run's width).
+    `dispatch_wrap(fn) -> fn` wraps every dispatch the loop issues (the
+    window or chunk callable): the supervisor's device-loss guard and
+    chaos poison (parallel/elastic.py guard_dispatch,
+    make_poisoned_dispatch).
+
+    `warm_start` and `compile_info` (ROADMAP.md Queue 1 item 11b) are
+    not ported yet and raise NotImplementedError."""
     from shadow_tpu_torch.core import simtime
     from shadow_tpu_torch.core.engine import (
         EngineStats,
@@ -322,11 +420,11 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
         resolve_wend_fn,
     )
     from shadow_tpu_torch.net.step import make_step_fn
+    from shadow_tpu_torch.parallel.elastic import make_sentinel_fn
     from shadow_tpu_torch.telemetry.flows import make_flow_fn
     from shadow_tpu_torch.telemetry.ring import make_telem_fn
 
-    refuse_unported(dispatch_wrap=(dispatch_wrap, "9b"),
-                    warm_start=(warm_start, "11b"),
+    refuse_unported(warm_start=(warm_start, "11b"),
                     compile_info=(compile_info, "11b"))
     if mesh is not None and device is not None \
             and torch.device(device) != mesh.device:
@@ -371,10 +469,13 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
 
     def snapshot(g, t):
         """Write `g` (global) as the snapshot at t: rank 0 writes, every
-        rank waits for the file."""
+        rank waits for the file. A sentinel-carrying run stamps the
+        verified-state ledger (the opt-in that funds the digests)."""
         path = f"{checkpoint_path}.{t}.npz"
         if mesh is None or mesh.rank == 0:
-            save(path, g, time_ns=t, shards=shards)
+            stamp = (None if getattr(g, "sentinel", None) is None
+                     else elastic_meta(g, shards))
+            save(path, g, time_ns=t, shards=shards, elastic=stamp)
         if mesh is not None:
             mesh.barrier()
         saved.append((path, t))
@@ -419,13 +520,15 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                 chunk_windows=wpd, emit_capacity=cfg.emit_capacity,
                 lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
                 telem_fn=telem_fn, sparse_lanes=sparse, fault_fn=fault_fn,
-                flow_fn=flow_fn)
+                flow_fn=flow_fn, sentinel_fn=make_sentinel_fn(None))
         else:
             chunk = make_sharded_chunk(
                 mesh, mesh_axis, bundle.sim, cfg, step, end_time=end,
                 wend_fn=wend_fn, chunk_windows=wpd,
                 exchange_capacity=exchange_capacity, bulk_fn=bulk_fn,
                 fault_fn=fault_fn)
+        if dispatch_wrap is not None:
+            chunk = dispatch_wrap(chunk)
         if feeder is not None and wstart <= end:
             # streaming: each refill must land in the staging planes
             # before the next chunk reads them; the plain loop below
@@ -495,7 +598,10 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                 s, EngineStats.create(device=dev), step, wend,
                 cfg.emit_capacity, s.net.lane_id, bulk_fn=bulk_fn,
                 telem_fn=telem_fn, wstart=wstart, sparse_lanes=sparse,
-                fault_fn=fault_fn, flow_fn=flow_fn)
+                fault_fn=fault_fn, flow_fn=flow_fn,
+                sentinel_fn=make_sentinel_fn(None))
+    if dispatch_wrap is not None:
+        one_window = dispatch_wrap(one_window)
 
     while wstart <= end:
         if (next_ckpt is not None and wstart >= next_ckpt

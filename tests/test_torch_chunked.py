@@ -415,13 +415,27 @@ def test_chunked_runner_refusals():
         assert wend_fn(tb.sim, 1_234_567) == 1_234_567 + tb.min_jump
 
 
-def test_run_windows_refusals():
+def test_run_windows_refusals(ref_runs):
     tb = _bundle("port")
-    for kw, item in (({"dispatch_wrap": lambda f: f}, "item 9b"),
-                     ({"warm_start": True}, "item 11"),
+    for kw, item in (({"warm_start": True}, "item 11"),
                      ({"compile_info": {}}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             tckpt.run_windows(tb, device="cpu", **kw)
+    # dispatch_wrap, once refused, wraps every dispatch the loop issues
+    # (one a window at K = 1, as the reference's per-window loop) and
+    # changes nothing: the run equals the reference's
+    calls = []
+
+    def wrap(fn):
+        def dispatch(*a, **k):
+            calls.append(a[1])
+            return fn(*a, **k)
+        return dispatch
+
+    leaves, stats = _run_windows(dispatch_wrap=wrap)
+    assert stats == ref_runs["whole"][1]
+    assert len(calls) == stats["windows"] and calls == sorted(calls)
+    _assert_leaves_equal(ref_runs["whole"][0], leaves)
     # a feeder is taken (tests/test_torch_inject.py runs it), but only
     # into a sim with staging lanes, as in the reference
     from shadow_tpu_torch.inject import Feeder

@@ -183,7 +183,10 @@ REFUSED = {
 # flags the port once refused, run against the reference's CLI on the
 # PHOLD XML: --workers 2 shards its 10 hosts over 2 gloo ranks (the
 # reference over 2 of the conftest's 8 CPU devices)
-LIFTED_MESH = {"workers": ["-w", "2"]}
+LIFTED_MESH = {"workers": ["-w", "2"],
+               # tests/test_py_plugins.py's .py-plugin echo config (two
+               # hosts): the virtual processes on 2 ranks, one host each
+               "workers_plugins": ["-w", "2"]}
 # the host-kernel flags the port once refused: run on
 # tests/test_py_plugins.py's .py-plugin echo config, rendered for each
 # package, against the reference's CLI
@@ -266,16 +269,45 @@ def test_refused_flag_exits_and_names_its_item(xml, observed_cli, name,
     time scale of 1.0 the port's `diff` also agrees and writes the
     conformance block. `--workers 2` (LIFTED_MESH) gives the reference
     CLI's sharded report and the port's serial one, and names the
-    ranks' backend in the log."""
+    ranks' backend in the log; on the .py-plugin config it runs the
+    virtual processes on 2 ranks (ProcessRuntime on a mesh) and gives
+    the reference CLI's report."""
     if name in LIFTED_MESH:
         runs = {}
         for key, mod in (("ref", jcli), ("port", tcli)):
             d = tmp_path / key
-            code, lines, err = _main(mod, [xml, "--platform", "cpu", "-d",
-                                           str(d), *LIFTED_MESH[name]])
+            cfg = xml
+            if name == "workers_plugins":
+                from test_py_plugins import CONFIG, GRAPH, PLUGIN
+
+                d.mkdir()
+                (d / "echo_plugin.py").write_text(
+                    PLUGIN if key == "ref" else
+                    PLUGIN.replace("shadow_tpu.", "shadow_tpu_torch."))
+                (d / "one.graphml.xml").write_text(GRAPH)
+                cfg = str(d / "shadow.config.xml")
+                (d / "shadow.config.xml").write_text(CONFIG)
+            # the plugin config's reference is its serial CLI run (the
+            # reference's report is the same for any width; its sharded
+            # vproc program compiles for ~50 s here)
+            flags = ([] if name == "workers_plugins" and key == "ref"
+                     else LIFTED_MESH[name])
+            code, lines, err = _main(mod, [cfg, "--platform", "cpu", "-d",
+                                           str(d / "data"), *flags])
             assert code == 0, err
             runs[key] = (lines, json.loads(lines[-1]))
         want, got = runs["ref"][1], runs["port"][1]
+        if name == "workers_plugins":
+            # the plugin asserts its own three replies on each host
+            assert got["events"] > 0 and got["overflow"] == 0
+            assert sorted(got) == sorted(want)
+            for k in sorted(want):
+                if k not in ("wall_seconds", "events_per_second",
+                             "simulated_seconds_per_wall_second"):
+                    assert got[k] == want[k], k
+            assert any("--workers 2: 2 ranks, backend gloo" in ln
+                       for ln in runs["port"][0])
+            return
         for k in REPORT_KEYS:
             assert got[k] == want[k] == cli_runs["port"][1][k], k
         assert any("--workers 2: 2 ranks, backend gloo" in ln

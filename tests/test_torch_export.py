@@ -11,8 +11,10 @@ fields, which are named here (WALL_*): the phase timers' durations and
 start offsets. config_hash and fault_plan_digest are equal. The lanes,
 admission, flows and causality blocks, their trace groups and the lane
 metric families are equal on hand-made inputs (a real run's in
-tests/test_torch_lanes_cli.py), and the elastic mesh transitions, which
-the port does not have, are refused by name. Tolerance zero.
+tests/test_torch_lanes_cli.py), and so are the elastic mesh-transition
+markers, the manifest's elastic block and its counters, on a
+supervisor's block (tools/telemetry_lint.py accepts both). Tolerance
+zero.
 """
 
 import json
@@ -185,10 +187,53 @@ def test_config_hash_and_plan_digest_match_reference(runs):
     assert export.fault_plan_digest(None) is None
 
 
+def _elastic_block():
+    """A retry then a shrink 4 -> 2 of a lost shard 2 (the shape of
+    faults/supervisor.py's block)."""
+    shrink = {"action": "shrink", "cause": "device_lost", "shard": 2,
+              "from": 4, "to": 2, "resume_time_ns": 400_000_000,
+              "attempt": 2}
+    loss = {"fault": "DEVICE_LOST", "shard": 2, "device": None,
+            "cause": "xla_error", "message": "injected", "mesh": 4}
+    return {"policy": {"same_mesh_retries": 1, "allow_shrink": True,
+                       "allow_serial": True, "min_shards": 1,
+                       "max_losses": 8, "dispatch_deadline_s": None},
+            "initial_shards": 4, "final_shards": 2,
+            "losses": [dict(loss, attempt=1), dict(loss, attempt=2)],
+            "divergences": [],
+            "ladder_steps": [
+                {"action": "retry", "cause": "device_lost", "shard": 2,
+                 "from": 4, "to": 4, "resume_time_ns": 200_000_000,
+                 "attempt": 1}, shrink],
+            "mesh_transitions": [dict(shrink)]}
+
+
 @pytest.mark.parametrize("arg", ["elastic"])
-def test_unported_trace_groups_are_refused(arg):
-    with pytest.raises(NotImplementedError, match=arg):
-        export.chrome_trace([], **{arg: {"mesh_transitions": [{}]}})
+def test_unported_trace_groups_are_refused(arg, runs):
+    """The elastic group, once refused: the mesh-transition markers of
+    the trace, and the manifest's block with its counters, equal the
+    reference's export of the same block; both lint clean."""
+    from conftest import load_tool
+
+    tl = load_tool("telemetry_lint")
+    block = _elastic_block()
+    want = jtel.chrome_trace([], **{arg: block})
+    got = export.chrome_trace([], **{arg: block})
+    assert got == want
+    assert [e["name"] for e in got["traceEvents"] if e["ph"] == "i"] \
+        == ["mesh 4->2 (device_lost)"]
+    assert tl.lint_trace_obj(got)[0] == []
+    man = dict(runs["port"]["man"], **{arg: block})
+    jman = dict(runs["jax"]["man"], **{arg: block})
+    counters = export.metrics_from_manifest(man)
+    assert _drop(counters, WALL_METRICS) \
+        == _drop(jtel.metrics_from_manifest(jman), WALL_METRICS)
+    assert (counters["device_lost_total"], counters["mesh_shrink_total"],
+            counters["elastic_final_shards"]) == (2, 1, 2)
+    # the fixture's hand-made escalation record is not a real one; the
+    # elastic block is linted as the manifest lint lints it
+    assert tl._lint_elastic(json.loads(json.dumps(block)),
+                            man.get("health")) == ([], [])
 
 
 # ------------------------------------- the lane and recorder blocks

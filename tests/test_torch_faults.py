@@ -490,18 +490,38 @@ def test_gather_reads_a_ported_layer_like_the_reference(layer):
 
 @pytest.mark.parametrize("layer,item", [("guard", 11), ("sentinel", 9)])
 def test_gather_refuses_unported_layers(layer, item):
-    """The sentinel (item 9) is still refused by name. The guard (item
-    11a) is ported: gather on a guarded Sim with tripped counters reads
-    them into the reference's RunHealth, in the same single host read."""
+    """Both layers, once refused, are ported: gather on a guarded Sim
+    with tripped counters (item 11a), and on a Sim carrying a tripped
+    integrity sentinel (item 9b: a SHARD_DIVERGENCE naming shard 1),
+    reads them into the reference's RunHealth, in the same single host
+    read, with the reference's fatal diagnostics."""
+    health = {}
     if layer == "sentinel":
-        sim = _bundle("port").sim
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            thealth.gather(sim.replace(**{layer: object()}))
+        from shadow_tpu.parallel import elastic as jel
+        from shadow_tpu_torch.parallel import elastic as tel
+
+        for pkg, el in (("jax", jel), ("port", tel)):
+            sim = el.attach_sentinel(_bundle(pkg).sim)
+            st = sim.sentinel
+            sim = sim.replace(sentinel=st.replace(
+                checks=st.checks + 9, trip=st.trip + 2,
+                shard=st.shard * 0 + 1, tripped_at=st.tripped_at + 500,
+                verified_through=st.verified_through + 400))
+            gather = jfaults.gather if pkg == "jax" else thealth.gather
+            health[pkg] = gather(sim, window_start=5)
+        want, got = health["jax"], health["port"]
+        assert got.shard_divergence and got.fatal
+        assert (got.sentinel_checks, got.shard_divergence_trips,
+                got.divergent_shard, got.sentinel_tripped_at,
+                got.sentinel_verified_through) == (9, 2, 1, 500, 400)
+        assert got.diagnostics() == want.diagnostics()
+        assert got.failure_report() == want.failure_report()
+        assert got == thealth.RunHealth(**{f: getattr(want, f)
+                                           for f in vars(want)})
         return
     from shadow_tpu.compile import specialize as jspec
     from shadow_tpu_torch.compile import specialize as tspec
 
-    health = {}
     for pkg, spec in (("jax", jspec), ("port", tspec)):
         b = spec.apply(_bundle(pkg), ((jphold if pkg == "jax"
                                        else tphold).handler,))
@@ -518,7 +538,6 @@ def test_gather_refuses_unported_layers(layer, item):
     assert got.failure_report() == want.failure_report()
     assert got == thealth.RunHealth(**{f: getattr(want, f)
                                        for f in vars(want)})
-    assert set(thealth._UNPORTED_LAYERS) == {"sentinel"}
 
 
 # ----------------------------------------------------------- conserve

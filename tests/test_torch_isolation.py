@@ -99,7 +99,8 @@ VPROC = ("shadow_tpu_torch.process", "shadow_tpu_torch.process.vproc",
 
 
 # the sharded window loop's modules
-PARALLEL = ("shadow_tpu_torch.parallel", "shadow_tpu_torch.parallel.shard")
+PARALLEL = ("shadow_tpu_torch.parallel", "shadow_tpu_torch.parallel.shard",
+            "shadow_tpu_torch.parallel.elastic")
 
 
 # {module: (exit code, stdout, stderr)} of each module's fresh

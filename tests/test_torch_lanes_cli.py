@@ -148,12 +148,17 @@ def _bench(cmd, **env):
 # CPU devices) and the port's (2 gloo ranks)
 SHARDS_ENV = dict(BENCH_PLATFORM="cpu", BENCH_HOSTS="16",
                   BENCH_SIM_SECONDS="1", BENCH_SHARDS="2")
+# BENCH_SENTINEL=1 on the plain PHOLD runner at 16 hosts: bench.py's row
+# and the port's, which also runs the A/B on 2 gloo ranks
+SENTINEL_ENV = dict(BENCH_PLATFORM="cpu", BENCH_HOSTS="16",
+                    BENCH_SIM_SECONDS="1", BENCH_SENTINEL="1")
 
 
 @pytest.fixture(scope="module")
 def bench_rows():
     """bench.py's and the port's processes of the file's running rows,
-    side by side: {(pkg, "lanes" | "shards"): CompletedProcess}."""
+    side by side: {(pkg, "lanes" | "shards" | "sentinel"):
+    CompletedProcess}."""
     procs = {
         ("ref", "lanes"): _bench_start(["bench.py"], **BENCH_ENV,
                                        JAX_PLATFORMS="cpu"),
@@ -163,7 +168,14 @@ def bench_rows():
         ("ref", "shards"): _bench_start(["bench.py"], **SHARDS_ENV,
                                         JAX_PLATFORMS="cpu"),
         ("port", "shards"): _bench_start(["-m", "shadow_tpu_torch.bench"],
-                                         **SHARDS_ENV)}
+                                         **SHARDS_ENV),
+        ("ref", "sentinel"): _bench_start(["bench.py"], **SENTINEL_ENV,
+                                          JAX_PLATFORMS="cpu"),
+        ("port", "sentinel"): _bench_start(
+            ["-m", "shadow_tpu_torch.bench"], **SENTINEL_ENV),
+        ("port", "sentinel_ab"): _bench_start(
+            ["-m", "shadow_tpu_torch.bench"], **SENTINEL_ENV,
+            BENCH_SENTINEL_OVERHEAD="1", BENCH_SHARDS="2")}
     return {k: _bench_finish(p) for k, p in procs.items()}
 
 
@@ -202,7 +214,7 @@ def test_bench_row_matches_bench_py(bench_rows):
     ({"BENCH_CAUSALITY_OVERHEAD": "1"}, "BENCH_CAUSALITY=N"),
     ({"BENCH_RESIDENT": "4"}, "item 12"),
     ({"BENCH_SHARDS": "2"}, None),
-    ({"BENCH_SENTINEL": "1"}, "item 9b"),
+    ({"BENCH_SENTINEL": "1"}, None),
 ], ids=["supervise", "inject", "pingpong", "flows_pingpong",
         "causality_pingpong", "flow_ab", "causality_ab", "resident",
         "shards", "sentinel"])
@@ -210,7 +222,48 @@ def test_bench_refuses_what_bench_py_refuses(env, word, bench_rows):
     """A refused combination exits non-zero naming it. BENCH_SHARDS,
     once refused (word None), runs: the port's row at 2 gloo ranks
     has bench.py's name and counts (its run under shard_map on 2
-    virtual CPU devices)."""
+    virtual CPU devices). BENCH_SENTINEL, once refused, runs: the
+    port's row has bench.py's name, counts and "sentinel" block
+    (checks, verified frontier and digest included); with
+    BENCH_SENTINEL_OVERHEAD=1 on 2 ranks the A/B fields, one more
+    collective a window than the run without, and bench.py's
+    refusals."""
+    if "BENCH_SENTINEL" in env:
+        rows = {}
+        for key in ("ref", "port"):
+            r = bench_rows[key, "sentinel"]
+            assert r.returncode == 0, r.stderr
+            rows[key] = json.loads(r.stdout.strip().splitlines()[-1])
+        want, got = rows["ref"], rows["port"]
+        assert got["metric"] == want["metric"] == (
+            "events_per_sec_per_chip@16hosts_phold_load8_sentinel")
+        ctr = want["manifest"]["counters"]
+        assert (got["events"], got["windows"], got["micro_steps"]) == (
+            ctr["events_processed"], ctr["windows"], ctr["micro_steps"])
+        assert got["sentinel"] == want["sentinel"]
+        assert got["sentinel"]["checks"] == got["windows"]
+        r = bench_rows["port", "sentinel_ab"]
+        assert r.returncode == 0, r.stderr
+        ab = json.loads(r.stdout.strip().splitlines()[-1])
+        assert ab["metric"] == want["metric"] + "_2shards"
+        assert ab["sentinel"]["trips"] == 0
+        assert {k: v for k, v in ab["sentinel"].items()
+                if k != "shards_off"} == want["sentinel"]
+        assert ab["sentinel_overhead_pct"] is not None
+        assert ab["events_per_sec_sentinel_off"] > 0
+        off = ab["sentinel"]["shards_off"]
+        assert round(ab["shards"]["collective_calls_per_window"]
+                     - off["collective_calls_per_window"], 2) == 1.0
+        for extra, word in (({"BENCH_WORKLOAD": "pingpong"},
+                             "BENCH_SENTINEL=1 is only wired"),
+                            ({"BENCH_SENTINEL": "0",
+                              "BENCH_SENTINEL_OVERHEAD": "1"},
+                             "BENCH_SENTINEL_OVERHEAD=1 needs")):
+            for cmd in (["bench.py"], ["-m", "shadow_tpu_torch.bench"]):
+                r = _bench(cmd, **dict(SENTINEL_ENV, **extra),
+                           JAX_PLATFORMS="cpu")
+                assert r.returncode != 0 and word in r.stderr, r.stderr
+        return
     if word is None:
         assert env.items() <= SHARDS_ENV.items()
         rows = {}

@@ -312,14 +312,54 @@ def test_stall_and_regression_latches_trip(case, monkeypatch):
 @pytest.mark.parametrize("arg,item", [
     ("mesh", 9), ("exchange_capacity", 9), ("elastic", 9),
     ("dispatch_wrap", 9), ("on_mesh_change", 9), ("warm_start", 11)])
-def test_unported_arguments_are_refused(arg, item, tmp_path):
+def test_unported_arguments_are_refused(arg, item, tmp_path, ref):
     """What is not ported raises naming its ROADMAP.md item. `mesh` and
     `exchange_capacity`, once refused, run: on a one-rank mesh (the
     sharded route at one shard, an exchange buffer past the outbox) the
     supervised run equals the serial one but for the outbox's narrow
     counters, which count per shard count (the reference's rule;
     tests/test_torch_parallel_dispatch.py holds two ranks to the
-    reference's sharded run)."""
+    reference's sharded run). `elastic`, `dispatch_wrap` and
+    `on_mesh_change`, once refused, run against the reference: a
+    dispatch poisoned at the 5th call steps one same-mesh retry (the
+    elastic block, the final state and the stats the reference's); a
+    counting wrap sees the reference's dispatches; a serial run never
+    changes its mesh (tests/test_torch_elastic.py shrinks 4 ranks)."""
+    if arg in ("elastic", "dispatch_wrap", "on_mesh_change"):
+        from shadow_tpu.parallel import elastic as jel
+        from shadow_tpu_torch.parallel import elastic as tel
+
+        out = {}
+        for pkg, el in (("jax", jel), ("port", tel)):
+            calls, changes = [], []
+
+            def counting(fn, calls=calls):
+                def dispatch(*a, **k):
+                    calls.append(1)
+                    return fn(*a, **k)
+                return dispatch
+
+            kw = {"elastic": {"elastic": el.ElasticPolicy(),
+                              "dispatch_wrap": el.make_poisoned_dispatch(5)},
+                  "dispatch_wrap": {"dispatch_wrap": counting},
+                  "on_mesh_change": {
+                      "elastic": el.ElasticPolicy(),
+                      "on_mesh_change": lambda *a: changes.append(a)},
+                  }[arg]
+            res, _ = _supervise(pkg, tmp_path / pkg, **kw)
+            assert res.ok and res.retries_used == 0 and changes == []
+            out[pkg] = (res, len(calls))
+        (jres, jcalls), (tres, tcalls) = out["jax"], out["port"]
+        _assert_leaves_equal(ref["leaves"], convert.sim_to_numpy(tres.sim))
+        assert _stats(tres.stats) == _stats(jres.stats) == ref["stats"]
+        assert tres.elastic == jres.elastic
+        assert tcalls == jcalls
+        if arg == "elastic":
+            assert [s["action"] for s in tres.elastic["ladder_steps"]] \
+                == ["retry"]
+        elif arg == "dispatch_wrap":
+            assert tres.elastic is None and tcalls == ref["stats"]["windows"]
+        return
     if arg in ("mesh", "exchange_capacity"):
         from shadow_tpu_torch.parallel import Mesh
 

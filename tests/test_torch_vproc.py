@@ -5,8 +5,8 @@ equals the reference's, tolerance zero — the final Sim leaf by leaf,
 EngineStats, the syscall and device-dispatch counts, the syscall trace
 (raw and normalized) and the payload pool's counts; the reference's own
 assertions hold on the port. Then the port's own surface: a coroutine
-yielding the reference's Sys is refused by name, `mesh=` names its
-ROADMAP item, and tests/test_vproc_scale.py's 1,000 processes run on
+yielding the reference's Sys is refused by name, `mesh=` (once
+refused) runs, and tests/test_vproc_scale.py's 1,000 processes run on
 the port with its batching ratio.
 """
 
@@ -87,10 +87,28 @@ def test_a_reference_sys_is_refused_by_name():
 
 
 def test_mesh_names_its_roadmap_item():
+    """`mesh=`, once refused, runs: tests/test_vproc_sharded.py's
+    program on a one-rank mesh (the sharded window loop at one shard)
+    equals the serial run but for the outbox's per-shard-count
+    counters (tests/test_torch_vproc_sharded.py holds 2 ranks to the
+    reference), and a device other than the mesh's is refused."""
+    import torch_shard_ranks as R
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.parallel import Mesh
     from shadow_tpu_torch.process.vproc import ProcessRuntime
 
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ProcessRuntime(_tiny_build(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh rank"):
+        ProcessRuntime(_tiny_build(), mesh=Mesh(1, device="cpu"),
+                       device="cuda")
+    (slog, sev, ssim), (mlog, mev, msim) = (
+        R.vproc_udp_echo(mesh) for mesh in (None, Mesh(1, device="cpu")))
+    assert (mlog, mev) == (slog, sev) and len(slog) == R.VPROC_H
+    want, got = convert.sim_to_numpy(ssim), convert.sim_to_numpy(msim)
+    per_shard = {".outbox.narrow_hit", ".outbox.narrow_miss",
+                 ".outbox.max_occupied", ".outbox.route_elided"}
+    assert sorted(want) == sorted(got)
+    for k in sorted(set(want) - per_shard):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 # the reference's counts of tests/test_vproc_scale.py's run (its CPU

@@ -390,3 +390,296 @@ def hung_collective(rank, size, init, timeout_s, idle_s):
     secs = time.monotonic() - t0
     mesh.close()
     return raised, secs
+
+
+# --- elastic degraded-mesh recovery (tests/test_torch_elastic.py) ------
+
+ELASTIC_TIMEOUT_S = 5.0        # a group timeout of a few seconds
+ELASTIC_POISON = (10, 11)      # two consecutive dispatches mid-run
+ELASTIC_KILL_AT = 10           # the dispatch rank 3 dies at
+ELASTIC_VICTIM = 1             # the rank whose replica diverges
+ELASTIC_AT_NS = 600_000_000    # from this window end on
+ELASTIC_EVERY = 4              # the supervisor's snapshot cadence
+
+
+def elastic_bundle(device="cpu"):
+    """The dispatch program above with the integrity sentinel."""
+    from shadow_tpu_torch.parallel import elastic
+
+    b = dispatch_bundle(device=device)
+    b.sim = elastic.attach_sentinel(b.sim)
+    return b
+
+
+def elastic_supervised(b, mesh, path, **kw):
+    """run_supervised of `b` under an ElasticPolicy at the cadence
+    above: (result, host-side summary)."""
+    from shadow_tpu_torch.faults import run_supervised
+    from shadow_tpu_torch.parallel import elastic
+
+    res = run_supervised(b, (tphold.handler,), mesh=mesh,
+                         elastic=elastic.ElasticPolicy(),
+                         checkpoint_path=path,
+                         checkpoint_every_windows=ELASTIC_EVERY,
+                         sleep=lambda s: None, **kw)
+    summary = {"retired": res.retired, "reports": res.reports,
+               "ok": res.ok, "elastic": res.elastic,
+               "retries_used": res.retries_used}
+    if res.sim is not None:
+        summary["leaves"] = convert.sim_to_numpy(res.sim)
+        summary["stats"] = stats_dict(res.stats)
+    return summary
+
+
+def _kill_self_at(n_kill):
+    """A dispatch_wrap under which this rank's process SIGKILLs itself
+    at dispatch `n_kill` (counted across attempts): a real rank loss."""
+    import os
+    import signal
+
+    state = {"n": 0}
+
+    def wrap(fn):
+        def dispatch(*a, **k):
+            state["n"] += 1
+            if state["n"] - 1 == n_kill:
+                os.kill(os.getpid(), signal.SIGKILL)
+            return fn(*a, **k)
+        return dispatch
+    return wrap
+
+
+def elastic_cases(rank, size, init, snap_dir):
+    """tests/test_torch_elastic.py's mesh cases in one set of 4 ranks:
+    the sentinel on a clean run at 4 ranks (K = 1 and 4) and at 2
+    (ranks 0 and 1 alone), a divergence on rank ELASTIC_VICTIM, the
+    poisoned ladder (retry, then shrink) and, last, rank 3 killing
+    itself mid-run (shrink). Each rank returns {case: data}; rank 3
+    never returns."""
+    import os
+
+    from shadow_tpu_torch.parallel import Mesh, elastic, make_sharded_runner
+    from shadow_tpu_torch.utils import checkpoint as ckpt
+
+    mesh = mesh_for(rank, size, init)
+    handlers = (tphold.handler,)
+    out = {}
+    for k in (1, 4):
+        sim, st, _ = ckpt.run_windows(elastic_bundle(), handlers, mesh=mesh,
+                                      windows_per_dispatch=k)
+        leaves = convert.sim_to_numpy(sim)
+        check_replicated(mesh, leaves)
+        out[f"clean4_k{k}"] = (leaves, stats_dict(st))
+    b = elastic_bundle()
+    go = make_sharded_runner(b, mesh, app_handlers=handlers,
+                             fault_fn=elastic.make_divergence_fault_fn(
+                                 mesh, shard=ELASTIC_VICTIM,
+                                 at_ns=ELASTIC_AT_NS))
+    sim, _ = go(b.sim)
+    out["diverged"] = elastic.sentinel_report(sim)
+    # the poisoned ladder consumes the mesh: retry on 4, shrink to 2
+    out["poison"] = elastic_supervised(
+        elastic_bundle(), mesh, os.path.join(snap_dir, "poison"),
+        dispatch_wrap=elastic.make_poisoned_dispatch(list(ELASTIC_POISON)))
+    mesh.close()
+    if rank < 2:
+        two = Mesh(2, rank, init_method="file://" + os.path.join(
+            snap_dir, "two.group"), device="cpu")
+        sim, st, _ = ckpt.run_windows(elastic_bundle(), handlers, mesh=two)
+        out["clean2"] = (convert.sim_to_numpy(sim), stats_dict(st))
+        two.close()
+    four = Mesh(size, rank, init_method="file://" + os.path.join(
+        snap_dir, "kill.group"), device="cpu", timeout_s=ELASTIC_TIMEOUT_S)
+    out["kill"] = elastic_supervised(
+        elastic_bundle(), four, os.path.join(snap_dir, "kill"),
+        dispatch_wrap=_kill_self_at(ELASTIC_KILL_AT) if rank == 3 else None)
+    four.close()
+    return out
+
+
+# --- ProcessRuntime on a mesh (tests/test_torch_vproc_sharded.py) ------
+
+# tests/test_vproc_sharded.py's graph: clients and servers on two
+# vertices, 5 ms within a vertex and 25 ms across
+VPROC_GRAPH = """<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="latency" attr.type="double" for="edge" id="lat" />
+  <key attr.name="type" attr.type="string" for="node" id="ty" />
+  <key attr.name="bandwidthup" attr.type="int" for="node" id="up" />
+  <key attr.name="bandwidthdown" attr.type="int" for="node" id="dn" />
+  <graph edgedefault="undirected">
+    <node id="c"><data key="up">10240</data><data key="dn">10240</data>
+      <data key="ty">client</data></node>
+    <node id="s"><data key="up">10240</data><data key="dn">10240</data>
+      <data key="ty">server</data></node>
+    <edge source="c" target="c"><data key="lat">5.0</data></edge>
+    <edge source="c" target="s"><data key="lat">25.0</data></edge>
+    <edge source="s" target="s"><data key="lat">5.0</data></edge>
+  </graph>
+</graphml>"""
+VPROC_H = 8        # 4 client/server pairs, interleaved c0 s0 c1 s1 ...
+VPROC_PORT = 7000
+
+
+def _vproc_bundle(tcp, device, end_s):
+    cfg = NetConfig(num_hosts=VPROC_H, end_time=end_s * SEC, tcp=tcp)
+    hosts = []
+    for i in range(VPROC_H // 2):
+        hosts.append(tbuild.HostSpec(name=f"c{i}", type="client"))
+        hosts.append(tbuild.HostSpec(name=f"s{i}", type="server"))
+    return tbuild.build(cfg, VPROC_GRAPH, hosts, device=device)
+
+
+def vproc_udp_echo(mesh=None, device="cpu"):
+    """tests/test_vproc_sharded.py's program in the port: each client
+    pings its server twice (UDP lengths, 1 s on), the server answers
+    with the length plus its host id. Returns (sorted log, events,
+    sim) — the log of every rank's hosts."""
+    from shadow_tpu_torch.net.state import SocketType
+    from shadow_tpu_torch.process import vproc
+
+    b = _vproc_bundle(False, device, 15)
+    log = []
+
+    def server(host):
+        fd = yield vproc.socket(SocketType.UDP)
+        yield vproc.bind(fd, VPROC_PORT)
+        for _ in range(2):
+            sip, spt, n = yield vproc.recvfrom(fd)
+            yield vproc.sendto(fd, sip, spt, n + host)
+        yield vproc.close(fd)
+
+    def client(sv_ip):
+        def go(host):
+            fd = yield vproc.socket(SocketType.UDP)
+            yield vproc.bind(fd, 0)
+            for i in range(2):
+                yield vproc.sendto(fd, sv_ip, VPROC_PORT, 50 + i)
+                _, _, n = yield vproc.recvfrom(fd)
+                t = yield vproc.gettime()
+                log.append((host, n, t))
+            yield vproc.close(fd)
+        return go
+
+    rt = vproc.ProcessRuntime(b, mesh=mesh, device=None if mesh else device)
+    for i in range(VPROC_H // 2):
+        rt.spawn(b.host_of(f"s{i}"), server)
+        rt.spawn(b.host_of(f"c{i}"), client(b.ip_of(f"s{i}")),
+                 start_time=SEC)
+    sim, stats = rt.run()
+    return _all_logs(mesh, log), int(stats.events_processed), sim
+
+
+def _all_logs(mesh, log):
+    if mesh is None:
+        return sorted(log)
+    return sorted(x for part in mesh.all_gather_object(log) for x in part)
+
+
+def vproc_shared(mesh=None, device="cpu"):
+    """What the hosts share across ranks: every client talks to a
+    server on the other rank (client i to server 3 - i). Clients 0 and
+    2 send UDP datagrams with content (the payload pool) to a server
+    whose echo runs in a thread (thread_create: its pid and the pool
+    ids' allocation order); clients 1 and 3 stream 3,000 bytes over TCP
+    and read back a digest (the stream FIFOs both ways). Returns
+    (sorted log, events, sim, pool ids still live)."""
+    import hashlib
+
+    from shadow_tpu_torch.net.state import SocketType
+    from shadow_tpu_torch.process import vproc
+
+    b = _vproc_bundle(True, device, 12)
+    log = []
+
+    def udp_server(host):
+        fd = yield vproc.socket(SocketType.UDP)
+        yield vproc.bind(fd, VPROC_PORT)
+
+        def worker(h):
+            pid = yield vproc.getpid()
+            log.append((h, "thread", pid))
+            for _ in range(2):
+                sip, spt, data = yield vproc.recvfrom_data(fd)
+                yield vproc.sendto_data(fd, sip, spt,
+                                        data[::-1] + bytes([h]))
+
+        tid = yield vproc.thread_create(worker)
+        yield vproc.thread_join(tid)
+        yield vproc.close(fd)
+
+    def udp_client(sv_ip):
+        def go(host):
+            fd = yield vproc.socket(SocketType.UDP)
+            yield vproc.bind(fd, 0)
+            for k in range(2):
+                yield vproc.sendto_data(fd, sv_ip, VPROC_PORT,
+                                        f"c{host}-{k}".encode() * 7)
+                _, _, data = yield vproc.recvfrom_data(fd)
+                log.append((host, "udp", data))
+            yield vproc.close(fd)
+        return go
+
+    def tcp_server(host):
+        fd = yield vproc.socket(SocketType.TCP)
+        yield vproc.bind(fd, VPROC_PORT)
+        yield vproc.listen(fd)
+        child = yield vproc.accept(fd)
+        chunks = []
+        while True:
+            data = yield vproc.recv_data(child)
+            if data == b"":
+                break
+            chunks.append(data)
+        yield vproc.send_data(child, hashlib.sha1(b"".join(chunks))
+                              .digest())
+        yield vproc.close(child)
+        yield vproc.close(fd)
+
+    def tcp_client(sv_ip):
+        def go(host):
+            payload = bytes((host * 7 + i) & 0xFF for i in range(3000))
+            fd = yield vproc.socket(SocketType.TCP)
+            yield vproc.connect(fd, sv_ip, VPROC_PORT)
+            off = 0
+            while off < len(payload):
+                off += yield vproc.send_data(fd, payload[off:off + 1024])
+            yield vproc.shutdown(fd)
+            reply = b""
+            while True:
+                data = yield vproc.recv_data(fd)
+                if data == b"":
+                    break
+                reply += data
+            log.append((host, "tcp", reply,
+                        reply == hashlib.sha1(payload).digest()))
+            yield vproc.close(fd)
+        return go
+
+    rt = vproc.ProcessRuntime(b, mesh=mesh, device=None if mesh else device)
+    n = VPROC_H // 2
+    for i in range(n):
+        srv = b.host_of(f"s{n - 1 - i}")
+        rt.spawn(srv, udp_server if i % 2 == 0 else tcp_server)
+    for i in range(n):
+        ip = b.ip_of(f"s{n - 1 - i}")
+        rt.spawn(b.host_of(f"c{i}"),
+                 udp_client(ip) if i % 2 == 0 else tcp_client(ip),
+                 start_time=SEC)
+    sim, stats = rt.run()
+    return (_all_logs(mesh, log), int(stats.events_processed), sim,
+            sorted(rt.pool.live_ids()))
+
+
+def vproc_cases(rank, size, init):
+    """Both programs on this rank's mesh: {name: (log, events, leaves)}
+    (rank 0's; every rank checks it holds the same global state)."""
+    mesh = mesh_for(rank, size, init)
+    out = {}
+    for name, fn in (("udp_echo", vproc_udp_echo),
+                     ("shared", vproc_shared)):
+        log, ev, sim, *rest = fn(mesh)
+        leaves = convert.sim_to_numpy(sim)
+        check_replicated(mesh, leaves)
+        out[name] = (log, ev, leaves, *rest)
+    mesh.close()
+    return out
