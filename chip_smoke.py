@@ -315,6 +315,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    processes through ProcessRuntime on 2 ranks: its counts and net-leaf
    digest, mailbox_gather on each rank's non-empty routes. 21b-21e run
    in one spawn of 4 ranks started beside phases 14-19.
+22. warm-start serving and the scenario fleet: (22a) `BENCH_WARM=1
+   python -m shadow_tpu_torch.bench` at full width on a fresh checkout's
+   empty build root and program store (SHADOW_BUILD_DIR,
+   SHADOW_AOT_DIR): a miss that builds (nvcc, g++) and stores; then
+   three processes at once on the kept build root: a hit that loads the
+   build root's libraries by their sha256, the same bench with the
+   store off, and, on a copy of the store whose <key>.bin has a flipped
+   byte, a miss that stores again — no library built after the first,
+   each with phase 4's counts and its cold start taken apart
+   (interpreter, import torch, CUDA context, libraries, first and steady
+   window); (22b) `python -m shadow_tpu_torch.cli fleet run --workers 2`
+   on five scenario jobs of 10,240 hosts (load 8, 1 sim-s; seeds 1-3,
+   one with the JobSpec docstring's loss record, one undersized with
+   auto_grow), a worker SIGKILLed after its job's first checkpoint
+   heartbeat: every job's digest equal to the same spec run by
+   scenario.run_job on the card, `fleet status` all done,
+   tools/telemetry_lint.py clean, a store hit among the jobs, the killed
+   job requeued at the same attempt; (22c) `BENCH_RESIDENT=4
+   BENCH_SIM_SECONDS=1` at 10,240 hosts a tenant (65,536 rows), alone,
+   its warm-up trial cut to one tenant and 0.2 sim-s:
+   program_key_stable, 0 retraces, the lane digests of the tenants not
+   evicted equal to an undisturbed run's, mailbox_gather launched once
+   a non-empty window of both trials, exact on the resident route and
+   timed there. 22b and 22c's undisturbed run go in one process started
+   beside phases 17-21.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
@@ -1078,6 +1103,33 @@ PER_SHARD_LEAVES = (".outbox.narrow_hit", ".outbox.narrow_miss",
 
 T0 = time.perf_counter()
 # simtime.INVALID: an empty event slot
+# --- phase 22: warm-start serving and the scenario fleet -----------------
+# 22a: a fresh `BENCH_WARM=1 python -m shadow_tpu_torch.bench` process
+# on an empty build root and store (a fresh checkout), then three at
+# once on the kept build root: a hit, the same bench with the store off,
+# and a miss on a copy of the store whose <key>.bin has a flipped byte.
+# All at phase 4's depth: the program key holds the end time, so a hit
+# needs its miss's depth
+# 22b: five scenario jobs at full width (load 8, 1 sim-s) on 2 workers;
+# s1 checkpoints every 4 windows and loses its worker to SIGKILL after
+# its first checkpoint heartbeat; "loss" carries the JobSpec docstring's
+# loss record; "grow" starts undersized with auto_grow
+FLEET_WORKERS = 2
+FLEET_JOBS = (
+    {"id": "s1", "seed": 1, "checkpoint_every_windows": 4},
+    {"id": "s2", "seed": 2},
+    {"id": "s3", "seed": 3},
+    {"id": "loss", "seed": 4, "faults": [{"time_s": 0.3, "kind": "loss",
+                                          "a": 0, "b": 0, "value": 0.02}]},
+    {"id": "grow", "seed": 5, "event_capacity": 8, "auto_grow": True})
+FLEET_KILL = "s1"
+# 22c: BENCH_RESIDENT=4 at 10,240 hosts a tenant (4 lanes of the 16,384
+# bucket: 65,536 rows), cut to 1 sim-s; its warm-up trial cut to
+# RES_WARM_NS and one tenant, the churn at half of it
+RES_LANES = 4
+RES_SIM_S = 1
+RES_WARM_NS = 200_000_000
+
 INVALID_TIME = 2**63 - 1
 
 
@@ -6309,6 +6361,489 @@ def elastic_cell(device, side, oracles, udp_oracle):
     return out, gk["gather_err"]
 
 
+# --- phase 22: warm-start serving and the scenario fleet ----------------
+
+
+def cold_start_main() -> int:
+    """22a's bench process: `python -m shadow_tpu_torch.bench`'s main,
+    its cold start taken apart — the interpreter's start (from SMOKE_T0,
+    the parent's clock at the spawn, to this function), `import torch`,
+    the CUDA context, the libraries, and the first and steady windows of
+    the warm-up call (the first 12 windows timed with a synchronize on
+    each side). With BENCH_WARM=1 the libraries' builds or loads are the
+    row's compile block; with the store off the process loads them here,
+    before the bench, as its first window would (`libraries_s`). Prints
+    the row, then one {"cold_start"} line. Run as `python3 -c "import
+    chip_smoke; chip_smoke.cold_start_main()"`."""
+    import os
+
+    t_entry = time.time()
+    t = time.perf_counter()
+    import torch
+    import_s = time.perf_counter() - t
+    t = time.perf_counter()
+    torch.cuda.init()
+    torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    ctx_s = time.perf_counter() - t
+    from shadow_tpu_torch import bench, native
+    from shadow_tpu_torch.core import engine, insert_kernels
+
+    libs_s = None
+    if os.environ.get("BENCH_WARM") != "1":
+        t = time.perf_counter()
+        insert_kernels.load_library()
+        native.require()
+        libs_s = time.perf_counter() - t
+    real, times = engine.step_window, []
+
+    def timed_window(*a, **k):
+        if len(times) >= 12:
+            return real(*a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine.step_window = timed_window
+    try:
+        code = bench.main([])
+    finally:
+        engine.step_window = real
+    if code:
+        return code
+    print(json.dumps({"cold_start": {
+        "interpreter_s": round(t_entry - float(os.environ["SMOKE_T0"]), 3),
+        "import_torch_s": round(import_s, 3),
+        "cuda_context_s": round(ctx_s, 3),
+        **({"libraries_s": libs_s} if libs_s is not None else {}),
+        "first_window_ms": round(times[0], 3),
+        "steady_window_ms": round(statistics.median(times[2:]), 3),
+        "windows_timed": len(times)}}), flush=True)
+    return 0
+
+
+def start_warm_run(label, aot, build, warm=True):
+    """Start one 22a process (cold_start_main) on the store `aot` and the
+    build root `build`; with `warm` false, the store is off."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "SHADOW_"))}
+    env.update(SHADOW_AOT_DIR=aot, SHADOW_BUILD_DIR=build,
+               SMOKE_T0=repr(time.time()))
+    if warm:
+        env["BENCH_WARM"] = "1"
+    return start_proc(f"22a {label}", [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "sys.exit(chip_smoke.cold_start_main())"], env=env)
+
+
+def finish_warm_run(started, phase4):
+    """(row, cold-start parts, wall s) of a 22a process; its counts must
+    be phase 4's."""
+    label = started[0]
+    code, stdout, stderr, wall = finish_proc(started)
+    if code != 0:
+        raise AssertionError(f"{label}: exit {code}:\n{stdout[-3000:]}"
+                             f"\n{stderr[-3000:]}")
+    row = _json_line(stdout, '{"metric"')
+    parts = _json_line(stdout, '{"cold_start"')["cold_start"]
+    got = {k: row[k] for k in ("events", "windows", "micro_steps")}
+    want = {"events": phase4["events_processed"],
+            "windows": phase4["windows"],
+            "micro_steps": phase4["micro_steps"]}
+    if got != want:
+        raise AssertionError(f"{label}: counts {got} != phase 4's {want}")
+    log(f"  {label}: exit 0 in {wall:.1f} s; row {json.dumps(row)}")
+    log(f"  {label}: cold start {json.dumps(parts)}")
+    return row, parts, wall
+
+
+def _libraries(build):
+    """{file: sha256} of the libraries in a build root."""
+    import hashlib
+    import os
+
+    out = {}
+    for name in sorted(os.listdir(build)):
+        if name.endswith(".so"):
+            with open(os.path.join(build, name), "rb") as f:
+                out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def warm_cell(phase4):
+    """22a: a BENCH_WARM=1 bench process on a fresh checkout's empty
+    build root and store, a miss that builds (nvcc, g++) and stores;
+    then three processes at once on the kept build root: a hit (load_s),
+    the same bench with the store off (the libraries loaded as the
+    build root keeps them, libraries_s), and a miss that stores again
+    on a copy of the store whose <key>.bin has a flipped byte. Every
+    run has phase 4's counts; each warm timed call re-resolves and
+    hits; after the first run no library is built again."""
+    import os
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="shadow_warm_")
+    aot, build = os.path.join(root, "aot"), os.path.join(root, "build")
+    out = {}
+
+    def check(name, row, parts, wall, miss):
+        c = row.get("compile") or {}
+        if name == "nostore":
+            if c != {"warm": False}:
+                raise AssertionError(f"22a no store: compile block {c}")
+            first = {}
+        else:
+            first = c.get("warmup", c)
+            ok = first["hit"] is (not miss) and c["hit"] is True
+            if name != "miss":
+                ok = ok and c["key"] == out["warm_miss"]["key"]
+            if miss:
+                ok = ok and first["stored"] is True \
+                    and first["compile_s"] > 0 and "lower_s" in first
+            else:
+                ok = ok and first["load_s"] > 0
+            if not ok:
+                raise AssertionError(f"22a {name}: compile block {c}")
+        out[f"warm_{name}"] = {
+            "wall_s": round(wall, 3), "value": row["value"],
+            "warmup_s": row["warmup_s"], "key": c.get("key"),
+            **{k: first[k] for k in ("hit", "lower_s", "compile_s",
+                                     "load_s") if k in first},
+            **({"timed_load_s": c["load_s"],
+                "warm_speedup": c.get("warm_speedup")} if first else {}),
+            **parts}
+
+    row, parts, wall = finish_warm_run(
+        start_warm_run("22a miss", aot, build), phase4)
+    check("miss", row, parts, wall, True)
+    libs = _libraries(build)
+    if len(libs) != 2:
+        raise AssertionError(f"22a miss: the build root holds {libs}")
+    key = out["warm_miss"]["key"]
+    flip = os.path.join(root, "aot_flip")
+    shutil.copytree(aot, flip)
+    path = os.path.join(flip, f"{key}.bin")
+    blob = bytearray(open(path, "rb").read())
+    blob[len(blob) // 2] ^= 0xFF
+    open(path, "wb").write(bytes(blob))
+    log(f"  22a: the build root holds {sorted(libs)}; flipped byte "
+        f"{len(blob) // 2} of {key}.bin in a copy of the store")
+    started = [start_warm_run("22a hit", aot, build),
+               start_warm_run("22a no store", aot, build, warm=False),
+               start_warm_run("22a miss after a flipped byte", flip,
+                              build)]
+    for name, miss, st in zip(("hit", "nostore", "remiss"),
+                              (False, False, True), started):
+        check(name, *finish_warm_run(st, phase4), miss)
+    if _libraries(build) != libs:
+        raise AssertionError(f"22a: the kept build root changed: "
+                             f"{_libraries(build)} != {libs}")
+    hit, cold = out["warm_hit"], out["warm_nostore"]
+    log(f"  22a: on the kept build root no library was built again; the "
+        f"hit's store load {hit['load_s']:.4f} s against the store-off "
+        f"process's library load {cold['libraries_s']:.4f} s; warm-up "
+        f"calls {hit['warmup_s']} s and {cold['warmup_s']} s (the three "
+        f"processes ran together)")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _fleet_specs():
+    from shadow_tpu_torch.fleet.spec import JobSpec
+
+    return [JobSpec.from_dict(dict({"kind": "scenario", "hosts": HOSTS,
+                                    "load": LOAD, "sim_s": 1}, **j))
+            for j in FLEET_JOBS]
+
+
+def fleet_side_main(tmp) -> int:
+    """22b's process and 22c's undisturbed oracle, beside phases 17-21:
+    `python -m shadow_tpu_torch.cli fleet run --workers 2` on FLEET_JOBS
+    (the FLEET_KILL job's worker SIGKILLed after that job's first
+    checkpoint heartbeat, read from the runner's log), `fleet status`,
+    tools/telemetry_lint.py --fleet-manifest; then every spec run
+    in-process by scenario.run_job on the card (the serial oracle); then
+    bench's resident tenants undisturbed (no churn) on the card. Prints
+    one {"fleet"} line. Run as `python3 -c "import chip_smoke;
+    chip_smoke.fleet_side_main(tmp)"`."""
+    import os
+    import signal
+    import subprocess
+    import threading
+    from pathlib import Path
+
+    from shadow_tpu_torch import bench
+    from shadow_tpu_torch.fleet.scenario import run_job
+
+    root = Path(__file__).resolve().parent
+    jobs = os.path.join(tmp, "jobs.json")
+    with open(jobs, "w") as f:
+        json.dump({"fleet": {"backoff_base_s": 0.0, "backoff_cap_s": 0.0,
+                             "lease_timeout_s": 300.0},
+                   "jobs": [s.as_dict() for s in _fleet_specs()]}, f)
+    fleet = os.path.join(tmp, "fleet")
+    env = dict(os.environ, SHADOW_AOT_DIR=os.path.join(tmp, "aot"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shadow_tpu_torch.cli", "fleet", "run",
+         "--jobs-file", jobs, "--fleet-dir", fleet, "--workers",
+         str(FLEET_WORKERS)], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    pids, kill, log_lines = {}, {}, []
+
+    def watch():
+        for line in proc.stderr:
+            log_lines.append(line.rstrip())
+            w = dict(x.split("=", 1) for x in line.split()[2:] if "=" in x)
+            if " running " in line and w.get("job") == FLEET_KILL:
+                pids[w["worker"]] = int(w["pid"])
+            if (" heartbeat " in line and w.get("job") == FLEET_KILL
+                    and w.get("checkpoint") not in (None, "None")
+                    and not kill and w.get("worker") in pids):
+                os.kill(pids[w["worker"]], signal.SIGKILL)
+                kill.update(worker=w["worker"], checkpoint=w["checkpoint"],
+                            at_s=round(time.perf_counter() - t0, 3))
+
+    outs = []
+    readers = [threading.Thread(target=watch, daemon=True),
+               threading.Thread(target=lambda: outs.append(
+                   proc.stdout.read()), daemon=True)]
+    for th in readers:
+        th.start()
+    try:
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+    for th in readers:
+        th.join(timeout=30)
+    stdout = outs[0] if outs else ""
+    fleet_s = time.perf_counter() - t0
+    out = {"fleet_rc": proc.returncode, "fleet_s": round(fleet_s, 3),
+           "fleet_out": stdout.strip().splitlines()[-1:] or [""],
+           "kill": kill, "log_tail": log_lines[-40:]}
+    st = subprocess.run(
+        [sys.executable, "-m", "shadow_tpu_torch.cli", "fleet", "status",
+         "--fleet-dir", fleet], cwd=root, capture_output=True, text=True,
+        timeout=300)
+    out["status"] = json.loads(st.stdout) if st.returncode == 0 else None
+    lint = subprocess.run(
+        [sys.executable, str(root / "tools" / "telemetry_lint.py"),
+         "--fleet-manifest", os.path.join(fleet, "fleet_manifest.json")],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    out["lint"] = [lint.returncode, (lint.stdout + lint.stderr)[-2000:]]
+    man_path = os.path.join(fleet, "fleet_manifest.json")
+    man = json.load(open(man_path)) if os.path.exists(man_path) else {}
+    out["jobs"] = {}
+    for jid, j in (man.get("jobs") or {}).items():
+        res = j.get("result") or {}
+        jm = (json.load(open(res["manifest"])) if res.get("manifest")
+              else {})
+        out["jobs"][jid] = {
+            "verdict": j.get("verdict"), "digest": res.get("digest"),
+            "counters": res.get("counters"),
+            "attempt_history": j.get("attempt_history"),
+            "worker_losses": j.get("worker_losses"),
+            "executions": j.get("executions"),
+            "escalation_restarts": res.get("escalation_restarts"),
+            "compile": jm.get("compile")}
+    t0 = time.perf_counter()
+    out["oracle"] = {}
+    for spec in _fleet_specs():
+        res = run_job(spec, os.path.join(tmp, "oracle", spec.id))
+        out["oracle"][spec.id] = {"ok": res["ok"],
+                                  "digest": res.get("digest"),
+                                  "counters": res.get("counters"),
+                                  "error": res.get("error")}
+    out["oracle_s"] = round(time.perf_counter() - t0, 3)
+    t0 = time.perf_counter()
+    calm = bench.resident_trial(
+        bench.resident_specs(HOSTS, LOAD, RES_SIM_S, RES_LANES),
+        os.path.join(tmp, "calm"), RES_LANES, RES_SIM_S, "cuda",
+        churn=False)
+    out["calm"] = {h["job"]: h["digest"] for h in calm.table.history
+                   if h.get("state") == "completed"}
+    out["calm_s"] = round(time.perf_counter() - t0, 3)
+    print(json.dumps({"fleet": out}), flush=True)
+    return 0
+
+
+def start_fleet_side(tmp):
+    """22b's process and 22c's oracle (fleet_side_main), started beside
+    phases 17-21."""
+    return start_proc("22b fleet + oracles", [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        f"sys.exit(chip_smoke.fleet_side_main({tmp!r}))"])
+
+
+def fleet_cell(started):
+    """22b's checks: the fleet exits 0 with every job done, `fleet status`
+    folds to all done, the lint is clean, every job's digest and
+    counters equal the serial oracle's, at least one job's program was
+    a store hit, and the killed job was requeued at the same attempt
+    (a continuation: attempt history [1, 1], one worker loss) and ended
+    with the oracle's digest."""
+    code, stdout, stderr, wall = finish_proc(started)
+    if code != 0:
+        raise AssertionError(f"22b: exit {code}:\n{stdout[-3000:]}\n"
+                             f"{stderr[-3000:]}")
+    f = _json_line(stdout, '{"fleet"')["fleet"]
+    log(f"  22b: `fleet run --workers {FLEET_WORKERS}` exit "
+        f"{f['fleet_rc']} in {f['fleet_s']} s: {f['fleet_out'][0]}; "
+        f"kill {json.dumps(f['kill'])}; the serial oracle in "
+        f"{f['oracle_s']} s; 22c's undisturbed run in {f['calm_s']} s "
+        f"(the process {wall:.1f} s from its start)")
+    if f["fleet_rc"] != 0 or not f["kill"]:
+        raise AssertionError(f"22b: fleet rc {f['fleet_rc']}, kill "
+                             f"{f['kill']}:\n" + "\n".join(f["log_tail"]))
+    ids = [j["id"] for j in FLEET_JOBS]
+    if (f["status"] or {}).get("counts") != {"done": len(ids)}:
+        raise AssertionError(f"22b: fleet status {f['status']}")
+    if f["lint"][0] != 0:
+        raise AssertionError(f"22b: telemetry_lint: {f['lint'][1]}")
+    hits = []
+    for jid in ids:
+        j, o = f["jobs"][jid], f["oracle"][jid]
+        if not o["ok"]:
+            raise AssertionError(f"22b oracle {jid}: {o}")
+        if (j["verdict"], j["digest"], j["counters"]) != (
+                "ok", o["digest"], o["counters"]):
+            raise AssertionError(f"22b {jid}: {j} != the oracle's {o}")
+        hits.append(bool((j["compile"] or {}).get("hit")))
+        log(f"  22b {jid}: digest {j['digest'][:16]} = the oracle's; "
+            f"counters {j['counters']}; attempts {j['attempt_history']}; "
+            f"escalations {j['escalation_restarts']}; compile "
+            f"{json.dumps(j['compile'])}")
+    k = f["jobs"][FLEET_KILL]
+    if (k["attempt_history"], k["worker_losses"], k["executions"]) != (
+            [1, 1], 1, 2):
+        raise AssertionError(f"22b {FLEET_KILL}: not a continuation: {k}")
+    if not any(hits):
+        raise AssertionError("22b: no job's program was a store hit")
+    if f["jobs"]["grow"]["escalation_restarts"] < 1:
+        raise AssertionError("22b grow: no escalation")
+    return {"fleet": {"jobs": len(ids), "fleet_s": f["fleet_s"],
+                      "oracle_s": f["oracle_s"], "hits": sum(hits),
+                      "kill": f["kill"]}}, f["calm"]
+
+
+def resident_bench_main() -> int:
+    """22c's bench process: `python -m shadow_tpu_torch.bench`'s main with
+    BENCH_RESIDENT in the environment, its warm-up trial cut to
+    RES_WARM_NS and one tenant (the same program: the last tenant
+    admitted, evicted and re-admitted, no drain; each tenant's donor
+    build is most of a trial's fixed cost) and mailbox_gather's inputs
+    kept; after the row, the kernel against its plain version on the
+    timed trial's own streams and its times there (the phase 3 method).
+    Prints the row, then one {"gather_err", "gather", "launches",
+    "routed"} line, `routed` the non-empty windows of both trials. Run as
+    `python3 -c "import chip_smoke; chip_smoke.resident_bench_main()"`."""
+    from shadow_tpu_torch import bench
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+    from shadow_tpu_torch.fleet import admission as adm_mod
+
+    real, trials = bench.resident_trial, []
+
+    def warm_up(specs, workdir, lanes, sim_s, device, churn=True):
+        rp = adm_mod.ResidentProgram(
+            specs, workdir=workdir, lanes=lanes, horizon_s=2 * sim_s + 1,
+            checkpoint_every_events=0, fsync=False, device=device)
+        try:
+            rp.admit(specs[-1].id)
+            rp.advance(until_ns=RES_WARM_NS // 2)
+            rp.evict(specs[-1].id, reason="bench churn")
+            rp.admit(specs[-1].id)
+            rp.advance(until_ns=RES_WARM_NS)
+        finally:
+            rp.close()
+        return rp
+
+    def trial(*a, **k):
+        if trials:
+            kept.kept.clear()   # the timed trial's own streams
+        rp = (warm_up if not trials else real)(*a, **k)
+        trials.append(rp)
+        return rp
+
+    mailbox_gather.launches = 0
+    bench.resident_trial = trial
+    try:
+        with KeepGatherInputs() as kept:
+            code = bench.main([])
+    finally:
+        bench.resident_trial = real
+    if code:
+        return code
+    launches = mailbox_gather.launches
+    routed = [rp.windows - int(rp.sim.outbox.route_elided)
+              for rp in trials]
+    err = kept.check("22c resident")
+    gather = time_gather("22c resident route", kept.kept)
+    print(json.dumps({"gather_err": err, "gather": gather,
+                      "launches": launches, "routed": routed}), flush=True)
+    return 0
+
+
+def resident_cell(calm):
+    """22c: `BENCH_RESIDENT=4 python -m shadow_tpu_torch.bench` at HOSTS
+    hosts a tenant, alone: program_key_stable and zero retraces, the
+    lease counts of the trial, every tenant that was not evicted with
+    the lane_digest of the undisturbed run (`calm`, 22b's process), and
+    mailbox_gather exact on the resident route and timed there."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "SHADOW_"))}
+    env.update(BENCH_RESIDENT=str(RES_LANES),
+               BENCH_SIM_SECONDS=str(RES_SIM_S))
+    started = start_proc("22c bench BENCH_RESIDENT", [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "sys.exit(chip_smoke.resident_bench_main())"], env=env)
+    code, stdout, stderr, wall = finish_proc(started)
+    if code != 0:
+        raise AssertionError(f"22c: exit {code}:\n{stdout[-3000:]}\n"
+                             f"{stderr[-3000:]}")
+    row = _json_line(stdout, '{"metric"')
+    g = _json_line(stdout, '{"gather_err"')
+    log(f"  22c: `BENCH_RESIDENT={RES_LANES} BENCH_SIM_SECONDS={RES_SIM_S}"
+        f" python -m shadow_tpu_torch.bench` exit 0 in {wall:.1f} s: "
+        f"{json.dumps(row)}")
+    r = row["resident"]
+    want = {"lanes": RES_LANES, "admitted": RES_LANES + 1,
+            "completed": RES_LANES, "evicted": 1, "quarantined": 0,
+            "resident": 0, "program_key_stable": True, "retraces": 0,
+            "lane_width": 16_384}
+    got = {k: r[k] for k in want}
+    if got != want:
+        raise AssertionError(f"22c: resident block {got} != {want}")
+    if g["launches"] != sum(g["routed"]) or g["launches"] == 0:
+        raise AssertionError(f"22c: mailbox_gather launched "
+                             f"{g['launches']} times for {g['routed']} "
+                             f"non-empty windows of the two trials")
+    kept = [f"tenant-{k}" for k in range(RES_LANES - 1)]
+    bad = [j for j in kept if row["digests"].get(j) != calm.get(j)]
+    if bad or len(calm) != RES_LANES:
+        raise AssertionError(f"22c: lanes {bad} differ from the "
+                             f"undisturbed run ({row['digests']} against "
+                             f"{calm})")
+    log(f"  22c: tenants {kept} end with the undisturbed run's lane "
+        f"digests; program key {r['program_key']} stable over "
+        f"{r['admission_events']} admission events, retraces 0; "
+        f"mailbox_gather launched {g['launches']} times = the non-empty "
+        f"windows of the warm-up and timed trials {g['routed']}")
+    gather = dict(g["gather"], launches=g["launches"])
+    return {"resident": {k: row[k] for k in (
+        "value", "wall_s", "warmup_s", "windows", "dispatches", "events")},
+        "resident_gather": gather}, g["gather_err"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6331,7 +6866,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args, bench, insert_kernels) -> int:
-    """Phases 1-21 and the result lines (main starts and stops the CPU
+    """Phases 1-22 and the result lines (main starts and stops the CPU
     halves' worker around them)."""
     import tempfile
 
@@ -6392,6 +6927,7 @@ def run_phases(args, bench, insert_kernels) -> int:
         f"{LOAD} {SIM_S} sim-s, bulk pass, sparse default, ring")
     launches, *main4 = run_main_path(device)
     row["launches"] = launches["mailbox_gather"]
+    phase4 = main4[2].as_dict()   # 22a's bench rows hold these counts
 
     if args.profile:
         phase("4p")
@@ -6558,7 +7094,7 @@ def run_phases(args, bench, insert_kernels) -> int:
     shards_side = start_shards_side(shards_tmp.name)
     shards_side["21"] = start_elastic_side()
     # phase 17 frees these: no reference stays here
-    carried = [main4, relay6s]
+    carried = [main4, relay6s, phase4]
     del main4, relay6s
     try:
         return _phases_14_on(args, row, device, smi, kind, phase, phase_s,
@@ -6571,14 +7107,14 @@ def run_phases(args, bench, insert_kernels) -> int:
 
 def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
                   shards_side, carried) -> int:
-    """Phases 14-21 and the result lines (run_phases' tail; 20b, 20c and
+    """Phases 14-22 and the result lines (run_phases' tail; 20b, 20c and
     21b-21e already running; `carried` holds phases 4's and 6s's runs
     for 17)."""
     import tempfile
 
     import torch
 
-    main4, relay6s = carried
+    main4, relay6s, phase4 = carried
     carried.clear()
 
     got, err = cli_cell(device)
@@ -6612,6 +7148,32 @@ def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
         phase("16p")
         log("[16p] the 4-lane program's hooks, profiled")
         profile_lane_hooks(device)
+
+    # phase 22's fleet and its oracles run beside phases 17-21
+    fleet_tmp = tempfile.TemporaryDirectory(prefix="shadow_fleet_")
+    fleet_side = start_fleet_side(fleet_tmp.name)
+    # phase 17 frees these: no reference stays here
+    keep = [main4, relay6s]
+    del main4, relay6s
+    try:
+        return _phases_17_on(args, row, device, smi, kind, phase, phase_s,
+                             shards_side, keep, phase4, fleet_side)
+    finally:
+        stop_proc(fleet_side)
+        fleet_tmp.cleanup()
+
+
+def _phases_17_on(args, row, device, smi, kind, phase, phase_s,
+                  shards_side, keep, phase4, fleet_side) -> int:
+    """Phases 17-22 and the result lines (22b and 22c's oracle already
+    running in `fleet_side`; `keep` holds phases 4's and 6s's runs for
+    17)."""
+    import tempfile
+
+    import torch
+
+    main4, relay6s = keep
+    keep.clear()
 
     phase("17")
     log(f"[17] the capability-trimmed programs: phase 4's PHOLD ({HOSTS} "
@@ -6683,6 +7245,25 @@ def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
         f"rank killed; ProcessRuntime on 2 ranks")
     got, err = elastic_cell(device, shards_side, oracles, udp_oracle)
     row["max_abs_err"] = max(row["max_abs_err"], err)
+    row.update(got)
+
+    phase("22")
+    log(f"[22] warm-start serving and the scenario fleet: BENCH_WARM=1 "
+        f"bench processes (a miss on an empty build root and store; then "
+        f"together a hit, the store off, a miss after a flipped byte); "
+        f"`fleet run --workers "
+        f"{FLEET_WORKERS}` on {len(FLEET_JOBS)} scenario jobs of {HOSTS} "
+        f"hosts (a worker SIGKILLed) against the serial oracle; "
+        f"BENCH_RESIDENT={RES_LANES} at {HOSTS} hosts a tenant, "
+        f"{RES_SIM_S} sim-s")
+    row.update(warm_cell(phase4))
+    got, calm = fleet_cell(fleet_side)
+    row.update(got)
+    got, err = resident_cell(calm)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    gather = got.pop("resident_gather")
+    row["resident_route"] = {k: gather[k] for k in (
+        "n", "ms", "plain_ms", "bound_ms", "library_ms", "launches")}
     row.update(got)
 
     phase(None)

@@ -93,12 +93,35 @@ Env knobs (bench.py's, for what the port runs):
                                  (trimmed / full events/s),
                                  events_per_sec_full_program and
                                  "specialization" {dropped, key_extra}
-  BENCH_BUCKETED=1               quantize the capacity knobs to their
+  BENCH_BUCKETED=1/0             quantize the capacity knobs to their
                                  power-of-two buckets before the build
                                  (compile/buckets.py; the row gains
-                                 "compile": {"buckets": ...}); unset is
-                                 off (bench.py's default follows warm
-                                 serving, ROADMAP.md Queue 1 item 11b)
+                                 "compile": {"buckets": ...}); unset
+                                 follows warm serving, as bench.py's
+                                 does (a store keyed on exact
+                                 capacities would fragment)
+  BENCH_WARM=1                   warm-rerun scoring: serve dispatch
+                                 programs from the persistent program
+                                 store (compile/store.py; the same as
+                                 SHADOW_WARM_PROGRAMS=1). The warm-up
+                                 call builds and stores on a miss; the
+                                 timed call re-resolves the SAME
+                                 program against the store, so the
+                                 row's "compile" block records the
+                                 stored cost (hit, load_s) beside the
+                                 fresh one (compile.warmup: lower_s,
+                                 compile_s, stored) and warm_speedup
+  BENCH_RESIDENT=R               its own scenario (bench.py's
+                                 _resident_row): R heterogeneous PHOLD
+                                 tenants of BENCH_HOSTS hosts as lanes
+                                 of one resident program
+                                 (fleet/admission.py), admitted at 0,
+                                 the last evicted and re-admitted half
+                                 way, then drained; a warm-up trial,
+                                 then the timed one. The row carries
+                                 the lease table's "resident" block
+                                 (program_key_stable, retraces, ...);
+                                 R >= 2, alone
   BENCH_SHARDS=N                 plain PHOLD runner: the hosts sharded
                                  over N ranks (parallel/shard.py
                                  run_sharded), one process each — this
@@ -136,7 +159,8 @@ Env knobs (bench.py's, for what the port runs):
   BENCH_PLATFORM=cpu             run on the CPU
 
 Every other BENCH_* knob of bench.py is refused (SystemExit naming it;
-BENCH_RESIDENT waits for ROADMAP.md Queue 1 item 12), and so are
+BENCH_SWEEP waits for ROADMAP.md Queue 1 item 12b and BENCH_PROFILE_DIR
+for item 13), and so are
 bench.py's own refusals: --faults, BENCH_SUPERVISE
 and BENCH_MIN_JUMP_MS with pingpong (bench.py ignores the last there),
 BENCH_REPLICAS, BENCH_FLOW_SAMPLE and BENCH_CAUSALITY with pingpong,
@@ -224,9 +248,10 @@ KNOBS = frozenset({"BENCH_WORKLOAD", "BENCH_TOPO", "BENCH_HOSTS",
                    "BENCH_CAUSALITY", "BENCH_CAUSALITY_OVERHEAD",
                    "BENCH_SPECIALIZE", "BENCH_BUCKETED", "BENCH_ACTIVE",
                    "BENCH_SPARSE_LANES", "BENCH_SHARDS", "BENCH_SENTINEL",
-                   "BENCH_SENTINEL_OVERHEAD"})
+                   "BENCH_SENTINEL_OVERHEAD", "BENCH_WARM",
+                   "BENCH_RESIDENT"})
 # bench.py knobs whose mechanism waits for a ROADMAP.md Queue 1 item
-UNPORTED = {"BENCH_RESIDENT": 12}
+UNPORTED = {"BENCH_SWEEP": "12b", "BENCH_PROFILE_DIR": 13}
 # the leaves the reference gives per shard count (parallel/shard.py),
 # and the ring planes whose meaning is per shard (micro-steps are the
 # slowest rank's, routed_local/cross split by rank): left out of the
@@ -338,20 +363,23 @@ def attach_recorders(sim, flow_sample=0, causality_sample=0):
     return sim
 
 
-def _runner(b, handler, device, chunk_windows, app_bulk=None, mesh=None):
+def _runner(b, handler, device, chunk_windows, app_bulk=None, mesh=None,
+            compile_info=None):
     from shadow_tpu_torch.net.build import make_chunked_runner, make_runner
 
     if mesh is not None:
         from shadow_tpu_torch.parallel import make_sharded_runner
 
         return make_sharded_runner(b, mesh, app_handlers=(handler,),
-                                   app_bulk=app_bulk)
+                                   app_bulk=app_bulk,
+                                   compile_info=compile_info)
     if chunk_windows:
         return make_chunked_runner(b, app_handlers=(handler,),
                                    app_bulk=app_bulk,
-                                   chunk_windows=chunk_windows, device=device)
+                                   chunk_windows=chunk_windows, device=device,
+                                   compile_info=compile_info)
     return make_runner(b, app_handlers=(handler,), app_bulk=app_bulk,
-                       device=device)
+                       device=device, compile_info=compile_info)
 
 
 def _lower_min_jump(b, min_jump_ns):
@@ -403,9 +431,16 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
         plan = b.bucket_plan
         if specialize:
             b, sims = specialize_inputs(b, sims, app_bulk)
-        state.update(cap=cap, bundle=b, sims=sims, plan=plan,
-                     fn=_runner(b, phold.handler, device, chunk_windows,
-                                app_bulk=app_bulk, mesh=mesh))
+        state.update(cap=cap, bundle=b, sims=sims, plan=plan)
+        new_fn()
+
+    def new_fn():
+        """A fresh runner over the current bundle: with warm serving on,
+        its first call resolves the program against the store again."""
+        state["cinfo"] = {}
+        state["fn"] = _runner(state["bundle"], phold.handler, device,
+                              chunk_windows, app_bulk=app_bulk, mesh=mesh,
+                              compile_info=state["cinfo"])
 
     build_at(cap or max(16, 3 * load))
 
@@ -429,10 +464,12 @@ def phold_runner(H, load, sim_s, device, graph=ONE_VERTEX, ring=True,
             if int(sim.app.rcvd.sum()) <= 0:
                 raise RuntimeError("PHOLD: no message was received")
             go.last_sim, go.last_stats = sim, stats
+            go.last_compile = dict(state["cinfo"])
             return int(stats.events_processed)
 
     go.escalated = False
     go.state = state
+    go.rewarm = new_fn
     return go
 
 
@@ -504,6 +541,7 @@ def _supervised_runner(what, make_bundles, cap, handler, device,
                 raise RuntimeError(f"{what}: nothing was received")
             go.last_sim, go.last_stats = sim, result.stats
             go.last_result, go.last_feeder, go.harvester = result, f, h
+            go.last_compile = dict(result.compile_info or {})
             return int(result.stats.events_processed)
 
     go.escalated = False
@@ -737,6 +775,135 @@ def make_row(metric, H, m, stats, device, warmup_s) -> dict:
     }
 
 
+def _bench_bucketed() -> bool:
+    """bench.py's rule: quantize capacities to power-of-two buckets?
+    An explicit BENCH_BUCKETED wins; unset follows warm serving (a
+    store keyed on exact capacities would fragment across nearby
+    configs)."""
+    v = os.environ.get("BENCH_BUCKETED")
+    if v is None:
+        from shadow_tpu_torch.compile import serve
+
+        return serve.warm_enabled(False)
+    return v != "0"
+
+
+def compile_block(runner, warmup_cinfo) -> dict:
+    """bench.py's row "compile" block: the TIMED call's program-store
+    block, the warm-up call's nested under "warmup" when it differs,
+    the bucket plan, and warm_speedup = the fresh build's wall over the
+    stored load's."""
+    cinfo = dict(getattr(runner, "last_compile", None) or {})
+    if warmup_cinfo and warmup_cinfo != cinfo:
+        cinfo["warmup"] = warmup_cinfo
+    plan = runner.state.get("plan")
+    if plan is not None:
+        cinfo["buckets"] = plan.as_dict()
+    if cinfo.get("hit") and cinfo.get("load_s"):
+        w = cinfo.get("warmup") or {}
+        fresh_s = w.get("compile_s", 0.0) + w.get("lower_s", 0.0)
+        if fresh_s:
+            cinfo["warm_speedup"] = round(
+                fresh_s / max(cinfo["load_s"], 1e-9), 1)
+    return cinfo
+
+
+def resident_specs(H: int, load: int, sim_s: int, lanes: int) -> list:
+    """bench.py's _resident_row tenants: `lanes` PHOLD scenarios of H
+    hosts, seeds 1000 + k, load `load` less one on odd lanes."""
+    from shadow_tpu_torch.fleet.spec import JobSpec
+
+    return [JobSpec(id=f"tenant-{k}", kind="scenario", seed=1000 + k,
+                    hosts=H, load=max(1, load - (k % 2)), sim_s=sim_s)
+            for k in range(lanes)]
+
+
+def resident_trial(specs, workdir, lanes, sim_s, device, churn=True):
+    """One trial of bench.py's _resident_row: every tenant admitted at
+    0; with `churn`, the last evicted half way and re-admitted; then
+    the program drains. Returns the closed ResidentProgram."""
+    from shadow_tpu_torch.fleet import admission as adm_mod
+
+    rp = adm_mod.ResidentProgram(
+        specs, workdir=workdir, lanes=lanes, horizon_s=2 * sim_s + 1,
+        checkpoint_every_events=0, fsync=False, device=device)
+    try:
+        for s in specs:
+            rp.admit(s.id)
+        if churn:
+            rp.advance(until_ns=(sim_s * 1_000_000_000) // 2)
+            rp.evict(specs[-1].id, reason="bench churn")
+            rp.admit(specs[-1].id)
+        rp.drain()
+    finally:
+        rp.close()
+    return rp
+
+
+def resident_row(H: int, load: int, sim_s: int, lanes: int,
+                 device) -> dict:
+    """bench.py's _resident_row (BENCH_RESIDENT=R): throughput of one
+    resident packed program whose lane population churns at window
+    barriers (fleet/admission.py). R heterogeneous PHOLD tenants are
+    admitted at t=0, the last is evicted and re-admitted half way — two
+    extra admission barriers inside the timed wall — and the program
+    drains. The warm-up trial pays the builds; the timed trial runs the
+    same program again. The row carries the lease table's roll-up, so a
+    broken zero-retrace contract (program_key_stable false or retraces
+    > 0) shows on the row, not only a throughput drop; `digests` holds
+    each tenant's final lane_digest of the timed trial."""
+    import shutil
+    import tempfile
+
+    from shadow_tpu_torch.fleet import admission as adm_mod
+
+    specs = resident_specs(H, load, sim_s, lanes)
+
+    def trial(workdir):
+        return resident_trial(specs, workdir, lanes, sim_s, device)
+
+    root = tempfile.mkdtemp(prefix="bench_resident_")
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        trial(os.path.join(root, "warm"))      # pays the builds
+        _sync(device)
+        warmup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rp = trial(os.path.join(root, "timed"))
+        _sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    value = rp.events / wall
+    base = baseline_rate(H)
+    blk = rp.manifest_block()
+    import torch
+
+    return {
+        "metric": (f"events_per_sec_per_chip@{H}hosts_resident"
+                   f"_x{lanes}lanes_churn"),
+        "value": round(value, 1),
+        "unit": "events/s",
+        "vs_baseline": round(value / base, 3) if base else 0.0,
+        "backend": torch.device(device).type,
+        "device": device_line(device),
+        "warmup_s": round(warmup_s, 3),
+        "wall_s": round(wall, 4),
+        "windows": rp.windows,
+        "dispatches": rp.dispatches,
+        "events": rp.events,
+        "resident": {k: blk.get(k) for k in
+                     ("lanes", "admitted", "completed", "evicted",
+                      "quarantined", "resident", "deferred",
+                      "program_key", "program_key_stable",
+                      "admission_events", "retraces", "lane_width",
+                      "degrade_level")},
+        "digests": {h["job"]: h["digest"] for h in rp.table.history
+                    if h.get("state") == adm_mod.COMPLETED},
+    }
+
+
 def _env_int(name, default):
     v = os.environ.get(name)
     if not v:
@@ -764,6 +931,10 @@ def main(argv=None) -> int:
                  if k in UNPORTED else k for k in off]
         raise SystemExit(f"shadow_tpu_torch.bench does not implement "
                          f"{', '.join(named)} (see ROADMAP.md)")
+    if os.environ.get("BENCH_WARM") == "1":
+        # warm-rerun scoring: the runners resolve their dispatch
+        # programs through the persistent program store
+        os.environ.setdefault("SHADOW_WARM_PROGRAMS", "1")
     platform = os.environ.get("BENCH_PLATFORM") or None
     if platform not in (None, "cpu"):
         raise SystemExit(f"BENCH_PLATFORM={platform!r}: only 'cpu' "
@@ -810,10 +981,7 @@ def main(argv=None) -> int:
     active = _env_int("BENCH_ACTIVE", None)
     sparse = _env_int("BENCH_SPARSE_LANES", None)
     spec_on = os.environ.get("BENCH_SPECIALIZE", "0") == "1"
-    # bench.py's default follows warm serving, which the port does not
-    # have (ROADMAP.md Queue 1 item 11b): unset is off, as there with
-    # warm serving off
-    bucketed = os.environ.get("BENCH_BUCKETED", "0") != "0"
+    bucketed = _bench_bucketed()
     flow_n = _env_int("BENCH_FLOW_SAMPLE", 0)
     caus_n = _env_int("BENCH_CAUSALITY", 0)
     flow_ab = os.environ.get("BENCH_FLOW_OVERHEAD") == "1"
@@ -885,9 +1053,32 @@ def main(argv=None) -> int:
             if on:
                 raise SystemExit(f"{flag} is only wired for "
                                  f"BENCH_WORKLOAD=phold")
+    resident = _env_int("BENCH_RESIDENT", 0)
+    if resident:
+        if (any(os.environ.get(k) for k in
+                ("BENCH_REPLICAS", "BENCH_SUPERVISE", "BENCH_ACTIVE",
+                 "BENCH_SPARSE_LANES", "BENCH_INJECT_TRACE",
+                 "BENCH_INJECT_RATE", "BENCH_CHUNK_WINDOWS",
+                 "BENCH_SHARDS", "BENCH_FLOW_OVERHEAD",
+                 "BENCH_FLOW_SAMPLE", "BENCH_CAUSALITY",
+                 "BENCH_CAUSALITY_OVERHEAD", "BENCH_SENTINEL",
+                 "BENCH_SENTINEL_OVERHEAD"))
+                or workload != "phold" or topo != "one"
+                or args.faults):
+            raise SystemExit(
+                "BENCH_RESIDENT is its own scenario (one warm packed "
+                "program, tenant leases, mid-run churn); it does not "
+                "combine with the other workload/loop shapes")
+        if resident < 2:
+            raise SystemExit("BENCH_RESIDENT needs >= 2 lanes (churn on a "
+                             "1-lane program has no undisturbed tenant to "
+                             "protect)")
     # every knob is checked before torch loads and the device resolves
     from shadow_tpu_torch.device import rank_device, resolve_device
     from shadow_tpu_torch.parallel.shard import rank_env
+    from shadow_tpu_torch.utils.compcache import enable_compile_cache
+
+    enable_compile_cache()
 
     rank, world, init = rank_env()
     try:
@@ -897,6 +1088,9 @@ def main(argv=None) -> int:
             device = rank_device(rank, device)
     except RuntimeError as e:
         raise SystemExit(f"shadow_tpu_torch.bench: {e}") from None
+    if resident:
+        print(json.dumps(resident_row(H, load, sim_s, resident, device)))
+        return 0
     mesh = ranks = None
     if shards > 1:
         mesh, ranks = _shard_mesh(shards, rank, world, init, device, argv)
@@ -983,13 +1177,19 @@ def main(argv=None) -> int:
     runner()                      # warm-up: builds kernels, may escalate
     _sync(device)
     warmup_s = time.perf_counter() - t0
+    # the warm-up call's store block: on an empty store the miss that
+    # paid lower_s + compile_s; the timed call re-resolves the same key
+    warmup_cinfo = dict(getattr(runner, "last_compile", None) or {})
+    if getattr(runner, "rewarm", None) is not None \
+            and warmup_cinfo.get("warm"):
+        runner.rewarm()
     m = timed(runner, device)
     row = make_row(name, H, m, runner.last_stats, device, warmup_s)
     if mesh is not None:
         row["shards"] = shards_block(mesh, runner, m)
-    plan = runner.state.get("plan")
-    if plan is not None:
-        row["compile"] = {"buckets": plan.as_dict()}
+    cinfo = compile_block(runner, warmup_cinfo)
+    if cinfo:
+        row["compile"] = cinfo
     row.update(recorder_blocks(runner, flow_n, caus_n))
     # bench.py's A/B: the same workload rebuilt without the recorder,
     # timed the same way; overhead = (off - on) / off

@@ -57,8 +57,11 @@ processes on the mesh (ProcessRuntime(mesh=...)): each rank runs the
 coroutines of its own hosts.
 
 Flags whose mechanism the port does not have yet are refused by name
-(exit 2): `--profile-dir`, which names jax.profiler. The `fleet` and
-`sweep` sub-commands wait for ROADMAP.md Queue 1 item 12.
+(exit 2): `--profile-dir`, which names jax.profiler. The `fleet`
+sub-command is delegated to fleet/cli.py as the reference delegates it;
+`sweep` waits for ROADMAP.md Queue 1 item 12b. The build root is
+claimed for this host at the start (utils/compcache.py), and every run
+path records its program-store block in the manifest's `compile`.
 
 `--specialize auto` (the default) runs the capability-trimmed program,
 as the reference does (compile/specialize.py: on a lossless topology
@@ -286,8 +289,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "the manifest gains an 'admission' block. "
                         "This is the static-population twin of the "
                         "fleet's resident programs, whose lease table "
-                        "churns lanes at barriers (not ported: "
-                        "ROADMAP.md Queue 1 item 12)")
+                        "churns lanes at barriers (`fleet run "
+                        "--resident`, fleet/admission.py)")
     p.add_argument("--auto-grow", action="store_true",
                    help="supervisor escalation: a fatal capacity "
                         "overflow doubles the tripped knob, rebuilds "
@@ -431,9 +434,15 @@ def _resolve_resume(path: str) -> str | None:
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
-    if argv and argv[0] in ("fleet", "sweep"):
-        print(f"error: `{argv[0]}` is not ported yet (ROADMAP.md Queue 1 "
-              f"item 12)", file=sys.stderr)
+    if argv and argv[0] == "fleet":
+        # `fleet ...` is its own sub-CLI (fleet/cli.py); delegate before
+        # the single-run parser sees the argv
+        from shadow_tpu_torch.fleet.cli import main as fleet_main
+
+        return fleet_main(argv[1:])
+    if argv and argv[0] == "sweep":
+        print("error: `sweep` is not ported yet (ROADMAP.md Queue 1 "
+              "item 12b)", file=sys.stderr)
         return 2
     args = make_parser().parse_args(argv)
     refused = refused_flags(args)
@@ -444,6 +453,11 @@ def main(argv=None) -> int:
 
     from shadow_tpu_torch.device import rank_device, resolve_device
     from shadow_tpu_torch.parallel.shard import rank_env
+    from shadow_tpu_torch.utils.compcache import enable_compile_cache
+
+    # claim the build root for this host before anything builds there
+    # (the kernel's nvcc build, native/'s g++ build)
+    enable_compile_cache()
 
     # no quiet move to the CPU: 'auto' and 'gpu' are the card
     try:
@@ -532,6 +546,11 @@ class _Telemetry:
         self.feeder = feeder
         self.harvester = harvester
         self.timers = timers
+        # warm-program serving (compile/serve.py): every run path hands
+        # this dict to its runner; the manifest records the realized
+        # {key, hit, load_s|compile_s} block from it (the supervised
+        # path uses the supervisor's own copy instead)
+        self.cinfo: dict = {}
 
     def phase(self, name):
         return (self.timers.phase(name) if self.timers is not None
@@ -801,7 +820,7 @@ def _run(args, text, device, logger) -> int:
         with tel.phase("window-loop"):
             sim, stats, _ = ckpt.run_windows(
                 b, app_handlers=loaded.handlers, on_window=pcap_hook,
-                feeder=tel.feeder, device=device)
+                feeder=tel.feeder, device=device, compile_info=tel.cinfo)
             _sync(device)
     else:
         from shadow_tpu_torch.net.build import make_chunked_runner, \
@@ -815,10 +834,17 @@ def _run(args, text, device, logger) -> int:
             if args.chunk_windows:
                 runner = make_chunked_runner(
                     b, app_handlers=loaded.handlers, app_bulk=b.app_bulk,
-                    chunk_windows=args.chunk_windows, device=device)
+                    chunk_windows=args.chunk_windows, device=device,
+                    compile_info=tel.cinfo)
             else:
                 runner = make_runner(b, app_handlers=loaded.handlers,
-                                     app_bulk=b.app_bulk, device=device)
+                                     app_bulk=b.app_bulk, device=device,
+                                     compile_info=tel.cinfo)
+                if hasattr(runner, "lower"):
+                    # a warm-serving runner (compile/serve.WarmFn)
+                    # resolves load-or-build here, so a store hit shows
+                    # up as a short trace-compile phase
+                    runner = runner.lower(b.sim).compile()
         with tel.phase("device-execute"):
             sim, stats = runner(b.sim)
             _sync(device)
@@ -890,7 +916,8 @@ def _run_ranks(args, b, loaded, device, logger, width, window_hook,
             with tel.phase("device-execute"):
                 sim, stats = run_sharded(b, mesh,
                                          app_handlers=loaded.handlers,
-                                         app_bulk=b.app_bulk)
+                                         app_bulk=b.app_bulk,
+                                         compile_info=tel.cinfo)
                 _sync(device)
         # every rank leaves the group before rank 0 waits for the
         # others (NCCL's teardown waits for the peers)
@@ -1067,6 +1094,8 @@ def _export(args, b, sim, stats, health, tel, sup_result=None, *,
             sample_period=args.flow_sample or None),
         admission=admission_manifest_block(health),
         causality=caus_blk,
+        compile_info=(sup_result.compile_info if sup_result is not None
+                      else (tel.cinfo or None)),
         specialization=specialize.specialization_block(
             getattr(b, "caps", None), sim, mode=args.specialize),
         **extra)

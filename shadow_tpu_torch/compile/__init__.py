@@ -9,8 +9,13 @@
   build, with a device guard latch that turns a violated assumption
   into a fatal health fault.
 
-The reference's persistent program store and warm serving
-(`store`, `serve`) are ROADMAP.md Queue 1 item 11b.
+- `store`: the persistent on-disk map from program key to the
+  program's resolved plan and the native libraries it loads, with
+  sidecar manifests, atomic writes, corruption/version fallback and
+  LRU gc.
+- `serve`: the lazy warm wrapper dispatch paths use instead of calling
+  their dispatch callables directly, plus the `prewarm` entry point
+  that populates the store ahead of a run.
 """
 
 from shadow_tpu_torch.compile import buckets, specialize  # noqa: F401
@@ -26,4 +31,13 @@ from shadow_tpu_torch.compile.buckets import (  # noqa: F401
     quantize_pow2,
     shape_vector,
     shape_vector_for_sim,
+)
+from shadow_tpu_torch.compile.serve import (  # noqa: F401
+    maybe_warm,
+    prewarm,
+    warm_enabled,
+)
+from shadow_tpu_torch.compile.store import (  # noqa: F401
+    ProgramStore,
+    default_store,
 )

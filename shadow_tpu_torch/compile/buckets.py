@@ -210,14 +210,16 @@ _CODE_VERSION: str | None = None
 
 def code_version() -> str:
     """Digest of every source file of this package — its Python
-    modules and its CUDA sources (csrc/*.cu), which are part of every
-    program that launches them. Build outputs under `_build/` are not
-    sources. Computed once per process."""
+    modules, its CUDA sources (csrc/*.cu) and native/'s C++ sources
+    (native/src/*.cc), which are part of every program that loads them.
+    Build outputs under `_build/` are not sources. Computed once per
+    process."""
     global _CODE_VERSION
     if _CODE_VERSION is None:
         root = pathlib.Path(__file__).resolve().parents[1]
         h = hashlib.sha256()
-        paths = [p for pat in ("*.py", "*.cu") for p in root.rglob(pat)
+        paths = [p for pat in ("*.py", "*.cu", "*.cc")
+                 for p in root.rglob(pat)
                  if "_build" not in p.relative_to(root).parts]
         for p in sorted(paths):
             h.update(str(p.relative_to(root)).encode())

@@ -6,8 +6,10 @@ destination row's arrivals as one contiguous [Wn, P] window of the
 row-sorted candidate stream. The source is ``csrc/mailbox_gather.cu``;
 it is compiled at first use with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (built from the package's own sources
-into ``_build/``, keyed by a hash of the source and flags) and loaded
-with ctypes.
+into the build root the host claims, utils/compcache.py, keyed by a
+hash of the source and flags) and loaded with ctypes. A warm program
+(compile/store.py) hands the loader that library once its sha256 holds
+(``adopt_library``).
 
 The wrapper takes the plain PyTorch version (``mailbox_gather_ref``)
 only when its tensors lie on the CPU. For CUDA tensors it launches the
@@ -31,11 +33,24 @@ from shadow_tpu_torch.device import build_lock
 I32 = torch.int32
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "mailbox_gather.cu"
+# the unclaimed base root; builds go to build_dir() (the host's claim
+# or redirect) unless this is set elsewhere
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB: ctypes.CDLL | None = None
+
+
+def build_dir() -> Path:
+    """Where the library is built: the host's claimed build root
+    (utils/compcache.py build_root) while BUILD_DIR is the package's
+    default, else BUILD_DIR."""
+    from shadow_tpu_torch.utils import compcache
+
+    if BUILD_DIR == compcache.DEFAULT_ROOT:
+        return compcache.build_root()
+    return BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -51,22 +66,23 @@ def _nvcc() -> str:
 
 def build_library() -> tuple[Path, str]:
     """Compile csrc/mailbox_gather.cu into
-    _build/libmailbox_gather-<hash>.so (once per source and flag set).
+    <build_dir()>/libmailbox_gather-<hash>.so (once per source and flag set).
     Returns the library's path and the compiler's output (ptxas
     register and shared-memory statistics; empty when the library was
     already built). Raises with the compiler's output when the build
     fails."""
     digest = hashlib.sha256(
         SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libmailbox_gather-{digest}.so"
+    root = build_dir()
+    out = root / f"libmailbox_gather-{digest}.so"
     if out.exists():
         return out, ""
     # ranks starting together build once: the others wait on the lock
     # and find the library
-    with build_lock(BUILD_DIR):
+    with build_lock(root):
         if out.exists():
             return out, ""
-        tmp = BUILD_DIR / f".libmailbox_gather-{digest}.{os.getpid()}.so"
+        tmp = root / f".libmailbox_gather-{digest}.{os.getpid()}.so"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
@@ -76,15 +92,43 @@ def build_library() -> tuple[Path, str]:
     return out, r.stdout + r.stderr
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.mailbox_gather_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+def adopt_library(path) -> bool:
+    """Load the kernel from `path` (the build root's library, its
+    sha256 checked by the program store) unless one is loaded already.
+    Returns True when the process's library is now `path`'s or was
+    loaded before; raises OSError when the file does not load."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(path))
+        _bind(lib)
+        _LIB = lib
+    return True
+
+
+def library_path() -> str | None:
+    """The loaded library's file (None before the first load)."""
+    return None if _LIB is None else _LIB._name
+
+
+def load_library() -> str:
+    """Build the library if needed and load it; returns its file."""
+    _launcher()
+    return _LIB._name
+
+
 def _launcher():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build_library()[0]))
-        fn = lib.mailbox_gather_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        _bind(lib)
         _LIB = lib
     return _LIB.mailbox_gather_launch
 

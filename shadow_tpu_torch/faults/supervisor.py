@@ -60,8 +60,10 @@ function of replicated state and of the sealed membership, so the
 ranks take the same one. A retry needs every rank: when the rendezvous
 finds one missing, the ladder takes the next rung. The new rank 0
 replans and writes the snapshots and the result; `on_mesh_change` fires
-there once. `warm_start` (ROADMAP.md Queue 1 item 11b) raises
-NotImplementedError.
+there once. `warm_start` serves each attempt's dispatch program from
+the persistent program store (compile/serve.py), and
+`SupervisorResult.compile_info` carries the final attempt's `compile`
+block.
 """
 
 from __future__ import annotations
@@ -176,6 +178,9 @@ class SupervisorResult:
     # this rank writes the run's report: rank 0 of the final mesh, the
     # rank that carries the serial rung, or a serial run
     reports: bool = True
+    # the FINAL attempt's program-store block ({key, warm, hit, ...};
+    # compile/serve.py) — None when nothing filled it
+    compile_info: Optional[dict] = None
 
     def failure_report(self) -> dict:
         rep = self.health.failure_report() if self.health is not None \
@@ -261,9 +266,6 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
     old_shards, new_shards, cause)` fires on every width change, on
     the rank that reports."""
     from shadow_tpu_torch.core.engine import EngineStats
-    from shadow_tpu_torch.net.build import refuse_unported
-
-    refuse_unported(warm_start=(warm_start, "11b"))
 
     def say(msg):
         if log is not None:
@@ -603,6 +605,11 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
         tele = {"zero_streak": 0, "worst_streak": 0, "regressed": False,
                 "wstart": None, "since_ckpt": 0, "acc": {},
                 "dispatch_windows": []}
+        # Filled by run_windows' warm wrapper at the first dispatch of
+        # this attempt; the FINAL attempt's block lands in the result
+        # (an escalation restart builds a new program — that is the one
+        # the manifest should report).
+        cinfo: dict = {}
 
         def _gather(sim):
             return health_mod.gather(
@@ -682,6 +689,7 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                 dispatches=len(tele["dispatch_windows"]),
                 dispatch_windows=tuple(tele["dispatch_windows"]),
                 lane_incidents=tuple(lane_incidents),
+                compile_info=(dict(cinfo) if cinfo else None),
                 elastic=_elastic_block(),
                 reports=(not kw.get("retired") and (
                     cur_mesh.rank == 0 if cur_mesh is not None
@@ -702,6 +710,7 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
                     if base_stats else None),
                 windows_per_dispatch=windows_per_dispatch,
                 adaptive_jump=adaptive_jump, feeder=feeder,
+                warm_start=warm_start, compile_info=cinfo,
                 device=run_device if cur_mesh is None else None,
                 mesh=cur_mesh if cur_mesh is not None else plain_mesh,
                 mesh_axis=mesh_axis,

@@ -11,10 +11,13 @@ same C interface.
   (utils/shadowlog.py)
 
 The library is built at first use from this package's own sources with
-``g++`` into ``shadow_tpu_torch/_build/libshadow_native-<hash>.so``,
-keyed by a hash of the sources and flags, the way core/insert_kernels.py
-builds the CUDA kernel. ``load()`` returns the library, or None with the
-reason in ``load_error()``; ``require()`` raises with that reason.
+``g++`` into ``libshadow_native-<hash>.so`` in the build root the host
+claims (utils/compcache.py; ``shadow_tpu_torch/_build/`` by default),
+keyed by a hash of the sources and flags, the way
+core/insert_kernels.py builds the CUDA kernel. A warm program
+(compile/store.py) hands ``adopt`` that library once its sha256
+holds. ``load()`` returns the library, or None with the reason in
+``load_error()``; ``require()`` raises with that reason.
 Callers that run on the card require the library, so nothing there
 falls back quietly to the pure-Python versions (``tally._PyTally``, the
 pool's dict path, ``list.sort``), which the tests hold the library
@@ -32,6 +35,8 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "src"
 SOURCES = tuple(SRC_DIR / n for n in ("retransmit_tally.cc",
                                       "payload_pool.cc", "logsort.cc"))
+# the unclaimed base root; builds go to build_dir() (the host's claim
+# or redirect) unless this is set elsewhere
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX = "g++"
 CXXFLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared")
@@ -40,22 +45,34 @@ _lib: ctypes.CDLL | None = None
 _error: str | None = None
 
 
+def build_dir() -> Path:
+    """Where the library is built: the host's claimed build root
+    (utils/compcache.py build_root) while BUILD_DIR is the package's
+    default, else BUILD_DIR."""
+    from shadow_tpu_torch.utils import compcache
+
+    if BUILD_DIR == compcache.DEFAULT_ROOT:
+        return compcache.build_root()
+    return BUILD_DIR
+
+
 def build_library() -> Path:
-    """Compile the sources into _build/libshadow_native-<hash>.so (once
+    """Compile the sources into <build_dir()>/libshadow_native-<hash>.so (once
     per source and flag set; concurrent builders each write a private
     file and rename it into place). Raises with the compiler's output
     when the build fails."""
     h = hashlib.sha256(" ".join((CXX, *CXXFLAGS)).encode())
     for src in SOURCES:
         h.update(src.read_bytes())
-    out = BUILD_DIR / f"libshadow_native-{h.hexdigest()[:16]}.so"
+    root = build_dir()
+    out = root / f"libshadow_native-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     from shadow_tpu_torch.device import build_lock
 
     # ranks starting together build once: the others wait on the lock
     # and find the library
-    with build_lock(BUILD_DIR):
+    with build_lock(root):
         if out.exists():
             return out
         tmp = out.with_name(f".{out.name}.{os.getpid()}")
@@ -131,6 +148,19 @@ def load() -> ctypes.CDLL | None:
         _error = str(e)
         return None
     _lib = lib
+    return _lib
+
+
+def adopt(path) -> ctypes.CDLL:
+    """Load the library from `path` (the build root's library, its
+    sha256 checked by the program store) unless one is loaded already;
+    returns the process's library. Raises OSError or AttributeError when
+    the file does not load or bind."""
+    global _lib, _error
+    if _lib is None:
+        lib = ctypes.CDLL(str(path))
+        _bind(lib)
+        _lib, _error = lib, None
     return _lib
 
 

@@ -11,8 +11,9 @@ and seed PROC_START / PROC_STOP events (ref: process.c:1326-1360).
 Every NetConfig setting is taken as the reference takes it, the
 observability ones included (the pcap capture ring, per-path counters,
 the virtual CPU), and so are its derived defaults (emit_capacity =
-nic_drain + 6 with TCP). Runner arguments the port does not implement
-yet raise NotImplementedError (refuse_unported). The apps the port
+nic_drain + 6 with TCP). Every runner serves its program from the
+persistent program store when asked (`warm_start`, compile/serve.py;
+the key rule is _whole_run_key_fn). The apps the port
 runs through these entry points: PHOLD (apps/phold.py, with its UDP
 bulk pass), the disjoint and the shared-relay Tor models
 (apps/relay.py, each with its TCP bulk pass), UDP and TCP gossip
@@ -235,15 +236,54 @@ def _resolve_caps(bundle: SimBundle, caller_fault_fn):
     return caps
 
 
-def refuse_unported(**off) -> None:
-    """NotImplementedError naming each argument given that the port does
-    not take yet ({name: (value, its ROADMAP.md Queue 1 item)})."""
-    given = [f"{k} (ROADMAP.md Queue 1 item {item})"
-             for k, (v, item) in off.items() if v is not None]
-    if given:
-        raise NotImplementedError(
-            "shadow_tpu_torch does not implement these arguments yet: "
-            + ", ".join(given))
+def _caps_meta(caps):
+    """Store-sidecar block for a trimmed program; None when nothing was
+    dropped so untrimmed sidecars are unchanged."""
+    if caps is None or not caps.dropped():
+        return None
+    return {"specialization": caps.as_dict()}
+
+
+def _whole_run_key_fn(bundle: SimBundle, app_handlers, *, end, path,
+                      chunk_windows, adaptive, fault_fn, app_bulk,
+                      app_tcp_bulk, tcp_bulk_lossless=False,
+                      route_impl=None, shards=1,
+                      exchange_capacity=None, caps=None):
+    """Lazy program-key rule for the whole-run factories (compile/):
+    the shape vector comes from the FIRST call's sim (telemetry / lane /
+    injection attachments change the state's leaves, and the factory's
+    callable accepts any of them), everything else is fixed at factory
+    time. Returns None — warm serving disabled — when the caller passed
+    an opaque fault_fn: its constants are invisible to the key."""
+    if fault_fn is not None:
+        return None
+
+    def _key(args, kwargs):
+        from shadow_tpu_torch.compile import buckets
+        from shadow_tpu_torch.telemetry.export import fault_plan_digest
+
+        fp = getattr(bundle, "fault_plan", None)
+        extra = {"path": path, "route_impl": route_impl,
+                 "tcp_bulk_lossless": bool(tcp_bulk_lossless),
+                 "tcp_bulk": (type(app_tcp_bulk).__name__
+                              if app_tcp_bulk is not None else None)}
+        if caps is not None and caps.key_extra() is not None:
+            # trimmed variants are different programs — key them apart
+            # so they coexist in the store next to their full twins;
+            # untrimmed specialized builds share the unspecialized key
+            extra["caps"] = caps.key_extra()
+        census = buckets.kind_census(
+            app_handlers, app_bulk,
+            fault_plan_digest=(fault_plan_digest(fp)
+                               if fp is not None else None))
+        shapes = buckets.shape_vector_for_sim(bundle.cfg, args[0])
+        return buckets.program_key(
+            shapes, shards=int(shards), chunk_windows=chunk_windows,
+            adaptive=adaptive, census=census, end_time=int(end),
+            min_jump=bundle.min_jump,
+            exchange_capacity=exchange_capacity, extra=extra)
+
+    return _key
 
 
 def adaptive_jump_spec(bundle: SimBundle):
@@ -337,7 +377,8 @@ def _check_sim_device(sim, dev) -> None:
 def make_runner(bundle: SimBundle, app_handlers=(),
                 end_time: int | None = None, app_bulk=None,
                 app_tcp_bulk=None, tcp_bulk_lossless: bool = False,
-                device=None, fault_fn=None):
+                device=None, fault_fn=None, warm_start: bool | None = None,
+                compile_info: dict | None = None):
     """A sim -> (sim, stats) callable for the whole run on `device`
     (None -> "cuda"; raises when CUDA is missing or the bundle was
     built on another device).
@@ -361,8 +402,18 @@ def make_runner(bundle: SimBundle, app_handlers=(),
 
     A specialized bundle (compile/specialize.py apply) runs its trimmed
     program; an explicit `fault_fn` on one raises ValueError
-    (_resolve_caps)."""
+    (_resolve_caps).
+
+    `warm_start` serves the program from the persistent program store
+    (compile/): a stored program for this shape loads its native
+    libraries from the store; SHADOW_WARM_PROGRAMS overrides, and
+    `compile_info` (a dict) receives the {key, hit, load_s|compile_s}
+    block at the first call. The callable is then a compile.serve.WarmFn
+    (its `bulk_fn` attribute is the live runner's)."""
+    from shadow_tpu_torch.compile import serve
+
     dev = _runner_device(bundle, device)
+    caller_fault_fn = fault_fn
     caps = _resolve_caps(bundle, fault_fn)
     step = make_step_fn(bundle.cfg, app_handlers, caps=caps)
     end = end_time if end_time is not None else bundle.cfg.end_time
@@ -373,20 +424,36 @@ def make_runner(bundle: SimBundle, app_handlers=(),
     sparse = resolve_sparse_lanes(bundle.cfg)
     fault_fn = _resolve_fault_fn(bundle, fault_fn)
 
+    outer = [None]   # the callable handed out: its bulk_fn is read
+
     def go(sim):
         _check_sim_device(sim, dev)
         return engine_run(
             sim, step, end_time=end, min_jump=bundle.min_jump,
             emit_capacity=bundle.cfg.emit_capacity,
-            lane_id=sim.net.lane_id, bulk_fn=go.bulk_fn, telem_fn=telem_fn,
+            lane_id=sim.net.lane_id, bulk_fn=outer[0].bulk_fn,
+            telem_fn=telem_fn,
             sparse_lanes=sparse, fault_times=plan_times(bundle),
             fault_fn=fault_fn, flow_fn=flow_fn,
             # the serial identity sentinel: never trips, but advances
             # the verified-through ledger (nothing without a sentinel)
             sentinel_fn=make_sentinel_fn(None))
 
-    go.bulk_fn = bulk_fn
-    return go
+    def factory():
+        return go
+
+    fn = serve.maybe_warm(
+        factory,
+        _whole_run_key_fn(bundle, app_handlers, end=end, path="whole",
+                          chunk_windows=0, adaptive=False,
+                          fault_fn=caller_fault_fn, app_bulk=app_bulk,
+                          app_tcp_bulk=app_tcp_bulk,
+                          tcp_bulk_lossless=tcp_bulk_lossless, caps=caps),
+        enabled=serve.warm_enabled(default=bool(warm_start)),
+        meta=_caps_meta(caps), info=compile_info)
+    fn.bulk_fn = bulk_fn
+    outer[0] = fn
+    return fn
 
 
 def make_chunked_runner(bundle: SimBundle, app_handlers=(),
@@ -402,33 +469,47 @@ def make_chunked_runner(bundle: SimBundle, app_handlers=(),
     same. `adaptive_jump` takes the live-table window rule
     (resolve_wend_fn); on a graph where no latency changes it gives
     the static partition. The caller's sim is left as it was (the
-    state is never written in place). Device rules, the fault plan
-    and the specialization are make_runner's.
+    state is never written in place). Device rules, the fault plan,
+    the specialization and warm serving (`warm_start`, `compile_info`)
+    are make_runner's; the chunk body is what the store serves."""
+    from shadow_tpu_torch.compile import serve
 
-    `warm_start` and `compile_info` (ROADMAP.md Queue 1 item 11b) are
-    not ported yet and raise NotImplementedError."""
     if chunk_windows < 1:
         raise ValueError(
             f"chunk_windows must be >= 1, got {chunk_windows} "
             "(0 iterations would spin the host loop forever)")
-    refuse_unported(warm_start=(warm_start, "11b"),
-                    compile_info=(compile_info, "11b"))
     dev = _runner_device(bundle, device)
+    caller_fault_fn = fault_fn
     caps = _resolve_caps(bundle, fault_fn)
     step = make_step_fn(bundle.cfg, app_handlers, caps=caps)
     end = int(end_time if end_time is not None else bundle.cfg.end_time)
     bulk_fn = _resolve_bulk_fn(bundle, app_bulk, app_tcp_bulk,
                                tcp_bulk_lossless, caps=caps)
     fault_fn = _resolve_fault_fn(bundle, fault_fn)
-    chunk = make_chunk_body(
-        step, end_time=end,
-        wend_fn=resolve_wend_fn(bundle, end, adaptive_jump, fault_fn),
-        chunk_windows=int(chunk_windows),
-        emit_capacity=bundle.cfg.emit_capacity,
-        lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
-        telem_fn=make_telem_fn(),
-        sparse_lanes=resolve_sparse_lanes(bundle.cfg), fault_fn=fault_fn,
-        flow_fn=make_flow_fn(), sentinel_fn=make_sentinel_fn(None))
+    wend_fn = resolve_wend_fn(bundle, end, adaptive_jump, fault_fn)
+
+    def factory():
+        return make_chunk_body(
+            step, end_time=end, wend_fn=wend_fn,
+            chunk_windows=int(chunk_windows),
+            emit_capacity=bundle.cfg.emit_capacity,
+            lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
+            telem_fn=make_telem_fn(),
+            sparse_lanes=resolve_sparse_lanes(bundle.cfg),
+            fault_fn=fault_fn, flow_fn=make_flow_fn(),
+            sentinel_fn=make_sentinel_fn(None))
+
+    chunk = serve.maybe_warm(
+        factory,
+        _whole_run_key_fn(bundle, app_handlers, end=end,
+                          path="whole_chunk",
+                          chunk_windows=int(chunk_windows),
+                          adaptive=bool(adaptive_jump),
+                          fault_fn=caller_fault_fn, app_bulk=app_bulk,
+                          app_tcp_bulk=app_tcp_bulk,
+                          tcp_bulk_lossless=tcp_bulk_lossless, caps=caps),
+        enabled=serve.warm_enabled(default=bool(warm_start)),
+        meta=_caps_meta(caps), info=compile_info)
 
     def go(sim):
         _check_sim_device(sim, dev)
@@ -444,9 +525,12 @@ def make_chunked_runner(bundle: SimBundle, app_handlers=(),
 
 def run(bundle: SimBundle, app_handlers=(), end_time: int | None = None,
         app_bulk=None, app_tcp_bulk=None, tcp_bulk_lossless: bool = False,
-        device=None, fault_fn=None):
+        device=None, fault_fn=None, warm_start: bool | None = None,
+        compile_info: dict | None = None):
     """Run the whole simulation; returns (sim, stats)."""
     return make_runner(bundle, app_handlers, end_time, app_bulk=app_bulk,
                        app_tcp_bulk=app_tcp_bulk,
                        tcp_bulk_lossless=tcp_bulk_lossless,
-                       device=device, fault_fn=fault_fn)(bundle.sim)
+                       device=device, fault_fn=fault_fn,
+                       warm_start=warm_start,
+                       compile_info=compile_info)(bundle.sim)

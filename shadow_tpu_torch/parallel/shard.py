@@ -728,21 +728,23 @@ def make_sharded_runner(bundle, mesh: Mesh, axis: str = AXIS,
     mesh, global state in and out, on every rank. The bundle must lie
     on the rank's device. Capability trims are shard-invariant (the
     guard's counters take the delta sum). `warm_start` and
-    `compile_info` (ROADMAP.md Queue 1 item 11b) are not ported yet."""
+    `compile_info` are make_runner's, keyed with `shards=N` (the
+    example is the global sim each rank is handed)."""
+    from shadow_tpu_torch.compile import serve
     from shadow_tpu_torch.net.build import (
+        _caps_meta,
         _resolve_bulk_fn,
         _resolve_caps,
         _resolve_fault_fn,
         _runner_device,
+        _whole_run_key_fn,
         plan_times,
-        refuse_unported,
     )
     from shadow_tpu_torch.net.step import make_step_fn
 
-    refuse_unported(warm_start=(warm_start, "11b"),
-                    compile_info=(compile_info, "11b"))
     _check_axis(mesh, axis)
     _runner_device(bundle, mesh.device)
+    caller_fault_fn = fault_fn
     caps = _resolve_caps(bundle, fault_fn)
     step = make_step_fn(bundle.cfg, app_handlers, caps=caps)
     bulk_fn = _resolve_bulk_fn(bundle, app_bulk, app_tcp_bulk,
@@ -750,17 +752,30 @@ def make_sharded_runner(bundle, mesh: Mesh, axis: str = AXIS,
     fault_fn = _resolve_fault_fn(bundle, fault_fn)
     end = end_time if end_time is not None else bundle.cfg.end_time
 
+    outer = [None]   # the callable handed out: its bulk_fn is read
+
     def go(sim):
         return sharded_engine_run(
             mesh, axis, sim, step, end_time=end, min_jump=bundle.min_jump,
             emit_capacity=bundle.cfg.emit_capacity,
-            exchange_capacity=exchange_capacity, bulk_fn=go.bulk_fn,
+            exchange_capacity=exchange_capacity, bulk_fn=outer[0].bulk_fn,
             fault_fn=fault_fn,
             sparse_lanes=resolve_sparse_lanes(bundle.cfg),
             fault_times=plan_times(bundle))
 
-    go.bulk_fn = bulk_fn
-    return go
+    fn = serve.maybe_warm(
+        lambda: go,
+        _whole_run_key_fn(
+            bundle, app_handlers, end=end, path="sharded_whole",
+            chunk_windows=0, adaptive=False, fault_fn=caller_fault_fn,
+            app_bulk=app_bulk, app_tcp_bulk=app_tcp_bulk,
+            tcp_bulk_lossless=tcp_bulk_lossless, shards=mesh.size,
+            exchange_capacity=exchange_capacity, caps=caps),
+        enabled=serve.warm_enabled(default=bool(warm_start)),
+        meta=_caps_meta(caps), info=compile_info)
+    fn.bulk_fn = bulk_fn
+    outer[0] = fn
+    return fn
 
 
 def run_sharded(bundle, mesh: Mesh, axis: str = AXIS, app_handlers=(),

@@ -38,9 +38,13 @@ sha256 digests and the last window proven divergence-free), and
 replan_shards re-partitions a snapshot onto another mesh width as a
 digest-verified restamp — the layout is global, so no data moves.
 
-Not ported yet (ROADMAP.md Queue 1 item 11b): prewarm_dispatch
-(compile/), and run_windows' warm_start and compile_info arguments,
-which raise NotImplementedError.
+Warm serving (compile/): run_windows(warm_start=...) resolves its
+dispatch program against the persistent program store, and
+prewarm_dispatch fills the store without running a window. Both build
+the program through one rule (_resolve_loop, _program_key_for,
+_make_dispatch_fns), so the program a prewarm persists is the one a
+later run_windows loads; the resident program (fleet/admission.py)
+builds its dispatch the same way.
 """
 
 from __future__ import annotations
@@ -333,6 +337,213 @@ def replan_shards(path: str, new_shards: int, *,
                       ".replan.")
 
 
+class _LoopPlan:
+    """Resolved loop parameters shared by run_windows and
+    prewarm_dispatch — one resolution rule so the program a prewarm
+    persists is the program a later run_windows loads."""
+
+    __slots__ = ("cfg", "step", "end", "min_jump", "fault_fn",
+                 "caller_fault_fn", "bulk_fn", "wpd", "adaptive",
+                 "chunked", "shards", "caps", "device")
+
+
+def _resolve_loop(bundle, app_handlers, *, end_time, fault_fn, mesh,
+                  mesh_axis, windows_per_dispatch, adaptive_jump,
+                  sim=None, device=None):
+    from shadow_tpu_torch.net.build import (
+        _resolve_bulk_fn,
+        _resolve_caps,
+        _resolve_fault_fn,
+        _runner_device,
+    )
+    from shadow_tpu_torch.net.step import make_step_fn
+
+    if mesh is not None and device is not None \
+            and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh rank's "
+                         f"{mesh.device}")
+    p = _LoopPlan()
+    p.device = _runner_device(bundle,
+                              mesh.device if mesh is not None else device)
+    cfg = p.cfg = bundle.cfg
+    # capability-trimmed variant (compile/specialize.py): same rule as
+    # the whole-run factories — an opaque caller fault_fn disables it
+    p.caps = _resolve_caps(bundle, fault_fn)
+    p.step = make_step_fn(cfg, app_handlers, caps=p.caps)
+    p.end = int(end_time if end_time is not None else cfg.end_time)
+    p.min_jump = max(int(bundle.min_jump), 1)
+    p.caller_fault_fn = fault_fn
+    p.fault_fn = _resolve_fault_fn(bundle, fault_fn)
+    p.bulk_fn = _resolve_bulk_fn(bundle, getattr(bundle, "app_bulk", None),
+                                 caps=p.caps)
+    wpd = (int(windows_per_dispatch) if windows_per_dispatch is not None
+           else max(1, int(getattr(cfg, "windows_per_dispatch", 1) or 1)))
+    if wpd < 1:
+        raise ValueError(f"windows_per_dispatch must be >= 1, got {wpd}")
+    p.wpd = wpd
+    p.adaptive = (bool(adaptive_jump) if adaptive_jump is not None
+                  else bool(getattr(cfg, "adaptive_jump", False)))
+    # causality's advance attribution lives in the chunk body's explain
+    # path, so a traced sim takes the chunk driver even at K = 1
+    tracing = getattr(sim if sim is not None else bundle.sim,
+                      "causality", None) is not None
+    p.chunked = wpd > 1 or p.adaptive or tracing
+    p.shards = 1 if mesh is None else mesh.size
+    return p
+
+
+def _program_key_for(bundle, plan, sim, app_handlers, *, sharded,
+                     exchange_capacity):
+    """Canonical program key for this loop's dispatch program
+    (compile/buckets.py), or None when the caller passed an opaque
+    fault_fn — its closure constants are invisible to the key, so warm
+    serving would risk serving a program built with someone else's
+    constants."""
+    if plan.caller_fault_fn is not None:
+        return None
+    import hashlib
+
+    from shadow_tpu_torch.compile import buckets
+    from shadow_tpu_torch.telemetry.export import fault_plan_digest
+
+    fp = getattr(bundle, "fault_plan", None)
+    extra = {"path": ("sharded_" if sharded else "")
+             + ("chunk" if plan.chunked else "window")}
+    if plan.caps is not None and plan.caps.key_extra() is not None:
+        # trimmed variants key apart from their full twins (see
+        # net.build._whole_run_key_fn); untrimmed builds share keys
+        extra["caps"] = plan.caps.key_extra()
+    if plan.adaptive:
+        # the adaptive wend rule bakes the host->vertex map into its
+        # pair mask (net.build.adaptive_jump_spec)
+        voh = bundle.sim.net.vertex_of_host.cpu().numpy()
+        extra["voh"] = hashlib.sha256(voh.tobytes()).hexdigest()[:16]
+    census = buckets.kind_census(
+        app_handlers, getattr(bundle, "app_bulk", None),
+        fault_plan_digest=fault_plan_digest(fp) if fp is not None else None)
+    shapes = buckets.shape_vector_for_sim(bundle.cfg, sim)
+    return buckets.program_key(
+        shapes, shards=plan.shards,
+        chunk_windows=plan.wpd if plan.chunked else 1,
+        adaptive=plan.adaptive, census=census, end_time=plan.end,
+        min_jump=bundle.min_jump, exchange_capacity=exchange_capacity,
+        extra=extra)
+
+
+def _make_dispatch_fns(bundle, plan, sim, app_handlers, *, mesh,
+                       mesh_axis, exchange_capacity, warm,
+                       store=None, compile_info=None):
+    """Build the loop's dispatch program — the chunk body or the
+    per-window body, serial or sharded — and route it through the
+    program store when warm serving is on. Returns (chunk_fn,
+    one_window, key, factory, example_args): exactly one of
+    chunk_fn/one_window is non-None; factory/example_args let
+    prewarm_dispatch resolve the identical program without running
+    it."""
+    from shadow_tpu_torch.compile import serve
+    from shadow_tpu_torch.core.engine import (
+        EngineStats,
+        make_chunk_body,
+        resolve_sparse_lanes,
+        step_window,
+    )
+    from shadow_tpu_torch.net.build import _caps_meta, resolve_wend_fn
+    from shadow_tpu_torch.parallel.elastic import make_sentinel_fn
+    from shadow_tpu_torch.telemetry.flows import make_flow_fn
+    from shadow_tpu_torch.telemetry.ring import make_telem_fn
+
+    cfg, dev = bundle.cfg, plan.device
+    key = None
+    if warm or compile_info is not None:
+        key = _program_key_for(bundle, plan, sim, app_handlers,
+                               sharded=mesh is not None,
+                               exchange_capacity=exchange_capacity)
+    step, end, wpd = plan.step, plan.end, plan.wpd
+    bulk_fn, fault_fn = plan.bulk_fn, plan.fault_fn
+    sparse = resolve_sparse_lanes(cfg)
+    meta = _caps_meta(plan.caps)
+    if plan.chunked:
+        wend_fn = resolve_wend_fn(bundle, end, plan.adaptive, fault_fn)
+
+        def factory():
+            if mesh is not None:
+                from shadow_tpu_torch.parallel.shard import \
+                    make_sharded_chunk
+
+                return make_sharded_chunk(
+                    mesh, mesh_axis, bundle.sim, cfg, step, end_time=end,
+                    wend_fn=wend_fn, chunk_windows=wpd,
+                    exchange_capacity=exchange_capacity, bulk_fn=bulk_fn,
+                    fault_fn=fault_fn)
+            return make_chunk_body(
+                step, end_time=end, wend_fn=wend_fn, chunk_windows=wpd,
+                emit_capacity=cfg.emit_capacity,
+                lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
+                telem_fn=make_telem_fn(), sparse_lanes=sparse,
+                fault_fn=fault_fn, flow_fn=make_flow_fn(),
+                sentinel_fn=make_sentinel_fn(None))
+        example = (sim, EngineStats.create(device=dev), 0)
+        chunk_fn = serve.maybe_warm(factory, key, enabled=warm, store=store,
+                                    meta=meta, info=compile_info)
+        return chunk_fn, None, key, factory, example
+
+    def factory():
+        if mesh is not None:
+            from shadow_tpu_torch.parallel.shard import make_sharded_window
+
+            return make_sharded_window(
+                mesh, mesh_axis, bundle.sim, cfg, step,
+                exchange_capacity=exchange_capacity, bulk_fn=bulk_fn,
+                fault_fn=fault_fn)
+        telem_fn, flow_fn = make_telem_fn(), make_flow_fn()
+
+        def one_window(s, wstart, wend):
+            return step_window(
+                s, EngineStats.create(device=dev), step, wend,
+                cfg.emit_capacity, s.net.lane_id, bulk_fn=bulk_fn,
+                telem_fn=telem_fn, wstart=wstart, sparse_lanes=sparse,
+                fault_fn=fault_fn, flow_fn=flow_fn,
+                sentinel_fn=make_sentinel_fn(None))
+        return one_window
+    example = (sim, 0, plan.min_jump)
+    one_window = serve.maybe_warm(factory, key, enabled=warm, store=store,
+                                  meta=meta, info=compile_info)
+    return None, one_window, key, factory, example
+
+
+def prewarm_dispatch(bundle, app_handlers=(), *, end_time=None, sim=None,
+                     mesh=None, mesh_axis: str = "hosts",
+                     exchange_capacity=None, windows_per_dispatch=None,
+                     adaptive_jump=None, store=None, device=None) -> dict:
+    """Resolve (or confirm already stored) the exact dispatch program
+    run_windows would use for this bundle, WITHOUT running a single
+    window — the engine behind compile.serve.prewarm. Returns the
+    compile-info block ({key, hit, compile_s|load_s})."""
+    from shadow_tpu_torch.compile.store import default_store
+    from shadow_tpu_torch.net.build import _caps_meta
+
+    sim = sim if sim is not None else bundle.sim
+    plan = _resolve_loop(bundle, app_handlers, end_time=end_time,
+                         fault_fn=None, mesh=mesh, mesh_axis=mesh_axis,
+                         windows_per_dispatch=windows_per_dispatch,
+                         adaptive_jump=adaptive_jump, sim=sim,
+                         device=device)
+    if mesh is not None:
+        from shadow_tpu_torch.parallel.shard import shard_sim
+
+        sim_ex = shard_sim(sim, mesh)
+    else:
+        sim_ex = sim
+    _, _, key, factory, example = _make_dispatch_fns(
+        bundle, plan, sim, app_handlers, mesh=mesh, mesh_axis=mesh_axis,
+        exchange_capacity=exchange_capacity, warm=False, store=store,
+        compile_info={})
+    st = store if store is not None else default_store()
+    _, info = st.get_or_compile(key, factory, (sim_ex,) + example[1:],
+                                meta=_caps_meta(plan.caps))
+    return info
+
+
 def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                 start_time: int = 0, sim=None,
                 checkpoint_every_ns: int | None = None,
@@ -399,55 +610,26 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
     chaos poison (parallel/elastic.py guard_dispatch,
     make_poisoned_dispatch).
 
-    `warm_start` and `compile_info` (ROADMAP.md Queue 1 item 11b) are
-    not ported yet and raise NotImplementedError."""
+    `warm_start` asks for the dispatch program from the persistent
+    program store (compile/) instead of building it inline: a stored
+    program for this shape loads its native libraries from the store
+    (no nvcc, no g++). SHADOW_WARM_PROGRAMS=1/0 overrides the caller's
+    choice; a store miss builds and persists for the next run; a store
+    failure serves the live program (compile/serve.py). `compile_info`,
+    when given, is filled with the manifest `compile` block ({key, warm,
+    hit, load_s|lower_s/compile_s}) at the first dispatch — the
+    supervisor threads it into the run manifest. An opaque caller
+    `fault_fn` disables warm serving (its constants cannot be keyed)."""
+    from shadow_tpu_torch.compile import serve as _serve
     from shadow_tpu_torch.core import simtime
-    from shadow_tpu_torch.core.engine import (
-        EngineStats,
-        _next_record,
-        make_chunk_body,
-        resolve_sparse_lanes,
-        step_window,
-    )
-    from shadow_tpu_torch.net.build import (
-        _check_sim_device,
-        _resolve_bulk_fn,
-        _resolve_caps,
-        _resolve_fault_fn,
-        _runner_device,
-        plan_times,
-        refuse_unported,
-        resolve_wend_fn,
-    )
-    from shadow_tpu_torch.net.step import make_step_fn
-    from shadow_tpu_torch.parallel.elastic import make_sentinel_fn
-    from shadow_tpu_torch.telemetry.flows import make_flow_fn
-    from shadow_tpu_torch.telemetry.ring import make_telem_fn
+    from shadow_tpu_torch.core.engine import EngineStats, _next_record
+    from shadow_tpu_torch.net.build import _check_sim_device, plan_times
 
-    refuse_unported(warm_start=(warm_start, "11b"),
-                    compile_info=(compile_info, "11b"))
-    if mesh is not None and device is not None \
-            and torch.device(device) != mesh.device:
-        raise ValueError(f"device {device} is not the mesh rank's "
-                         f"{mesh.device}")
-    dev = _runner_device(bundle, mesh.device if mesh is not None else device)
-    cfg = bundle.cfg
-    caps = _resolve_caps(bundle, fault_fn)
-    step = make_step_fn(cfg, app_handlers, caps=caps)
-    end = int(end_time if end_time is not None else cfg.end_time)
-    min_jump = max(int(bundle.min_jump), 1)
-    bulk_fn = _resolve_bulk_fn(bundle, getattr(bundle, "app_bulk", None),
-                               caps=caps)
-    fault_fn = _resolve_fault_fn(bundle, fault_fn)
-    wpd = (int(windows_per_dispatch) if windows_per_dispatch is not None
-           else max(1, int(getattr(cfg, "windows_per_dispatch", 1) or 1)))
-    if wpd < 1:
-        raise ValueError(f"windows_per_dispatch must be >= 1, got {wpd}")
-    adaptive = (bool(adaptive_jump) if adaptive_jump is not None
-                else bool(getattr(cfg, "adaptive_jump", False)))
-    sparse = resolve_sparse_lanes(cfg)
-    telem_fn = make_telem_fn()
-    flow_fn = make_flow_fn()
+    plan = _resolve_loop(bundle, app_handlers, end_time=end_time,
+                         fault_fn=fault_fn, mesh=mesh, mesh_axis=mesh_axis,
+                         windows_per_dispatch=windows_per_dispatch,
+                         adaptive_jump=adaptive_jump, sim=sim, device=device)
+    dev, end, min_jump = plan.device, plan.end, plan.min_jump
     # the record-time wend clamp of make_wend_fn
     records = plan_times(bundle)
     sim = sim if sim is not None else bundle.sim
@@ -503,32 +685,25 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                 f"NetConfig.inject_lanes) past the largest "
                 f"same-timestamp burst")
 
+    warm = _serve.warm_enabled(default=bool(warm_start))
+    chunk, one_window, _, _, _ = _make_dispatch_fns(
+        bundle, plan, sim, app_handlers, mesh=mesh, mesh_axis=mesh_axis,
+        exchange_capacity=exchange_capacity, warm=warm,
+        compile_info=compile_info)
+    if dispatch_wrap is not None:
+        # device-loss guard / chaos poison (parallel/elastic.py): the
+        # wrap sees every dispatch the loop issues
+        if chunk is not None:
+            chunk = dispatch_wrap(chunk)
+        if one_window is not None:
+            one_window = dispatch_wrap(one_window)
     if mesh is not None:
-        from shadow_tpu_torch.parallel.shard import (
-            make_sharded_chunk,
-            make_sharded_window,
-            shard_sim,
-        )
+        from shadow_tpu_torch.parallel.shard import shard_sim
+
         # the rank's shard; the input stays as it was
         sim = shard_sim(sim, mesh)
 
-    if wpd > 1 or adaptive or getattr(sim, "causality", None) is not None:
-        wend_fn = resolve_wend_fn(bundle, end, adaptive, fault_fn)
-        if mesh is None:
-            chunk = make_chunk_body(
-                step, end_time=end, wend_fn=wend_fn,
-                chunk_windows=wpd, emit_capacity=cfg.emit_capacity,
-                lane_fn=lambda s: s.net.lane_id, bulk_fn=bulk_fn,
-                telem_fn=telem_fn, sparse_lanes=sparse, fault_fn=fault_fn,
-                flow_fn=flow_fn, sentinel_fn=make_sentinel_fn(None))
-        else:
-            chunk = make_sharded_chunk(
-                mesh, mesh_axis, bundle.sim, cfg, step, end_time=end,
-                wend_fn=wend_fn, chunk_windows=wpd,
-                exchange_capacity=exchange_capacity, bulk_fn=bulk_fn,
-                fault_fn=fault_fn)
-        if dispatch_wrap is not None:
-            chunk = dispatch_wrap(chunk)
+    if chunk is not None:
         if feeder is not None and wstart <= end:
             # streaming: each refill must land in the staging planes
             # before the next chunk reads them; the plain loop below
@@ -586,22 +761,6 @@ def run_windows(bundle, app_handlers=(), *, end_time: int | None = None,
                 hook(g, cstats, wstart, wend_c, nm)
             wstart = nm
         return view(sim, True), total, saved
-
-    if mesh is not None:
-        one_window = make_sharded_window(
-            mesh, mesh_axis, bundle.sim, cfg, step,
-            exchange_capacity=exchange_capacity, bulk_fn=bulk_fn,
-            fault_fn=fault_fn)
-    else:
-        def one_window(s, wstart, wend):
-            return step_window(
-                s, EngineStats.create(device=dev), step, wend,
-                cfg.emit_capacity, s.net.lane_id, bulk_fn=bulk_fn,
-                telem_fn=telem_fn, wstart=wstart, sparse_lanes=sparse,
-                fault_fn=fault_fn, flow_fn=flow_fn,
-                sentinel_fn=make_sentinel_fn(None))
-    if dispatch_wrap is not None:
-        one_window = dispatch_wrap(one_window)
 
     while wstart <= end:
         if (next_ckpt is not None and wstart >= next_ckpt

@@ -98,7 +98,11 @@ def test_one_json_row_per_workload_and_topology(rows, workload, topo, name):
     lines = r.stdout.strip().splitlines()
     assert len(lines) == 1
     row = json.loads(lines[0])
-    assert set(row) == ROW_KEYS
+    # bench.py's PHOLD row carries its runner's program-store block
+    # (serving off); its pingpong row none
+    assert set(row) == ROW_KEYS | ({"compile"} if workload == "phold"
+                                   else set())
+    assert row.get("compile", {"warm": False}) == {"warm": False}
     assert row["metric"] == name and row["unit"] == "events/s"
     assert row["backend"] == "cpu" and row["device"] is None
     assert row["events"] > 0 and row["windows"] > 0 and row["wall_s"] > 0
@@ -138,6 +142,10 @@ def test_baseline_rule_by_scale():
     ({"BENCH_WORKLOAD": "relay"}, "BENCH_WORKLOAD"),
     ({"BENCH_CHUNK_WINDOWS": "0"}, "BENCH_CHUNK_WINDOWS"),
     ({"BENCH_PLATFORM": "tpu"}, "BENCH_PLATFORM"),
+    # the sweep and the profiler wait for their ROADMAP.md items
+    ({"BENCH_SWEEP": "1"}, "BENCH_SWEEP (ROADMAP.md Queue 1 item 12b)"),
+    ({"BENCH_PROFILE_DIR": "/tmp/p"},
+     "BENCH_PROFILE_DIR (ROADMAP.md Queue 1 item 13)"),
 ])
 def test_refused_knob_exits_non_zero(env, word):
     r = _run(**{"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16", **env})
@@ -154,7 +162,10 @@ def test_injection_rows_are_named_as_bench_py_names_them(rows, env, name):
     r = rows[name]
     assert r.returncode == 0, r.stderr
     row = json.loads(r.stdout)
-    assert set(row) == ROW_KEYS and row["metric"] == name
+    # the supervised loop's program-store block (serving off), keyed
+    assert set(row) == ROW_KEYS | {"compile"} and row["metric"] == name
+    assert row["compile"]["warm"] is False
+    assert sorted(row["compile"]) == ["key", "warm"]
     # 320 injected sends, each delivered by a NIC receive and a packet
     # event (the last few after the end), plus 16 process starts
     assert 320 * 2 < row["events"] < 320 * 3 + 16
@@ -259,7 +270,9 @@ def test_lifted_knob_row_matches_bench_py(lifted_rows, name):
         assert want["manifest"]["specialization"]["guard"]["loss_trips"] \
             == 0
     if name == "bucketed":
-        assert got["compile"] == {"buckets": want["compile"]["buckets"]}
+        # the runner's store block (serving off) and the bucket plan
+        assert got["compile"] == want["compile"] == {
+            "warm": False, "buckets": want["compile"]["buckets"]}
         assert got["compile"]["buckets"]["event_capacity"] == {
             "requested": 24, "bucketed": 32}
     if name == "active":

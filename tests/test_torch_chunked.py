@@ -11,6 +11,9 @@ reference, on the CPU:
   make_runner and to the reference's make_runner and
   make_chunked_runner (PHOLD with the bulk pass and the ring);
 - utils.checkpoint.run_windows on a one-rank mesh at K = 1 and 8;
+- warm serving (compile/serve.py) on the chunked runner and
+  run_windows: a store miss, a hit and a cold run, each equal to the
+  reference's;
 - utils.checkpoint.run_windows at K = 1 and K = 8, and the adaptive
   rule on a uniform graph equal to the static partition
   (tests/test_chunked.py's contract); on_chunk window counts summing to
@@ -391,14 +394,31 @@ def _counting_fault_fn():
     return fault_fn
 
 
-def test_chunked_runner_refusals():
+def test_chunked_runner_refusals(ref_runs, tmp_path, monkeypatch):
     tb = _bundle("port")
     with pytest.raises(ValueError, match="chunk_windows must be >= 1"):
         tbuild.make_chunked_runner(tb, chunk_windows=0, device="cpu")
-    for kw, item in (({"warm_start": True}, "item 11"),
-                     ({"compile_info": {}}, "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            tbuild.make_chunked_runner(tb, device="cpu", **kw)
+    # warm_start and compile_info, once refused, run: on one program
+    # store a miss, then a hit, then a cold run, each equal to the
+    # reference's K = 3 run
+    monkeypatch.setenv("SHADOW_AOT_DIR", str(tmp_path / "aot"))
+    monkeypatch.delenv("SHADOW_WARM_PROGRAMS", raising=False)
+    monkeypatch.delenv("SHADOW_NO_COMPILE_CACHE", raising=False)
+    infos = []
+    for warm in (True, True, False):
+        wb = _bundle("port", ring=True)
+        info = {}
+        sim, st = tbuild.make_chunked_runner(
+            wb, app_handlers=(tphold.handler,), app_bulk=tphold.BULK,
+            chunk_windows=3, device="cpu", warm_start=warm,
+            compile_info=info)(wb.sim)
+        assert st.as_dict() == ref_runs["chunked"][1]
+        _assert_leaves_equal(ref_runs["chunked"][0],
+                             convert.sim_to_numpy(sim))
+        infos.append(info)
+    assert [i.get("hit") for i in infos] == [False, True, None]
+    assert infos[0]["stored"] and infos[0]["key"] == infos[1]["key"]
+    assert infos[2] == {"warm": False}
     # a fault_fn is accepted and applied at every window's end
     fn = _counting_fault_fn()
     _, st = tbuild.make_chunked_runner(
@@ -415,12 +435,23 @@ def test_chunked_runner_refusals():
         assert wend_fn(tb.sim, 1_234_567) == 1_234_567 + tb.min_jump
 
 
-def test_run_windows_refusals(ref_runs):
+def test_run_windows_refusals(ref_runs, tmp_path, monkeypatch):
     tb = _bundle("port")
-    for kw, item in (({"warm_start": True}, "item 11"),
-                     ({"compile_info": {}}, "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            tckpt.run_windows(tb, device="cpu", **kw)
+    # warm_start and compile_info, once refused, run: a miss, a hit and
+    # a cold run on one key, each equal to the reference's whole run
+    monkeypatch.setenv("SHADOW_AOT_DIR", str(tmp_path / "aot"))
+    monkeypatch.delenv("SHADOW_WARM_PROGRAMS", raising=False)
+    monkeypatch.delenv("SHADOW_NO_COMPILE_CACHE", raising=False)
+    infos = []
+    for warm in (True, True, False):
+        info = {}
+        leaves, stats = _run_windows(warm_start=warm, compile_info=info)
+        assert stats == ref_runs["whole"][1]
+        _assert_leaves_equal(ref_runs["whole"][0], leaves)
+        infos.append(info)
+    assert [i.get("hit") for i in infos] == [False, True, None]
+    assert infos[0]["key"] == infos[1]["key"] == infos[2]["key"]
+    assert infos[2]["warm"] is False
     # dispatch_wrap, once refused, wraps every dispatch the loop issues
     # (one a window at K = 1, as the reference's per-window loop) and
     # changes nothing: the run equals the reference's

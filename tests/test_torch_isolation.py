@@ -64,7 +64,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.utils.shadowlog",
                 "shadow_tpu_torch.utils.objcount",
                 "shadow_tpu_torch.utils.tracker", *INJECTION, *LANES,
-                *COMPILE, *OBSERVE, *VPROC, *PARALLEL):
+                *COMPILE, *OBSERVE, *VPROC, *PARALLEL, *FLEET):
         assert mod in out["modules"]
 
 
@@ -82,7 +82,9 @@ LANES = ("shadow_tpu_torch.core.lanes", "shadow_tpu_torch.telemetry.flows",
 
 # the specialization and bucket slice's modules
 COMPILE = ("shadow_tpu_torch.compile", "shadow_tpu_torch.compile.buckets",
-           "shadow_tpu_torch.compile.specialize")
+           "shadow_tpu_torch.compile.specialize",
+           "shadow_tpu_torch.compile.store", "shadow_tpu_torch.compile.serve",
+           "shadow_tpu_torch.utils.compcache")
 
 
 # the netstack observability slice's host modules
@@ -101,6 +103,15 @@ VPROC = ("shadow_tpu_torch.process", "shadow_tpu_torch.process.vproc",
 # the sharded window loop's modules
 PARALLEL = ("shadow_tpu_torch.parallel", "shadow_tpu_torch.parallel.shard",
             "shadow_tpu_torch.parallel.elastic")
+
+
+# the warm-serving slice's fleet modules
+FLEET = ("shadow_tpu_torch.fleet", "shadow_tpu_torch.fleet.journal",
+         "shadow_tpu_torch.fleet.spec", "shadow_tpu_torch.fleet.state",
+         "shadow_tpu_torch.fleet.affinity", "shadow_tpu_torch.fleet.manifest",
+         "shadow_tpu_torch.fleet.scenario", "shadow_tpu_torch.fleet.worker",
+         "shadow_tpu_torch.fleet.runner", "shadow_tpu_torch.fleet.cli",
+         "shadow_tpu_torch.fleet.admission", "shadow_tpu_torch.fleet.__main__")
 
 
 # {module: (exit code, stdout, stderr)} of each module's fresh
@@ -133,7 +144,7 @@ def _probe_alone(mods) -> dict:
 def _imports_alone(mod):
     if not _ALONE:
         _ALONE.update(_probe_alone(INJECTION + LANES + COMPILE + OBSERVE
-                                   + VPROC + PARALLEL))
+                                   + VPROC + PARALLEL + FLEET))
     code, stdout, stderr = _ALONE[mod]
     assert code == 0, stderr
     assert json.loads(stdout.strip().splitlines()[-1]) == []
@@ -167,6 +178,27 @@ def test_vproc_module_imports_alone_without_jax(mod):
 @pytest.mark.parametrize("mod", PARALLEL)
 def test_parallel_module_imports_alone_without_jax(mod):
     _imports_alone(mod)
+
+
+@pytest.mark.parametrize("mod", FLEET)
+def test_fleet_module_imports_alone_without_jax(mod):
+    _imports_alone(mod)
+
+
+def test_fleet_job_needs_cuda_by_default(tmp_path):
+    """A fleet job runs on the card unless the fleet asks for the CPU:
+    without CUDA the default fails the job visibly (an error in its
+    result, ok false), it never moves to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behavior without a CUDA device")
+    from shadow_tpu_torch.fleet.scenario import run_job
+    from shadow_tpu_torch.fleet.spec import JobSpec
+
+    spec = JobSpec(id="j", kind="scenario", seed=1, hosts=4, load=1,
+                   sim_s=1)
+    res = run_job(spec, str(tmp_path / "j"))
+    assert res["ok"] is False and "CUDA" in res["error"]
+    assert json.loads((tmp_path / "j" / "result.json").read_text()) == res
 
 
 def test_mesh_needs_cuda_by_default():

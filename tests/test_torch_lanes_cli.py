@@ -38,7 +38,7 @@ from shadow_tpu_torch.core import lanes as tlanes
 from shadow_tpu_torch.net import build as tbuild
 from shadow_tpu_torch.utils import checkpoint as tckpt
 from test_config_cli import REFERENCE_PHOLD_XML
-from test_torch_cli import UNPORTED_MANIFEST, WALL, _main
+from test_torch_cli import WALL, WALL_MANIFEST, _compile_view, _main
 from torch_parity import assert_leaves_equal, jax_leaves, packed, to_jax
 
 torch.set_num_threads(1)
@@ -83,8 +83,9 @@ def test_lane_and_recorder_flags_run_like_the_reference(cli_runs):
     assert gman["lanes"]["replicas"] == 2
     assert gman["flows"]["sampled"] > 0 and gman["causality"]["sampled"] > 0
     for m in (wman, gman):
-        for k in UNPORTED_MANIFEST:
+        for k in WALL_MANIFEST:
             m.pop(k, None)
+        m["compile"] = _compile_view(m.get("compile"))
     assert gman == wman
     errors, _ = load_tool("telemetry_lint").lint_manifest_obj(gman)
     assert errors == []
@@ -152,6 +153,11 @@ SHARDS_ENV = dict(BENCH_PLATFORM="cpu", BENCH_HOSTS="16",
 # and the port's, which also runs the A/B on 2 gloo ranks
 SENTINEL_ENV = dict(BENCH_PLATFORM="cpu", BENCH_HOSTS="16",
                     BENCH_SIM_SECONDS="1", BENCH_SENTINEL="1")
+# BENCH_RESIDENT=2 (bench.py's _resident_row) at 4 hosts a tenant,
+# 1 sim-s: bench.py's row and the port's
+RESIDENT_ENV = dict(BENCH_PLATFORM="cpu", BENCH_HOSTS="4",
+                    BENCH_SIM_SECONDS="1", BENCH_LOAD="2",
+                    BENCH_RESIDENT="2")
 
 
 @pytest.fixture(scope="module")
@@ -175,7 +181,11 @@ def bench_rows():
             ["-m", "shadow_tpu_torch.bench"], **SENTINEL_ENV),
         ("port", "sentinel_ab"): _bench_start(
             ["-m", "shadow_tpu_torch.bench"], **SENTINEL_ENV,
-            BENCH_SENTINEL_OVERHEAD="1", BENCH_SHARDS="2")}
+            BENCH_SENTINEL_OVERHEAD="1", BENCH_SHARDS="2"),
+        ("ref", "resident"): _bench_start(["bench.py"], **RESIDENT_ENV,
+                                          JAX_PLATFORMS="cpu"),
+        ("port", "resident"): _bench_start(
+            ["-m", "shadow_tpu_torch.bench"], **RESIDENT_ENV)}
     return {k: _bench_finish(p) for k, p in procs.items()}
 
 
@@ -212,7 +222,7 @@ def test_bench_row_matches_bench_py(bench_rows):
      "BENCH_CAUSALITY"),
     ({"BENCH_FLOW_OVERHEAD": "1"}, "BENCH_FLOW_SAMPLE"),
     ({"BENCH_CAUSALITY_OVERHEAD": "1"}, "BENCH_CAUSALITY=N"),
-    ({"BENCH_RESIDENT": "4"}, "item 12"),
+    ({"BENCH_RESIDENT": "2"}, "resident"),
     ({"BENCH_SHARDS": "2"}, None),
     ({"BENCH_SENTINEL": "1"}, None),
 ], ids=["supervise", "inject", "pingpong", "flows_pingpong",
@@ -263,6 +273,31 @@ def test_bench_refuses_what_bench_py_refuses(env, word, bench_rows):
                 r = _bench(cmd, **dict(SENTINEL_ENV, **extra),
                            JAX_PLATFORMS="cpu")
                 assert r.returncode != 0 and word in r.stderr, r.stderr
+        return
+    if word == "resident":
+        # once refused, runs: the port's row has bench.py's name, its
+        # windows and dispatches and its "resident" block (but the
+        # program key, which hashes each package's own code); the
+        # scenario takes no other workload knob, as bench.py's
+        assert env.items() <= RESIDENT_ENV.items()
+        rows = {}
+        for key in ("ref", "port"):
+            r = bench_rows[key, "resident"]
+            assert r.returncode == 0, r.stderr
+            rows[key] = json.loads(r.stdout.strip().splitlines()[-1])
+        want, got = rows["ref"], rows["port"]
+        assert got["metric"] == want["metric"] == (
+            "events_per_sec_per_chip@4hosts_resident_x2lanes_churn")
+        assert (got["windows"], got["dispatches"]) == (
+            want["windows"], want["dispatches"])
+        assert dict(got["resident"], program_key=None) == dict(
+            want["resident"], program_key=None)
+        assert got["resident"]["program_key_stable"] is True
+        assert got["resident"]["retraces"] == 0
+        for extra in ({"BENCH_REPLICAS": "2"}, {"BENCH_RESIDENT": "1"}):
+            r = _bench(["-m", "shadow_tpu_torch.bench"],
+                       **dict(RESIDENT_ENV, **extra))
+            assert r.returncode != 0 and "BENCH_RESIDENT" in r.stderr
         return
     if word is None:
         assert env.items() <= SHARDS_ENV.items()

@@ -306,24 +306,16 @@ def test_timer_family_left_out_even_without_kinds(monkeypatch):
 
 
 def _key_for(pkg, b, caps):
-    """The whole-run program key: the reference's own rule
-    (net/build.py _whole_run_key_fn); for the port, the same rule over
-    its compile/buckets.py — the shape vector of the sim, the kind
-    census, and the capability token only when something was dropped
-    (the port's runners have no program store to key yet, item 11b)."""
-    if pkg == "jax":
-        return jbuild._whole_run_key_fn(
-            b, (jphold.handler,), end=b.cfg.end_time, path="whole",
-            chunk_windows=0, adaptive=False, fault_fn=None, app_bulk=None,
-            app_tcp_bulk=None, caps=caps)((b.sim,), {})
-    extra = {"path": "whole", "route_impl": None,
-             "tcp_bulk_lossless": False, "tcp_bulk": None}
-    if caps is not None and caps.key_extra() is not None:
-        extra["caps"] = caps.key_extra()
-    return buckets.program_key(
-        buckets.shape_vector_for_sim(b.cfg, b.sim),
-        chunk_windows=0, census=buckets.kind_census((tphold.handler,)),
-        end_time=b.cfg.end_time, min_jump=b.min_jump, extra=extra)
+    """The whole-run program key: each package's own rule
+    (net/build.py _whole_run_key_fn) — the shape vector of the sim, the
+    kind census, and the capability token only when something was
+    dropped."""
+    mod, handler = ((jbuild, jphold.handler) if pkg == "jax"
+                    else (tbuild, tphold.handler))
+    return mod._whole_run_key_fn(
+        b, (handler,), end=b.cfg.end_time, path="whole",
+        chunk_windows=0, adaptive=False, fault_fn=None, app_bulk=None,
+        app_tcp_bulk=None, caps=caps)((b.sim,), {})
 
 
 def _untrimmed_pair(pkg, mute):

@@ -312,7 +312,8 @@ def test_stall_and_regression_latches_trip(case, monkeypatch):
 @pytest.mark.parametrize("arg,item", [
     ("mesh", 9), ("exchange_capacity", 9), ("elastic", 9),
     ("dispatch_wrap", 9), ("on_mesh_change", 9), ("warm_start", 11)])
-def test_unported_arguments_are_refused(arg, item, tmp_path, ref):
+def test_unported_arguments_are_refused(arg, item, tmp_path, ref,
+                                        monkeypatch):
     """What is not ported raises naming its ROADMAP.md item. `mesh` and
     `exchange_capacity`, once refused, run: on a one-rank mesh (the
     sharded route at one shard, an exchange buffer past the outbox) the
@@ -324,7 +325,31 @@ def test_unported_arguments_are_refused(arg, item, tmp_path, ref):
     dispatch poisoned at the 5th call steps one same-mesh retry (the
     elastic block, the final state and the stats the reference's); a
     counting wrap sees the reference's dispatches; a serial run never
-    changes its mesh (tests/test_torch_elastic.py shrinks 4 ranks)."""
+    changes its mesh (tests/test_torch_elastic.py shrinks 4 ranks).
+    `warm_start`, once refused, runs: on one program store a miss, then
+    a hit, each equal to the reference's run, SupervisorResult.
+    compile_info the final attempt's block (the reference's supervised
+    run holds such a block too)."""
+    if arg == "warm_start":
+        monkeypatch.setenv("SHADOW_AOT_DIR", str(tmp_path / "aot"))
+        monkeypatch.delenv("SHADOW_WARM_PROGRAMS", raising=False)
+        monkeypatch.delenv("SHADOW_NO_COMPILE_CACHE", raising=False)
+        infos = []
+        for i in range(2):
+            res, _ = _supervise("port", tmp_path / f"ck{i}",
+                                warm_start=True)
+            assert res.ok
+            _assert_leaves_equal(ref["leaves"],
+                                 convert.sim_to_numpy(res.sim))
+            assert _stats(res.stats) == ref["stats"]
+            infos.append(res.compile_info)
+        assert [i["hit"] for i in infos] == [False, True]
+        assert infos[0]["key"] == infos[1]["key"] and infos[0]["stored"]
+        assert sorted(ref["res"].compile_info) == ["key", "warm"]
+        cold, _ = _supervise("port", tmp_path / "cold")
+        assert sorted(cold.compile_info) == ["key", "warm"]
+        assert cold.compile_info["warm"] is False
+        return
     if arg in ("elastic", "dispatch_wrap", "on_mesh_change"):
         from shadow_tpu.parallel import elastic as jel
         from shadow_tpu_torch.parallel import elastic as tel

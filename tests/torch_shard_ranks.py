@@ -683,3 +683,39 @@ def vproc_cases(rank, size, init):
         out[name] = (log, ev, leaves, *rest)
     mesh.close()
     return out
+
+
+def warm_sharded_case(rank, size, init, aot_dir):
+    """The warm sharded runner (compile/serve.py) on the 8-host
+    pingpong: make_sharded_runner(warm_start=True) twice against one
+    program store — a miss, then a hit — and the serial runner's key
+    for the same bundle. Returns {"runs": [(leaves, stats)] * 2,
+    "infos": [miss, hit], "serial_key"}."""
+    import os
+
+    from shadow_tpu_torch.parallel import make_sharded_runner
+
+    os.environ["SHADOW_AOT_DIR"] = aot_dir
+    mesh = mesh_for(rank, size, init)
+    runs, infos = [], []
+    for _ in range(2):
+        b = pingpong()
+        info: dict = {}
+        s, st = make_sharded_runner(b, mesh, app_handlers=(tping.handler,),
+                                    warm_start=True,
+                                    compile_info=info)(b.sim)
+        leaves = convert.sim_to_numpy(s)
+        check_replicated(mesh, leaves)
+        runs.append((leaves, stats_dict(st)))
+        infos.append(info)
+    serial: dict = {}
+    b = pingpong()
+    tbuild.make_runner(b, app_handlers=(tping.handler,), device="cpu",
+                       compile_info=serial)
+    key_fn = tbuild._whole_run_key_fn(
+        b, (tping.handler,), end=b.cfg.end_time, path="whole",
+        chunk_windows=0, adaptive=False, fault_fn=None, app_bulk=None,
+        app_tcp_bulk=None)
+    mesh.close()
+    return {"runs": runs, "infos": infos,
+            "serial_key": key_fn((b.sim,), {})}
