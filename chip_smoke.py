@@ -340,6 +340,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    a non-empty window of both trials, exact on the resident route and
    timed there. 22b and 22c's undisturbed run go in one process started
    beside phases 17-21.
+23. the counterfactual sweep, sharded fleet jobs and profiles: (23a)
+   `BENCH_SWEEP=1 BENCH_SIM_SECONDS=1 python -m shadow_tpu_torch.bench`
+   alone — bench.py's lattice (seed {1, 2} x load {8, 9} x
+   event_capacity {24, 32}: 8 points, 2 programs) at 10,240 hosts
+   through the port's sweep driver on 2 workers sharing the card, a
+   warm-up sweep and the scored one on a fresh dir — both exit 0, the
+   lattice conserved, the scored sweep's prewarm hit rate 1.0, every
+   point's events and digest, and its mailbox_gather launches, equal to
+   the serial oracle (scenario.run_job of each point in process on the
+   card, the first point's route held against the kernel's plain version
+   and timed there), the ranking and best point the oracle's, its
+   points/s; (23b) the lattice's load-8 row (2 points) through `sweep
+   run` on one worker, SIGKILLed (its process group) after its first
+   completed point, then `--resume`: the completed point leased once,
+   every point done once, the ranking byte for byte the one reduce.rank
+   gives the oracle's points, each digest the oracle's; (23c) 23a's
+   first point as a `shards = 2` job through `fleet run`: on one card a
+   lease of 1 (device_lease {requested 2, leased 1}) and the oracle's
+   digest, on two or more 2 NCCL ranks with rank 1 SIGKILLed after the
+   first snapshot and the oracle's width_digest; the manifest accepted
+   by tools/telemetry_lint.py; (23d) `python -m shadow_tpu_torch.cli
+   --profile-dir` on 14b's cli-phold-ref (its report, the manifest's
+   lint-clean profile block, CUDA kernel events in the trace) and
+   `BENCH_SIM_SECONDS=1 python -m shadow_tpu_torch.bench` without and
+   with BENCH_PROFILE_DIR (equal counts on the two rows, the profile
+   block, CUDA kernel events in the extra call's trace); a missing
+   capture fails the phase. The oracle and 23c, and 23b and 23d, go in
+   two processes started beside phases 14-21; 23a runs alone after 22.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
@@ -1129,6 +1157,17 @@ FLEET_KILL = "s1"
 RES_LANES = 4
 RES_SIM_S = 1
 RES_WARM_NS = 200_000_000
+# --- phase 23: the counterfactual sweep, sharded fleet jobs, profiles ----
+# 23a: bench.py's BENCH_SWEEP lattice at full width (seed {1, 2} x load
+# {8, 9} x event_capacity {24, 32}: 8 points, 2 programs), cut to 1
+# sim-s, on 2 workers; its serial oracle runs beside phases 17-21
+SWEEP_SIM_S = 1
+# 23b: the lattice's load-8, event-capacity-24 row alone (seed {1, 2}:
+# 23a's points p0000 and p0004) on one worker, `sweep run` SIGKILLed
+# after its first point and resumed
+SWEEP_KILL_POINTS = {"p0000": "p0000", "p0001": "p0004"}
+# 23c: 23a's p0000 as a `shards = 2` fleet job
+SWEEP_MESH = "p0000"
 
 INVALID_TIME = 2**63 - 1
 
@@ -6844,6 +6883,563 @@ def resident_cell(calm):
         "resident_gather": gather}, g["gather_err"]
 
 
+def _sweep_points():
+    """23a's SweepSpec (bench.py's lattice at full width) and {pid:
+    JobSpec} of its round-0 points."""
+    from shadow_tpu_torch import bench
+    from shadow_tpu_torch.sweep import plan
+
+    spec = plan.SweepSpec.from_obj(
+        bench.sweep_spec_obj(HOSTS, LOAD, SWEEP_SIM_S))
+    return spec, {p.pid: spec.point_spec(p, 0) for p in plan.expand(spec)}
+
+
+def _kill_spec_obj():
+    """23b's sweep: 23a's template at load 8 and an event queue of 24,
+    swept over the seeds only."""
+    from shadow_tpu_torch import bench
+
+    obj = bench.sweep_spec_obj(HOSTS, LOAD, SWEEP_SIM_S)
+    obj["sweep"]["id"] = "kill"
+    obj["template"].update(load=LOAD, event_capacity=3 * LOAD)
+    obj["axes"] = [{"field": "seed", "values": [1, 2]}]
+    return obj
+
+
+def trace_kernels(path) -> dict:
+    """{"kernels": CUDA kernel events, "mailbox_gather": those of the
+    port's kernel, "cats": events by category} of a Chrome trace that
+    torch.profiler exported (its events' "cat" precedes their "name")."""
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    cats: dict = {}
+    out = {"kernels": 0, "mailbox_gather": 0}
+    for m in re.finditer(r'"cat":\s*"([^"]*)",\s*"name":\s*"([^"]*)"',
+                         text):
+        cats[m.group(1)] = cats.get(m.group(1), 0) + 1
+        if m.group(1) == "kernel":
+            out["kernels"] += 1
+            out["mailbox_gather"] += "mailbox_gather" in m.group(2)
+    out["cats"] = cats
+    return out
+
+
+def _one_trace(directory):
+    import glob
+    import os
+
+    found = glob.glob(os.path.join(directory, "torch_trace.*.json"))
+    if len(found) != 1:
+        raise AssertionError(f"23d: {len(found)} traces in {directory}")
+    return found[0]
+
+
+def _sweep_run(root, sweep_dir, env, err, *extra):
+    """`python -m shadow_tpu_torch.cli sweep run` on one worker in a
+    session of its own, its log (a line a fleet event) into the file
+    `err`."""
+    import subprocess
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "shadow_tpu_torch.cli", "sweep", "run",
+         "--sweep-dir", sweep_dir, "--workers", "1", *extra], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+        start_new_session=True)
+
+
+def _fleet_status(fleet_dir) -> dict:
+    from shadow_tpu_torch.fleet import journal
+
+    recs, _ = journal.replay(fleet_dir + "/journal.log")
+    st: dict = {}
+    for r in recs:
+        if r.get("job"):
+            st.setdefault(r["job"], []).append(r["ev"])
+    return st
+
+
+def mesh_job(tmp, spec, env) -> dict:
+    """23c: `python -m shadow_tpu_torch.cli fleet run` of `spec` as a
+    `shards = 2` job on one worker; on two or more cards its rank 1 is
+    SIGKILLed once the job's first snapshot is on disk (the pid its log
+    line names). Returns the exit code, the card count, the pid killed,
+    the job's manifest entry, tools/telemetry_lint.py's verdict on the
+    fleet manifest and the seconds."""
+    import os
+    import signal
+    import subprocess
+    import threading
+    from pathlib import Path
+
+    import torch
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    jobs = os.path.join(tmp, "mesh_jobs.json")
+    with open(jobs, "w") as f:
+        json.dump({"fleet": {"backoff_base_s": 0.0, "backoff_cap_s": 0.0,
+                             "lease_timeout_s": 300.0},
+                   "jobs": [dict(spec.as_dict(), id="mesh", shards=2,
+                                 checkpoint_every_windows=4)]}, f)
+    fleet = os.path.join(tmp, "mesh_fleet")
+    cards = torch.cuda.device_count()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shadow_tpu_torch.cli", "fleet", "run",
+         "--jobs-file", jobs, "--fleet-dir", fleet, "--workers", "1"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    killed = []
+
+    def kill_rank():
+        import glob
+
+        job_dir = os.path.join(fleet, "jobs", "mesh")
+        t_end = time.monotonic() + 600
+        while time.monotonic() < t_end and proc.poll() is None:
+            log_path = os.path.join(job_dir, "rank1.log")
+            if os.path.exists(log_path) and glob.glob(
+                    os.path.join(job_dir, "ck.*.npz")):
+                with open(log_path) as f:
+                    first = f.readline()
+                if "pid " in first:
+                    pid = int(first.split("pid ")[1])
+                    os.kill(pid, signal.SIGKILL)
+                    killed.append(pid)
+                    return
+            time.sleep(0.05)
+
+    if cards >= 2:
+        threading.Thread(target=kill_rank, daemon=True).start()
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+    man_path = os.path.join(fleet, "fleet_manifest.json")
+    man = json.load(open(man_path)) if os.path.exists(man_path) else {}
+    lint = subprocess.run(
+        [sys.executable, str(root / "tools" / "telemetry_lint.py"),
+         "--fleet-manifest", man_path], cwd=root, capture_output=True,
+        text=True, timeout=300)
+    return {"rc": proc.returncode, "cards": cards, "killed": killed,
+            "job": (man.get("jobs") or {}).get("mesh"),
+            "lint": [lint.returncode, (lint.stdout + lint.stderr)[-2000:]],
+            "tail": stderr.strip().splitlines()[-20:],
+            "s": round(time.perf_counter() - t0, 3)}
+
+
+def check_mesh_job(m, o) -> dict:
+    """23c's checks of mesh_job's result `m` against the oracle point
+    `o`: exit 0, the job done, the manifest lint-clean, the oracle's
+    events; on one card a lease of 1 and the oracle's digest, on two or
+    more a killed rank, a lease of 2 and the oracle's width_digest.
+    Returns the job's result."""
+    j = m["job"] or {}
+    res = j.get("result") or {}
+    lease = res.get("device_lease") or {}
+    ok = (m["rc"] == 0 and j.get("verdict") == "ok" and m["lint"][0] == 0
+          and res.get("counters", {}).get("events_processed")
+          == o["counters"]["events_processed"])
+    if m["cards"] >= 2:
+        ok = ok and bool(m["killed"]) and lease.get("leased") == 2 and \
+            res.get("width_digest") == o["width_digest"]
+    else:
+        ok = ok and lease == {"requested": 2, "leased": 1,
+                              "devices": ["cuda:0"], "final_shards": 1} \
+            and res.get("digest") == o["digest"]
+    if not ok:
+        raise AssertionError(f"23c: {json.dumps(m)[-4000:]}")
+    log(f"  23c: `fleet run` of {SWEEP_MESH} as a shards = 2 job on "
+        f"{m['cards']} card(s): lease {json.dumps(lease)}, elastic "
+        f"{json.dumps(res.get('elastic'))[:600]}, the oracle's "
+        f"{'width_digest' if m['cards'] >= 2 else 'digest'}, the manifest "
+        f"lint-clean; mailbox_gather "
+        f"{res['kernel_launches']['mailbox_gather']} launches on the "
+        f"reporting rank")
+    return res
+
+
+def oracle_side_main(tmp) -> int:
+    """23a's serial oracle and 23c, beside phases 14-21: every point of
+    the lattice by scenario.run_job in process on the card, its
+    mailbox_gather launches counted, the first point's route inputs kept
+    (the kernel against its plain version there, and timed); then
+    mesh_job of p0000. Prints one {"sweep_side"} line. Run as `python3
+    -c "import chip_smoke; chip_smoke.oracle_side_main(tmp)"`."""
+    import os
+
+    from shadow_tpu_torch.fleet.scenario import run_job
+
+    env = dict(os.environ, SHADOW_AOT_DIR=os.path.join(tmp, "aot"))
+    out = {}
+    _, points = _sweep_points()
+    t0 = time.perf_counter()
+    out["oracle"], gather, err = {}, None, 0
+    for pid, spec in points.items():
+        with KeepGatherInputs() as kept:
+            res = run_job(spec, os.path.join(tmp, "oracle", pid),
+                          device="cuda")
+        out["oracle"][pid] = {
+            k: res.get(k) for k in ("ok", "digest", "width_digest",
+                                    "counters", "kernel_launches",
+                                    "health_verdict", "error")}
+        if gather is None:
+            err = kept.check("23a oracle p0000")
+            gather = time_gather("23a oracle p0000 route", kept.kept)
+    out["oracle_s"] = round(time.perf_counter() - t0, 3)
+    out["gather"], out["gather_err"] = gather, err
+    out["mesh"] = mesh_job(tmp, points[SWEEP_MESH], env)
+    print(json.dumps({"sweep_side": out}), flush=True)
+    return 0
+
+
+def _bench_profiled(root, prof):
+    """`python -m shadow_tpu_torch.bench` at phase 4's program cut to
+    SWEEP_SIM_S, with BENCH_PROFILE_DIR=`prof` when given: {"rc", "row",
+    "trace", "tail", "s"}."""
+    import os
+    import subprocess
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "SHADOW_"))}
+    env.update(BENCH_SIM_SECONDS=str(SWEEP_SIM_S))
+    if prof:
+        env.update(BENCH_PROFILE_DIR=prof)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "shadow_tpu_torch.bench"],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=900)
+    rows = [ln for ln in r.stdout.splitlines() if ln.startswith('{"metric"')]
+    return {"rc": r.returncode, "row": json.loads(rows[-1]) if rows else None,
+            "trace": (trace_kernels(_one_trace(prof))
+                      if prof and r.returncode == 0 else None),
+            "tail": r.stderr[-3000:], "s": round(time.perf_counter() - t0, 3)}
+
+
+def kill_side_main(tmp) -> int:
+    """23b and 23d, beside phases 14-21: 23d's CLI with --profile-dir (a
+    subprocess, beside the rest); 23b — `sweep run` of _kill_spec_obj
+    SIGKILLed after its first completed point, then `--resume`; 23d's
+    bench row at SWEEP_SIM_S without and then with BENCH_PROFILE_DIR (the
+    rows' counts are compared; their events/s is not claimed). Prints
+    one {"sweep_side"} line. Run as `python3 -c "import chip_smoke;
+    chip_smoke.kill_side_main(tmp)"`."""
+    import os
+    import signal
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, SHADOW_AOT_DIR=os.path.join(tmp, "aot"))
+    out = {}
+    prof = os.path.join(tmp, "prof")
+    cli = start_cli("cli-phold-ref-prof", REFERENCE_PHOLD_XML, tmp,
+                    "--profile-dir", prof, "--telemetry-capacity", "64")
+    # ---- 23b: a sweep killed and resumed ----------------------------
+    t0 = time.perf_counter()
+    spec_path = os.path.join(tmp, "kill.json")
+    with open(spec_path, "w") as f:
+        json.dump(_kill_spec_obj(), f)
+    d = os.path.join(tmp, "kill_sweep")
+    logf = open(os.path.join(tmp, "kill_sweep.log"), "w")
+    proc = _sweep_run(root, d, env, logf, "--spec", spec_path)
+    try:
+        done, t_end = [], time.monotonic() + 900
+        while time.monotonic() < t_end and not done and proc.poll() is None:
+            done = [j for j, evs in _fleet_status(d).items()
+                    if "done" in evs]
+            time.sleep(0.05)
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate(timeout=60)
+    before = sorted(j for j, evs in _fleet_status(d).items()
+                    if "done" in evs)
+    kill_s = round(time.perf_counter() - t0, 3)
+    resumed = _sweep_run(root, d, env, logf, "--resume")
+    resumed.communicate(timeout=900)
+    logf.close()
+    with open(os.path.join(tmp, "kill_sweep.log")) as f:
+        r_err = f.read()
+    rep_path = os.path.join(d, "sweep_report.json")
+    out["kill"] = {"rc": proc.returncode, "resume_rc": resumed.returncode,
+                   "before": before, "status": _fleet_status(d),
+                   "report": (json.load(open(rep_path))
+                              if os.path.exists(rep_path) else None),
+                   "jobs": {jid: {k: (j.get("result") or {}).get(k)
+                                  for k in ("digest", "counters")}
+                            for jid, j in (json.load(open(os.path.join(
+                                d, "fleet_manifest.json"))).get("jobs")
+                                or {}).items()},
+                   "tail": r_err.strip().splitlines()[-20:],
+                   "kill_s": kill_s,
+                   "s": round(time.perf_counter() - t0, 3)}
+    # ---- 23d: the bench row, then the same row with a profiled call --
+    bprof = os.path.join(tmp, "bench_prof")
+    out["bench"] = {"plain": _bench_profiled(root, None),
+                    "profiled": _bench_profiled(root, bprof),
+                    "dir": os.path.abspath(bprof)}
+    # ---- 23d's CLI ----------------------------------------------------
+    report = finish_cli(cli)[0]
+    data = os.path.join(tmp, "cli-phold-ref-prof.data", "run_manifest.json")
+    man = json.load(open(data))
+    lint = load_lint().lint_manifest_obj(man)
+    out["cli"] = {"report": report,
+                  "profile": man.get("profile"), "lint": lint[0],
+                  "trace": trace_kernels(_one_trace(prof)),
+                  "dir": os.path.abspath(prof)}
+    print(json.dumps({"sweep_side": out}), flush=True)
+    return 0
+
+
+def start_sweep_sides(tmp):
+    """Phase 23's untimed runs, in two processes started beside phases
+    14-21: {"23o": oracle_side_main, "23k": kill_side_main}, each in a
+    directory of its own under `tmp`."""
+    import os
+
+    out = {}
+    for key, fn in (("23o", "oracle_side_main"), ("23k", "kill_side_main")):
+        d = os.path.join(tmp, key)
+        os.makedirs(d, exist_ok=True)
+        out[key] = start_proc(f"{key} sweep side", [
+            sys.executable, "-c", "import sys, chip_smoke; "
+            f"sys.exit(chip_smoke.{fn}({d!r}))"])
+    return out
+
+
+def sweep_bench_main() -> int:
+    """23a's bench process: `python -m shadow_tpu_torch.bench`'s main
+    with BENCH_SWEEP in the environment; after each sweep has returned
+    and its wall was read (the row's report() call after run()), its
+    fleet manifest's per-point results are kept (the row deletes the
+    directories). Prints the row, then one {"sweep_runs"} line. Run as
+    `python3 -c "import chip_smoke; chip_smoke.sweep_bench_main()"`."""
+    import os
+
+    from shadow_tpu_torch import bench
+    from shadow_tpu_torch.sweep import driver as sweep_driver
+
+    real = (sweep_driver.SweepDriver.run, sweep_driver.SweepDriver.report)
+    runs = []
+
+    def run(self, **kw):
+        rc = real[0](self, **kw)
+        self._returned = True
+        return rc
+
+    def report(self):
+        blk = real[1](self)
+        if getattr(self, "_returned", False):
+            man = json.load(open(os.path.join(self.sweep_dir,
+                                              "fleet_manifest.json")))
+            jobs = {}
+            for jid, j in man["jobs"].items():
+                res = j.get("result") or {}
+                jm = (json.load(open(res["manifest"]))
+                      if res.get("manifest") else {})
+                jobs[jid] = {"status": j.get("status"),
+                             "digest": res.get("digest"),
+                             "counters": res.get("counters"),
+                             "kernel_launches": res.get("kernel_launches"),
+                             "hit": (jm.get("compile") or {}).get("hit")}
+            runs.append({"ranking": blk["ranking"], "best": blk["best"],
+                         "prewarm": blk.get("prewarm"), "jobs": jobs})
+        return blk
+
+    sweep_driver.SweepDriver.run, sweep_driver.SweepDriver.report = \
+        run, report
+    try:
+        code = bench.main([])
+    finally:
+        sweep_driver.SweepDriver.run, sweep_driver.SweepDriver.report = \
+            real
+    print(json.dumps({"sweep_runs": runs}), flush=True)
+    return code
+
+
+def _oracle_ranking(oracle, pids):
+    """The ranking reduce.rank gives the oracle's results of `pids`
+    (pid -> oracle pid) as fleet-manifest entries: what an uninterrupted
+    sweep of those points ranks, by the reducer's purity."""
+    from shadow_tpu_torch.sweep import plan, reduce
+
+    entries = {pid: {"status": "done", "result": {
+        "counters": oracle[o]["counters"],
+        "health_verdict": oracle[o]["health_verdict"]}}
+        for pid, o in pids.items()}
+    return reduce.rank(entries, plan.Objective(metric="events", goal="max"))
+
+
+def sweep_cell(sides, smi):
+    """Phase 23's checks: 23b, 23c and 23d from the side processes
+    (`sides`); then 23a's bench process alone (its row, each point's
+    events and digest equal to the serial oracle's, the best point the
+    oracle's, mailbox_gather launched on each point as in the oracle's
+    run). Returns (row fields, max abs error of the kernel on the
+    sweep's route)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    got, f, walls = {}, {}, {}
+    for key, side in sides.items():
+        code, stdout, stderr, walls[key] = finish_proc(side)
+        if code != 0:
+            raise AssertionError(f"{key} side: exit {code}:\n"
+                                 f"{stdout[-3000:]}\n{stderr[-3000:]}")
+        f.update(_json_line(stdout, '{"sweep_side"')["sweep_side"])
+    oracle = f["oracle"]
+    bad = {p: o for p, o in oracle.items() if not o["ok"]}
+    if bad:
+        raise AssertionError(f"23a oracle: {bad}")
+    log(f"  23 sides: the serial oracle's {len(oracle)} points in "
+        f"{f['oracle_s']} s, then 23c in {f['mesh']['s']} s (the process "
+        f"{walls['23o']:.1f} s from its start); 23b in {f['kill']['s']} s, "
+        f"23d's two bench rows in {f['bench']['plain']['s']} and "
+        f"{f['bench']['profiled']['s']} s (the process "
+        f"{walls['23k']:.1f} s from its start)")
+    # ---- 23b -----------------------------------------------------------
+    k = f["kill"]
+    want_rank = _oracle_ranking(oracle, SWEEP_KILL_POINTS)
+    rep = k["report"] or {}
+    if (k["rc"] != -signal.SIGKILL or k["resume_rc"] != 0
+            or len(k["before"]) != 1):
+        raise AssertionError(f"23b: {k}")
+    first = k["before"][0]
+    evs = k["status"][first]
+    if evs.count("leased") != 1 or any(
+            e.count("done") != 1 for e in k["status"].values()):
+        raise AssertionError(f"23b: a point ran again: {k['status']}")
+    if json.dumps(rep.get("ranking")) != json.dumps(want_rank) or \
+            rep.get("best") != want_rank[0]["point"]:
+        raise AssertionError(f"23b: ranking {rep.get('ranking')} != "
+                             f"{want_rank}")
+    for pid, o in SWEEP_KILL_POINTS.items():
+        if k["jobs"][f"r0-{pid}"]["digest"] != oracle[o]["digest"]:
+            raise AssertionError(f"23b {pid}: digest != the oracle's {o}")
+    log(f"  23b: `sweep run` SIGKILLed {k['kill_s']} s in, after {first} "
+        f"completed; `--resume` exit 0, {first} leased once, every point "
+        f"done once; ranking and best {rep['best']} byte for byte the "
+        f"uninterrupted ranking of the oracle's points "
+        f"{sorted(SWEEP_KILL_POINTS.values())}, each digest the oracle's")
+    got["sweep_kill"] = {"kill_s": k["kill_s"], "s": k["s"]}
+    # ---- 23c -----------------------------------------------------------
+    res = check_mesh_job(f["mesh"], oracle[SWEEP_MESH])
+    got["launches_sharded"] = res["kernel_launches"]["mailbox_gather"]
+    got["sweep_mesh"] = {"lease": res["device_lease"], "s": f["mesh"]["s"]}
+    # ---- 23d -----------------------------------------------------------
+    c = f["cli"]
+    check_report("23d cli-phold-ref --profile-dir", c["report"],
+                 PHOLD_REF_REPORT)
+    if (c["profile"] != {"dir": c["dir"], "tool": "torch.profiler"}
+            or c["lint"] or c["trace"]["kernels"] == 0):
+        raise AssertionError(f"23d CLI: {c}")
+    log(f"  23d: `python -m shadow_tpu_torch.cli --profile-dir` on "
+        f"cli-phold-ref: the report as 14b's ({c['report']['wall_seconds']} "
+        f"s of run), the manifest's profile block {c['profile']} "
+        f"lint-clean, the trace {c['trace']['kernels']} CUDA kernel events, "
+        f"{c['trace']['mailbox_gather']} of mailbox_gather; by category "
+        f"{json.dumps(c['trace']['cats'])}")
+    tmp = tempfile.mkdtemp(prefix="shadow_sweep_bench_")
+    # ---- 23a -----------------------------------------------------------
+    log(f"[23a] `BENCH_SWEEP=1 BENCH_SIM_SECONDS={SWEEP_SIM_S} python -m "
+        f"shadow_tpu_torch.bench` at {HOSTS} hosts, load {LOAD}, 2 workers")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "SHADOW_"))}
+    env.update(BENCH_SWEEP="1", BENCH_SIM_SECONDS=str(SWEEP_SIM_S),
+               SHADOW_AOT_DIR=os.path.join(tmp, "aot"))
+    started = start_proc("23a bench BENCH_SWEEP", [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "sys.exit(chip_smoke.sweep_bench_main())"], env=env)
+    code, stdout, stderr, wall = finish_proc(started)
+    if code != 0:
+        raise AssertionError(f"23a: exit {code}:\n{stdout[-3000:]}\n"
+                             f"{stderr[-3000:]}")
+    row = _json_line(stdout, '{"metric"')
+    runs = _json_line(stdout, '{"sweep_runs"')["sweep_runs"]
+    log(f"  23a: exit 0 in {wall:.1f} s: {json.dumps(row)}")
+    sw = row["sweep"]
+    if (sw["exit_warm"], sw["exit_timed"], sw["lattice_conserved"],
+            sw["prewarm_hit_rate"], sw["points"]["completed"]) != (
+            0, 0, True, 1.0, len(oracle)):
+        raise AssertionError(f"23a: sweep block {sw}")
+    if len(runs) != 2:
+        raise AssertionError(f"23a: {len(runs)} sweeps reported")
+    timed = runs[1]
+    launches = 0
+    for pid, o in sorted(oracle.items()):
+        j = timed["jobs"][f"r0-{pid}"]
+        want = (o["counters"]["events_processed"], o["digest"],
+                o["kernel_launches"]["mailbox_gather"])
+        have = (j["counters"]["events_processed"], j["digest"],
+                j["kernel_launches"]["mailbox_gather"])
+        if j["status"] != "done" or have != want or not j["hit"]:
+            raise AssertionError(f"23a {pid}: {j} against the oracle's "
+                                 f"{o}")
+        launches += have[2]
+        log(f"  23a {pid}: events {have[0]}, digest {have[1][:16]} = the "
+            f"oracle's; mailbox_gather {have[2]} launches = the oracle's; "
+            f"program a store hit")
+    want_rank = _oracle_ranking(oracle, {p: p for p in oracle})
+    if json.dumps(timed["ranking"]) != json.dumps(want_rank) or \
+            timed["best"] != want_rank[0]["point"]:
+        raise AssertionError(f"23a: ranking {timed['ranking']} != the "
+                             f"oracle's {want_rank}")
+    if launches == 0:
+        raise AssertionError("23a: no point launched mailbox_gather")
+    log(f"  23a on {smi}: {row['value']} points/s ({row['wall_seconds']} s "
+        f"for {sw['points']['completed']} points on 2 workers; the warm-up "
+        f"sweep {row['compile_s']} s), prewarm {sw['prewarm_hits']}/"
+        f"{sw['prewarm_hits'] + sw['prewarm_compiled']} hits, best "
+        f"{sw['best']} = the oracle's; mailbox_gather {launches} launches "
+        f"over the scored sweep's points")
+    got["sweep"] = {k: row[k] for k in ("value", "wall_seconds",
+                                        "compile_s", "compile_cache")}
+    got["sweep"].update(best=sw["best"], prewarm_hits=sw["prewarm_hits"],
+                        distinct=sw["distinct_programs"],
+                        warm_prewarm=runs[0]["prewarm"])
+    got["launches_sweep"] = launches
+    # ---- 23d's bench ---------------------------------------------------
+    bb = f["bench"]
+    for k in ("plain", "profiled"):
+        if bb[k]["rc"] != 0 or bb[k]["row"] is None:
+            raise AssertionError(f"23d bench ({k}): exit {bb[k]['rc']}:\n"
+                                 f"{bb[k]['tail']}")
+    brow, tk = bb["profiled"]["row"], bb["profiled"]["trace"]
+    counts = {k: brow[k] for k in ("metric", "events", "windows",
+                                   "micro_steps")}
+    want = {k: bb["plain"]["row"][k] for k in counts}
+    if counts != want:
+        raise AssertionError(f"23d bench: counts {counts} != the "
+                             f"unprofiled row's {want}")
+    if brow.get("profile") != {"dir": bb["dir"], "tool": "torch.profiler"}:
+        raise AssertionError(f"23d bench: no capture: {brow}\n"
+                             f"{bb['profiled']['tail']}")
+    if tk["kernels"] == 0:
+        raise AssertionError(f"23d bench: the trace holds no CUDA kernel "
+                             f"event: {tk}")
+    log(f"  23d: `BENCH_SIM_SECONDS={SWEEP_SIM_S} python -m "
+        f"shadow_tpu_torch.bench` with BENCH_PROFILE_DIR exit 0 in "
+        f"{bb['profiled']['s']} s (beside phases 14-21): the row's counts "
+        f"those of the same row without it, {want}; the profiled extra "
+        f"call's trace {tk['kernels']} CUDA kernel events, "
+        f"{tk['mailbox_gather']} of mailbox_gather; by category "
+        f"{json.dumps(tk['cats'])}")
+    got["profile"] = {"cli": c["trace"], "bench": tk,
+                      "bench_s": bb["profiled"]["s"]}
+    shutil.rmtree(tmp, ignore_errors=True)
+    gather = dict(f["gather"], launches=launches)
+    got["sweep_route"] = {k: gather[k] for k in (
+        "n", "ms", "plain_ms", "bound_ms", "library_ms", "launches")}
+    return got, f["gather_err"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7093,6 +7689,9 @@ def run_phases(args, bench, insert_kernels) -> int:
     shards_tmp = tempfile.TemporaryDirectory(prefix="shadow_shards_")
     shards_side = start_shards_side(shards_tmp.name)
     shards_side["21"] = start_elastic_side()
+    # and phase 23's (its serial oracle and 23c; 23b and 23d)
+    sweep_tmp = tempfile.TemporaryDirectory(prefix="shadow_sweep_")
+    shards_side.update(start_sweep_sides(sweep_tmp.name))
     # phase 17 frees these: no reference stays here
     carried = [main4, relay6s, phase4]
     del main4, relay6s
@@ -7103,6 +7702,7 @@ def run_phases(args, bench, insert_kernels) -> int:
         for st in shards_side.values():
             stop_proc(st)
         shards_tmp.cleanup()
+        sweep_tmp.cleanup()
 
 
 def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
@@ -7165,9 +7765,10 @@ def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
 
 def _phases_17_on(args, row, device, smi, kind, phase, phase_s,
                   shards_side, keep, phase4, fleet_side) -> int:
-    """Phases 17-22 and the result lines (22b and 22c's oracle already
-    running in `fleet_side`; `keep` holds phases 4's and 6s's runs for
-    17)."""
+    """Phases 17-23 and the result lines (22b and 22c's oracle already
+    running in `fleet_side`, phase 23's untimed runs in
+    `shards_side["23o"]` and `["23k"]`; `keep` holds phases 4's and
+    6s's runs for 17)."""
     import tempfile
 
     import torch
@@ -7264,6 +7865,17 @@ def _phases_17_on(args, row, device, smi, kind, phase, phase_s,
     gather = got.pop("resident_gather")
     row["resident_route"] = {k: gather[k] for k in (
         "n", "ms", "plain_ms", "bound_ms", "library_ms", "launches")}
+    row.update(got)
+
+    phase("23")
+    log(f"[23] the counterfactual sweep, sharded fleet jobs and profiles: "
+        f"BENCH_SWEEP=1 at {HOSTS} hosts (8 points, {SWEEP_SIM_S} sim-s, 2 "
+        f"workers) against its serial oracle; a sweep SIGKILLed and "
+        f"resumed; a shards = 2 fleet job; --profile-dir and "
+        f"BENCH_PROFILE_DIR")
+    got, err = sweep_cell({k: shards_side[k] for k in ("23o", "23k")},
+                          smi)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update(got)
 
     phase(None)

@@ -156,12 +156,35 @@ Env knobs (bench.py's, for what the port runs):
                                  timed the same way;
                                  sentinel_overhead_pct = (off-on)/off
                                  (needs BENCH_SENTINEL=1)
+  BENCH_SWEEP=1                  its own scenario (bench.py's
+                                 _sweep_row): the lattice seed {1, 2} x
+                                 load {L, L+1} x event_capacity {3L,
+                                 4L} at BENCH_HOSTS hosts through the
+                                 sweep driver (sweep/driver.py) on a
+                                 2-worker fleet on the run's device,
+                                 twice: the warm-up sweep builds every
+                                 distinct program into the store, the
+                                 scored sweep re-runs the lattice in a
+                                 fresh dir; the row banks its points/s
+                                 and a "sweep" block (lattice_conserved,
+                                 prewarm hits/compiled/hit rate, best:
+                                 tools/bench_regress.py fails a row
+                                 whose sweep exited non-zero, lattice
+                                 is not conserved or hit rate is below
+                                 1.0); alone
+  BENCH_PROFILE_DIR=DIR          after the row's timed call and every
+                                 A/B, ONE extra unscored call under a
+                                 torch.profiler capture
+                                 (telemetry/profile.py) exported into
+                                 DIR; the row gains {"profile": {"dir",
+                                 "tool": "torch.profiler"}}. A profiler
+                                 that cannot start warns and the row
+                                 goes out without the block (bench.py's
+                                 rule)
   BENCH_PLATFORM=cpu             run on the CPU
 
-Every other BENCH_* knob of bench.py is refused (SystemExit naming it;
-BENCH_SWEEP waits for ROADMAP.md Queue 1 item 12b and BENCH_PROFILE_DIR
-for item 13), and so are
-bench.py's own refusals: --faults, BENCH_SUPERVISE
+Every other BENCH_* knob of bench.py is refused (SystemExit naming it),
+and so are bench.py's own refusals: --faults, BENCH_SUPERVISE
 and BENCH_MIN_JUMP_MS with pingpong (bench.py ignores the last there),
 BENCH_REPLICAS, BENCH_FLOW_SAMPLE and BENCH_CAUSALITY with pingpong,
 BENCH_REPLICAS with BENCH_SUPERVISE or an injection scenario,
@@ -249,9 +272,16 @@ KNOBS = frozenset({"BENCH_WORKLOAD", "BENCH_TOPO", "BENCH_HOSTS",
                    "BENCH_SPECIALIZE", "BENCH_BUCKETED", "BENCH_ACTIVE",
                    "BENCH_SPARSE_LANES", "BENCH_SHARDS", "BENCH_SENTINEL",
                    "BENCH_SENTINEL_OVERHEAD", "BENCH_WARM",
-                   "BENCH_RESIDENT"})
-# bench.py knobs whose mechanism waits for a ROADMAP.md Queue 1 item
-UNPORTED = {"BENCH_SWEEP": "12b", "BENCH_PROFILE_DIR": 13}
+                   "BENCH_RESIDENT", "BENCH_SWEEP", "BENCH_PROFILE_DIR"})
+# the loop and workload knobs BENCH_SWEEP and BENCH_RESIDENT do not
+# combine with (bench.py's exclusivity lists)
+_SHAPE_KNOBS = ("BENCH_REPLICAS", "BENCH_SUPERVISE", "BENCH_ACTIVE",
+                "BENCH_SPARSE_LANES", "BENCH_INJECT_TRACE",
+                "BENCH_INJECT_RATE", "BENCH_CHUNK_WINDOWS",
+                "BENCH_SHARDS", "BENCH_FLOW_OVERHEAD",
+                "BENCH_FLOW_SAMPLE", "BENCH_CAUSALITY",
+                "BENCH_CAUSALITY_OVERHEAD", "BENCH_SENTINEL",
+                "BENCH_SENTINEL_OVERHEAD")
 # the leaves the reference gives per shard count (parallel/shard.py),
 # and the ring planes whose meaning is per shard (micro-steps are the
 # slowest rank's, routed_local/cross split by rank): left out of the
@@ -904,6 +934,100 @@ def resident_row(H: int, load: int, sim_s: int, lanes: int,
     }
 
 
+def sweep_spec_obj(H: int, load: int, sim_s: int) -> dict:
+    """bench.py's _sweep_row lattice: seed {1, 2} x load {L, L+1} x
+    event_capacity {3L, 4L} (the capacities share a pow2 bucket at the
+    default load, so the census stays small), a grid ranked on events."""
+    return {
+        "sweep": {"id": "bench",
+                  "objective": {"metric": "events", "goal": "max"},
+                  "search": {"strategy": "grid"}},
+        "fleet": {"max_attempts": 2},
+        "template": {"kind": "scenario", "hosts": H, "sim_s": sim_s},
+        "axes": [
+            {"field": "seed", "values": [1, 2]},
+            {"field": "load", "values": [load, load + 1]},
+            {"field": "event_capacity",
+             "values": [3 * load, 4 * load]},
+        ],
+    }
+
+
+def sweep_row(H: int, load: int, sim_s: int, device) -> dict:
+    """bench.py's _sweep_row (BENCH_SWEEP=1): the fleet as a query
+    service. sweep_spec_obj's lattice through the sweep driver
+    (sweep/driver.py) on 2 workers on `device`, twice: the warm-up
+    sweep pays every distinct program's build into the program store,
+    the scored sweep re-runs the identical lattice in a fresh dir and
+    must find every program warm (prewarm_hit_rate 1.0). The banked
+    value is completed points per second of the scored sweep."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from shadow_tpu_torch.sweep import driver as sweep_driver
+    from shadow_tpu_torch.sweep import plan as plan_mod
+
+    spec_obj = sweep_spec_obj(H, load, sim_s)
+    dev = torch.device(device).type
+    root = tempfile.mkdtemp(prefix="bench_sweep_")
+    try:
+        t0 = time.perf_counter()
+        warm = sweep_driver.SweepDriver(
+            os.path.join(root, "warm"),
+            plan_mod.SweepSpec.from_obj(spec_obj), workers=2,
+            fsync=False, device=dev)
+        rc_warm = warm.run()
+        warm_s = time.perf_counter() - t0
+        warm_block = warm.report()
+        t0 = time.perf_counter()
+        timed = sweep_driver.SweepDriver(
+            os.path.join(root, "timed"),
+            plan_mod.SweepSpec.from_obj(spec_obj), workers=2,
+            fsync=False, device=dev)
+        rc_timed = timed.run()
+        wall = time.perf_counter() - t0
+        block = timed.report()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    pts = block["points"]
+    conserved = (pts["expanded"] == pts["completed"] + pts["failed"]
+                 + pts["quarantined"] + pts["pruned"]
+                 + pts["pending"]) and pts["pending"] == 0
+    pw = block.get("prewarm") or {"hits": 0, "compiled": 0}
+    warmed = pw["hits"] + pw["compiled"]
+    hit_rate = (pw["hits"] / warmed) if warmed else 0.0
+    value = pts["completed"] / wall if wall > 0 else 0.0
+    return {
+        "metric": (f"sweep_points_per_sec@{pts['expanded']}points"
+                   f"_{block['census']['distinct']}programs"
+                   f"_x2workers"),
+        "value": round(value, 3),
+        "unit": "points/s",
+        "vs_baseline": 0.0,
+        "backend": dev,
+        "device": device_line(device),
+        "compile_s": round(warm_s, 3),
+        "compile_cache": ("cached" if (warm_block.get("prewarm")
+                                       or {}).get("compiled", 1) == 0
+                          else "fresh"),
+        "wall_seconds": round(wall, 3),
+        "sweep": {
+            "exit_warm": rc_warm,
+            "exit_timed": rc_timed,
+            "lattice": block["lattice"],
+            "points": pts,
+            "lattice_conserved": bool(conserved),
+            "distinct_programs": block["census"]["distinct"],
+            "prewarm_hits": pw["hits"],
+            "prewarm_compiled": pw["compiled"],
+            "prewarm_hit_rate": round(hit_rate, 3),
+            "best": block["best"],
+        },
+    }
+
+
 def _env_int(name, default):
     v = os.environ.get(name)
     if not v:
@@ -927,10 +1051,8 @@ def main(argv=None) -> int:
     off = sorted(k for k, v in os.environ.items()
                  if k.startswith("BENCH_") and v and k not in KNOBS)
     if off:
-        named = [f"{k} (ROADMAP.md Queue 1 item {UNPORTED[k]})"
-                 if k in UNPORTED else k for k in off]
         raise SystemExit(f"shadow_tpu_torch.bench does not implement "
-                         f"{', '.join(named)} (see ROADMAP.md)")
+                         f"{', '.join(off)} (see ROADMAP.md)")
     if os.environ.get("BENCH_WARM") == "1":
         # warm-rerun scoring: the runners resolve their dispatch
         # programs through the persistent program store
@@ -1053,16 +1175,17 @@ def main(argv=None) -> int:
             if on:
                 raise SystemExit(f"{flag} is only wired for "
                                  f"BENCH_WORKLOAD=phold")
+    sweep = os.environ.get("BENCH_SWEEP") == "1"
+    if sweep and (any(os.environ.get(k) for k in
+                      _SHAPE_KNOBS + ("BENCH_RESIDENT",))
+                  or workload != "phold" or topo != "one" or args.faults):
+        raise SystemExit(
+            "BENCH_SWEEP is its own scenario (a job lattice through the "
+            "sweep driver on a warm worker pool); it does not combine "
+            "with the other workload/loop shapes")
     resident = _env_int("BENCH_RESIDENT", 0)
     if resident:
-        if (any(os.environ.get(k) for k in
-                ("BENCH_REPLICAS", "BENCH_SUPERVISE", "BENCH_ACTIVE",
-                 "BENCH_SPARSE_LANES", "BENCH_INJECT_TRACE",
-                 "BENCH_INJECT_RATE", "BENCH_CHUNK_WINDOWS",
-                 "BENCH_SHARDS", "BENCH_FLOW_OVERHEAD",
-                 "BENCH_FLOW_SAMPLE", "BENCH_CAUSALITY",
-                 "BENCH_CAUSALITY_OVERHEAD", "BENCH_SENTINEL",
-                 "BENCH_SENTINEL_OVERHEAD"))
+        if (any(os.environ.get(k) for k in _SHAPE_KNOBS)
                 or workload != "phold" or topo != "one"
                 or args.faults):
             raise SystemExit(
@@ -1088,6 +1211,9 @@ def main(argv=None) -> int:
             device = rank_device(rank, device)
     except RuntimeError as e:
         raise SystemExit(f"shadow_tpu_torch.bench: {e}") from None
+    if sweep:
+        print(json.dumps(sweep_row(H, load, sim_s, device)))
+        return 0
     if resident:
         print(json.dumps(resident_row(H, load, sim_s, resident, device)))
         return 0
@@ -1238,6 +1364,26 @@ def main(argv=None) -> int:
         if caps is not None:
             row["specialization"] = {"dropped": list(caps.dropped()),
                                      "key_extra": caps.key_extra()}
+    # BENCH_PROFILE_DIR: capture ONE extra, unscored run, after every
+    # export has read the timed run's state (a capture costs wall time,
+    # so it never brackets the run whose events/s banks); on a mesh
+    # every rank runs it and writes its own trace
+    prof_dir = os.environ.get("BENCH_PROFILE_DIR")
+    if prof_dir:
+        from shadow_tpu_torch.telemetry.profile import Capture
+
+        cap = None
+        try:
+            cap = Capture(prof_dir, device)
+            runner()
+            _sync(device)
+        except Exception as e:  # noqa: BLE001 — the profiler is optional
+            print(f"WARNING: BENCH_PROFILE_DIR: profiler unavailable "
+                  f"({e}); continuing without capture", file=sys.stderr)
+        finally:
+            if cap is not None:
+                cap.stop()
+                row["profile"] = cap.block
     if mesh is not None:
         mesh.close()
         if mesh.rank != 0:

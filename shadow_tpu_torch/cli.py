@@ -56,10 +56,14 @@ the reference's warning. A config with `.py` plugins runs its virtual
 processes on the mesh (ProcessRuntime(mesh=...)): each rank runs the
 coroutines of its own hosts.
 
-Flags whose mechanism the port does not have yet are refused by name
-(exit 2): `--profile-dir`, which names jax.profiler. The `fleet`
-sub-command is delegated to fleet/cli.py as the reference delegates it;
-`sweep` waits for ROADMAP.md Queue 1 item 12b. The build root is
+`--profile-dir DIR` brackets the run with a torch.profiler capture
+(telemetry/profile.py: host operators, and the CUDA kernels on the
+card) exported into DIR as a Chrome trace, with the manifest's
+`profile` block; a profiler that cannot start warns and the run goes
+on, as in the reference. No flag is refused (`refused_flags` is
+empty). The `fleet` and `sweep` sub-commands are delegated to
+fleet/cli.py and sweep/cli.py as the reference delegates them. The
+build root is
 claimed for this host at the start (utils/compcache.py), and every run
 path records its program-store block in the manifest's `compile`.
 
@@ -224,8 +228,10 @@ def make_parser() -> argparse.ArgumentParser:
                         "events (default 64); overruns are accounted "
                         "in the manifest, never silently")
     p.add_argument("--profile-dir", default=None, metavar="DIR",
-                   help="refused: names jax.profiler (chip_smoke.py "
-                        "--profile profiles the port)")
+                   help="capture a torch.profiler trace of the run "
+                        "(host operators, and CUDA kernels on the card) "
+                        "into DIR as a Chrome trace; the manifest's "
+                        "profile block points at it")
     p.add_argument("--host-kernel", choices=("run", "diff"), default=None,
                    help="execute the config's .py-plugin processes on "
                         "the REAL host kernel (hostrun backend): 'run' "
@@ -349,12 +355,9 @@ def overrides_from_args(args) -> dict:
 
 def refused_flags(args) -> list[str]:
     """The flags given whose mechanism is not ported, each with its
-    ROADMAP.md Queue 1 item."""
-    out = []
-    if args.profile_dir is not None:
-        out.append("--profile-dir (it names jax.profiler; "
-                   "chip_smoke.py --profile profiles the port)")
-    return out
+    ROADMAP.md Queue 1 item: none are left (`--profile-dir`, the last,
+    runs a torch.profiler capture)."""
+    return []
 
 
 def _host_kernel_mode(args, b, loaded, logger, device) -> int:
@@ -441,9 +444,10 @@ def main(argv=None) -> int:
 
         return fleet_main(argv[1:])
     if argv and argv[0] == "sweep":
-        print("error: `sweep` is not ported yet (ROADMAP.md Queue 1 "
-              "item 12b)", file=sys.stderr)
-        return 2
+        # `sweep ...` is its own sub-CLI (sweep/cli.py)
+        from shadow_tpu_torch.sweep.cli import main as sweep_main
+
+        return sweep_main(argv[1:])
     args = make_parser().parse_args(argv)
     refused = refused_flags(args)
     if refused:
@@ -551,6 +555,18 @@ class _Telemetry:
         # {key, hit, load_s|compile_s} block from it (the supervised
         # path uses the supervisor's own copy instead)
         self.cinfo: dict = {}
+        # --profile-dir's torch.profiler span (telemetry/profile.py)
+        self.capture = None
+
+    @property
+    def profile(self):
+        """The manifest's `profile` block (None without a capture)."""
+        return None if self.capture is None else self.capture.block
+
+    def stop_profile(self) -> None:
+        """End the capture and export its trace (idempotent)."""
+        if self.capture is not None:
+            self.capture.stop()
 
     def phase(self, name):
         return (self.timers.phase(name) if self.timers is not None
@@ -769,6 +785,29 @@ def _run(args, text, device, logger) -> int:
             cap.drain(s)
             progress_hook(s, wend)
 
+    # --profile-dir: bracket the device work with a torch.profiler span
+    # (telemetry/profile.py), stopped at convergence and again in the
+    # finally so an abort never leaves it running; the manifest's
+    # "profile" block records where the trace landed
+    if args.profile_dir:
+        from shadow_tpu_torch.telemetry.profile import Capture
+
+        try:
+            tel.capture = Capture(args.profile_dir, device)
+        except Exception as e:  # noqa: BLE001 — the profiler is optional
+            logger.warning(0, "shadow-tpu",
+                           f"--profile-dir: capture unavailable ({e}); "
+                           f"continuing without profile")
+    try:
+        return _run_tail(args, b, loaded, device, logger, tel, cap,
+                         window_hook, progress_hook, resume_ckpt, t0)
+    finally:
+        tel.stop_profile()
+
+
+def _run_tail(args, b, loaded, device, logger, tel, cap, window_hook,
+              progress_hook, resume_ckpt, t0) -> int:
+    """_run's run branches, from the mesh width to the report."""
     # --workers: the mesh, after every attachment (the ranks shard the
     # final Sim)
     width = mesh_width(args, b, device, logger)
@@ -1093,6 +1132,7 @@ def _export(args, b, sim, stats, health, tel, sup_result=None, *,
             h, num_hosts=b.cfg.num_hosts, shards=shards,
             sample_period=args.flow_sample or None),
         admission=admission_manifest_block(health),
+        profile=tel.profile,
         causality=caus_blk,
         compile_info=(sup_result.compile_info if sup_result is not None
                       else (tel.cinfo or None)),
@@ -1121,6 +1161,8 @@ def _report(args, b, sim, stats, wall, logger, sup_result, tel) -> int:
     from shadow_tpu_torch.utils.shadowlog import level_from_name
     from shadow_tpu_torch.utils.tracker import Tracker
 
+    # convergence: the capture covers the run, not the report
+    tel.stop_profile()
     end = b.cfg.end_time
     # ref: the tracker heartbeat subsystem, tracker.c:419-607, and the
     # shutdown object counter dump, slave.c:237-241

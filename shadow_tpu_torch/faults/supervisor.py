@@ -244,7 +244,9 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
     `deadline_exceeded=True`. `on_round(sim, wstats, wstart, wend,
     next_min)` runs after the health check at each barrier;
     `on_window(sim, wend)` after it. `log` takes one message string;
-    `sleep` is injectable for tests.
+    `sleep` is injectable for tests. On a mesh, pass `stop` and
+    `max_run_wallclock` alike on every rank: their flags are reduced
+    over the ranks at each barrier.
 
     `windows_per_dispatch` / `adaptive_jump` (default: the bundle cfg's
     knobs) select the chunked loop: the barrier — health latches,
@@ -665,17 +667,26 @@ def run_supervised(bundle, app_handlers=(), *, fault_fn=None,
             if on_window is not None:
                 on_window(sim, wend)
             # preemption polls LAST: the round is complete and every
-            # observer has seen it
-            if stop is not None and stop() and next_min < simtime.INVALID:
+            # observer has seen it. On a mesh the ranks decide together
+            # (one max-reduce of both flags a barrier), so a stop or a
+            # deadline seen by one rank snapshots every rank at the
+            # same barrier
+            halt = stop is not None and bool(stop())
+            el = (_time.monotonic() - t_chain0
+                  if max_run_wallclock is not None else 0.0)
+            late = max_run_wallclock is not None \
+                and el >= max_run_wallclock
+            if cur_mesh is not None and (stop is not None
+                                         or max_run_wallclock is not None):
+                halt, late = (bool(v) for v in cur_mesh.all_reduce_ints(
+                    [int(halt), int(late)], "max"))
+            if halt and next_min < simtime.INVALID:
                 raise Preempted(_save(sim, next_min, tele["acc"]),
                                 next_min, sim)
-            if max_run_wallclock is not None \
-                    and next_min < simtime.INVALID:
-                el = _time.monotonic() - t_chain0
-                if el >= max_run_wallclock:
-                    raise DeadlineExceeded(
-                        _save(sim, next_min, tele["acc"]), next_min, sim,
-                        elapsed_s=el)
+            if late and next_min < simtime.INVALID:
+                raise DeadlineExceeded(
+                    _save(sim, next_min, tele["acc"]), next_min, sim,
+                    elapsed_s=el)
 
         def _result(ok, sim, h, **kw):
             return SupervisorResult(

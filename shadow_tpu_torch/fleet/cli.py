@@ -163,7 +163,7 @@ def _cmd_run(args) -> int:
 def fold_job_status(records) -> tuple[dict, dict]:
     """Pure fold of replayed journal frames -> (job status map,
     checkpoint map). Shared by `fleet status` and the sweep status
-    paths (the reference's sweep/cli.py), which join these statuses
+    paths (sweep/cli.py), which join these statuses
     against the sweep journal's rounds."""
     status: dict = {}
     checkpoints: dict = {}
@@ -220,10 +220,21 @@ def _cmd_status(args) -> int:
         out["resident"] = {"lease_frames": len(lrecs),
                            "population": {str(k): v for k, v
                                           in sorted(pop.items())}}
-    if os.path.isfile(os.path.join(args.fleet_dir, "sweep.log")):
-        # a sweep's fleet dir: the sweep fold is not ported yet
-        out["sweep"] = {"error": "the sweep is not ported yet "
-                                 "(ROADMAP.md Queue 1 item 12b)"}
+    sweep_log = os.path.join(args.fleet_dir, "sweep.log")
+    if os.path.isfile(sweep_log):
+        # this fleet dir is a sweep's execution substrate: fold the
+        # sweep journal read-only into per-round progress (points
+        # done / failed / pruned per round) instead of leaving only
+        # the flat job counts above (sweep/driver.py shares the fold)
+        from shadow_tpu_torch.sweep import driver as sweep_driver
+
+        frames, _ = journal_mod.replay(sweep_log)
+        if frames:
+            try:
+                out["sweep"] = sweep_driver.fold_sweep_status(
+                    frames, status)
+            except Exception as e:  # noqa: BLE001 — status stays up
+                out["sweep"] = {"error": f"{type(e).__name__}: {e}"}
     man_path = os.path.join(args.fleet_dir, "fleet_manifest.json")
     if os.path.isfile(man_path):
         out["manifest"] = man_path

@@ -13,11 +13,25 @@ manifest rolls up.
 
 Every job runs on the device its worker was given (`device`: "cuda" on
 the card, "cpu" when the fleet asks for it); a worker that cannot reach
-CUDA fails its job, it never moves to the CPU. A sharded spec
-(`shards` > 1) fails by name: the port runs a mesh as one process a
-rank (parallel/shard.py), which a fleet worker does not start yet
-(ROADMAP.md Queue 1 item 12c), so the reference's DEVICE_LOST requeue
-at the degraded width has no job to come from.
+CUDA fails its job, it never moves to the CPU.
+
+A sharded spec (`shards` > 1) leases n = min(shards,
+next_pow2_down(devices)) ranks, the devices counted as the CLI's
+--workers counts them (the cards on CUDA, the request on the CPU); the
+result's `device_lease` block says {requested, leased, devices,
+final_shards}. With n > 1 the worker runs as rank 0 and starts ranks
+1..n-1 as subprocesses (`python -m shadow_tpu_torch.fleet.scenario
+RANKFILE`, parallel/shard.py RankProcesses: a fresh rendezvous each
+attempt, each rank killed by the kernel when its worker dies:
+die_with_parent), and
+every rank runs the scenario under `run_supervised(mesh=...,
+elastic=ElasticPolicy())`. The rank that reports (rank 0 unless the
+ladder retired it) writes the result. A ladder exhausted on device
+loss with more than one shard left returns the reference's
+`device_lost` verdict {lost_shard, new_shards = final // 2, cause}: the
+runner requeues the same attempt at that width (`shards_override`).
+With n = 1 the job runs serially, as the reference's does on a one-chip
+host.
 
 Determinism: run_job(spec) is a pure function of the spec — the
 checkpoint contract (run(0->T) == run(0->C) + resume(C->T)) makes the
@@ -31,27 +45,50 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import signal
+import sys
 import time
 from typing import Optional
 
 from shadow_tpu_torch.fleet.spec import JobSpec
 
 
-def sim_digest(sim) -> str:
-    """sha256 over every leaf's bytes (keyed by leaf path) — the
+# the leaves whose values depend on the shard count (the outbox's route
+# counters; parallel/shard.py), left out of `width_digest`
+PER_SHARD_LEAVES = (".outbox.narrow_hit", ".outbox.narrow_miss",
+                    ".outbox.max_occupied", ".outbox.route_elided")
+
+
+def sim_digests(sim) -> tuple:
+    """(sim_digest, width_digest) of one state, in one pass over its
+    leaves: sha256 over every leaf's bytes keyed by leaf path — the
     bit-identity fingerprint the fleet compares against a clean serial
-    run of the same spec. Leaves are hashed under their flax path and
-    as the reference's dtype (convert.sim_to_numpy), in the reference's
-    flatten order, so the digest equals the reference's."""
+    run of the same spec — and the same over every leaf but
+    PER_SHARD_LEAVES, which is equal for a job run at any width (a
+    sharded job, a ladder's shrink, a requeue at a degraded width).
+    Leaves are hashed under their flax path and as the reference's
+    dtype (convert.sim_to_numpy), in the reference's flatten order, so
+    sim_digest equals the reference's."""
     import numpy as np
 
     from shadow_tpu_torch.convert import sim_to_numpy
 
-    h = hashlib.sha256()
+    full, width = hashlib.sha256(), hashlib.sha256()
     for path, arr in sim_to_numpy(sim).items():
-        h.update(path.encode())
-        h.update(np.ascontiguousarray(arr).tobytes())
-    return h.hexdigest()
+        key = path.encode()
+        data = np.ascontiguousarray(arr).tobytes()
+        full.update(key)
+        full.update(data)
+        if path not in PER_SHARD_LEAVES:
+            width.update(key)
+            width.update(data)
+    return full.hexdigest(), width.hexdigest()
+
+
+def sim_digest(sim) -> str:
+    """The first of sim_digests: equal to the reference's for the same
+    state."""
+    return sim_digests(sim)[0]
 
 
 def _write_json(path: str, obj) -> str:
@@ -284,11 +321,71 @@ def slo_verdict(spec: JobSpec, flows_blk) -> dict | None:
             "tenant_class": spec.tenant_class}
 
 
+# the rank file a sharded job's started ranks read (one per attempt,
+# written by rank 0 before it starts them)
+RANK_FILE = "mesh_ranks.json"
+
+
+def _lease_width(want: int, dev) -> tuple:
+    """The reference's width rule for a sharded job: (n, devices) with
+    n = min(want, next_pow2_down(device count)) and the devices of ranks
+    0..n-1 — the device count as cli.mesh_width takes it: the cards on
+    CUDA, the request on the CPU."""
+    import torch
+
+    from shadow_tpu_torch.device import rank_device
+    from shadow_tpu_torch.parallel.elastic import next_pow2_down
+
+    avail = torch.cuda.device_count() if dev.type == "cuda" else int(want)
+    n = min(int(want), next_pow2_down(max(1, avail)))
+    devices = []
+    for r in range(n):
+        d = rank_device(r, dev)
+        devices.append(f"{d.type}:{r if d.index is None else d.index}")
+    return n, devices
+
+
+def _start_ranks(spec, job_dir, resume_from, dev, n, device_lease):
+    """Ranks 1..n-1 of a sharded job's attempt, on a fresh rendezvous;
+    they read RANK_FILE."""
+    from shadow_tpu_torch.parallel.shard import RankProcesses
+
+    _write_json(os.path.join(job_dir, RANK_FILE), {
+        "spec": spec.as_dict(), "job_dir": job_dir,
+        "resume_from": resume_from, "device": dev.type,
+        "device_lease": device_lease})
+    return RankProcesses("shadow_tpu_torch.fleet.scenario",
+                         [os.path.join(job_dir, RANK_FILE)], n)
+
+
+def _await_ranks(ranks, prefix, heartbeat, deadline_s=None) -> None:
+    """Wait for the started ranks to exit, heartbeating meanwhile so the
+    fleet's lease holds: without a deadline while a rank carries the
+    run (the ladder retired this one; the job's wallclock watchdog
+    bounds it), else within `deadline_s` once this rank is done."""
+    from shadow_tpu_torch.utils import checkpoint as ckpt
+
+    t_end = None if deadline_s is None else time.monotonic() + deadline_s
+    while ranks.alive() and (t_end is None or time.monotonic() < t_end):
+        if heartbeat is not None:
+            heartbeat({"wstart": -1,
+                       "checkpoint": ckpt.latest_checkpoint(prefix)})
+        time.sleep(0.2)
+
+
 def _run_scenario(spec: JobSpec, job_dir: str, *, resume_from,
-                  stop, heartbeat, log, device=None) -> dict:
+                  stop, heartbeat, log, device=None,
+                  mesh_rank=None, device_lease=None) -> Optional[dict]:
+    """One attempt of a scenario job on `device`. `mesh_rank` is
+    (rank, world, rendezvous) in a started rank of a sharded job (None
+    in the worker, which leases the width and starts the others);
+    `device_lease` is the worker's lease, passed to a started rank
+    so that whichever rank reports writes it. Returns the result, or
+    None on a started rank that does not report."""
     from shadow_tpu_torch import faults, telemetry
     from shadow_tpu_torch.apps import phold
     from shadow_tpu_torch.compile import specialize as specialize_mod
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
     from shadow_tpu_torch.device import resolve_device
     from shadow_tpu_torch.utils import checkpoint as ckpt
 
@@ -340,31 +437,92 @@ def _run_scenario(spec: JobSpec, job_dir: str, *, resume_from,
                  or int(getattr(spec, "causality_sample", 0) or 0) > 0
                  else None)
 
-    # Elastic degraded execution: the in-run ladder is armed for a
-    # sentinel-carrying spec (a sharded one is refused, run_job)
+    # Elastic degraded-mesh execution (parallel/elastic.py): the worker
+    # leases a width of the spec's shards (a degraded requeue arrives
+    # with `shards` already shrunk by the fleet), starts the other
+    # ranks, and every rank arms the in-run degradation ladder — device
+    # loss retries, then shrinks to survivors, then falls serial,
+    # resuming each rung from the last verified checkpoint.
+    mesh = ranks = None
     elastic_policy = None
-    if getattr(spec, "sentinel", False):
+    want = max(1, int(getattr(spec, "shards", 1)))
+    if want > 1 or getattr(spec, "sentinel", False):
         from shadow_tpu_torch.parallel import elastic as elastic_mod
 
         elastic_policy = elastic_mod.ElasticPolicy()
+    if want > 1 and mesh_rank is None:
+        n, devices = _lease_width(want, dev)
+        device_lease = {"requested": want, "leased": n,
+                        "devices": devices}
+        if n > 1:
+            # a result.json in the dir is a former attempt's: the rank
+            # that reports this one writes it anew
+            stale = os.path.join(job_dir, "result.json")
+            if os.path.exists(stale):
+                os.unlink(stale)
+            ranks = _start_ranks(spec, job_dir, resume_from, dev, n,
+                                 device_lease)
+            mesh_rank = (0, n, ranks.init)
+    launches0 = mailbox_gather.launches
+    ran = False                  # the attempt returned on this rank
+    try:
+        if mesh_rank is not None:
+            from shadow_tpu_torch.parallel import Mesh
 
-    t0 = time.monotonic()
-    res = faults.run_supervised(
-        make_bundle(), app_handlers=(phold.handler,),
-        checkpoint_path=prefix,
-        checkpoint_every_windows=spec.checkpoint_every_windows,
-        max_retries=spec.max_retries,
-        escalation=(faults.EscalationPolicy(max_grow=spec.max_grow)
-                    if spec.auto_grow else None),
-        rebuild=rebuild, stop=stop, resume_from=resume_from,
-        max_run_wallclock=spec.max_wallclock_s,
-        on_round=on_round, log=log, sleep=lambda s: None,
-        feeder=feeder, harvester=harvester, elastic=elastic_policy,
-        # fleets live on repeated shapes: serve dispatch programs from
-        # the persistent program store by default (compile/serve.py;
-        # SHADOW_WARM_PROGRAMS=0 / SHADOW_NO_COMPILE_CACHE opt out)
-        warm_start=True, device=dev)
-    wall_s = time.monotonic() - t0
+            rank, world, init = mesh_rank
+            mesh = Mesh(world, rank, init_method=init, device=dev)
+            # every rank passes a stop: the supervisor reduces the
+            # ranks' flags at each barrier
+            stop = stop or (lambda: False)
+        t0 = time.monotonic()
+        res = faults.run_supervised(
+            make_bundle(), app_handlers=(phold.handler,),
+            checkpoint_path=prefix,
+            checkpoint_every_windows=spec.checkpoint_every_windows,
+            max_retries=spec.max_retries,
+            escalation=(faults.EscalationPolicy(max_grow=spec.max_grow)
+                        if spec.auto_grow else None),
+            rebuild=rebuild, stop=stop, resume_from=resume_from,
+            max_run_wallclock=spec.max_wallclock_s,
+            on_round=on_round, log=log, sleep=lambda s: None,
+            feeder=feeder, harvester=harvester, mesh=mesh,
+            elastic=elastic_policy,
+            # fleets live on repeated shapes: serve dispatch programs
+            # from the persistent program store by default
+            # (compile/serve.py; SHADOW_WARM_PROGRAMS=0 /
+            # SHADOW_NO_COMPILE_CACHE opt out)
+            warm_start=True, device=dev if mesh is None else None)
+        wall_s = time.monotonic() - t0
+        ran = True
+        if mesh is not None:
+            mesh.close()
+        if not res.reports or res.retired:
+            if ranks is None:
+                return None          # a started rank that does not report
+            # the ladder retired this rank: the rank carrying the run
+            # writes the result
+            _await_ranks(ranks, prefix, heartbeat)
+            path = os.path.join(job_dir, "result.json")
+            if not os.path.exists(path):
+                raise RuntimeError(
+                    f"the ladder retired rank 0 and the rank carrying "
+                    f"the run wrote no result: {ranks.errors()}")
+            with open(path) as f:
+                return json.load(f)
+    finally:
+        if mesh is not None:
+            mesh.close()
+        if ranks is not None:
+            from shadow_tpu_torch.parallel.shard import RANK_JOIN_S
+
+            # the others finish with this one; after a failure here
+            # they are killed at once
+            _await_ranks(ranks, prefix, heartbeat,
+                         RANK_JOIN_S if ran else 0.0)
+            for r, err in ranks.errors().items():
+                if log is not None:
+                    log(f"fleet: rank {r} exited non-zero:\n{err}")
+            ranks.kill()
 
     result = {
         "ok": bool(res.ok),
@@ -379,10 +537,33 @@ def _run_scenario(spec: JobSpec, job_dir: str, *, resume_from,
         "escalation_restarts": res.escalation_restarts,
         "final_capacities": dict(caps),
         "checkpoint": res.final_checkpoint,
+        # this process's launches of the hand-written kernel (a sharded
+        # job's other ranks count their own)
+        "kernel_launches": {
+            "mailbox_gather": mailbox_gather.launches - launches0},
     }
     elastic_blk = getattr(res, "elastic", None)
+    final_shards = (int(elastic_blk["final_shards"])
+                    if elastic_blk else
+                    (mesh.size if mesh is not None else 1))
+    if device_lease is not None:
+        device_lease = dict(device_lease, final_shards=final_shards)
+        result["device_lease"] = device_lease
     if elastic_blk is not None:
         result["elastic"] = elastic_blk
+    hl = getattr(res, "health", None)
+    if (not res.ok and hl is not None
+            and int(getattr(hl, "device_lost", 0) or 0) > 0
+            and final_shards > 1):
+        # the in-run ladder exhausted on device loss: hand the fleet a
+        # degraded-requeue verdict — next-pow2-down width, same attempt
+        # (runner._fold_result routes this through queue.device_lost)
+        result["device_lost"] = {
+            "lost_shard": int(getattr(hl, "lost_shard", -1) or -1),
+            "new_shards": max(1, final_shards // 2),
+            "cause": str(getattr(hl, "device_lost_cause", "")
+                         or "device lost"),
+        }
     incidents = tuple(getattr(res, "lane_incidents", ()) or ())
     if incidents:
         # packed job: each quarantined lane becomes a standalone
@@ -428,7 +609,7 @@ def _run_scenario(spec: JobSpec, job_dir: str, *, resume_from,
                 sample_period=int(getattr(spec, "causality_sample", 0)
                                   or 0) or None)
         man = telemetry.run_manifest(
-            cfg=bundle.cfg, seed=spec.seed, shards=1,
+            cfg=bundle.cfg, seed=spec.seed, shards=final_shards,
             sim=res.sim,
             stats=res.stats, health=res.health,
             fault_plan=bundle.fault_plan,
@@ -468,7 +649,8 @@ def _run_scenario(spec: JobSpec, job_dir: str, *, resume_from,
         if verdict is not None:
             result["slo"] = verdict
         if res.ok:
-            result["digest"] = sim_digest(res.sim)
+            result["digest"], result["width_digest"] = sim_digests(
+                res.sim)
     if not res.ok and not res.preempted:
         result["failure"] = res.failure_report()
     return result
@@ -483,20 +665,14 @@ def run_job(spec: JobSpec, job_dir: str, *,
     supervisor salvages if the worker's pipe dies with the worker.
 
     The "chaos_trial" kind runs tools/chaos_soak.py in the reference,
-    which has no port yet (ROADMAP.md Queue 1 item 14), and a sharded
-    spec needs a mesh of ranks the worker does not start yet (item
-    12c): such a job fails with a ValueError naming its item."""
+    which has no port yet (ROADMAP.md Queue 1 item 14): such a job
+    fails with a ValueError naming its item."""
     os.makedirs(job_dir, exist_ok=True)
     try:
         if spec.kind == "chaos_trial":
             raise ValueError(
                 "kind 'chaos_trial' runs tools/chaos_soak.py, which the "
                 "port does not have yet (ROADMAP.md Queue 1 item 14)")
-        if int(spec.shards) > 1:
-            raise ValueError(
-                f"shards={spec.shards}: a sharded job runs on a mesh of "
-                "ranks, which the port's fleet worker does not start yet "
-                "(ROADMAP.md Queue 1 item 12c)")
         result = _run_scenario(spec, job_dir,
                                resume_from=resume_from, stop=stop,
                                heartbeat=heartbeat, log=log, device=device)
@@ -505,3 +681,40 @@ def run_job(spec: JobSpec, job_dir: str, *,
                   "error": f"{type(e).__name__}: {e}"}
     _write_json(os.path.join(job_dir, "result.json"), result)
     return result
+
+
+def rank_main(argv=None) -> int:
+    """A started rank of a sharded job: `python -m
+    shadow_tpu_torch.fleet.scenario RANKFILE` with its rank, the width
+    and the rendezvous in the environment (parallel/shard.py rank_env).
+    It runs the attempt of RANKFILE on its mesh and, when the ladder
+    makes it the reporting rank, writes the job's result.json. SIGTERM
+    sets its stop flag (the ranks' flags are reduced at each
+    barrier)."""
+    from shadow_tpu_torch.parallel.shard import die_with_parent, rank_env
+
+    die_with_parent()
+    argv = sys.argv[1:] if argv is None else argv
+    rank, world, init = rank_env()
+    with open(argv[0]) as f:
+        d = json.load(f)
+    spec = JobSpec.from_dict(d["spec"])
+    stop = {"v": False}
+    signal.signal(signal.SIGTERM, lambda s, f: stop.update(v=True))
+    with open(os.path.join(d["job_dir"], f"rank{rank}.log"), "a",
+              buffering=1) as logf:
+        logf.write(f"fleet: job {spec.id} rank {rank} of {world}, pid "
+                   f"{os.getpid()}\n")
+        result = _run_scenario(
+            spec, d["job_dir"], resume_from=d["resume_from"],
+            stop=lambda: stop["v"], heartbeat=None,
+            log=lambda m: logf.write(f"{m}\n"), device=d["device"],
+            mesh_rank=(rank, world, init),
+            device_lease=d.get("device_lease"))
+    if result is not None:
+        _write_json(os.path.join(d["job_dir"], "result.json"), result)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(rank_main())

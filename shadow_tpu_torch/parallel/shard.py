@@ -822,13 +822,40 @@ def rank_env() -> tuple:
     return int(r), int(os.environ[WORLD_ENV]), os.environ[INIT_ENV]
 
 
+# the pid of the process that started a rank (RankProcesses)
+PARENT_ENV = "SHADOW_TORCH_PARENT"
+
+
+def die_with_parent() -> None:
+    """In a rank RankProcesses started: have the kernel SIGKILL this
+    process when the process that started it dies (Linux's
+    PR_SET_PDEATHSIG), so the rank never outlives the command or fleet
+    worker that started it, even a SIGKILLed one; exit at once when that
+    process is already gone. A no-op outside such a rank or where prctl
+    is missing."""
+    import ctypes
+    import signal
+
+    parent = os.environ.get(PARENT_ENV)
+    if parent is None:
+        return
+    try:
+        prctl = ctypes.CDLL(None, use_errno=True).prctl
+    except (OSError, AttributeError):
+        return
+    prctl(1, int(signal.SIGKILL))             # PR_SET_PDEATHSIG
+    if os.getppid() != int(parent):           # it died before the call
+        os._exit(1)
+
+
 class RankProcesses:
     """Ranks 1..world-1 of a command that runs as rank 0 itself: each
-    re-runs ``python -m <module> <argv>`` with its rank, the width and
-    the rendezvous (`init`) in the environment (rank_env). Their
-    standard output is discarded (rank 0 reports); their errors go to a
-    temporary file each, shown when a rank fails. join() waits within
-    RANK_JOIN_S; kill() ends any left."""
+    re-runs ``python -m <module> <argv>`` with its rank, the width, the
+    rendezvous (`init`) and this process's pid in the environment
+    (rank_env; a rank calling die_with_parent() dies with this
+    process). Their standard output is discarded (rank 0 reports);
+    their errors go to a temporary file each, shown when a rank fails.
+    join() waits within RANK_JOIN_S; kill() ends any left."""
 
     def __init__(self, module: str, argv, world: int):
         import subprocess
@@ -840,10 +867,25 @@ class RankProcesses:
             err = tempfile.TemporaryFile(mode="w+")
             env = dict(os.environ, **{RANK_ENV: str(r),
                                       WORLD_ENV: str(world),
-                                      INIT_ENV: self.init})
+                                      INIT_ENV: self.init,
+                                      PARENT_ENV: str(os.getpid())})
             self.procs.append((r, subprocess.Popen(
                 [sys.executable, "-m", module, *argv], env=env,
                 stdout=subprocess.DEVNULL, stderr=err), err))
+
+    def alive(self) -> list:
+        """The ranks still running."""
+        return [r for r, p, _ in self.procs if p.poll() is None]
+
+    def errors(self) -> dict:
+        """{rank: the tail of its errors} of every rank that exited
+        non-zero."""
+        out = {}
+        for r, p, err in self.procs:
+            if p.poll() not in (None, 0):
+                err.seek(0)
+                out[r] = err.read()[-4000:]
+        return out
 
     def join(self) -> int:
         """0 when every rank exited 0 within RANK_JOIN_S, else 1 with

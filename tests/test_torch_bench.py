@@ -1,7 +1,11 @@
 """The port's bench entry point, `python -m shadow_tpu_torch.bench`, on
 the CPU: one JSON row per workload and topology at 16 hosts with the
 documented keys, bench.py's metric names and vs_baseline rule, the
-BENCH_INJECT_* rows and bench.py's synthesized trace; refused knobs and
+BENCH_INJECT_* rows and bench.py's synthesized trace; the BENCH_SWEEP
+row (bench.py's lattice through the port's sweep driver on 2 CPU
+workers: its schema, conservation and warm prewarm) and
+BENCH_PROFILE_DIR (a torch.profiler trace and the row's `profile`
+block, the row's counts those of the unprofiled row); refused knobs and
 a missing CUDA device exit non-zero."""
 
 import json
@@ -24,6 +28,7 @@ def _start(**env):
     full = {k: v for k, v in os.environ.items()
             if not k.startswith("BENCH_")}
     full.update(env)
+    full = {k: v for k, v in full.items() if v is not None}   # None: unset
     full.setdefault("OMP_NUM_THREADS", "1")
     return subprocess.Popen([sys.executable, "-m", "shadow_tpu_torch.bench"],
                             cwd=ROOT, env=full, stdout=subprocess.PIPE,
@@ -81,6 +86,16 @@ def rows(tmp_path_factory):
                 "BENCH_SIM_SECONDS": "2", "BENCH_INJECT_RATE": "160",
                 **{k: v.format(trace=trace) for k, v in env.items()}}
         envs[name] = {k: v for k, v in full.items() if v}
+    # the knobs once refused: the sweep row on its own program store, and
+    # the plain PHOLD row with one profiled extra call
+    lifted = tmp_path_factory.mktemp("lifted")
+    envs["sweep"] = dict(BENCH_PLATFORM="cpu", BENCH_HOSTS="4",
+                         BENCH_LOAD="2", BENCH_SIM_SECONDS="1",
+                         BENCH_SWEEP="1", SHADOW_AOT_DIR=str(lifted / "aot"),
+                         SHADOW_NO_COMPILE_CACHE=None,
+                         SHADOW_WARM_PROGRAMS=None)
+    envs["profile"] = dict(envs[WORKLOADS[0][2]],
+                           BENCH_PROFILE_DIR=str(lifted / "prof"))
     out, todo, live = {}, list(envs.items()), []
     while todo or live:
         while todo and len(live) < AT_ONCE:
@@ -142,15 +157,75 @@ def test_baseline_rule_by_scale():
     ({"BENCH_WORKLOAD": "relay"}, "BENCH_WORKLOAD"),
     ({"BENCH_CHUNK_WINDOWS": "0"}, "BENCH_CHUNK_WINDOWS"),
     ({"BENCH_PLATFORM": "tpu"}, "BENCH_PLATFORM"),
-    # the sweep and the profiler wait for their ROADMAP.md items
+    # once refused naming their ROADMAP.md items (the ids keep those
+    # words), now run: LIFTED_KNOBS checks their rows
     ({"BENCH_SWEEP": "1"}, "BENCH_SWEEP (ROADMAP.md Queue 1 item 12b)"),
     ({"BENCH_PROFILE_DIR": "/tmp/p"},
      "BENCH_PROFILE_DIR (ROADMAP.md Queue 1 item 13)"),
 ])
-def test_refused_knob_exits_non_zero(env, word):
+def test_refused_knob_exits_non_zero(rows, env, word):
+    if word in LIFTED_KNOBS:
+        LIFTED_KNOBS[word](rows)
+        return
     r = _run(**{"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16", **env})
     assert r.returncode != 0
     assert word in r.stderr and r.stdout == ""
+
+
+# bench.py's _sweep_row keys and its "sweep" block's
+SWEEP_ROW_KEYS = {"metric", "value", "unit", "vs_baseline", "backend",
+                  "compile_s", "compile_cache", "wall_seconds", "sweep"}
+SWEEP_KEYS = {"exit_warm", "exit_timed", "lattice", "points",
+              "lattice_conserved", "distinct_programs", "prewarm_hits",
+              "prewarm_compiled", "prewarm_hit_rate", "best"}
+
+
+def _sweep_row_runs(rows):
+    """BENCH_SWEEP=1 on bench.py's lattice at 4 hosts, load 2 (seed {1,
+    2} x load {2, 3} x event_capacity {6, 8}: 8 points, 2 programs): both
+    sweeps exit 0, the lattice is conserved, the scored sweep found both
+    programs warm; bench.py's row keys and the port's `device`."""
+    r = rows["sweep"]
+    assert r.returncode == 0, r.stderr[-3000:]
+    row = json.loads(r.stdout.strip().splitlines()[-1])
+    assert set(row) == SWEEP_ROW_KEYS | {"device"}
+    assert set(row["sweep"]) == SWEEP_KEYS
+    assert row["metric"] == "sweep_points_per_sec@8points_2programs_x2workers"
+    assert row["unit"] == "points/s" and row["value"] > 0
+    assert row["backend"] == "cpu" and row["device"] is None
+    sw = row["sweep"]
+    assert (sw["exit_warm"], sw["exit_timed"]) == (0, 0)
+    assert sw["lattice"] == 8 and sw["lattice_conserved"] is True
+    assert sw["points"] == {"expanded": 8, "completed": 8, "failed": 0,
+                            "quarantined": 0, "pruned": 0, "pending": 0}
+    assert sw["distinct_programs"] == 2
+    assert (sw["prewarm_hits"], sw["prewarm_compiled"],
+            sw["prewarm_hit_rate"]) == (2, 0, 1.0)
+    assert row["compile_cache"] == "fresh"    # the warm-up built both
+    assert sw["best"] in {f"p{i:04d}" for i in range(8)}
+
+
+def _profile_row_runs(rows):
+    """BENCH_PROFILE_DIR: the plain PHOLD row with one extra profiled
+    call: a Chrome trace in the directory, the row's `profile` block,
+    and the counts of the unprofiled row."""
+    r = rows["profile"]
+    assert r.returncode == 0, r.stderr[-3000:]
+    row = json.loads(r.stdout.strip().splitlines()[-1])
+    plain = json.loads(rows[WORKLOADS[0][2]].stdout)
+    for k in ("metric", "windows", "micro_steps", "events"):
+        assert row[k] == plain[k], k
+    prof = row["profile"]
+    assert prof["tool"] == "torch.profiler"
+    traces = list(pathlib.Path(prof["dir"]).glob("torch_trace.*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+LIFTED_KNOBS = {"BENCH_SWEEP (ROADMAP.md Queue 1 item 12b)": _sweep_row_runs,
+                "BENCH_PROFILE_DIR (ROADMAP.md Queue 1 item 13)":
+                _profile_row_runs}
 
 
 @pytest.mark.parametrize("env,name", INJECTION,
@@ -229,6 +304,7 @@ def _popen(cmd, **env):
     full = {k: v for k, v in os.environ.items()
             if not k.startswith("BENCH_")}
     full.update(env)
+    full = {k: v for k, v in full.items() if v is not None}   # None: unset
     full.setdefault("OMP_NUM_THREADS", "1")
     return subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=full,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,

@@ -9,7 +9,9 @@ reference's (shadow_tpu.cli), on the CPU:
   the same tracker heartbeat, object-count and executed-event lines;
 - `--supervise` (with snapshots), `--chunk-windows` and `--resume`
   give the plain run's report;
-- every refused flag exits 2 and names its ROADMAP.md item;
+- no flag is refused any more: `--profile-dir` writes a torch.profiler
+  trace and the manifest's `profile` block with the plain run's report;
+  `fleet` and `sweep` are delegated to their CLIs;
   `--workers 2` shards the run over 2 gloo ranks and reports the
   reference CLI's `--workers 2` numbers;
   `--host-kernel run` (at the default and at `--host-time-scale 1.0`)
@@ -50,6 +52,7 @@ from shadow_tpu_torch.config import loader as tloader
 from shadow_tpu_torch.config import xmlconfig as txml
 from shadow_tpu_torch.utils import shadowlog as tlog
 from test_config_cli import REFERENCE_PHOLD_XML
+from tests.conftest import load_tool
 
 torch.set_num_threads(1)
 
@@ -177,9 +180,12 @@ def test_resume_continues_to_the_plain_report(cli_runs, xml):
     assert "resume_of" in got
 
 
-REFUSED = {
-    "profile_dir": (["--profile-dir", "prof"], "jax.profiler"),
-}
+# flags still refused, each with the words its refusal names: none left
+REFUSED: dict = {}
+# the flag the port once refused (it named jax.profiler), run on the
+# PHOLD XML with the manifest on: a torch.profiler capture into "{d}"
+LIFTED_PROF = {"profile_dir": ["--profile-dir", "{d}", "--telemetry-capacity",
+                               "64"]}
 # flags the port once refused, run against the reference's CLI on the
 # PHOLD XML: --workers 2 shards its 10 hosts over 2 gloo ranks (the
 # reference over 2 of the conftest's 8 CPU devices)
@@ -257,11 +263,15 @@ def _host_kernel_run(tmp_path, name):
     return out
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED) + sorted(LIFTED_OBS)
-                         + sorted(LIFTED_HK) + sorted(LIFTED_MESH))
+@pytest.mark.parametrize("name", sorted(REFUSED) + sorted(LIFTED_PROF)
+                         + sorted(LIFTED_OBS) + sorted(LIFTED_HK)
+                         + sorted(LIFTED_MESH))
 def test_refused_flag_exits_and_names_its_item(xml, observed_cli, name,
                                                tmp_path, cli_runs):
-    """A flag still refused exits 2 naming its ROADMAP item. The flags
+    """A flag still refused exits 2 naming its ROADMAP item (none is
+    left). `--profile-dir` (LIFTED_PROF) writes a torch.profiler trace
+    of the run into its directory and the manifest's lint-clean
+    `profile` block, with the unprofiled run's report. The flags
     the port took over (LIFTED_OBS) give the reference CLI's report
     and log: the per-path lines, and the events the gate defers. The
     host-kernel flags (LIFTED_HK) run the .py-plugin config as the
@@ -272,6 +282,31 @@ def test_refused_flag_exits_and_names_its_item(xml, observed_cli, name,
     ranks' backend in the log; on the .py-plugin config it runs the
     virtual processes on 2 ranks (ProcessRuntime on a mesh) and gives
     the reference CLI's report."""
+    if name in LIFTED_PROF:
+        prof = tmp_path / "prof"
+        flags = [f.format(d=prof) for f in LIFTED_PROF[name]]
+        assert tcli.refused_flags(tcli.make_parser().parse_args(
+            [xml, *flags])) == []
+        d = tmp_path / "data"
+        code, lines, err = _main(tcli, [xml, "--platform", "cpu", "-d",
+                                        str(d), *flags])
+        assert code == 0, err
+        got = json.loads(lines[-1])
+        for k in REPORT_KEYS:
+            assert got[k] == cli_runs["port"][1][k] == cli_runs["ref"][1][k]
+        man = json.loads((d / "run_manifest.json").read_text())
+        assert man["profile"] == {"dir": str(prof.resolve()),
+                                  "tool": "torch.profiler"}
+        errors, _ = load_tool("telemetry_lint").lint_manifest_obj(man)
+        assert errors == [], errors
+        bad = dict(man, profile={"tool": "torch.profiler"})
+        assert any("profile" in e for e in
+                   load_tool("telemetry_lint").lint_manifest_obj(bad)[0])
+        traces = list(prof.glob("torch_trace.*.json"))
+        assert len(traces) == 1
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        assert any(e.get("cat") == "cpu_op" for e in events)
+        return
     if name in LIFTED_MESH:
         runs = {}
         for key, mod in (("ref", jcli), ("port", tcli)):
@@ -468,10 +503,12 @@ def test_lifted_lane_flag_parses_and_errors_like_the_reference(
 
 @pytest.mark.parametrize("sub", ["fleet", "sweep"])
 def test_refused_subcommand(sub, tmp_path):
-    """`fleet`, once refused, is delegated to the fleet CLI as the
-    reference's CLI does (tests/test_torch_fleet.py runs fleets; here a
-    usage error exits 2 as the reference's, and `fleet status` reads a
-    fleet dir); `sweep` stays refused, naming its ROADMAP item."""
+    """`fleet` and `sweep`, once refused, are delegated to their CLIs as
+    the reference's CLI delegates them (tests/test_torch_fleet.py and
+    tests/test_torch_sweep.py run fleets and sweeps; here a usage error
+    exits 2 as the reference's, `fleet status` reads a fleet dir, and
+    `sweep status` / `sweep report` read a finished sweep dir as the
+    reference's do)."""
     def run(mod, argv):
         try:
             return _main(mod, argv)
@@ -479,13 +516,32 @@ def test_refused_subcommand(sub, tmp_path):
             return e.code, [], ""
 
     code, lines, err = run(tcli, [sub, "run"])
-    if sub == "sweep":
-        assert code == 2 and "item 12b" in err
-        return
     assert code == run(jcli, [sub, "run"])[0] == 2
-    code, lines, err = _main(tcli, [sub, "status", "--fleet-dir",
-                                    str(tmp_path)])
-    assert code == 0 and json.loads("".join(lines))["counts"] == {}
+    if sub == "fleet":
+        code, lines, err = _main(tcli, [sub, "status", "--fleet-dir",
+                                        str(tmp_path)])
+        assert code == 0 and json.loads("".join(lines))["counts"] == {}
+        return
+    from test_torch_sweep import PKGS, _driver, _spec_obj
+
+    got = {}
+    for name, mod in (("ref", jcli), ("port", tcli)):
+        m = PKGS[name]
+        d = str(tmp_path / name)
+        assert _driver(m, d, m.plan.SweepSpec.from_obj(_spec_obj())).run() \
+            == 0
+        outs = []
+        for argv in (["status", "--sweep-dir", d],
+                     ["report", "--sweep-dir", d, "--top", "2"]):
+            code, lines, err = _main(mod, [sub, *argv])
+            body = json.loads("\n".join(lines))
+            body.pop("report", None)
+            outs.append((code, body))
+        got[name] = outs
+    assert got["port"] == got["ref"]
+    (c1, status), (c2, rep) = got["port"]
+    assert (c1, c2) == (0, 0) and status["complete"]
+    assert rep["best"] == "p0003" and len(rep["ranking"]) == 2
 
 
 def test_logpcap_config_is_refused(observed_cli):

@@ -14,7 +14,13 @@ reference's (shadow_tpu/fleet/):
   requeued at the same attempt, resumes from its checkpoint, and ends
   with the digest of the uninterrupted run;
 - a zero wallclock budget latches the deadline, as the reference's;
-  chaos_trial and a sharded spec are refused by name.
+  chaos_trial is refused by name;
+- a `shards = 2` job through a real worker runs on 2 gloo ranks: its
+  digest and counters equal the reference's sharded run_job's, its
+  state the serial oracle's (`width_digest`, every leaf but the
+  outbox's per-shard-count counters), and its `device_lease` and
+  `elastic` blocks have the reference's keys
+  (tests/test_torch_fleet_mesh.py kills its ranks and workers).
 
 Tolerance zero. The reference's three run_job calls (one program) run
 in a thread beside the port's fleet processes.
@@ -40,6 +46,7 @@ from shadow_tpu_torch.fleet import manifest as tmanifest
 from shadow_tpu_torch.fleet import spec as tspec
 from shadow_tpu_torch.fleet import state as tstate
 from shadow_tpu_torch.fleet.scenario import run_job as trun_job
+from tests.conftest import load_tool
 from torch_parity import side_by_side
 
 torch.set_num_threads(1)
@@ -91,6 +98,34 @@ def _port_fleet(tmp):
     return r, st, lint, fleet
 
 
+# the sharded case: 16 hosts on 2 ranks
+MESH = {"id": "mesh-0", "kind": "scenario", "seed": 4, "hosts": 16,
+        "load": 2, "sim_s": 1, "shards": 2}
+
+
+def _ref_mesh(tmp):
+    """The reference's run_job of MESH (2 of the conftest's 8 CPU
+    devices)."""
+    res = jrun_job(jspec.JobSpec.from_dict(MESH), os.path.join(tmp, "mesh"))
+    assert res["ok"], res
+    return res
+
+
+def _port_mesh(tmp):
+    """MESH through one real worker on the CPU, and the serial run of the
+    same spec in process."""
+    fleet = os.path.join(tmp, "mfleet")
+    runner = FleetRunner(fleet, FleetPolicy(backoff_base_s=0.0,
+                                            backoff_cap_s=0.0),
+                         [tspec.JobSpec.from_dict(MESH)], workers=1,
+                         fsync=False, device="cpu")
+    rc = runner.run()
+    man = json.load(open(os.path.join(fleet, "fleet_manifest.json")))
+    serial = trun_job(tspec.JobSpec.from_dict(dict(MESH, shards=1)),
+                      os.path.join(tmp, "mserial"), device="cpu")
+    return rc, man, serial
+
+
 def _port_kill(tmp, monkeypatch_env):
     killed = {"done": False}
 
@@ -113,10 +148,13 @@ def _port_kill(tmp, monkeypatch_env):
 @pytest.fixture(scope="module")
 def fleets(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("fleets"))
-    ref, port, kill = side_by_side([
+    ref, port, kill, ref_mesh, mesh = side_by_side([
         lambda: _ref_digests(os.path.join(tmp, "ref")),
-        lambda: _port_fleet(tmp), lambda: _port_kill(tmp, None)])
-    return {"ref": ref, "port": port, "kill": kill, "tmp": tmp}
+        lambda: _port_fleet(tmp), lambda: _port_kill(tmp, None),
+        lambda: _ref_mesh(os.path.join(tmp, "ref")),
+        lambda: _port_mesh(tmp)])
+    return {"ref": ref, "port": port, "kill": kill, "tmp": tmp,
+            "ref_mesh": ref_mesh, "mesh": mesh}
 
 
 # ---- the host-only copies -------------------------------------------
@@ -309,13 +347,34 @@ def test_chaos_trial_is_refused_by_name(tmp_path):
     assert _is_fatal(res)   # burns no attempts
 
 
-def test_sharded_job_is_refused_by_name(tmp_path):
-    """A sharded spec needs a mesh of ranks the worker does not start:
-    it fails by name, at once, and is not retried."""
-    spec = tspec.JobSpec(id="m", seed=1, shards=2)
-    res = trun_job(spec, str(tmp_path / "m"), device="cpu")
-    assert not res["ok"] and "item 12c" in res["error"]
-    assert res["error"].startswith("ValueError: shards=2")
-    from shadow_tpu_torch.fleet.runner import _is_fatal
-
-    assert _is_fatal(res)
+def test_sharded_job_is_refused_by_name(fleets):
+    """Once refused, now run: a `shards = 2` job through a real worker
+    runs on 2 gloo ranks (the worker and one started rank) and ends done
+    with the reference's sharded run_job's digest and counters, and the
+    serial run's state and events; its device_lease and elastic blocks
+    carry the reference's keys, and its manifest lints clean."""
+    rc, man, serial = fleets["mesh"]
+    want = fleets["ref_mesh"]
+    assert rc == 0 and serial["ok"]
+    j = man["jobs"]["mesh-0"]
+    res = j["result"]
+    assert j["verdict"] == "ok" and j["attempt_history"] == [1]
+    # the reference's sharded run bit for bit (the outbox's per-shard
+    # counters and the ranks' summed micro-steps included) ...
+    assert (res["digest"], res["counters"]) == (want["digest"],
+                                                want["counters"])
+    # ... and the serial run's state but for those counters
+    assert res["width_digest"] == serial["width_digest"]
+    assert res["counters"]["events_processed"] == \
+        serial["counters"]["events_processed"]
+    assert sorted(res["device_lease"]) == sorted(want["device_lease"])
+    assert res["device_lease"] == {"requested": 2, "leased": 2,
+                                   "devices": ["cpu:0", "cpu:1"],
+                                   "final_shards": 2}
+    assert want["device_lease"]["leased"] == 2
+    assert sorted(res["elastic"]) == sorted(want["elastic"])
+    assert res["elastic"]["ladder_steps"] == [] == \
+        want["elastic"]["ladder_steps"]
+    assert res["elastic"]["policy"] == want["elastic"]["policy"]
+    errors, _ = load_tool("telemetry_lint").lint_fleet_manifest_obj(man)
+    assert errors == [], errors

@@ -64,7 +64,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.utils.shadowlog",
                 "shadow_tpu_torch.utils.objcount",
                 "shadow_tpu_torch.utils.tracker", *INJECTION, *LANES,
-                *COMPILE, *OBSERVE, *VPROC, *PARALLEL, *FLEET):
+                *COMPILE, *OBSERVE, *VPROC, *PARALLEL, *FLEET, *SWEEP):
         assert mod in out["modules"]
 
 
@@ -114,6 +114,13 @@ FLEET = ("shadow_tpu_torch.fleet", "shadow_tpu_torch.fleet.journal",
          "shadow_tpu_torch.fleet.admission", "shadow_tpu_torch.fleet.__main__")
 
 
+# the sweep slice's modules, and the profiler capture
+SWEEP = ("shadow_tpu_torch.sweep", "shadow_tpu_torch.sweep.plan",
+         "shadow_tpu_torch.sweep.reduce", "shadow_tpu_torch.sweep.search",
+         "shadow_tpu_torch.sweep.driver", "shadow_tpu_torch.sweep.cli",
+         "shadow_tpu_torch.telemetry.profile")
+
+
 # {module: (exit code, stdout, stderr)} of each module's fresh
 # interpreter, filled for every module at the first use
 _ALONE: dict = {}
@@ -144,7 +151,7 @@ def _probe_alone(mods) -> dict:
 def _imports_alone(mod):
     if not _ALONE:
         _ALONE.update(_probe_alone(INJECTION + LANES + COMPILE + OBSERVE
-                                   + VPROC + PARALLEL + FLEET))
+                                   + VPROC + PARALLEL + FLEET + SWEEP))
     code, stdout, stderr = _ALONE[mod]
     assert code == 0, stderr
     assert json.loads(stdout.strip().splitlines()[-1]) == []
@@ -183,6 +190,49 @@ def test_parallel_module_imports_alone_without_jax(mod):
 @pytest.mark.parametrize("mod", FLEET)
 def test_fleet_module_imports_alone_without_jax(mod):
     _imports_alone(mod)
+
+
+@pytest.mark.parametrize("mod", SWEEP)
+def test_sweep_module_imports_alone_without_jax(mod):
+    _imports_alone(mod)
+
+
+def test_sweep_driver_needs_cuda_by_default(tmp_path):
+    """A sweep runs its fleet and its prewarm on the card unless the
+    caller asks for the CPU: without CUDA the default prewarm raises
+    before any worker starts, and no point moves to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behavior without a CUDA device")
+    from shadow_tpu_torch.sweep.driver import SweepDriver
+    from shadow_tpu_torch.sweep.plan import SweepSpec
+
+    spec = SweepSpec.from_obj({
+        "sweep": {"id": "c"},
+        "template": {"kind": "scenario", "hosts": 4, "load": 1,
+                     "sim_s": 1},
+        "axes": [{"field": "seed", "values": [1, 2]}]})
+    drv = SweepDriver(str(tmp_path / "s"), spec, fsync=False)
+    assert drv.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drv.run()
+    assert not (tmp_path / "s" / "journal.log").exists()
+    assert SweepDriver(str(tmp_path / "c"), spec, fsync=False,
+                       device="cpu").device == "cpu"
+
+
+def test_sharded_fleet_job_needs_cuda_by_default(tmp_path):
+    """A sharded job leases its ranks on the card unless the fleet asks
+    for the CPU: without CUDA it fails visibly before starting any rank."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behavior without a CUDA device")
+    from shadow_tpu_torch.fleet.scenario import RANK_FILE, run_job
+    from shadow_tpu_torch.fleet.spec import JobSpec
+
+    spec = JobSpec(id="m", kind="scenario", seed=1, hosts=4, load=1,
+                   sim_s=1, shards=2)
+    res = run_job(spec, str(tmp_path / "m"))
+    assert res["ok"] is False and "CUDA" in res["error"]
+    assert not (tmp_path / "m" / RANK_FILE).exists()
 
 
 def test_fleet_job_needs_cuda_by_default(tmp_path):

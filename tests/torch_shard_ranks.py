@@ -719,3 +719,67 @@ def warm_sharded_case(rank, size, init, aot_dir):
     mesh.close()
     return {"runs": runs, "infos": infos,
             "serial_key": key_fn((b.sim,), {})}
+
+
+# --- sharded fleet jobs (tests/test_torch_fleet_mesh.py) ---------------
+
+def rank_pid(job_dir, rank=1):
+    """The pid a started rank of a sharded fleet job logs first in its
+    job dir (fleet/scenario.py rank_main), or None before it does."""
+    import os
+
+    path = os.path.join(job_dir, f"rank{rank}.log")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        first = f.readline()
+    return int(first.split("pid ")[1]) if "pid " in first else None
+
+
+def kill_rank_after_checkpoint(job_dir, rank=1, timeout_s=120.0):
+    """SIGKILL a started rank of a sharded fleet job once the job's
+    first snapshot is on disk and the rank has logged its pid. Returns
+    the pid killed (None when neither showed within `timeout_s`)."""
+    import glob
+    import os
+    import signal
+    import time
+
+    t_end = time.monotonic() + timeout_s
+    while time.monotonic() < t_end:
+        pid = rank_pid(job_dir, rank)
+        if pid is not None and glob.glob(os.path.join(job_dir, "ck.*.npz")):
+            os.kill(pid, signal.SIGKILL)
+            return pid
+        time.sleep(0.02)
+    return None
+
+
+def fleet_exhaust_main(job_dir, spec_json) -> int:
+    """A sharded job's rank 0 whose ladder cannot go on: the ElasticPolicy
+    the job arms allows neither a shrink nor a serial rung, and rank 1
+    is SIGKILLed after the first snapshot, so the retry finds a rank
+    missing and the ladder is exhausted at 2 shards. Prints the job's
+    result as one JSON line. Run as `python -c "import
+    torch_shard_ranks as R; R.fleet_exhaust_main(dir, spec)"` from
+    tests/."""
+    import functools
+    import json
+    import threading
+
+    from shadow_tpu_torch.fleet.scenario import run_job
+    from shadow_tpu_torch.fleet.spec import JobSpec
+    from shadow_tpu_torch.parallel import elastic
+
+    elastic.ElasticPolicy = functools.partial(
+        elastic.ElasticPolicy, allow_shrink=False, allow_serial=False)
+    killed = []
+    t = threading.Thread(target=lambda: killed.append(
+        kill_rank_after_checkpoint(job_dir)), daemon=True)
+    t.start()
+    res = run_job(JobSpec.from_dict(json.loads(spec_json)), job_dir,
+                  device="cpu")
+    t.join(timeout=10)
+    print(json.dumps({"killed": killed[0] if killed else None,
+                      "result": res}), flush=True)
+    return 0
