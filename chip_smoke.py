@@ -246,8 +246,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    CPU: the program at 64 hosts with four CPU speeds (HostSpec
    cpufrequency_khz) to 0.005 sim-s, and 14b's TCP example twin with
    logpcap on the server — every leaf equal, the files byte-equal, the
-   reference's pinned counts. 18b runs first, alone; 18c runs while
-   18a's subprocess does, and phase 19's untimed work starts there.
+   reference's pinned counts. 18a's subprocess starts at phase 14,
+   beside the other untimed side work, and is checked with 19c-19d's
+   CLIs at 19's end; 18b runs first in 18, then 18c, and phase 19's
+   untimed work starts there.
 19. virtual processes (process/vproc.py ProcessRuntime): (19a) 1,000
    coroutines, tests/test_vproc_scale.py's run at its full width and
    depth (500 UDP pairs, 3 rounds of 64-B sendto/recvfrom, the
@@ -268,9 +270,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    the reference CLI's report; (19d) `--host-kernel diff` on hostrun's
    tgen dual workload (tgen_main as a .py plugin) and the epoll
    reftests config: exit 0, the traces agree, the manifest's
-   conformance block. 19c-19d's sixteen subprocesses (the two
-   stream-hinted configs first, the others at a lower CPU priority) and
-   19b's CPU half start beside 18a and 18c, and run on beside 19a and
+   conformance block. 19c-19d's sixteen subprocesses (at a lower CPU
+   priority; the two stream-hinted configs at phase 14, the others
+   beside 18c) and 19b's CPU half (beside 18c) run on beside 19a and
    19b's card half.
 20. the sharded window loop (parallel/shard.py) on the one card:
    (20a) `BENCH_SHARDS=4 BENCH_SIM_SECONDS=1 BENCH_SENTINEL=1
@@ -339,7 +341,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    evicted equal to an undisturbed run's, mailbox_gather launched once
    a non-empty window of both trials, exact on the resident route and
    timed there. 22b and 22c's undisturbed run go in one process started
-   beside phases 17-21.
+   beside phases 16-21.
 23. the counterfactual sweep, sharded fleet jobs and profiles: (23a)
    `BENCH_SWEEP=1 BENCH_SIM_SECONDS=1 python -m shadow_tpu_torch.bench`
    alone — bench.py's lattice (seed {1, 2} x load {8, 9} x
@@ -368,6 +370,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    block, CUDA kernel events in the extra call's trace); a missing
    capture fails the phase. The oracle and 23c, and 23b and 23d, go in
    two processes started beside phases 14-21; 23a runs alone after 22.
+24. the tools twins (shadow_tpu_torch/tools/): (24a) `python -m
+   shadow_tpu_torch.tools.scale_run --workload phold --hosts 102400
+   --sim-seconds 2` (parse_args and run in this process, alone after
+   23): the row verified, zero overflow, platform "cuda", PHOLD
+   conservation (sent == H*load + rcvd) on the timed run's state, its
+   events/s, wall, device bytes and the escalation's final capacity;
+   mailbox_gather launched once a routed window of the warm-up and
+   timed runs, exact against its plain version on the run's own route
+   (n = 2,457,600 rows at P = 11) and timed there; (24b) every
+   chaos_soak mode once at its tier-1 CPU test's size through the twin's
+   main on the card — `--seed 2 --kills 2 --verify`, `--replicas 4`,
+   `--device-loss --shards 4` (4 gloo ranks of the card), `--churn`,
+   `--sweep --workers 2` and `--jobs 2` (chaos_trial fleet jobs) —
+   every report ok and equal to the CPU's; (24c) compcache_ctl
+   `prewarm --test` (trimmed, then full), `ls`, `stats`, `gc` down to
+   one entry, and `prewarm --sweep` on a 4-point, 2-program spec, cold
+   (2 built, 0 hits) then warm (0 built, 2 hits, the same keys; the
+   census's affinity keys the reference's). 24b and 24c go in one
+   process started at phase 14 at a lower CPU priority.
 
 Phases 7, 8, 10 and 11 each replay one window through the engine's own
 core.engine.step_window, from the state the run held at its start
@@ -382,7 +403,10 @@ chunked, supervised and stop-and-resume runs and 15's K = 16 run and
 15b go there too, beside the rest of their phases. The CLI runs that
 only counts, logs and files check run beside untimed work (phase 14's
 three together, 15c's beside 15b, 16d's beside 16b-16c, 18a's beside
-18c, 19c-19d's beside 18a-18c and 19a-19b).
+14-19, 19c-19d's beside 18c and 19a-19b, their two long reftests
+configs beside 14-19). The side processes started at 14 (20b-21e,
+23's, 24b-24c, 18a and 19c's long CLIs) share the card with the kernel
+timings and timed rows of phases 14-23.
 Every worker and subprocess stops with the script. The last log line
 before the results gives each phase's seconds.
 
@@ -1021,9 +1045,9 @@ VP_REFTESTS = {
 }
 # (events, windows) of each config's report, overflow 0
 # the reftests configs whose CLI runs longest (the TCP stream ones),
-# started first
+# started at phase 14 with the other side work
 VP_LONG = ("test_epoll_writeable", "testshutdown")
-# the short CLI runs yield the CPU to the long poles and 19b
+# the untimed CLI runs yield the CPU to the timed phases and 19b
 VP_NICE = 10
 VP_REFTESTS_REPORTS = {
     "testbind": (1, 1),
@@ -1168,6 +1192,87 @@ SWEEP_SIM_S = 1
 SWEEP_KILL_POINTS = {"p0000": "p0000", "p0001": "p0004"}
 # 23c: 23a's p0000 as a `shards = 2` fleet job
 SWEEP_MESH = "p0000"
+# --- phase 24: the tools twins -------------------------------------------
+# 24a: the scale harness's 100k tier (tools/scale_run.py's PHOLD at
+# 102,400 hosts, load 8, 2 sim-s; the timed run on seed 2). The
+# reference's CPU run of the same command is a full-size CPU run that
+# has not been made, so its events are not pinned (None): PHOLD
+# conservation (sent == H*load + rcvd) and zero overflow are the gates
+SCALE_ARGV = ("--workload", "phold", "--hosts", "102400", "--sim-seconds",
+              "2")
+SCALE_HOSTS = 102_400
+SCALE_LOAD = 8
+SCALE_EVENTS = None
+# 24b: each chaos_soak mode once at its tier-1 CPU test's size
+# (tests/test_torch_chaos_soak.py), in the tools side process
+SOAK_MODES = {
+    "trial": ["--trials", "1", "--seed", "2", "--kills", "2", "--verify"],
+    "replicas": ["--trials", "1", "--seed", "3", "--replicas", "4",
+                 "--hosts", "4", "--load", "2"],
+    "device_loss": ["--trials", "1", "--seed", "3", "--device-loss",
+                    "--shards", "4"],
+    "churn": ["--trials", "1", "--seed", "11", "--churn"],
+    "sweep": ["--trials", "1", "--seed", "7", "--sweep", "--workers", "2"],
+    "jobs": ["--trials", "2", "--seed", "2", "--kills", "2", "--verify",
+             "--jobs", "2"],
+}
+# the reports the CPU gives for them, each the reference's (the tests
+# hold the port to it; the device-loss, churn and sweep trials in the
+# slow-marked test_trial_equals_reference_in_process): run_trial at
+# seeds 2 and 3, the replica and device-loss trials whole, the fields of
+# the churn and sweep trials that carry no path, key or kill timing
+SOAK_TRIAL = {
+    2: {"seed": 2, "ok": True, "segments": 3, "kills": 2, "escalations": [
+        {"time_ns": 0, "latch": "events_overflow", "knob": "event_capacity",
+         "from": f, "to": 2 * f} for f in (2, 4, 8)],
+        "escalation_restarts": 3, "retries_used": 0, "final_capacities": {
+            "event_capacity": 16, "outbox_capacity": 32,
+            "router_ring": 32}, "windows_sampled": 21, "events": 178,
+        "conservation_errors": [], "run_id": "s2.g3", "resume_of": "s2.g2",
+        "verified_bit_identical": True},
+    3: {"seed": 3, "ok": True, "segments": 3, "kills": 2, "escalations": [
+        {"time_ns": 0, "latch": "events_overflow", "knob": "event_capacity",
+         "from": f, "to": 2 * f} for f in (1, 2, 4, 8)],
+        "escalation_restarts": 4, "retries_used": 0, "final_capacities": {
+            "event_capacity": 16, "outbox_capacity": 32,
+            "router_ring": 32}, "windows_sampled": 21, "events": 151,
+        "conservation_errors": [], "run_id": "s3.g3", "resume_of": "s3.g2",
+        "verified_bit_identical": True}}
+SOAK_REPLICA = {"seed": 3, "ok": True, "replicas": 4, "victim": 3,
+                "victim_trip": ["events_overflow"], "victim_flushed": 1406,
+                "lane_events_exec": [168, 168, 168, 88],
+                "containment_errors": []}
+SOAK_DEVICE_LOSS = {"seed": 3, "ok": True, "shards": 4, "victim": 3,
+                    "kill_at_dispatch": 2, "control_dispatches": 21,
+                    "final_shards": 2, "ladder": ["retry", "shrink"],
+                    "losses": 2, "verified_through_ns": 1000000001,
+                    "device_loss_errors": []}
+SOAK_CHURN = {"seed": 11, "ok": True, "tenants": 5, "joins": 6, "leaves": 4,
+              "evictions": 2, "program_key_stable": True,
+              "population_resumed": {"0": ["t-und-prot", "running", 1],
+                                     "1": ["t-und-be", "running", 1],
+                                     "2": ["t-churn-b", "running", 2],
+                                     "3": ["t-churn-a", "running", 2]},
+              "slo_evicted": "t-slo", "lease_warnings": [],
+              "churn_errors": []}
+SOAK_SWEEP = {"seed": 7, "ok": True, "rounds": 3, "points": {
+    "expanded": 4, "completed": 1, "failed": 0, "quarantined": 0,
+    "pruned": 3, "pending": 0}, "best": "p0001", "ranking_identical": True,
+    "sweep_errors": []}
+# 24c: compcache_ctl prewarm --sweep on tests/test_torch_compcache_ctl.py's
+# 4-point, 2-program spec; the census's affinity keys (the reference's)
+CC_SWEEP_SPEC = {
+    "sweep": {"id": "accept", "objective": {"metric": "events",
+                                            "goal": "max"},
+              "search": {"strategy": "grid"}},
+    "fleet": {"max_attempts": 3, "backoff_base_s": 0.0,
+              "backoff_cap_s": 0.0},
+    "template": {"kind": "scenario", "hosts": 4, "sim_s": 1},
+    "axes": [{"field": "seed", "values": [1, 2]},
+             {"field": "event_capacity", "values": [24, 48]}]}
+CC_AFFINITY = ["akc17727775f45153f", "aked18b60de64eaa58"]
+# the tools side's CPU priority below the phases' (a nice increment)
+TOOLS_NICE = 19
 
 INVALID_TIME = 2**63 - 1
 
@@ -1217,39 +1322,26 @@ def one_vertex(loss=0.0):
 
 
 def build_relay(H, hop, total, sim_s, seed, device, loss=0.0, ring=True):
-    """A relay bundle through the port's entry points, as
-    tools/scale_run.py builds --workload relay: disjoint `hop`-host
-    circuits [c*hop + k], build, relay.setup, and telemetry.attach when
-    `ring`. The sparse budget is the default."""
-    from shadow_tpu_torch import telemetry
-    from shadow_tpu_torch.apps import relay
-    from shadow_tpu_torch.core import simtime
-    from shadow_tpu_torch.net.build import HostSpec, build
-    from shadow_tpu_torch.net.state import NetConfig
+    """A relay bundle through the scale_run twin's builder (--workload
+    relay): disjoint `hop`-host circuits [c*hop + k] at capacities
+    RELAY_CAP, and telemetry.attach when `ring`. The sparse budget is
+    the default. Returns (bundle, circuits)."""
+    from shadow_tpu_torch.tools import scale_run
 
-    cfg = NetConfig(num_hosts=H, seed=seed,
-                    end_time=int(sim_s * simtime.ONE_SECOND),
-                    sockets_per_host=4, event_capacity=RELAY_CAP,
-                    outbox_capacity=RELAY_CAP, router_ring=RELAY_CAP)
-    hosts = [HostSpec(name=f"n{i}", proc_start_time=simtime.ONE_SECOND)
-             for i in range(H)]
-    b = build(cfg, one_vertex(loss), hosts, device=device)
-    circuits = [[c * hop + k for k in range(hop)] for c in range(H // hop)]
-    b.sim = relay.setup(b.sim, circuits=circuits, total_bytes=total)
-    if ring:
-        b.sim = telemetry.attach(b.sim)
-    return b, circuits
+    b = scale_run.build_relay(H, hop, total, sim_s, seed, RELAY_CAP,
+                              one_vertex(loss), device, ring=ring)
+    return b, b.circuits
 
 
-def relay_runner(b, device, tcp_bulk=True, lossless=False):
-    """The relay's runner as tools/scale_run.py makes it: the TCP bulk
-    pass on unless `tcp_bulk` is False (scale_run's --no-bulk)."""
-    from shadow_tpu_torch.apps import relay
+def scale_runner(b, device, workload, end_time=None, **kw):
+    """`workload`'s runner with the scale_run twin's keywords
+    (runner_kwargs: bulk=False is --no-bulk, lossless --bulk-lossless,
+    transport --gossip-transport)."""
     from shadow_tpu_torch.net.build import make_runner
+    from shadow_tpu_torch.tools import scale_run
 
-    return make_runner(b, app_handlers=(relay.handler,),
-                       app_tcp_bulk=relay.TCP_BULK if tcp_bulk else None,
-                       tcp_bulk_lossless=lossless, device=device)
+    return make_runner(b, end_time=end_time, device=device,
+                       **scale_run.runner_kwargs(workload, **kw))
 
 
 def main_runner(b, device, bulk=True):
@@ -1809,7 +1901,7 @@ def relay_cell(label, device, hop, total, sim_s, loss=0.0, tcp_bulk=True,
     t0 = time.perf_counter()
     b, circuits = build_relay(HOSTS, hop, total, sim_s, seed=1,
                               device=device, loss=loss)
-    runner = relay_runner(b, device, tcp_bulk=tcp_bulk)
+    runner = scale_runner(b, device, "relay", bulk=tcp_bulk)
     timed = None
     if tcp_bulk:
         timed = TimedBulk(runner.bulk_fn, keep)
@@ -2089,7 +2181,8 @@ def _relay_twin(hosts, hop, total, sim_s, loss, ring, tcp_bulk, lossless,
                 dev):
     b, _ = build_relay(hosts, hop, total, sim_s, seed=6, device=dev,
                        loss=loss, ring=ring)
-    return b, relay_runner(b, dev, tcp_bulk=tcp_bulk, lossless=lossless)
+    return b, scale_runner(b, dev, "relay", bulk=tcp_bulk,
+                          lossless=lossless)
 
 
 def relay_twin(label, hosts, hop, total, sim_s, loss=0.0, ring=True,
@@ -2361,118 +2454,49 @@ def _phold_twin(hosts, load, sim_s, bulk, ring, sparse_lanes, active_hosts,
 def build_gossip(H, sim_s, seed, device, tcp=False, cap=GOSSIP_CAP,
                  emit_capacity=None, k=GOSSIP_K, blocks=GOSSIP_BLOCKS,
                  sockets=12, ring=True):
-    """A gossip bundle through the port's entry points, as
-    tools/scale_run.py builds --workload gossip: UDP (gossip.setup,
-    in_ring 32, hosts started at 0) or, with `tcp`, over persistent TCP
-    peer links (gossip.setup_tcp, `sockets` per host, out_ring 16,
-    PROC_START at 1 s); a block every 2 s; telemetry.attach when
+    """A gossip bundle through the scale_run twin's builder (--workload
+    gossip): UDP (in_ring 32) or, with `tcp`, over persistent TCP peer
+    links (`sockets` per host, out_ring 16, PROC_START at 1 s); `k`
+    peers, a block every 2 s, `blocks` of them; telemetry.attach when
     `ring`. The sparse budget is the default."""
-    from shadow_tpu_torch import telemetry
-    from shadow_tpu_torch.apps import gossip
-    from shadow_tpu_torch.core import simtime
-    from shadow_tpu_torch.net.build import HostSpec, build
-    from shadow_tpu_torch.net.state import NetConfig
+    from shadow_tpu_torch.tools import scale_run
 
-    kw = dict(num_hosts=H, seed=seed, end_time=int(sim_s * simtime.ONE_SECOND),
-              event_capacity=cap, outbox_capacity=cap, router_ring=cap)
-    interval = 2 * simtime.ONE_SECOND
-    if tcp:
-        cfg = NetConfig(sockets_per_host=sockets, out_ring=16,
-                        emit_capacity=emit_capacity, **kw)
-        hosts = [HostSpec(name=f"n{i}", proc_start_time=simtime.ONE_SECOND)
-                 for i in range(H)]
-        b = build(cfg, ONE_VERTEX, hosts, device=device)
-        b.sim = gossip.setup_tcp(b.sim, peers_per_host=k,
-                                 block_interval=interval, max_blocks=blocks)
-    else:
-        cfg = NetConfig(tcp=False, in_ring=32, **kw)
-        b = build(cfg, ONE_VERTEX, [HostSpec(name=f"n{i}") for i in range(H)],
-                  device=device)
-        b.sim = gossip.setup(b.sim, peers_per_host=k, block_interval=interval,
-                             max_blocks=blocks)
-    if ring:
-        b.sim = telemetry.attach(b.sim)
-    return b
-
-
-def gossip_runner(b, device, tcp=False, end_time=None):
-    from shadow_tpu_torch.apps import gossip
-    from shadow_tpu_torch.net.build import make_runner
-
-    return make_runner(b, app_handlers=(
-        gossip.tcp_handler if tcp else gossip.handler,), end_time=end_time,
-        device=device)
+    return scale_run.build_gossip(H, sim_s, seed, cap, ONE_VERTEX, device,
+                                  tcp=tcp, blocks=blocks, peers=k,
+                                  sockets=sockets,
+                                  emit_capacity=emit_capacity, ring=ring)
 
 
 def build_tor(H, sim_s, seed, device, ring=True):
-    """The shared-relay Tor bundle through the port's entry points, as
-    tools/scale_run.py builds --workload tor (with phase 8's capacities
-    and emit_capacity). Returns (bundle, chains)."""
-    import numpy as np
+    """The shared-relay Tor bundle through the scale_run twin's builder
+    (--workload tor: TOR_HOPS-relay circuits drawn by consensus weight,
+    TOR_SLOTS slots, out_ring 8) with phase 8's capacities and
+    emit_capacity. Returns (bundle, chains)."""
+    from shadow_tpu_torch.tools import scale_run
 
-    from shadow_tpu_torch import telemetry
-    from shadow_tpu_torch.apps import relay
-    from shadow_tpu_torch.core import simtime
-    from shadow_tpu_torch.net.build import HostSpec, build
-    from shadow_tpu_torch.net.state import NetConfig
-
-    rng = np.random.default_rng(seed)
-    n_cl, n_rl = int(H * 0.6), int(H * 0.3)
-    chains = relay.consensus_circuits(
-        rng, n_circuits=n_cl, clients=list(range(n_cl)),
-        relays=list(range(n_cl, n_cl + n_rl)),
-        servers=list(range(n_cl + n_rl, H)), hops=TOR_HOPS,
-        max_slots=TOR_SLOTS)
-    cfg = NetConfig(num_hosts=H, seed=seed,
-                    end_time=int(sim_s * simtime.ONE_SECOND),
-                    sockets_per_host=2 + 2 * TOR_SLOTS, event_capacity=TOR_CAP,
-                    outbox_capacity=TOR_CAP, router_ring=TOR_CAP, out_ring=8,
-                    emit_capacity=TOR_EMIT)
-    hosts = [HostSpec(name=f"n{i}", proc_start_time=simtime.ONE_SECOND)
-             for i in range(H)]
-    b = build(cfg, ONE_VERTEX, hosts, device=device)
-    b.sim = relay.setup_shared(b.sim, circuits=chains, total_bytes=TOR_BYTES,
-                               max_slots=TOR_SLOTS)
-    if ring:
-        b.sim = telemetry.attach(b.sim)
-    return b, chains
+    b = scale_run.build_tor(H, TOR_BYTES, sim_s, seed, TOR_CAP, ONE_VERTEX,
+                            device, slots=TOR_SLOTS, emit_capacity=TOR_EMIT,
+                            ring=ring)
+    return b, b.circuits
 
 
 def build_mux_small(device, sim_s, loss=0.0):
-    """The reference test's mux shape (tests/test_relay_mux.py): 10 hosts,
-    4 two-relay circuits over relays 6-8 to server 9 (consensus draw,
-    seed 5), MUX_SLOTS slots, 2 + 2*MUX_SLOTS sockets, capacities 64."""
+    """The reference test's mux shape (tests/test_relay_mux.py) through
+    the scale_run twin's Tor builder: 10 hosts, 4 two-relay circuits
+    over relays 6-8 to server 9 (consensus draw, seed 5), MUX_SLOTS
+    slots, 2 + 2*MUX_SLOTS sockets, capacities 64, out_ring 16."""
     import numpy as np
 
     from shadow_tpu_torch.apps import relay
-    from shadow_tpu_torch.core import simtime
-    from shadow_tpu_torch.net.build import HostSpec, build
-    from shadow_tpu_torch.net.state import NetConfig
+    from shadow_tpu_torch.tools import scale_run
 
     chains = relay.consensus_circuits(
         np.random.default_rng(5), n_circuits=4, clients=list(range(6)),
         relays=[6, 7, 8], servers=[9], hops=2, max_slots=MUX_SLOTS)
-    cfg = NetConfig(num_hosts=10, seed=1,
-                    end_time=int(sim_s * simtime.ONE_SECOND),
-                    sockets_per_host=2 + 2 * MUX_SLOTS, event_capacity=64,
-                    outbox_capacity=64, router_ring=64)
-    hosts = [HostSpec(name=f"n{i}", proc_start_time=simtime.ONE_SECOND)
-             for i in range(10)]
-    b = build(cfg, one_vertex(loss), hosts, device=device)
-    b.sim = relay.setup_shared(b.sim, circuits=chains, total_bytes=MUX_BYTES,
-                               max_slots=MUX_SLOTS)
+    b = scale_run.build_tor(10, MUX_BYTES, sim_s, 1, 64, one_vertex(loss),
+                            device, slots=MUX_SLOTS, chains=chains,
+                            out_ring=16)
     return b, chains
-
-
-def mux_runner(b, device, tcp_bulk=True, end_time=None):
-    """The Tor model's runner as tools/scale_run.py makes it: the TCP
-    bulk pass on unless `tcp_bulk` is False (scale_run's --no-bulk)."""
-    from shadow_tpu_torch.apps import relay
-    from shadow_tpu_torch.net.build import make_runner
-
-    return make_runner(b, app_handlers=(relay.mux_handler,),
-                       app_tcp_bulk=relay.MUX_TCP_BULK if tcp_bulk else None,
-                       end_time=end_time, device=device)
 
 
 def state_at_window(runner_to, b, ring, k):
@@ -2635,7 +2659,7 @@ def gossip_cell(device):
     torch.cuda.synchronize()
     log(f"  gossip: built {GOSSIP_HOSTS} hosts in "
         f"{time.perf_counter() - t0:.2f} s")
-    runner = gossip_runner(b, device)
+    runner = scale_runner(b, device, "gossip")
     with KeepGatherInputs() as gathered:
         sim, stats, _, launches = drive("gossip", b, runner, device)
     check_cell("gossip", b.cfg, sim, stats, launches, GOSSIP_EXPECT)
@@ -2649,8 +2673,9 @@ def gossip_cell(device):
         f"{int(sim.app.dup_rx.sum())}, relays {int(sim.app.relays.sum())}")
     from shadow_tpu_torch.apps import gossip
 
-    kept = state_at_window(lambda end: gossip_runner(b, device, end_time=end),
-                           b, sim.telem, GOSSIP_KEEP_WINDOW)
+    kept = state_at_window(
+        lambda end: scale_runner(b, device, "gossip", end_time=end),
+        b, sim.telem, GOSSIP_KEEP_WINDOW)
     replay_window("gossip", b, gossip.handler, kept)
     return launches, err
 
@@ -2667,7 +2692,7 @@ def tor_cell(device):
 
     t0 = time.perf_counter()
     b, chains = build_tor(TOR_HOSTS, TOR_SIM_S, seed=1, device=device)
-    runner = mux_runner(b, device)
+    runner = scale_runner(b, device, "tor")
     timed = TimedBulk(runner.bulk_fn, TOR_KEEP_WINDOW)
     runner.bulk_fn = timed
     torch.cuda.synchronize()
@@ -2715,7 +2740,7 @@ def gossip_tcp_cell(device):
     log(f"  gossip tcp: built {GTCP_HOSTS} hosts, "
         f"{int((b.sim.app.conn >= 0).sum())} connecting edges in "
         f"{time.perf_counter() - t0:.2f} s")
-    runner = gossip_runner(b, device, tcp=True)
+    runner = scale_runner(b, device, "gossip", transport="tcp")
     with KeepGatherInputs() as gathered:
         sim, stats, _, launches = drive("gossip tcp", b, runner, device)
     check_cell("gossip tcp", b.cfg, sim, stats, launches, GTCP_EXPECT)
@@ -2728,7 +2753,8 @@ def gossip_tcp_cell(device):
     from shadow_tpu_torch.apps import gossip
 
     kept = state_at_window(
-        lambda end: gossip_runner(b, device, tcp=True, end_time=end), b,
+        lambda end: scale_runner(b, device, "gossip", end_time=end,
+                                 transport="tcp"), b,
         sim.telem, GTCP_KEEP_WINDOW)
     replay_window("gossip tcp", b, gossip.tcp_handler, kept)
     return launches, err
@@ -2736,7 +2762,7 @@ def gossip_tcp_cell(device):
 
 def _mux_twin(bulk, sim_s, dev):
     b, _ = build_mux_small(dev, sim_s)
-    return b, mux_runner(b, dev, tcp_bulk=bulk)
+    return b, scale_runner(b, dev, "tor", bulk=bulk)
 
 
 def _gossip_twin(tcp, dev):
@@ -2745,7 +2771,8 @@ def _gossip_twin(tcp, dev):
                          k=3, blocks=3, sockets=10, ring=False)
     else:
         b = build_gossip(64, 5.0, seed=1, device=dev)
-    return b, gossip_runner(b, dev, tcp=tcp)
+    return b, scale_runner(b, dev, "gossip",
+                          transport="tcp" if tcp else "udp")
 
 
 def compare_new_apps_cuda_cpu():
@@ -3400,9 +3427,12 @@ def start_proc(label, cmd, nice=0, env=None):
     smoke goes on while it runs (finish_proc waits for it, stop_proc
     kills it). Each CLI run that only its counts, logs and files check
     starts so, while the card runs work that is not timed. `nice` lowers
-    its CPU priority below the phase's own work."""
+    its CPU priority below the phase's own work. A thread reads its
+    output as it comes (a full pipe would hold the command until it is
+    collected) and stamps the moment it exits."""
     import shutil
     import subprocess
+    import threading
     from pathlib import Path
 
     if nice and shutil.which("nice"):
@@ -3414,7 +3444,16 @@ def start_proc(label, cmd, nice=0, env=None):
     proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env, start_new_session=True)
-    return label, cmd, proc, time.perf_counter()
+    t0 = time.perf_counter()
+    done = {}
+
+    def drain():
+        done["out"] = proc.communicate()
+        done["t"] = time.perf_counter()
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    return label, cmd, proc, t0, reader, done
 
 
 def stop_proc(started):
@@ -3423,26 +3462,29 @@ def stop_proc(started):
     import os
     import signal
 
-    proc = started[2]
+    proc, reader = started[2], started[4]
     try:
         os.killpg(proc.pid, signal.SIGKILL)
     except (ProcessLookupError, PermissionError):
         pass
     if proc.poll() is None:
         proc.kill()
-    if proc.returncode is None or proc.stdout and not proc.stdout.closed:
-        proc.communicate()
+    reader.join()
 
 
 def finish_proc(started):
-    """(exit code, stdout, stderr, wall s from its start) of a started
-    process."""
-    proc, t0 = started[2], started[3]
-    try:
-        stdout, stderr = proc.communicate(timeout=600)
-    finally:
-        stop_proc(started)
-    return proc.returncode, stdout, stderr, time.perf_counter() - t0
+    """(exit code, stdout, stderr, wall s from its start to its exit) of
+    a started process."""
+    import subprocess
+
+    cmd, proc, t0, reader, done = started[1:]
+    reader.join(timeout=600)
+    timed_out = reader.is_alive()
+    stop_proc(started)
+    if timed_out:
+        raise subprocess.TimeoutExpired(cmd, 600)
+    stdout, stderr = done["out"]
+    return proc.returncode, stdout, stderr, done["t"] - t0
 
 
 def start_cli(label, text, tmp, *flags, nice=0):
@@ -5085,7 +5127,7 @@ def spec_cell(device, main4, relay6s):
         raise AssertionError(f"17d: dropped {bt6.caps.dropped()}, expected "
                              f"('loss',)")
     sim, stats, _, launches = drive("17d trimmed relay", bt6,
-                                    relay_runner(bt6, device), device)
+                                    scale_runner(bt6, device, "relay"), device)
     check_cell("17d trimmed relay", bt6.cfg, sim, stats, launches, {})
     if stats.as_dict() != st6:
         raise AssertionError(f"17d: EngineStats {stats.as_dict()} != 6s's "
@@ -5216,13 +5258,58 @@ def _obs_twin_cpu(make, directory):
 
 def obs_cell(device, untimed=None):
     """Phase 18: the netstack's observability settings at full width
-    and native/; 18b (timed) first, then 18a and 18c, which are not,
-    with `untimed()` called as they start. Returns (row fields, max abs
-    err of mailbox_gather on 18b's route)."""
+    and native/; 18b (timed) first, then 18c, which is not, with
+    `untimed()` called as it starts. 18a's CLI runs beside phases 14-19
+    (start_obs_cli, checked with 19's untimed work by finish_obs_cli).
+    Returns (row fields, max abs err of mailbox_gather on 18b's
+    route)."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="shadow_obs_") as tmp:
         return _obs_cell(device, tmp, untimed)
+
+
+def start_obs_cli(tmp):
+    """18a: `python -m shadow_tpu_torch.cli` on the obs-cpu-10k config
+    as a user runs it, in `tmp`, started at phase 14 beside the other
+    untimed work (VP_NICE: below the timed phases' priority)."""
+    import os
+
+    os.makedirs(tmp, exist_ok=True)
+    return start_cli("obs-cpu-10k", obs_xml(OBS_HOSTS, OBS_CLI_STOP), tmp,
+                     "-l", "info", *OBS_FLAGS, nice=VP_NICE)
+
+
+def finish_obs_cli(cli):
+    """18a's checks once its CLI ends: the reference CLI's report, path
+    lines, log line count and pcap files. Returns the row fields, the
+    CLI's wall from its start to its exit among them."""
+    cmd = cli[1]
+    report, wall, lines = finish_cli(cli)
+    check_report("obs-cpu-10k", report, OBS_CLI_REPORT)
+    paths = [[0] * 3 for _ in range(3)]
+    for ln in lines:
+        if "] path " in ln:
+            a, c = ln.split("] path ")[1].split(":")[0].split("->")
+            paths[int(a)][int(c)] = int(ln.rsplit(" ", 2)[1])
+    if paths != OBS_CLI_PATHS:
+        raise AssertionError(f"obs-cpu-10k: path lines {paths} != the "
+                             f"reference's {OBS_CLI_PATHS}")
+    if any("pcap ring overran" in ln for ln in lines):
+        raise AssertionError("obs-cpu-10k: the capture ring overran")
+    if len(lines) != OBS_LOG_LINES:
+        raise AssertionError(f"obs-cpu-10k: {len(lines)} lines, the "
+                             f"reference's CLI prints {OBS_LOG_LINES}")
+    # the CLI's data directory: start_cli's -d
+    digest = pcap_digest(cmd[cmd.index("-d") + 1])
+    if digest != OBS_CLI_PCAP:
+        raise AssertionError(f"obs-cpu-10k: pcap files {digest} != the "
+                             f"reference's {OBS_CLI_PCAP}")
+    log(f"  obs-cpu-10k: the reference's 9 path counts, {len(lines)} log "
+        f"lines (one flush past 4,096 records: the native argsort), pcap "
+        f"files as the reference's {digest}, the CLI {wall:.1f} s from its "
+        f"start to its exit")
+    return {"obs_cli_wall_s": round(wall, 1)}
 
 
 def _obs_cell(device, tmp, untimed):
@@ -5375,56 +5462,27 @@ def _obs_cell(device, tmp, untimed):
         "n", "ms", "plain_ms", "bound_ms", "library_ms")}
     del sim, b, loaded, prof, events
 
-    # ---- 18a: the CLI as a user runs it, beside 18c (not timed) -----
-    cli = start_cli("obs-cpu-10k", obs_xml(OBS_HOSTS, OBS_CLI_STOP), tmp,
-                    "-l", "info", *OBS_FLAGS)
     if untimed is not None:
         untimed()
-    try:
-        # ---- 18c: CUDA against CPU at the cuts (not timed) -----------
-        for label, make, expect in (
-                (f"18c PHOLD at {OBS_CUT_HOSTS} hosts, 4 CPU speeds, "
-                 f"{OBS_CUT_STOP} sim-s", _obs_udp_cut, OBS_CUT_EXPECT),
-                (f"18c the TCP example twin with logpcap, {CLI_TWIN_STOP} "
-                 f"sim-s", _obs_tcp_twin, OBS_TCP_EXPECT)):
-            d = os.path.join(tmp, f"{make.__name__}-")
-            fut = in_worker(_obs_twin_cpu, make, d + "cpu")
-            st, sim, got, wall = _obs_twin(make, d + "cuda", "cuda")
-            log(f"  {label} cuda: {st} in {wall:.2f} s")
-            cst, cleaves, cgot, cwall = fut.result(timeout=900)
-            log(f"  {label} cpu: {cst} in {cwall:.2f} s")
-            n = assert_same_leaves(label, (st, convert.sim_to_numpy(sim)),
-                                   (cst, cleaves))
-            if got != cgot:
-                raise AssertionError(f"{label}: cuda {got} != cpu {cgot}")
-            check_obs(label, got, expect)
-            log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves "
-                f"equal, pcap files byte-equal")
-        report, wall, lines = finish_cli(cli)
-    finally:
-        stop_proc(cli)
-    check_report("obs-cpu-10k", report, OBS_CLI_REPORT)
-    paths = [[0] * 3 for _ in range(3)]
-    for ln in lines:
-        if "] path " in ln:
-            a, c = ln.split("] path ")[1].split(":")[0].split("->")
-            paths[int(a)][int(c)] = int(ln.rsplit(" ", 2)[1])
-    if paths != OBS_CLI_PATHS:
-        raise AssertionError(f"obs-cpu-10k: path lines {paths} != the "
-                             f"reference's {OBS_CLI_PATHS}")
-    if any("pcap ring overran" in ln for ln in lines):
-        raise AssertionError("obs-cpu-10k: the capture ring overran")
-    if len(lines) != OBS_LOG_LINES:
-        raise AssertionError(f"obs-cpu-10k: {len(lines)} lines, the "
-                             f"reference's CLI prints {OBS_LOG_LINES}")
-    digest = pcap_digest(os.path.join(tmp, "obs-cpu-10k.data"))
-    if digest != OBS_CLI_PCAP:
-        raise AssertionError(f"obs-cpu-10k: pcap files {digest} != the "
-                             f"reference's {OBS_CLI_PCAP}")
-    log(f"  obs-cpu-10k: the reference's 9 path counts, {len(lines)} log "
-        f"lines (one flush past 4,096 records: the native argsort), pcap "
-        f"files as the reference's {digest}, in {wall:.1f} s")
-    out["obs_cli_wall_s"] = round(wall, 1)
+    # ---- 18c: CUDA against CPU at the cuts (not timed) ---------------
+    for label, make, expect in (
+            (f"18c PHOLD at {OBS_CUT_HOSTS} hosts, 4 CPU speeds, "
+             f"{OBS_CUT_STOP} sim-s", _obs_udp_cut, OBS_CUT_EXPECT),
+            (f"18c the TCP example twin with logpcap, {CLI_TWIN_STOP} "
+             f"sim-s", _obs_tcp_twin, OBS_TCP_EXPECT)):
+        d = os.path.join(tmp, f"{make.__name__}-")
+        fut = in_worker(_obs_twin_cpu, make, d + "cpu")
+        st, sim, got, wall = _obs_twin(make, d + "cuda", "cuda")
+        log(f"  {label} cuda: {st} in {wall:.2f} s")
+        cst, cleaves, cgot, cwall = fut.result(timeout=900)
+        log(f"  {label} cpu: {cst} in {cwall:.2f} s")
+        n = assert_same_leaves(label, (st, convert.sim_to_numpy(sim)),
+                               (cst, cleaves))
+        if got != cgot:
+            raise AssertionError(f"{label}: cuda {got} != cpu {cgot}")
+        check_obs(label, got, expect)
+        log(f"  {label}: cuda == cpu, EngineStats and all {n} leaves "
+            f"equal, pcap files byte-equal")
 
     torch.cuda.synchronize()
     return out, err
@@ -5631,7 +5689,7 @@ def start_reftests_clis(tmp, names, nice=0):
 
 def start_vproc_clis(tmp):
     """19c and 19d as subprocesses, but for the long reftests configs
-    (VP_LONG, started first): the other reftests configs and the .py
+    (VP_LONG, started at phase 14): the other reftests configs and the .py
     plugin echo config through `python -m shadow_tpu_torch.cli
     --platform gpu`, and --host-kernel diff on the tgen dual workload
     and the epoll reftests config."""
@@ -5674,10 +5732,9 @@ def start_vproc_clis(tmp):
 
 def start_vproc_untimed(tmp, started):
     """Phase 19's work that nothing times, started beside phase 18's
-    untimed runs: the 16 CLI subprocesses of 19c-19d (the two long
-    reftests configs first, the others at a lower priority) into
-    `started`, and 19b's CPU half in a CPU worker (its future)."""
-    started.update(start_reftests_clis(tmp, VP_LONG))
+    untimed runs: 19b's CPU half in a CPU worker (its future), and the
+    CLI subprocesses of 19c-19d at a lower priority into `started` (but
+    VP_LONG's, which start at phase 14)."""
     fut = in_worker(_vproc_job, "tcp", "cpu")
     started.update(start_vproc_clis(tmp))
     return fut
@@ -5719,10 +5776,11 @@ def finish_vproc_clis(started):
                                      "overflow": 0})
 
 
-def vproc_cell(device, tmp, started, tcp_cpu):
+def vproc_cell(device, tmp, started, tcp_cpu, obs_cli=None):
     """Phase 19, in the directory `tmp`; `started` holds 19c-19d's CLIs
     and `tcp_cpu` is 19b's CPU half, all started beside phase 18's
-    untimed runs (start_vproc_untimed). Returns (kernel-row additions,
+    untimed runs (start_vproc_untimed); `obs_cli` is 18a's pending CLI,
+    checked with them (finish_obs_cli). Returns (kernel-row additions,
     max abs error)."""
     from shadow_tpu_torch import native
 
@@ -5757,12 +5815,13 @@ def vproc_cell(device, tmp, started, tcp_cpu):
     log("[19c-d] the reftests configs, the .py plugin and --host-kernel "
         "diff through the CLI")
     finish_vproc_clis(started)
+    obs = {} if obs_cli is None else finish_obs_cli(obs_cli)
     # timed alone, once the subprocesses have ended
     gather = time_gather("19a", kept.kept)
     return {"launches_vproc": launches, "launches_vproc_tcp": tlaunch,
             "vproc": {k: gather[k] for k in ("n", "ms", "plain_ms",
                                              "bound_ms", "library_ms")},
-            "vproc_udp": udp, "udp_oracle": udp_oracle}, err
+            "vproc_udp": udp, "udp_oracle": udp_oracle, **obs}, err
 
 
 def shards_bench_rank0() -> int:
@@ -6602,7 +6661,7 @@ def _fleet_specs():
 
 
 def fleet_side_main(tmp) -> int:
-    """22b's process and 22c's undisturbed oracle, beside phases 17-21:
+    """22b's process and 22c's undisturbed oracle, beside phases 16-21:
     `python -m shadow_tpu_torch.cli fleet run --workers 2` on FLEET_JOBS
     (the FLEET_KILL job's worker SIGKILLed after that job's first
     checkpoint heartbeat, read from the runner's log), `fleet status`,
@@ -6716,7 +6775,7 @@ def fleet_side_main(tmp) -> int:
 
 def start_fleet_side(tmp):
     """22b's process and 22c's oracle (fleet_side_main), started beside
-    phases 17-21."""
+    phases 16-21."""
     return start_proc("22b fleet + oracles", [
         sys.executable, "-c", "import sys, chip_smoke; "
         f"sys.exit(chip_smoke.fleet_side_main({tmp!r}))"])
@@ -7440,6 +7499,227 @@ def sweep_cell(sides, smi):
     return got, f["gather_err"]
 
 
+def _tool_main(fn, argv):
+    """(exit code, stdout lines, seconds) of a tool twin's main(argv)
+    run in this process, its standard output captured."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(list(argv))
+    return rc, buf.getvalue().splitlines(), round(time.perf_counter() - t0, 3)
+
+
+def _summary_json(lines):
+    """The last top-level JSON object of a tool's printed lines."""
+    text = "\n".join(lines)
+    return json.loads(text[text.rindex("\n{") + 1:] if "\n{" in text
+                      else text[text.index("{"):])
+
+
+def tools_side_main(tmp) -> int:
+    """24b and 24c beside phases 14-23: every chaos_soak mode of
+    SOAK_MODES through the twin's main() on the card (the side process's
+    mailbox_gather launches over them counted; the device-loss ranks,
+    the sweep's and the fleet's workers are processes of their own),
+    then compcache_ctl: prewarm --test (the trimmed and the full
+    program), ls, stats, gc down to one entry, and prewarm --sweep on
+    CC_SWEEP_SPEC cold and warm. Prints one {"tools_side"} line. Run as
+    `python3 -c "import chip_smoke; chip_smoke.tools_side_main(tmp)"`."""
+    import os
+
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+    from shadow_tpu_torch.tools import chaos_soak, compcache_ctl
+
+    t0 = time.perf_counter()
+    out = {"soak": {}, "cc": {}}
+    mailbox_gather.launches = 0
+    for mode, argv in SOAK_MODES.items():
+        if mode == "jobs":
+            argv = argv + ["--fleet-dir", os.path.join(tmp, "jobs")]
+        rc, lines, secs = _tool_main(chaos_soak.main, argv)
+        out["soak"][mode] = {"rc": rc, "s": secs, "reports": [
+            json.loads(ln) for ln in lines if ln.startswith('{"seed"')]}
+    out["launches_chaos"] = mailbox_gather.launches
+
+    cc = out["cc"]
+    root = os.path.join(tmp, "aot_test")
+    for key, argv in (("test", ["prewarm", "--test"]),
+                      ("test_full", ["prewarm", "--test", "--specialize",
+                                     "off"])):
+        rc, lines, secs = _tool_main(compcache_ctl.main,
+                                     ["--root", root, *argv])
+        cc[key] = {"rc": rc, "s": secs, "info": _summary_json(lines),
+                   "lines": [ln for ln in lines if not ln.startswith(
+                       (" ", "{", "}"))]}
+    rc, lines, secs = _tool_main(compcache_ctl.main, ["--root", root, "ls"])
+    cc["ls"] = {"rc": rc, "s": secs, "lines": lines}
+    rc, lines, secs = _tool_main(compcache_ctl.main,
+                                 ["--root", root, "stats"])
+    cc["stats"] = {"rc": rc, "s": secs, "stats": json.loads("\n".join(lines))}
+    rc, lines, secs = _tool_main(compcache_ctl.main, [
+        "--root", root, "gc", "--max-bytes",
+        str(cc["stats"]["stats"]["total_bytes"] - 1)])
+    cc["gc"] = {"rc": rc, "s": secs, "out": json.loads("\n".join(lines))}
+    rc, lines, _ = _tool_main(compcache_ctl.main, ["--root", root, "stats"])
+    cc["after_gc"] = json.loads("\n".join(lines))
+    spec = os.path.join(tmp, "cc_sweep.json")
+    with open(spec, "w") as f:
+        json.dump(CC_SWEEP_SPEC, f)
+    for key in ("cold", "warm"):
+        rc, lines, secs = _tool_main(compcache_ctl.main, [
+            "--root", os.path.join(tmp, "aot_sweep"), "prewarm", "--sweep",
+            spec])
+        cc[key] = {"rc": rc, "s": secs, "out": _summary_json(lines)}
+    out["s"] = round(time.perf_counter() - t0, 1)
+    print(json.dumps({"tools_side": out}), flush=True)
+    return 0
+
+
+def start_tools_side(tmp):
+    """24b and 24c's process, started beside phases 14-23 at a lower CPU
+    priority (TOOLS_NICE) than the phases' own work: the soak's ranks
+    and fleet workers (and their children) take the host's idle cores,
+    not the timed phases'."""
+    import os
+
+    os.makedirs(tmp, exist_ok=True)
+    return start_proc("24 tools side", [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        f"sys.exit(chip_smoke.tools_side_main({tmp!r}))"], nice=TOOLS_NICE)
+
+
+def _soak_equal(label, got, want, keys=None):
+    """A soak report equal to its CPU pin (on `keys` when given)."""
+    if keys is not None:
+        got = {k: got.get(k) for k in keys}
+    if got != want:
+        raise AssertionError(f"24b {label}: {json.dumps(got)} != the CPU's "
+                             f"{json.dumps(want)}")
+
+
+def tools_cell(side):
+    """24b and 24c's checks on the tools side process's line: every soak
+    mode exit 0 with every report ok and equal to its CPU pin, the
+    side's launches counted; compcache_ctl's entries, gc and the sweep
+    census's cold and warm counts. Returns the row fields."""
+    code, stdout, stderr, wall = finish_proc(side)
+    if code != 0:
+        raise AssertionError(f"24 tools side: exit {code}:\n"
+                             f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    f = _json_line(stdout, '{"tools_side"')["tools_side"]
+    soak = f["soak"]
+    for mode, r in soak.items():
+        if r["rc"] != 0 or not r["reports"] \
+                or not all(rep.get("ok") for rep in r["reports"]):
+            raise AssertionError(f"24b {mode}: exit {r['rc']}, reports "
+                                 f"{json.dumps(r['reports'])[:3000]}")
+    _soak_equal("--verify", soak["trial"]["reports"][0], SOAK_TRIAL[2])
+    _soak_equal("--replicas 4", soak["replicas"]["reports"][0], SOAK_REPLICA)
+    _soak_equal("--device-loss --shards 4", soak["device_loss"]["reports"][0],
+                SOAK_DEVICE_LOSS)
+    _soak_equal("--churn", soak["churn"]["reports"][0], SOAK_CHURN,
+                keys=SOAK_CHURN)
+    _soak_equal("--sweep", soak["sweep"]["reports"][0], SOAK_SWEEP,
+                keys=SOAK_SWEEP)
+    if soak["sweep"]["reports"][0]["kills"] < 1:
+        raise AssertionError("24b --sweep: no worker was killed")
+    jobs = soak["jobs"]["reports"]
+    if [r["seed"] for r in jobs] != [2, 3]:
+        raise AssertionError(f"24b --jobs 2: seeds {[r['seed'] for r in jobs]}")
+    for rep in jobs:
+        _soak_equal(f"--jobs 2 seed {rep['seed']}", rep, SOAK_TRIAL[
+            rep["seed"]])
+    if f["launches_chaos"] <= 0:
+        raise AssertionError("24b: mailbox_gather was never launched")
+    log(f"  24b on the card, each mode's report equal to the CPU's: "
+        + ", ".join(f"{m} {r['s']} s" for m, r in soak.items())
+        + f"; {f['launches_chaos']} mailbox_gather launches in the side "
+        f"process ({f['s']} s of work; the process ended {wall:.1f} s after "
+        f"its start)")
+    cc = f["cc"]
+    for key in ("test", "test_full"):
+        info = cc[key]["info"]
+        if cc[key]["rc"] != 0 or not info.get("stored") or info.get("hit"):
+            raise AssertionError(f"24c prewarm {key}: {cc[key]}")
+    if "specializing: trimmed loss (key extra 'no_loss')" \
+            not in cc["test"]["lines"]:
+        raise AssertionError(f"24c prewarm --test: {cc['test']['lines']}")
+    ls = cc["ls"]["lines"]
+    keys = [cc[k]["info"]["key"] for k in ("test", "test_full")]
+    if cc["ls"]["rc"] != 0 or not ls[0].endswith("— 2 entries") \
+            or [ln.split()[0] for ln in ls[1:]] != keys \
+            or not all(ln.endswith(" servable") for ln in ls[1:]):
+        raise AssertionError(f"24c ls: {ls}")
+    st = cc["stats"]["stats"]
+    if st["entries"] != 2 or st["specialized"] != 1:
+        raise AssertionError(f"24c stats: {st}")
+    if cc["gc"]["out"]["dropped"] != keys[:1] \
+            or cc["after_gc"]["entries"] != 1:
+        raise AssertionError(f"24c gc: {cc['gc']} then {cc['after_gc']}")
+    cold, warm = cc["cold"]["out"], cc["warm"]["out"]
+    if (cc["cold"]["rc"], cc["warm"]["rc"]) != (0, 0) \
+            or (cold["points"], cold["distinct"]) != (4, 2) \
+            or (cold["compiled"], cold["hits"]) != (2, 0) \
+            or (warm["compiled"], warm["hits"]) != (0, 2) \
+            or [k["key"] for k in warm["keys"]] \
+            != [k["key"] for k in cold["keys"]] \
+            or [k["affinity_key"] for k in cold["keys"]] != CC_AFFINITY:
+        raise AssertionError(f"24c prewarm --sweep: cold {cold}, warm {warm}")
+    log(f"  24c: prewarm --test {cc['test']['s']} s (trimmed) and "
+        f"{cc['test_full']['s']} s (full), 2 entries, gc to 1; prewarm "
+        f"--sweep cold {cc['cold']['s']} s (2 built, 0 hits), warm "
+        f"{cc['warm']['s']} s (0 built, 2 hits), the census's affinity keys "
+        f"the reference's")
+    return {"launches_chaos": f["launches_chaos"],
+            "tools": {"soak_s": {m: r["s"] for m, r in soak.items()},
+                      "compcache_s": {k: cc[k]["s"] for k in (
+                          "test", "test_full", "cold", "warm")},
+                      "side_s": f["s"]}}
+
+
+def scale_cell(device):
+    """24a: tools/scale_run.py's 100k tier through the twin, alone: its
+    main path (parse_args and run: the escalating warm-up on seed 1, the
+    timed run on seed 2) with the launch counter set to 0 just before
+    and read just after, mailbox_gather's route inputs kept; the row's
+    gates, PHOLD conservation on the timed run's state, and the kernel
+    against its plain version on the route and timed there. Returns
+    (row fields, max abs error)."""
+    import torch
+
+    from shadow_tpu_torch.core.insert_kernels import mailbox_gather
+    from shadow_tpu_torch.tools import scale_run
+
+    args = scale_run.parse_args(list(SCALE_ARGV))
+    torch.cuda.synchronize()
+    mailbox_gather.launches = 0
+    with KeepGatherInputs() as kept:
+        t0 = time.perf_counter()
+        scale, sim, cap = scale_run.run(args, device, say=log)
+        wall = time.perf_counter() - t0
+    launches = mailbox_gather.launches
+    log(f"  24a: {json.dumps(scale)}")
+    log(f"  24a: the escalation's final capacity {cap}; warm-up and timed "
+        f"run {wall:.1f} s together")
+    if not scale["verified"] or scale["overflow"] != 0 \
+            or scale["platform"] != "cuda":
+        raise AssertionError(f"24a: {scale}")
+    if SCALE_EVENTS is not None and scale["events"] != SCALE_EVENTS:
+        raise AssertionError(f"24a: events {scale['events']} != the "
+                             f"reference's {SCALE_EVENTS}")
+    check_phold("24a scale_run 100k", sim, SCALE_HOSTS, SCALE_LOAD,
+                {"mailbox_gather": launches})
+    err = kept.check("24a")
+    gather = time_gather("24a route", kept.kept)
+    del sim, kept
+    return {"launches_scale_100k": launches, "scale_100k": {
+        "row": scale, "final_capacity": cap, "gather": {k: gather[k] for k in (
+            "n", "H", "P", "ms", "plain_ms", "bound_ms", "library_ms")}}}, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7462,8 +7742,9 @@ def main(argv=None) -> int:
 
 
 def run_phases(args, bench, insert_kernels) -> int:
-    """Phases 1-22 and the result lines (main starts and stops the CPU
+    """Phases 1-24 and the result lines (main starts and stops the CPU
     halves' worker around them)."""
+    import os
     import tempfile
 
     import torch
@@ -7692,6 +7973,12 @@ def run_phases(args, bench, insert_kernels) -> int:
     # and phase 23's (its serial oracle and 23c; 23b and 23d)
     sweep_tmp = tempfile.TemporaryDirectory(prefix="shadow_sweep_")
     shards_side.update(start_sweep_sides(sweep_tmp.name))
+    # and phase 24's (24b, 24c), 18a's CLI and 19c's two long CLIs
+    shards_side["24s"] = start_tools_side(os.path.join(sweep_tmp.name, "24s"))
+    shards_side["18a"] = start_obs_cli(os.path.join(sweep_tmp.name, "18a"))
+    os.makedirs(os.path.join(sweep_tmp.name, "19c"))
+    shards_side.update(start_reftests_clis(os.path.join(sweep_tmp.name, "19c"),
+                                           VP_LONG, nice=VP_NICE))
     # phase 17 frees these: no reference stays here
     carried = [main4, relay6s, phase4]
     del main4, relay6s
@@ -7707,12 +7994,10 @@ def run_phases(args, bench, insert_kernels) -> int:
 
 def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
                   shards_side, carried) -> int:
-    """Phases 14-22 and the result lines (run_phases' tail; 20b, 20c and
-    21b-21e already running; `carried` holds phases 4's and 6s's runs
-    for 17)."""
+    """Phases 14-24 and the result lines (run_phases' tail; 20b, 20c,
+    21b-21e, 23's and 24's side work already running; `carried` holds
+    phases 4's and 6s's runs for 17)."""
     import tempfile
-
-    import torch
 
     main4, relay6s, phase4 = carried
     carried.clear()
@@ -7731,6 +8016,24 @@ def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update(got)
 
+    # phase 22's fleet and its oracles run beside phases 16-21
+    fleet_tmp = tempfile.TemporaryDirectory(prefix="shadow_fleet_")
+    fleet_side = start_fleet_side(fleet_tmp.name)
+    keep = [main4, relay6s]
+    del main4, relay6s
+    try:
+        return _phases_16_on(args, row, device, smi, kind, phase, phase_s,
+                             shards_side, keep, phase4, fleet_side)
+    finally:
+        stop_proc(fleet_side)
+        fleet_tmp.cleanup()
+
+
+def _phases_16_on(args, row, device, smi, kind, phase, phase_s,
+                  shards_side, keep, phase4, fleet_side) -> int:
+    """Phases 16-24 and the result lines (22b and 22c's oracle already
+    running in `fleet_side`; `keep` holds phases 4's and 6s's runs for
+    17)."""
     phase("16")
     log(f"[16] lane isolation and the recorders: bench.py's BENCH_REPLICAS="
         f"{LANE_R} BENCH_LANE_ISOLATION=1 BENCH_FLOW_SAMPLE={LANE_SAMPLE} "
@@ -7748,27 +8051,17 @@ def _phases_14_on(args, row, device, smi, kind, phase, phase_s,
         phase("16p")
         log("[16p] the 4-lane program's hooks, profiled")
         profile_lane_hooks(device)
-
-    # phase 22's fleet and its oracles run beside phases 17-21
-    fleet_tmp = tempfile.TemporaryDirectory(prefix="shadow_fleet_")
-    fleet_side = start_fleet_side(fleet_tmp.name)
-    # phase 17 frees these: no reference stays here
-    keep = [main4, relay6s]
-    del main4, relay6s
-    try:
-        return _phases_17_on(args, row, device, smi, kind, phase, phase_s,
-                             shards_side, keep, phase4, fleet_side)
-    finally:
-        stop_proc(fleet_side)
-        fleet_tmp.cleanup()
+    return _phases_17_on(args, row, device, smi, kind, phase, phase_s,
+                         shards_side, keep, phase4, fleet_side)
 
 
 def _phases_17_on(args, row, device, smi, kind, phase, phase_s,
                   shards_side, keep, phase4, fleet_side) -> int:
-    """Phases 17-23 and the result lines (22b and 22c's oracle already
+    """Phases 17-24 and the result lines (22b and 22c's oracle already
     running in `fleet_side`, phase 23's untimed runs in
-    `shards_side["23o"]` and `["23k"]`; `keep` holds phases 4's and
-    6s's runs for 17)."""
+    `shards_side["23o"]` and `["23k"]`, 24b and 24c in
+    `shards_side["24s"]`; `keep` holds phases 4's and 6s's runs for
+    17)."""
     import tempfile
 
     import torch
@@ -7796,9 +8089,11 @@ def _phases_17_on(args, row, device, smi, kind, phase, phase_s,
         f"{OBS_CLI_STOP} sim-s; the same bundle in-process with a drain "
         f"every window to {OBS_STOP} sim-s; CUDA against CPU at "
         f"{OBS_CUT_HOSTS} hosts and on the TCP example twin")
-    # phase 19's untimed work starts beside 18's (18a, 18c)
+    # phase 19's untimed work starts beside 18c
     vp_tmp = tempfile.TemporaryDirectory(prefix="shadow_vproc_")
-    vp_clis: dict = {}
+    # 19c's long CLIs, started at 14, are checked with the others
+    vp_clis = {k: st for k, st in shards_side.items()
+               if k.startswith("reftests ")}
     tcp_cpu = []
     try:
         got, err = obs_cell(device, untimed=lambda: tcp_cpu.append(
@@ -7816,7 +8111,8 @@ def _phases_17_on(args, row, device, smi, kind, phase, phase_s,
         log(f"[19] virtual processes: {VP_HOSTS} coroutines over UDP and "
             f"TCP through ProcessRuntime; the reftests configs, a .py "
             f"plugin and --host-kernel diff through the CLI")
-        got, err = vproc_cell(device, vp_tmp.name, vp_clis, tcp_cpu[0])
+        got, err = vproc_cell(device, vp_tmp.name, vp_clis, tcp_cpu[0],
+                              obs_cli=shards_side["18a"])
         row["max_abs_err"] = max(row["max_abs_err"], err)
         udp_oracle = got.pop("udp_oracle")
         row.update(got)
@@ -7875,6 +8171,16 @@ def _phases_17_on(args, row, device, smi, kind, phase, phase_s,
         f"BENCH_PROFILE_DIR")
     got, err = sweep_cell({k: shards_side[k] for k in ("23o", "23k")},
                           smi)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row.update(got)
+
+    phase("24")
+    log("[24] the tools twins: chaos_soak's modes and compcache_ctl (24b, "
+        "24c, in the side process started at 14), then `python -m "
+        "shadow_tpu_torch.tools.scale_run " + " ".join(SCALE_ARGV) + "` "
+        "alone (24a)")
+    row.update(tools_cell(shards_side["24s"]))
+    got, err = scale_cell(device)
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update(got)
 

@@ -656,26 +656,44 @@ def _run_scenario(spec: JobSpec, job_dir: str, *, resume_from,
     return result
 
 
+def _run_chaos_trial(spec: JobSpec, job_dir: str, *, heartbeat, log,
+                     device=None) -> dict:
+    """One chaos soak trial (shadow_tpu_torch.tools.chaos_soak
+    run_trial, the soak's --jobs path) on `device`. The trial owns its
+    own kill/heal machinery; the fleet only provides the workdir, the
+    lease, and the salvage."""
+    from shadow_tpu_torch.tools import chaos_soak
+
+    if heartbeat is not None:
+        heartbeat({"wstart": 0, "checkpoint": None})
+    rep = chaos_soak.run_trial(
+        spec.seed, hosts=spec.hosts, load=spec.load,
+        sim_s=spec.sim_s, kills=spec.kills, max_grow=spec.max_grow,
+        workdir=job_dir, verify=spec.verify, log=log, device=device)
+    # the trial's product is its report, pass or fail: a trial that
+    # RAN is a done job (retrying a deterministic verdict would just
+    # reproduce it); only an exception is a job failure
+    return {"ok": True, "trial_ok": bool(rep["ok"]), "report": rep,
+            "preempted": False, "deadline": False}
+
+
 def run_job(spec: JobSpec, job_dir: str, *,
             resume_from: Optional[str] = None, stop=None,
             heartbeat=None, log=None, device=None) -> dict:
     """Execute one job attempt (or continuation) on `device` (None ->
     "cuda"; raises inside, and so fails the job, without CUDA). Always
     leaves `result.json` in the job dir — the crash-safe copy the
-    supervisor salvages if the worker's pipe dies with the worker.
-
-    The "chaos_trial" kind runs tools/chaos_soak.py in the reference,
-    which has no port yet (ROADMAP.md Queue 1 item 14): such a job
-    fails with a ValueError naming its item."""
+    supervisor salvages if the worker's pipe dies with the worker."""
     os.makedirs(job_dir, exist_ok=True)
     try:
         if spec.kind == "chaos_trial":
-            raise ValueError(
-                "kind 'chaos_trial' runs tools/chaos_soak.py, which the "
-                "port does not have yet (ROADMAP.md Queue 1 item 14)")
-        result = _run_scenario(spec, job_dir,
-                               resume_from=resume_from, stop=stop,
-                               heartbeat=heartbeat, log=log, device=device)
+            result = _run_chaos_trial(spec, job_dir, heartbeat=heartbeat,
+                                      log=log, device=device)
+        else:
+            result = _run_scenario(spec, job_dir,
+                                   resume_from=resume_from, stop=stop,
+                                   heartbeat=heartbeat, log=log,
+                                   device=device)
     except Exception as e:  # noqa: BLE001 — worker must not die on a job
         result = {"ok": False, "preempted": False, "deadline": False,
                   "error": f"{type(e).__name__}: {e}"}

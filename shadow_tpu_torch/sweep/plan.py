@@ -10,8 +10,8 @@ census BEFORE anything runs: each point's bucket-affinity key
 the build applies) and predicted specialization vector
 (compile/specialize.py rules applied at the spec level) are pure
 functions of the spec, so the driver prewarms exactly the programs
-the pool will serve (the reference's `compcache_ctl prewarm --sweep`
-has no port yet: ROADMAP.md Queue 1 item 14).
+the pool will serve (`python -m shadow_tpu_torch.tools.compcache_ctl
+prewarm --sweep` prewarms the same census ahead of a sweep).
 
 The sweep file is JSON:
 

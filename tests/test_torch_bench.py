@@ -17,6 +17,7 @@ import sys
 import pytest
 
 from shadow_tpu_torch import bench as tbench
+from torch_parity import bench_in_process
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -38,10 +39,6 @@ def _start(**env):
 def _finish(p):
     out, err = p.communicate(timeout=300)
     return subprocess.CompletedProcess(p.args, p.returncode, out, err)
-
-
-def _run(**env):
-    return _finish(_start(**env))
 
 
 WORKLOADS = [
@@ -167,7 +164,7 @@ def test_refused_knob_exits_non_zero(rows, env, word):
     if word in LIFTED_KNOBS:
         LIFTED_KNOBS[word](rows)
         return
-    r = _run(**{"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16", **env})
+    r = bench_in_process(**{"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16", **env})
     assert r.returncode != 0
     assert word in r.stderr and r.stdout == ""
 
@@ -273,7 +270,7 @@ def test_rate_trace_matches_bench_py():
      "BENCH_FLOW_SAMPLE"),
 ], ids=["rate_and_trace", "workload", "supervise", "nan", "flows"])
 def test_injection_refusals(env, word):
-    r = _run(**{"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16", **env})
+    r = bench_in_process(**{"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16", **env})
     assert r.returncode != 0
     assert word in r.stderr and r.stdout == ""
 
@@ -283,7 +280,7 @@ def test_without_cuda_it_exits_non_zero():
 
     if torch.cuda.is_available():
         pytest.skip("checks the behavior without a CUDA device")
-    r = _run(BENCH_HOSTS="16")
+    r = bench_in_process(BENCH_HOSTS="16")
     assert r.returncode != 0 and "CUDA" in r.stderr and r.stdout == ""
 
 
@@ -370,6 +367,6 @@ def test_lifted_knob_row_matches_bench_py(lifted_rows, name):
 ], ids=["spec_pingpong", "spec_supervise", "spec_inject",
         "active_replicas", "active_supervise", "sparse_inject", "nan"])
 def test_lifted_knob_refusals_match_bench_py(env, word):
-    r = _run(**{"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16", **env})
+    r = bench_in_process(**{"BENCH_PLATFORM": "cpu", "BENCH_HOSTS": "16", **env})
     assert r.returncode != 0
     assert word in r.stderr and r.stdout == ""

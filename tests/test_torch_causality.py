@@ -12,7 +12,11 @@ the reference's, on the CPU, tolerance zero:
   manifest block equal to the reference's;
 - lineage_update on a saturated sub-ring (capacity 2, period 1) and
   advance_latch through a wrap, against the reference's on the same
-  inputs, and the harvester's per-host overrun accounting.
+  inputs, and the harvester's per-host overrun accounting;
+- tools/critpath.py `analyze` (and its rendering) of the port run's
+  manifest and tools/trace_view.py's summary of its trace and manifest
+  equal those of the reference run's (both tools import neither
+  package).
 
 One reference program is compiled for the file.
 """
@@ -50,7 +54,8 @@ def runs():
         jb.sim)
     tsim, tst = tbuild.make_runner(tb, app_handlers=(tphold.handler,),
                                    device="cpu")(tb.sim)
-    return {"jax": (jsim, jst), "port": (tsim, tst), "bundle": tb}
+    return {"jax": (jsim, jst), "port": (tsim, tst), "bundle": tb,
+            "jbundle": jb}
 
 
 def test_lineage_and_advance_planes_match_reference(runs):
@@ -104,6 +109,38 @@ def test_host_side_blocks_match_reference(runs):
             == jcaus.causality_manifest_block(
                 jh, num_hosts=64, sample_period=2, path_shards=S)
     assert th.summary() == jh.summary()
+
+
+def _manifest_and_trace(export, telemetry, caus, b, sim, stats):
+    """A run manifest with its causality block, and the chrome trace of
+    the telemetry ring, as the CLI writes them for this run."""
+    h = telemetry.Harvester()
+    h.drain(sim)
+    man = export.run_manifest(
+        cfg=b.cfg, seed=1, shards=1, sim=sim, stats=stats, harvester=h,
+        wall_seconds=2.0, causality=caus.causality_manifest_block(
+            h, num_hosts=64, sample_period=2, path_shards=1))
+    return man, export.chrome_trace(h.records)
+
+
+@pytest.mark.parametrize("tool", ["critpath", "trace_view"])
+def test_manifest_tools_read_the_port_run_as_the_reference_run(runs, tool):
+    from shadow_tpu.telemetry import export as jexport
+    from shadow_tpu_torch.telemetry import export as texport
+    from tests.conftest import load_tool
+
+    jman, jtrace = _manifest_and_trace(jexport, jtelemetry, jcaus,
+                                       runs["jbundle"], *runs["jax"])
+    tman, ttrace = _manifest_and_trace(texport, ttelemetry, tcaus,
+                                       runs["bundle"], *runs["port"])
+    mod = load_tool(tool)
+    if tool == "critpath":
+        got, want = mod.analyze(tman), mod.analyze(jman)
+        assert got == want and got["reasons"]
+        assert mod.render(got) == mod.render(want)
+    else:
+        got = mod.summarize(ttrace, tman)
+        assert got == mod.summarize(jtrace, jman) and got
 
 
 class _Sim(SimpleNamespace):

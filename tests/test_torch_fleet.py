@@ -14,7 +14,9 @@ reference's (shadow_tpu/fleet/):
   requeued at the same attempt, resumes from its checkpoint, and ends
   with the digest of the uninterrupted run;
 - a zero wallclock budget latches the deadline, as the reference's;
-  chaos_trial is refused by name;
+- a `chaos_trial` job runs the port's chaos soak trial
+  (shadow_tpu_torch/tools/chaos_soak.py) and returns the reference's
+  run_job result: ok, trial_ok and the trial's report;
 - a `shards = 2` job through a real worker runs on 2 gloo ranks: its
   digest and counters equal the reference's sharded run_job's, its
   state the serial oracle's (`width_digest`, every leaf but the
@@ -145,16 +147,24 @@ def _port_kill(tmp, monkeypatch_env):
     return rc, killed["done"]
 
 
+# the chaos_trial job: tools/chaos_soak.py run_trial(2, kills=1) at the
+# scenario surface's default shape (three escalations and a kill;
+# tests/test_torch_chaos_soak.py holds the 2-kill, verified trial)
+CHAOS = {"id": "c", "kind": "chaos_trial", "seed": 2, "kills": 1}
+
+
 @pytest.fixture(scope="module")
 def fleets(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("fleets"))
-    ref, port, kill, ref_mesh, mesh = side_by_side([
+    ref, port, kill, ref_mesh, mesh, ref_chaos = side_by_side([
         lambda: _ref_digests(os.path.join(tmp, "ref")),
         lambda: _port_fleet(tmp), lambda: _port_kill(tmp, None),
         lambda: _ref_mesh(os.path.join(tmp, "ref")),
-        lambda: _port_mesh(tmp)])
+        lambda: _port_mesh(tmp),
+        lambda: jrun_job(jspec.JobSpec.from_dict(CHAOS),
+                         os.path.join(tmp, "ref", "chaos"))])
     return {"ref": ref, "port": port, "kill": kill, "tmp": tmp,
-            "ref_mesh": ref_mesh, "mesh": mesh}
+            "ref_mesh": ref_mesh, "mesh": mesh, "ref_chaos": ref_chaos}
 
 
 # ---- the host-only copies -------------------------------------------
@@ -337,14 +347,16 @@ def test_run_wallclock_deadline_latches_and_checkpoints(tmp_path):
     assert on_disk["deadline"] is True
 
 
-def test_chaos_trial_is_refused_by_name(tmp_path):
-    spec = tspec.JobSpec(id="c", kind="chaos_trial", seed=1)
-    res = trun_job(spec, str(tmp_path / "c"), device="cpu")
-    assert not res["ok"] and "item 14" in res["error"]
-    assert res["error"].startswith("ValueError:")
-    from shadow_tpu_torch.fleet.runner import _is_fatal
-
-    assert _is_fatal(res)   # burns no attempts
+def test_chaos_trial_is_refused_by_name(fleets, tmp_path):
+    """Once refused, now run: a chaos_trial job runs the port's soak
+    trial and returns the reference's run_job result, report and all."""
+    res = trun_job(tspec.JobSpec.from_dict(CHAOS), str(tmp_path / "c"),
+                   device="cpu")
+    assert res == fleets["ref_chaos"]
+    assert res["ok"] and res["trial_ok"] and res["report"]["ok"]
+    assert res["report"]["kills"] == 1
+    assert res["report"]["escalation_restarts"] >= 1
+    assert json.load(open(tmp_path / "c" / "result.json")) == res
 
 
 def test_sharded_job_is_refused_by_name(fleets):

@@ -80,6 +80,22 @@ def test_boot_state_matches_reference(runs):
     _assert_leaves_equal(runs["boot"], runs["port_boot"])
 
 
+def test_scale_run_builder_matches_the_run_bundle(runs):
+    """shadow_tpu_torch.tools.scale_run's TCP gossip builder, given
+    this file's peers, sockets and blocks, boots the bundle this file
+    runs against the reference, leaf for leaf."""
+    from shadow_tpu_torch.tools import scale_run
+
+    args = scale_run.parse_args([
+        "--workload", "gossip", "--gossip-transport", "tcp", "--hosts",
+        str(H), "--sim-seconds", "12", "--cpu"])
+    b, kw, verify = scale_run.build_workload(
+        args, 3, 64, graph=GRAPH, peers=K, sockets=4 + 2 * K, blocks=BLOCKS)
+    assert kw == {"app_handlers": (tgossip.tcp_handler,)}
+    _assert_leaves_equal(runs["port_boot"], convert.sim_to_numpy(b.sim))
+    assert verify(runs["port_sim"]) and verify.fraction == 1.0
+
+
 def test_run_stats_match_reference(runs):
     assert runs["port_stats"] == runs["jax_stats"]
 

@@ -64,7 +64,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "shadow_tpu_torch.utils.shadowlog",
                 "shadow_tpu_torch.utils.objcount",
                 "shadow_tpu_torch.utils.tracker", *INJECTION, *LANES,
-                *COMPILE, *OBSERVE, *VPROC, *PARALLEL, *FLEET, *SWEEP):
+                *COMPILE, *OBSERVE, *VPROC, *PARALLEL, *FLEET, *SWEEP,
+                *TOOLS):
         assert mod in out["modules"]
 
 
@@ -121,37 +122,76 @@ SWEEP = ("shadow_tpu_torch.sweep", "shadow_tpu_torch.sweep.plan",
          "shadow_tpu_torch.telemetry.profile")
 
 
-# {module: (exit code, stdout, stderr)} of each module's fresh
-# interpreter, filled for every module at the first use
+# the tools twins
+TOOLS = ("shadow_tpu_torch.tools", "shadow_tpu_torch.tools.scale_run",
+         "shadow_tpu_torch.tools.chaos_soak",
+         "shadow_tpu_torch.tools.compcache_ctl",
+         "shadow_tpu_torch.tools.faultplan_lint",
+         "shadow_tpu_torch.tools.trace_gen",
+         "shadow_tpu_torch.tools.generate_example_config",
+         "shadow_tpu_torch.tools.dualmode_diff")
+
+
+# {module: (exit code, stdout, stderr)} of each module's own interpreter,
+# filled for every module at the first use
 _ALONE: dict = {}
-# fresh interpreters run at once (each imports torch)
-_ALONE_AT_ONCE = 6
+
+# One interpreter imports torch and numpy (which import neither jax nor
+# the reference), then forks a child for each module: the child imports
+# that module alone — nothing of shadow_tpu_torch is loaded before it —
+# and reports the jax, flax and shadow_tpu modules it pulled in, or its
+# traceback. The parent prints {module: [exit code, report]}.
+_FORK_PROBE = """
+import json, os, sys, traceback
+import numpy, torch
+BAD = ("jax", "jaxlib", "flax", "shadow_tpu")
+out = {}
+for mod in sys.argv[1:]:
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            __import__(mod)
+            msg = json.dumps(sorted(m for m in sys.modules
+                                    if m.split(".")[0] in BAD))
+            code = 0
+        except BaseException:
+            msg, code = traceback.format_exc(), 1
+        os.write(w, msg.encode())
+        os._exit(code)
+    os.close(w)
+    chunks = []
+    while True:
+        b = os.read(r, 65536)
+        if not b:
+            break
+        chunks.append(b)
+    os.close(r)
+    _, status = os.waitpid(pid, 0)
+    out[mod] = [os.waitstatus_to_exitcode(status),
+                b"".join(chunks).decode()]
+print(json.dumps(out))
+"""
 
 
 def _probe_alone(mods) -> dict:
-    """Import each module alone in a fresh interpreter, _ALONE_AT_ONCE
-    at a time; {module: (exit code, stdout, stderr)}."""
-    out, todo, live = {}, list(mods), []
-    while todo or live:
-        while todo and len(live) < _ALONE_AT_ONCE:
-            mod = todo.pop(0)
-            probe = (f"import importlib, json, sys; "
-                     f"importlib.import_module({mod!r}); print(json.dumps("
-                     "sorted(m for m in sys.modules if m.split('.')[0] in "
-                     "('jax', 'jaxlib', 'flax', 'shadow_tpu'))))")
-            live.append((mod, subprocess.Popen(
-                [sys.executable, "-c", probe], cwd=ROOT, text=True,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
-        mod, p = live.pop(0)
-        stdout, stderr = p.communicate(timeout=300)
-        out[mod] = (p.returncode, stdout, stderr)
-    return out
+    """Import each module alone in an interpreter of its own (a child
+    forked before any of the port is imported); {module: (exit code,
+    stdout, stderr)}."""
+    r = subprocess.run([sys.executable, "-c", _FORK_PROBE, *mods], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    return {mod: (code, report if code == 0 else "", report if code else "")
+            for mod, (code, report) in got.items()}
 
 
 def _imports_alone(mod):
     if not _ALONE:
         _ALONE.update(_probe_alone(INJECTION + LANES + COMPILE + OBSERVE
-                                   + VPROC + PARALLEL + FLEET + SWEEP))
+                                   + VPROC + PARALLEL + FLEET + SWEEP
+                                   + TOOLS))
     code, stdout, stderr = _ALONE[mod]
     assert code == 0, stderr
     assert json.loads(stdout.strip().splitlines()[-1]) == []
@@ -194,6 +234,11 @@ def test_fleet_module_imports_alone_without_jax(mod):
 
 @pytest.mark.parametrize("mod", SWEEP)
 def test_sweep_module_imports_alone_without_jax(mod):
+    _imports_alone(mod)
+
+
+@pytest.mark.parametrize("mod", TOOLS)
+def test_tools_module_imports_alone_without_jax(mod):
     _imports_alone(mod)
 
 
@@ -388,7 +433,7 @@ def _tiny_build(**kw):
     return build(cfg, graph, [HostSpec(name="a"), HostSpec(name="b")], **kw)
 
 
-def test_entry_points_default_to_cuda_and_never_fall_back():
+def test_entry_points_default_to_cuda_and_never_fall_back(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the behavior without a CUDA device")
     from shadow_tpu_torch.net.build import make_runner, run
@@ -400,6 +445,22 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         make_runner(b)
     with pytest.raises(RuntimeError, match="CUDA"):
         run(b)
+    # the tools twins: scale_run without --cpu, chaos_soak without
+    # --platform cpu (and its library functions without device=), a
+    # chaos_trial job without a device
+    from shadow_tpu_torch.fleet.scenario import run_job
+    from shadow_tpu_torch.fleet.spec import JobSpec
+    from shadow_tpu_torch.tools import chaos_soak, scale_run
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scale_run.main(["--hosts", "4", "--load", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chaos_soak.main(["--trials", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chaos_soak.run_replica_trial(3)
+    res = run_job(JobSpec(id="c", kind="chaos_trial", seed=2),
+                  str(tmp_path / "c"))
+    assert res["ok"] is False and "CUDA" in res["error"]
 
 
 def test_sim_from_numpy_defaults_to_cuda():

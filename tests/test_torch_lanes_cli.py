@@ -39,7 +39,8 @@ from shadow_tpu_torch.net import build as tbuild
 from shadow_tpu_torch.utils import checkpoint as tckpt
 from test_config_cli import REFERENCE_PHOLD_XML
 from test_torch_cli import WALL, WALL_MANIFEST, _compile_view, _main
-from torch_parity import assert_leaves_equal, jax_leaves, packed, to_jax
+from torch_parity import (assert_leaves_equal, bench_in_process, jax_leaves,
+                          packed, to_jax)
 
 torch.set_num_threads(1)
 
@@ -269,9 +270,9 @@ def test_bench_refuses_what_bench_py_refuses(env, word, bench_rows):
                             ({"BENCH_SENTINEL": "0",
                               "BENCH_SENTINEL_OVERHEAD": "1"},
                              "BENCH_SENTINEL_OVERHEAD=1 needs")):
-            for cmd in (["bench.py"], ["-m", "shadow_tpu_torch.bench"]):
-                r = _bench(cmd, **dict(SENTINEL_ENV, **extra),
-                           JAX_PLATFORMS="cpu")
+            for r in (_bench(["bench.py"], **dict(SENTINEL_ENV, **extra),
+                             JAX_PLATFORMS="cpu"),
+                      bench_in_process(**dict(SENTINEL_ENV, **extra))):
                 assert r.returncode != 0 and word in r.stderr, r.stderr
         return
     if word == "resident":
@@ -295,8 +296,7 @@ def test_bench_refuses_what_bench_py_refuses(env, word, bench_rows):
         assert got["resident"]["program_key_stable"] is True
         assert got["resident"]["retraces"] == 0
         for extra in ({"BENCH_REPLICAS": "2"}, {"BENCH_RESIDENT": "1"}):
-            r = _bench(["-m", "shadow_tpu_torch.bench"],
-                       **dict(RESIDENT_ENV, **extra))
+            r = bench_in_process(**dict(RESIDENT_ENV, **extra))
             assert r.returncode != 0 and "BENCH_RESIDENT" in r.stderr
         return
     if word is None:
@@ -319,8 +319,7 @@ def test_bench_refuses_what_bench_py_refuses(env, word, bench_rows):
         assert sh["ranks"] == 2 and sh["backend"] == "gloo"
         assert sh["narrow_hit"] + sh["narrow_miss"] == got["windows"]
         return
-    r = _bench(["-m", "shadow_tpu_torch.bench"], BENCH_PLATFORM="cpu",
-               BENCH_HOSTS="16", **env)
+    r = bench_in_process(BENCH_PLATFORM="cpu", BENCH_HOSTS="16", **env)
     assert r.returncode != 0
     assert word in r.stderr and r.stdout == ""
 

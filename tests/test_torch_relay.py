@@ -169,6 +169,28 @@ def test_boot_state_matches_reference(runs, name):
     _assert_leaves_equal(runs[name]["boot"], runs[name]["port_boot"])
 
 
+@pytest.mark.parametrize("name", ["lossless", "lossy"])
+def test_scale_run_builder_matches_the_run_bundle(runs, name):
+    """shadow_tpu_torch.tools.scale_run's --workload relay builder, at
+    this case's shape, boots the bundle this file runs against the
+    reference, leaf for leaf."""
+    from shadow_tpu_torch.tools import scale_run
+
+    loss, circuits, total, _ = CASES[name]
+    hop = len(circuits[0])
+    args = scale_run.parse_args([
+        "--workload", "relay", "--hosts", str(H), "--hop", str(hop),
+        "--bytes", str(total), "--sim-seconds", str(END // simtime.ONE_SECOND),
+        "--cpu"])
+    b, kw, _ = scale_run.build_workload(args, 1, 32,
+                                        graph=GRAPH % {"loss": loss},
+                                        ring=True)
+    assert b.circuits == circuits
+    assert kw == {"app_handlers": (trelay.handler,),
+                  "app_tcp_bulk": trelay.TCP_BULK}
+    _assert_leaves_equal(runs[name]["port_boot"], convert.sim_to_numpy(b.sim))
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_run_stats_match_reference(runs, name):
     assert runs[name]["port_stats"] == runs[name]["jax_stats"]

@@ -135,6 +135,27 @@ def test_boot_state_matches_reference(runs, name):
     _assert_leaves_equal(runs[name]["boot"], runs[name]["port_boot"])
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_scale_run_builder_matches_the_run_bundle(runs, name):
+    """shadow_tpu_torch.tools.scale_run's --workload tor builder, given
+    this file's chains and out_ring, boots the bundle this file runs
+    against the reference, leaf for leaf."""
+    from shadow_tpu_torch.tools import scale_run
+
+    args = scale_run.parse_args([
+        "--workload", "tor", "--hosts", str(H), "--slots", str(SLOTS),
+        "--bytes", str(TOTAL), "--sim-seconds", str(END // simtime.ONE_SECOND),
+        "--cpu"])
+    b, kw, verify = scale_run.build_workload(
+        args, 1, CAP, graph=GRAPH % {"bw": 102400, "loss": CASES[name]},
+        chains=_chains(trelay), out_ring=16)
+    assert kw == {"app_handlers": (trelay.mux_handler,),
+                  "app_tcp_bulk": trelay.MUX_TCP_BULK}
+    _assert_leaves_equal(runs[name]["port_boot"], convert.sim_to_numpy(b.sim))
+    # scale_run's verify: every circuit's bytes delivered
+    assert verify(runs[name]["bulk"][0]) and verify.fraction == 1.0
+
+
 def test_setup_shared_refuses_an_overfull_host():
     with pytest.raises(ValueError, match="max_slots"):
         cfg = TConfig(num_hosts=H, sockets_per_host=4)

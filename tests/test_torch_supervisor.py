@@ -53,6 +53,7 @@ from shadow_tpu_torch.faults import escalate as tescalate
 from shadow_tpu_torch.net import build as tbuild
 from shadow_tpu_torch.net.state import NetConfig as TConfig
 from shadow_tpu_torch.utils import checkpoint as tckpt
+from torch_parity import bench_in_process
 
 torch.set_num_threads(1)
 
@@ -626,10 +627,6 @@ def _bench_finish(p):
     return subprocess.CompletedProcess(p.args, p.returncode, out, err)
 
 
-def _bench(*argv, **env):
-    return _bench_finish(_bench_start(*argv, **env))
-
-
 PLAN_JSON = "examples/faultplan_degraded.json"
 
 SUPERVISED = [
@@ -700,6 +697,6 @@ def test_supervised_rows_are_named_as_bench_py_names_them(
 ], ids=["faults_pingpong", "min_jump_pingpong", "adaptive_unsupervised",
         "checkpoints_unsupervised", "min_jump_nan"])
 def test_bench_refusals(argv, env, word):
-    r = _bench(*argv, **env)
+    r = bench_in_process(*argv, BENCH_PLATFORM="cpu", BENCH_HOSTS="16", **env)
     assert r.returncode != 0
     assert word in r.stderr and r.stdout == ""

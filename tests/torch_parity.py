@@ -1,9 +1,12 @@
 """Helpers shared by the lane-isolation and recorder parity tests
 (tests/test_torch_lanes.py, _flows.py, _causality.py, _lanes_cli.py):
 one packed PHOLD program built the same way in both packages, and the
-leaf maps that hold one package's state against the other's; and
+leaf maps that hold one package's state against the other's;
 side_by_side, which runs a fixture's independent reference runs at
-once (tests/test_torch_qdisc.py, _parallel.py)."""
+once (tests/test_torch_qdisc.py, _parallel.py); and bench_in_process,
+the port's bench entry point run in this process for the runs that end
+in its argument and device checks (tests/test_torch_bench.py,
+_lanes_cli.py)."""
 
 import jax
 import numpy as np
@@ -100,3 +103,40 @@ def side_by_side(fns):
     with ThreadPoolExecutor(max_workers=len(fns)) as pool:
         futures = [pool.submit(f) for f in fns]
         return [f.result() for f in futures]
+
+
+def bench_in_process(*argv, **env):
+    """`python -m shadow_tpu_torch.bench ARGV` with the BENCH_* environment
+    `env` (None: unset) but in this process, for a run that ends in the
+    module's argument and device checks: a CompletedProcess of the exit
+    status, standard output and errors the subprocess gives (SystemExit
+    with a message: status 1 and the message on stderr)."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+
+    import pytest
+
+    from shadow_tpu_torch import bench as tbench
+
+    out, err = io.StringIO(), io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            mp.delenv(k)
+        for k, v in env.items():
+            if v is None:
+                mp.delenv(k, raising=False)
+            else:
+                mp.setenv(k, v)
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                code = tbench.main(list(argv))
+            except SystemExit as e:
+                code = e.code
+    if isinstance(code, str):
+        err.write(code + "\n")
+        code = 1
+    return subprocess.CompletedProcess(["-m", "shadow_tpu_torch.bench", *argv],
+                                       code or 0, out.getvalue(),
+                                       err.getvalue())
