@@ -20,7 +20,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    pair around many calls that cycle through input sets larger than
    the L2) at the main shape, the relay's, the Tor cell's and the
    --test example's route (1,001 hosts, P = 22, the narrow tier's 24
-   columns; equality also at its full outbox of 4,096);
+   columns; equality also at its full outbox of 4,096); equality at the
+   edges of mailbox_gather's design (every residue of start * P mod 4,
+   H = 1, 100, 10,241, 40,961 and 310,000, a ragged tail, decreasing
+   starts, tiles past their stage, start < 0, the clamp at rows - 1,
+   views off a 16-byte boundary, a window of 55 words); the card's launch floor
+   (an empty kernel's device time, the same reps) beside the timings;
 4. the main path at full width: bench.py's default PHOLD program —
    10,240 hosts, load 8, the one-vertex 50 ms topology, capacities 48
    and in_ring 16 as bench.py settles them, 5 simulated seconds, the
@@ -1459,6 +1464,101 @@ def assert_gather_equal(label, stream, start, Wn):
     log(f"  mailbox_gather == plain at {label}: H={start.numel()} "
         f"rows={stream.shape[0]} Wn={Wn} P={stream.shape[1]}: exact")
     return err
+
+
+def gather_edge_inputs(device):
+    """Phase 3's edge shapes of the kernel's design: (label, stream,
+    start, Wn) for every residue of start * P mod 4, H = 1, H not a
+    multiple of a tile, H below the SM count, a ragged tail whose starts
+    are n, decreasing starts, tiles whose span passes their stage (the
+    word-by-word path), H = 310,000 with such tiles, start < 0, starts
+    where the clamp at rows - 1 binds, views whose data_ptr is off
+    a 16-byte boundary, and a window of Wn * P words not a multiple of 4
+    (scalar stores)."""
+    import numpy as np
+    import torch
+
+    Wn = 32
+    rng = np.random.default_rng(19)
+
+    def stream_of(n, P, wn=Wn):
+        return torch.as_tensor(rng.integers(
+            -2**31, 2**31 - 1, (n + wn, P), dtype=np.int64).astype(np.int32),
+            device=device)
+
+    def st(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    cases = []
+    for P in (11, 22):
+        steps = np.cumsum(rng.integers(1, 4, 600)) - 1
+        cases.append((f"every residue of start*P mod 4, P = {P}",
+                      stream_of(int(steps[-1]) + 1, P), st(steps), Wn))
+        # the same starts on views 1, 2 and 3 words into a larger buffer
+        flat = stream_of(int(steps[-1]) + 1, P).reshape(-1)
+        big = torch.cat([flat, flat[:3]])
+        for off in (1, 2, 3):
+            view = big[off:off + flat.numel()].view(-1, P)
+            cases.append((f"a view {4 * off} bytes into its buffer, P = {P}",
+                          view, st(steps), Wn))
+        big2 = stream_of(4_000, P)
+        cases.append((f"big[1:] (data_ptr + {4 * P} bytes), P = {P}",
+                      big2[1:], mailbox_inputs(120, 3_000, Wn, P, seed=P,
+                                               device=device)[1], Wn))
+    # 10,241 and 40,961: not a multiple of a tile
+    for H, P in ((1, 11), (100, 11), (10_241, 11), (40_961, 11), (1, 22),
+                 (100, 22), (40_961, 22)):
+        sm, sta = mailbox_inputs(H, max(H * 8, 40), Wn, P, seed=H + P,
+                                 device=device)
+        cases.append((f"H = {H}, P = {P}", sm, sta, Wn))
+    cnt = np.minimum(rng.poisson(8, 1_001), Wn)
+    cnt[-77:] = 0
+    n = int(cnt.sum())
+    cases.append(("a ragged tail whose starts are n",
+                  stream_of(n, 22), st(np.cumsum(cnt) - cnt), Wn))
+    down = np.sort(rng.integers(0, 5_000, 1_500))[::-1]
+    cases.append(("decreasing starts", stream_of(5_000, 11), st(down), Wn))
+    sm, sta = mailbox_inputs(40_960, 40_960 * 24, Wn, 22, seed=7,
+                             device=device)
+    jump = sta.cpu().numpy()
+    for h in (100, 20_000, 40_900):
+        jump[h:h + 32] = np.arange(32) * (Wn + 40)
+    cases.append(("tiles whose span passes the stage, between bulk tiles",
+                  sm, st(jump), Wn))
+    # 19,375 blocks, some tiles past their stage between bulk ones
+    sm, sta = mailbox_inputs(310_000, 310_000 * 8, Wn, 11, seed=8,
+                             device=device)
+    jump = sta.cpu().numpy()
+    for h in (5_000, 150_001, 309_950):
+        jump[h:h + 40] = np.arange(40) * (Wn + 40)
+    cases.append(("H = 310,000, tiles past their stage", sm,
+                  st(jump), Wn))
+    cases.append(("start < 0", stream_of(300, 11),
+                  st(rng.integers(-60, 300, 700)), Wn))
+    for P in (11, 22):
+        cases.append((f"starts where the clamp binds, P = {P}",
+                      stream_of(500, P),
+                      st(np.sort(rng.integers(500 - 8, 500 + Wn + 6, 400))),
+                      Wn))
+    cases.append(("Wn * P = 55 words (scalar stores)", stream_of(2_000, 11, 5),
+                  st(np.sort(rng.integers(0, 2_000, 900))), 5))
+    return cases
+
+
+def check_gather_edges(device):
+    """Phase 3: the kernel equals its plain version at every edge shape
+    (gather_edge_inputs), exactly. Returns the max abs error (0)."""
+    return max(assert_gather_equal(label, sm, st, Wn)
+               for label, sm, st, Wn in gather_edge_inputs(device))
+
+
+def launch_floor_ms():
+    """The card's launch floor: device_ms of torch.cuda._sleep(0), an
+    empty kernel, with device_ms's reps. No kernel design removes it
+    from a small shape's time."""
+    import torch
+
+    return device_ms([lambda: torch.cuda._sleep(0)])[0]
 
 
 def check_mailbox_gather(device, P, main_n, H=HOSTS, also=()):
@@ -7792,9 +7892,16 @@ def run_phases(args, bench, insert_kernels) -> int:
     cli_row, _ = check_mailbox_gather(device, P=22, H=cli_h,
                                       main_n=cli_h * 24,
                                       also=[(cli_h, cli_h * 4096)])
+    edge_err = check_gather_edges(device)
+    floor_ms = launch_floor_ms()
+    log(f"  launch floor (torch.cuda._sleep(0), device_ms): {floor_ms:.5f} "
+        f"ms a launch, beside the kernel's {row['ms']:.5f} (P = 11), "
+        f"{cli_row['ms']:.5f} (the --test route) ms")
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     row["max_abs_err"] = max(row["max_abs_err"], tcp_row["max_abs_err"],
-                             tor_row["max_abs_err"], cli_row["max_abs_err"])
+                             tor_row["max_abs_err"], cli_row["max_abs_err"],
+                             edge_err)
+    row["launch_floor_ms"] = floor_ms
     row["p22"] = {k: tcp_row[k] for k in keys}
     row["p22_tor"] = {k: tor_row[k] for k in keys}
     row["p22_cli"] = {k: cli_row[k] for k in keys}

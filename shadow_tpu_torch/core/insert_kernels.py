@@ -11,10 +11,13 @@ hash of the source and flags) and loaded with ctypes. A warm program
 (compile/store.py) hands the loader that library once its sha256 holds
 (``adopt_library``).
 
-The wrapper takes the plain PyTorch version (``mailbox_gather_ref``)
-only when its tensors lie on the CPU. For CUDA tensors it launches the
-kernel on the current stream or raises: there is no fallback.
-``mailbox_gather.launches`` counts kernel launches.
+The kernel's launch geometry (rows a tile, the stage's bytes, the
+grid) comes from ``gather_geometry``, a pure function of the shape and
+the card's SM count, which the CPU tests hold. The wrapper takes the
+plain PyTorch version (``mailbox_gather_ref``) only when its tensors
+lie on the CPU. For CUDA tensors it launches the kernel on the current
+stream or raises: there is no fallback. ``mailbox_gather.launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -64,17 +68,17 @@ def _nvcc() -> str:
                        "to build the port's CUDA kernels")
 
 
-def build_library() -> tuple[Path, str]:
-    """Compile csrc/mailbox_gather.cu into
-    <build_dir()>/libmailbox_gather-<hash>.so (once per source and flag set).
-    Returns the library's path and the compiler's output (ptxas
-    register and shared-memory statistics; empty when the library was
-    already built). Raises with the compiler's output when the build
-    fails."""
+def build_library(source: Path = SOURCE) -> tuple[Path, str]:
+    """Compile `source` (csrc/mailbox_gather.cu unless another design
+    of the kernel is named) into <build_dir()>/lib<stem>-<hash>.so (once
+    per source and flag set). Returns the library's path and the
+    compiler's output (ptxas register and shared-memory statistics;
+    empty when the library was already built). Raises with the
+    compiler's output when the build fails."""
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     root = build_dir()
-    out = root / f"libmailbox_gather-{digest}.so"
+    out = root / f"lib{source.stem}-{digest}.so"
     if out.exists():
         return out, ""
     # ranks starting together build once: the others wait on the lock
@@ -82,11 +86,11 @@ def build_library() -> tuple[Path, str]:
     with build_lock(root):
         if out.exists():
             return out, ""
-        tmp = root / f".libmailbox_gather-{digest}.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        tmp = root / f".lib{source.stem}-{digest}.{os.getpid()}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE} (exit "
+            raise RuntimeError(f"nvcc failed to build {source} (exit "
                                f"{r.returncode}):\n{r.stdout}{r.stderr}")
         os.replace(tmp, out)
     return out, r.stdout + r.stderr
@@ -96,7 +100,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.mailbox_gather_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, *[ctypes.c_int] * 3, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -133,6 +137,55 @@ def _launcher():
     return _LIB.mailbox_gather_launch
 
 
+MAX_TILE_ROWS = 16            # rows a tile (the kernel takes up to 32)
+STAGE_MAX = 48 * 1024 - 256   # a stage's bytes at most
+                              # (csrc/mailbox_gather.cu STAGE_MAX)
+
+
+class GatherGeometry(NamedTuple):
+    """The kernel's launch: `grid` blocks, block b owning the tile of
+    rows [b * tile_rows, (b + 1) * tile_rows), the tile's span
+    bulk-copied into a shared-memory stage of `stage_bytes`."""
+    tile_rows: int
+    stage_bytes: int
+    grid: int
+
+
+def stage_bytes_for(tile_rows: int, Wn: int, P: int) -> int:
+    """A stage that holds `tile_rows` rows' windows under the contract
+    (starts non-decreasing in steps of at most Wn: a span of at most
+    tile_rows * Wn stream rows) plus the 16-byte widening at each end,
+    in 16-byte units, capped at STAGE_MAX (a wider span takes the
+    kernel's word-by-word path)."""
+    return min(-(-(tile_rows * Wn * P * 4 + 32) // 16) * 16, STAGE_MAX)
+
+
+def gather_geometry(H: int, P: int, Wn: int, sms: int) -> GatherGeometry:
+    """The kernel's launch for H rows of [Wn, P] windows on a card of
+    `sms` SMs: one tile a block, of ceil(H / (2 * sms)) rows (at most
+    MAX_TILE_ROWS and what a stage of the worst-case span holds), so the
+    grid covers every SM whenever H allows it and the card's block
+    scheduler keeps every resident block's copy in flight."""
+    if H < 1 or P < 1 or Wn < 1 or sms < 1:
+        raise ValueError(f"gather_geometry: bad shape H={H} P={P} Wn={Wn} "
+                         f"sms={sms}")
+    r_fit = max(1, min(MAX_TILE_ROWS, (STAGE_MAX - 32) // (Wn * P * 4)))
+    tile_rows = min(r_fit, -(-H // (2 * sms)))
+    return GatherGeometry(tile_rows, stage_bytes_for(tile_rows, Wn, P),
+                          -(-H // tile_rows))
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def mailbox_gather_ref(stream: torch.Tensor, start: torch.Tensor,
                        Wn: int) -> torch.Tensor:
     """Plain PyTorch version: out[h, j] = stream[min(start[h] + j,
@@ -149,7 +202,8 @@ def mailbox_gather(stream: torch.Tensor, start: torch.Tensor,
                    Wn: int) -> torch.Tensor:
     """[H, Wn, P] windows of `stream` ([n + Wn, P] i32, row-sorted and
     padded with Wn rows) at per-row offsets `start` ([H] i32,
-    non-decreasing, start[h] <= n)."""
+    non-decreasing, start[h] <= n). Equal to mailbox_gather_ref on any
+    start table."""
     if stream.device.type == "cpu" and start.device.type == "cpu":
         return mailbox_gather_ref(stream, start, Wn)
     if not (stream.is_cuda and start.is_cuda
@@ -174,9 +228,10 @@ def mailbox_gather(stream: torch.Tensor, start: torch.Tensor,
     out = torch.empty((H, Wn, P), dtype=I32, device=stream.device)
     if H == 0:
         return out
+    g = gather_geometry(H, P, Wn, _sm_count(stream.device))
     rc = _launcher()(
         stream.data_ptr(), start.data_ptr(), out.data_ptr(), H, rows, Wn, P,
-        torch.cuda.current_stream(stream.device).cuda_stream)
+        g.tile_rows, g.stage_bytes, g.grid, torch.cuda.current_stream(stream.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mailbox_gather: kernel launch failed with "
                            f"CUDA error {rc}")
